@@ -1,0 +1,364 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, so the run exits non-zero):
+
+1. Environment: the card's name and power limit (nvidia-smi).
+2. Build: every ``pero_ocr_tpu_torch/csrc/*.cu`` with nvcc, in parallel.
+3. Kernel check: each kernel against its plain PyTorch version on the
+   card at the main path's shapes, and its time beside the plain
+   version's, one PyTorch library call's and the memory/compute bound.
+4. Reference check: a small float32 pipeline on the card against the
+   same pipeline on the CPU (labels equal, confidences close).
+5. Main path: ``TorchPagePipeline`` (page transport) at the bench widths
+   with seeded random weights on 2560x1792 pages, with a lines override
+   and with CNN detection; kernel launch counts are read around it.
+
+The last three lines are the card's nvidia-smi line, one JSON object
+with the kernels' numbers, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
+from pero_ocr_tpu_torch.models.parsenet import ParseNet
+from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+from pero_ocr_tpu_torch.ops import warp as warp_ops
+from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
+from pero_ocr_tpu_torch.utils import kernels, timing
+
+# H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+PAGE_H, PAGE_W = 2560, 1792
+PAGE_BATCH = 8
+LINES_PER_PAGE = 40
+CROP_H, BUCKET, POINTS = 32, 1024, 16
+# Kernel vs plain version on the card, in gray levels (0..255).  Both do
+# the same correctly rounded float32 steps in the same order, so they
+# agree exactly on the card (measured); 1e-3 leaves room for nothing
+# but that.  A validity-boundary column (t <= arc length decided one ulp
+# apart) may differ whole, at most one per line.
+WARP_TOL = 1e-3
+# Operations per output pixel of the warp (height interpolation 4,
+# normal offset 4, rotation 6, floor and fractions 4, bilinear blend 12)
+# and per valid column (three arc interpolations of x and y, gradient,
+# normal).
+WARP_OPS_PER_PIXEL = 30
+WARP_OPS_PER_COLUMN = 45
+# The hand-set edge detector finds at least this share of the synthetic
+# lines on the CPU at this page size (measured: see line_recall).
+MIN_LINE_RECALL = 0.9
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+# ----------------------------------------------------------------------
+# Synthetic inputs (numpy, seeded)
+def line_mix(rng, n: int, h: int, w: int):
+    """n baselines (P points) and heights: straight, curved (sine),
+    tilted +-10 degrees, partly off the page, and padded slots."""
+    bls = np.zeros((n, POINTS, 2), np.float32)
+    hs = np.ones((n, 2), np.float32)
+    kinds = ("straight", "curved", "tilt+", "tilt-", "off", "pad")
+    for i in range(n):
+        kind = kinds[i % len(kinds)]
+        if kind == "pad":
+            continue
+        x0 = rng.uniform(40, w / 3)
+        x = np.linspace(x0, x0 + rng.uniform(300, w - x0 - 40), 12)
+        y0 = rng.uniform(60, h - 60)
+        y = np.full_like(x, y0)
+        if kind == "curved":
+            y = y0 + rng.uniform(4, 12) * np.sin((x - x0) / rng.uniform(60, 200))
+        elif kind in ("tilt+", "tilt-"):
+            y = y0 + (1 if kind == "tilt+" else -1) * np.tan(np.radians(10)) * (x - x0)
+        elif kind == "off":
+            x = x + w * 0.6
+            y = y + h * 0.2 * rng.choice([-1, 1])
+        bls[i] = resample_baseline(np.stack([x, y], 1), POINTS)
+        hs[i] = (rng.uniform(14, 30), rng.uniform(4, 10))
+    return bls, hs
+
+
+def synthetic_pages(rng, n: int):
+    """n BGR text-like pages and their 40 text-line geometries each."""
+    pages, lines = [], []
+    ys = np.linspace(90, PAGE_H - 70, LINES_PER_PAGE)
+    for _ in range(n):
+        gray = rng.normal(238, 6, (PAGE_H, PAGE_W)).clip(0, 255).astype(np.uint8)
+        b_list, h_list = [], []
+        for y in ys.astype(int):
+            x0 = int(rng.integers(60, 200))
+            x1 = int(x0 + rng.integers(600, 1500))
+            x = x0
+            while x < x1:
+                gw = int(rng.integers(6, 22))
+                top = y - int(rng.integers(12, 24))
+                bottom = y + (int(rng.integers(3, 8)) if rng.random() < 0.2 else 0)
+                gray[top:bottom, x:x + gw] = rng.integers(20, 90)
+                x += gw + int(rng.integers(3, 12))
+            b_list.append(np.array([[x0, y], [x1, y]], float))
+            h_list.append([24.0, 8.0])
+        pages.append(np.repeat(gray[:, :, None], 3, axis=2))
+        lines.append((b_list, h_list))
+    return pages, lines
+
+
+# ----------------------------------------------------------------------
+def check_warp(rng):
+    dev = torch.device("cuda")
+    pages = torch.from_numpy(
+        rng.integers(0, 256, (PAGE_BATCH, PAGE_H, PAGE_W), dtype=np.uint8)
+    ).to(dev)
+    geo = [line_mix(rng, LINES_PER_PAGE, PAGE_H, PAGE_W) for _ in range(PAGE_BATCH)]
+    bl = torch.from_numpy(np.stack([g[0] for g in geo])).to(dev)
+    hh = torch.from_numpy(np.stack([g[1] for g in geo])).to(dev)
+    args = (pages, bl, hh, CROP_H, BUCKET)
+
+    got = warp_ops.warp_lines(*args)
+    want = warp_ops.warp_lines_plain(*args)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    max_abs = float(diff.max())
+    bad = diff > WARP_TOL
+    bad_cols = bad.any(dim=1).sum(dim=1)  # per line
+    log(f"warp_lines: max |kernel - plain| = {max_abs:.6g} gray levels, "
+        f"{int(bad.sum())} pixels beyond {WARP_TOL}, in "
+        f"{int((bad_cols > 0).sum())} lines (at most 1 column each allowed)")
+    if int(bad_cols.max()) > 1:
+        raise AssertionError(f"warp kernel disagrees with its plain version: {int(bad.sum())} px")
+
+    fields = warp_ops.build_fields(
+        bl.reshape(-1, POINTS, 2), hh.reshape(-1, 2), CROP_H, BUCKET
+    )
+    valid_cols = int((fields[:, 0, :, 0] > warp_ops.OFF_PAGE / 2).sum())
+    scale = torch.tensor([2.0 / (PAGE_W - 1), 2.0 / (PAGE_H - 1)], device=dev)
+    grid = (fields * scale - 1.0).reshape(PAGE_BATCH, LINES_PER_PAGE * CROP_H, BUCKET, 2)
+    page_f = pages[:, None].float()
+
+    ms = cuda_ms(lambda: warp_ops.warp_lines(*args))
+    plain_ms = cuda_ms(lambda: warp_ops.warp_lines_plain(*args))
+    library_ms = cuda_ms(lambda: F.grid_sample(
+        page_f, grid, mode="bilinear", padding_mode="zeros", align_corners=True
+    ))
+    nbytes = warp_ops.warp_lines_bytes(*args)
+    ops = valid_cols * (CROP_H * WARP_OPS_PER_PIXEL + WARP_OPS_PER_COLUMN)
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
+    log(f"warp_lines: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+        f"{library_ms:.4f} ms F.grid_sample on precomputed fields; bound "
+        f"{bytes_ms:.4f} ms by {nbytes} bytes, {ops_ms:.4f} ms by {ops} ops")
+    return {
+        "name": "warp_lines", "route": "cuda",
+        "source": "pero_ocr_tpu_torch/csrc/warp_lines.cu",
+        "replaces": "pero_ocr_tpu/ops/warp.py:188",
+        "launches": None, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def check_against_cpu(rng):
+    """A small float32 pipeline on the card (the kernel) against the
+    same weights on the CPU (the plain versions)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = RecognizerSpec(
+        num_classes=12, line_height=32, conv_features=(8, 16), subsampling=4,
+        lstm_layers=1, lstm_features=16, dtype=torch.float32, stem="s2d", norm="group",
+    )
+    results = {}
+    pages = [rng.integers(0, 256, (384, 512, 3), dtype=np.uint8) for _ in range(2)]
+    override = [line_mix(rng, 6, 384, 512) for _ in pages]
+    override = [([b for b in bl], [list(h) for h in hs]) for bl, hs in override]
+    for device in ("cpu", "cuda"):
+        pn = ParseNet(base_features=8, depth=2, dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(0))
+        rec = CTCRecognizer(spec, generator=torch.Generator().manual_seed(1))
+        pipe = TorchPagePipeline(pn, rec, crop_height=32, crop_bucket=256,
+                                 line_slot=8, device=device)
+        results[device] = list(pipe.run(pages, lines_override=override, page_batch=2))
+    torch.backends.cudnn.allow_tf32 = True
+    for a, b in zip(results["cpu"], results["cuda"]):
+        if not (np.array_equal(a.labels, b.labels)
+                and np.array_equal(a.label_lengths, b.label_lengths)):
+            raise AssertionError(f"page {a.page_index}: card labels differ from CPU")
+        err = float(np.abs(a.confidences - b.confidences).max())
+        if err > 1e-3:
+            raise AssertionError(f"page {a.page_index}: confidences differ by {err}")
+    log("reference check: card pipeline labels equal the CPU pipeline's (f32)")
+
+
+def edge_detector_(pn: ParseNet) -> None:
+    """Set the bench-width ParseNet's weights by hand to a bottom-of-ink
+    detector, so that CNN detection finds the synthetic pages' lines
+    (random weights answer with a constant map).  Every layer still
+    runs at full width; all weights are zero except one channel along
+    the norm-free path: s2d stem -> first down block -> skip -> last up
+    block -> thin heads -> output conv.  The first conv computes ink
+    (1 - gray), the second its bottom edge (the cell and half the cell
+    above minus 1.5x the cell below, over 3 columns); the heads copy it
+    up to map resolution, where it drives the baseline logit.  Heights
+    are constant ~12 map px (inside the adaptive band); endpoints and
+    separators are off."""
+    with torch.no_grad():
+        for p in pn.parameters():
+            p.zero_()
+        for m in pn.modules():
+            if isinstance(m, torch.nn.GroupNorm):
+                m.weight.fill_(1.0)
+        first = pn.down_blocks[0]
+        first.conv0.weight[0, :, 1, 1] = -1.0 / first.conv0.weight.shape[1]
+        first.conv0.bias[0] = 1.0
+        first.conv1.weight[0, 0, 0, :] = 0.5 / 3
+        first.conv1.weight[0, 0, 1, :] = 1.0 / 3
+        first.conv1.weight[0, 0, 2, :] = -1.5 / 3
+        last = pn.up_blocks[-1]
+        skip0 = last.conv0.weight.shape[1] // 2  # input: [upsampled, skip]
+        last.conv0.weight[0, skip0, 1, 1] = 1.0
+        last.conv1.weight[0, 0, 1, 1] = 1.0
+        for up, conv in zip(pn.head_ups, pn.head_convs):
+            up.weight[0, 0] = 1.0
+            conv.weight[0, 0, 1, 1] = 1.0
+        pn.out.weight[2, 0] = 12.0
+        pn.out.bias.copy_(torch.tensor([12.0, 4.0, -4.0, -6.0, -6.0]))
+
+
+def line_recall(results, lines, tol_px: float = 16.0) -> float:
+    """Share of the synthetic lines that a detected baseline matches:
+    mean y within ``tol_px`` and x spans overlapping."""
+    found = total = 0
+    for r, (true_b, _) in zip(results, lines):
+        det = [(float(b[:, 1].mean()), b[0, 0], b[-1, 0]) for b in r.baselines]
+        for tb in true_b:
+            total += 1
+            found += any(abs(y - tb[0, 1]) <= tol_px and x0 < tb[1, 0] and x1 > tb[0, 0]
+                         for y, x0, x1 in det)
+    return found / total
+
+
+def run_main_path(rng):
+    pn = ParseNet(base_features=32, depth=4, stem="s2d", out_upsample=2)
+    edge_detector_(pn)
+    rec = CTCRecognizer(RecognizerSpec(
+        num_classes=80, line_height=32, conv_features=(48, 96, 192, 384),
+        subsampling=4, lstm_layers=2, lstm_features=256, stem="s2d", norm="group",
+    ), generator=torch.Generator().manual_seed(1))
+    pipe = TorchPagePipeline(
+        pn, rec, downsample=4, crop_bucket=BUCKET, crop_height=CROP_H,
+        line_slot=LINES_PER_PAGE, adaptive_downsample=True, device="cuda",
+    )
+    n_pages = 2 * PAGE_BATCH
+    pages, lines = synthetic_pages(rng, n_pages)
+
+    def drive(override, n):
+        t0 = time.perf_counter()
+        out = list(pipe.run(pages[:n], lines_override=override, page_batch=PAGE_BATCH))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # Warm-up (cuDNN plans, allocator, the adaptive scale) on one batch.
+    drive(lines[:PAGE_BATCH], PAGE_BATCH)
+    drive(None, PAGE_BATCH)
+    timing.reset_timing()
+
+    warp_ops.warp_lines.launches = 0
+    runs = {}
+    for name, override in (("override", lines), ("cnn", None)):
+        runs[name] = drive(override, n_pages)
+    launches = warp_ops.warp_lines.launches
+
+    stage_b_batches = 0
+    for name, (results, seconds) in runs.items():
+        if [r.page_index for r in results] != list(range(n_pages)):
+            raise AssertionError(f"{name}: results out of page order")
+        with_labels = [r for r in results if r.labels is not None]
+        stage_b_batches += len({r.page_index // PAGE_BATCH for r in with_labels})
+        for r in with_labels:
+            if r.labels.min() < -1 or r.labels.max() > 79:
+                raise AssertionError(f"{name}: label out of [-1, 79]")
+            if not np.isfinite(r.confidences).all() or r.confidences.min() < 0 \
+                    or r.confidences.max() > 1:
+                raise AssertionError(f"{name}: confidence out of [0, 1]")
+        n_lines = sum(len(r.baselines) for r in results)
+        log(f"main path ({name}): {n_pages} pages, {n_lines} lines, "
+            f"{n_pages / seconds:.3f} pages/s ({seconds:.3f} s)")
+    log(f"adaptive downsample settled at ds {pipe._last_ds}")
+    recall = line_recall(runs["cnn"][0], lines)
+    log(f"cnn detection: {recall:.3f} of the synthetic lines found")
+    if recall < MIN_LINE_RECALL:
+        raise AssertionError(f"cnn detection found {recall:.3f} < {MIN_LINE_RECALL} of the lines")
+    if runs["override"][0][0].labels is None:
+        raise AssertionError("override run produced no labels")
+    log(f"warp_lines launches in the main path: {launches}, "
+        f"stage-B batches: {stage_b_batches}")
+    if launches != stage_b_batches or launches == 0:
+        raise AssertionError("warp kernel launches != stage-B batches")
+    log("stage times (both main-path runs):\n" + timing.timing_report())
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    for name, text in kernels.build_logs.items():
+        log(f"nvcc {name}:\n{text.strip()}")
+
+    rng = np.random.default_rng(0)
+    warp = check_warp(rng)
+    check_against_cpu(rng)
+    warp["launches"] = run_main_path(rng)
+
+    print(smi)
+    print(json.dumps({"kernels": [warp]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,30 @@
+"""PyTorch/CUDA port of pero_ocr_tpu for NVIDIA Hopper (H100).
+
+The package mirrors the module layout of :mod:`pero_ocr_tpu` (the JAX
+reference) and imports nothing of it.  Plain tensor code is PyTorch;
+the line-crop warp, the one Pallas kernel of the JAX package, is a
+hand-written CUDA kernel (``csrc/warp_lines.cu``) built with ``nvcc``
+on first use.
+
+Entry points run on CUDA unless the caller asks for the CPU: see
+:func:`resolve_device`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on.
+
+    ``None`` means CUDA.  A CUDA device that is not present raises
+    instead of silently running on the CPU; the plain-PyTorch CPU path
+    runs only when the caller passes ``device="cpu"``."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU"
+        )
+    return device

@@ -1,0 +1,219 @@
+"""Batched line-crop warp (port of pero_ocr_tpu/ops/warp.py).
+
+``warp_lines(pages, baselines, heights, crop_h, bucket)`` turns each
+text line of a batch of u8 grayscale pages into a (crop_h, bucket)
+float32 crop: output column j sits at arc position j / scale along the
+line's baseline (scale = crop_h / (ascender + descender)), row r at
+``linspace(-ascender, descender, crop_h)[r]`` along the baseline's
+normal, and the page is sampled bilinearly there.  Neighbours outside
+the page read 0 (``cv2.remap`` with ``BORDER_CONSTANT``), and columns
+beyond the baseline's arc length are 0.
+
+- On CUDA tensors it launches the hand-written kernel
+  ``csrc/warp_lines.cu``, which replaces the Pallas TPU kernel
+  ``_warp_kernel``/``warp_lines_pallas`` (pero_ocr_tpu/ops/warp.py:188,
+  :223).  It builds the warp field inside the kernel and reads u8 pages
+  from global memory, so there is no page-size cap and no dense field.
+  Its bound is memory: :func:`warp_lines_bytes` (page bytes read plus
+  crop bytes written, and the geometry) over the card's memory rate,
+  3.35 TB/s on an H100 SXM.  There is no fallback: a launch error raises.
+- On CPU tensors it runs :func:`warp_lines_plain`, a direct
+  transcription of ``build_fields_device`` (:126-182) followed by
+  ``_bilinear_gather`` (:32-62), operation for operation, except that
+  the chord rotation and the lengths use only correctly rounded
+  arithmetic (cos(atan2(dy, dx)) = dx / |chord|, hypot as a square
+  root), so that the kernel and the plain version round alike.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+# jnp.interp treats an arc step |dx| <= np.spacing(float32 eps) as zero.
+_INTERP_EPS = float(np.spacing(np.finfo(np.float32).eps))
+OFF_PAGE = -1e6  # field coordinate of a column beyond the arc
+
+
+def _hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sqrt(a*a + b*b): correctly rounded steps only, as in the kernel
+    (library trig and hypot differ between builds in the last ulp)."""
+    return torch.sqrt(a * a + b * b)
+
+
+def _interp(t: torch.Tensor, arc: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """Row-wise ``jnp.interp(t, arc, fp)``: t (L, M), arc/fp (L, P)."""
+    p = arc.shape[1]
+    i = torch.searchsorted(arc, t, right=True).clamp(1, p - 1)
+    f_lo, f_hi = fp.gather(1, i - 1), fp.gather(1, i)
+    a_lo, a_hi = arc.gather(1, i - 1), arc.gather(1, i)
+    df = f_hi - f_lo
+    dx = a_hi - a_lo
+    delta = t - a_lo
+    dx0 = dx.abs() <= _INTERP_EPS
+    f = torch.where(dx0, f_lo, f_lo + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(t < arc[:, :1], fp[:, :1], f)
+    return torch.where(t > arc[:, -1:], fp[:, -1:], f)
+
+
+def _gradient(f: torch.Tensor) -> torch.Tensor:
+    """Row-wise ``jnp.gradient``: one-sided at the ends, central inside."""
+    return torch.cat(
+        [f[:, 1:2] - f[:, :1], (f[:, 2:] - f[:, :-2]) * 0.5, f[:, -1:] - f[:, -2:-1]],
+        dim=1,
+    )
+
+
+def _linspace(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Tensor:
+    """Row-wise ``jnp.linspace(start, stop, num)`` with its formula:
+    start * (1 - k/div) + stop * k/div, and stop exactly at the end."""
+    if num == 1:
+        return start[:, None]
+    k = torch.arange(num - 1, dtype=torch.float32, device=start.device)
+    step = k / torch.full_like(k, num - 1)  # true division, not k * (1/div)
+    out = start[:, None] * (1.0 - step) + stop[:, None] * step
+    return torch.cat([out, stop[:, None]], dim=1)
+
+
+def build_fields(
+    baselines: torch.Tensor, heights: torch.Tensor, crop_h: int, bucket: int
+) -> torch.Tensor:
+    """(L, P, 2) baselines and (L, 2) [ascender, descender] heights ->
+    (L, crop_h, bucket, 2) page-frame (x, y) sampling coordinates;
+    columns beyond each line's arc carry ``OFF_PAGE``.  Transcribes
+    ``build_fields_device`` (pero_ocr_tpu/ops/warp.py:126-182)."""
+    bl = baselines.float()
+    h = heights.float()
+    # Chord rotation: cos and sin of atan2(dy, dx) are dx and dy over the
+    # chord length (atan2(0, 0) = 0 for a zero chord).
+    cx, cy = bl[:, -1, 0] - bl[:, 0, 0], bl[:, -1, 1] - bl[:, 0, 1]
+    chord = _hypot(cx, cy)
+    cos = torch.where(chord > 0, cx / chord, 1.0)[:, None]
+    sin = torch.where(chord > 0, cy / chord, 0.0)[:, None]
+    x = bl[..., 0] * cos + bl[..., 1] * sin      # chord frame
+    y = bl[..., 0] * (-sin) + bl[..., 1] * cos
+    seg = _hypot(x[:, 1:] - x[:, :-1], y[:, 1:] - y[:, :-1])
+    arcs = [torch.zeros_like(seg[:, 0])]
+    for k in range(seg.shape[1]):  # sequential prefix sum, as the kernel
+        arcs.append(arcs[-1] + seg[:, k])
+    arc = torch.stack(arcs, dim=1)
+
+    # A true division: `crop_h / tensor` would be reciprocal() * crop_h.
+    band = torch.clamp_min(h[:, 0] + h[:, 1], 1e-6)
+    scale = torch.full_like(band, float(crop_h)) / band
+    t = torch.arange(bucket, dtype=torch.float32, device=bl.device)[None] / scale[:, None]
+    valid = t <= arc[:, -1:]
+    xs = _interp(t, arc, x)
+    ys = _interp(t, arc, y)
+    dx, dy = _gradient(xs), _gradient(ys)
+    norm = torch.clamp_min(_hypot(dx, dy), 1e-6)
+    nx, ny = -dy / norm, dx / norm
+
+    vert = _linspace(-h[:, 0], h[:, 1], crop_h)[:, :, None]        # (L, Hc, 1)
+    map_x = nx[:, None, :] * vert + xs[:, None, :]
+    map_y = ny[:, None, :] * vert + ys[:, None, :]
+    cos, sin = cos[:, :, None], sin[:, :, None]
+    field = torch.stack(
+        [map_x * cos + map_y * (-sin), map_x * sin + map_y * cos], dim=-1
+    )
+    return torch.where(valid[:, None, :, None], field, OFF_PAGE)
+
+
+def bilinear_gather(page: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of ``page`` (H, W) at ``coords`` (..., 2) of
+    (x, y); neighbours outside the page read 0.  Transcribes
+    ``_bilinear_gather`` (pero_ocr_tpu/ops/warp.py:32-62)."""
+    h, w = page.shape
+    flat = page.float().reshape(-1)
+    x, y = coords[..., 0], coords[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    x0i, y0i = x0.long(), y0.long()
+
+    def tap(yi, xi):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        vals = flat[yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)]
+        return torch.where(valid, vals, 0.0)
+
+    top = tap(y0i, x0i) * (1.0 - fx) + tap(y0i, x0i + 1) * fx
+    bottom = tap(y0i + 1, x0i) * (1.0 - fx) + tap(y0i + 1, x0i + 1) * fx
+    return top * (1.0 - fy) + bottom * fy
+
+
+def warp_lines_plain(
+    pages: torch.Tensor, baselines: torch.Tensor, heights: torch.Tensor,
+    crop_h: int, bucket: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: :func:`build_fields` then
+    :func:`bilinear_gather`, page by page."""
+    pb, n, p, _ = baselines.shape
+    fields = build_fields(
+        baselines.reshape(pb * n, p, 2), heights.reshape(pb * n, 2), crop_h, bucket
+    ).reshape(pb, n, crop_h, bucket, 2)
+    return torch.cat([bilinear_gather(pages[i], fields[i]) for i in range(pb)])
+
+
+def warp_lines_bytes(pages, baselines, heights, crop_h: int, bucket: int) -> int:
+    """Least bytes the warp moves: each input read once, the f32 crops
+    written once."""
+    pb, n = baselines.shape[:2]
+    inputs = sum(t.numel() * t.element_size() for t in (pages, baselines, heights))
+    return inputs + pb * n * crop_h * bucket * 4
+
+
+def warp_lines(
+    pages: torch.Tensor, baselines: torch.Tensor, heights: torch.Tensor,
+    crop_h: int, bucket: int,
+) -> torch.Tensor:
+    """pages (PB, H, W) uint8; baselines (PB, N, P, 2) float32; heights
+    (PB, N, 2) float32 -> (PB * N, crop_h, bucket) float32 crops.
+
+    CUDA tensors launch the kernel (and count the launch in
+    ``warp_lines.launches``); CPU tensors run :func:`warp_lines_plain`."""
+    if pages.device.type == "cpu":
+        return warp_lines_plain(pages, baselines, heights, crop_h, bucket)
+    if pages.device.type != "cuda":
+        raise ValueError(f"warp_lines: unsupported device {pages.device}")
+    pb, h, w = pages.shape
+    if (baselines.ndim != 4 or baselines.shape[0] != pb or baselines.shape[3] != 2
+            or tuple(heights.shape) != (pb, baselines.shape[1], 2)):
+        raise ValueError(
+            f"warp_lines: shapes pages {tuple(pages.shape)}, baselines "
+            f"{tuple(baselines.shape)}, heights {tuple(heights.shape)} disagree"
+        )
+    for name, t, dtype in (("pages", pages, torch.uint8),
+                           ("baselines", baselines, torch.float32),
+                           ("heights", heights, torch.float32)):
+        if t.dtype != dtype or t.device != pages.device or not t.is_contiguous():
+            raise ValueError(
+                f"warp_lines: {name} must be a contiguous {dtype} tensor on "
+                f"{pages.device}, got {t.dtype} on {t.device}"
+            )
+    n, p = baselines.shape[1], baselines.shape[2]
+    out = torch.empty((pb * n, crop_h, bucket), dtype=torch.float32, device=pages.device)
+    lib = _kernel_library()
+    rc = lib.warp_lines_u8(
+        pages.data_ptr(), baselines.data_ptr(), heights.data_ptr(), out.data_ptr(),
+        pb, h, w, n, p, crop_h, bucket,
+        torch.cuda.current_stream(pages.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"warp_lines kernel launch failed: cudaError_t {rc}")
+    warp_lines.launches += 1
+    return out
+
+
+warp_lines.launches = 0
+
+
+def _kernel_library():
+    from pero_ocr_tpu_torch.utils import kernels
+
+    lib = kernels.library("warp_lines")
+    lib.warp_lines_u8.restype = ctypes.c_int
+    lib.warp_lines_u8.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
+    return lib

@@ -1,0 +1,183 @@
+"""Slice parity: TorchPagePipeline(device="cpu") against
+TPUPagePipeline(transport="page") on the same pages and weights, in
+float32.
+
+The detector is a tiny ParseNet with the super-resolving head (maps at
+twice the canvas resolution, as the bench builds it) trained with the
+JAX trainer to find the test page's lines, and cached under its own key in ~/.cache/pero_test_ckpt/; the
+recognizer has random weights.  The JAX side runs its exact gather
+warp (``_stage_b_warp_gather``), the operation the port's kernel
+computes; stage B looks the program up at call time, so the attribute
+is set on the instance.
+
+Held to: the same number of lines per page, baselines within 1e-4 px,
+equal heights, equal labels and lengths, confidences within 1e-4.
+"""
+
+import hashlib
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pero_ocr_tpu.models.parsenet import ParseNet as FlaxParseNet
+from pero_ocr_tpu.models.recognizer import (
+    CTCRecognizer as FlaxRecognizer,
+    RecognizerSpec as FlaxSpec,
+)
+from pero_ocr_tpu.parallel.pipeline import TPUPagePipeline
+from pero_ocr_tpu_torch.models.parsenet import ParseNet
+from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
+from pero_ocr_tpu_torch.utils.convert import (
+    parsenet_params_from_flax,
+    recognizer_params_from_flax,
+)
+
+LINES = [(64 + 40 * r, 32, 288) for r in range(4)]
+DETECTOR = dict(base_features=8, depth=2, out_upsample=2)
+RECOGNIZER = dict(num_classes=8, line_height=16, conv_features=(4, 8),
+                  subsampling=2, lstm_layers=1, lstm_features=8)
+PIPELINE = dict(downsample=4, crop_height=16, crop_bucket=256, line_slot=8)
+
+
+def _page(shift=0, seed=0):
+    rng = np.random.default_rng(seed)
+    page = rng.integers(235, 250, (256, 320, 3), dtype=np.uint8)
+    for y, x0, x1 in LINES:
+        y += shift
+        page[y - 12: y - 2, x0:x1] = rng.integers(20, 60, (10, x1 - x0, 3))
+    return page
+
+
+def _train_detector(model):
+    """JAX-trained detector whose maps live at ds 4 (the SR head reads
+    the ds-8 canvas)."""
+    from pero_ocr_tpu.parallel import train as train_lib
+    from pero_ocr_tpu.utils.checkpoint import load_variables, save_variables
+
+    template = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32))
+    key = hashlib.sha1(b"torch-port-slice1-detector-v1").hexdigest()[:16]
+    cache = os.path.expanduser(f"~/.cache/pero_test_ckpt/torchslice_{key}.ckpt")
+    if os.path.exists(cache):
+        try:
+            return load_variables(cache, template)
+        except (OSError, ValueError):
+            pass
+    gray = _page()[:, :, 0].astype(np.float32)
+    canvas = np.zeros((64, 64), np.float32)
+    canvas[:32, :40] = gray.reshape(32, 8, 40, 8).mean(axis=(1, 3))
+    tgt = np.zeros((128, 128, 5), np.float32)
+    for y, x0, x1 in LINES:
+        ym, xa, xb = y // 4, x0 // 4, x1 // 4
+        tgt[ym, xa:xb, 2] = 1.0
+        tgt[max(ym - 3, 0): ym + 1, xa:xb, 0] = 3.0
+        tgt[max(ym - 3, 0): ym + 1, xa:xb, 1] = 1.0
+        tgt[ym, xa, 3] = 1.0
+        tgt[ym, xb - 1, 3] = 1.0
+    x = jnp.asarray(np.repeat(canvas[:, :, None], 3, 2)[None] / 255.0)
+    t = jnp.asarray(tgt[None])
+    optimizer = train_lib.make_optimizer(5e-3)
+    state = train_lib.TrainState(template, optimizer.init(template), jnp.zeros((), jnp.int32))
+    step = jax.jit(train_lib.make_parsenet_train_step(model, optimizer, height_weight=0.05))
+    for _ in range(400):
+        state, loss = step(state, x, t)
+    assert float(loss) < 0.1, f"detector failed to train: {loss}"
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    save_variables(state.params, cache)
+    return state.params
+
+
+@pytest.fixture(scope="module")
+def models():
+    flax_pn = FlaxParseNet(dtype=jnp.float32, **DETECTOR)
+    pn_vars = _train_detector(flax_pn)
+    flax_rec = FlaxRecognizer(FlaxSpec(dtype=jnp.float32, **RECOGNIZER))
+    rec_vars = flax_rec.init(jax.random.PRNGKey(1), jnp.zeros((1, 16, 64, 3)))
+    np_tree = lambda v: jax.tree_util.tree_map(np.asarray, v)  # noqa: E731
+    pn_state = parsenet_params_from_flax(np_tree(pn_vars))
+    rec_state = recognizer_params_from_flax(np_tree(rec_vars))
+
+    def torch_models():
+        pn = ParseNet(dtype=torch.float32, **DETECTOR)
+        pn.load_state_dict(pn_state)
+        rec = CTCRecognizer(RecognizerSpec(dtype=torch.float32, **RECOGNIZER))
+        rec.load_state_dict(rec_state)
+        return pn, rec
+
+    return (flax_pn, pn_vars, flax_rec, rec_vars), torch_models
+
+
+def _override(page):
+    b = [np.array([[x0 - 4.0, y + 0.5], [(x0 + x1) / 2, y + 3.0], [x1 + 4.0, y - 1.5]])
+         for y, x0, x1 in LINES]
+    return b, [[10.0, 4.0]] * len(b)
+
+
+CASES = {
+    "cnn_8bit": dict(kwargs={}, override=None, page_batch=2),
+    "cnn_4bit": dict(kwargs={"transport_bits": 4}, override=None, page_batch=2),
+    # One batch: the JAX loop reads the sticky scale for batch i+1 on
+    # its worker thread, racing batch i's correction.
+    "cnn_adaptive": dict(kwargs={"adaptive_downsample": True}, override=None, page_batch=3),
+    "override_callable": dict(kwargs={}, override="callable", page_batch=2),
+    "override_sequence_4bit": dict(kwargs={"transport_bits": 4}, override="sequence",
+                                   page_batch=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_page_pipeline_matches_jax(models, case):
+    (flax_pn, pn_vars, flax_rec, rec_vars), torch_models = models
+    spec = CASES[case]
+    pages = [_page(), _page(shift=8, seed=1), _page(shift=-4, seed=2)]
+    override = {
+        None: None, "callable": _override, "sequence": [_override(p) for p in pages],
+    }[spec["override"]]
+
+    jax_pipe = TPUPagePipeline(
+        flax_pn, pn_vars, flax_rec, rec_vars, transport="page",
+        cluster_paragraphs=False, **PIPELINE, **spec["kwargs"],
+    )
+    jax_pipe._stage_b_warp = jax_pipe._stage_b_warp_gather
+    want = list(jax_pipe.run(pages, lines_override=override, page_batch=spec["page_batch"]))
+    pn, rec = torch_models()
+    port = TorchPagePipeline(pn, rec, device="cpu", **PIPELINE, **spec["kwargs"])
+    got = list(port.run(pages, lines_override=override, page_batch=spec["page_batch"]))
+
+    assert [r.page_index for r in got] == [r.page_index for r in want] == [0, 1, 2]
+    adaptive = spec["kwargs"].get("adaptive_downsample", False)
+    if spec["override"] is None and not adaptive:
+        assert [len(r.baselines) for r in want] == [len(LINES)] * 3, "detector lost lines"
+    for g, w in zip(got, want):
+        assert len(g.baselines) == len(w.baselines)
+        for bg, bw in zip(g.baselines, w.baselines):
+            np.testing.assert_allclose(bg, bw, atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(np.asarray(g.heights), np.asarray(w.heights))
+        np.testing.assert_array_equal(g.crops_width, w.crops_width)
+        np.testing.assert_array_equal(g.labels, w.labels)
+        np.testing.assert_array_equal(g.label_lengths, w.label_lengths)
+        np.testing.assert_allclose(g.confidences, w.confidences, atol=1e-4, rtol=0)
+    if adaptive:
+        # The toy detector's ascenders fall outside the [9, 15] band:
+        # both sides re-run stage A at the same corrected scale.
+        assert port._last_ds == jax_pipe._last_ds != PIPELINE["downsample"]
+
+
+def test_unported_options_raise(models):
+    _, torch_models = models
+    pn, rec = torch_models()
+    for kwargs, item in (({"transport": "crops"}, "Crop transport"),
+                         ({"want_logits": True}, "Logits"),
+                         ({"mesh": object()}, "Training and scale-out")):
+        with pytest.raises(ValueError, match=item):
+            TorchPagePipeline(pn, rec, device="cpu", **kwargs)
+    with pytest.raises(ValueError, match="Transformer recognizers"):
+        TorchPagePipeline(pn, torch.nn.Linear(1, 1), device="cpu")
+    with pytest.raises(ValueError, match="Crop transport"):
+        TorchPagePipeline(pn, rec, device="cpu").prime([])
+    with pytest.raises(ValueError, match="lines_override sequence length"):
+        list(TorchPagePipeline(pn, rec, device="cpu").run([_page()], lines_override=[]))
