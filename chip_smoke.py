@@ -13,7 +13,13 @@ Phases (each raises on failure, so the run exits non-zero):
    same pipeline on the CPU (labels equal, confidences close).
 5. Main path: ``TorchPagePipeline`` (page transport) at the bench widths
    with seeded random weights on 2560x1792 pages, with a lines override
-   and with CNN detection; kernel launch counts are read around it.
+   and with CNN detection; kernel launch counts are read around it, the
+   crops that reach the recognizer are checked (bfloat16 in [0, 1]), and
+   stage B's device time is taken with CUDA events.
+
+Kernel times are taken warm (inputs in L2 from the run before) and
+cold (a 128 MB scratch write before each timed run), since stage B finds
+its pages after the next batch's upload.
 
 The last three lines are the card's nvidia-smi line, one JSON object
 with the kernels' numbers, and ``{"ok": true, "device": {...}}``.
@@ -46,18 +52,23 @@ PAGE_H, PAGE_W = 2560, 1792
 PAGE_BATCH = 8
 LINES_PER_PAGE = 40
 CROP_H, BUCKET, POINTS = 32, 1024, 16
-# Kernel vs plain version on the card, in gray levels (0..255).  Both do
-# the same correctly rounded float32 steps in the same order, so they
-# agree exactly on the card (measured); 1e-3 leaves room for nothing
-# but that.  A validity-boundary column (t <= arc length decided one ulp
-# apart) may differ whole, at most one per line.
-WARP_TOL = 1e-3
-# Operations per output pixel of the warp (height interpolation 4,
-# normal offset 4, rotation 6, floor and fractions 4, bilinear blend 12)
-# and per valid column (three arc interpolations of x and y, gradient,
-# normal).
-WARP_OPS_PER_PIXEL = 30
+# Kernel vs plain version on the card: both do the same correctly
+# rounded float32 steps in the same order, then the same store, so they
+# must agree bit for bit in the output type.  A validity-boundary column
+# (t <= arc length decided one ulp apart) may differ whole, at most one
+# per line.
+WARP_MODES = {  # (out_dtype, normalize)
+    "f32": (torch.float32, False),            # the raw float32 crops
+    "bf16_normalized": (torch.bfloat16, True),  # the main path's
+}
+# Operations per output pixel of the warp (normal offset 4, rotation 6,
+# floor and fractions 4, bilinear blend 12, +1 for the division by 255)
+# and per valid column (arc interpolation of x and y, gradient, normal,
+# and the row offsets shared by the block).
+WARP_OPS_PER_PIXEL = 26
 WARP_OPS_PER_COLUMN = 45
+COLD_SCRATCH_BYTES = 128 * 2**20
+SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's clock
 # The hand-set edge detector finds at least this share of the synthetic
 # lines on the CPU at this page size (measured: see line_recall).
 MIN_LINE_RECALL = 0.9
@@ -67,21 +78,46 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after warm-up."""
+def cuda_ms(fn, reps: int = 25, warmup: int = 3, cold: bool = False,
+            ahead: bool = True) -> float:
+    """Median device time of one call of ``fn``: CUDA events around each
+    of ``reps`` calls after ``warmup`` calls.  ``ahead``: a busy-wait
+    kernel is queued first and every call behind it, so that the device
+    never waits for the host and Python's launch overhead is not timed;
+    the wait doubles until it outlasts the host's queueing.  A ``fn``
+    that waits for the device itself (an allocation that synchronizes)
+    needs ``ahead=False``, and its time then holds the host's share.
+    ``cold``: before each timed call, outside its events, write a
+    scratch tensor of COLD_SCRATCH_BYTES (more than the 50 MB L2), so
+    that the call finds its inputs in device memory, as stage B does
+    after the next batch's upload."""
+    scratch = torch.empty(COLD_SCRATCH_BYTES // 4, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    cycles = SLEEP_CYCLES if ahead else 0
+    while True:
+        wait = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  for _ in range(reps)]
+        wait[0].record()
+        if ahead:
+            torch.cuda._sleep(cycles)
+        wait[1].record()
+        t0 = time.perf_counter()
+        for i, (start, end) in enumerate(events):
+            if cold:
+                scratch.fill_(float(i))
+            start.record()
+            fn()
+            end.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if not ahead or host_ms < wait[0].elapsed_time(wait[1]):
+            return float(np.median([s.elapsed_time(e) for s, e in events]))
+        cycles *= 2  # the device caught up with the host: wait longer
+        if cycles > 256 * SLEEP_CYCLES:
+            raise AssertionError(f"queueing {reps} calls took {host_ms:.1f} ms")
 
 
 # ----------------------------------------------------------------------
@@ -137,6 +173,13 @@ def synthetic_pages(rng, n: int):
 
 
 # ----------------------------------------------------------------------
+def recognizer_input(crops: torch.Tensor) -> torch.Tensor:
+    """What ``CTCRecognizer.forward`` hands its encoder, from stage B's
+    crops: the 3-channel broadcast, NCHW, in bfloat16 (a view when the
+    crops are already bfloat16, a copy otherwise)."""
+    return crops[..., None].expand(-1, -1, -1, 3).permute(0, 3, 1, 2).to(torch.bfloat16)
+
+
 def check_warp(rng):
     dev = torch.device("cuda")
     pages = torch.from_numpy(
@@ -147,18 +190,24 @@ def check_warp(rng):
     hh = torch.from_numpy(np.stack([g[1] for g in geo])).to(dev)
     args = (pages, bl, hh, CROP_H, BUCKET)
 
-    got = warp_ops.warp_lines(*args)
-    want = warp_ops.warp_lines_plain(*args)
-    torch.cuda.synchronize()
-    diff = (got - want).abs()
-    max_abs = float(diff.max())
-    bad = diff > WARP_TOL
-    bad_cols = bad.any(dim=1).sum(dim=1)  # per line
-    log(f"warp_lines: max |kernel - plain| = {max_abs:.6g} gray levels, "
-        f"{int(bad.sum())} pixels beyond {WARP_TOL}, in "
-        f"{int((bad_cols > 0).sum())} lines (at most 1 column each allowed)")
-    if int(bad_cols.max()) > 1:
-        raise AssertionError(f"warp kernel disagrees with its plain version: {int(bad.sum())} px")
+    max_abs = 0.0
+    for mode, (dtype, normalize) in WARP_MODES.items():
+        got = warp_ops.warp_lines(*args, dtype, normalize)
+        want = warp_ops.warp_lines_plain(*args, dtype, normalize)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or got.shape != want.shape:
+            raise AssertionError(f"warp_lines {mode}: {got.dtype} {tuple(got.shape)}")
+        # In gray levels whatever the store.
+        diff = (got.float() - want.float()).abs() * (255.0 if normalize else 1.0)
+        int_t = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        bad = got.view(int_t) != want.view(int_t)
+        bad_cols = bad.any(dim=1).sum(dim=1)  # per line
+        max_abs = max(max_abs, float(diff.max()))
+        log(f"warp_lines {mode}: max |kernel - plain| = {float(diff.max()):.6g} gray "
+            f"levels, {int(bad.sum())} values not bit-equal, in "
+            f"{int((bad_cols > 0).sum())} lines (at most 1 column each allowed)")
+        if int(bad_cols.max()) > 1:
+            raise AssertionError(f"warp kernel {mode} disagrees with its plain version")
 
     fields = warp_ops.build_fields(
         bl.reshape(-1, POINTS, 2), hh.reshape(-1, 2), CROP_H, BUCKET
@@ -168,25 +217,64 @@ def check_warp(rng):
     grid = (fields * scale - 1.0).reshape(PAGE_BATCH, LINES_PER_PAGE * CROP_H, BUCKET, 2)
     page_f = pages[:, None].float()
 
-    ms = cuda_ms(lambda: warp_ops.warp_lines(*args))
-    plain_ms = cuda_ms(lambda: warp_ops.warp_lines_plain(*args))
-    library_ms = cuda_ms(lambda: F.grid_sample(
-        page_f, grid, mode="bilinear", padding_mode="zeros", align_corners=True
-    ))
-    nbytes = warp_ops.warp_lines_bytes(*args)
-    ops = valid_cols * (CROP_H * WARP_OPS_PER_PIXEL + WARP_OPS_PER_COLUMN)
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
-    log(f"warp_lines: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-        f"{library_ms:.4f} ms F.grid_sample on precomputed fields; bound "
-        f"{bytes_ms:.4f} ms by {nbytes} bytes, {ops_ms:.4f} ms by {ops} ops")
+    def library():
+        return F.grid_sample(page_f, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    def bound(dtype, normalize):
+        nbytes = warp_ops.warp_lines_bytes(*args, dtype, fields)
+        ops = valid_cols * (CROP_H * (WARP_OPS_PER_PIXEL + normalize) + WARP_OPS_PER_COLUMN)
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
+        log(f"warp_lines {dtype}: bound {bytes_ms:.4f} ms by {nbytes} bytes, "
+            f"{ops_ms:.4f} ms by {ops} ops")
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes
+
+    def f32():
+        return warp_ops.warp_lines(*args)
+
+    def bf16():
+        return warp_ops.warp_lines(*args, torch.bfloat16, True)
+
+    # Stage B up to the recognizer's input: the unfused chain (f32
+    # crops, then / 255.0, then the bf16 3-channel copy) and the fused
+    # store.
+    def chain_old():
+        return recognizer_input(f32() / 255.0)
+
+    def chain_new():
+        return recognizer_input(bf16())
+
+    t = {}
+    for name, fn in (("f32", f32), ("bf16", bf16), ("library", library),
+                     ("chain_old", chain_old), ("chain_new", chain_new)):
+        t[name] = (cuda_ms(fn), cuda_ms(fn, cold=True))
+        log(f"{name}: {t[name][0]:.4f} ms warm, {t[name][1]:.4f} ms cold")
+    plain_ms = cuda_ms(lambda: warp_ops.warp_lines_plain(*args, torch.bfloat16, True),
+                       reps=5, warmup=1, ahead=False)
+    bound_f32, _, _ = bound(torch.float32, False)
+    bound_bf16, bound_by, nbytes = bound(torch.bfloat16, True)
+    page_bytes = nbytes - 4 * (bl.numel() + hh.numel()) - 2 * fields[..., 0].numel()
+    log(f"warp_lines: the taps touch {page_bytes} of {pages.numel()} page bytes "
+        f"({page_bytes / pages.numel():.4f}), {valid_cols} valid columns")
+    log(f"warp_lines: bf16 normalized {t['bf16'][0]:.4f} ms warm "
+        f"({bound_bf16 / t['bf16'][0]:.3f} of its bound), {t['bf16'][1]:.4f} ms cold; "
+        f"f32 {t['f32'][0]:.4f} ms warm ({bound_f32 / t['f32'][0]:.3f} of its bound), "
+        f"{t['f32'][1]:.4f} ms cold; plain {plain_ms:.4f} ms; F.grid_sample on "
+        f"precomputed fields {t['library'][0]:.4f} ms warm, {t['library'][1]:.4f} ms cold")
     return {
         "name": "warp_lines", "route": "cuda",
         "source": "pero_ocr_tpu_torch/csrc/warp_lines.cu",
         "replaces": "pero_ocr_tpu/ops/warp.py:188",
-        "launches": None, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "launches": None, "max_abs_err": max_abs,
+        "ms": t["bf16"][0], "plain_ms": plain_ms,
+        "bound_ms": bound_bf16, "bound_by": bound_by,
+        "library_ms": t["library"][0],
+        "ms_warm": t["bf16"][0], "ms_cold": t["bf16"][1],
+        "library_ms_cold": t["library"][1],
+        "f32_ms_warm": t["f32"][0], "f32_ms_cold": t["f32"][1], "f32_bound_ms": bound_f32,
+        "chain_old_ms_warm": t["chain_old"][0], "chain_old_ms_cold": t["chain_old"][1],
+        "chain_new_ms_warm": t["chain_new"][0], "chain_new_ms_cold": t["chain_new"][1],
+        "touched_page_bytes": page_bytes,
     }
 
 
@@ -289,10 +377,34 @@ def run_main_path(rng):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    # Instrument stage B on this instance: CUDA events around each call
+    # (the span from its first to its last device op, which also holds
+    # whatever the worker thread queued in between), and the crops that
+    # reach the recognizer.
+    spans, crops_seen, last_b = [], [], []
+    stage_b, stage_b_recognize = pipe.stage_b, pipe.stage_b_recognize
+
+    def timed_stage_b(*b_args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = stage_b(*b_args)
+        end.record()
+        spans.append((start, end))
+        last_b[:] = [b_args]
+        return out
+
+    def seen_stage_b_recognize(crops, pb):
+        crops_seen.append((crops.dtype, torch.stack([crops.min(), crops.max()]).float()))
+        return stage_b_recognize(crops, pb)
+
+    pipe.stage_b, pipe.stage_b_recognize = timed_stage_b, seen_stage_b_recognize
+
     # Warm-up (cuDNN plans, allocator, the adaptive scale) on one batch.
     drive(lines[:PAGE_BATCH], PAGE_BATCH)
     drive(None, PAGE_BATCH)
     timing.reset_timing()
+    spans.clear()
+    crops_seen.clear()
 
     warp_ops.warp_lines.launches = 0
     runs = {}
@@ -326,8 +438,25 @@ def run_main_path(rng):
         f"stage-B batches: {stage_b_batches}")
     if launches != stage_b_batches or launches == 0:
         raise AssertionError("warp kernel launches != stage-B batches")
+    for dtype, (lo, hi) in ((d, m.tolist()) for d, m in crops_seen):
+        if dtype != torch.bfloat16 or not 0.0 <= lo <= hi <= 1.0:
+            raise AssertionError(f"stage-B crops {dtype} in [{lo}, {hi}], want bf16 in [0, 1]")
+    if len(crops_seen) != stage_b_batches:
+        raise AssertionError("stage-B crops seen != stage-B batches")
+    log(f"stage-B crops: bfloat16 in [0, 1] in all {len(crops_seen)} batches")
+    span_ms = [s.elapsed_time(e) for s, e in spans]
+    # One stage-B batch alone, on the last batch's inputs, with the host
+    # queued ahead of the device (cuda_ms): the device time of warp +
+    # recognizer + CTC, which the host stage timer cannot see.
+    # One call behind each wait: several in flight make the allocator wait.
+    device = float(np.median([cuda_ms(lambda: pipe.stage_b(*last_b[0]), reps=1, warmup=1)
+                              for _ in range(5)]))
+    log(f"stage B per batch: device span on the main path {np.median(span_ms):.4f} ms "
+        f"(median of {len(span_ms)}: {', '.join(f'{m:.3f}' for m in span_ms)}); "
+        f"device time alone {device:.4f} ms")
     log("stage times (both main-path runs):\n" + timing.timing_report())
-    return launches
+    return launches, {"stage_b_span_ms": float(np.median(span_ms)),
+                      "stage_b_device_ms": device}
 
 
 def main() -> int:
@@ -349,7 +478,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     warp = check_warp(rng)
     check_against_cpu(rng)
-    warp["launches"] = run_main_path(rng)
+    warp["launches"], stage_b = run_main_path(rng)
+    warp.update(stage_b)
 
     print(smi)
     print(json.dumps({"kernels": [warp]}))

@@ -1,33 +1,45 @@
 """Batched line-crop warp (port of pero_ocr_tpu/ops/warp.py).
 
-``warp_lines(pages, baselines, heights, crop_h, bucket)`` turns each
-text line of a batch of u8 grayscale pages into a (crop_h, bucket)
-float32 crop: output column j sits at arc position j / scale along the
-line's baseline (scale = crop_h / (ascender + descender)), row r at
-``linspace(-ascender, descender, crop_h)[r]`` along the baseline's
+``warp_lines(pages, baselines, heights, crop_h, bucket, out_dtype,
+normalize)`` turns each text line of a batch of u8 grayscale pages into
+a (crop_h, bucket) crop: output column j sits at arc position j / scale
+along the line's baseline (scale = crop_h / (ascender + descender)), row
+r at ``linspace(-ascender, descender, crop_h)[r]`` along the baseline's
 normal, and the page is sampled bilinearly there.  Neighbours outside
 the page read 0 (``cv2.remap`` with ``BORDER_CONSTANT``), and columns
-beyond the baseline's arc length are 0.
+beyond the baseline's arc length are 0.  Each sampled float32 value v
+is stored as ``out_dtype(v)``, or with ``normalize=True`` as
+``out_dtype(v / 255)``: one true float32 division, then one rounding to
+nearest even into ``out_dtype`` (float32 or bfloat16).  That is the
+``crops / 255.0`` and the cast the recognizer's input takes, fused into
+the store.
 
 - On CUDA tensors it launches the hand-written kernel
   ``csrc/warp_lines.cu``, which replaces the Pallas TPU kernel
   ``_warp_kernel``/``warp_lines_pallas`` (pero_ocr_tpu/ops/warp.py:188,
   :223).  It builds the warp field inside the kernel and reads u8 pages
   from global memory, so there is no page-size cap and no dense field.
-  Its bound is memory: :func:`warp_lines_bytes` (page bytes read plus
-  crop bytes written, and the geometry) over the card's memory rate,
-  3.35 TB/s on an H100 SXM.  There is no fallback: a launch error raises.
+  Its bound is memory: :func:`warp_lines_bytes` (the page pixels the
+  taps touch, the geometry, and the crops at ``out_dtype``) over the
+  card's memory rate, 3.35 TB/s on an H100 SXM.  There is no fallback: a
+  launch error raises.
 - On CPU tensors it runs :func:`warp_lines_plain`, a direct
   transcription of ``build_fields_device`` (:126-182) followed by
   ``_bilinear_gather`` (:32-62), operation for operation, except that
   the chord rotation and the lengths use only correctly rounded
   arithmetic (cos(atan2(dy, dx)) = dx / |chord|, hypot as a square
   root), so that the kernel and the plain version round alike.
+
+Both paths take the same arguments and refuse the same ones: at most
+``MAX_POINTS`` baseline points and ``MAX_CROP_H`` rows (the kernel's
+shared tables), pages of fewer than 2**31 pixels (its 32-bit offsets),
+float32 or bfloat16 out.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -35,6 +47,9 @@ import torch
 # jnp.interp treats an arc step |dx| <= np.spacing(float32 eps) as zero.
 _INTERP_EPS = float(np.spacing(np.finfo(np.float32).eps))
 OFF_PAGE = -1e6  # field coordinate of a column beyond the arc
+MAX_POINTS = 64   # kMaxPoints in csrc/warp_lines.cu
+MAX_CROP_H = 64   # kMaxCropH in csrc/warp_lines.cu
+OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -142,40 +157,64 @@ def bilinear_gather(page: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return top * (1.0 - fy) + bottom * fy
 
 
+def _store(crops: torch.Tensor, out_dtype: torch.dtype, normalize: bool) -> torch.Tensor:
+    """The kernel's store: v, or v / 255 by a true division (a tensor of
+    255s: on CUDA, ``crops / 255.0`` may multiply by the reciprocal,
+    and one float32 ulp flips bf16 roundings), rounded once to
+    ``out_dtype``."""
+    if normalize:
+        crops = crops / torch.full_like(crops, 255.0)
+    return crops.to(out_dtype)
+
+
 def warp_lines_plain(
     pages: torch.Tensor, baselines: torch.Tensor, heights: torch.Tensor,
-    crop_h: int, bucket: int,
+    crop_h: int, bucket: int, out_dtype: torch.dtype = torch.float32,
+    normalize: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: :func:`build_fields` then
-    :func:`bilinear_gather`, page by page."""
+    :func:`bilinear_gather`, page by page, then the kernel's store."""
     pb, n, p, _ = baselines.shape
     fields = build_fields(
         baselines.reshape(pb * n, p, 2), heights.reshape(pb * n, 2), crop_h, bucket
     ).reshape(pb, n, crop_h, bucket, 2)
-    return torch.cat([bilinear_gather(pages[i], fields[i]) for i in range(pb)])
+    crops = torch.cat([bilinear_gather(pages[i], fields[i]) for i in range(pb)])
+    return _store(crops, out_dtype, normalize)
 
 
-def warp_lines_bytes(pages, baselines, heights, crop_h: int, bucket: int) -> int:
-    """Least bytes the warp moves: each input read once, the f32 crops
-    written once."""
-    pb, n = baselines.shape[:2]
-    inputs = sum(t.numel() * t.element_size() for t in (pages, baselines, heights))
-    return inputs + pb * n * crop_h * bucket * 4
-
-
-def warp_lines(
+def warp_lines_bytes(
     pages: torch.Tensor, baselines: torch.Tensor, heights: torch.Tensor,
-    crop_h: int, bucket: int,
-) -> torch.Tensor:
-    """pages (PB, H, W) uint8; baselines (PB, N, P, 2) float32; heights
-    (PB, N, 2) float32 -> (PB * N, crop_h, bucket) float32 crops.
+    crop_h: int, bucket: int, out_dtype: torch.dtype = torch.float32,
+    fields: torch.Tensor = None,
+) -> int:
+    """Least bytes the warp moves on these inputs: the distinct page
+    pixels that the valid columns' four bilinear taps touch (found by
+    scattering the taps into a page-sized mask), the geometry, and the
+    crops written once at ``out_dtype``.  ``fields``: the
+    (PB * N, crop_h, bucket, 2) output of :func:`build_fields`, computed
+    here when not given."""
+    pb, h, w = pages.shape
+    n, p = baselines.shape[1], baselines.shape[2]
+    if fields is None:
+        fields = build_fields(
+            baselines.reshape(pb * n, p, 2), heights.reshape(pb * n, 2), crop_h, bucket
+        )
+    fields = fields.reshape(pb, -1, 2)
+    x0, y0 = torch.floor(fields[..., 0]).long(), torch.floor(fields[..., 1]).long()
+    valid = fields[..., 0] > OFF_PAGE / 2
+    page = torch.arange(pb, device=fields.device)[:, None] * (h * w)
+    touched = torch.zeros(pb * h * w, dtype=torch.bool, device=fields.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yi, xi = y0 + dy, x0 + dx
+            inside = valid & (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            touched[(page + yi * w + xi)[inside]] = True
+    geometry = sum(t.numel() * t.element_size() for t in (baselines, heights))
+    out = pb * n * crop_h * bucket * out_dtype.itemsize
+    return int(touched.sum()) * pages.element_size() + geometry + out
 
-    CUDA tensors launch the kernel (and count the launch in
-    ``warp_lines.launches``); CPU tensors run :func:`warp_lines_plain`."""
-    if pages.device.type == "cpu":
-        return warp_lines_plain(pages, baselines, heights, crop_h, bucket)
-    if pages.device.type != "cuda":
-        raise ValueError(f"warp_lines: unsupported device {pages.device}")
+
+def _check_args(pages, baselines, heights, crop_h, bucket, out_dtype, normalize):
     pb, h, w = pages.shape
     if (baselines.ndim != 4 or baselines.shape[0] != pb or baselines.shape[3] != 2
             or tuple(heights.shape) != (pb, baselines.shape[1], 2)):
@@ -191,12 +230,44 @@ def warp_lines(
                 f"warp_lines: {name} must be a contiguous {dtype} tensor on "
                 f"{pages.device}, got {t.dtype} on {t.device}"
             )
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"warp_lines: out_dtype must be one of {OUT_DTYPES}, got {out_dtype}")
+    if not isinstance(normalize, bool):
+        raise ValueError(f"warp_lines: normalize must be a bool, got {normalize!r}")
+    if not (1 <= crop_h <= MAX_CROP_H and bucket >= 2 and 2 <= baselines.shape[2] <= MAX_POINTS
+            and 1 <= h < 2**22 and 1 <= w < 2**22 and h * w < 2**31):
+        raise ValueError(
+            f"warp_lines: needs 1 <= crop_h <= {MAX_CROP_H}, bucket >= 2, "
+            f"2..{MAX_POINTS} baseline points and pages of fewer than 2**31 pixels, "
+            f"got crop_h {crop_h}, bucket {bucket}, {baselines.shape[2]} points, "
+            f"pages {h}x{w}"
+        )
+
+
+def warp_lines(
+    pages: torch.Tensor, baselines: torch.Tensor, heights: torch.Tensor,
+    crop_h: int, bucket: int, out_dtype: torch.dtype = torch.float32,
+    normalize: bool = False,
+) -> torch.Tensor:
+    """pages (PB, H, W) uint8; baselines (PB, N, P, 2) float32; heights
+    (PB, N, 2) float32 -> (PB * N, crop_h, bucket) crops in
+    ``out_dtype``, divided by 255 when ``normalize``.
+
+    CUDA tensors launch the kernel (and count the launch in
+    ``warp_lines.launches``); CPU tensors run :func:`warp_lines_plain`.
+    Both raise ValueError on arguments the kernel does not take."""
+    if pages.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"warp_lines: unsupported device {pages.device}")
+    _check_args(pages, baselines, heights, crop_h, bucket, out_dtype, normalize)
+    if pages.device.type == "cpu":
+        return warp_lines_plain(pages, baselines, heights, crop_h, bucket, out_dtype, normalize)
+    pb, h, w = pages.shape
     n, p = baselines.shape[1], baselines.shape[2]
-    out = torch.empty((pb * n, crop_h, bucket), dtype=torch.float32, device=pages.device)
+    out = torch.empty((pb * n, crop_h, bucket), dtype=out_dtype, device=pages.device)
     lib = _kernel_library()
     rc = lib.warp_lines_u8(
         pages.data_ptr(), baselines.data_ptr(), heights.data_ptr(), out.data_ptr(),
-        pb, h, w, n, p, crop_h, bucket,
+        pb, h, w, n, p, crop_h, bucket, int(out_dtype == torch.bfloat16), int(normalize),
         torch.cuda.current_stream(pages.device).cuda_stream,
     )
     if rc != 0:
@@ -208,12 +279,13 @@ def warp_lines(
 warp_lines.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_library():
     from pero_ocr_tpu_torch.utils import kernels
 
     lib = kernels.library("warp_lines")
     lib.warp_lines_u8.restype = ctypes.c_int
     lib.warp_lines_u8.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     return lib

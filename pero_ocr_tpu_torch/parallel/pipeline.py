@@ -13,7 +13,8 @@ per byte, ``transport_bits=4``) feeds everything:
   the adaptive downsample may re-run stage A at a corrected scale on the
   pages already on the device.
 - **Stage B** (device): the line-crop warp (the hand-written CUDA
-  kernel of :mod:`pero_ocr_tpu_torch.ops.warp`) -> ``CTCRecognizer`` ->
+  kernel of :mod:`pero_ocr_tpu_torch.ops.warp`, which stores the crops
+  divided by 255 in the recognizer's dtype) -> ``CTCRecognizer`` ->
   greedy CTC labels and worst-run confidences.  Label copies to the host
   trail their dispatch by one batch.
 
@@ -182,13 +183,20 @@ class TorchPagePipeline:
     def stage_b(self, pages_u8, baselines, heights):
         """pages_u8 (PB, H, W) u8; baselines (PB, N, P, 2); heights
         (PB, N, 2) -> (labels (PB, N, T), lengths (PB, N), confidences
-        (PB, N))."""
-        crops = warp_lines(pages_u8, baselines, heights, self.crop_height, self.crop_bucket)
+        (PB, N)).  The warp stores the crops divided by 255 in the
+        recognizer's dtype."""
+        crops = warp_lines(
+            pages_u8, baselines, heights, self.crop_height, self.crop_bucket,
+            out_dtype=self.recognizer.spec.dtype, normalize=True,
+        )
         return self.stage_b_recognize(crops, baselines.shape[0])
 
     @torch.no_grad()
     def stage_b_recognize(self, crops: torch.Tensor, pb: int):
-        images = (crops / 255.0)[..., None].expand(-1, -1, -1, 3)
+        """crops: (PB * N, crop_h, bucket) line images already in [0, 1]
+        and in the recognizer's dtype (``warp_lines(normalize=True)``),
+        so the recognizer's cast is a no-op and no copy is made."""
+        images = crops[..., None].expand(-1, -1, -1, 3)
         logits = self.recognizer(images)
         valid = torch.full(
             (crops.shape[0],), logits.shape[1], dtype=torch.int32, device=crops.device

@@ -4,7 +4,14 @@ nvcc (marker ``cuda``).  They skip where there is no card; on the card:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``--noconftest``: the suite's conftest configures JAX, which the card's
-machine does not have.)"""
+machine does not have.)
+
+The warp kernel and its plain version do the same correctly rounded
+float32 steps in the same order, then the same division by 255 and one
+rounding to the output type, so they are held to bit equality in the
+output type.  The one exception allowed is a validity-boundary column
+per line: the test t <= arc length switches a whole column between the
+page and 0 when the two sides decide it one ulp apart."""
 
 import numpy as np
 import pytest
@@ -14,6 +21,48 @@ from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
 from pero_ocr_tpu_torch.ops import warp
 
 pytestmark = pytest.mark.cuda
+
+# (out_dtype, normalize): the raw float32 crops, and the normalized store
+# the pipeline uses in float32 and bfloat16.
+MODES = {
+    "f32_raw": (torch.float32, False),
+    "f32_normalized": (torch.float32, True),
+    "bf16_normalized": (torch.bfloat16, True),
+}
+
+
+# RN(1/255) in float32, the kernel's kRcp255 (0x3b808081).
+RCP255 = float(np.float32(1) / np.float32(255))
+
+
+def div255_markstein(a: torch.Tensor):
+    """The kernel's division by 255 (``div255`` in csrc/warp_lines.cu),
+    emulated exactly: q = RN(a * RN(1/255)); r = RN(a - 255 q), an FMA,
+    so the exact remainder rounded once; result RN(q + r * RN(1/255)).
+    Every product is exact in float64.  The last sum may round in
+    float64, which can mislead the final rounding only where it lands on
+    a float32 midpoint: returns the float32 results and the count of
+    such midpoints."""
+    y = torch.tensor(RCP255, dtype=torch.float64, device=a.device)
+    a64 = a.double()
+    q = (a64 * y).float()
+    r = (a64 - 255.0 * q.double()).float()
+    s = q.double() + r.double() * y
+    out = s.float()
+    up = torch.nextafter(out, torch.full_like(out, float("inf"))).double()
+    down = torch.nextafter(out, torch.full_like(out, float("-inf"))).double()
+    mid = (s == (out.double() + up) / 2) | (s == (out.double() + down) / 2)
+    return out, int(mid.sum())
+
+
+def float32s(lo: float, hi: float, stride: int = 1, chunk: int = 1 << 26):
+    """Every ``stride``-th float32 in [lo, hi] (lo >= 0), in chunks."""
+    first = int(np.float32(lo).view(np.int32))
+    last = int(np.float32(hi).view(np.int32))
+    for start in range(first, last + 1, stride * chunk):
+        bits = torch.arange(start, min(start + stride * chunk, last + 1), stride,
+                            dtype=torch.int32)
+        yield bits.view(torch.float32)
 
 
 @pytest.fixture
@@ -43,31 +92,98 @@ def _lines(rng, n, h, w, p=16):
     return bls, hs
 
 
-@pytest.mark.parametrize("pb,n,crop_h,bucket", [(1, 5, 16, 128), (3, 10, 32, 512)])
-def test_warp_kernel_matches_plain(cuda, pb, n, crop_h, bucket):
-    """Both do the same correctly rounded float32 steps in the same
-    order: equal to 1e-3 gray levels, except at most one validity
-    boundary column per line."""
-    rng = np.random.default_rng(pb * n)
-    h, w = 300, 700
+def _bad_columns(got, want):
+    """Per line, the number of columns where the two differ in any bit."""
+    return (got.view(torch.int16 if got.dtype == torch.bfloat16 else torch.int32)
+            != want.view(torch.int16 if want.dtype == torch.bfloat16 else torch.int32)
+            ).any(dim=1).sum(dim=1)
+
+
+def _check(pages, bl, hh, crop_h, bucket, mode):
+    out_dtype, normalize = MODES[mode]
+    before = warp.warp_lines.launches
+    got = warp.warp_lines(pages, bl, hh, crop_h, bucket, out_dtype, normalize)
+    assert warp.warp_lines.launches == before + 1
+    want = warp.warp_lines_plain(pages, bl, hh, crop_h, bucket, out_dtype, normalize)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (bl.shape[0] * bl.shape[1], crop_h, bucket)
+    assert got.dtype == out_dtype
+    bad = _bad_columns(got, want)
+    assert int(bad.max()) <= 1, bad.tolist()
+    return got
+
+
+@pytest.mark.parametrize("bucket", [512, 517])
+@pytest.mark.parametrize("crop_h", [16, 32, 48])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_warp_kernel_matches_plain(cuda, mode, crop_h, bucket):
+    """Mixed lines on three pages; bucket 517 is odd (the kernel's
+    scalar tail column) and not a multiple of the 128-column tile."""
+    rng = np.random.default_rng(crop_h * bucket)
+    pb, n, h, w = 3, 10, 300, 700
     pages = torch.from_numpy(rng.integers(0, 256, (pb, h, w), dtype=np.uint8)).to(cuda)
     geo = [_lines(rng, n, h, w) for _ in range(pb)]
     bl = torch.from_numpy(np.stack([g[0] for g in geo])).to(cuda)
     hh = torch.from_numpy(np.stack([g[1] for g in geo])).to(cuda)
-    before = warp.warp_lines.launches
-    got = warp.warp_lines(pages, bl, hh, crop_h, bucket)
-    want = warp.warp_lines_plain(pages, bl, hh, crop_h, bucket)
-    torch.cuda.synchronize()
-    assert warp.warp_lines.launches == before + 1
-    assert got.shape == (pb * n, crop_h, bucket) and got.dtype == torch.float32
-    bad_cols = ((got - want).abs() > 1e-3).any(dim=1).sum(dim=1)
-    assert int(bad_cols.max()) <= 1
+    got = _check(pages, bl, hh, crop_h, bucket, mode)
+    if MODES[mode][1]:
+        assert 0.0 <= float(got.min()) and float(got.max()) <= 1.0
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_warp_kernel_arc_ends_on_tile_edge(cuda, mode):
+    """Lines whose last valid column is the last of a 128-column tile or
+    the first of the next: the normal there reads the halo column that
+    the neighbouring tile also computes.  Heights 24 + 8 over 32 rows
+    make the scale 1, so the arc length in px is the last valid column."""
+    rng = np.random.default_rng(3)
+    h, w, crop_h, bucket = 200, 700, 32, 640
+    arcs = [127.0, 127.5, 128.0, 128.25, 255.0, 256.0, 383.75, 384.0]
+    bls = np.zeros((1, len(arcs), 16, 2), np.float32)
+    for i, arc in enumerate(arcs):
+        x0, y0 = 20.0 + 7 * i, 40.0 + 18 * i
+        t = np.linspace(0.0, 1.0, 16)
+        # A gentle bend: the normal differs column to column, and the
+        # arc stays within 1e-3 px of the chord.
+        pts = np.stack([x0 + arc * t, y0 + 0.05 * np.sin(np.pi * t)], 1)
+        bls[0, i] = pts.astype(np.float32)
+    hh = np.tile(np.array([24.0, 8.0], np.float32), (1, len(arcs), 1))
+    pages = torch.from_numpy(rng.integers(0, 256, (1, h, w), dtype=np.uint8)).to(cuda)
+    bl, hh = torch.from_numpy(bls).to(cuda), torch.from_numpy(hh).to(cuda)
+    got = _check(pages, bl, hh, crop_h, bucket, mode).float()
+    live = (got != 0).any(dim=1)
+    last = torch.where(live, torch.arange(bucket, device=cuda), -1).max(dim=1).values
+    # Each line's last sampled column lies within a column of its arc end.
+    ends = torch.tensor(arcs, device=cuda)
+    assert bool(((last - ends.floor()).abs() <= 1).all()), last.tolist()
 
 
 def test_warp_kernel_rejects_bad_inputs(cuda):
     pages = torch.zeros((1, 32, 32), dtype=torch.uint8, device=cuda)
     bl = torch.zeros((1, 2, 16, 2), device=cuda)
+    hh = torch.ones((1, 2, 2), device=cuda)
     with pytest.raises(ValueError, match="heights"):
-        warp.warp_lines(pages, bl, torch.ones((1, 2, 2), device=cuda, dtype=torch.float64), 8, 16)
+        warp.warp_lines(pages, bl, hh.double(), 8, 16)
     with pytest.raises(ValueError, match="disagree"):
         warp.warp_lines(pages, bl, torch.ones((1, 3, 2), device=cuda), 8, 16)
+    with pytest.raises(ValueError, match="crop_h"):
+        warp.warp_lines(pages, bl, hh, 65, 16)
+    with pytest.raises(ValueError, match="out_dtype"):
+        warp.warp_lines(pages, bl, hh, 8, 16, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="on cuda"):
+        warp.warp_lines(pages, bl.cpu(), hh, 8, 16)
+
+
+def test_div255_is_correctly_rounded_everywhere(cuda):
+    """The kernel's division by 255 equals the IEEE division for every
+    float32 in [0, 255], the range of the blended values it divides."""
+    n = 0
+    for a in float32s(0.0, 255.0):
+        a = a.to(cuda)
+        got, midpoints = div255_markstein(a)
+        want = a / torch.full_like(a, 255.0)
+        assert midpoints == 0
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        n += a.numel()
+    assert n == int(np.float32(255).view(np.int32)) + 1
+

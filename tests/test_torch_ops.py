@@ -8,11 +8,16 @@ package on the CPU, on the same numpy-seeded inputs.
   flips.
 - The warp's plain version against ``build_fields_device`` +
   ``warp_lines_xla`` (the Pallas kernel's own fallback): max abs <= 0.05
-  gray levels, apart from at most one validity-boundary column per line.
+  gray levels, apart from at most one validity-boundary column per line;
+  with ``normalize=True`` against the same crops ``/ 255.0`` and cast,
+  to 0.05 / 255 plus one ulp of the output type.  The arguments both
+  paths refuse, and the footprint byte count of the bound.
 - Greedy CTC: labels and lengths equal, confidences within 1e-6.
 - ``_gray`` against ``cv2.cvtColor``, and the 4-bit transport packing:
   exact.
 """
+
+import functools
 
 import cv2
 import jax
@@ -160,7 +165,27 @@ def _line_geometry(kind, rng, h, w, p=16):
     return np.stack([x, y], 1), np.array([rng.uniform(10, 30), rng.uniform(3, 9)])
 
 
-@pytest.mark.parametrize("kind", ["straight", "curved", "tilted", "off_page", "padded"])
+KINDS = ["straight", "curved", "tilted", "off_page", "padded"]
+
+
+@functools.lru_cache(maxsize=None)
+def _warp_case(kind):
+    """A smooth page, six lines of ``kind``, and the JAX fields and
+    crops (``build_fields_device`` + ``warp_lines_xla``) on them."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    h, w, crop_h, bucket, n = 1280, 1792, 32, 1024, 6
+    page = ndimage.gaussian_filter(rng.random((h, w)), 8.0)
+    page = ((page - page.min()) / np.ptp(page) * 255).astype(np.uint8)
+    bl, hh = map(np.asarray, zip(*[_line_geometry(kind, rng, h, w) for _ in range(n)]))
+    bl, hh = bl.astype(np.float32), hh.astype(np.float32)
+    want_f = jax_warp.build_fields_device(jnp.asarray(bl), jnp.asarray(hh), crop_h, bucket)
+    want = jax_warp.warp_lines_xla(jnp.asarray(page[:, :, None]), want_f)[..., 0]
+    return page, bl, hh, crop_h, bucket, np.asarray(want_f), want
+
+
+@pytest.mark.parametrize("kind", KINDS)
 def test_warp_plain_matches_jax(kind):
     """The fields agree to FIELD_TOL_PX: the rotation and the lengths
     round a few ulps apart (one ulp near 1500 px is 1.2e-4 px) and the
@@ -168,29 +193,18 @@ def test_warp_plain_matches_jax(kind):
     then agree to WARP_TOL gray levels on a page whose gradient is at
     most SMOOTH_GRADIENT per px (on pure noise, up to 255 per px, the
     same coordinates give up to ~0.7)."""
-    from scipy import ndimage
-
-    rng = np.random.default_rng(sum(map(ord, kind)))
-    h, w, crop_h, bucket, n = 1280, 1792, 32, 1024, 6
-    page = ndimage.gaussian_filter(rng.random((h, w)), 8.0)
-    page = ((page - page.min()) / np.ptp(page) * 255).astype(np.uint8)
+    page, bl, hh, crop_h, bucket, want_f, want = _warp_case(kind)
+    n = bl.shape[0]
     gy, gx = np.gradient(page.astype(np.float32))
     assert max(np.abs(gx).max(), np.abs(gy).max()) <= SMOOTH_GRADIENT
-    bl, hh = map(np.asarray, zip(*[_line_geometry(kind, rng, h, w) for _ in range(n)]))
-    bl, hh = bl.astype(np.float32), hh.astype(np.float32)
 
-    want_f = np.asarray(
-        jax_warp.build_fields_device(jnp.asarray(bl), jnp.asarray(hh), crop_h, bucket)
-    )
     got_f = warp.build_fields(torch.from_numpy(bl), torch.from_numpy(hh), crop_h, bucket).numpy()
     valid_j, valid_t = want_f[:, 0, :, 0] > -1e5, got_f[:, 0, :, 0] > -1e5
     assert (valid_j != valid_t).sum(axis=1).max() <= 1
     both = (valid_j & valid_t)[:, None, :, None]
     assert np.abs(np.where(both, got_f - want_f, 0)).max() <= FIELD_TOL_PX
 
-    want = np.asarray(
-        jax_warp.warp_lines_xla(jnp.asarray(page[:, :, None]), jnp.asarray(want_f))
-    )[..., 0]
+    want = np.asarray(want)
     got = warp.warp_lines(
         torch.from_numpy(page[None]), torch.from_numpy(bl[None]),
         torch.from_numpy(hh[None]), crop_h, bucket,
@@ -202,6 +216,121 @@ def test_warp_plain_matches_jax(kind):
         assert (valid_j.sum(axis=1) == 1).all()  # t = 0 <= arc 0 at column 0
     else:
         assert valid_j.sum(axis=1).min() > 100
+
+
+def _ulp(x: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """One unit in the last place of ``dtype`` at |x| (bfloat16 keeps 16
+    fewer mantissa bits than float32)."""
+    ulp32 = np.spacing(np.abs(x).astype(np.float32))
+    return ulp32 * (2.0 ** 16 if dtype == torch.bfloat16 else 1.0)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_warp_plain_normalized_matches_jax(kind, out_dtype):
+    """``normalize=True`` against what the JAX pipeline feeds its
+    recognizer: ``warp_lines_xla`` crops, ``/ 255.0``, then the cast.
+    Tolerance: WARP_TOL gray levels (over 255) for the fields' few-ulp
+    differences (test_warp_plain_matches_jax), plus one ulp of the
+    output type, since two values that close may round to neighbouring
+    bf16 values.  At most one column per line may differ beyond that:
+    the validity test t <= arc length decided one ulp apart switches a
+    whole boundary column between the page and 0."""
+    page, bl, hh, crop_h, bucket, _, want = _warp_case(kind)
+    want = np.asarray((want / 255.0).astype(jnp.dtype(str(out_dtype).split(".")[1])),
+                      np.float32)
+    got = warp.warp_lines(
+        torch.from_numpy(page[None]), torch.from_numpy(bl[None]),
+        torch.from_numpy(hh[None]), crop_h, bucket, out_dtype=out_dtype, normalize=True,
+    )
+    assert got.dtype == out_dtype and got.shape == want.shape
+    got = got.float().numpy()
+    assert 0.0 <= got.min() and got.max() <= 1.0
+    tol = WARP_TOL / 255.0 + _ulp(np.maximum(np.abs(got), np.abs(want)), out_dtype)
+    bad_cols = (np.abs(got - want) > tol).any(axis=1).sum(axis=1)
+    assert bad_cols.max() <= 1, bad_cols
+
+
+def test_warp_normalized_store_is_one_rounding():
+    """normalize=True stores out_dtype(v / 255) with v the float32 crop:
+    a true float32 division, then one rounding to nearest even."""
+    page, bl, hh, crop_h, bucket, _, _ = _warp_case("curved")
+    args = (torch.from_numpy(page[None]), torch.from_numpy(bl[None]),
+            torch.from_numpy(hh[None]), crop_h, bucket)
+    raw = warp.warp_lines(*args)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = warp.warp_lines(*args, out_dtype=dtype, normalize=True)
+        assert torch.equal(got, (raw / 255.0).to(dtype))
+        assert torch.equal(warp.warp_lines(*args, out_dtype=dtype), raw.to(dtype))
+
+
+def test_div255_is_correctly_rounded():
+    """The kernel stores v / 255 by a multiply and Markstein's
+    correction instead of a division: it equals the IEEE division on
+    every 61st float32 in [0, 255] here (every one in
+    tests/test_torch_cuda.py, on the card)."""
+    from test_torch_cuda import div255_markstein, float32s
+
+    n = 0
+    for a in float32s(0.0, 255.0, stride=61, chunk=1 << 23):
+        got, midpoints = div255_markstein(a)
+        want = a / torch.full_like(a, 255.0)
+        assert midpoints == 0
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        n += a.numel()
+    assert n > 18_000_000
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"crop_h": 65}, "crop_h"),
+    ({"bucket": 1}, "bucket"),
+    ({"out_dtype": torch.float16}, "out_dtype"),
+    ({"out_dtype": torch.uint8}, "out_dtype"),
+    ({"normalize": 1}, "normalize"),
+    ({"heights": torch.ones((1, 2, 2), dtype=torch.float64)}, "heights"),
+    ({"baselines": torch.zeros((1, 2, 65, 2))}, "points"),
+    ({"pages": torch.zeros((1, 32, 32))}, "pages"),
+])
+def test_warp_lines_rejects_unsupported_arguments(change, match):
+    """Both paths take what the kernel takes: crop_h <= 64 (its shared
+    row table), 2..64 baseline points, float32 or bfloat16 out."""
+    args = dict(pages=torch.zeros((1, 32, 32), dtype=torch.uint8),
+                baselines=torch.zeros((1, 2, 16, 2)), heights=torch.ones((1, 2, 2)),
+                crop_h=8, bucket=16, out_dtype=torch.float32, normalize=False)
+    assert warp.warp_lines(**args).shape == (2, 8, 16)
+    with pytest.raises(ValueError, match=match):
+        warp.warp_lines(**{**args, **change})
+
+
+def test_warp_lines_bytes_counts_touched_pixels():
+    """The page bytes are the distinct pixels the valid columns' four
+    taps touch, counted here by brute force over the fields."""
+    rng = np.random.default_rng(11)
+    pb, n, h, w, crop_h, bucket = 2, 5, 120, 160, 8, 64
+    bls, hs = [], []
+    for _ in range(pb):
+        g = [_line_geometry(k, rng, h, w) for k in ("straight", "tilted", "off_page",
+                                                    "curved", "padded")]
+        bls.append(np.stack([b for b, _ in g]))
+        hs.append(np.stack([x for _, x in g]))
+    bl = torch.from_numpy(np.stack(bls).astype(np.float32))
+    hh = torch.from_numpy(np.stack(hs).astype(np.float32))
+    pages = torch.zeros((pb, h, w), dtype=torch.uint8)
+    fields = warp.build_fields(bl.reshape(-1, 16, 2), hh.reshape(-1, 2), crop_h, bucket)
+    f = fields.reshape(pb, n, crop_h, bucket, 2).numpy()
+    touched = set()
+    for i, line, r, j in zip(*np.nonzero(f[..., 0] > warp.OFF_PAGE / 2)):
+        x0, y0 = (int(np.floor(c)) for c in f[i, line, r, j])
+        for y in (y0, y0 + 1):
+            for x in (x0, x0 + 1):
+                if 0 <= y < h and 0 <= x < w:
+                    touched.add((i, y, x))
+    geometry = bl.numel() * 4 + hh.numel() * 4
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        want = len(touched) + geometry + pb * n * crop_h * bucket * size
+        assert warp.warp_lines_bytes(pages, bl, hh, crop_h, bucket, dtype) == want
+        assert warp.warp_lines_bytes(pages, bl, hh, crop_h, bucket, dtype, fields) == want
+    assert 0 < len(touched) < pb * h * w
 
 
 def test_warp_lines_validates_cuda_inputs():
