@@ -7,15 +7,26 @@ Phases (each raises on failure, so the run exits non-zero):
 1. Environment: the card's name and power limit (nvidia-smi).
 2. Build: every ``pero_ocr_tpu_torch/csrc/*.cu`` with nvcc, in parallel.
 3. Kernel check: each kernel against its plain PyTorch version on the
-   card at the main path's shapes, and its time beside the plain
-   version's, one PyTorch library call's and the memory/compute bound.
+   card on random pages with mixed lines (straight, curved, tilted,
+   off-page, padded), and its time beside the plain version's, one
+   PyTorch library call's and the memory/compute bound.
 4. Reference check: a small float32 pipeline on the card against the
-   same pipeline on the CPU (labels equal, confidences close).
-5. Main path: ``TorchPagePipeline`` (page transport) at the bench widths
-   with seeded random weights on 2560x1792 pages, with a lines override
-   and with CNN detection; kernel launch counts are read around it, the
-   crops that reach the recognizer are checked (bfloat16 in [0, 1]), and
-   stage B's device time is taken with CUDA events.
+   same pipeline on the CPU (labels equal, confidences close, the same
+   Page XML).
+5. Page transport: ``TorchPagePipeline`` at the bench widths with seeded
+   random weights on 2560x1792 pages, with a lines override and with
+   CNN detection; kernel launch counts are read around it, the crops
+   that reach the recognizer are checked (bfloat16 in [0, 1]), and stage
+   B's device time is taken with CUDA events.
+6. Main path (config 2, page image to Page XML bytes):
+   ``FastPagePipeline.process_pages`` on 16 two-column pages of 80 lines
+   with CNN detection and paragraph clustering; every page's Page XML is
+   serialized inside the timed window, parsed back with ``xml.etree``
+   and checked (two regions or more, every line in one region); kernel
+   launch counts are read around it.  Then each kernel is held against
+   its plain version, and timed, again on the last batch's inputs at
+   the main path's shapes; the ``kernels`` line reports these numbers
+   (the mixed-line ones under ``mixed_lines_*``).
 
 Kernel times are taken warm (inputs in L2 from the run before) and
 cold (a 128 MB scratch write before each timed run), since stage B finds
@@ -28,15 +39,18 @@ with the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+import xml.etree.ElementTree as ET
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
+from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble_page_layout
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
 from pero_ocr_tpu_torch.ops import warp as warp_ops
@@ -72,6 +86,15 @@ SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's clock
 # The hand-set edge detector finds at least this share of the synthetic
 # lines on the CPU at this page size (measured: see line_recall).
 MIN_LINE_RECALL = 0.9
+# Text columns (x0 range, x1 - x0 range) of the page-transport pages
+# and of the config-2 pages: two columns with 158 px or more between
+# their ink (glyphs run up to 21 px past x1), as the bench's two-column
+# layout.
+ONE_COLUMN = (((60, 200), (600, 1500)),)
+TWO_COLUMNS = (((60, 120), (500, 700)), ((1000, 1040), (500, 700)))
+# The bench recognizer's 80 classes as text, CTC blank (U+200B) last.
+BENCH_CHARS = [chr(0x21 + i) for i in range(79)] + ["\u200b"]
+PAGE_NS = "{http://schema.primaresearch.org/PAGE/gts/pagecontent/2019-07-15}"
 
 
 def log(msg: str) -> None:
@@ -148,25 +171,27 @@ def line_mix(rng, n: int, h: int, w: int):
     return bls, hs
 
 
-def synthetic_pages(rng, n: int):
-    """n BGR text-like pages and their 40 text-line geometries each."""
+def synthetic_pages(rng, n: int, columns=ONE_COLUMN):
+    """n BGR text-like pages and their text-line geometries: 40 lines in
+    each of ``columns``."""
     pages, lines = [], []
     ys = np.linspace(90, PAGE_H - 70, LINES_PER_PAGE)
     for _ in range(n):
         gray = rng.normal(238, 6, (PAGE_H, PAGE_W)).clip(0, 255).astype(np.uint8)
         b_list, h_list = [], []
-        for y in ys.astype(int):
-            x0 = int(rng.integers(60, 200))
-            x1 = int(x0 + rng.integers(600, 1500))
-            x = x0
-            while x < x1:
-                gw = int(rng.integers(6, 22))
-                top = y - int(rng.integers(12, 24))
-                bottom = y + (int(rng.integers(3, 8)) if rng.random() < 0.2 else 0)
-                gray[top:bottom, x:x + gw] = rng.integers(20, 90)
-                x += gw + int(rng.integers(3, 12))
-            b_list.append(np.array([[x0, y], [x1, y]], float))
-            h_list.append([24.0, 8.0])
+        for (x0_lo, x0_hi), (len_lo, len_hi) in columns:
+            for y in ys.astype(int):
+                x0 = int(rng.integers(x0_lo, x0_hi))
+                x1 = int(x0 + rng.integers(len_lo, len_hi))
+                x = x0
+                while x < x1:
+                    gw = int(rng.integers(6, 22))
+                    top = y - int(rng.integers(12, 24))
+                    bottom = y + (int(rng.integers(3, 8)) if rng.random() < 0.2 else 0)
+                    gray[top:bottom, x:x + gw] = rng.integers(20, 90)
+                    x += gw + int(rng.integers(3, 12))
+                b_list.append(np.array([[x0, y], [x1, y]], float))
+                h_list.append([24.0, 8.0])
         pages.append(np.repeat(gray[:, :, None], 3, axis=2))
         lines.append((b_list, h_list))
     return pages, lines
@@ -180,7 +205,9 @@ def recognizer_input(crops: torch.Tensor) -> torch.Tensor:
     return crops[..., None].expand(-1, -1, -1, 3).permute(0, 3, 1, 2).to(torch.bfloat16)
 
 
-def check_warp(rng):
+def mixed_line_args(rng):
+    """The warp's arguments on 8 random pages with LINES_PER_PAGE mixed
+    lines each (line_mix), 40 slots a page as in the override run."""
     dev = torch.device("cuda")
     pages = torch.from_numpy(
         rng.integers(0, 256, (PAGE_BATCH, PAGE_H, PAGE_W), dtype=np.uint8)
@@ -188,33 +215,44 @@ def check_warp(rng):
     geo = [line_mix(rng, LINES_PER_PAGE, PAGE_H, PAGE_W) for _ in range(PAGE_BATCH)]
     bl = torch.from_numpy(np.stack([g[0] for g in geo])).to(dev)
     hh = torch.from_numpy(np.stack([g[1] for g in geo])).to(dev)
-    args = (pages, bl, hh, CROP_H, BUCKET)
+    return pages, bl, hh, CROP_H, BUCKET
 
+
+def check_warp(args, label: str):
+    """The warp kernel on ``args`` (pages, baselines, heights, crop_h,
+    bucket): each of WARP_MODES against its plain version, bit for bit
+    (one validity-boundary column a line excepted); then its time, warm
+    and cold, beside the plain version's, one library call's
+    (``F.grid_sample`` on the precomputed fields) and its bound."""
+    pages, bl, hh = args[:3]
+    pb, n_slot, n_points = bl.shape[:3]
+    page_h, page_w = pages.shape[1:]
     max_abs = 0.0
     for mode, (dtype, normalize) in WARP_MODES.items():
         got = warp_ops.warp_lines(*args, dtype, normalize)
         want = warp_ops.warp_lines_plain(*args, dtype, normalize)
         torch.cuda.synchronize()
         if got.dtype != dtype or got.shape != want.shape:
-            raise AssertionError(f"warp_lines {mode}: {got.dtype} {tuple(got.shape)}")
+            raise AssertionError(f"warp_lines {label} {mode}: {got.dtype} {tuple(got.shape)}")
         # In gray levels whatever the store.
         diff = (got.float() - want.float()).abs() * (255.0 if normalize else 1.0)
         int_t = torch.int16 if dtype == torch.bfloat16 else torch.int32
         bad = got.view(int_t) != want.view(int_t)
         bad_cols = bad.any(dim=1).sum(dim=1)  # per line
         max_abs = max(max_abs, float(diff.max()))
-        log(f"warp_lines {mode}: max |kernel - plain| = {float(diff.max()):.6g} gray "
-            f"levels, {int(bad.sum())} values not bit-equal, in "
+        log(f"warp_lines {label} {mode}, {pb} pages x {n_slot} slots: max |kernel - plain| = "
+            f"{float(diff.max()):.6g} gray levels, {int(bad.sum())} values not bit-equal, in "
             f"{int((bad_cols > 0).sum())} lines (at most 1 column each allowed)")
         if int(bad_cols.max()) > 1:
-            raise AssertionError(f"warp kernel {mode} disagrees with its plain version")
+            raise AssertionError(f"warp kernel {label} {mode} disagrees with its plain version")
+        del got, want, diff, bad
 
     fields = warp_ops.build_fields(
-        bl.reshape(-1, POINTS, 2), hh.reshape(-1, 2), CROP_H, BUCKET
+        bl.reshape(-1, n_points, 2), hh.reshape(-1, 2), CROP_H, BUCKET
     )
     valid_cols = int((fields[:, 0, :, 0] > warp_ops.OFF_PAGE / 2).sum())
-    scale = torch.tensor([2.0 / (PAGE_W - 1), 2.0 / (PAGE_H - 1)], device=dev)
-    grid = (fields * scale - 1.0).reshape(PAGE_BATCH, LINES_PER_PAGE * CROP_H, BUCKET, 2)
+    scale = torch.tensor([2.0 / (page_w - 1), 2.0 / (page_h - 1)], device=pages.device)
+    grid = (fields * scale - 1.0).reshape(pb, n_slot * CROP_H, BUCKET, 2)
     page_f = pages[:, None].float()
 
     def library():
@@ -225,7 +263,7 @@ def check_warp(rng):
         nbytes = warp_ops.warp_lines_bytes(*args, dtype, fields)
         ops = valid_cols * (CROP_H * (WARP_OPS_PER_PIXEL + normalize) + WARP_OPS_PER_COLUMN)
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
-        log(f"warp_lines {dtype}: bound {bytes_ms:.4f} ms by {nbytes} bytes, "
+        log(f"warp_lines {label} {dtype}: bound {bytes_ms:.4f} ms by {nbytes} bytes, "
             f"{ops_ms:.4f} ms by {ops} ops")
         return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes
 
@@ -248,27 +286,25 @@ def check_warp(rng):
     for name, fn in (("f32", f32), ("bf16", bf16), ("library", library),
                      ("chain_old", chain_old), ("chain_new", chain_new)):
         t[name] = (cuda_ms(fn), cuda_ms(fn, cold=True))
-        log(f"{name}: {t[name][0]:.4f} ms warm, {t[name][1]:.4f} ms cold")
+        log(f"{label} {name}: {t[name][0]:.4f} ms warm, {t[name][1]:.4f} ms cold")
     plain_ms = cuda_ms(lambda: warp_ops.warp_lines_plain(*args, torch.bfloat16, True),
                        reps=5, warmup=1, ahead=False)
     bound_f32, _, _ = bound(torch.float32, False)
     bound_bf16, bound_by, nbytes = bound(torch.bfloat16, True)
     page_bytes = nbytes - 4 * (bl.numel() + hh.numel()) - 2 * fields[..., 0].numel()
-    log(f"warp_lines: the taps touch {page_bytes} of {pages.numel()} page bytes "
+    log(f"warp_lines {label}: the taps touch {page_bytes} of {pages.numel()} page bytes "
         f"({page_bytes / pages.numel():.4f}), {valid_cols} valid columns")
-    log(f"warp_lines: bf16 normalized {t['bf16'][0]:.4f} ms warm "
+    log(f"warp_lines {label}: bf16 normalized {t['bf16'][0]:.4f} ms warm "
         f"({bound_bf16 / t['bf16'][0]:.3f} of its bound), {t['bf16'][1]:.4f} ms cold; "
         f"f32 {t['f32'][0]:.4f} ms warm ({bound_f32 / t['f32'][0]:.3f} of its bound), "
         f"{t['f32'][1]:.4f} ms cold; plain {plain_ms:.4f} ms; F.grid_sample on "
         f"precomputed fields {t['library'][0]:.4f} ms warm, {t['library'][1]:.4f} ms cold")
     return {
-        "name": "warp_lines", "route": "cuda",
-        "source": "pero_ocr_tpu_torch/csrc/warp_lines.cu",
-        "replaces": "pero_ocr_tpu/ops/warp.py:188",
-        "launches": None, "max_abs_err": max_abs,
+        "max_abs_err": max_abs,
         "ms": t["bf16"][0], "plain_ms": plain_ms,
         "bound_ms": bound_bf16, "bound_by": bound_by,
         "library_ms": t["library"][0],
+        "pages": pb, "slots": n_slot, "valid_columns": valid_cols,
         "ms_warm": t["bf16"][0], "ms_cold": t["bf16"][1],
         "library_ms_cold": t["library"][1],
         "f32_ms_warm": t["f32"][0], "f32_ms_cold": t["f32"][1], "f32_bound_ms": bound_f32,
@@ -299,6 +335,7 @@ def check_against_cpu(rng):
                                  line_slot=8, device=device)
         results[device] = list(pipe.run(pages, lines_override=override, page_batch=2))
     torch.backends.cudnn.allow_tf32 = True
+    chars = BENCH_CHARS[:11] + BENCH_CHARS[-1:]  # 12 classes, blank last
     for a, b in zip(results["cpu"], results["cuda"]):
         if not (np.array_equal(a.labels, b.labels)
                 and np.array_equal(a.label_lengths, b.label_lengths)):
@@ -306,7 +343,23 @@ def check_against_cpu(rng):
         err = float(np.abs(a.confidences - b.confidences).max())
         if err > 1e-3:
             raise AssertionError(f"page {a.page_index}: confidences differ by {err}")
-    log("reference check: card pipeline labels equal the CPU pipeline's (f32)")
+        xml_cpu, xml_card = (
+            assemble_page_layout(r, f"p{r.page_index}", (384, 512), chars).to_pagexml_string()
+            for r in (a, b)
+        )
+        # Equal apart from the timestamps; a conf="0.xxx" attribute may
+        # round the (<= 1e-3 apart) confidences to neighbouring values.
+        conf_re = re.compile(r'conf="([0-9.]+)"')
+        confs = [[float(c) for c in conf_re.findall(x)] for x in (xml_cpu, xml_card)]
+        if (mask_pagexml(conf_re.sub("conf", xml_cpu)) != mask_pagexml(conf_re.sub("conf", xml_card))
+                or np.abs(np.subtract(*confs)).max(initial=0) > 0.0015):
+            raise AssertionError(f"page {a.page_index}: card Page XML differs from CPU")
+    log("reference check: card pipeline labels and Page XML equal the CPU pipeline's (f32)")
+
+
+def mask_pagexml(xml: str) -> str:
+    """Page XML with its Created and LastChange timestamps blanked."""
+    return re.sub(r"<(Created|LastChange)>[^<]*</\1>", r"<\1/>", xml)
 
 
 def edge_detector_(pn: ParseNet) -> None:
@@ -344,12 +397,13 @@ def edge_detector_(pn: ParseNet) -> None:
         pn.out.bias.copy_(torch.tensor([12.0, 4.0, -4.0, -6.0, -6.0]))
 
 
-def line_recall(results, lines, tol_px: float = 16.0) -> float:
+def line_recall(detected, lines, tol_px: float = 16.0) -> float:
     """Share of the synthetic lines that a detected baseline matches:
-    mean y within ``tol_px`` and x spans overlapping."""
+    mean y within ``tol_px`` and x spans overlapping.  ``detected``: the
+    detected baselines of each page."""
     found = total = 0
-    for r, (true_b, _) in zip(results, lines):
-        det = [(float(b[:, 1].mean()), b[0, 0], b[-1, 0]) for b in r.baselines]
+    for baselines, (true_b, _) in zip(detected, lines):
+        det = [(float(b[:, 1].mean()), b[0, 0], b[-1, 0]) for b in baselines]
         for tb in true_b:
             total += 1
             found += any(abs(y - tb[0, 1]) <= tol_px and x0 < tb[1, 0] and x1 > tb[0, 0]
@@ -357,17 +411,23 @@ def line_recall(results, lines, tol_px: float = 16.0) -> float:
     return found / total
 
 
-def run_main_path(rng):
+def bench_pipeline() -> TorchPagePipeline:
+    """The page pipeline at bench widths on the card: ParseNet with the
+    hand-set edge detector, the recognizer with seeded random weights."""
     pn = ParseNet(base_features=32, depth=4, stem="s2d", out_upsample=2)
     edge_detector_(pn)
     rec = CTCRecognizer(RecognizerSpec(
         num_classes=80, line_height=32, conv_features=(48, 96, 192, 384),
         subsampling=4, lstm_layers=2, lstm_features=256, stem="s2d", norm="group",
     ), generator=torch.Generator().manual_seed(1))
-    pipe = TorchPagePipeline(
+    return TorchPagePipeline(
         pn, rec, downsample=4, crop_bucket=BUCKET, crop_height=CROP_H,
         line_slot=LINES_PER_PAGE, adaptive_downsample=True, device="cuda",
     )
+
+
+def run_main_path(rng):
+    pipe = bench_pipeline()
     n_pages = 2 * PAGE_BATCH
     pages, lines = synthetic_pages(rng, n_pages)
 
@@ -381,7 +441,7 @@ def run_main_path(rng):
     # (the span from its first to its last device op, which also holds
     # whatever the worker thread queued in between), and the crops that
     # reach the recognizer.
-    spans, crops_seen, last_b = [], [], []
+    spans, slots, crops_seen, last_b = [], [], [], []
     stage_b, stage_b_recognize = pipe.stage_b, pipe.stage_b_recognize
 
     def timed_stage_b(*b_args):
@@ -390,6 +450,7 @@ def run_main_path(rng):
         out = stage_b(*b_args)
         end.record()
         spans.append((start, end))
+        slots.append(b_args[1].shape[1])
         last_b[:] = [b_args]
         return out
 
@@ -404,6 +465,7 @@ def run_main_path(rng):
     drive(None, PAGE_BATCH)
     timing.reset_timing()
     spans.clear()
+    slots.clear()
     crops_seen.clear()
 
     warp_ops.warp_lines.launches = 0
@@ -428,7 +490,7 @@ def run_main_path(rng):
         log(f"main path ({name}): {n_pages} pages, {n_lines} lines, "
             f"{n_pages / seconds:.3f} pages/s ({seconds:.3f} s)")
     log(f"adaptive downsample settled at ds {pipe._last_ds}")
-    recall = line_recall(runs["cnn"][0], lines)
+    recall = line_recall([r.baselines for r in runs["cnn"][0]], lines)
     log(f"cnn detection: {recall:.3f} of the synthetic lines found")
     if recall < MIN_LINE_RECALL:
         raise AssertionError(f"cnn detection found {recall:.3f} < {MIN_LINE_RECALL} of the lines")
@@ -445,6 +507,7 @@ def run_main_path(rng):
         raise AssertionError("stage-B crops seen != stage-B batches")
     log(f"stage-B crops: bfloat16 in [0, 1] in all {len(crops_seen)} batches")
     span_ms = [s.elapsed_time(e) for s, e in spans]
+    run_slots = list(slots)  # the runs' batches, before the timing below adds calls
     # One stage-B batch alone, on the last batch's inputs, with the host
     # queued ahead of the device (cuda_ms): the device time of warp +
     # recognizer + CTC, which the host stage timer cannot see.
@@ -452,11 +515,95 @@ def run_main_path(rng):
     device = float(np.median([cuda_ms(lambda: pipe.stage_b(*last_b[0]), reps=1, warmup=1)
                               for _ in range(5)]))
     log(f"stage B per batch: device span on the main path {np.median(span_ms):.4f} ms "
-        f"(median of {len(span_ms)}: {', '.join(f'{m:.3f}' for m in span_ms)}); "
-        f"device time alone {device:.4f} ms")
-    log("stage times (both main-path runs):\n" + timing.timing_report())
-    return launches, {"stage_b_span_ms": float(np.median(span_ms)),
-                      "stage_b_device_ms": device}
+        f"(median of {len(span_ms)}: {', '.join(f'{m:.3f}' for m in span_ms)}; line slots "
+        f"a page: {run_slots}); device time alone {device:.4f} ms on the last batch "
+        f"({last_b[0][1].shape[1]} slots a page)")
+    log("stage times (both page-transport runs):\n" + timing.timing_report())
+    pipe.stage_b, pipe.stage_b_recognize = stage_b, stage_b_recognize
+    return pipe, launches, {"stage_b_span_ms": float(np.median(span_ms)),
+                            "stage_b_device_ms": device,
+                            "stage_b_slots": [int(n) for n in run_slots]}
+
+
+def run_config2(pipe, rng, smi: str):
+    """Config 2's semantics on the card: page images -> CNN detection ->
+    CC parse -> paragraph clustering -> warp + recognition -> PageLayout
+    with alpha-shape regions -> Page XML bytes, through
+    ``FastPagePipeline.process_pages`` (assembly on its consumer thread,
+    the XML serialized as each page arrives, inside the timed window).
+    Returns the warp's launches, the run's numbers and the last stage-B
+    batch's warp arguments (the main path's shapes)."""
+    n_pages = 2 * PAGE_BATCH
+    pages, lines = synthetic_pages(rng, n_pages, TWO_COLUMNS)
+    ids = [f"p{i:04d}" for i in range(n_pages)]
+    fast = FastPagePipeline(pipe, BENCH_CHARS, page_batch=PAGE_BATCH)
+    last_b, slots = [], []
+    stage_b = pipe.stage_b
+
+    def kept_stage_b(*b_args):
+        last_b[:] = [b_args]
+        slots.append(b_args[1].shape[1])
+        return stage_b(*b_args)
+
+    pipe.stage_b = kept_stage_b
+
+    def drive(n):
+        out = []
+        t0 = time.perf_counter()
+        for layout in fast.process_pages(pages[:n], ids[:n]):
+            with timing.stage_timer("document/pagexml"):
+                out.append((layout, layout.to_pagexml_string()))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    drive(PAGE_BATCH)  # warm-up at the two-column shapes
+    timing.reset_timing()
+    slots.clear()
+    warp_ops.warp_lines.launches = 0
+    out, seconds = drive(n_pages)
+    launches = warp_ops.warp_lines.launches
+
+    if [layout.id for layout, _ in out] != ids:
+        raise AssertionError("config 2: layouts out of page order")
+    n_lines = n_regions = n_bytes = 0
+    batches_with_lines = set()
+    for i, (layout, xml) in enumerate(out):
+        root = ET.fromstring(xml.encode("utf-8"))
+        regions = root.findall(f"{PAGE_NS}Page/{PAGE_NS}TextRegion")
+        in_xml = sum(len(r.findall(f"{PAGE_NS}TextLine")) for r in regions)
+        indices = sorted(line.index for line in layout.lines_iterator())
+        if len(regions) < 2:
+            raise AssertionError(f"config 2: page {i} has {len(regions)} regions, want >= 2")
+        if indices != list(range(len(indices))) or in_xml != len(indices):
+            raise AssertionError(f"config 2: page {i}: a line is in no region or in two")
+        n_lines += len(indices)
+        n_regions += len(regions)
+        n_bytes += len(xml.encode("utf-8"))
+        if indices:
+            batches_with_lines.add(i // PAGE_BATCH)
+    recall = line_recall(
+        [[line.baseline for line in layout.lines_iterator()] for layout, _ in out], lines
+    )
+    log(f"config 2 (Page XML): {n_pages} pages, {n_lines} lines, {n_regions} regions, "
+        f"{n_bytes} XML bytes; line recall {recall:.3f}; "
+        f"{n_pages / seconds:.3f} pages/s to Page XML ({seconds:.3f} s) on {smi}")
+    if recall < MIN_LINE_RECALL:
+        raise AssertionError(f"config 2: found {recall:.3f} < {MIN_LINE_RECALL} of the lines")
+    log(f"warp_lines launches in config 2: {launches}, stage-B batches: "
+        f"{len(batches_with_lines)}, line slots a page: {slots}")
+    if launches != len(batches_with_lines) or launches == 0:
+        raise AssertionError("config 2: warp kernel launches != stage-B batches")
+    log("stage times (config 2 run):\n" + timing.timing_report())
+    pipe.stage_b = stage_b
+    # Stage B's device time alone on the last batch.
+    device = float(np.median([cuda_ms(lambda: pipe.stage_b(*last_b[0]), reps=1, warmup=1)
+                              for _ in range(5)]))
+    log(f"config 2: stage B device time alone {device:.4f} ms per batch of {PAGE_BATCH} "
+        f"pages at {last_b[0][1].shape[1]} line slots a page")
+    return launches, {"config2_pages_per_s": n_pages / seconds, "config2_lines": n_lines,
+                      "config2_regions": n_regions, "config2_stage_b_device_ms": device,
+                      "config2_stage_b_slots": [int(n) for n in slots]}, (
+        *last_b[0], pipe.crop_height, pipe.crop_bucket)
 
 
 def main() -> int:
@@ -476,10 +623,20 @@ def main() -> int:
         log(f"nvcc {name}:\n{text.strip()}")
 
     rng = np.random.default_rng(0)
-    warp = check_warp(rng)
+    mixed = check_warp(mixed_line_args(rng), "mixed lines")
     check_against_cpu(rng)
-    warp["launches"], stage_b = run_main_path(rng)
-    warp.update(stage_b)
+    pipe, launches_page_transport, stage_b = run_main_path(rng)
+    launches, config2, main_args = run_config2(pipe, rng, smi)
+    # The kernel against its plain version, and its times, at the main
+    # path's shapes: the last config-2 batch's pages and detected lines.
+    warp = {
+        "name": "warp_lines", "route": "cuda",
+        "source": "pero_ocr_tpu_torch/csrc/warp_lines.cu",
+        "replaces": "pero_ocr_tpu/ops/warp.py:188",
+        "launches": launches, **check_warp(main_args, "config 2"),
+        "launches_page_transport": launches_page_transport, **stage_b, **config2,
+        **{f"mixed_lines_{k}": v for k, v in mixed.items()},
+    }
 
     print(smi)
     print(json.dumps({"kernels": [warp]}))

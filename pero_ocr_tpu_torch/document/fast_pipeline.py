@@ -1,0 +1,149 @@
+"""Fast-path adapter (from pero_ocr_tpu/document/fast_pipeline.py): drive
+:class:`~pero_ocr_tpu_torch.parallel.pipeline.TorchPagePipeline` and emit
+``PageLayout`` results, which serialize to Page XML.
+
+Lines group into one region per paragraph cluster, each with an
+alpha-shape outline simplified by Douglas-Peucker (tolerance 5), as the
+layout engine draws them; a page without clusters (clustering off)
+becomes one whole-page region.
+
+Not ported yet (each raises ``ValueError`` naming its ROADMAP item):
+building from a ``PageParser`` (``from_page_parser``), line crops,
+logits, re-OCR of existing layouts and ``prime``.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator, List, Sequence
+
+import numpy as np
+
+from pero_ocr_tpu_torch.core import geometry
+from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
+from pero_ocr_tpu_torch.layout_engines import helpers
+from pero_ocr_tpu_torch.parallel.pipeline import _not_ported
+from pero_ocr_tpu_torch.utils.timing import stage_timer
+
+
+def assemble_page_layout(result, page_id, page_size, characters) -> PageLayout:
+    """Build the full PageLayout for one :class:`PageResult`: TextLines
+    (outline polygons, transcriptions, confidences) grouped into one
+    region per paragraph cluster with alpha-shape region outlines.
+    ``characters``: the CTC charset; labels outside it are dropped."""
+    h, w = page_size
+    layout = PageLayout(id=page_id, page_size=page_size)
+    n_emit = len(characters)
+
+    # The clustering already built the outlines; reuse them.
+    textlines = result.textlines
+    if textlines is None and result.baselines:
+        textlines = helpers.baselines_to_textlines(result.baselines, result.heights)
+
+    lines = []
+    for i, (baseline, heights) in enumerate(zip(result.baselines, result.heights)):
+        line = TextLine(
+            index=i,
+            baseline=np.asarray(baseline),
+            heights=list(heights),
+            polygon=textlines[i],
+        )
+        if result.labels is not None and i < result.labels.shape[0]:
+            n = int(result.label_lengths[i])
+            lab = result.labels[i, :n]
+            lab = lab[(lab >= 0) & (lab < n_emit)]
+            line.transcription = "".join(map(characters.__getitem__, lab.tolist()))
+            if result.confidences is not None:
+                line.transcription_confidence = float(result.confidences[i])
+        else:
+            line.transcription = ""
+        lines.append(line)
+
+    # One region per paragraph cluster; whole-page region when
+    # clustering is off.
+    clusters = result.clusters
+    if clusters is None:
+        clusters = [0] * len(lines)
+    n_regions = (max(clusters) + 1) if clusters else 1
+    for r in range(n_regions):
+        members = [ln for ln, c in zip(lines, clusters) if c == r]
+        if not members and n_regions > 1:
+            continue
+        if members:
+            try:
+                poly = helpers.region_from_textlines([ln.polygon for ln in members])
+                poly = geometry.simplify_polygon(poly, 5)
+                if len(poly) < 3:
+                    raise ValueError("degenerate region")
+            except (ValueError, IndexError):
+                # A degenerate outline: the members' bounding box.
+                pts = np.concatenate([ln.polygon for ln in members])
+                x0, y0 = pts.min(axis=0)
+                x1, y1 = pts.max(axis=0)
+                poly = np.asarray([[x0, y0], [x1, y0], [x1, y1], [x0, y1]])
+        else:
+            poly = np.asarray([[0, 0], [w, 0], [w, h], [0, h]])
+        region = RegionLayout(f"r{r + 1}", poly)
+        for j, ln in enumerate(members):
+            ln.id = f"r{r + 1}-l{j + 1:03d}"
+            region.lines.append(ln)
+        layout.regions.append(region)
+    return layout
+
+
+class FastPagePipeline:
+    """Page images -> ``PageLayout``s over a built
+    :class:`~pero_ocr_tpu_torch.parallel.pipeline.TorchPagePipeline`."""
+
+    def __init__(self, pipeline, characters: Sequence[str], page_batch: int = 4,
+                 want_logits: bool = False, want_crops: bool = False,
+                 reocr: bool = False):
+        """``pipeline``: a TorchPagePipeline; ``characters``: the
+        recognizer's charset (CTC blank last), which maps labels to
+        text."""
+        if want_crops:
+            raise _not_ported("want_crops", "Crop transport")
+        if want_logits:
+            raise _not_ported("want_logits", "Logits, forced alignment and ALTO (config 5)")
+        if reocr:
+            raise _not_ported("reocr", "Crop transport")
+        self.pipeline = pipeline
+        self.characters = list(characters)
+        self.page_batch = page_batch
+
+    @classmethod
+    def from_page_parser(cls, page_parser, **kwargs):
+        raise _not_ported("FastPagePipeline.from_page_parser", "Stage-by-stage path")
+
+    def prime(self, first_pages) -> None:
+        raise _not_ported("prime()", "Crop transport")
+
+    def process_existing_layouts(self, pages, layouts):
+        raise _not_ported("process_existing_layouts", "Crop transport")
+
+    def _consume_result(self, result, pages, page_ids) -> PageLayout:
+        page = pages[result.page_index]
+        with stage_timer("document/assemble"):
+            return assemble_page_layout(
+                result, page_ids[result.page_index], (page.shape[0], page.shape[1]),
+                self.characters,
+            )
+
+    def process_pages(self, pages: Iterable[np.ndarray], page_ids: List[str]
+                      ) -> Iterator[PageLayout]:
+        """Stream assembled PageLayouts in page order.
+
+        Assembly and outline geometry run in ONE worker thread,
+        overlapped with the pipeline's device waits; a bounded pending
+        window keeps the stream lazy (memory stays O(page_batch))."""
+        pages = list(pages)
+        window = max(2 * self.page_batch, 4)
+        pending: deque = deque()
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            for result in self.pipeline.run(pages, page_batch=self.page_batch):
+                pending.append(pool.submit(self._consume_result, result, pages, page_ids))
+                while len(pending) > window:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()

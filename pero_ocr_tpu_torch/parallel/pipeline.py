@@ -11,7 +11,8 @@ per byte, ``transport_bits=4``) feeds everything:
 - **Host**: the (5, 3) connection dilation, 8-connected components and
   per-component baselines and median heights (``_lines_from_masks``);
   the adaptive downsample may re-run stage A at a corrected scale on the
-  pages already on the device.
+  pages already on the device; textline outlines and paragraph
+  clustering on the pooled separator map (``_cluster_lines``).
 - **Stage B** (device): the line-crop warp (the hand-written CUDA
   kernel of :mod:`pero_ocr_tpu_torch.ops.warp`, which stores the crops
   divided by 255 in the recognizer's dtype) -> ``CTCRecognizer`` ->
@@ -25,8 +26,8 @@ JAX page transport does.
 
 Not ported yet (each raises ``ValueError`` naming its ROADMAP item): the
 crop transport, ``want_logits``, the device mesh, transformer
-recognizers and ``prime``.  Paragraph clustering is not ported either;
-:class:`PageResult` carries no clusters.
+recognizers and ``prime``.  :mod:`pero_ocr_tpu_torch.document.fast_pipeline`
+turns the :class:`PageResult` stream into Page XML.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ import torch.nn.functional as F
 
 from pero_ocr_tpu_torch import resolve_device
 from pero_ocr_tpu_torch.core import line_geometry
-from pero_ocr_tpu_torch.layout_engines.cnn_engine import postprocess_maps
+from pero_ocr_tpu_torch.layout_engines import helpers
+from pero_ocr_tpu_torch.layout_engines.cnn_engine import ParagraphClusterer, postprocess_maps
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer
 from pero_ocr_tpu_torch.ops import ctc as ctc_ops
 from pero_ocr_tpu_torch.ops.morphology import connected_components
@@ -57,7 +59,12 @@ class PageResult:
     labels: Optional[np.ndarray]      # (N, T) packed label ids, -1 padded
     label_lengths: Optional[np.ndarray]
     crops_width: Optional[np.ndarray]
+    clusters: Optional[List[int]] = None   # paragraph id per line
     confidences: Optional[np.ndarray] = None  # (N,) worst-run prob per line
+    # Textline outline polygons (one per line), built for the clustering
+    # and reused by the layout assembly.  None when clustering is off
+    # or the lines came from an override.
+    textlines: Optional[List[np.ndarray]] = None
 
 
 def _not_ported(what: str, item: str) -> ValueError:
@@ -96,6 +103,8 @@ class TorchPagePipeline:
         transport_bits: int = 8,
         transport: str = "page",
         adaptive_downsample: bool = False,
+        cluster_paragraphs: bool = True,
+        paragraph_line_threshold: float = 0.3,
         want_logits: bool = False,
         mesh=None,
         device=None,
@@ -132,6 +141,8 @@ class TorchPagePipeline:
         self.crop_bucket = crop_bucket
         self.max_lines = max_lines
         self.line_slot = line_slot if max_lines is None else min(line_slot, max_lines)
+        self.cluster_paragraphs = cluster_paragraphs
+        self._clusterer = ParagraphClusterer(paragraph_line_threshold)
 
     def prime(self, pages, page_batch: int = 8) -> None:
         raise _not_ported("prime()", "Crop transport")
@@ -262,7 +273,9 @@ class TorchPagePipeline:
     def _unpack_stage_a(self, packed, heights_q, sep_q):
         """Host side of the stage-A artifacts: mask bits -> mask, the
         (5, 3) connection dilation (a max filter with zero border),
-        pooled heights/separator repeated back to map resolution."""
+        pooled heights repeated back to map resolution.  The separator
+        stays at its pooled resolution (the clustering indexes it with
+        its pool factor, the mask's rows over its rows)."""
         from scipy import ndimage
 
         baselines_masks = np.stack(
@@ -278,12 +291,10 @@ class TorchPagePipeline:
         heights_maps = (
             heights_q.astype(np.float32) / 4.0
         ).repeat(hf, axis=1).repeat(hf, axis=2)
-        sf = packed.shape[1] // sep_q.shape[1]
         sep_nib = np.stack([sep_q >> 4, sep_q & 0xF], axis=-1).reshape(
             sep_q.shape[0], sep_q.shape[1], sep_q.shape[2] * 2
         )
-        sep_maps = (sep_nib.astype(np.float32) / 15.0).repeat(sf, axis=1).repeat(sf, axis=2)
-        return baselines_masks, connecteds, heights_maps, sep_maps
+        return baselines_masks, connecteds, heights_maps, sep_nib.astype(np.float32) / 15.0
 
     def _adapt_target_ds(self, masks, ds_used: int) -> Optional[int]:
         """Corrected sticky downsample for a batch, or None to keep the
@@ -361,10 +372,12 @@ class TorchPagePipeline:
         return baselines, heights, widths[:n]
 
     def _batch_lines(self, pages, ids, lines_override, masks, ds=None):
-        """Per-page (baselines, heights) for one batch and the padded
-        slot count: the densest page rounded up to a line_slot
-        multiple."""
-        baselines_masks, connecteds, heights_maps, _ = masks
+        """Per-page (baselines, heights, clusters, textlines) for one
+        batch and the padded slot count: the densest page rounded up to a
+        line_slot multiple.  Paragraph clustering belongs to the CNN
+        layout parse: override lines get (None, None)."""
+        baselines_masks, connecteds, heights_maps, sep_pooled = masks
+        sep_pool = baselines_masks.shape[1] // sep_pooled.shape[1]
         page_lines = []
         for slot, i in enumerate(ids):
             if lines_override is None:
@@ -379,10 +392,30 @@ class TorchPagePipeline:
             if self.max_lines is not None:
                 b_list = b_list[: self.max_lines]
                 h_list = h_list[: self.max_lines]
-            page_lines.append((b_list, h_list))
-        max_n = max(len(b) for b, _ in page_lines)
+            clusters, t_list = (
+                self._cluster_lines(b_list, h_list, sep_pooled[slot], ds, sep_pool)
+                if lines_override is None else (None, None)
+            )
+            page_lines.append((b_list, h_list, clusters, t_list))
+        max_n = max(len(b) for b, _, _, _ in page_lines)
         n_slot = max(self.line_slot, -(-max_n // self.line_slot) * self.line_slot)
         return page_lines, max_n, n_slot
+
+    def _cluster_lines(self, b_list, h_list, sep_map, ds=None, sep_pool=1):
+        """Paragraph ids by the separator-penalty clustering on one
+        page's pooled separator map, and the textline outlines it builds
+        (they ride on PageResult, so the layout assembly reuses them).
+        (None, None) when clustering is off or the page has no lines."""
+        if not self.cluster_paragraphs or len(b_list) == 0:
+            return None, None
+        with stage_timer("pipeline/textlines"):
+            t_list = helpers.baselines_to_textlines(b_list, h_list)
+        with stage_timer("pipeline/make_clusters"):
+            clusters = self._clusterer.make_clusters(
+                [np.asarray(b) for b in b_list], h_list, t_list, sep_map,
+                self.downsample if ds is None else ds, sep_pool=sep_pool,
+            )
+        return list(np.asarray(clusters).tolist()), t_list
 
     # ------------------------------------------------------------------
     def run(
@@ -459,9 +492,9 @@ class TorchPagePipeline:
 
                 outs_b = None
                 if max_n == 0:
-                    geoms = [(b, h, None) for b, h in page_lines]
+                    geoms = [(b, h, None, c, t) for b, h, c, t in page_lines]
                 else:
-                    geom3 = [self._geometry(b, h, n_slot) for b, h in page_lines]
+                    geom3 = [self._geometry(b, h, n_slot) for b, h, _, _ in page_lines]
                     with stage_timer("pipeline/stage_b"):
                         pad_b = np.repeat(zeros_b, n_slot, axis=0)
                         pad_h = np.ones((n_slot, 2), np.float32)
@@ -478,7 +511,7 @@ class TorchPagePipeline:
                             torch.from_numpy(bl).to(self.device),
                             torch.from_numpy(hh).to(self.device),
                         )
-                    geoms = [(b, h, g[2]) for (b, h), g in zip(page_lines, geom3)]
+                    geoms = [(b, h, g[2], c, t) for (b, h, c, t), g in zip(page_lines, geom3)]
 
                 if inflight is not None:
                     yield from self._drain(*inflight)
@@ -491,10 +524,12 @@ class TorchPagePipeline:
         if outs_b is not None:
             with stage_timer("pipeline/labels_sync"):
                 labels, lengths, confs = (t.cpu().numpy() for t in outs_b)
-        for slot, (i, (b_list, h_list, widths)) in enumerate(zip(ids, geoms)):
+        for slot, (i, (b_list, h_list, widths, clusters, tlines)) in enumerate(zip(ids, geoms)):
             if widths is None or labels is None:
-                yield PageResult(i, b_list, h_list, None, None, None)
+                yield PageResult(i, b_list, h_list, None, None, None, clusters,
+                                 textlines=tlines)
             else:
                 yield PageResult(
-                    i, b_list, h_list, labels[slot], lengths[slot], widths, confs[slot]
+                    i, b_list, h_list, labels[slot], lengths[slot], widths, clusters,
+                    confs[slot], textlines=tlines,
                 )

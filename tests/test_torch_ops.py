@@ -132,7 +132,9 @@ def test_postprocess_maps_matches_jax():
 
 
 def test_unpack_stage_a_matches_jax():
-    """Host side of the artifacts, the (5, 3) dilation included."""
+    """Host side of the artifacts, the (5, 3) dilation included; the
+    separator stays pooled, as the JAX artifacts' ``sep_pooled``, and
+    repeats to JAX's map-resolution separator."""
     rng = np.random.default_rng(4)
     packed = rng.integers(0, 256, (2, 64, 16), dtype=np.uint8)
     packed[packed > 40] = 0  # sparse mask
@@ -141,9 +143,14 @@ def test_unpack_stage_a_matches_jax():
     frec, trec = _tiny_recognizers()
     jpipe = TPUPagePipeline(None, None, frec, None, cluster_paragraphs=False)
     tpipe = TorchPagePipeline(_FixedMapsTorch(np.zeros(1, np.float32)), trec, device="cpu")
-    for g, e in zip(tpipe._unpack_stage_a(packed, heights_q, sep_q),
-                    jpipe._unpack_stage_a(packed, heights_q, sep_q)):
+    got = tpipe._unpack_stage_a(packed, heights_q, sep_q)
+    want = jpipe._unpack_stage_a(packed, heights_q, sep_q)
+    for g, e in zip(got[:3], want[:3]):
         np.testing.assert_array_equal(g, e)
+    pooled, pool = TPUPagePipeline._StageAArtifacts(packed, heights_q, sep_q, jpipe).sep_pooled
+    np.testing.assert_array_equal(got[3], pooled)
+    assert packed.shape[1] // got[3].shape[1] == pool == 2
+    np.testing.assert_array_equal(got[3].repeat(pool, axis=1).repeat(pool, axis=2), want[3])
 
 
 # ----------------------------------------------------------------------

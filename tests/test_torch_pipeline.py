@@ -11,11 +11,15 @@ computes; stage B looks the program up at call time, so the attribute
 is set on the instance.
 
 Held to: the same number of lines per page, baselines within 1e-4 px,
-equal heights, equal labels and lengths, confidences within 1e-4.
+equal heights, equal labels and lengths, confidences within 1e-4.  To
+Page XML (JAX's ``assemble_page_layout`` and lxml writer against the
+port's ``FastPagePipeline``): the same paragraph clusters and the same
+Page XML text apart from the Created and LastChange timestamps.
 """
 
 import hashlib
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +32,10 @@ from pero_ocr_tpu.models.recognizer import (
     CTCRecognizer as FlaxRecognizer,
     RecognizerSpec as FlaxSpec,
 )
+from pero_ocr_tpu.document.fast_pipeline import assemble_page_layout as jax_assemble
 from pero_ocr_tpu.parallel.pipeline import TPUPagePipeline
+from pero_ocr_tpu.utils import native
+from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble_page_layout
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
@@ -42,6 +49,9 @@ DETECTOR = dict(base_features=8, depth=2, out_upsample=2)
 RECOGNIZER = dict(num_classes=8, line_height=16, conv_features=(4, 8),
                   subsampling=2, lstm_layers=1, lstm_features=8)
 PIPELINE = dict(downsample=4, crop_height=16, crop_bucket=256, line_slot=8)
+# The recognizer's 8 classes as text, blank last: random weights emit
+# every character that Page XML escapes.
+CHARS = ["&", "<", ">", '"', "'", "ž", "a", "\u200b"]
 
 
 def _page(shift=0, seed=0):
@@ -167,6 +177,59 @@ def test_page_pipeline_matches_jax(models, case):
         assert port._last_ds == jax_pipe._last_ds != PIPELINE["downsample"]
 
 
+def _masked(xml):
+    return re.sub(r"<(Created|LastChange)>[^<]*</\1>", r"<\1/>", xml)
+
+
+# The JAX pipeline clusters through its native library; its Python
+# fallback rounds the penalty windows differently (ROADMAP.md, section 3).
+@pytest.mark.skipif(native.get_library() is None, reason="native library unavailable")
+@pytest.mark.parametrize("case", ["cnn_8bit", "cnn_4bit", "cnn_adaptive", "override_callable"])
+def test_page_xml_matches_jax(models, case):
+    """The main path to Page XML: CNN detection, paragraph clustering,
+    recognition, alpha-shape regions, Page XML.  The override case has
+    no clusters: all its lines go into one region."""
+    (flax_pn, pn_vars, flax_rec, rec_vars), torch_models = models
+    spec = CASES[case]
+    pages = [_page(), _page(shift=8, seed=1), _page(shift=-4, seed=2)]
+    ids = [f"page-{i}" for i in range(len(pages))]
+    override = _override if spec["override"] else None
+
+    jax_pipe = TPUPagePipeline(
+        flax_pn, pn_vars, flax_rec, rec_vars, transport="page",
+        cluster_paragraphs=True, **PIPELINE, **spec["kwargs"],
+    )
+    jax_pipe._stage_b_warp = jax_pipe._stage_b_warp_gather
+    want_results = list(jax_pipe.run(pages, lines_override=override,
+                                     page_batch=spec["page_batch"]))
+    want = [jax_assemble(r, ids[r.page_index], pages[r.page_index].shape[:2], CHARS)
+            for r in want_results]
+
+    pn, rec = torch_models()
+    port = TorchPagePipeline(pn, rec, device="cpu", **PIPELINE, **spec["kwargs"])
+    if override is None:
+        got = list(FastPagePipeline(port, CHARS, page_batch=spec["page_batch"])
+                   .process_pages(pages, ids))
+    else:
+        got = [assemble_page_layout(r, ids[r.page_index], pages[r.page_index].shape[:2], CHARS)
+               for r in port.run(pages, lines_override=override,
+                                 page_batch=spec["page_batch"])]
+
+    assert [lay.id for lay in got] == ids
+    for g, w, result in zip(got, want, want_results):
+        clusters = [None] * len(result.baselines)
+        for region in g.regions:
+            for line in region.lines:
+                clusters[line.index] = int(region.id[1:]) - 1
+        if override is None:
+            assert clusters == result.clusters
+        else:
+            assert result.clusters is None and len(g.regions) == 1
+            assert len(g.regions[0].lines) == len(LINES)
+        assert _masked(g.to_pagexml_string()) == _masked(w.to_pagexml_string())
+    assert any(line.transcription for lay in got for line in lay.lines_iterator())
+
+
 def test_unported_options_raise(models):
     _, torch_models = models
     pn, rec = torch_models()
@@ -181,3 +244,16 @@ def test_unported_options_raise(models):
         TorchPagePipeline(pn, rec, device="cpu").prime([])
     with pytest.raises(ValueError, match="lines_override sequence length"):
         list(TorchPagePipeline(pn, rec, device="cpu").run([_page()], lines_override=[]))
+    pipe = TorchPagePipeline(pn, rec, device="cpu")
+    for kwargs, item in (({"want_crops": True}, "Crop transport"),
+                         ({"want_logits": True}, "Logits"),
+                         ({"reocr": True}, "Crop transport")):
+        with pytest.raises(ValueError, match=item):
+            FastPagePipeline(pipe, CHARS, **kwargs)
+    fast = FastPagePipeline(pipe, CHARS)
+    with pytest.raises(ValueError, match="Stage-by-stage path"):
+        FastPagePipeline.from_page_parser(object())
+    with pytest.raises(ValueError, match="Crop transport"):
+        fast.prime([_page()])
+    with pytest.raises(ValueError, match="Crop transport"):
+        fast.process_existing_layouts([_page()], [])
