@@ -27,23 +27,40 @@ Phases (each raises on failure, so the run exits non-zero):
    its plain version, and timed, again on the last batch's inputs at
    the main path's shapes; the ``kernels`` line reports these numbers
    (the mixed-line ones under ``mixed_lines_*``).
+7. Command line (run before that last kernel check): the config-2 pages
+   as PNG files and the bench modules as flax msgpack checkpoints, with
+   an OCR JSON and a config, through
+   ``python -m pero_ocr_tpu_torch.scripts.parse_folder`` in a
+   subprocess; its Page XML files must equal an in-process
+   ``FastPagePipeline`` with the command line's settings on the same
+   modules and pages; the warp's launches are counted in both (the
+   command line prints its count with ``--timing-report``).  Then the
+   kernel is held against its plain version, and timed, on the in-process
+   run's last batch, at the command line's shapes (page batch 4, line
+   slot 32, crop bucket 2048); the ``kernels`` line reports these under
+   ``cli_*``.
 
 Kernel times are taken warm (inputs in L2 from the run before) and
 cold (a 128 MB scratch write before each timed run), since stage B finds
 its pages after the next batch's upload.
 
-The last three lines are the card's nvidia-smi line, one JSON object
-with the kernels' numbers, and ``{"ok": true, "device": {...}}``.
+The last four lines are the command line's numbers (``{"cli": ...}``),
+the card's nvidia-smi line, one JSON object with the kernels' numbers,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import xml.etree.ElementTree as ET
+import zlib
 
 import numpy as np
 import torch
@@ -55,6 +72,7 @@ from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
 from pero_ocr_tpu_torch.ops import warp as warp_ops
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
+from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
 from pero_ocr_tpu_torch.utils import kernels, timing
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
@@ -224,7 +242,7 @@ def check_warp(args, label: str):
     (one validity-boundary column a line excepted); then its time, warm
     and cold, beside the plain version's, one library call's
     (``F.grid_sample`` on the precomputed fields) and its bound."""
-    pages, bl, hh = args[:3]
+    pages, bl, hh, crop_h, bucket = args
     pb, n_slot, n_points = bl.shape[:3]
     page_h, page_w = pages.shape[1:]
     max_abs = 0.0
@@ -248,11 +266,11 @@ def check_warp(args, label: str):
         del got, want, diff, bad
 
     fields = warp_ops.build_fields(
-        bl.reshape(-1, n_points, 2), hh.reshape(-1, 2), CROP_H, BUCKET
+        bl.reshape(-1, n_points, 2), hh.reshape(-1, 2), crop_h, bucket
     )
     valid_cols = int((fields[:, 0, :, 0] > warp_ops.OFF_PAGE / 2).sum())
     scale = torch.tensor([2.0 / (page_w - 1), 2.0 / (page_h - 1)], device=pages.device)
-    grid = (fields * scale - 1.0).reshape(pb, n_slot * CROP_H, BUCKET, 2)
+    grid = (fields * scale - 1.0).reshape(pb, n_slot * crop_h, bucket, 2)
     page_f = pages[:, None].float()
 
     def library():
@@ -261,7 +279,7 @@ def check_warp(args, label: str):
 
     def bound(dtype, normalize):
         nbytes = warp_ops.warp_lines_bytes(*args, dtype, fields)
-        ops = valid_cols * (CROP_H * (WARP_OPS_PER_PIXEL + normalize) + WARP_OPS_PER_COLUMN)
+        ops = valid_cols * (crop_h * (WARP_OPS_PER_PIXEL + normalize) + WARP_OPS_PER_COLUMN)
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
         log(f"warp_lines {label} {dtype}: bound {bytes_ms:.4f} ms by {nbytes} bytes, "
             f"{ops_ms:.4f} ms by {ops} ops")
@@ -304,7 +322,8 @@ def check_warp(args, label: str):
         "ms": t["bf16"][0], "plain_ms": plain_ms,
         "bound_ms": bound_bf16, "bound_by": bound_by,
         "library_ms": t["library"][0],
-        "pages": pb, "slots": n_slot, "valid_columns": valid_cols,
+        "pages": pb, "slots": n_slot, "crop_h": crop_h, "bucket": bucket,
+        "valid_columns": valid_cols,
         "ms_warm": t["bf16"][0], "ms_cold": t["bf16"][1],
         "library_ms_cold": t["library"][1],
         "f32_ms_warm": t["f32"][0], "f32_ms_cold": t["f32"][1], "f32_bound_ms": bound_f32,
@@ -606,6 +625,305 @@ def run_config2(pipe, rng, smi: str):
         *last_b[0], pipe.crop_height, pipe.crop_bucket)
 
 
+# ----------------------------------------------------------------------
+# The JAX package's file formats, written here: flax msgpack checkpoints
+# (the inverse of pero_ocr_tpu_torch/utils/convert.py) and PNG pages.
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _flax_conv(sd, prefix: str) -> dict:
+    k = _np(sd[f"{prefix}.weight"])
+    k = k.transpose(2, 3, 1, 0) if k.ndim == 4 else k.transpose(2, 1, 0)
+    return {"kernel": np.ascontiguousarray(k), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _flax_conv_transpose(sd, prefix: str) -> dict:
+    k = _np(sd[f"{prefix}.weight"])[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    return {"kernel": np.ascontiguousarray(k), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _flax_norm(sd, prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _flax_block(sd, prefix: str) -> dict:
+    node = {}
+    for i in (0, 1):
+        node[f"Conv_{i}"] = _flax_conv(sd, f"{prefix}.conv{i}")
+        if f"{prefix}.norm{i}.weight" in sd:
+            node[f"GroupNorm_{i}"] = _flax_norm(sd, f"{prefix}.norm{i}")
+    return node
+
+
+def flax_parsenet_variables(pn: ParseNet) -> dict:
+    """The flax variables of the JAX ParseNet that ``pn`` ports
+    (``parsenet_params_from_flax`` inverted), float32."""
+    sd = pn.state_dict()
+    n_levels, n_head = len(pn.down_blocks), len(pn.head_ups)
+    p = {}
+    for level in range(n_levels):
+        p[f"ConvBlock_{level}"] = _flax_block(sd, f"down_blocks.{level}")
+        p[f"Conv_{level}"] = _flax_conv(sd, f"down_convs.{level}")
+    p[f"ConvBlock_{n_levels}"] = _flax_block(sd, "bottleneck")
+    for level in range(n_levels):
+        p[f"ConvTranspose_{level}"] = _flax_conv_transpose(sd, f"up_convs.{level}")
+        p[f"ConvBlock_{n_levels + 1 + level}"] = _flax_block(sd, f"up_blocks.{level}")
+    for k in range(n_head):
+        p[f"ConvTranspose_{n_levels + k}"] = _flax_conv_transpose(sd, f"head_ups.{k}")
+        p[f"Conv_{n_levels + k}"] = _flax_conv(sd, f"head_convs.{k}")
+    p[f"Conv_{n_levels + n_head}"] = _flax_conv(sd, "out")
+    return {"params": p}
+
+
+def flax_recognizer_variables(rec: CTCRecognizer) -> dict:
+    """The flax variables of the JAX CTCRecognizer that ``rec`` ports
+    (``recognizer_params_from_flax`` inverted), float32.  Flax's LSTM
+    has no input bias: torch's ``bias_ih`` is added into the hidden bias
+    (exact when it is zero, as in a model loaded from flax)."""
+    sd = rec.state_dict()
+    enc = {}
+    for i in range(len(rec.encoder.convs)):
+        enc[f"Conv_{i}"] = _flax_conv(sd, f"encoder.convs.{i}")
+        if f"encoder.norms.{i}.weight" in sd:
+            enc[f"GroupNorm_{i}"] = _flax_norm(sd, f"encoder.norms.{i}")
+    p = {"VGGEncoder_0": enc, "Dense_0": {
+        "kernel": np.ascontiguousarray(_np(sd["dense.weight"]).T), "bias": _np(sd["dense.bias"]),
+    }}
+    if rec.spec.embed_num:
+        p["Embed_0"] = {"embedding": _np(sd["embedding.weight"])}
+    stack = {}
+    if rec.spec.lstm_layers == 0:
+        for i in range(2):
+            stack[f"Conv_{i}"] = _flax_conv(sd, f"blstm.convs.{i}")
+    for layer in range(rec.spec.lstm_layers):
+        step = {}
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            w_ih = _np(sd[f"blstm.lstm.weight_ih_l{layer}{suffix}"]).T
+            w_hh = _np(sd[f"blstm.lstm.weight_hh_l{layer}{suffix}"]).T
+            bias = _np(sd[f"blstm.lstm.bias_hh_l{layer}{suffix}"]
+                       + sd[f"blstm.lstm.bias_ih_l{layer}{suffix}"])
+            gates = {}
+            for g, name in enumerate("ifgo"):
+                cols = slice(g * w_hh.shape[0], (g + 1) * w_hh.shape[0])
+                gates[f"i{name}"] = {"kernel": np.ascontiguousarray(w_ih[:, cols])}
+                gates[f"h{name}"] = {"kernel": np.ascontiguousarray(w_hh[:, cols]),
+                                     "bias": bias[cols]}
+            step[direction] = gates
+        stack[f"FusedBiLSTM_{layer}"] = {"Scan_BiLSTMStep_0": step}
+    p["BLSTMStack_0"] = stack
+    return {"params": p}
+
+
+def fold_lstm_input_bias_(rec: CTCRecognizer) -> None:
+    """Move each LSTM layer's ``bias_ih`` into ``bias_hh`` (in the
+    module's dtype), so that the module is exactly what its flax export
+    loads back into."""
+    if rec.spec.lstm_layers == 0:
+        return
+    with torch.no_grad():
+        for name, b_ih in rec.blstm.lstm.named_parameters():
+            if name.startswith("bias_ih"):
+                getattr(rec.blstm.lstm, name.replace("bias_ih", "bias_hh")).add_(b_ih)
+                b_ih.zero_()
+
+
+def _msgpack(obj) -> bytes:
+    """msgpack of the types a flax checkpoint holds: str-keyed dicts,
+    lists/tuples, str, bytes, non-negative ints and numpy arrays (flax's
+    extension type 1: a msgpack (shape, dtype name, C-order bytes))."""
+    def sized(n, small_tag, small_max, tags):
+        if n <= small_max and small_tag is not None:
+            return bytes([small_tag | n])
+        for tag, fmt in tags:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                return bytes([tag]) + struct.pack(fmt, n)
+        raise ValueError(f"msgpack: length {n} too large")
+
+    if isinstance(obj, dict):
+        return sized(len(obj), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I"))) + b"".join(
+            _msgpack(k) + _msgpack(v) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return sized(len(obj), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I"))) + b"".join(
+            _msgpack(v) for v in obj)
+    if isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        return sized(len(raw), 0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I"))) + raw
+    if isinstance(obj, bytes):
+        return sized(len(obj), None, -1, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I"))) + obj
+    if isinstance(obj, (int, np.integer)) and not isinstance(obj, bool) and obj >= 0:
+        return sized(int(obj), 0x00, 127, ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"),
+                                          (0xCF, ">Q")))
+    if isinstance(obj, np.ndarray):
+        payload = _msgpack((obj.shape, obj.dtype.name, np.ascontiguousarray(obj).tobytes()))
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        head = bytes([fixext[n]]) if n in fixext else sized(
+            n, None, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        return head + bytes([1]) + payload
+    raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def write_flax_checkpoint(variables: dict, path: str) -> None:
+    """Write ``variables`` as ``flax.serialization.to_bytes`` does (the
+    JAX package's ``save_variables``); arrays stay under flax's 2**30-byte
+    chunk size."""
+    with open(path, "wb") as f:
+        f.write(_msgpack(variables))
+
+
+def png_bytes(page: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of a BGR uint8 page, every row with filter 0."""
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body))
+
+    h, w = page.shape[:2]
+    rows = np.zeros((h, 1 + 3 * w), np.uint8)
+    rows[:, 1:] = page[:, :, ::-1].reshape(h, 3 * w)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+CLI_INI = """[PAGE_PARSER]
+RUN_LAYOUT_PARSER = yes
+RUN_LINE_CROPPER = yes
+RUN_OCR = yes
+
+[LAYOUT_PARSER_1]
+METHOD = LAYOUT_CNN
+MODEL_PATH = ./parsenet.msgpack
+DOWNSAMPLE = 4
+DETECTION_THRESHOLD = 0.2
+MAX_MEGAPIXELS = 5
+ADAPTIVE_DOWNSAMPLE = yes
+FAST_STEM = yes
+OUT_UPSAMPLE = 2
+BASE_FEATURES = 32
+DEPTH = 4
+
+[LINE_CROPPER]
+INTERP = 2
+LINE_SCALE = 1.0
+LINE_HEIGHT = 32
+
+[OCR]
+OCR_JSON = ./ocr.json
+"""
+
+
+def run_cli(pipe: TorchPagePipeline, rng, smi: str):
+    """Config 2 through the port's command line: 16 two-column pages as
+    PNG files, the bench modules as flax msgpack checkpoints with an OCR
+    JSON and a config, ``python -m pero_ocr_tpu_torch.scripts.parse_folder``
+    in a subprocess, then each Page XML file against an in-process
+    FastPagePipeline with the command line's settings, on the same
+    modules (not reloaded) and the in-memory pages.  The warp must
+    launch once per stage-B batch in both runs.  Returns the warp's
+    launches in the in-process run, the phase's numbers and the last
+    stage-B batch's warp arguments (the command line's shapes)."""
+    n_pages = 2 * PAGE_BATCH
+    pages, lines = synthetic_pages(rng, n_pages, TWO_COLUMNS)
+    ids = [f"p{i:04d}" for i in range(n_pages)]
+    pn, rec = pipe.parsenet, pipe.recognizer
+    fold_lstm_input_bias_(rec)
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        images, out_dir = os.path.join(tmp, "images"), os.path.join(tmp, "page_xml")
+        os.makedirs(images)
+        for page_id, page in zip(ids, pages):
+            with open(os.path.join(images, page_id + ".png"), "wb") as f:
+                f.write(png_bytes(page))
+        write_flax_checkpoint(flax_parsenet_variables(pn), os.path.join(tmp, "parsenet.msgpack"))
+        write_flax_checkpoint(flax_recognizer_variables(rec), os.path.join(tmp, "recognizer.msgpack"))
+        spec = rec.spec
+        with open(os.path.join(tmp, "ocr.json"), "w", encoding="utf-8") as f:
+            json.dump({"characters": BENCH_CHARS[:-1], "line_px_height": CROP_H,
+                       "checkpoint": "recognizer.msgpack", "net_spec": {
+                           "conv_features": list(spec.conv_features),
+                           "subsampling": spec.subsampling, "lstm_layers": spec.lstm_layers,
+                           "lstm_features": spec.lstm_features, "stem": spec.stem,
+                           "norm": spec.norm, "dtype": "bfloat16"}}, f)
+        ini = os.path.join(tmp, "config.ini")
+        with open(ini, "w", encoding="utf-8") as f:
+            f.write(CLI_INI)
+        command = [sys.executable, "-m", "pero_ocr_tpu_torch.scripts.parse_folder", "-c", ini,
+                   "-i", images, "--output-xml-path", out_dir, "--fast-pipeline",
+                   "--timing-report"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(command, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        cli_seconds = time.perf_counter() - t0
+        log(f"command line: exit {proc.returncode} in {cli_seconds:.3f} s\n"
+            f"{proc.stdout.strip()}\n{proc.stderr.strip()[-4000:]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the command line exited {proc.returncode}")
+        files = sorted(os.listdir(out_dir))
+        if files != [page_id + ".xml" for page_id in ids]:
+            raise AssertionError(f"the command line wrote {files}")
+        cli_xml = {}
+        for name in files:
+            with open(os.path.join(out_dir, name), encoding="utf-8") as f:
+                cli_xml[name[:-4]] = f.read()
+            ET.fromstring(cli_xml[name[:-4]].encode("utf-8"))
+    timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
+    counted = re.search(r"^warp_lines kernel launches: (\d+)$", proc.stdout, re.M)
+    if timed is None or counted is None:
+        raise AssertionError("the command line's timing report lacks cli/pages or launches")
+    cli_pages_per_s = n_pages / float(timed.group(1))
+    cli_launches = int(counted.group(1))
+
+    same = TorchPagePipeline(
+        pn, rec, downsample=4, detection_threshold=0.2, line_end_weight=1.0,
+        crop_height=CROP_H, crop_bucket=FastPagePipeline.CROP_BUCKET,
+        line_slot=FastPagePipeline.LINE_SLOT, height_scale=1.0, transport_bits=4,
+        adaptive_downsample=True, device="cuda",
+    )
+    fast = FastPagePipeline(same, BENCH_CHARS, page_batch=CLI_PAGE_BATCH)
+    last_b, slots = [], []
+    stage_b = same.stage_b
+
+    def kept_stage_b(*b_args):
+        last_b[:] = [b_args]
+        slots.append(b_args[1].shape[1])
+        return stage_b(*b_args)
+
+    same.stage_b = kept_stage_b
+    warp_ops.warp_lines.launches = 0
+    t0 = time.perf_counter()
+    out = [(layout, layout.to_pagexml_string()) for layout in fast.process_pages(pages, ids)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = warp_ops.warp_lines.launches
+    batches = len({i // CLI_PAGE_BATCH for i, (layout, _) in enumerate(out)
+                   if any(True for _ in layout.lines_iterator())})
+    differ = [layout.id for layout, xml in out
+              if mask_pagexml(xml) != mask_pagexml(cli_xml[layout.id])]
+    n_lines = sum(len(list(layout.lines_iterator())) for layout, _ in out)
+    recall = line_recall(
+        [[line.baseline for line in layout.lines_iterator()] for layout, _ in out], lines
+    )
+    log(f"command line vs in-process: {n_pages - len(differ)} of {n_pages} Page XML files "
+        f"equal (timestamps masked), {n_lines} lines, line recall {recall:.3f}; warp_lines "
+        f"launches in-process {launches}, in the command line {cli_launches}, stage-B "
+        f"batches {batches}, line slots a page {slots}; command line "
+        f"{cli_pages_per_s:.3f} pages/s by its own timer ({cli_seconds:.3f} s wall), "
+        f"in-process {n_pages / seconds:.3f} pages/s, on {smi}")
+    if differ:
+        raise AssertionError(f"the command line's Page XML differs on pages {differ}")
+    if not launches == cli_launches == batches == n_pages // CLI_PAGE_BATCH:
+        raise AssertionError("command line settings: warp kernel launches != stage-B batches")
+    if recall < MIN_LINE_RECALL:
+        raise AssertionError(f"command line: found {recall:.3f} < {MIN_LINE_RECALL} of the lines")
+    same.stage_b = stage_b
+    return launches, {"pages": n_pages, "cli_wall_s": cli_seconds,
+                      "cli_pages_per_s": cli_pages_per_s,
+                      "in_process_pages_per_s": n_pages / seconds, "lines": n_lines,
+                      "warp_launches": launches, "cli_warp_launches": cli_launches,
+                      "stage_b_batches": batches, "stage_b_slots": [int(n) for n in slots],
+                      "card": smi}, (*last_b[0], same.crop_height, same.crop_bucket)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -627,17 +945,25 @@ def main() -> int:
     check_against_cpu(rng)
     pipe, launches_page_transport, stage_b = run_main_path(rng)
     launches, config2, main_args = run_config2(pipe, rng, smi)
+    launches_cli, cli, cli_args = run_cli(pipe, rng, smi)
     # The kernel against its plain version, and its times, at the main
-    # path's shapes: the last config-2 batch's pages and detected lines.
+    # path's shapes (the last config-2 batch's pages and detected lines)
+    # and at the command line's (its last batch: page batch 4, line slot
+    # 32, crop bucket 2048).
+    main_check = check_warp(main_args, "config 2")
+    cli_check = check_warp(cli_args, "command line")
     warp = {
         "name": "warp_lines", "route": "cuda",
         "source": "pero_ocr_tpu_torch/csrc/warp_lines.cu",
         "replaces": "pero_ocr_tpu/ops/warp.py:188",
-        "launches": launches, **check_warp(main_args, "config 2"),
-        "launches_page_transport": launches_page_transport, **stage_b, **config2,
+        "launches": launches, **main_check,
+        "launches_page_transport": launches_page_transport, "launches_cli": launches_cli,
+        **stage_b, **config2,
         **{f"mixed_lines_{k}": v for k, v in mixed.items()},
+        **{f"cli_{k}": v for k, v in cli_check.items()},
     }
 
+    print(json.dumps({"cli": cli}))
     print(smi)
     print(json.dumps({"kernels": [warp]}))
     print(json.dumps({"ok": True, "device": {

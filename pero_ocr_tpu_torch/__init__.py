@@ -28,3 +28,24 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch path on the CPU"
         )
     return device
+
+
+# Titles of the items in ROADMAP.md's queue 1 that unported features
+# name in their errors.
+STAGE_BY_STAGE = "Stage-by-stage path"
+LOGITS = "Logits, forced alignment and ALTO (config 5)"
+BEAM_LM = "Beam search with a character LM (config 3)"
+TRANSFORMERS = "Transformer recognizers"
+TORCHSCRIPT = "TorchScript checkpoints"
+CROP_TRANSPORT = "Crop transport"
+SCALE_OUT = "Training and scale-out"
+IMAGES = "JPEG/TIFF decoding on the card's machine"
+
+
+def not_ported(what: str, item: str) -> ValueError:
+    """The error for a feature of the JAX package the port lacks;
+    ``item`` is the title of its item in ROADMAP.md's queue 1."""
+    return ValueError(
+        f"{what} is not ported to pero_ocr_tpu_torch yet "
+        f"(ROADMAP.md, queue 1: '{item}')"
+    )

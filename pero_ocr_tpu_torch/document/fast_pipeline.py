@@ -7,9 +7,12 @@ alpha-shape outline simplified by Douglas-Peucker (tolerance 5), as the
 layout engine draws them; a page without clusters (clustering off)
 becomes one whole-page region.
 
-Not ported yet (each raises ``ValueError`` naming its ROADMAP item):
-building from a ``PageParser`` (``from_page_parser``), line crops,
-logits, re-OCR of existing layouts and ``prime``.
+:meth:`FastPagePipeline.from_page_parser` builds the device pipeline
+from a config's ``PageParser``, with the JAX command line's settings.
+
+Not ported yet (each raises ``ValueError`` naming its ROADMAP item): line
+crops, logits, re-OCR of existing layouts, the crop transport and
+``prime``.
 """
 
 from __future__ import annotations
@@ -20,10 +23,12 @@ from typing import Iterable, Iterator, List, Sequence
 
 import numpy as np
 
+from pero_ocr_tpu_torch import CROP_TRANSPORT, LOGITS, not_ported
 from pero_ocr_tpu_torch.core import geometry
 from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
+from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor
 from pero_ocr_tpu_torch.layout_engines import helpers
-from pero_ocr_tpu_torch.parallel.pipeline import _not_ported
+from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.utils.timing import stage_timer
 
 
@@ -103,24 +108,96 @@ class FastPagePipeline:
         recognizer's charset (CTC blank last), which maps labels to
         text."""
         if want_crops:
-            raise _not_ported("want_crops", "Crop transport")
+            raise not_ported("want_crops", CROP_TRANSPORT)
         if want_logits:
-            raise _not_ported("want_logits", "Logits, forced alignment and ALTO (config 5)")
+            raise not_ported("want_logits", LOGITS)
         if reocr:
-            raise _not_ported("reocr", "Crop transport")
+            raise not_ported("reocr", CROP_TRANSPORT)
         self.pipeline = pipeline
         self.characters = list(characters)
         self.page_batch = page_batch
 
+    @staticmethod
+    def unsupported_features(page_parser) -> List[str]:
+        """Config features the fast path would silently change the
+        meaning of (the JAX package's list).  The JAX command line falls
+        back to its stage-by-stage path when this is non-empty; the
+        port's refuses the run.  Like the JAX fast path, the pipeline
+        reads four LAYOUT_CNN keys (DOWNSAMPLE, DETECTION_THRESHOLD,
+        LINE_END_WEIGHT, ADAPTIVE_DOWNSAMPLE) and ignores
+        MAX_MEGAPIXELS, PARAGRAPH_LINE_THRESHOLD,
+        VERTICAL_LINE_CONNECTION_RANGE and SMOOTH_LINE_PREDICTIONS."""
+        reasons = []
+        extractor = None
+        for lp in page_parser.layout_parsers:
+            if isinstance(lp, LayoutExtractor) and extractor is None:
+                extractor = lp
+            elif not isinstance(lp, LayoutExtractor):
+                reasons.append(f"extra layout stage {type(lp).__name__}")
+        if extractor is not None:
+            for flag, name in (
+                (extractor.multi_orientation, "MULTI_ORIENTATION"),
+                (extractor.merge_lines, "MERGE_LINES"),
+                (extractor.adjust_heights, "ADJUST_HEIGHTS"),
+                (extractor.adjust_baselines, "ADJUST_BASELINES"),
+                (extractor.detect_straight_lines_in_regions,
+                 "DETECT_STRAIGHT_LINES_IN_REGIONS"),
+            ):
+                if flag:
+                    reasons.append(name)
+            if not extractor.detect_regions or not extractor.detect_lines:
+                reasons.append("DETECT_REGIONS/DETECT_LINES disabled")
+        if page_parser.decoder is not None:
+            reasons.append("RUN_DECODER (beam/LM decoding stage)")
+        if page_parser.filter_confident_lines_threshold > 0:
+            reasons.append("FILTER_CONFIDENT_LINES_THRESHOLD")
+        return reasons
+
+    # The JAX command line's line slot and crop bucket on one device.
+    LINE_SLOT = 32
+    CROP_BUCKET = 2048
+
     @classmethod
-    def from_page_parser(cls, page_parser, **kwargs):
-        raise _not_ported("FastPagePipeline.from_page_parser", "Stage-by-stage path")
+    def from_page_parser(cls, page_parser, page_batch: int = 4,
+                         transport_bits: int = 4) -> "FastPagePipeline":
+        """The JAX ``FastPagePipeline(page_parser, ...)``, page transport:
+        the config's ParseNet and recognizer with its LAYOUT_CNN, line
+        cropper and OCR settings and the JAX defaults (LINE_SLOT,
+        CROP_BUCKET, 4-bit transport, page batch 4), on
+        ``page_parser.device``."""
+        extractor = next(
+            (lp for lp in page_parser.layout_parsers if isinstance(lp, LayoutExtractor)), None
+        )
+        if extractor is None:
+            raise ValueError("--fast-pipeline needs a LAYOUT_CNN stage in the config")
+        if page_parser.ocr is None:
+            raise ValueError("--fast-pipeline needs an [OCR] engine in the config")
+        if page_parser.line_cropper is None:
+            raise ValueError("--fast-pipeline needs a [LINE_CROPPER] in the config")
+        ocr_engine = page_parser.ocr.ocr_engine
+        cropper = page_parser.line_cropper.crop_engine
+        parsenet_wrapper = extractor.engine.parsenet
+        pipeline = TorchPagePipeline(
+            parsenet_wrapper.model,
+            ocr_engine.model,
+            downsample=int(parsenet_wrapper.init_downsample),
+            detection_threshold=extractor.engine.line_detection_threshold,
+            line_end_weight=extractor.engine.line_end_weight,
+            crop_height=cropper.line_height,
+            crop_bucket=cls.CROP_BUCKET,
+            line_slot=cls.LINE_SLOT,
+            height_scale=cropper.scale,
+            transport_bits=transport_bits,
+            adaptive_downsample=bool(parsenet_wrapper.adaptive_downsample),
+            device=page_parser.device,
+        )
+        return cls(pipeline, ocr_engine.characters, page_batch=page_batch)
 
     def prime(self, first_pages) -> None:
-        raise _not_ported("prime()", "Crop transport")
+        raise not_ported("prime()", CROP_TRANSPORT)
 
     def process_existing_layouts(self, pages, layouts):
-        raise _not_ported("process_existing_layouts", "Crop transport")
+        raise not_ported("process_existing_layouts", CROP_TRANSPORT)
 
     def _consume_result(self, result, pages, page_ids) -> PageLayout:
         page = pages[result.page_index]

@@ -1,10 +1,11 @@
 """CNN layout engine (port of pero_ocr_tpu/layout_engines/cnn_engine.py).
 
-Ported: the device-side map post-processing (:func:`postprocess_maps`)
-and the host paragraph clustering (:class:`ParagraphClusterer`), which
+Ported: the device-side map post-processing (:func:`postprocess_maps`),
+the host paragraph clustering (:class:`ParagraphClusterer`), which
 groups the parsed lines into paragraphs by the separator map between
-them.  The stage-by-stage engine (``LayoutEngine`` with ParseNet) is
-ROADMAP item 8.
+them, and :class:`LayoutEngine`'s construction (its ParseNet and the
+settings the fast path reads).  Its per-page ``detect`` and ``parse``
+are the stage-by-stage path, ROADMAP item 8.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ import torch
 from scipy.sparse import csr_matrix
 from scipy.sparse.csgraph import connected_components as graph_components
 
+from pero_ocr_tpu_torch import STAGE_BY_STAGE, not_ported
 from pero_ocr_tpu_torch.core import geometry
+from pero_ocr_tpu_torch.layout_engines.parsenet_wrapper import ParseNetWrapper
 from pero_ocr_tpu_torch.ops import morphology
 
 
@@ -37,6 +40,51 @@ def postprocess_maps(
     ) > detection_threshold
     separator = torch.clamp_min(out_map[..., 4], 0.0)
     return baselines_mask, heights_map, separator
+
+
+class LayoutEngine:
+    """The CNN layout engine's model and settings (the JAX
+    ``LayoutEngine.__init__``)."""
+
+    def __init__(
+        self,
+        model_path=None,
+        downsample: int = 4,
+        max_mp: float = 5,
+        detection_threshold: float = 0.2,
+        adaptive_downsample: bool = True,
+        line_end_weight: float = 1.0,
+        vertical_line_connection_range: int = 5,
+        smooth_line_predictions: bool = True,
+        paragraph_line_threshold: float = 0.3,
+        stem: str = "conv",
+        base_features: int = 32,
+        depth: int = 4,
+        out_upsample: int = 1,
+    ):
+        self.parsenet = ParseNetWrapper(
+            model_path,
+            downsample=downsample,
+            adaptive_downsample=adaptive_downsample,
+            max_mp=max_mp,
+            detection_threshold=detection_threshold,
+            stem=stem,
+            base_features=base_features,
+            depth=depth,
+            out_upsample=out_upsample,
+        )
+        self.line_end_weight = line_end_weight
+        self.vertical_line_connection_range = vertical_line_connection_range
+        self.smooth_line_predictions = smooth_line_predictions
+        self.line_detection_threshold = detection_threshold
+        self.adaptive_downsample = adaptive_downsample
+        self.paragraph_line_threshold = paragraph_line_threshold
+
+    def detect(self, image, rot: int = 0):
+        raise not_ported("LayoutEngine.detect", STAGE_BY_STAGE)
+
+    def parse(self, out_map, downsample):
+        raise not_ported("LayoutEngine.parse", STAGE_BY_STAGE)
 
 
 def _round_half_away(v: np.ndarray) -> np.ndarray:

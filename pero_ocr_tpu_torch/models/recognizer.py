@@ -49,6 +49,28 @@ class RecognizerSpec:
     stem: str = "conv"             # "s2d" = space-to-depth fast stem
     norm: str = "none"             # "group" = GroupNorm after each conv
 
+    @staticmethod
+    def from_json_dict(cfg: dict, num_classes: int) -> "RecognizerSpec":
+        """The spec an OCR engine JSON declares: ``line_px_height``,
+        ``embed_num`` and the ``net_spec`` architecture dict."""
+        spec = cfg.get("net_spec", {})
+        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+            spec.get("dtype", "bfloat16")
+        ]
+        return RecognizerSpec(
+            num_classes=num_classes,
+            line_height=cfg.get("line_px_height", 32),
+            conv_features=tuple(spec.get("conv_features", (48, 96, 192, 384))),
+            subsampling=spec.get("subsampling", 4),
+            lstm_layers=spec.get("lstm_layers", 2),
+            lstm_features=spec.get("lstm_features", 256),
+            embed_num=cfg.get("embed_num", 0) or 0,
+            embed_dim=spec.get("embed_dim", 64),
+            dtype=dtype,
+            stem=spec.get("stem", "conv"),
+            norm=spec.get("norm", "none"),
+        )
+
 
 def _max_pool_same(x: torch.Tensor, stride_w: int) -> torch.Tensor:
     """flax ``max_pool(x, (2, 2), strides=(2, stride_w), padding="SAME")``."""

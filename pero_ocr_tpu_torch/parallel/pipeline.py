@@ -40,7 +40,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pero_ocr_tpu_torch import resolve_device
+from pero_ocr_tpu_torch import (
+    CROP_TRANSPORT, LOGITS, SCALE_OUT, TRANSFORMERS, not_ported, resolve_device,
+)
 from pero_ocr_tpu_torch.core import line_geometry
 from pero_ocr_tpu_torch.layout_engines import helpers
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import ParagraphClusterer, postprocess_maps
@@ -65,13 +67,6 @@ class PageResult:
     # and reused by the layout assembly.  None when clustering is off
     # or the lines came from an override.
     textlines: Optional[List[np.ndarray]] = None
-
-
-def _not_ported(what: str, item: str) -> ValueError:
-    return ValueError(
-        f"{what} is not ported to pero_ocr_tpu_torch yet "
-        f"(ROADMAP.md, queue 1: '{item}')"
-    )
 
 
 class TorchPagePipeline:
@@ -115,14 +110,14 @@ class TorchPagePipeline:
         the plain-PyTorch CPU path.  The other arguments mean what they
         mean for ``TPUPagePipeline``."""
         if transport != "page":
-            raise _not_ported(f"transport={transport!r}", "Crop transport")
+            raise not_ported(f"transport={transport!r}", CROP_TRANSPORT)
         if want_logits:
-            raise _not_ported("want_logits", "Logits, forced alignment and ALTO (config 5)")
+            raise not_ported("want_logits", LOGITS)
         if mesh is not None:
-            raise _not_ported("mesh", "Training and scale-out")
+            raise not_ported("mesh", SCALE_OUT)
         if not isinstance(recognizer, CTCRecognizer):
-            raise _not_ported(
-                f"recognizer {type(recognizer).__name__}", "Transformer recognizers"
+            raise not_ported(
+                f"recognizer {type(recognizer).__name__}", TRANSFORMERS
             )
         if transport_bits not in (4, 8):
             raise ValueError(f"transport_bits={transport_bits} invalid for the page transport")
@@ -145,7 +140,7 @@ class TorchPagePipeline:
         self._clusterer = ParagraphClusterer(paragraph_line_threshold)
 
     def prime(self, pages, page_batch: int = 8) -> None:
-        raise _not_ported("prime()", "Crop transport")
+        raise not_ported("prime()", CROP_TRANSPORT)
 
     # ------------------------------------------------------------------
     # Device stages

@@ -1,0 +1,278 @@
+"""Folder OCR to Page XML on one GPU: the port of
+scripts/parse_folder.py's ``--fast-pipeline`` branch, page transport.
+
+    python3 -m pero_ocr_tpu_torch.scripts.parse_folder \\
+        -c config.ini -i images/ --output-xml-path page_xml/ --fast-pipeline
+
+It reads the config and its OCR JSON, loads the flax msgpack checkpoints
+they name into the port's models, decodes the pages (PNG or binary PNM,
+:mod:`pero_ocr_tpu_torch.utils.image_io`), runs
+``FastPagePipeline.process_pages`` (stage B warps the lines with the
+hand-written CUDA kernel) and writes one Page XML file per page.
+``--device cpu`` runs the plain PyTorch versions instead.
+
+Options and config features the port lacks exit with code 2 and name
+their ROADMAP item: the port has no stage-by-stage path to fall back to,
+so it refuses a run rather than change what the run means.  The JAX
+command line's ``prime`` (decoding the first batch, then starting its
+host prep while the rest decode) only overlaps work and is left out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import configparser
+import logging
+import os
+import re
+import sys
+import time
+from typing import List, Optional, Set
+
+from pero_ocr_tpu_torch import (
+    CROP_TRANSPORT, IMAGES, LOGITS, SCALE_OUT, STAGE_BY_STAGE, not_ported, resolve_device,
+)
+from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
+from pero_ocr_tpu_torch.document.page_parser import PageParser
+from pero_ocr_tpu_torch.ops.warp import warp_lines
+from pero_ocr_tpu_torch.utils.checkpoint import set_strict_loading
+from pero_ocr_tpu_torch.utils.image_io import imread
+from pero_ocr_tpu_torch.utils.timing import stage_timer, timing_report
+
+logger = logging.getLogger(__name__)
+
+PAGE_BATCH = 4  # the JAX command line's page batch on one device
+
+
+def parse_arguments(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Page images -> Page XML with the PyTorch/CUDA port (--fast-pipeline)."
+    )
+    parser.add_argument("-c", "--config", required=True, help="Path to input config file.")
+    parser.add_argument("-s", "--skip-processed", action="store_true",
+                        help="If set, already processed files are skipped.")
+    parser.add_argument("-i", "--input-image-path")
+    parser.add_argument("-x", "--input-xml-path")
+    parser.add_argument("--input-logit-path")
+    parser.add_argument("--output-xml-path")
+    parser.add_argument("--output-render-path")
+    parser.add_argument("--output-line-path")
+    parser.add_argument("--output-logit-path")
+    parser.add_argument("--output-alto-path")
+    parser.add_argument("--output-transcriptions-file-path")
+    parser.add_argument("--skipp-missing-xml", action="store_true",
+                        help="Skip images which have missing xml.")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda (the hand-written kernels; no CPU fallback) or cpu "
+                             "(the plain PyTorch versions).")
+    parser.add_argument("--profile", metavar="DIR")
+    parser.add_argument("--timing-report", action="store_true",
+                        help="Print per-stage timing table at the end.")
+    parser.add_argument("--fast-pipeline", action="store_true",
+                        help="Device-resident batched pipeline (required: the "
+                             "stage-by-stage path is not ported).")
+    parser.add_argument("--transport-bits", type=int, choices=[2, 4, 8], default=4,
+                        help="Upload depth: 4 packs two pixels per byte, 8 sends raw "
+                             "grayscale; 2 needs the crop transport.")
+    parser.add_argument("--canvas-bits", type=int, choices=[2, 4, 8], default=None)
+    parser.add_argument("--transport", choices=["page", "crops"], default="page")
+    parser.add_argument("--dp", type=int, default=0, metavar="N")
+    parser.add_argument("--process-count", type=int, default=1)
+    parser.add_argument("--shard-index", type=int, default=0,
+                        help="This host's shard number (0-based): it processes every "
+                             "shard-count'th file of the sorted listing.")
+    parser.add_argument("--shard-count", type=int, default=1,
+                        help="Total hosts sharding this folder.")
+    parser.add_argument("--allow-random-weights", action="store_true",
+                        help="Run with RANDOM weights when a configured checkpoint is "
+                             "missing (test use). The default is a hard error.")
+    return parser.parse_args(argv)
+
+
+def setup_logging(config):
+    level = logging.getLevelName(config.get("LOGGING_LEVEL", fallback="WARNING"))
+    logging.basicConfig(
+        format="[%(levelname)s] %(asctime)s - %(name)s - %(message)s", level=level
+    )
+    logging.getLogger("pero_ocr_tpu_torch").setLevel(level)
+
+
+def shard_file_lists(ids, images, shard_index: int, shard_count: int):
+    """Deterministic round-robin shard of the sorted file listing: pages
+    are independent, so hosts need only agree on the listing."""
+    if not (0 <= shard_index < shard_count):
+        raise ValueError(f"--shard-index {shard_index} outside [0, {shard_count})")
+    keep = slice(shard_index, None, shard_count)
+    return ids[keep], images[keep]
+
+
+def get_value_or_none(config, section, key):
+    return config[section][key] if config.has_option(section, key) else None
+
+
+def load_already_processed_files_in_directory(directory: Optional[str]) -> Set[str]:
+    done = set()
+    if directory is not None:
+        regex = re.compile(r"(.+?)(\.logits|\.xml|\.jpg)")
+        for f in os.listdir(directory):
+            matched = regex.match(f)
+            if matched:
+                done.add(matched.groups()[0])
+    return done
+
+
+def load_already_processed_files(directories: List[Optional[str]]) -> Set[str]:
+    """A page is done only when present in ALL requested output dirs."""
+    done: Set[str] = set()
+    first = True
+    for directory in directories:
+        if directory is None:
+            continue
+        files = load_already_processed_files_in_directory(directory)
+        done = files if first else done.intersection(files)
+        first = False
+    return done
+
+
+def refusals(args, paths) -> List[str]:
+    """What this run asks for that the port lacks, each with its ROADMAP
+    item.  ``paths``: the PARSE_FOLDER paths after the command line's
+    overrides."""
+    asked = [
+        (paths["INPUT_XML_PATH"], "-x/--input-xml-path (re-OCR of existing layouts)",
+         CROP_TRANSPORT),
+        (paths["OUTPUT_LOGIT_PATH"], "--output-logit-path", LOGITS),
+        (paths["OUTPUT_ALTO_PATH"], "--output-alto-path", LOGITS),
+        (paths["OUTPUT_LINE_PATH"], "--output-line-path (line crops)", CROP_TRANSPORT),
+        (paths["OUTPUT_RENDER_PATH"], "--output-render-path (JPEG renders)", IMAGES),
+        (args.transport == "crops", "--transport crops", CROP_TRANSPORT),
+        (args.transport_bits == 2, "--transport-bits 2", CROP_TRANSPORT),
+        (args.canvas_bits is not None, "--canvas-bits", CROP_TRANSPORT),
+        (args.dp > 1, "--dp", SCALE_OUT),
+        (args.profile, "--profile (a torch.profiler trace)", SCALE_OUT),
+        (args.process_count > 1, "--process-count", STAGE_BY_STAGE),
+        (not args.fast_pipeline, "running without --fast-pipeline", STAGE_BY_STAGE),
+    ]
+    return [str(not_ported(what, item)) for flag, what, item in asked if flag]
+
+
+def refuse(messages: List[str]) -> None:
+    for message in messages:
+        logging.error(message)
+    sys.exit(2)
+
+
+def main(argv=None) -> None:
+    args = parse_arguments(argv)
+    config_path = args.config
+    if not os.path.isfile(config_path):
+        print(f'ERROR: Config file does not exist: "{config_path}".')
+        sys.exit(-1)
+
+    config = configparser.ConfigParser()
+    config.read(config_path)
+    if "PARSE_FOLDER" not in config:
+        config.add_section("PARSE_FOLDER")
+    overrides = {
+        "INPUT_IMAGE_PATH": args.input_image_path,
+        "INPUT_XML_PATH": args.input_xml_path,
+        "INPUT_LOGIT_PATH": args.input_logit_path,
+        "OUTPUT_XML_PATH": args.output_xml_path,
+        "OUTPUT_RENDER_PATH": args.output_render_path,
+        "OUTPUT_LINE_PATH": args.output_line_path,
+        "OUTPUT_LOGIT_PATH": args.output_logit_path,
+        "OUTPUT_ALTO_PATH": args.output_alto_path,
+    }
+    for key, value in overrides.items():
+        if value is not None:
+            config["PARSE_FOLDER"][key] = value
+    setup_logging(config["PARSE_FOLDER"])
+    paths = {key: get_value_or_none(config, "PARSE_FOLDER", key) for key in overrides}
+
+    refused = refusals(args, paths)
+    if refused:
+        refuse(refused)
+    device = resolve_device(args.device)
+    if not args.allow_random_weights:
+        # A typo'd checkpoint path must fail loudly, never produce a
+        # garbage-text run.
+        set_strict_loading(True)
+
+    with stage_timer("cli/build"):
+        page_parser = PageParser(config, device=device, config_path=os.path.dirname(config_path))
+    unsupported = FastPagePipeline.unsupported_features(page_parser)
+    if unsupported:
+        refuse([str(not_ported(
+            f"{', '.join(unsupported)} (the JAX command line falls back to the "
+            "stage-by-stage path for them)", STAGE_BY_STAGE,
+        ))])
+
+    input_image_path = paths["INPUT_IMAGE_PATH"]
+    output_xml_path = paths["OUTPUT_XML_PATH"]
+    if paths["INPUT_LOGIT_PATH"] is not None:
+        logger.warning("Logit path specified and Page XML path not specified. "
+                       "Logits will be ignored.")
+    if input_image_path is None:
+        raise Exception(
+            "INPUT_IMAGE_PATH has to be specified (INPUT_XML_PATH needs the crop "
+            f"transport). It is missing in {config_path}."
+        )
+    if output_xml_path is not None:
+        os.makedirs(output_xml_path, exist_ok=True)
+
+    ignored = {"", ".xml", ".logits"}
+    images_to_process = sorted(
+        f for f in os.listdir(input_image_path)
+        if os.path.splitext(f)[1].lower() not in ignored
+    )
+    ids_to_process = [os.path.splitext(f)[0] for f in images_to_process]
+    if args.shard_count > 1:
+        ids_to_process, images_to_process = shard_file_lists(
+            ids_to_process, images_to_process, args.shard_index, args.shard_count,
+        )
+        logger.info("Shard %d/%d: %d file(s).", args.shard_index, args.shard_count,
+                    len(ids_to_process))
+    if args.skip_processed:
+        done = load_already_processed_files([output_xml_path])
+        if done:
+            logger.info("Already processed %d file(s).", len(done))
+            images_to_process = [
+                img for fid, img in zip(ids_to_process, images_to_process) if fid not in done
+            ]
+            ids_to_process = [fid for fid in ids_to_process if fid not in done]
+
+    with stage_timer("cli/build"):
+        fast = FastPagePipeline.from_page_parser(
+            page_parser, transport_bits=args.transport_bits, page_batch=PAGE_BATCH,
+        )
+
+    t_start = time.time()
+    results = []
+    with stage_timer("cli/pages"):
+        images = []
+        for f in images_to_process:
+            with stage_timer("cli/decode"):
+                images.append(imread(os.path.join(input_image_path, f)))
+        for layout in fast.process_pages(images, ids_to_process):
+            if output_xml_path is not None:
+                with stage_timer("cli/write_xml"):
+                    layout.to_pagexml(os.path.join(output_xml_path, layout.id + ".xml"))
+            results.append([
+                f"{layout.id}-{line.id}.jpg {line.transcription}"
+                for line in layout.lines_iterator() if line.transcription
+            ])
+            print(f"DONE {layout.id} (fast pipeline)", flush=True)
+
+    if args.output_transcriptions_file_path is not None:
+        with open(args.output_transcriptions_file_path, "w", encoding="utf-8") as f:
+            for page_lines in results:
+                print("\n".join(page_lines), file=f)
+    if ids_to_process:
+        logger.info("AVERAGE PROCESSING TIME %s", (time.time() - t_start) / len(ids_to_process))
+    if args.timing_report:
+        print(timing_report())
+        print(f"warp_lines kernel launches: {warp_lines.launches}")
+
+
+if __name__ == "__main__":
+    main()

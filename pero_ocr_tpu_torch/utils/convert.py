@@ -33,6 +33,8 @@ _GATES = ("i", "f", "g", "o")
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a bfloat16 leaf of a checkpoint
+        return a.float()
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 

@@ -1,0 +1,350 @@
+"""The config-2 command line of the port
+(``python -m pero_ocr_tpu_torch.scripts.parse_folder``) against the JAX
+package's PageParser + FastPagePipeline on the same ini, OCR JSON, flax
+msgpack checkpoints and PNG pages.
+
+The detector is the toy trained one that tests/test_torch_pipeline.py
+caches; the recognizer has random float32 weights.  Both are saved with
+the JAX package's ``save_variables``.  The JAX side reads the pages with
+``cv2.imread`` and runs its exact gather warp (the structured warp is
+within 0.5 intensity steps of it, so labels could differ).
+
+``ParseNetWrapper`` builds ParseNet in bfloat16 on both sides and no
+config key changes that; XLA's and torch's bf16 convolutions round
+differently on the CPU and the NMS equality test turns one-ulp
+differences into other masks (ROADMAP section 3).  So the exact case
+patches, in this test only, the ParseNet that each package's
+parsenet_wrapper builds to float32, and holds every Page XML file equal
+to the JAX ``to_pagexml_string()`` with the timestamps masked.  The bf16
+case asks for the same number of pages, regions and lines per page.
+"""
+
+import configparser
+import functools
+import json
+import logging
+import os
+import re
+import xml.etree.ElementTree as ET
+
+import cv2
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pero_ocr_tpu.document.fast_pipeline import FastPagePipeline as JaxFastPagePipeline
+from pero_ocr_tpu.document.page_parser import PageParser as JaxPageParser
+from pero_ocr_tpu.layout_engines import parsenet_wrapper as jax_parsenet_wrapper
+from pero_ocr_tpu.models.parsenet import ParseNet as FlaxParseNet
+from pero_ocr_tpu.models.recognizer import CTCRecognizer as FlaxRecognizer
+from pero_ocr_tpu.models.recognizer import RecognizerSpec as FlaxSpec
+from pero_ocr_tpu.utils import native
+from pero_ocr_tpu.utils.checkpoint import save_variables
+from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
+from pero_ocr_tpu_torch.document.page_parser import PageParser
+from pero_ocr_tpu_torch.layout_engines import parsenet_wrapper
+from pero_ocr_tpu_torch.models.parsenet import ParseNet
+from pero_ocr_tpu_torch.scripts import parse_folder
+from pero_ocr_tpu_torch.utils import checkpoint
+from tests.test_torch_pipeline import CHARS, DETECTOR, RECOGNIZER, _page, _train_detector
+
+PAGE_NS = "{http://schema.primaresearch.org/PAGE/gts/pagecontent/2019-07-15}"
+INI = """[PAGE_PARSER]
+RUN_LAYOUT_PARSER = yes
+RUN_LINE_CROPPER = yes
+RUN_OCR = yes
+
+[LAYOUT_PARSER_1]
+METHOD = LAYOUT_CNN
+MODEL_PATH = ./layout/parsenet.msgpack
+DOWNSAMPLE = 4
+DETECTION_THRESHOLD = 0.2
+MAX_MEGAPIXELS = 5
+ADAPTIVE_DOWNSAMPLE = yes
+BASE_FEATURES = 8
+DEPTH = 2
+OUT_UPSAMPLE = 2
+
+[LINE_CROPPER]
+INTERP = 2
+LINE_SCALE = 1.0
+LINE_HEIGHT = 16
+
+[OCR]
+OCR_JSON = ./ocr/ocr.json
+"""
+
+
+def _masked(xml):
+    return re.sub(r"<(Created|LastChange)>[^<]*</\1>", r"<\1/>", xml)
+
+
+@pytest.fixture(scope="module")
+def bundle(tmp_path_factory):
+    """A folder of three PNG pages and a config bundle: ini, OCR JSON
+    and the two flax checkpoints."""
+    root = tmp_path_factory.mktemp("cli")
+    images = root / "images"
+    images.mkdir()
+    pages = [_page(), _page(shift=8, seed=1), _page(shift=-4, seed=2)]
+    for i, page in enumerate(pages):
+        assert cv2.imwrite(str(images / f"page-{i}.png"), page)
+    (root / "layout").mkdir()
+    (root / "ocr").mkdir()
+    flax_pn = FlaxParseNet(dtype=jnp.float32, **DETECTOR)
+    save_variables(_train_detector(flax_pn), str(root / "layout" / "parsenet.msgpack"))
+    # Random weights plus noise: without a Dense bias the logits of the
+    # crops' long zero tail decay into denormals, whose argmax XLA (which
+    # flushes them to zero) and torch decide differently.
+    spec = dict(RECOGNIZER, dtype=jnp.float32)
+    rec_vars = FlaxRecognizer(FlaxSpec(**spec)).init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 16, 64, 3)))
+    rng = np.random.default_rng(1)
+    rec_vars = jax.tree_util.tree_map(
+        lambda v: np.asarray(v) + 0.1 * rng.standard_normal(v.shape).astype(np.float32),
+        rec_vars)
+    save_variables(rec_vars, str(root / "ocr" / "recognizer.msgpack"))
+    with open(root / "ocr" / "ocr.json", "w", encoding="utf-8") as f:
+        json.dump({
+            "characters": CHARS[:-1], "line_px_height": 16, "checkpoint": "recognizer.msgpack",
+            "net_spec": {"conv_features": [4, 8], "subsampling": 2, "lstm_layers": 1,
+                         "lstm_features": 8, "dtype": "float32"},
+        }, f)
+    (root / "config.ini").write_text(INI)
+    return root
+
+
+@pytest.fixture
+def float32_parsenets(monkeypatch):
+    monkeypatch.setattr(parsenet_wrapper, "ParseNet",
+                        functools.partial(ParseNet, dtype=torch.float32))
+    monkeypatch.setattr(jax_parsenet_wrapper, "ParseNet",
+                        functools.partial(FlaxParseNet, dtype=jnp.float32))
+
+
+def _config(path):
+    config = configparser.ConfigParser()
+    config.read(path)
+    return config
+
+
+def _run_port(args):
+    try:
+        parse_folder.main(args)
+    finally:
+        checkpoint.set_strict_loading(False)  # main() sets it process-wide
+
+
+def _jax_layouts(bundle):
+    page_parser = JaxPageParser(_config(bundle / "config.ini"), config_path=str(bundle))
+    fast = JaxFastPagePipeline(page_parser, page_batch=4, transport_bits=4)
+    fast.pipeline._stage_b_warp = fast.pipeline._stage_b_warp_gather
+    names = sorted(os.listdir(bundle / "images"))
+    pages = [cv2.imread(str(bundle / "images" / n), 1) for n in names]
+    return list(fast.process_pages(pages, [os.path.splitext(n)[0] for n in names]))
+
+
+def _port_xml(bundle, out, *extra):
+    _run_port(["-c", str(bundle / "config.ini"), "-i", str(bundle / "images"),
+               "--output-xml-path", str(out), "--fast-pipeline", "--device", "cpu", *extra])
+    return {name[:-4]: (out / name).read_text(encoding="utf-8")
+            for name in sorted(os.listdir(out))}
+
+
+# The JAX pipeline clusters through its native library; its Python
+# fallback rounds the penalty windows differently (ROADMAP.md, section 3).
+@pytest.mark.skipif(native.get_library() is None, reason="native library unavailable")
+def test_cli_page_xml_equals_jax(bundle, tmp_path, float32_parsenets, capsys):
+    got = _port_xml(bundle, tmp_path / "xml", "--timing-report")
+    printed = capsys.readouterr().out
+    want = _jax_layouts(bundle)
+    assert list(got) == [lay.id for lay in want] == ["page-0", "page-1", "page-2"]
+    for lay in want:
+        assert _masked(got[lay.id]) == _masked(lay.to_pagexml_string())
+        assert len(list(lay.lines_iterator())) >= 3  # of the page's 4
+    assert any(line.transcription for lay in want for line in lay.lines_iterator())
+    assert [line for line in printed.splitlines() if line.startswith("DONE")] == [
+        f"DONE page-{i} (fast pipeline)" for i in range(3)]
+    assert re.search(r"^cli/pages\s+[0-9.]+\s+1\s", printed, re.M)
+    assert "warp_lines kernel launches: 0" in printed  # the CPU runs the plain version
+
+
+@pytest.mark.skipif(native.get_library() is None, reason="native library unavailable")
+def test_cli_bfloat16_detector_counts_match_jax(bundle, tmp_path):
+    """No patch: both ParseNets in bfloat16, as the config builds them."""
+    got = _port_xml(bundle, tmp_path / "xml")
+    want = _jax_layouts(bundle)
+    for lay in want:
+        root = ET.fromstring(got[lay.id].encode("utf-8"))
+        regions = root.findall(f"{PAGE_NS}Page/{PAGE_NS}TextRegion")
+        assert len(regions) == len(lay.regions)
+        assert ([len(r.findall(f"{PAGE_NS}TextLine")) for r in regions]
+                == [len(r.lines) for r in lay.regions])
+
+
+def test_cli_shards_and_skips_processed(bundle, tmp_path, capsys):
+    out = tmp_path / "xml"
+    _port_xml(bundle, out, "--shard-index", "1", "--shard-count", "2")
+    assert sorted(os.listdir(out)) == ["page-1.xml"]
+    (out / "page-0.xml").write_text("done")
+    got = _port_xml(bundle, out, "-s")
+    assert got["page-0"] == "done"  # skipped
+    assert [line for line in capsys.readouterr().out.splitlines()
+            if line.startswith("DONE")] == ["DONE page-1 (fast pipeline)"] * 1 + [
+        "DONE page-2 (fast pipeline)"]
+    transcriptions = tmp_path / "lines.txt"
+    _port_xml(bundle, tmp_path / "xml2", "--output-transcriptions-file-path",
+              str(transcriptions))
+    assert transcriptions.read_text(encoding="utf-8").count("page-") >= 3
+
+
+def _page_parser_fields(pp):
+    extractor = pp.layout_parsers[0]
+    engine = extractor.engine
+    ocr = pp.ocr.ocr_engine
+    spec = ocr.spec
+    return {
+        "run": (pp.run_layout_parser, pp.run_line_cropper, pp.run_ocr, pp.run_decoder,
+                pp.filter_confident_lines_threshold),
+        "extractor": tuple(getattr(extractor, k) for k in (
+            "detect_regions", "detect_lines", "detect_straight_lines_in_regions",
+            "merge_lines", "adjust_heights", "multi_orientation", "adjust_baselines")),
+        "engine": tuple(getattr(engine, k) for k in (
+            "line_end_weight", "vertical_line_connection_range", "smooth_line_predictions",
+            "line_detection_threshold", "adaptive_downsample", "paragraph_line_threshold")),
+        "parsenet": tuple(getattr(engine.parsenet, k) for k in (
+            "detection_threshold", "adaptive_downsample", "init_downsample",
+            "last_downsample", "max_megapixels")),
+        "cropper": tuple(getattr(pp.line_cropper.crop_engine, k) for k in (
+            "line_height", "poly", "scale"))
+        + (pp.line_cropper.device_batched,),
+        "ocr": (ocr.line_px_height, ocr.line_vertical_scale, ocr.checkpoint, ocr.characters,
+                ocr.net_spec, ocr.embed_num, ocr.embed_id, ocr.max_line_width,
+                ocr.net_subsampling, pp.provides_ctc_logits),
+        "spec": tuple(getattr(spec, k) for k in (
+            "num_classes", "line_height", "conv_features", "subsampling", "lstm_layers",
+            "lstm_features", "embed_num", "embed_dim", "stem", "norm"))
+        + (getattr(spec.dtype, "__name__", str(spec.dtype).split(".")[-1]),),
+    }
+
+
+KEYS_SET = {  # every key the fast path's construction reads, off its fallback
+    "LAYOUT_PARSER_1": {"DOWNSAMPLE": "6", "DETECTION_THRESHOLD": "0.35",
+                        "MAX_MEGAPIXELS": "7.5", "ADAPTIVE_DOWNSAMPLE": "no",
+                        "LINE_END_WEIGHT": "0.5", "VERTICAL_LINE_CONNECTION_RANGE": "3",
+                        "SMOOTH_LINE_PREDICTIONS": "no", "PARAGRAPH_LINE_THRESHOLD": "0.4",
+                        "FAST_STEM": "yes", "DETECT_REGIONS": "yes", "DETECT_LINES": "yes"},
+    "LINE_CROPPER": {"INTERP": "1", "LINE_SCALE": "1.25", "DEVICE_BATCHED": "no"},
+    "PAGE_PARSER": {"FILTER_CONFIDENT_LINES_THRESHOLD": "-0.5"},
+}
+
+
+@pytest.mark.parametrize("variant", ["config2", "every_key"])
+def test_page_parser_reads_the_same_fields(bundle, variant):
+    config = _config(bundle / "config.ini")
+    if variant == "every_key":
+        for section, keys in KEYS_SET.items():
+            config[section].update(keys)
+        with open(bundle / "ocr" / "ocr.json", encoding="utf-8") as f:
+            ocr = json.load(f)
+        ocr.update(line_vertical_scale=2, embed_num=3, embed_id="1", max_line_width=900)
+        (bundle / "ocr" / "ocr_every_key.json").write_text(json.dumps(ocr))
+        config["OCR"]["OCR_JSON"] = "./ocr/ocr_every_key.json"
+        config["LAYOUT_PARSER_1"]["MODEL_PATH"] = "./layout/missing.msgpack"  # random init
+    got = _page_parser_fields(PageParser(config, device="cpu", config_path=str(bundle)))
+    want = _page_parser_fields(JaxPageParser(config, config_path=str(bundle)))
+    assert got == want
+
+
+def test_unsupported_features_match_jax(bundle):
+    config = _config(bundle / "config.ini")
+    for key in ("MULTI_ORIENTATION", "MERGE_LINES", "ADJUST_HEIGHTS", "ADJUST_BASELINES",
+                "DETECT_STRAIGHT_LINES_IN_REGIONS"):
+        config["LAYOUT_PARSER_1"][key] = "yes"
+    config["LAYOUT_PARSER_1"]["DETECT_LINES"] = "no"
+    config["PAGE_PARSER"]["FILTER_CONFIDENT_LINES_THRESHOLD"] = "0.5"
+    got = FastPagePipeline.unsupported_features(PageParser(config, config_path=str(bundle)))
+    want = JaxFastPagePipeline.unsupported_features(
+        JaxPageParser(config, config_path=str(bundle)))
+    assert got == want and len(got) == 7
+
+
+REFUSED = [
+    (["-x", "xml"], "Crop transport"),
+    (["--output-logit-path", "{tmp}/l"], "Logits, forced alignment and ALTO"),
+    (["--output-alto-path", "{tmp}/a"], "Logits, forced alignment and ALTO"),
+    (["--output-line-path", "{tmp}/lines"], "Crop transport"),
+    (["--output-render-path", "{tmp}/r"], "JPEG/TIFF decoding"),
+    (["--transport", "crops"], "Crop transport"),
+    (["--transport-bits", "2"], "Crop transport"),
+    (["--canvas-bits", "4"], "Crop transport"),
+    (["--dp", "2"], "Training and scale-out"),
+    (["--profile", "{tmp}/p"], "Training and scale-out"),
+    (["--process-count", "2"], "Stage-by-stage path"),
+    (["NO_FAST"], "Stage-by-stage path"),
+]
+
+
+@pytest.mark.parametrize("extra,item", REFUSED, ids=[r[0][0].strip("-") for r in REFUSED])
+def test_cli_refuses_unported_options(bundle, tmp_path, caplog, extra, item):
+    args = ["-c", str(bundle / "config.ini"), "-i", str(bundle / "images"),
+            "--output-xml-path", str(tmp_path / "xml"), "--device", "cpu"]
+    args += [] if extra == ["NO_FAST"] else ["--fast-pipeline"]
+    args += [a.format(tmp=tmp_path) for a in extra if a != "NO_FAST"]
+    with caplog.at_level(logging.ERROR), pytest.raises(SystemExit) as e:
+        _run_port(args)
+    assert e.value.code == 2
+    assert item in caplog.text and "ROADMAP.md" in caplog.text
+    assert not (tmp_path / "xml").exists()
+
+
+def test_cli_refuses_config_features(bundle, tmp_path, caplog):
+    config = _config(bundle / "config.ini")
+    config["LAYOUT_PARSER_1"]["MERGE_LINES"] = "yes"
+    with open(tmp_path / "merge.ini", "w") as f:
+        config.write(f)
+    for name in ("layout", "ocr"):  # the bundle's relative paths
+        os.symlink(bundle / name, tmp_path / name)
+    with caplog.at_level(logging.ERROR), pytest.raises(SystemExit) as e:
+        _run_port(["-c", str(tmp_path / "merge.ini"), "-i", str(bundle / "images"),
+                   "--fast-pipeline", "--device", "cpu"])
+    assert e.value.code == 2 and "MERGE_LINES" in caplog.text
+    assert "Stage-by-stage path" in caplog.text
+
+    config["LAYOUT_PARSER_1"]["MERGE_LINES"] = "no"
+    config["PAGE_PARSER"]["RUN_DECODER"] = "yes"
+    for section, item in ((None, "Beam search"), ("LAYOUT_PARSER_2", "Stage-by-stage path"),
+                          ("OCR", "Transformer recognizers")):
+        if section == "LAYOUT_PARSER_2":
+            config["PAGE_PARSER"]["RUN_DECODER"] = "no"
+            config.add_section(section)
+            config[section]["METHOD"] = "LINE_FILTER"
+        elif section == "OCR":
+            config.remove_section("LAYOUT_PARSER_2")
+            config["OCR"]["METHOD"] = "transformer"
+        with pytest.raises(ValueError, match=item):
+            PageParser(config, device="cpu", config_path=str(bundle))
+
+
+def test_cli_fails_without_checkpoint_or_decoder(bundle, tmp_path):
+    config = _config(bundle / "config.ini")
+    config["LAYOUT_PARSER_1"]["MODEL_PATH"] = str(tmp_path / "missing.msgpack")
+    with open(tmp_path / "missing.ini", "w") as f:
+        config.write(f)
+    for name in ("layout", "ocr"):
+        os.symlink(bundle / name, tmp_path / name)
+    args = ["-c", str(tmp_path / "missing.ini"), "-i", str(bundle / "images"),
+            "--output-xml-path", str(tmp_path / "xml"), "--fast-pipeline", "--device", "cpu"]
+    with pytest.raises(FileNotFoundError, match="allow-random-weights"):
+        _run_port(args)
+    _run_port(args + ["--allow-random-weights"])
+    assert len(os.listdir(tmp_path / "xml")) == 3
+
+    jpeg = tmp_path / "jpeg_pages"
+    jpeg.mkdir()
+    assert cv2.imwrite(str(jpeg / "scan.jpg"), _page())
+    with pytest.raises(ValueError, match="JPEG/TIFF decoding"):
+        _run_port(["-c", str(bundle / "config.ini"), "-i", str(jpeg), "--fast-pipeline",
+                   "--device", "cpu"])

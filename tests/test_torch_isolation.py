@@ -1,9 +1,12 @@
-"""The port stands alone: with jax, flax, cv2, lxml and msgpack blocked
-(none of them is installed beside the card), every module of
-pero_ocr_tpu_torch imports, a tiny CPU TorchPagePipeline runs through
-FastPagePipeline to Page XML that xml.etree parses, and no module of the
-JAX package gets loaded.  Runs in a subprocess so the blocking does not
-leak into the other tests."""
+"""The port stands alone: with jax, flax, cv2, lxml, msgpack and PIL
+blocked (none of them is installed beside the card), every module of
+pero_ocr_tpu_torch and chip_smoke.py imports, a tiny CPU
+TorchPagePipeline runs through FastPagePipeline to Page XML that
+xml.etree parses, the command line turns a folder of PNG pages into Page
+XML files (a flax checkpoint written by chip_smoke.py, a missing one
+with --allow-random-weights), and no module of the JAX package gets
+loaded.  Runs in a subprocess so the blocking does not leak into the
+other tests."""
 
 import json
 import os
@@ -13,7 +16,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "flax", "cv2", "lxml", "msgpack")
+BLOCKED = ("jax", "flax", "cv2", "lxml", "msgpack", "PIL")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
@@ -63,6 +66,36 @@ try:
 except RuntimeError as e:
     raised = str(e)
 
+import os, tempfile
+import chip_smoke
+from pero_ocr_tpu_torch.scripts.parse_folder import main as cli_main
+tmp = tempfile.mkdtemp()
+os.makedirs(os.path.join(tmp, "images"))
+for page_id, page in zip(ids, pages):
+    with open(os.path.join(tmp, "images", page_id + ".png"), "wb") as f:
+        f.write(chip_smoke.png_bytes(page))
+small = RecognizerSpec(num_classes=6, line_height=16, conv_features=(4, 8), lstm_layers=1,
+                       lstm_features=8)
+chip_smoke.write_flax_checkpoint(chip_smoke.flax_recognizer_variables(
+    CTCRecognizer(small, generator=torch.Generator().manual_seed(2))),
+    os.path.join(tmp, "rec.msgpack"))
+with open(os.path.join(tmp, "ocr.json"), "w", encoding="utf-8") as f:
+    json.dump({"characters": chars[:-1], "line_px_height": 16, "checkpoint": "rec.msgpack",
+               "net_spec": {"conv_features": [4, 8], "lstm_layers": 1, "lstm_features": 8,
+                            "dtype": "float32"}}, f)
+with open(os.path.join(tmp, "config.ini"), "w") as f:
+    f.write("[PAGE_PARSER]\nRUN_LAYOUT_PARSER = yes\nRUN_LINE_CROPPER = yes\nRUN_OCR = yes\n"
+            "[LAYOUT_PARSER_1]\nMETHOD = LAYOUT_CNN\nMODEL_PATH = missing.msgpack\n"
+            "FAST_STEM = yes\nOUT_UPSAMPLE = 2\nBASE_FEATURES = 4\nDEPTH = 2\n"
+            "[LINE_CROPPER]\nLINE_HEIGHT = 16\n[OCR]\nOCR_JSON = ocr.json\n")
+cli_main(["-c", os.path.join(tmp, "config.ini"), "-i", os.path.join(tmp, "images"),
+          "--output-xml-path", os.path.join(tmp, "xml"), "--fast-pipeline", "--device", "cpu",
+          "--allow-random-weights"])
+cli = []
+for name in sorted(os.listdir(os.path.join(tmp, "xml"))):
+    with open(os.path.join(tmp, "xml", name), "rb") as f:
+        cli.append([name, ET.fromstring(f.read()).find(ns + "Page").get("imageFilename")])
+
 print(json.dumps({
     "modules": modules,
     "override": [[r.page_index, r.labels.shape[0]] for r in override],
@@ -72,6 +105,7 @@ print(json.dumps({
     "loaded": sorted(k for k in sys.modules
                      if k == "pero_ocr_tpu" or k.startswith("pero_ocr_tpu.")),
     "cuda": torch.cuda.is_available(),
+    "cli": cli,
 }))
 """
 
@@ -87,6 +121,8 @@ def test_port_runs_without_jax_and_host_libraries():
     assert "pero_ocr_tpu_torch.parallel.pipeline" in got["modules"]
     assert "pero_ocr_tpu_torch.ops.warp" in got["modules"]
     assert got["loaded"] == []
+    assert "pero_ocr_tpu_torch.scripts.parse_folder" in got["modules"]
+    assert got["cli"] == [[f"p{i}.xml", f"p{i}"] for i in range(3)]
     assert got["override"] == [[0, 4], [1, 4], [2, 4]]  # one slot of line_slot 4
     assert got["cnn_pages"] == [0, 1, 2]
     # CNN pages (random weights), then the override pages with their line.

@@ -251,8 +251,6 @@ def test_unported_options_raise(models):
         with pytest.raises(ValueError, match=item):
             FastPagePipeline(pipe, CHARS, **kwargs)
     fast = FastPagePipeline(pipe, CHARS)
-    with pytest.raises(ValueError, match="Stage-by-stage path"):
-        FastPagePipeline.from_page_parser(object())
     with pytest.raises(ValueError, match="Crop transport"):
         fast.prime([_page()])
     with pytest.raises(ValueError, match="Crop transport"):
