@@ -51,8 +51,12 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import configparser
+import copy
+import difflib
 import json
 import os
+import random
 import re
 import struct
 import subprocess
@@ -66,8 +70,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble_page_layout
+from pero_ocr_tpu_torch.document.page_parser import PageParser
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
 from pero_ocr_tpu_torch.ops import warp as warp_ops
@@ -813,6 +819,32 @@ OCR_JSON = ./ocr.json
 """
 
 
+def write_bundle(tmp: str, pn: ParseNet, rec: CTCRecognizer, pages: dict):
+    """The command line's inputs in ``tmp``: ``pages`` (id -> BGR page)
+    as PNG files under images/, the modules as flax msgpack checkpoints,
+    the OCR JSON and CLI_INI.  Returns (ini path, images dir)."""
+    fold_lstm_input_bias_(rec)
+    images = os.path.join(tmp, "images")
+    os.makedirs(images)
+    for page_id, page in pages.items():
+        with open(os.path.join(images, page_id + ".png"), "wb") as f:
+            f.write(png_bytes(page))
+    write_flax_checkpoint(flax_parsenet_variables(pn), os.path.join(tmp, "parsenet.msgpack"))
+    write_flax_checkpoint(flax_recognizer_variables(rec), os.path.join(tmp, "recognizer.msgpack"))
+    spec = rec.spec
+    with open(os.path.join(tmp, "ocr.json"), "w", encoding="utf-8") as f:
+        json.dump({"characters": BENCH_CHARS[:-1], "line_px_height": CROP_H,
+                   "checkpoint": "recognizer.msgpack", "net_spec": {
+                       "conv_features": list(spec.conv_features),
+                       "subsampling": spec.subsampling, "lstm_layers": spec.lstm_layers,
+                       "lstm_features": spec.lstm_features, "stem": spec.stem,
+                       "norm": spec.norm, "dtype": "bfloat16"}}, f)
+    ini = os.path.join(tmp, "config.ini")
+    with open(ini, "w", encoding="utf-8") as f:
+        f.write(CLI_INI)
+    return ini, images
+
+
 def run_cli(pipe: TorchPagePipeline, rng, smi: str):
     """Config 2 through the port's command line: 16 two-column pages as
     PNG files, the bench modules as flax msgpack checkpoints with an OCR
@@ -827,26 +859,9 @@ def run_cli(pipe: TorchPagePipeline, rng, smi: str):
     pages, lines = synthetic_pages(rng, n_pages, TWO_COLUMNS)
     ids = [f"p{i:04d}" for i in range(n_pages)]
     pn, rec = pipe.parsenet, pipe.recognizer
-    fold_lstm_input_bias_(rec)
     with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
-        images, out_dir = os.path.join(tmp, "images"), os.path.join(tmp, "page_xml")
-        os.makedirs(images)
-        for page_id, page in zip(ids, pages):
-            with open(os.path.join(images, page_id + ".png"), "wb") as f:
-                f.write(png_bytes(page))
-        write_flax_checkpoint(flax_parsenet_variables(pn), os.path.join(tmp, "parsenet.msgpack"))
-        write_flax_checkpoint(flax_recognizer_variables(rec), os.path.join(tmp, "recognizer.msgpack"))
-        spec = rec.spec
-        with open(os.path.join(tmp, "ocr.json"), "w", encoding="utf-8") as f:
-            json.dump({"characters": BENCH_CHARS[:-1], "line_px_height": CROP_H,
-                       "checkpoint": "recognizer.msgpack", "net_spec": {
-                           "conv_features": list(spec.conv_features),
-                           "subsampling": spec.subsampling, "lstm_layers": spec.lstm_layers,
-                           "lstm_features": spec.lstm_features, "stem": spec.stem,
-                           "norm": spec.norm, "dtype": "bfloat16"}}, f)
-        ini = os.path.join(tmp, "config.ini")
-        with open(ini, "w", encoding="utf-8") as f:
-            f.write(CLI_INI)
+        ini, images = write_bundle(tmp, pn, rec, dict(zip(ids, pages)))
+        out_dir = os.path.join(tmp, "page_xml")
         command = [sys.executable, "-m", "pero_ocr_tpu_torch.scripts.parse_folder", "-c", ini,
                    "-i", images, "--output-xml-path", out_dir, "--fast-pipeline",
                    "--timing-report"]
@@ -923,6 +938,351 @@ def run_cli(pipe: TorchPagePipeline, rng, smi: str):
                       "stage_b_batches": batches, "stage_b_slots": [int(n) for n in slots],
                       "card": smi}, (*last_b[0], same.crop_height, same.crop_bucket)
 
+# ----------------------------------------------------------------------
+# Config 2 stage by stage: PageParser.process_page and the field warp
+STAGE_TIMERS = ("layout", "parsenet_maps", "map_postprocess", "paragraph_clustering",
+                "region_polygons", "line_crop", "ocr")
+# Operations per output pixel of the field warp: floor 2, fractions 2,
+# 1 - f 2, then per channel 6 multiplies and 3 adds.
+FIELD_OPS_PER_PIXEL, FIELD_OPS_PER_CHANNEL = 6, 9
+
+
+def staged_parser(ini: str, device: str) -> PageParser:
+    config = configparser.ConfigParser()
+    config.read(ini)
+    return PageParser(config, device=device, config_path=os.path.dirname(ini))
+
+
+def random_fields(rng, n: int, hc: int, wb: int, h: int, w: int) -> np.ndarray:
+    """(n, hc, wb, 2) fields over and around an h x w page: uniform
+    coordinates, padded columns (-1e6), NaN and infinite entries,
+    coordinates past int32, integer ones."""
+    f = np.stack([rng.uniform(-20, w + 20, (n, hc, wb)),
+                  rng.uniform(-20, h + 20, (n, hc, wb))], axis=-1).astype(np.float32)
+    flat = f.reshape(-1, 2)
+    for value, share in ((-1e6, 0.1), (np.nan, 0.02), (np.inf, 0.01), (-np.inf, 0.01),
+                         (3e9, 0.01), (-5e9, 0.01)):
+        idx = rng.choice(len(flat), int(share * len(flat)), replace=False)
+        flat[idx, rng.integers(0, 2, len(idx))] = value
+    idx = rng.choice(len(flat), len(flat) // 10, replace=False)
+    flat[idx] = np.round(flat[idx])
+    return f
+
+
+def fields_equal(page: torch.Tensor, fields: torch.Tensor, label: str) -> float:
+    """warp_fields against warp_fields_plain in both stores: bit for bit.
+    Returns the largest |kernel - plain|."""
+    max_abs = 0.0
+    for store in warp_ops.FIELD_STORES:
+        got = warp_ops.warp_fields(page, fields, store)
+        want = warp_ops.warp_fields_plain(page, fields, store)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"warp_fields {label} {store}: {got.dtype} {tuple(got.shape)}")
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum()) if store == "f32" \
+            else int((got != want).sum())
+        max_abs = max(max_abs, float((got.float() - want.float()).abs().max()))
+        log(f"warp_fields {label} {store}: {bad} of {got.numel()} values not bit-equal")
+        if bad:
+            raise AssertionError(f"warp_fields {label} {store} disagrees with its plain version")
+    return max_abs
+
+
+def check_warp_fields(page: torch.Tensor, buckets, rng, label: str):
+    """The field warp on one page's width buckets (the staged path's
+    launches for that page, u8 store): bit-equal to its plain version in
+    both stores, here and on random fields (off-page, NaN, infinite and
+    padded coordinates; C = 1 and 3; uint8 and float32 pages); then its
+    time, warm and cold, beside the plain version's, ``F.grid_sample``'s
+    on the same fields and its bound."""
+    max_abs = max(fields_equal(page, f, f"{label} bucket {tuple(f.shape)}") for f in buckets)
+    h, w = page.shape[:2]
+    for c in (1, 3):
+        test_page = page[:, :, :c].contiguous()
+        f = torch.from_numpy(random_fields(rng, 16, 40, 1024, h, w)).cuda()
+        fields_equal(test_page, f, f"random fields, C={c}")
+        fields_equal(test_page.float(), f, f"random fields, float32 page, C={c}")
+
+    def run():
+        return [warp_ops.warp_fields(page, f, "u8") for f in buckets]
+
+    page_f = page.permute(2, 0, 1)[None].float()
+    scale = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=page.device)
+    grids = [(f * scale - 1.0).reshape(1, -1, f.shape[2], 2) for f in buckets]
+
+    def library():
+        return [F.grid_sample(page_f, g, mode="bilinear", padding_mode="zeros",
+                              align_corners=True) for g in grids]
+
+    warm, cold = cuda_ms(run), cuda_ms(run, cold=True)
+    lib_warm, lib_cold = cuda_ms(library), cuda_ms(library, cold=True)
+    plain_ms = cuda_ms(lambda: [warp_ops.warp_fields_plain(page, f, "u8") for f in buckets],
+                       reps=5, warmup=1, ahead=False)
+    nbytes = sum(warp_ops.warp_fields_bytes(page, f, "u8") for f in buckets)
+    samples = sum(f[..., 0].numel() for f in buckets)
+    ops = samples * (FIELD_OPS_PER_PIXEL + FIELD_OPS_PER_CHANNEL * page.shape[2])
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
+    bound = max(bytes_ms, ops_ms)
+    log(f"warp_fields {label}: {len(buckets)} buckets {[tuple(f.shape) for f in buckets]}, "
+        f"{samples} samples; {warm:.4f} ms warm ({bound / warm:.3f} of its bound), {cold:.4f} "
+        f"ms cold; bound {bytes_ms:.4f} ms by {nbytes} bytes, {ops_ms:.4f} ms by {ops} ops; "
+        f"plain {plain_ms:.4f} ms; F.grid_sample {lib_warm:.4f} ms warm, {lib_cold:.4f} ms cold")
+    return {"max_abs_err": max_abs, "ms": warm, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_warm, "ms_warm": warm, "ms_cold": cold,
+            "library_ms_cold": lib_cold, "bytes": nbytes, "samples": samples,
+            "buckets": [list(f.shape) for f in buckets]}
+
+
+def page_buckets(parser: PageParser, layout, page: np.ndarray):
+    """The field warp's inputs for one page as LineCropper builds them:
+    the page on the card and one padded field tensor per non-empty width
+    bucket."""
+    cropper = parser.line_cropper
+    lines = list(layout.lines_iterator())
+    fields = [cropper.crop_engine.get_crop_inputs(ln.baseline, ln.heights,
+                                                  cropper.crop_engine.line_height)
+              for ln in lines]
+    groups = warp_ops.width_buckets([f.shape[1] for f in fields], cropper.BUCKETS)
+    buckets = [torch.from_numpy(warp_ops.pad_fields([fields[g] for g in group], b)[0]).cuda()
+               for b, group in zip(cropper.BUCKETS, groups) if group]
+    return torch.from_numpy(np.ascontiguousarray(page)).cuda(), buckets
+
+
+def rotate_ring(points: str) -> str:
+    """A Page XML points list started at its least (x, y) vertex: an
+    alpha-shape region outline starts where the triangulation's boundary
+    walk does, which float32 noise between two processes' ParseNet maps
+    (cuDNN may choose other algorithms) can move along the same ring."""
+    pts = points.split()
+    start = min(range(len(pts)), key=lambda k: tuple(map(int, pts[k].split(","))))
+    return " ".join(pts[start:] + pts[:start])
+
+
+def staged_regions(xml: str):
+    """A stage-by-stage Page XML as [(region id, outline, sorted lines)],
+    a line as (outline, baseline, text, conf).  Lines that share a row
+    (a row the detector split, or the two columns) take their order and
+    numbers from ``random``'s jitter (order_lines_vertical), which each
+    process draws anew, so they are compared as a set."""
+    root = ET.fromstring(xml.encode("utf-8"))
+    out = []
+    for region in root.findall(f"{PAGE_NS}Page/{PAGE_NS}TextRegion"):
+        lines = []
+        for line in region.findall(f"{PAGE_NS}TextLine"):
+            equiv = line.find(f"{PAGE_NS}TextEquiv")
+            lines.append((line.find(f"{PAGE_NS}Coords").get("points"),
+                          line.find(f"{PAGE_NS}Baseline").get("points"),
+                          equiv.find(f"{PAGE_NS}Unicode").text or "",
+                          float(equiv.get("conf"))))
+        out.append((region.get("id"), rotate_ring(region.find(f"{PAGE_NS}Coords").get("points")),
+                    sorted(lines)))
+    return out
+
+
+def same_staged_page(a: str, b: str, tol: float = 0.0015) -> bool:
+    """Equal regions and lines (see staged_regions), conf within ``tol``."""
+    ra, rb = staged_regions(a), staged_regions(b)
+    if [r[:2] for r in ra] != [r[:2] for r in rb]:
+        return False
+    for (_, _, la), (_, _, lb) in zip(ra, rb):
+        if [x[:3] for x in la] != [x[:3] for x in lb]:
+            return False
+        if any(abs(x[3] - y[3]) > tol for x, y in zip(la, lb)):
+            return False
+    return True
+
+
+def confs_close(a: str, b: str, tol: float = 0.0015) -> bool:
+    ca, cb = (np.asarray(re.findall(r'conf="([0-9.]+)"', x), float) for x in (a, b))
+    return ca.shape == cb.shape and bool(np.abs(ca - cb).max(initial=0) <= tol)
+
+
+# The staged path's ParseNet maps on the card against the CPU's, float32
+# with TF32 off: cuDNN sums in another order (measured: see the log line
+# of check_staged_against_cpu).
+STAGED_MAPS_ATOL = 1e-3
+
+
+def check_staged_against_cpu(rng) -> None:
+    """A small float32 stage-by-stage run (TF32 off) on the card against
+    the same PageParser on the CPU.  Each page's ParseNet maps must agree
+    within STAGED_MAPS_ATOL; the CPU run then continues from the card's
+    maps, and the two Page XMLs must be equal (conf within 0.0015).  The
+    rest of the staged layout turns float heights into integer outlines
+    (alpha shapes, the 5 px simplification, raster clipping), so maps
+    1e-6 apart can move a vertex: equal maps isolate what follows them,
+    the field warp kernel and the recognizer on the card."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pn = ParseNet(base_features=8, depth=2, stem="s2d", out_upsample=2, dtype=torch.float32)
+    edge_detector_(pn)
+    rec = CTCRecognizer(RecognizerSpec(
+        num_classes=80, line_height=CROP_H, conv_features=(8, 16), subsampling=4,
+        lstm_layers=1, lstm_features=16, dtype=torch.float32, stem="s2d", norm="group",
+    ), generator=torch.Generator().manual_seed(1))
+    pages, _ = synthetic_pages(rng, 2, TWO_COLUMNS)
+    pages = [p[:1280] for p in pages]
+    xml, card_maps, maps_err = {}, [], []
+    with tempfile.TemporaryDirectory(prefix="staged_cpu_") as tmp:
+        ini = os.path.join(tmp, "config.ini")
+        with open(ini, "w", encoding="utf-8") as f:
+            f.write(CLI_INI.replace("BASE_FEATURES = 32", "BASE_FEATURES = 8")
+                    .replace("DEPTH = 4", "DEPTH = 2"))
+        with open(os.path.join(tmp, "ocr.json"), "w", encoding="utf-8") as f:
+            json.dump({"characters": BENCH_CHARS[:-1], "line_px_height": CROP_H, "net_spec": {
+                "conv_features": [8, 16], "subsampling": 4, "lstm_layers": 1,
+                "lstm_features": 16, "stem": "s2d", "norm": "group", "dtype": "float32"}}, f)
+        for device in ("cuda", "cpu"):
+            parser = staged_parser(ini, device)
+            wrapper = parser.layout_parsers[0].engine.parsenet
+            wrapper.model = copy.deepcopy(pn)
+            parser.ocr.ocr_engine.model = copy.deepcopy(rec)
+            own_maps, replay = wrapper.get_maps, iter(card_maps)
+
+            def recorded(img, ds, own_maps=own_maps):
+                card_maps.append(own_maps(img, ds))
+                return card_maps[-1]
+
+            def replayed(img, ds, own_maps=own_maps, replay=replay):
+                card = next(replay)
+                maps_err.append(float(np.abs(own_maps(img, ds) - card).max()))
+                return card
+
+            wrapper.get_maps = recorded if device == "cuda" else replayed
+            random.seed(0)
+            xml[device] = [parser.process_page(p, PageLayout(id=f"c{i}", page_size=p.shape[:2]))
+                           .to_pagexml_string() for i, p in enumerate(pages)]
+    torch.backends.cudnn.allow_tf32 = True
+    n_lines = sum(x.count("<TextLine ") for x in xml["cpu"])
+    log(f"staged reference check: ParseNet maps card vs CPU max |diff| "
+        f"{max(maps_err):.3g} over {len(maps_err)} passes (f32, TF32 off)")
+    if max(maps_err) > STAGED_MAPS_ATOL:
+        raise AssertionError(f"staged: card ParseNet maps differ from CPU by {max(maps_err)}")
+    for i, (a, b) in enumerate(zip(xml["cpu"], xml["cuda"])):
+        a_text, b_text = (mask_pagexml(re.sub(r'conf="[0-9.]+"', "", x)) for x in (a, b))
+        if a_text != b_text or not confs_close(a, b):
+            diff = difflib.unified_diff(a_text.splitlines(), b_text.splitlines(), "cpu", "card",
+                                        lineterm="")
+            log("\n".join(list(diff)[:60]))
+            raise AssertionError(f"staged page {i}: card Page XML differs from CPU")
+    if n_lines < 20:
+        raise AssertionError(f"staged reference check found only {n_lines} lines")
+    log(f"staged reference check: from the same maps, card Page XML equals the CPU's on 2 "
+        f"pages, {n_lines} lines")
+
+
+def run_staged(pipe: TorchPagePipeline, rng, smi: str):
+    """Config 2 stage by stage on the card: each of 8 two-column
+    2560x1792 BGR pages through ``PageParser(config, device="cuda")
+    .process_page`` and into Page XML, with the bench modules loaded from
+    flax msgpack checkpoints; then the command line without
+    --fast-pipeline on 4 of the pages, whose files must equal the
+    in-process run's.  Returns the field warp's launches, the phase's
+    numbers and the last page's warp inputs."""
+    pages, lines = synthetic_pages(rng, PAGE_BATCH, TWO_COLUMNS)
+    ids = [f"s{i:04d}" for i in range(len(pages))]
+    n_cli = 4
+    with tempfile.TemporaryDirectory(prefix="staged_") as tmp:
+        ini, images = write_bundle(tmp, pipe.parsenet, pipe.recognizer,
+                                   dict(zip(ids[:n_cli], pages[:n_cli])))
+        parser = staged_parser(ini, "cuda")
+        engine = parser.layout_parsers[0].engine
+        detected, detect = [], engine.detect
+
+        def counted_detect(image, rot=0):
+            out = detect(image, rot)
+            detected.append(len(out[1]))
+            return out
+
+        engine.detect = counted_detect
+        warm = pages[-1]  # cuDNN plans, the kernel's first load
+        parser.process_page(warm, PageLayout(id="warm", page_size=warm.shape[:2]))
+        engine.parsenet.last_downsample = engine.parsenet.init_downsample
+        detected.clear()
+        timing.reset_timing()
+        warp_ops.warp_fields.launches = warp_ops.warp_lines.launches = 0
+        out = []
+        t0 = time.perf_counter()
+        for pid, page in zip(ids, pages):
+            layout = parser.process_page(page, PageLayout(id=pid, page_size=page.shape[:2]))
+            with timing.stage_timer("document/pagexml"):
+                out.append((layout, layout.to_pagexml_string()))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, fused = warp_ops.warp_fields.launches, warp_ops.warp_lines.launches
+        stats = timing.timing_stats()
+
+        buckets_used = []  # non-empty width buckets, per page
+        n_lines = n_regions = 0
+        for i, (layout, xml) in enumerate(out):
+            root = ET.fromstring(xml.encode("utf-8"))
+            regions = root.findall(f"{PAGE_NS}Page/{PAGE_NS}TextRegion")
+            numbers = [int(e.get("id").rsplit("-l", 1)[1]) for r in regions
+                       for e in r.findall(f"{PAGE_NS}TextLine")]
+            if len(regions) < 2:
+                raise AssertionError(f"staged: page {i} has {len(regions)} regions, want >= 2")
+            if sorted(numbers) != list(range(1, detected[i] + 1)):
+                raise AssertionError(f"staged: page {i}: a line is in no region or in two")
+            crops = [ln.crop.shape[1] for ln in layout.lines_iterator()]
+            buckets_used.append(
+                len({next(b for b in parser.line_cropper.BUCKETS if w <= b) for w in crops})
+                if len(crops) >= parser.line_cropper.DEVICE_BATCH_MIN else 0)
+            n_lines += len(numbers)
+            n_regions += len(regions)
+        recall = line_recall(
+            [[ln.baseline for ln in layout.lines_iterator()] for layout, _ in out], lines)
+        log(f"staged (PageParser.process_page): {len(pages)} pages, {n_lines} lines, {n_regions} "
+            f"regions; line recall {recall:.3f}; {len(pages) / seconds:.3f} pages/s to Page XML "
+            f"({seconds:.3f} s) on {smi}; ds {engine.parsenet.last_downsample}")
+        log("stage times (staged run):\n" + timing.timing_report())
+        log(f"warp_fields launches in the staged run: {launches}, non-empty width buckets: "
+            f"{sum(buckets_used)} ({buckets_used} a page); warp_lines launches: {fused}")
+        if recall < MIN_LINE_RECALL:
+            raise AssertionError(f"staged: found {recall:.3f} < {MIN_LINE_RECALL} of the lines")
+        if launches != sum(buckets_used) or launches == 0 or fused != 0:
+            raise AssertionError("staged: warp_fields launches != non-empty width buckets")
+
+        # The command line without --fast-pipeline on the first pages.
+        out_dir = os.path.join(tmp, "page_xml")
+        command = [sys.executable, "-m", "pero_ocr_tpu_torch.scripts.parse_folder", "-c", ini,
+                   "-i", images, "--output-xml-path", out_dir, "--timing-report"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(command, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        cli_seconds = time.perf_counter() - t0
+        log(f"command line (stage by stage): exit {proc.returncode} in {cli_seconds:.3f} s\n"
+            f"{proc.stdout.strip()}\n{proc.stderr.strip()[-4000:]}")
+        if proc.returncode != 0 or "ERROR" in proc.stdout:
+            raise AssertionError(f"the stage-by-stage command line failed ({proc.returncode})")
+        counted = re.search(r"^warp_fields kernel launches: (\d+)$", proc.stdout, re.M)
+        timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
+        differ = []
+        for pid, (layout, xml) in zip(ids[:n_cli], out):
+            with open(os.path.join(out_dir, pid + ".xml"), encoding="utf-8") as f:
+                cli_xml = f.read()
+            if not same_staged_page(cli_xml, xml):
+                differ.append(pid)
+        log(f"stage-by-stage command line vs in-process: {n_cli - len(differ)} of {n_cli} files "
+            f"equal (lines of a row as a set; conf within 0.0015); its warp_fields "
+            f"launches {counted.group(1) if counted else None}; "
+            f"{n_cli / float(timed.group(1)) if timed else float('nan'):.3f} pages/s by its timer")
+        if differ or counted is None or timed is None:
+            raise AssertionError(f"the stage-by-stage command line's files differ: {differ}")
+        if int(counted.group(1)) != sum(buckets_used[:n_cli]):
+            raise AssertionError("the stage-by-stage command line: warp_fields launches != "
+                                 "non-empty width buckets")
+        page, buckets = page_buckets(parser, out[-1][0], pages[-1])
+
+    numbers = {"pages": len(pages), "pages_per_s": len(pages) / seconds, "lines": n_lines,
+               "regions": n_regions, "line_recall": recall,
+               "stage_ms": {k: 1e3 * stats[k][0] / stats[k][1] for k in STAGE_TIMERS
+                            if k in stats},
+               "stage_calls": {k: stats[k][1] for k in STAGE_TIMERS if k in stats},
+               "cli_pages_per_s": n_cli / float(timed.group(1)), "cli_wall_s": cli_seconds,
+               "cli_warp_fields_launches": int(counted.group(1)), "card": smi}
+    return launches, numbers, (page, buckets)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -946,6 +1306,8 @@ def main() -> int:
     pipe, launches_page_transport, stage_b = run_main_path(rng)
     launches, config2, main_args = run_config2(pipe, rng, smi)
     launches_cli, cli, cli_args = run_cli(pipe, rng, smi)
+    check_staged_against_cpu(rng)
+    launches_staged, staged, staged_args = run_staged(pipe, rng, smi)
     # The kernel against its plain version, and its times, at the main
     # path's shapes (the last config-2 batch's pages and detected lines)
     # and at the command line's (its last batch: page batch 4, line slot
@@ -963,9 +1325,18 @@ def main() -> int:
         **{f"cli_{k}": v for k, v in cli_check.items()},
     }
 
+    fields = {
+        "name": "warp_fields", "route": "cuda",
+        "source": "pero_ocr_tpu_torch/csrc/warp_fields.cu",
+        "replaces": "pero_ocr_tpu/ops/warp.py:188",
+        "launches": launches_staged,
+        **check_warp_fields(*staged_args, rng, "staged, last page"),
+    }
+
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"staged": staged}))
     print(smi)
-    print(json.dumps({"kernels": [warp]}))
+    print(json.dumps({"kernels": [warp, fields]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

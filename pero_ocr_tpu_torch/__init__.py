@@ -2,9 +2,11 @@
 
 The package mirrors the module layout of :mod:`pero_ocr_tpu` (the JAX
 reference) and imports nothing of it.  Plain tensor code is PyTorch;
-the line-crop warp, the one Pallas kernel of the JAX package, is a
-hand-written CUDA kernel (``csrc/warp_lines.cu``) built with ``nvcc``
-on first use.
+the line-crop warp, the one Pallas kernel of the JAX package, is two
+hand-written CUDA kernels built with ``nvcc`` on first use: the fast
+path's fused version (``csrc/warp_lines.cu``) and the stage-by-stage
+path's, which samples precomputed fields as the Pallas kernel does
+(``csrc/warp_fields.cu``).
 
 Entry points run on CUDA unless the caller asks for the CPU: see
 :func:`resolve_device`.

@@ -1,8 +1,10 @@
 """Host-side 2D polygon geometry (from pero_ocr_tpu/core/geometry.py).
 
-The subset the fast path uses: areas and point tests, the batched
-boundary distance of paragraph clustering, alpha-shape outlines, and the
-Douglas-Peucker simplification and convex hull of region outlines.
+The subset the port's two paths use: areas and point tests, the batched
+boundary distance of paragraph clustering, alpha-shape outlines, the
+Douglas-Peucker simplification and convex hull of region outlines, and
+for the stage-by-stage layout the raster intersections of polygons and
+the clipping of baselines to regions.
 
 The JAX package runs the last three through OpenCV (``approxPolyDP``,
 ``convexHull``, ``fillPoly`` + ``findContours``).  This module has no
@@ -173,6 +175,83 @@ def polygons_close(polys, pairs: np.ndarray, thresholds: np.ndarray) -> np.ndarr
         if len(rest):
             close[rest] = polygon_min_distance_batch(polys, pairs[rest]) <= thresholds[rest]
     return close
+
+
+# ----------------------------------------------------------------------
+# Raster boolean operations (cv2.fillPoly + findContours in the JAX
+# package; here _fill_polys and _largest_external_contour below)
+# ----------------------------------------------------------------------
+def bbox(polygon: np.ndarray) -> Tuple[float, float, float, float]:
+    p = np.asarray(polygon)
+    return float(p[:, 0].min()), float(p[:, 1].min()), float(p[:, 0].max()), float(p[:, 1].max())
+
+
+def bboxes_intersect(a: np.ndarray, b: np.ndarray) -> bool:
+    """Whether the bounding boxes meet (touching counts)."""
+    ax0, ay0, ax1, ay1 = bbox(a)
+    bx0, by0, bx1, by1 = bbox(b)
+    return not (ax1 < bx0 or bx1 < ax0 or ay1 < by0 or by1 < ay0)
+
+
+def rasterize_polygon(polygon: np.ndarray, origin: Tuple[int, int],
+                      shape: Tuple[int, int]) -> np.ndarray:
+    """uint8 mask of the polygon (vertices rounded half to even) in a
+    raster of ``shape`` (h, w) whose pixel (0, 0) is page point
+    ``origin``; what lies off the raster is clipped."""
+    mask = np.zeros(shape, dtype=np.uint8)
+    pts = np.round(np.asarray(polygon, dtype=np.float64) - np.asarray(origin)[None, :])
+    _fill_polys(mask, pts.astype(np.int32)[None])
+    return mask
+
+
+def _rasterize_scaled(polygon, x0, y0, shape, scale):
+    """Rasterize with pixel-center sampling at ``scale`` subpixels per
+    pixel: raster pixel (i, j) samples page point (j / scale + x0,
+    i / scale + y0)."""
+    mask = np.zeros(shape, dtype=np.uint8)
+    pts = (np.asarray(polygon, dtype=np.float64) - [x0, y0]) * scale - 0.5
+    _fill_polys(mask, np.round(pts).astype(np.int32)[None])
+    return mask
+
+
+def polygon_intersection_area(a: np.ndarray, b: np.ndarray, scale: int = 4) -> float:
+    """Intersection area of two polygons: the count of ``scale`` x
+    ``scale`` subpixel centres inside both; past 64M subpixels the scale
+    halves, and past that at scale 1 the bounding boxes' overlap."""
+    if not bboxes_intersect(a, b):
+        return 0.0
+    x0, y0, w, h = _raster_frame(a, b)
+    while scale > 1 and (w * h * scale * scale) > 64_000_000:
+        scale //= 2
+    if w * h * scale * scale > 64_000_000:
+        ax0, ay0, ax1, ay1 = bbox(a)
+        bx0, by0, bx1, by1 = bbox(b)
+        return max(0.0, min(ax1, bx1) - max(ax0, bx0)) * max(0.0, min(ay1, by1) - max(ay0, by0))
+    shape = (h * scale, w * scale)
+    ma = _rasterize_scaled(a, x0, y0, shape, scale)
+    mb = _rasterize_scaled(b, x0, y0, shape, scale)
+    return float(np.count_nonzero(ma & mb)) / (scale * scale)
+
+
+def polygon_intersection(a: np.ndarray, b: np.ndarray) -> Optional[np.ndarray]:
+    """The outline of the largest connected piece of the two polygons'
+    raster intersection, in page coordinates, or None if they do not
+    intersect."""
+    if not bboxes_intersect(a, b):
+        return None
+    # Both rasters hold the intersection inside the overlap of the two
+    # bounding boxes: raster only that window (clipping the polygons).
+    ax0, ay0, ax1, ay1 = bbox(a)
+    bx0, by0, bx1, by1 = bbox(b)
+    box = np.array([[max(ax0, bx0), max(ay0, by0)], [min(ax1, bx1), min(ay1, by1)]])
+    x0, y0, w, h = _raster_frame(box)
+    inter = rasterize_polygon(a, (x0, y0), (h, w)) & rasterize_polygon(b, (x0, y0), (h, w))
+    if not inter.any():
+        return None
+    ring = _largest_external_contour(inter)
+    if ring is None or len(ring) < 3:
+        return None
+    return ring + np.asarray([x0, y0])[None, :]
 
 
 # ----------------------------------------------------------------------
@@ -425,7 +504,10 @@ _XY_SHIFT = 16
 def _draw_lines(mask: np.ndarray, p0: np.ndarray, p1: np.ndarray) -> None:
     """8-connected segments p0[k] -> p1[k] (int coordinates) as
     ``cv2.line``/``LineIterator`` draws them (left to right, Bresenham
-    with OpenCV's error term), all segments stepped together."""
+    with OpenCV's error term), every point of every segment at once.
+    With M major and m minor steps the error starts at M - 2m, so after
+    i major steps the line has taken ceil((2 m i - M) / (2 M)) minor
+    ones."""
     swap = p1[:, 0] < p0[:, 0]
     a = np.where(swap[:, None], p1, p0).astype(np.int64)
     b = np.where(swap[:, None], p0, p1).astype(np.int64)
@@ -439,24 +521,23 @@ def _draw_lines(mask: np.ndarray, p0: np.ndarray, p1: np.ndarray) -> None:
     # Major-axis step and minor-axis step as (x, y) unit moves.
     step_major = np.stack([np.where(vert, 0, 1), np.where(vert, sy, 0)], 1)
     step_minor = np.stack([np.where(vert, 1, 0), np.where(vert, 0, sy)], 1)
-    err = major - 2 * minor
-    cur = a.copy()
-    mask[cur[:, 1], cur[:, 0]] = 1
-    for i in range(1, int(major.max(initial=0)) + 1):
-        live = major >= i
-        neg = err < 0
-        cur = cur + np.where(live[:, None], step_major, 0) + np.where(
-            (live & neg)[:, None], step_minor, 0
-        )
-        err = np.where(live, err - 2 * minor + np.where(neg, 2 * major, 0), err)
-        mask[cur[live, 1], cur[live, 0]] = 1
+    count = major + 1
+    seg = np.repeat(np.arange(len(a)), count)
+    i = np.arange(int(count.sum())) - np.repeat(np.cumsum(count) - count, count)
+    big, small = major[seg], minor[seg]
+    taken = -((big - 2 * small * i) // np.maximum(2 * big, 1))
+    pts = a[seg] + i[:, None] * step_major[seg] + taken[:, None] * step_minor[seg]
+    h, w = mask.shape
+    pts = pts[(pts[:, 0] >= 0) & (pts[:, 0] < w) & (pts[:, 1] >= 0) & (pts[:, 1] < h)]
+    mask[pts[:, 1], pts[:, 0]] = 1
 
 
 def _fill_polys(mask: np.ndarray, polys: np.ndarray) -> None:
     """``cv2.fillPoly(mask, list(polys), 1)`` for (K, V, 2) int polygons
     (no shift, 8-connected): every edge is drawn as a line, then the
     scanline fill pairs the edges of ALL polygons by x on each row
-    (even-odd over the whole set) and fills between each pair."""
+    (even-odd over the whole set) and fills between each pair.  What
+    lies off the mask is clipped."""
     p0 = np.roll(polys, 1, axis=1).reshape(-1, 2).astype(np.int64)
     p1 = polys.reshape(-1, 2).astype(np.int64)
     _draw_lines(mask, p0, p1)
@@ -487,8 +568,10 @@ def _fill_polys(mask: np.ndarray, polys: np.ndarray) -> None:
     x_pairs >>= _XY_SHIFT
     if not np.array_equal(y_pairs[:, 0], y_pairs[:, 1]):
         raise ValueError("fillPoly: an odd number of edge crossings on a row")
-    for y, xl, xr in zip(y_pairs[:, 0].tolist(), x_pairs[:, 0].tolist(),
-                         x_pairs[:, 1].tolist()):
+    # Spans clipped to the mask, as cv2.fillPoly clips.
+    y, xl, xr = y_pairs[:, 0], np.maximum(x_pairs[:, 0], 0), x_pairs[:, 1]
+    keep = (y >= 0) & (y < mask.shape[0]) & (xl <= xr)
+    for y, xl, xr in zip(y[keep].tolist(), xl[keep].tolist(), xr[keep].tolist()):
         mask[y, xl: xr + 1] = 1
 
 
@@ -546,19 +629,25 @@ def _largest_external_contour(mask: np.ndarray) -> Optional[np.ndarray]:
     zero on its one-pixel frame."""
     from scipy import ndimage
 
-    labels, num = ndimage.label(mask, structure=np.ones((3, 3), int))
-    if num == 0:
+    # Work on the set pixels' bounding box with a zero frame: the same
+    # components, borders and raster order, fewer pixels to label.
+    rows = np.flatnonzero(mask.any(axis=1))
+    if rows.size == 0:
         return None
+    cols = np.flatnonzero(mask.any(axis=0))
+    window = np.zeros((rows[-1] - rows[0] + 3, cols[-1] - cols[0] + 3), np.uint8)
+    window[1:-1, 1:-1] = mask[rows[0]: rows[-1] + 1, cols[0]: cols[-1] + 1] != 0
+    labels, num = ndimage.label(window, structure=np.ones((3, 3), int))
     ys, xs = np.nonzero(labels)
     _, first = np.unique(labels[ys, xs], return_index=True)
-    buf = (mask != 0).astype(np.uint8).tobytes()
+    buf = window.tobytes()
     best, best_area = None, -1.0
     for k in sorted(first.tolist(), reverse=True):
-        ring = _trace_outer_border(buf, mask.shape[1], int(xs[k]), int(ys[k]))
+        ring = _trace_outer_border(buf, window.shape[1], int(xs[k]), int(ys[k]))
         area = abs(polygon_area(ring))
         if area > best_area:
             best, best_area = ring, area
-    return best
+    return best + np.asarray([cols[0] - 1, rows[0] - 1], np.float64)
 
 
 # ----------------------------------------------------------------------
@@ -674,3 +763,48 @@ def alpha_shape_info(points: np.ndarray, alpha: float) -> Tuple[np.ndarray, bool
     if ring is None or len(ring) < 3:
         return convex_hull(pts), False
     return ring + np.asarray([x0, y0])[None, :], False
+
+
+def mask_polyline_by_polygon(polyline: np.ndarray, polygon: np.ndarray) -> Optional[np.ndarray]:
+    """The part of a polyline inside a polygon: the longest run of
+    inside points, with the boundary crossings added at its cut ends.
+    None if no point is inside."""
+    line = np.asarray(polyline, dtype=np.float64)
+    inside = points_in_polygon(line, polygon)
+    if not inside.any():
+        return None
+    if inside.all():
+        return line
+
+    # Longest run of inside points (the first of equal length).
+    best_start, best_len = 0, 0
+    cur_start, cur_len = None, 0
+    for i, flag in enumerate(inside):
+        if flag:
+            if cur_start is None:
+                cur_start, cur_len = i, 1
+            else:
+                cur_len += 1
+            if cur_len > best_len:
+                best_start, best_len = cur_start, cur_len
+        else:
+            cur_start, cur_len = None, 0
+    seg = line[best_start: best_start + best_len]
+
+    pieces: List[np.ndarray] = []
+    if best_start > 0:
+        entry = line[best_start]
+        cuts = segment_polygon_intersections(line[best_start - 1], entry, polygon)
+        # A cut at the inside end itself (on the boundary) is no crossing.
+        cuts = cuts[np.hypot(*(cuts - entry[None, :]).T) > 1e-6]
+        if len(cuts):
+            pieces.append(cuts[-1:])
+    pieces.append(seg)
+    end = best_start + best_len
+    if end < len(line):
+        exit_pt = line[end - 1]
+        cuts = segment_polygon_intersections(exit_pt, line[end], polygon)
+        cuts = cuts[np.hypot(*(cuts - exit_pt[None, :]).T) > 1e-6]
+        if len(cuts):
+            pieces.append(cuts[:1])
+    return np.concatenate(pieces, axis=0)

@@ -2,8 +2,9 @@
 ``TextLine``, ``RegionLayout`` and ``PageLayout`` with Page XML
 (de)serialization, which lives in :mod:`pero_ocr_tpu_torch.core.pagexml`.
 
-The logits, ALTO, rendering and quality methods are ROADMAP item 9 and
-later; ``TextLine`` keeps the JAX record's slots for them.
+``TextLine`` densifies the sparse CTC logits that the stage-by-stage
+OCR stores (``get_dense_logits``, ``get_full_logprobs``); the logits
+files, ALTO, rendering and quality methods are ROADMAP item 9 and later.
 """
 
 from __future__ import annotations
@@ -12,8 +13,18 @@ from enum import Enum
 from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import scipy.sparse
 
 Num = Union[int, float]
+
+# Dense value of the entries that sparse logits pruned (the JAX
+# package's ZERO_LOGIT_VALUE).
+ZERO_LOGIT_VALUE = -80
+
+
+def log_softmax_np(logits: np.ndarray) -> np.ndarray:
+    """Numerically stable log-softmax over the last axis."""
+    return logits - np.logaddexp.reduce(logits, axis=-1, keepdims=True)
 
 
 class PAGEVersion(Enum):
@@ -27,8 +38,9 @@ class TextLine:
     - ``baseline``: (N, 2) polyline of x,y page coordinates.
     - ``polygon``: (M, 2) closed outline of the line.
     - ``heights``: ``[ascender_px, descender_px]`` above/below the baseline.
-    - ``logits``, ``characters``, ``logit_coords``: recognition outputs
-      (not filled by the port yet).
+    - ``logits``: sparse (T, C) CTC logit matrix (scipy CSC) or dense array.
+    - ``characters``: the recognizer charset (last entry = CTC blank).
+    - ``logit_coords``: ``[start, stop)`` frame span of the unpadded line.
     """
 
     __slots__ = (
@@ -73,6 +85,20 @@ class TextLine:
         self.logit_coords = logit_coords
         self.transcription_confidence = transcription_confidence
         self.category = category
+
+    def get_dense_logits(self, zero_logit_value: int = ZERO_LOGIT_VALUE) -> np.ndarray:
+        """Densify sparse logits, filling pruned (zero) entries with a
+        large negative value."""
+        if scipy.sparse.issparse(self.logits):
+            dense = np.asarray(self.logits.todense())
+        else:
+            dense = np.array(self.logits)
+        dense[dense == 0] = zero_logit_value
+        return dense
+
+    def get_full_logprobs(self, zero_logit_value: int = ZERO_LOGIT_VALUE) -> np.ndarray:
+        """Dense per-frame log-probabilities."""
+        return log_softmax_np(self.get_dense_logits(zero_logit_value))
 
 
 class RegionLayout:

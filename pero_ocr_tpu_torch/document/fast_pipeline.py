@@ -120,9 +120,9 @@ class FastPagePipeline:
     @staticmethod
     def unsupported_features(page_parser) -> List[str]:
         """Config features the fast path would silently change the
-        meaning of (the JAX package's list).  The JAX command line falls
-        back to its stage-by-stage path when this is non-empty; the
-        port's refuses the run.  Like the JAX fast path, the pipeline
+        meaning of (the JAX package's list).  Both command lines fall
+        back to the stage-by-stage path when this is non-empty.  Like
+        the JAX fast path, the pipeline
         reads four LAYOUT_CNN keys (DOWNSAMPLE, DETECTION_THRESHOLD,
         LINE_END_WEIGHT, ADAPTIVE_DOWNSAMPLE) and ignores
         MAX_MEGAPIXELS, PARAGRAPH_LINE_THRESHOLD,

@@ -1,39 +1,56 @@
 """CNN layout engine (port of pero_ocr_tpu/layout_engines/cnn_engine.py).
 
-Ported: the device-side map post-processing (:func:`postprocess_maps`),
-the host paragraph clustering (:class:`ParagraphClusterer`), which
-groups the parsed lines into paragraphs by the separator map between
-them, and :class:`LayoutEngine`'s construction (its ParseNet and the
-settings the fast path reads).  Its per-page ``detect`` and ``parse``
-are the stage-by-stage path, ROADMAP item 8.
+- :func:`postprocess_maps`: the map post-processing on the device
+  (height dilation, smoothing, vertical NMS, the endpoint-weighted
+  threshold), which both paths run; :func:`connect_lines` is the
+  vertical connection dilation of the stage-by-stage path (the fast path
+  does it on the host).
+- :class:`ParagraphClusterer`: the host paragraph clustering, which
+  groups the parsed lines into paragraphs by the separator map between
+  them (the fast path's).
+- :class:`LayoutEngine`: its ParseNet and settings, and the
+  stage-by-stage ``detect``: maps at adaptive resolution
+  (``ParseNetWrapper``), ``parse`` (connected components to baselines,
+  heights and outlines), the clustering, region polygons from alpha
+  shapes with raster overlap resolution, and the top-to-bottom order.
+  The other layout stages of the JAX engine (``LineFilterEngine``) are
+  ROADMAP item 8d.
 """
 
 from __future__ import annotations
+
+from typing import List, Optional
 
 import numpy as np
 import torch
 from scipy.sparse import csr_matrix
 from scipy.sparse.csgraph import connected_components as graph_components
 
-from pero_ocr_tpu_torch import STAGE_BY_STAGE, not_ported
+from pero_ocr_tpu_torch import resolve_device
 from pero_ocr_tpu_torch.core import geometry
+from pero_ocr_tpu_torch.layout_engines import helpers
 from pero_ocr_tpu_torch.layout_engines.parsenet_wrapper import ParseNetWrapper
 from pero_ocr_tpu_torch.ops import morphology
+from pero_ocr_tpu_torch.utils.timing import stage_timer
 
 
 def postprocess_maps(
-    out_map: torch.Tensor, detection_threshold: float, line_end_weight: float
+    out_map: torch.Tensor, detection_threshold: float, line_end_weight: float,
+    smooth: bool = True,
 ):
     """Map post-processing of ``_postprocess_maps(..., connected=False)``
     over a batch.
 
     out_map: (..., H, W, 5) ParseNet maps.  Returns (baselines_mask
     (..., H, W) bool, heights_map (..., H, W, 2), separator (..., H, W)).
-    The (5, 3) connection dilation of the mask is left to the host."""
+    ``smooth``: the 3x3 box smooth of the baseline channel before the
+    NMS (``SMOOTH_LINE_PREDICTIONS``)."""
     heights_map = torch.stack(
         [morphology.grey_dilation(out_map[..., c], 5, 1) for c in (0, 1)], dim=-1
     )
-    baselines = morphology.box_smooth(out_map[..., 2], 3)
+    baselines = out_map[..., 2]
+    if smooth:
+        baselines = morphology.box_smooth(baselines, 3)
     baselines = morphology.vertical_nonmaxima_suppression(baselines, 5)
     baselines_mask = (
         baselines - line_end_weight * out_map[..., 3]
@@ -42,49 +59,10 @@ def postprocess_maps(
     return baselines_mask, heights_map, separator
 
 
-class LayoutEngine:
-    """The CNN layout engine's model and settings (the JAX
-    ``LayoutEngine.__init__``)."""
-
-    def __init__(
-        self,
-        model_path=None,
-        downsample: int = 4,
-        max_mp: float = 5,
-        detection_threshold: float = 0.2,
-        adaptive_downsample: bool = True,
-        line_end_weight: float = 1.0,
-        vertical_line_connection_range: int = 5,
-        smooth_line_predictions: bool = True,
-        paragraph_line_threshold: float = 0.3,
-        stem: str = "conv",
-        base_features: int = 32,
-        depth: int = 4,
-        out_upsample: int = 1,
-    ):
-        self.parsenet = ParseNetWrapper(
-            model_path,
-            downsample=downsample,
-            adaptive_downsample=adaptive_downsample,
-            max_mp=max_mp,
-            detection_threshold=detection_threshold,
-            stem=stem,
-            base_features=base_features,
-            depth=depth,
-            out_upsample=out_upsample,
-        )
-        self.line_end_weight = line_end_weight
-        self.vertical_line_connection_range = vertical_line_connection_range
-        self.smooth_line_predictions = smooth_line_predictions
-        self.line_detection_threshold = detection_threshold
-        self.adaptive_downsample = adaptive_downsample
-        self.paragraph_line_threshold = paragraph_line_threshold
-
-    def detect(self, image, rot: int = 0):
-        raise not_ported("LayoutEngine.detect", STAGE_BY_STAGE)
-
-    def parse(self, out_map, downsample):
-        raise not_ported("LayoutEngine.parse", STAGE_BY_STAGE)
+def connect_lines(baselines_mask: torch.Tensor, vertical_range: int) -> torch.Tensor:
+    """The connection dilation of ``_postprocess_maps(connected=True)``:
+    a (vertical_range, 3) max window over the mask, lax ``'SAME'``."""
+    return morphology.grey_dilation(baselines_mask.float(), vertical_range, 3) > 0
 
 
 def _round_half_away(v: np.ndarray) -> np.ndarray:
@@ -293,3 +271,214 @@ class ParagraphClusterer:
             csgraph=csr_matrix(adjacency > 0), directed=False, return_labels=True
         )
         return clusters
+
+
+class LayoutEngine(ParagraphClusterer):
+    """CNN region and line detection on one page at a time: ParseNet
+    maps at adaptive resolution, lines from their connected components,
+    paragraphs from the separator map, region outlines."""
+
+    def __init__(
+        self,
+        model_path=None,
+        downsample: int = 4,
+        max_mp: float = 5,
+        detection_threshold: float = 0.2,
+        adaptive_downsample: bool = True,
+        line_end_weight: float = 1.0,
+        vertical_line_connection_range: int = 5,
+        smooth_line_predictions: bool = True,
+        paragraph_line_threshold: float = 0.3,
+        stem: str = "conv",
+        base_features: int = 32,
+        depth: int = 4,
+        out_upsample: int = 1,
+        device=None,
+    ):
+        """``device``: where ParseNet and the map post-processing run;
+        None means CUDA (resolved at the first page)."""
+        super().__init__(paragraph_line_threshold)
+        self.parsenet = ParseNetWrapper(
+            model_path,
+            downsample=downsample,
+            adaptive_downsample=adaptive_downsample,
+            max_mp=max_mp,
+            detection_threshold=detection_threshold,
+            stem=stem,
+            base_features=base_features,
+            depth=depth,
+            out_upsample=out_upsample,
+            device=device,
+        )
+        self.line_end_weight = line_end_weight
+        self.vertical_line_connection_range = vertical_line_connection_range
+        self.smooth_line_predictions = smooth_line_predictions
+        self.line_detection_threshold = detection_threshold
+        self.adaptive_downsample = adaptive_downsample
+
+    def get_heights(self, heights_map, ds, inds):
+        """Heights at page points ``inds``: the 70th percentile of the
+        map's (clipped at 0) ascender and descender there, times ds."""
+        inds = np.asarray(inds, dtype=float) / ds
+        y = np.clip(np.round(inds[:, 1]).astype(int), 0, heights_map.shape[0] - 1)
+        x = np.clip(np.round(inds[:, 0]).astype(int), 0, heights_map.shape[1] - 1)
+        pred = np.maximum(heights_map[y, x], 0)
+        return np.asarray([np.percentile(pred[:, 0], 70), np.percentile(pred[:, 1], 70)]) * ds
+
+    def detect(self, image: np.ndarray, rot: int = 0):
+        """(region polygons, baselines, heights, textline outlines) of
+        the page in page coordinates, lines top to bottom; ``rot``
+        detects on ``np.rot90(image, rot)`` and maps back."""
+        if rot > 0:
+            image = np.rot90(image, k=rot)
+        with stage_timer("parsenet_maps"):
+            maps, ds = self.parsenet.get_maps_with_optimal_resolution(image)
+        b_list, h_list, t_list = self.parse(maps, ds)
+        if not b_list:
+            return [], [], [], []
+        with stage_timer("paragraph_clustering"):
+            clusters = self.make_clusters(b_list, h_list, t_list, maps[:, :, 4], ds)
+        with stage_timer("region_polygons"):
+            p_list = self.clustered_lines_to_polygons(t_list, clusters)
+        b_list, h_list, t_list = helpers.order_lines_vertical(b_list, h_list, t_list)
+        p_list, b_list, t_list = self.rotate_layout(p_list, b_list, t_list, rot, image.shape)
+        return p_list, b_list, h_list, t_list
+
+    def parse(self, out_map: np.ndarray, downsample: float):
+        """Maps -> (baselines, heights, outlines) in page coordinates,
+        left to right: each connected component of the connected mask
+        with more than 5 mask pixels gives one line through its first
+        row at each column (at most 10 points, decimated, ends moved out
+        by 2 map px) and the median heights under it."""
+        with stage_timer("map_postprocess"):
+            device = resolve_device(self.parsenet.device)
+            with torch.inference_mode():
+                maps = torch.from_numpy(np.ascontiguousarray(out_map, np.float32)).to(device)
+                mask, heights_map, _ = postprocess_maps(
+                    maps, self.line_detection_threshold, self.line_end_weight,
+                    smooth=self.smooth_line_predictions,
+                )
+                connected = connect_lines(mask, self.vertical_line_connection_range)
+                mask, connected, heights_map = (t.cpu().numpy()
+                                                for t in (mask, connected, heights_map))
+
+        labels_img, num = morphology.connected_components(connected)
+        labels_img = labels_img * mask
+
+        b_list: List[np.ndarray] = []
+        h_list: List[List[float]] = []
+        ys, xs = np.nonzero(labels_img > 0)
+        labels = labels_img[ys, xs]
+        order = np.argsort(labels, kind="stable")
+        ys, xs, labels = ys[order], xs[order], labels[order]
+        boundaries = np.searchsorted(labels, np.arange(1, num + 2))
+        for comp in range(num):
+            lo, hi = boundaries[comp], boundaries[comp + 1]
+            if hi - lo <= 5:
+                continue
+            comp_x = xs[lo:hi]
+            comp_y = ys[lo:hi]
+            # One point per unique x, ordered left to right.
+            ux, first_idx = np.unique(comp_x, return_index=True)
+            pos = np.stack([ux, comp_y[first_idx]], axis=1).astype(float)
+            target_points = max(min(10, pos.shape[0] // 10), 2)
+            pos = pos[np.linspace(0, pos.shape[0] - 1, target_points).astype(int)]
+            pos[0, 0] -= 2   # compensate the endpoint detector's shrinkage
+            pos[-1, 0] += 2
+            hp = np.maximum(heights_map[comp_y, comp_x], 0)
+            heights = [float(np.percentile(hp[:, 0], 50)), float(np.percentile(hp[:, 1], 50))]
+            b_list.append(downsample * pos)
+            h_list.append([downsample * heights[0], downsample * heights[1]])
+
+        # Left to right (jittered for stability).
+        rng = np.random.default_rng(0)
+        keys = [b[:, 0].min() + 1e-4 * rng.random() for b in b_list]
+        order = sorted(range(len(b_list)), key=lambda i: keys[i])
+        b_list = [b_list[i] for i in order]
+        h_list = [h_list[i] for i in order]
+        t_list = [helpers.baseline_to_textline(b, h) for b, h in zip(b_list, h_list)]
+        return b_list, h_list, t_list
+
+    def rotate_layout(self, p_list, b_list, t_list, rot, shape):
+        """Map coordinates detected on ``np.rot90(image, rot)`` back to
+        the page (pixel-exact: ``dim - 1 - x``)."""
+        if rot == 0:
+            return p_list, b_list, t_list
+
+        def tf(points):
+            points = np.asarray(points, dtype=float)
+            if rot == 1:
+                out = np.flip(points, axis=1).copy()
+                out[:, 0] = shape[0] - 1 - out[:, 0]
+            elif rot == 2:
+                out = np.asarray(shape[:2][::-1]) - 1 - points
+            else:  # rot == 3
+                out = np.flip(points, axis=1).copy()
+                out[:, 1] = shape[1] - 1 - out[:, 1]
+            return out
+
+        return [tf(p) for p in p_list], [tf(b) for b in b_list], [tf(t) for t in t_list]
+
+    def filter_polygons(self, polygons, region_textlines):
+        """Resolve region overlaps: a region 98% inside another goes; of
+        two that overlap in part, the one with less textline area in the
+        overlap loses the overlap (its largest remaining piece stays)."""
+        keep = [True] * len(polygons)
+        polygons = [np.asarray(p, dtype=float) for p in polygons]
+        for i in range(len(polygons)):
+            for j in range(i + 1, len(polygons)):
+                if not (keep[i] and keep[j]):
+                    continue
+                inter = geometry.polygon_intersection_area(polygons[i], polygons[j])
+                if inter < 1.0:
+                    continue
+                area_i = abs(geometry.polygon_area(polygons[i]))
+                area_j = abs(geometry.polygon_area(polygons[j]))
+                if inter >= 0.98 * area_j:
+                    keep[j] = False
+                    continue
+                if inter >= 0.98 * area_i:
+                    keep[i] = False
+                    continue
+                inter_poly = geometry.polygon_intersection(polygons[i], polygons[j])
+                if inter_poly is None:
+                    continue
+                score_i = sum(geometry.polygon_intersection_area(np.asarray(t), inter_poly)
+                              for t in region_textlines[i])
+                score_j = sum(geometry.polygon_intersection_area(np.asarray(t), inter_poly)
+                              for t in region_textlines[j])
+                loser = j if score_i > score_j else i
+                shrunk = _subtract_polygon(polygons[loser], inter_poly)
+                if shrunk is None:
+                    keep[loser] = False
+                else:
+                    polygons[loser] = shrunk
+        return [p for p, k in zip(polygons, keep) if k]
+
+    def clustered_lines_to_polygons(self, t_list, clusters):
+        """One alpha-shape outline per cluster, overlap-filtered and
+        simplified (tolerance 5 px)."""
+        regions_textlines = []
+        polygons = []
+        for c in range(int(np.amax(clusters)) + 1):
+            cluster_lines = [t for t, cl in zip(t_list, clusters) if cl == c]
+            polygons.append(helpers.region_from_textlines(cluster_lines))
+            regions_textlines.append(cluster_lines)
+        polygons = self.filter_polygons(polygons, regions_textlines)
+        return [geometry.simplify_polygon(p, 5) for p in polygons if len(p) >= 3]
+
+
+def _subtract_polygon(poly: np.ndarray, sub: np.ndarray) -> Optional[np.ndarray]:
+    """``poly`` minus ``sub`` on a raster: the outline of the largest
+    remaining piece, or None."""
+    x0, y0, w, h = geometry._raster_frame(poly, sub)
+    mask = geometry.rasterize_polygon(poly, (x0, y0), (h, w))
+    mask_sub = geometry.rasterize_polygon(sub, (x0, y0), (h, w))
+    remaining = (mask & ~mask_sub).astype(np.uint8)
+    if not remaining.any():
+        return None
+    ring = geometry._largest_external_contour(remaining)
+    if ring is None:
+        return None
+    out = ring + [x0, y0]
+    return out if len(out) >= 3 else None

@@ -1,13 +1,17 @@
 """Layout geometry helpers (from pero_ocr_tpu/layout_engines/helpers.py):
-textline outlines from baselines and region outlines from textlines."""
+textline outlines from baselines, region outlines from textlines, and
+the stage-by-stage layout's clipping of lines into regions and their
+top-to-bottom order."""
 
 from __future__ import annotations
 
+import random
 from typing import List, Optional
 
 import numpy as np
 
 from pero_ocr_tpu_torch.core import geometry
+from pero_ocr_tpu_torch.core.layout import TextLine
 
 
 def baseline_to_textline(baseline: np.ndarray, heights) -> np.ndarray:
@@ -99,3 +103,59 @@ def region_from_textlines(region_textlines) -> np.ndarray:
         all_pts = np.concatenate([poly] + missing, axis=0)
         poly = geometry.convex_hull(all_pts)
     return poly
+
+
+def mask_textline_by_region(baseline, textline, region):
+    """Clip a line's baseline and outline to a region polygon.  Returns
+    (baseline, textline) arrays, or (None, None) when less than 2 px of
+    the baseline or none of the outline lies inside."""
+    baseline = np.asarray(baseline, dtype=float)
+    region = np.asarray(region, dtype=float)
+    clipped_baseline = geometry.mask_polyline_by_polygon(baseline, region)
+    if clipped_baseline is None or len(clipped_baseline) < 2:
+        return None, None
+    if np.hypot(*np.diff(clipped_baseline, axis=0).T).sum() <= 2:
+        return None, None
+    clipped_textline = geometry.polygon_intersection(np.asarray(textline, dtype=float), region)
+    if clipped_textline is None:
+        return None, None
+    return clipped_baseline, clipped_textline
+
+
+def assign_lines_to_regions(baseline_list, heights_list, textline_list, regions):
+    """Clip each line into every region whose bounding box its
+    baseline's overlaps, appending it to the region's lines as
+    ``{region.id}-l{line index + 1:03d}``."""
+    if not baseline_list or not regions:
+        return regions
+    min_line = np.asarray([np.min(b, axis=0) for b in baseline_list])
+    max_line = np.asarray([np.max(b, axis=0) for b in baseline_list])
+    min_region = np.asarray([np.min(r.polygon, axis=0) for r in regions])
+    max_region = np.asarray([np.max(r.polygon, axis=0) for r in regions])
+    disjoint = np.logical_and(
+        np.logical_or(max_line[:, None, 1] <= min_region[None, :, 1],
+                      min_line[:, None, 1] >= max_region[None, :, 1]),
+        np.logical_or(max_line[:, None, 0] <= min_region[None, :, 0],
+                      min_line[:, None, 0] >= max_region[None, :, 0]),
+    )
+    for line_id, region_id in zip(*np.logical_not(disjoint).nonzero()):
+        region = regions[region_id]
+        baseline_clip, textline_clip = mask_textline_by_region(
+            baseline_list[line_id], textline_list[line_id], region.polygon
+        )
+        if baseline_clip is not None and textline_clip is not None:
+            region.lines.append(TextLine(
+                id=f"{region.id}-l{line_id + 1:03d}", baseline=baseline_clip,
+                polygon=textline_clip, heights=heights_list[line_id],
+            ))
+    return regions
+
+
+def order_lines_vertical(baselines, heights, textlines):
+    """Sort lines top to bottom by their first point's y, each jittered
+    by one draw of Python's global ``random.uniform(0.001, 0.999)`` in
+    line order (so a seeded ``random`` orders equal rows alike)."""
+    order = [b[0][1] + random.uniform(0.001, 0.999) for b in baselines]
+    idx = sorted(range(len(order)), key=lambda i: order[i])
+    return ([baselines[i] for i in idx], [heights[i] for i in idx],
+            [textlines[i] for i in idx])

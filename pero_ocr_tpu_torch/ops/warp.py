@@ -34,12 +34,23 @@ Both paths take the same arguments and refuse the same ones: at most
 ``MAX_POINTS`` baseline points and ``MAX_CROP_H`` rows (the kernel's
 shared tables), pages of fewer than 2**31 pixels (its 32-bit offsets),
 float32 or bfloat16 out.
+
+``warp_fields(page, fields, store)`` is the Pallas kernel's own
+contract, which the stage-by-stage ``LineCropper`` runs: an (H, W, C)
+page, uint8 or float32 with C in {1, 3}, sampled bilinearly at a
+precomputed (N, Hc, Wb, 2) field of (x, y) page coordinates, one width
+bucket at a time (:func:`width_buckets`, :func:`pad_fields`).  CUDA
+tensors launch ``csrc/warp_fields.cu``; CPU tensors run
+:func:`warp_fields_plain`.  Its bound is memory as well, and there the
+field dominates: 8 bytes a pixel against the 1 to 12 of the page taps
+and the crop (:func:`warp_fields_bytes`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -287,5 +298,163 @@ def _kernel_library():
     lib.warp_lines_u8.restype = ctypes.c_int
     lib.warp_lines_u8.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    )
+    return lib
+
+
+# ----------------------------------------------------------------------
+# The Pallas kernel's own contract: sample a page at precomputed fields.
+FIELD_STORES = ("f32", "u8")
+
+
+def width_buckets(widths: Sequence[int], buckets: Sequence[int]) -> List[List[int]]:
+    """Group line indices by the smallest bucket that fits their width;
+    lines wider than the largest bucket land in the largest (and are cut
+    there)."""
+    buckets = sorted(buckets)
+    groups: List[List[int]] = [[] for _ in buckets]
+    for idx, w in enumerate(widths):
+        for bi, b in enumerate(buckets):
+            if w <= b:
+                groups[bi].append(idx)
+                break
+        else:
+            groups[-1].append(idx)
+    return groups
+
+
+def pad_fields(fields: Sequence[np.ndarray], width_bucket: int,
+               pad_coord: float = OFF_PAGE) -> Tuple[np.ndarray, np.ndarray]:
+    """Stack (Hc, W_i, 2) warp fields into one (N, Hc, width_bucket, 2)
+    float32 array; padded columns carry ``pad_coord`` (they sample 0).
+    Returns (stacked, widths kept)."""
+    n = len(fields)
+    hc = fields[0].shape[0]
+    out = np.full((n, hc, width_bucket, 2), pad_coord, dtype=np.float32)
+    widths = np.zeros(n, dtype=np.int32)
+    for i, f in enumerate(fields):
+        wi = min(f.shape[1], width_bucket)
+        out[i, :, :wi] = f[:, :wi]
+        widths[i] = wi
+    return out, widths
+
+
+def warp_fields_plain(page: torch.Tensor, fields: torch.Tensor, store: str = "f32") -> torch.Tensor:
+    """Plain PyTorch version of the field warp: ``_bilinear_gather``
+    (pero_ocr_tpu/ops/warp.py:32-62) of an (H, W, C) page at (N, Hc, Wb,
+    2) fields, in its order of operations, widened to C channels.  A
+    sample whose x or y is not finite reads 0; the floor of a coordinate
+    is clamped to [-2, W + 1] (rows: [-2, H + 1]) before it becomes an
+    integer, which changes no tap (each one off the page reads 0 either
+    way).  ``store``: "f32" gives (N, Hc, Wb, C) float32; "u8" rounds
+    half to even and clamps to [0, 255] into uint8, as ``LineCropper``
+    does after the warp."""
+    h, w, c = page.shape
+    flat = page.float().reshape(h * w, c)
+    x, y = fields[..., 0], fields[..., 1]
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    x = torch.where(finite, x, OFF_PAGE)
+    y = torch.where(finite, y, OFF_PAGE)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0)[..., None], (y - y0)[..., None]
+    x0i = x0.clamp(-2.0, w + 1.0).long()
+    y0i = y0.clamp(-2.0, h + 1.0).long()
+
+    def tap(yi, xi):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        vals = flat[yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)]
+        return torch.where(valid[..., None], vals, 0.0)
+
+    top = tap(y0i, x0i) * (1.0 - fx) + tap(y0i, x0i + 1) * fx
+    bottom = tap(y0i + 1, x0i) * (1.0 - fx) + tap(y0i + 1, x0i + 1) * fx
+    out = top * (1.0 - fy) + bottom * fy
+    if store == "u8":
+        return torch.round(out).clamp(0.0, 255.0).to(torch.uint8)
+    return out
+
+
+def warp_fields_bytes(page: torch.Tensor, fields: torch.Tensor, store: str = "f32") -> int:
+    """Least bytes the field warp moves on these inputs: the distinct
+    page pixels that the finite samples' four taps touch on the page (C
+    channels each), the whole field (8 bytes a sample) and the crops
+    written once at the store's width."""
+    h, w, c = page.shape
+    x, y = fields[..., 0].reshape(-1), fields[..., 1].reshape(-1)
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    x0 = torch.floor(torch.where(finite, x, OFF_PAGE)).clamp(-2.0, w + 1.0).long()
+    y0 = torch.floor(torch.where(finite, y, OFF_PAGE)).clamp(-2.0, h + 1.0).long()
+    touched = torch.zeros(h * w, dtype=torch.bool, device=fields.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yi, xi = y0 + dy, x0 + dx
+            inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            touched[(yi * w + xi)[inside]] = True
+    out = x.numel() * c * (1 if store == "u8" else 4)
+    return int(touched.sum()) * c * page.element_size() + fields.numel() * 4 + out
+
+
+def _check_field_args(page, fields, store):
+    if page.ndim != 3 or page.shape[2] not in (1, 3) or page.dtype not in (torch.uint8,
+                                                                             torch.float32):
+        raise ValueError(f"warp_fields: page must be (H, W, 1 or 3) uint8 or float32, got "
+                         f"{page.dtype} {tuple(page.shape)}")
+    if fields.ndim != 4 or fields.shape[3] != 2 or fields.dtype != torch.float32:
+        raise ValueError(f"warp_fields: fields must be (N, Hc, Wb, 2) float32, got "
+                         f"{fields.dtype} {tuple(fields.shape)}")
+    if fields.device != page.device or not (page.is_contiguous() and fields.is_contiguous()):
+        raise ValueError(f"warp_fields: page and fields must be contiguous on one device, got "
+                         f"{page.device} and {fields.device}")
+    if store not in FIELD_STORES:
+        raise ValueError(f"warp_fields: store must be one of {FIELD_STORES}, got {store!r}")
+    h, w = page.shape[:2]
+    if not (1 <= h < 2**22 and 1 <= w < 2**22):
+        raise ValueError(f"warp_fields: needs 1 <= H, W < 2**22, got {h}x{w}")
+
+
+def warp_fields(page: torch.Tensor, fields: torch.Tensor, store: str = "f32") -> torch.Tensor:
+    """page (H, W, C) uint8 or float32, C in {1, 3}; fields (N, Hc, Wb,
+    2) float32 -> (N, Hc, Wb, C) crops, float32 (``store="f32"``) or
+    uint8 rounded half to even and clamped (``store="u8"``).
+
+    CUDA tensors launch ``csrc/warp_fields.cu`` (and count the launch in
+    ``warp_fields.launches``); CPU tensors run
+    :func:`warp_fields_plain`.  Both raise ValueError on arguments the
+    kernel does not take; a failed build or launch raises."""
+    if page.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"warp_fields: unsupported device {page.device}")
+    _check_field_args(page, fields, store)
+    if page.device.type == "cpu":
+        return warp_fields_plain(page, fields, store)
+    h, w, c = page.shape
+    out_dtype = torch.uint8 if store == "u8" else torch.float32
+    out = torch.empty(tuple(fields.shape[:3]) + (c,), dtype=out_dtype, device=page.device)
+    if out.numel() == 0:
+        return out
+    if fields.data_ptr() % 8:
+        raise ValueError("warp_fields: fields must be 8-byte aligned (one float2 a sample)")
+    rc = _fields_library().warp_fields(
+        page.data_ptr(), fields.data_ptr(), out.data_ptr(), h, w, c,
+        fields.shape[0] * fields.shape[1] * fields.shape[2],
+        int(page.dtype == torch.float32), int(store == "u8"),
+        torch.cuda.current_stream(page.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"warp_fields kernel launch failed: cudaError_t {rc}")
+    warp_fields.launches += 1
+    return out
+
+
+warp_fields.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _fields_library():
+    from pero_ocr_tpu_torch.utils import kernels
+
+    lib = kernels.library("warp_fields")
+    lib.warp_fields.restype = ctypes.c_int
+    lib.warp_fields.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     return lib

@@ -1,19 +1,24 @@
-"""Folder OCR to Page XML on one GPU: the port of
-scripts/parse_folder.py's ``--fast-pipeline`` branch, page transport.
+"""Folder OCR to Page XML on one GPU: the port of scripts/parse_folder.py.
 
     python3 -m pero_ocr_tpu_torch.scripts.parse_folder \\
-        -c config.ini -i images/ --output-xml-path page_xml/ --fast-pipeline
+        -c config.ini -i images/ --output-xml-path page_xml/ [--fast-pipeline]
 
 It reads the config and its OCR JSON, loads the flax msgpack checkpoints
 they name into the port's models, decodes the pages (PNG or binary PNM,
-:mod:`pero_ocr_tpu_torch.utils.image_io`), runs
-``FastPagePipeline.process_pages`` (stage B warps the lines with the
-hand-written CUDA kernel) and writes one Page XML file per page.
+:mod:`pero_ocr_tpu_torch.utils.image_io`) and writes one Page XML file
+per page.  Without ``--fast-pipeline`` each page goes through
+``PageParser.process_page`` (the stage-by-stage path; the line crops are
+sampled by the hand-written CUDA field warp), with the next page decoded
+on a worker thread, and a page that fails is reported and skipped, as
+the JAX command line's ``Computator`` does.  With ``--fast-pipeline``
+the page batches go through ``FastPagePipeline.process_pages`` (stage B
+warps the lines with the fused CUDA kernel); a config that the fast path
+would run differently (``FastPagePipeline.unsupported_features``) falls
+back to the stage-by-stage path, as in the JAX command line.
 ``--device cpu`` runs the plain PyTorch versions instead.
 
 Options and config features the port lacks exit with code 2 and name
-their ROADMAP item: the port has no stage-by-stage path to fall back to,
-so it refuses a run rather than change what the run means.  The JAX
+their ROADMAP item, rather than change what the run means.  The JAX
 command line's ``prime`` (decoding the first batch, then starting its
 host prep while the rest decode) only overlaps work and is left out.
 """
@@ -26,18 +31,22 @@ import logging
 import os
 import re
 import sys
+import threading
 import time
+import traceback
+from queue import Queue
 from typing import List, Optional, Set
 
 from pero_ocr_tpu_torch import (
     CROP_TRANSPORT, IMAGES, LOGITS, SCALE_OUT, STAGE_BY_STAGE, not_ported, resolve_device,
 )
+from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
-from pero_ocr_tpu_torch.document.page_parser import PageParser
-from pero_ocr_tpu_torch.ops.warp import warp_lines
+from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor, PageParser
+from pero_ocr_tpu_torch.ops.warp import warp_fields, warp_lines
 from pero_ocr_tpu_torch.utils.checkpoint import set_strict_loading
 from pero_ocr_tpu_torch.utils.image_io import imread
-from pero_ocr_tpu_torch.utils.timing import stage_timer, timing_report
+from pero_ocr_tpu_torch.utils.timing import reset_timing, stage_timer, timing_report
 
 logger = logging.getLogger(__name__)
 
@@ -46,7 +55,7 @@ PAGE_BATCH = 4  # the JAX command line's page batch on one device
 
 def parse_arguments(argv=None):
     parser = argparse.ArgumentParser(
-        description="Page images -> Page XML with the PyTorch/CUDA port (--fast-pipeline)."
+        description="Page images -> Page XML with the PyTorch/CUDA port."
     )
     parser.add_argument("-c", "--config", required=True, help="Path to input config file.")
     parser.add_argument("-s", "--skip-processed", action="store_true",
@@ -69,8 +78,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--timing-report", action="store_true",
                         help="Print per-stage timing table at the end.")
     parser.add_argument("--fast-pipeline", action="store_true",
-                        help="Device-resident batched pipeline (required: the "
-                             "stage-by-stage path is not ported).")
+                        help="Device-resident batched pipeline (page transport); "
+                             "without it, pages run stage by stage.")
     parser.add_argument("--transport-bits", type=int, choices=[2, 4, 8], default=4,
                         help="Upload depth: 4 packs two pixels per byte, 8 sends raw "
                              "grayscale; 2 needs the crop transport.")
@@ -151,7 +160,6 @@ def refusals(args, paths) -> List[str]:
         (args.dp > 1, "--dp", SCALE_OUT),
         (args.profile, "--profile (a torch.profiler trace)", SCALE_OUT),
         (args.process_count > 1, "--process-count", STAGE_BY_STAGE),
-        (not args.fast_pipeline, "running without --fast-pipeline", STAGE_BY_STAGE),
     ]
     return [str(not_ported(what, item)) for flag, what, item in asked if flag]
 
@@ -164,6 +172,7 @@ def refuse(messages: List[str]) -> None:
 
 def main(argv=None) -> None:
     args = parse_arguments(argv)
+    reset_timing()  # the report covers this run
     config_path = args.config
     if not os.path.isfile(config_path):
         print(f'ERROR: Config file does not exist: "{config_path}".')
@@ -200,12 +209,17 @@ def main(argv=None) -> None:
 
     with stage_timer("cli/build"):
         page_parser = PageParser(config, device=device, config_path=os.path.dirname(config_path))
-    unsupported = FastPagePipeline.unsupported_features(page_parser)
-    if unsupported:
-        refuse([str(not_ported(
-            f"{', '.join(unsupported)} (the JAX command line falls back to the "
-            "stage-by-stage path for them)", STAGE_BY_STAGE,
-        ))])
+    unported = [name for lp in page_parser.layout_parsers if isinstance(lp, LayoutExtractor)
+                for name in lp.unported_options()]
+    if unported:
+        refuse([str(not_ported(f"[LAYOUT_PARSER] {', '.join(unported)}", STAGE_BY_STAGE))])
+    fast_pipeline = args.fast_pipeline
+    if fast_pipeline:
+        unsupported = FastPagePipeline.unsupported_features(page_parser)
+        if unsupported:
+            logging.warning("--fast-pipeline does not support %s; falling back to the "
+                            "stage-by-stage path.", ", ".join(unsupported))
+            fast_pipeline = False
 
     input_image_path = paths["INPUT_IMAGE_PATH"]
     output_xml_path = paths["OUTPUT_XML_PATH"]
@@ -241,12 +255,35 @@ def main(argv=None) -> None:
             ]
             ids_to_process = [fid for fid in ids_to_process if fid not in done]
 
+    t_start = time.time()
+    if fast_pipeline:
+        results = run_fast(page_parser, args, input_image_path, images_to_process,
+                           ids_to_process, output_xml_path)
+    else:
+        results = run_staged(page_parser, input_image_path, images_to_process,
+                             ids_to_process, output_xml_path)
+
+    if args.output_transcriptions_file_path is not None:
+        with open(args.output_transcriptions_file_path, "w", encoding="utf-8") as f:
+            for page_lines in results:
+                print("\n".join(page_lines), file=f)
+    if ids_to_process:
+        logger.info("AVERAGE PROCESSING TIME %s", (time.time() - t_start) / len(ids_to_process))
+    if args.timing_report:
+        print(timing_report())
+        print(f"warp_lines kernel launches: {warp_lines.launches}")
+        print(f"warp_fields kernel launches: {warp_fields.launches}")
+
+
+def run_fast(page_parser, args, input_image_path, images_to_process, ids_to_process,
+             output_xml_path) -> List[List[str]]:
+    """The ``--fast-pipeline`` loop: decode every page, then stream the
+    page batches through ``FastPagePipeline``.  Returns each page's
+    transcription lines."""
     with stage_timer("cli/build"):
         fast = FastPagePipeline.from_page_parser(
             page_parser, transport_bits=args.transport_bits, page_batch=PAGE_BATCH,
         )
-
-    t_start = time.time()
     results = []
     with stage_timer("cli/pages"):
         images = []
@@ -262,16 +299,76 @@ def main(argv=None) -> None:
                 for line in layout.lines_iterator() if line.transcription
             ])
             print(f"DONE {layout.id} (fast pipeline)", flush=True)
+    return results
 
-    if args.output_transcriptions_file_path is not None:
-        with open(args.output_transcriptions_file_path, "w", encoding="utf-8") as f:
-            for page_lines in results:
-                print("\n".join(page_lines), file=f)
-    if ids_to_process:
-        logger.info("AVERAGE PROCESSING TIME %s", (time.time() - t_start) / len(ids_to_process))
-    if args.timing_report:
-        print(timing_report())
-        print(f"warp_lines kernel launches: {warp_lines.launches}")
+
+class ImagePrefetcher:
+    """Decodes the next pages on a worker thread while the current one
+    is processed; a page that fails to decode is handed on as its
+    exception."""
+
+    def __init__(self, image_dir: str, file_names: List[str]):
+        self.image_dir = image_dir
+        self.queue: Queue = Queue(maxsize=2)
+        self.thread = threading.Thread(target=self._worker, args=(file_names,), daemon=True)
+        self.thread.start()
+
+    def _worker(self, file_names):
+        for name in file_names:
+            try:
+                with stage_timer("cli/decode"):
+                    self.queue.put(imread(os.path.join(self.image_dir, name)))
+            except Exception as e:  # handed to the page's own error report
+                self.queue.put(e)
+
+    def get(self):
+        return self.queue.get()
+
+
+def process_one(page_parser, image, file_id: str, index: int, count: int,
+                output_xml_path: Optional[str]) -> List[str]:
+    """One page through ``PageParser.process_page`` and into its Page
+    XML file (the JAX ``Computator``): a failure is printed and the page
+    skipped.  Returns the page's transcription lines."""
+    print(f"Processing {file_id}")
+    t1 = time.time()
+    annotations = []
+    try:
+        if isinstance(image, Exception):
+            raise image
+        page_layout = PageLayout(id=file_id, page_size=(image.shape[0], image.shape[1]))
+        page_layout = page_parser.process_page(image, page_layout)
+        if output_xml_path is not None:
+            with stage_timer("cli/write_xml"):
+                page_layout.to_pagexml(os.path.join(output_xml_path, file_id + ".xml"))
+        for line in sorted(page_layout.lines_iterator(), key=lambda x: x.id):
+            if line.transcription:
+                annotations.append(f"{file_id}-{line.id}.jpg " + line.transcription)
+    except KeyboardInterrupt:
+        traceback.print_exc()
+        print("Terminated by user.")
+        sys.exit()
+    except Exception as e:
+        print(f"ERROR: Failed to process file {file_id}.")
+        print(e)
+        traceback.print_exc()
+    print("DONE {current}/{total} ({percentage:.2f} %) [id: {file_id}] Time:{time:.2f}".format(
+        current=index + 1, total=count, percentage=(index + 1) / count * 100,
+        file_id=file_id, time=time.time() - t1), flush=True)
+    return annotations
+
+
+def run_staged(page_parser, input_image_path, images_to_process, ids_to_process,
+               output_xml_path) -> List[List[str]]:
+    """The stage-by-stage loop: one page at a time, the next decoded on
+    a worker thread.  Returns each page's transcription lines."""
+    results = []
+    with stage_timer("cli/pages"):
+        prefetcher = ImagePrefetcher(input_image_path, images_to_process)
+        for index, file_id in enumerate(ids_to_process):
+            results.append(process_one(page_parser, prefetcher.get(), file_id, index,
+                                       len(ids_to_process), output_xml_path))
+    return results
 
 
 if __name__ == "__main__":

@@ -47,6 +47,11 @@ class TimingRegistry:
         with self._lock:
             self._stats.clear()
 
+    def stats(self) -> Dict[str, tuple]:
+        """{stage: (total seconds, calls)}."""
+        with self._lock:
+            return {k: (s.total_seconds, s.calls) for k, s in self._stats.items()}
+
     def report(self) -> str:
         with self._lock:
             items = sorted(self._stats.items(), key=lambda kv: -kv[1].total_seconds)
@@ -72,6 +77,10 @@ def stage_timer(name: str):
 
 def timing_report() -> str:
     return GLOBAL_TIMING.report()
+
+
+def timing_stats() -> Dict[str, tuple]:
+    return GLOBAL_TIMING.stats()
 
 
 def reset_timing() -> None:

@@ -1,7 +1,9 @@
 """The config-2 command line of the port
 (``python -m pero_ocr_tpu_torch.scripts.parse_folder``) against the JAX
-package's PageParser + FastPagePipeline on the same ini, OCR JSON, flax
-msgpack checkpoints and PNG pages.
+package's on the same ini, OCR JSON, flax msgpack checkpoints and PNG
+pages: with ``--fast-pipeline`` against its PageParser +
+FastPagePipeline, without it (and when a config falls back from the
+fast path) against ``PageParser.process_page`` one page at a time.
 
 The detector is the toy trained one that tests/test_torch_pipeline.py
 caches; the recognizer has random float32 weights.  Both are saved with
@@ -24,6 +26,7 @@ import functools
 import json
 import logging
 import os
+import random
 import re
 import xml.etree.ElementTree as ET
 
@@ -34,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from pero_ocr_tpu.core.layout import PageLayout as JaxPageLayout
 from pero_ocr_tpu.document.fast_pipeline import FastPagePipeline as JaxFastPagePipeline
 from pero_ocr_tpu.document.page_parser import PageParser as JaxPageParser
 from pero_ocr_tpu.layout_engines import parsenet_wrapper as jax_parsenet_wrapper
@@ -42,10 +46,12 @@ from pero_ocr_tpu.models.recognizer import CTCRecognizer as FlaxRecognizer
 from pero_ocr_tpu.models.recognizer import RecognizerSpec as FlaxSpec
 from pero_ocr_tpu.utils import native
 from pero_ocr_tpu.utils.checkpoint import save_variables
+from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
 from pero_ocr_tpu_torch.document.page_parser import PageParser
 from pero_ocr_tpu_torch.layout_engines import parsenet_wrapper
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
+from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.scripts import parse_folder
 from pero_ocr_tpu_torch.utils import checkpoint
 from tests.test_torch_pipeline import CHARS, DETECTOR, RECOGNIZER, _page, _train_detector
@@ -77,8 +83,20 @@ OCR_JSON = ./ocr/ocr.json
 """
 
 
+CONF_RE = re.compile(r'conf="([0-9.]+)"')
+
+
 def _masked(xml):
     return re.sub(r"<(Created|LastChange)>[^<]*</\1>", r"<\1/>", xml)
+
+
+def assert_xml_equal(got: str, want: str) -> None:
+    """Equal Page XML apart from the timestamps and ``conf`` (within
+    0.001)."""
+    assert _masked(CONF_RE.sub("conf", got)) == _masked(CONF_RE.sub("conf", want))
+    confs = [np.asarray(CONF_RE.findall(x), float) for x in (got, want)]
+    assert len(confs[0]) == len(confs[1])
+    assert np.abs(confs[0] - confs[1]).max(initial=0) <= 0.001
 
 
 @pytest.fixture(scope="module")
@@ -130,6 +148,43 @@ def _config(path):
     return config
 
 
+# The toy detector's heights are 3 map px, which the adaptive downsample
+# answers by dropping to ds 1, where it finds nothing: the stage-by-stage
+# parity cases run at ds 4.
+STAGED_KEYS = {"ADAPTIVE_DOWNSAMPLE": "no"}
+
+
+def staged_config(bundle, tmp_path, **keys):
+    """The bundle's config with ``keys`` set in [LAYOUT_PARSER_1]
+    (``PAGE_PARSER__<key>`` in [PAGE_PARSER]) on top of STAGED_KEYS,
+    written to ``tmp_path`` beside links to the bundle's checkpoints."""
+    config = _config(bundle / "config.ini")
+    for key, value in {**STAGED_KEYS, **keys}.items():
+        section, key = (("PAGE_PARSER", key[len("PAGE_PARSER__"):])
+                        if key.startswith("PAGE_PARSER__") else ("LAYOUT_PARSER_1", key))
+        config[section][key] = value
+    path = tmp_path / "staged.ini"
+    with open(path, "w") as f:
+        config.write(f)
+    for name in ("layout", "ocr"):
+        if not (tmp_path / name).exists():
+            os.symlink(bundle / name, tmp_path / name)
+    return path
+
+
+def jax_staged_layouts(config_path, images):
+    """The JAX PageParser on every page of ``images``, in order, with
+    ``random`` seeded 0 first (the JAX command line's Computator loop)."""
+    parser = JaxPageParser(_config(config_path), config_path=str(config_path.parent))
+    out = {}
+    random.seed(0)
+    for name in sorted(os.listdir(images)):
+        page = cv2.imread(str(images / name), 1)
+        fid = os.path.splitext(name)[0]
+        out[fid] = parser.process_page(page, JaxPageLayout(id=fid, page_size=page.shape[:2]))
+    return out
+
+
 def _run_port(args):
     try:
         parse_folder.main(args)
@@ -171,9 +226,54 @@ def test_cli_page_xml_equals_jax(bundle, tmp_path, float32_parsenets, capsys):
     assert "warp_lines kernel launches: 0" in printed  # the CPU runs the plain version
 
 
+# bf16 detectors, measured on the three toy pages (tests/test_torch_cli.py
+# bundle, CPU): stage A's baseline mask flips 0 of 754 pixels at ds 4,
+# 10 of 379 at ds 6 and at most 19 (of 599, ds 5) over ds 2-8; the
+# quantized heights differ by at most 3 quarter pixels; through the
+# command line one line's end moves 12 px (2 map px at ds 6) and one
+# height 0.8 px, counts and texts equal.  Held to: masks within
+# BF16_MASK_FLIPS of their pixels, equal counts, baseline points within
+# BF16_BASELINE_PX and heights within BF16_HEIGHT_PX of the JAX ones.
+BF16_MASK_FLIPS = 0.05
+BF16_BASELINE_PX = 16.0
+BF16_HEIGHT_PX = 1.0
+
+
+def bf16_masks_flipped(jax_pipe, port_pipe, pages, ds):
+    """Stage A's packed baseline masks of both packages on the same
+    4-bit gray pages at map scale ``ds``: (pixels flipped, mask pixels)."""
+    grays = np.stack([TorchPagePipeline._gray(p) for p in pages])
+    grays = TorchPagePipeline.unpack4(torch.from_numpy(TorchPagePipeline._pack4(grays))).numpy()
+    want = np.asarray(jax_pipe._stage_a(jnp.asarray(grays), ds)[0])
+    got = port_pipe.stage_a(torch.from_numpy(grays), ds)[0].numpy()
+    want, got = (np.unpackbits(m, bitorder="little") for m in (want, got))
+    return int((want != got).sum()), int(want.sum())
+
+
+def assert_lines_close(got_lines, want_lines):
+    """Matched lines of two bf16 runs: baseline points and heights within
+    the measured bounds."""
+    assert len(got_lines) == len(want_lines)
+    for a, b in zip(got_lines, want_lines):
+        pa, pb = np.asarray(a.baseline, float), np.asarray(b.baseline, float)
+        assert pa.shape == pb.shape and np.abs(pa - pb).max() <= BF16_BASELINE_PX
+        assert np.abs(np.subtract(a.heights, b.heights)).max() <= BF16_HEIGHT_PX
+
+
 @pytest.mark.skipif(native.get_library() is None, reason="native library unavailable")
 def test_cli_bfloat16_detector_counts_match_jax(bundle, tmp_path):
-    """No patch: both ParseNets in bfloat16, as the config builds them."""
+    """No patch: both ParseNets in bfloat16, as the config builds them:
+    stage A's masks, and the command line's Page XML against the JAX
+    fast path's, within the measured bounds above."""
+    config = _config(bundle / "config.ini")
+    jax_pipe = JaxFastPagePipeline(JaxPageParser(config, config_path=str(bundle))).pipeline
+    port_pipe = FastPagePipeline.from_page_parser(
+        PageParser(config, device="cpu", config_path=str(bundle))).pipeline
+    pages = [cv2.imread(str(bundle / "images" / n), 1)
+             for n in sorted(os.listdir(bundle / "images"))]
+    for ds in (4, 6):
+        flipped, total = bf16_masks_flipped(jax_pipe, port_pipe, pages, ds)
+        assert total > 100 and flipped <= BF16_MASK_FLIPS * total
     got = _port_xml(bundle, tmp_path / "xml")
     want = _jax_layouts(bundle)
     for lay in want:
@@ -182,6 +282,9 @@ def test_cli_bfloat16_detector_counts_match_jax(bundle, tmp_path):
         assert len(regions) == len(lay.regions)
         assert ([len(r.findall(f"{PAGE_NS}TextLine")) for r in regions]
                 == [len(r.lines) for r in lay.regions])
+        port = PageLayout()
+        port.from_pagexml_string(got[lay.id])
+        assert_lines_close(list(port.lines_iterator()), list(lay.lines_iterator()))
 
 
 def test_cli_shards_and_skips_processed(bundle, tmp_path, capsys):
@@ -283,21 +386,46 @@ REFUSED = [
     (["--dp", "2"], "Training and scale-out"),
     (["--profile", "{tmp}/p"], "Training and scale-out"),
     (["--process-count", "2"], "Stage-by-stage path"),
-    (["NO_FAST"], "Stage-by-stage path"),
 ]
 
 
 @pytest.mark.parametrize("extra,item", REFUSED, ids=[r[0][0].strip("-") for r in REFUSED])
 def test_cli_refuses_unported_options(bundle, tmp_path, caplog, extra, item):
     args = ["-c", str(bundle / "config.ini"), "-i", str(bundle / "images"),
-            "--output-xml-path", str(tmp_path / "xml"), "--device", "cpu"]
-    args += [] if extra == ["NO_FAST"] else ["--fast-pipeline"]
-    args += [a.format(tmp=tmp_path) for a in extra if a != "NO_FAST"]
+            "--output-xml-path", str(tmp_path / "xml"), "--device", "cpu", "--fast-pipeline"]
+    args += [a.format(tmp=tmp_path) for a in extra]
     with caplog.at_level(logging.ERROR), pytest.raises(SystemExit) as e:
         _run_port(args)
     assert e.value.code == 2
     assert item in caplog.text and "ROADMAP.md" in caplog.text
     assert not (tmp_path / "xml").exists()
+
+
+@pytest.mark.skipif(native.get_library() is None, reason="native library unavailable")
+@pytest.mark.parametrize("fast", [False, True], ids=["no_fast", "fallback_filter"])
+def test_cli_stage_by_stage_equals_jax_page_parser(bundle, tmp_path, float32_parsenets, capsys,
+                                                    fast):
+    """Without --fast-pipeline; and with it on a config that the fast path
+    would run differently (FILTER_CONFIDENT_LINES_THRESHOLD, so the run
+    falls back to the stage-by-stage path, as the JAX command line's
+    does): the JAX PageParser's files and DONE lines."""
+    keys = {"PAGE_PARSER__FILTER_CONFIDENT_LINES_THRESHOLD": "0.1"} if fast else {}
+    ini = staged_config(bundle, tmp_path, **keys)
+    out = tmp_path / "xml"
+    _run_port(["-c", str(ini), "-i", str(bundle / "images"), "--output-xml-path", str(out),
+               "--device", "cpu", "--timing-report"] + (["--fast-pipeline"] if fast else []))
+    printed = capsys.readouterr().out
+    want = jax_staged_layouts(ini, bundle / "images")
+    assert sorted(os.listdir(out)) == [f"{fid}.xml" for fid in want]
+    for fid, layout in want.items():
+        assert_xml_equal((out / f"{fid}.xml").read_text(encoding="utf-8"),
+                         layout.to_pagexml_string())
+    assert sum(len(list(lay.lines_iterator())) for lay in want.values()) >= 9
+    done = [line for line in printed.splitlines() if line.startswith("DONE")]
+    assert [re.sub(r"Time:[0-9.]+$", "", d) for d in done] == [
+        f"DONE {i + 1}/3 ({(i + 1) / 3 * 100:.2f} %) [id: page-{i}] " for i in range(3)]
+    assert re.search(r"^cli/pages\s+[0-9.]+\s+1\s", printed, re.M)
+    assert "warp_fields kernel launches: 0" in printed  # the CPU runs the plain version
 
 
 def test_cli_refuses_config_features(bundle, tmp_path, caplog):

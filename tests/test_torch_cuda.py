@@ -11,13 +11,16 @@ float32 steps in the same order, then the same division by 255 and one
 rounding to the output type, so they are held to bit equality in the
 output type.  The one exception allowed is a validity-boundary column
 per line: the test t <= arc length switches a whole column between the
-page and 0 when the two sides decide it one ulp apart."""
+page and 0 when the two sides decide it one ulp apart.  The field warp
+(``warp_fields``) has no such test and is held to bit equality
+everywhere, in both stores."""
 
 import numpy as np
 import pytest
 import torch
 
-from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
+from chip_smoke import random_fields
+from pero_ocr_tpu_torch.core.line_geometry import resample_baseline, warp_field
 from pero_ocr_tpu_torch.ops import warp
 
 pytestmark = pytest.mark.cuda
@@ -187,3 +190,46 @@ def test_div255_is_correctly_rounded_everywhere(cuda):
         n += a.numel()
     assert n == int(np.float32(255).view(np.int32)) + 1
 
+
+
+@pytest.mark.parametrize("store", ["f32", "u8"])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("page_dtype", ["u8", "f32"])
+def test_warp_fields_kernel_matches_plain(cuda, store, channels, page_dtype):
+    rng = np.random.default_rng(channels * 10 + len(store) + len(page_dtype))
+    h, w = 300, 700
+    page = rng.integers(0, 256, (h, w, channels), dtype=np.uint8)
+    if page_dtype == "f32":
+        page = page.astype(np.float32) + rng.uniform(-0.5, 0.5, page.shape).astype(np.float32)
+    fields = random_fields(rng, 12, 24, 517, h, w)
+    # And the fields the stage-by-stage LineCropper builds, in a bucket.
+    lines = [warp_field(np.stack([np.linspace(20, 600, 6), 40 + 20 * i + 3 * np.sin(
+        np.arange(6.0))], 1), [14.0, 5.0], 24, poly=2) for i in range(12)]
+    stacked = warp.pad_fields(lines, 1024)[0]
+    for f in (fields, stacked):
+        page_t, f_t = torch.from_numpy(page).to(cuda), torch.from_numpy(f).to(cuda)
+        before = warp.warp_fields.launches
+        got = warp.warp_fields(page_t, f_t, store)
+        assert warp.warp_fields.launches == before + 1
+        want = warp.warp_fields_plain(page_t, f_t, store)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == f.shape[:3] + (channels,)
+        assert got.dtype == (torch.uint8 if store == "u8" else torch.float32)
+        if store == "f32":
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        else:
+            assert torch.equal(got, want)
+
+
+def test_warp_fields_kernel_rejects_bad_inputs(cuda):
+    page = torch.zeros((32, 32, 3), dtype=torch.uint8, device=cuda)
+    fields = torch.zeros((2, 4, 8, 2), device=cuda)
+    with pytest.raises(ValueError, match="1 or 3"):
+        warp.warp_fields(page[:, :, :2].contiguous(), fields)
+    with pytest.raises(ValueError, match="float32"):
+        warp.warp_fields(page, fields.double())
+    with pytest.raises(ValueError, match="one device"):
+        warp.warp_fields(page, fields.cpu())
+    with pytest.raises(ValueError, match="aligned"):  # a view one float into its storage
+        warp.warp_fields(page, torch.zeros(66, device=cuda)[1:65].reshape(1, 4, 8, 2))
+    assert warp.warp_fields(page, fields[:0]).shape == (0, 4, 8, 3)

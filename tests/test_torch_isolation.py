@@ -91,10 +91,14 @@ with open(os.path.join(tmp, "config.ini"), "w") as f:
 cli_main(["-c", os.path.join(tmp, "config.ini"), "-i", os.path.join(tmp, "images"),
           "--output-xml-path", os.path.join(tmp, "xml"), "--fast-pipeline", "--device", "cpu",
           "--allow-random-weights"])
+cli_main(["-c", os.path.join(tmp, "config.ini"), "-i", os.path.join(tmp, "images"),
+          "--output-xml-path", os.path.join(tmp, "xml_staged"), "--device", "cpu",
+          "--allow-random-weights"])
 cli = []
-for name in sorted(os.listdir(os.path.join(tmp, "xml"))):
-    with open(os.path.join(tmp, "xml", name), "rb") as f:
-        cli.append([name, ET.fromstring(f.read()).find(ns + "Page").get("imageFilename")])
+for out in ("xml", "xml_staged"):
+    for name in sorted(os.listdir(os.path.join(tmp, out))):
+        with open(os.path.join(tmp, out, name), "rb") as f:
+            cli.append([name, ET.fromstring(f.read()).find(ns + "Page").get("imageFilename")])
 
 print(json.dumps({
     "modules": modules,
@@ -122,7 +126,7 @@ def test_port_runs_without_jax_and_host_libraries():
     assert "pero_ocr_tpu_torch.ops.warp" in got["modules"]
     assert got["loaded"] == []
     assert "pero_ocr_tpu_torch.scripts.parse_folder" in got["modules"]
-    assert got["cli"] == [[f"p{i}.xml", f"p{i}"] for i in range(3)]
+    assert got["cli"] == [[f"p{i}.xml", f"p{i}"] for i in range(3)] * 2  # fast, staged
     assert got["override"] == [[0, 4], [1, 4], [2, 4]]  # one slot of line_slot 4
     assert got["cnn_pages"] == [0, 1, 2]
     # CNN pages (random weights), then the override pages with their line.
