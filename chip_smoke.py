@@ -988,22 +988,83 @@ def fields_equal(page: torch.Tensor, fields: torch.Tensor, label: str) -> float:
     return max_abs
 
 
-def check_warp_fields(page: torch.Tensor, buckets, rng, label: str):
-    """The field warp on one page's width buckets (the staged path's
-    launches for that page, u8 store): bit-equal to its plain version in
-    both stores, here and on random fields (off-page, NaN, infinite and
-    padded coordinates; C = 1 and 3; uint8 and float32 pages); then its
-    time, warm and cold, beside the plain version's, ``F.grid_sample``'s
-    on the same fields and its bound."""
+def warp_packed(page: torch.Tensor, buffer: torch.Tensor, shapes, store: str):
+    """One warp_fields call over a packed field buffer (flat float32, on
+    the card) of buckets of (N, Hc, Wb) samples, as LineCropper makes it:
+    the crops, split back into one (N, Hc, Wb, C) view a bucket."""
+    out = warp_ops.warp_fields(page, buffer.view(1, 1, -1, 2), store)
+    return warp_ops.split_fields(out.view(-1), shapes, page.shape[2])
+
+
+def packed_equal(page: torch.Tensor, buffer: torch.Tensor, shapes, label: str) -> float:
+    """warp_packed against warp_fields_plain bucket by bucket, in both
+    stores, bit for bit, one launch a call.  Returns the largest
+    |kernel - plain|."""
+    max_abs = 0.0
+    for store in warp_ops.FIELD_STORES:
+        before = warp_ops.warp_fields.launches
+        crops = warp_packed(page, buffer, shapes, store)
+        launches = warp_ops.warp_fields.launches - before
+        bad = n = 0
+        for got, f in zip(crops, warp_ops.split_fields(buffer, shapes)):
+            want = warp_ops.warp_fields_plain(page, f, store)
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"warp_fields packed {label} {store}: {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            bits = torch.int32 if store == "f32" else torch.uint8
+            bad += int((got.view(bits) != want.view(bits)).sum())
+            n += got.numel()
+            max_abs = max(max_abs, float((got.float() - want.float()).abs().max()))
+        torch.cuda.synchronize()
+        log(f"warp_fields packed {label} {store}: {bad} of {n} values not bit-equal, "
+            f"{launches} launch(es)")
+        if bad or launches != 1:
+            raise AssertionError(f"warp_fields packed {label} {store} disagrees with its plain "
+                                 f"version or took {launches} launches")
+    return max_abs
+
+
+# Random buckets for the packed call: odd sizes (Wb 1023, odd Hc) and an
+# odd total, which leaves the kernel's last warp partly filled.
+RAGGED_SHAPES = [(5, 9, 1023), (16, 40, 1024), (2, 7, 517)]
+
+
+def random_packed_fields(rng, shapes, h: int, w: int) -> torch.Tensor:
+    """One field_buffer of ``shapes`` holding random_fields, on the card."""
+    buffer = warp_ops.field_buffer(shapes)
+    for view, (n, hc, wb) in zip(warp_ops.split_fields(buffer, shapes), shapes):
+        view[...] = random_fields(rng, n, hc, wb, h, w)
+    return torch.from_numpy(buffer).cuda()
+
+
+def check_warp_fields(page: torch.Tensor, buffer: torch.Tensor, shapes, rng, label: str):
+    """The field warp on one page's width buckets (``buffer``: their
+    fields packed as LineCropper uploads them, of (N, Hc, Wb) ``shapes``;
+    u8 store): one call over the packed buffer (one launch) and one call
+    on each bucket bit-equal to the plain version in both stores, here
+    and on random fields (off-page, NaN, infinite and padded coordinates;
+    C = 1 and 3; uint8 and float32 pages; a partly filled last warp);
+    then the packed call's time, warm and cold, beside the calls a
+    bucket (one launch each), the plain version's, ``F.grid_sample``'s on
+    the same fields and its bound."""
+    buckets = warp_ops.split_fields(buffer, shapes)
     max_abs = max(fields_equal(page, f, f"{label} bucket {tuple(f.shape)}") for f in buckets)
+    max_abs = max(max_abs, packed_equal(page, buffer, shapes, f"{label}, {len(shapes)} buckets"))
     h, w = page.shape[:2]
     for c in (1, 3):
         test_page = page[:, :, :c].contiguous()
         f = torch.from_numpy(random_fields(rng, 16, 40, 1024, h, w)).cuda()
         fields_equal(test_page, f, f"random fields, C={c}")
         fields_equal(test_page.float(), f, f"random fields, float32 page, C={c}")
+        ragged = random_packed_fields(rng, RAGGED_SHAPES, h, w)
+        packed_equal(test_page, ragged, RAGGED_SHAPES, f"random buckets {RAGGED_SHAPES}, C={c}")
+        packed_equal(test_page.float(), ragged, RAGGED_SHAPES,
+                     f"random buckets {RAGGED_SHAPES}, float32 page, C={c}")
 
     def run():
+        return warp_packed(page, buffer, shapes, "u8")
+
+    def per_bucket():
         return [warp_ops.warp_fields(page, f, "u8") for f in buckets]
 
     page_f = page.permute(2, 0, 1)[None].float()
@@ -1015,6 +1076,7 @@ def check_warp_fields(page: torch.Tensor, buckets, rng, label: str):
                               align_corners=True) for g in grids]
 
     warm, cold = cuda_ms(run), cuda_ms(run, cold=True)
+    split_warm, split_cold = cuda_ms(per_bucket), cuda_ms(per_bucket, cold=True)
     lib_warm, lib_cold = cuda_ms(library), cuda_ms(library, cold=True)
     plain_ms = cuda_ms(lambda: [warp_ops.warp_fields_plain(page, f, "u8") for f in buckets],
                        reps=5, warmup=1, ahead=False)
@@ -1024,29 +1086,30 @@ def check_warp_fields(page: torch.Tensor, buckets, rng, label: str):
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
     bound = max(bytes_ms, ops_ms)
     log(f"warp_fields {label}: {len(buckets)} buckets {[tuple(f.shape) for f in buckets]}, "
-        f"{samples} samples; {warm:.4f} ms warm ({bound / warm:.3f} of its bound), {cold:.4f} "
-        f"ms cold; bound {bytes_ms:.4f} ms by {nbytes} bytes, {ops_ms:.4f} ms by {ops} ops; "
-        f"plain {plain_ms:.4f} ms; F.grid_sample {lib_warm:.4f} ms warm, {lib_cold:.4f} ms cold")
+        f"{samples} samples; packed (1 launch) {warm:.4f} ms warm ({bound / warm:.3f} of its "
+        f"bound), {cold:.4f} ms cold; a launch a bucket {split_warm:.4f} ms warm, "
+        f"{split_cold:.4f} ms cold; bound {bytes_ms:.4f} ms by {nbytes} bytes, {ops_ms:.4f} ms "
+        f"by {ops} ops; plain {plain_ms:.4f} ms; F.grid_sample {lib_warm:.4f} ms warm, "
+        f"{lib_cold:.4f} ms cold")
     return {"max_abs_err": max_abs, "ms": warm, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": lib_warm, "ms_warm": warm, "ms_cold": cold,
-            "library_ms_cold": lib_cold, "bytes": nbytes, "samples": samples,
-            "buckets": [list(f.shape) for f in buckets]}
+            "bound_share": bound / warm, "per_bucket_ms_warm": split_warm,
+            "per_bucket_ms_cold": split_cold, "library_ms_cold": lib_cold, "bytes": nbytes,
+            "samples": samples, "buckets": [list(f.shape) for f in buckets]}
 
 
 def page_buckets(parser: PageParser, layout, page: np.ndarray):
     """The field warp's inputs for one page as LineCropper builds them:
-    the page on the card and one padded field tensor per non-empty width
-    bucket."""
+    the page on the card, the non-empty width buckets' fields packed in
+    one buffer on the card and the buckets' (N, Hc, Wb) shapes."""
     cropper = parser.line_cropper
-    lines = list(layout.lines_iterator())
     fields = [cropper.crop_engine.get_crop_inputs(ln.baseline, ln.heights,
                                                   cropper.crop_engine.line_height)
-              for ln in lines]
-    groups = warp_ops.width_buckets([f.shape[1] for f in fields], cropper.BUCKETS)
-    buckets = [torch.from_numpy(warp_ops.pad_fields([fields[g] for g in group], b)[0]).cuda()
-               for b, group in zip(cropper.BUCKETS, groups) if group]
-    return torch.from_numpy(np.ascontiguousarray(page)).cuda(), buckets
+              for ln in layout.lines_iterator()]
+    buffer, shapes, _, _ = cropper.pack_fields(fields)
+    return (torch.from_numpy(np.ascontiguousarray(page)).cuda(),
+            torch.from_numpy(buffer).cuda(), shapes)
 
 
 def rotate_ring(points: str) -> str:
@@ -1213,7 +1276,7 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
         launches, fused = warp_ops.warp_fields.launches, warp_ops.warp_lines.launches
         stats = timing.timing_stats()
 
-        buckets_used = []  # non-empty width buckets, per page
+        batched = []  # 1 for a page of DEVICE_BATCH_MIN lines or more: one launch
         n_lines = n_regions = 0
         for i, (layout, xml) in enumerate(out):
             root = ET.fromstring(xml.encode("utf-8"))
@@ -1224,10 +1287,8 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                 raise AssertionError(f"staged: page {i} has {len(regions)} regions, want >= 2")
             if sorted(numbers) != list(range(1, detected[i] + 1)):
                 raise AssertionError(f"staged: page {i}: a line is in no region or in two")
-            crops = [ln.crop.shape[1] for ln in layout.lines_iterator()]
-            buckets_used.append(
-                len({next(b for b in parser.line_cropper.BUCKETS if w <= b) for w in crops})
-                if len(crops) >= parser.line_cropper.DEVICE_BATCH_MIN else 0)
+            batched.append(int(len(list(layout.lines_iterator()))
+                               >= parser.line_cropper.DEVICE_BATCH_MIN))
             n_lines += len(numbers)
             n_regions += len(regions)
         recall = line_recall(
@@ -1236,12 +1297,14 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             f"regions; line recall {recall:.3f}; {len(pages) / seconds:.3f} pages/s to Page XML "
             f"({seconds:.3f} s) on {smi}; ds {engine.parsenet.last_downsample}")
         log("stage times (staged run):\n" + timing.timing_report())
-        log(f"warp_fields launches in the staged run: {launches}, non-empty width buckets: "
-            f"{sum(buckets_used)} ({buckets_used} a page); warp_lines launches: {fused}")
+        log(f"warp_fields launches in the staged run: {launches}, pages of "
+            f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more: {sum(batched)} of "
+            f"{len(batched)}; warp_lines launches: {fused}")
         if recall < MIN_LINE_RECALL:
             raise AssertionError(f"staged: found {recall:.3f} < {MIN_LINE_RECALL} of the lines")
-        if launches != sum(buckets_used) or launches == 0 or fused != 0:
-            raise AssertionError("staged: warp_fields launches != non-empty width buckets")
+        if launches != sum(batched) or launches == 0 or fused != 0:
+            raise AssertionError("staged: warp_fields launches != pages of "
+                                 f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
 
         # The command line without --fast-pipeline on the first pages.
         out_dir = os.path.join(tmp, "page_xml")
@@ -1269,19 +1332,20 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             f"{n_cli / float(timed.group(1)) if timed else float('nan'):.3f} pages/s by its timer")
         if differ or counted is None or timed is None:
             raise AssertionError(f"the stage-by-stage command line's files differ: {differ}")
-        if int(counted.group(1)) != sum(buckets_used[:n_cli]):
+        if int(counted.group(1)) != sum(batched[:n_cli]):
             raise AssertionError("the stage-by-stage command line: warp_fields launches != "
-                                 "non-empty width buckets")
-        page, buckets = page_buckets(parser, out[-1][0], pages[-1])
+                                 f"pages of {parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
+        last_page = page_buckets(parser, out[-1][0], pages[-1])
 
     numbers = {"pages": len(pages), "pages_per_s": len(pages) / seconds, "lines": n_lines,
                "regions": n_regions, "line_recall": recall,
                "stage_ms": {k: 1e3 * stats[k][0] / stats[k][1] for k in STAGE_TIMERS
                             if k in stats},
                "stage_calls": {k: stats[k][1] for k in STAGE_TIMERS if k in stats},
+               "warp_fields_launches": launches, "pages_of_4_lines_or_more": sum(batched),
                "cli_pages_per_s": n_cli / float(timed.group(1)), "cli_wall_s": cli_seconds,
                "cli_warp_fields_launches": int(counted.group(1)), "card": smi}
-    return launches, numbers, (page, buckets)
+    return launches, numbers, last_page
 
 
 def main() -> int:

@@ -6,8 +6,8 @@ curved line into a height-normalized strip on the host.
 samples it with :func:`pero_ocr_tpu_torch.utils.resize.remap_linear`,
 the numpy copy of ``cv2.remap(INTER_LINEAR, BORDER_CONSTANT)``, which
 the stage-by-stage ``LineCropper`` uses for pages of fewer than four
-lines.  Pages with more go through the card in one field warp per width
-bucket (:func:`pero_ocr_tpu_torch.ops.warp.warp_fields`).
+lines.  Pages with more go through the card in one field warp over all
+their width buckets (:func:`pero_ocr_tpu_torch.ops.warp.warp_fields`).
 """
 
 from __future__ import annotations

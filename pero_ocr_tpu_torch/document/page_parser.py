@@ -10,9 +10,11 @@ means CUDA, "cpu" the plain PyTorch path):
 - ``LayoutExtractor``: CNN regions and lines (``LayoutEngine.detect``),
   the lines clipped into their regions;
 - ``LineCropper``: every line's warp field on the host, then, for pages
-  of four lines or more, one upload of the page and one
-  :func:`~pero_ocr_tpu_torch.ops.warp.warp_fields` launch (the
-  hand-written CUDA kernel on the card) per non-empty width bucket;
+  of four lines or more, one upload of the page and of all its width
+  buckets' fields in one buffer, one
+  :func:`~pero_ocr_tpu_torch.ops.warp.warp_fields` launch over that
+  buffer (the hand-written CUDA kernel on the card) and one copy of the
+  crops back;
   fewer lines are remapped on the host;
 - ``PageOCR``: the lines' crops in width-bucketed batches through the
   CTC recognizer, sparse logits kept on each line;
@@ -167,8 +169,8 @@ class LayoutExtractor:
 class LineCropper:
     """Crop every line to a height-normalized strip (JAX
     page_parser.py:421-505): pages of ``DEVICE_BATCH_MIN`` lines or more
-    in one field warp per width bucket on the device, fewer on the
-    host."""
+    in one field warp on the device over all their width buckets, fewer
+    on the host."""
 
     DEVICE_BATCH_MIN = 4
     BUCKETS = (256, 512, 1024, 2048, 4096)
@@ -194,6 +196,21 @@ class LineCropper:
                 self.crop_lines(img, lines, page_id=page_layout.id)
         return page_layout
 
+    def pack_fields(self, fields: List[np.ndarray]):
+        """A page's line fields (None where one failed), padded to their
+        width buckets, in one float32 buffer (``warp.field_buffer``).
+        Returns (buffer, the non-empty buckets' (N, Hc, Wb) shapes, their
+        line indices, the widths kept)."""
+        widths = [f.shape[1] if f is not None else 0 for f in fields]
+        groups = [(bucket, [g for g in group if fields[g] is not None]) for bucket, group in
+                  zip(self.BUCKETS, warp.width_buckets(widths, self.BUCKETS))]
+        groups = [(bucket, group) for bucket, group in groups if group]
+        shapes = [(len(group), self.crop_engine.line_height, bucket) for bucket, group in groups]
+        buffer = warp.field_buffer(shapes)
+        kept = [warp.pad_fields([fields[g] for g in group], bucket, out=view)[1]
+                for (bucket, group), view in zip(groups, warp.split_fields(buffer, shapes))]
+        return buffer, shapes, [group for _, group in groups], kept
+
     def _crop_batched(self, img: np.ndarray, lines: List[TextLine], page_id) -> None:
         fields = []
         for line in lines:
@@ -202,20 +219,17 @@ class LineCropper:
                     line.baseline, line.heights, self.crop_engine.line_height))
             except (ValueError, IndexError, np.linalg.LinAlgError):
                 fields.append(None)
-        widths = [f.shape[1] if f is not None else 0 for f in fields]
-        groups = warp.width_buckets(widths, self.BUCKETS)
+        buffer, shapes, groups, kept = self.pack_fields(fields)
 
         device = resolve_device(self.device)
-        page = torch.from_numpy(np.ascontiguousarray(img)).to(device)
-        for bucket, group in zip(self.BUCKETS, groups):
-            group = [g for g in group if fields[g] is not None]
-            if not group:
-                continue
-            stacked, true_widths = warp.pad_fields([fields[g] for g in group], bucket)
-            crops = warp.warp_fields(page, torch.from_numpy(stacked).to(device), "u8")
-            crops = crops.cpu().numpy()
-            for j, g in enumerate(group):
-                lines[g].crop = crops[j, :, : true_widths[j]]
+        if shapes:  # one upload of the fields, one launch, one copy back
+            page = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+            packed = torch.from_numpy(buffer).to(device).view(1, 1, -1, 2)
+            host = warp.warp_fields(page, packed, "u8").cpu().numpy().reshape(-1)
+            for group, widths, crop in zip(groups, kept,
+                                           warp.split_fields(host, shapes, page.shape[2])):
+                for j, g in enumerate(group):
+                    lines[g].crop = crop[j, :, : widths[j]]
 
         for line, field in zip(lines, fields):
             if field is None or line.crop is None or line.crop.shape[1] == 0:

@@ -36,11 +36,15 @@ shared tables), pages of fewer than 2**31 pixels (its 32-bit offsets),
 float32 or bfloat16 out.
 
 ``warp_fields(page, fields, store)`` is the Pallas kernel's own
-contract, which the stage-by-stage ``LineCropper`` runs: an (H, W, C)
-page, uint8 or float32 with C in {1, 3}, sampled bilinearly at a
-precomputed (N, Hc, Wb, 2) field of (x, y) page coordinates, one width
-bucket at a time (:func:`width_buckets`, :func:`pad_fields`).  CUDA
-tensors launch ``csrc/warp_fields.cu``; CPU tensors run
+contract: an (H, W, C) page, uint8 or float32 with C in {1, 3}, sampled
+bilinearly at a precomputed (N, Hc, Wb, 2) field of (x, y) page
+coordinates.  The kernel indexes samples flat, so the stage-by-stage
+``LineCropper`` runs all of a page's width buckets (:func:`width_buckets`)
+in one call: their fields lie back to back in one buffer
+(:func:`field_layout`, :func:`field_buffer`, :func:`split_fields`,
+:func:`pad_fields`), passed as one (1, 1, total, 2) field, and
+:func:`split_fields` cuts the crops out of the flat output the same
+way.  CUDA tensors launch ``csrc/warp_fields.cu``; CPU tensors run
 :func:`warp_fields_plain`.  Its bound is memory as well, and there the
 field dominates: 8 bytes a pixel against the 1 to 12 of the page taps
 and the crop (:func:`warp_fields_bytes`).
@@ -324,19 +328,52 @@ def width_buckets(widths: Sequence[int], buckets: Sequence[int]) -> List[List[in
 
 
 def pad_fields(fields: Sequence[np.ndarray], width_bucket: int,
-               pad_coord: float = OFF_PAGE) -> Tuple[np.ndarray, np.ndarray]:
+               pad_coord: float = OFF_PAGE,
+               out: np.ndarray = None) -> Tuple[np.ndarray, np.ndarray]:
     """Stack (Hc, W_i, 2) warp fields into one (N, Hc, width_bucket, 2)
-    float32 array; padded columns carry ``pad_coord`` (they sample 0).
-    Returns (stacked, widths kept)."""
+    float32 array, or into ``out`` (a view of a :func:`field_buffer`);
+    padded columns carry ``pad_coord`` (they sample 0).  Returns
+    (stacked, widths kept)."""
     n = len(fields)
     hc = fields[0].shape[0]
-    out = np.full((n, hc, width_bucket, 2), pad_coord, dtype=np.float32)
+    if out is None:
+        out = np.empty((n, hc, width_bucket, 2), dtype=np.float32)
     widths = np.zeros(n, dtype=np.int32)
     for i, f in enumerate(fields):
         wi = min(f.shape[1], width_bucket)
         out[i, :, :wi] = f[:, :wi]
+        out[i, :, wi:] = pad_coord
         widths[i] = wi
     return out, widths
+
+
+Shape3 = Tuple[int, int, int]
+
+
+def field_layout(shapes: Sequence[Shape3]) -> Tuple[List[int], int]:
+    """Where buckets of (N, Hc, Wb) samples lie in one packed buffer, back
+    to back, in samples.  Returns (offsets, total)."""
+    offsets, total = [], 0
+    for n, hc, wb in shapes:
+        offsets.append(total)
+        total += n * hc * wb
+    return offsets, total
+
+
+def field_buffer(shapes: Sequence[Shape3]) -> np.ndarray:
+    """An empty flat float32 buffer for the fields of ``shapes`` laid out
+    by :func:`field_layout` (:func:`split_fields` gives its buckets)."""
+    return np.empty(2 * field_layout(shapes)[1], dtype=np.float32)
+
+
+def split_fields(buffer, shapes: Sequence[Shape3], channels: int = 2) -> list:
+    """The (N, Hc, Wb, channels) views of a flat buffer (numpy or torch)
+    laid out by :func:`field_layout`: the fields (2 channels), or the
+    crops that one :func:`warp_fields` call over the whole buffer gives
+    for them (C channels)."""
+    offsets, _ = field_layout(shapes)
+    return [buffer[channels * o: channels * (o + n * hc * wb)].reshape(n, hc, wb, channels)
+            for o, (n, hc, wb) in zip(offsets, shapes)]
 
 
 def warp_fields_plain(page: torch.Tensor, fields: torch.Tensor, store: str = "f32") -> torch.Tensor:

@@ -233,3 +233,126 @@ def test_warp_fields_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="aligned"):  # a view one float into its storage
         warp.warp_fields(page, torch.zeros(66, device=cuda)[1:65].reshape(1, 4, 8, 2))
     assert warp.warp_fields(page, fields[:0]).shape == (0, 4, 8, 3)
+
+
+# Buckets of one packed buffer for one warp call: odd sizes (Wb 1023,
+# odd Hc), LineCropper's shape, and an odd total, so that the last warp
+# is partly filled.
+PACKED_SHAPES = [(3, 5, 1023), (12, 24, 517), (2, 32, 256), (1, 2, 5)]
+
+
+def _edge_fields(h, w):
+    """(1, 12, 2 w + 8, 2) fields on every half pixel from x = -2.5 to
+    w + 1, on rows around the first and the last: the tap pairs that end
+    on the page's last byte, the last column and the rows off the page."""
+    xs = np.arange(-2.5, w + 1.5, 0.5)[: 2 * w + 8]
+    ys = np.array([-1.5, -0.5, 0.0, 0.25, 1.0, h - 2.5, h - 2.0, h - 1.5, h - 1.0, h - 0.75,
+                   h - 0.5, h + 0.5])
+    return np.stack(np.broadcast_arrays(xs[None], ys[:, None]), -1)[None].astype(np.float32)
+
+
+def _packed_inputs(rng, h, w):
+    shapes = [(1, 12, 2 * w + 8)] + PACKED_SHAPES
+    buffer = warp.field_buffer(shapes)
+    views = warp.split_fields(buffer, shapes)
+    views[0][...] = _edge_fields(h, w)
+    for view, (n, hc, wb) in zip(views[1:], shapes[1:]):
+        view[...] = random_fields(rng, n, hc, wb, h, w)
+    return buffer, shapes
+
+
+def _assert_bit_equal(got, want, store):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    bits = torch.int32 if store == "f32" else torch.uint8
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("store", ["f32", "u8"])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("page_dtype", ["u8", "f32"])
+def test_warp_fields_packed_kernel_matches_plain(cuda, store, channels, page_dtype):
+    """One launch over all the buckets of a packed buffer, bit-equal to
+    the plain version bucket by bucket, the page's last row and column
+    included."""
+    rng = np.random.default_rng(100 + channels * 10 + len(store) + len(page_dtype))
+    h, w = 301, 701
+    page = rng.integers(0, 256, (h, w, channels), dtype=np.uint8)
+    if page_dtype == "f32":
+        page = page.astype(np.float32) + rng.uniform(-0.5, 0.5, page.shape).astype(np.float32)
+    buffer, shapes = _packed_inputs(rng, h, w)
+    assert warp.field_layout(shapes)[1] % 2 == 1  # the last warp partly filled
+    page_t = torch.from_numpy(page).to(cuda)
+    packed = torch.from_numpy(buffer).to(cuda)
+    before = warp.warp_fields.launches
+    out = warp.warp_fields(page_t, packed.view(1, 1, -1, 2), store)
+    assert warp.warp_fields.launches == before + 1
+    for crop, view in zip(warp.split_fields(out.view(-1), shapes, channels),
+                          warp.split_fields(packed, shapes)):
+        _assert_bit_equal(crop, warp.warp_fields_plain(page_t, view, store), store)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("page_dtype", ["u8", "f32"])
+def test_warp_fields_unaligned_page_and_fields_match_plain(cuda, channels, page_dtype):
+    """Fields only 8-byte aligned and a page one element into its storage:
+    still bit-equal, in both stores."""
+    rng = np.random.default_rng(200 + channels + len(page_dtype))
+    h, w = 97, 131
+    page = rng.integers(0, 256, (h, w, channels), dtype=np.uint8)
+    if page_dtype == "f32":
+        page = page.astype(np.float32) + 0.375
+    storage = torch.zeros(page.size + 1, dtype=torch.from_numpy(page).dtype, device=cuda)
+    shifted = storage[1:].view(h, w, channels)
+    shifted.copy_(torch.from_numpy(page))
+    fields = np.concatenate([random_fields(rng, 3, 7, 61, h, w).reshape(-1, 2),
+                             _edge_fields(h, w).reshape(-1, 2)])
+    f_storage = torch.zeros(2 * len(fields) + 2, device=cuda)
+    f_t = f_storage[2:].view(1, 1, len(fields), 2)
+    f_t.copy_(torch.from_numpy(fields).view(1, 1, -1, 2))
+    assert f_t.data_ptr() % 16 == 8
+    for page_t in (shifted, shifted.clone()):
+        for f in (f_t, f_t.clone()):
+            for store in ("f32", "u8"):
+                got = warp.warp_fields(page_t, f, store)
+                _assert_bit_equal(got, warp.warp_fields_plain(page_t, f, store), store)
+    torch.cuda.synchronize()
+
+
+def test_warp_fields_packed_kernel_rejects_bad_inputs(cuda):
+    page = torch.zeros((32, 32, 3), dtype=torch.uint8, device=cuda)
+    total = warp.field_layout([(2, 4, 8), (1, 3, 5)])[1]
+    packed = torch.zeros(2 * total, device=cuda).view(1, 1, -1, 2)
+    before = warp.warp_fields.launches
+    with pytest.raises(ValueError, match="aligned"):  # one float into its storage
+        warp.warp_fields(page, torch.zeros(2 * total + 1, device=cuda)[1:].view(1, 1, -1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        warp.warp_fields(page, packed[:, :, ::2])
+    with pytest.raises(ValueError, match="one device"):
+        warp.warp_fields(page, packed.cpu())
+    with pytest.raises(ValueError, match="one device"):
+        warp.warp_fields(page.cpu(), packed)
+    assert warp.warp_fields.launches == before
+    empty = torch.from_numpy(warp.field_buffer([])).to(cuda).view(1, 1, -1, 2)
+    assert warp.warp_fields(page, empty).shape == (1, 1, 0, 3)
+    assert warp.warp_fields.launches == before
+
+
+def test_warp_fields_kernel_on_a_page_past_int32(cuda):
+    """A page of more than 2**31 values takes the kernel's 64-bit offsets:
+    bit-equal to the plain version on samples all over it, its last rows
+    and columns included (about 11 GB of card memory)."""
+    h, w = 1 << 10, (1 << 21) + 3
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    page = torch.randint(0, 256, (h, w, 1), dtype=torch.uint8, device=cuda, generator=gen)
+    rng = np.random.default_rng(5)
+    far = np.stack([rng.uniform(w - 6, w + 2, 4096), rng.uniform(h - 4, h + 1, 4096)], -1)
+    corner = np.stack(np.meshgrid(np.arange(w - 3, w + 1.5, 0.5),
+                                  np.arange(h - 3, h + 1.5, 0.5)), -1).reshape(-1, 2)
+    fields = np.concatenate([random_fields(rng, 2, 8, 512, h, w).reshape(-1, 2), far,
+                             corner]).astype(np.float32)
+    f_t = torch.from_numpy(fields).to(cuda).view(1, 1, -1, 2)
+    for store in ("f32", "u8"):
+        _assert_bit_equal(warp.warp_fields(page, f_t, store),
+                          warp.warp_fields_plain(page, f_t, store), store)
+    torch.cuda.synchronize()

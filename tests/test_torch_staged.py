@@ -23,6 +23,7 @@ and its port on them:
   crop value can round one gray level apart.
 """
 
+import configparser
 import os
 import random
 
@@ -33,6 +34,7 @@ import pytest
 import scipy.sparse
 import torch
 
+from chip_smoke import random_fields
 from pero_ocr_tpu.core import geometry as jax_geometry
 from pero_ocr_tpu.core import line_geometry as jax_line_geometry
 from pero_ocr_tpu.core.layout import PageLayout as JaxPageLayout
@@ -48,7 +50,7 @@ from pero_ocr_tpu.utils import native
 from pero_ocr_tpu_torch.core import geometry, line_geometry
 from pero_ocr_tpu_torch.core.crop_engine import EngineLineCropper
 from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
-from pero_ocr_tpu_torch.document.page_parser import PageParser
+from pero_ocr_tpu_torch.document.page_parser import LineCropper, PageParser
 from pero_ocr_tpu_torch.layout_engines import helpers
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import LayoutEngine, postprocess_maps
 from pero_ocr_tpu_torch.ocr.ctc_engine import CTCEngineLineOCR
@@ -193,6 +195,136 @@ def test_warp_fields_bytes_counts_the_touched_footprint():
     # 4 x 3 uint8 out.
     assert warp.warp_fields_bytes(page, fields, "u8") == 4 * 3 + 4 * 8 + 4 * 3
     assert warp.warp_fields_bytes(page, fields, "f32") == 4 * 3 + 4 * 8 + 4 * 3 * 4
+
+
+# Buckets of one packed buffer: odd sizes (Wb = 1023, odd Hc), a bucket of
+# LineCropper's shape, and an odd total, which leaves the kernel's last
+# warp partly filled.
+PACKED_SHAPES = [(3, 5, 1023), (1, 7, 17), (4, 16, 256), (1, 3, 5)]
+
+
+def _packed_fields(rng, shapes, h, w):
+    """A field_buffer of ``shapes`` filled with random_fields: uniform,
+    NaN, infinite, padded (-1e6), beyond-int32 and integer coordinates."""
+    buffer = warp.field_buffer(shapes)
+    for view, (n, hc, wb) in zip(warp.split_fields(buffer, shapes), shapes):
+        view[...] = random_fields(rng, n, hc, wb, h, w)
+    return buffer
+
+
+def test_field_layout_packs_buckets_back_to_back():
+    offsets, total = warp.field_layout(PACKED_SHAPES)
+    sizes = [n * hc * wb for n, hc, wb in PACKED_SHAPES]
+    assert offsets == [0] + np.cumsum(sizes)[:-1].tolist() and total == sum(sizes)
+    assert total % 2 == 1
+    buffer = warp.field_buffer(PACKED_SHAPES)
+    assert buffer.shape == (2 * total,) and buffer.dtype == np.float32
+    views = warp.split_fields(buffer, PACKED_SHAPES)
+    assert [v.shape for v in views] == [s + (2,) for s in PACKED_SHAPES]
+    assert all(np.shares_memory(v, buffer) for v in views)
+    # No buckets: an empty buffer, whose warp is empty and splits into nothing.
+    empty = torch.from_numpy(warp.field_buffer([]))
+    out = warp.warp_fields(torch.zeros((4, 5, 3), dtype=torch.uint8), empty.view(1, 1, -1, 2), "u8")
+    assert out.shape == (1, 1, 0, 3) and warp.split_fields(out.view(-1), [], 3) == []
+
+
+def test_pad_fields_into_a_buffer_view_equals_its_own_array():
+    rng = np.random.default_rng(3)
+    fields = [rng.normal(size=(8, w, 2)).astype(np.float32) for w in (3, 10, 20, 16)]
+    want, want_widths = warp.pad_fields(fields, 16)
+    view = warp.split_fields(warp.field_buffer([(4, 8, 16)]), [(4, 8, 16)])[0]
+    got, got_widths = warp.pad_fields(fields, 16, out=view)
+    assert got is view and np.array_equal(got, want) and np.array_equal(got_widths, want_widths)
+
+
+@pytest.mark.parametrize("store", warp.FIELD_STORES)
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("page_dtype", ["u8", "f32"])
+def test_warp_fields_packed_equals_plain_bucket_by_bucket(store, channels, page_dtype):
+    """One warp_fields call over a packed buffer, as LineCropper makes it,
+    on the CPU: each bucket's crop, split out of the flat result, is
+    bit-equal to warp_fields_plain on that bucket."""
+    rng = np.random.default_rng(channels * 7 + len(store) + 3 * len(page_dtype))
+    h, w = 61, 97
+    page = _bgr(rng, h, w, channels)
+    if page_dtype == "f32":
+        page = page.astype(np.float32) + rng.uniform(-0.5, 0.5, page.shape).astype(np.float32)
+    page_t = torch.from_numpy(page)
+    buffer = torch.from_numpy(_packed_fields(rng, PACKED_SHAPES, h, w))
+    out = warp.warp_fields(page_t, buffer.view(1, 1, -1, 2), store)
+    crops = warp.split_fields(out.view(-1), PACKED_SHAPES, channels)
+    views = warp.split_fields(buffer, PACKED_SHAPES)
+    assert len(crops) == len(views)
+    for crop, view in zip(crops, views):
+        want = warp.warp_fields_plain(page_t, view, store)
+        assert crop.shape == want.shape == view.shape[:3] + (channels,)
+        assert crop.dtype == want.dtype
+        bits = torch.int32 if store == "f32" else torch.uint8
+        assert torch.equal(crop.view(bits), want.view(bits))
+
+
+def test_warp_fields_packed_rejects_what_the_kernel_does_not_take():
+    page = torch.zeros((8, 9, 3), dtype=torch.uint8)
+    total = warp.field_layout([(2, 3, 8), (1, 4, 5)])[1]
+    packed = torch.zeros(2 * total).view(1, 1, -1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        warp.warp_fields(page, packed[:, :, ::2])
+    with pytest.raises(ValueError, match="float32"):
+        warp.warp_fields(page, packed.double())
+    with pytest.raises(ValueError, match="store"):
+        warp.warp_fields(page, packed, "bf16")
+    with pytest.raises(ValueError, match="page"):
+        warp.warp_fields(page[:, :, :2].contiguous(), packed)
+
+
+def test_line_cropper_crops_unchanged_by_one_buffer_packing():
+    """LineCropper on the CPU (one buffer, one warp call) gives every
+    line the crop that the per-bucket warp gave: each bucket padded on
+    its own and sampled by warp_fields_plain."""
+    rng = np.random.default_rng(11)
+    page = _bgr(rng, 300, 1300)
+    config = configparser.ConfigParser()
+    config.read_string("[LINE_CROPPER]\nLINE_HEIGHT = 16\nINTERP = 2\nLINE_SCALE = 1.0\n")
+    cropper = LineCropper(config["LINE_CROPPER"], device="cpu")
+    lines = []
+    for i, length in enumerate((100, 250, 400, 700, 1150, 180, 40)):
+        x = np.linspace(20, 20 + length, 6)
+        y = 30 + 36 * i + 3 * np.sin(x / 40.0)
+        lines.append(TextLine(id=f"l{i}", baseline=np.stack([x, y], 1), heights=[10.0, 4.0]))
+    lines[3].baseline[:, 1] += 150  # partly off the page
+    lines.append(TextLine(id="bad", baseline=np.zeros((0, 2)), heights=[10.0, 4.0]))
+    layout = PageLayout(id="p", page_size=page.shape[:2])
+    layout.regions = [RegionLayout("r0", np.array([[0, 0], [1300, 0], [1300, 300], [0, 300]]))]
+    layout.regions[0].lines = lines
+
+    fields = []
+    for line in lines:
+        try:
+            fields.append(cropper.crop_engine.get_crop_inputs(line.baseline, line.heights, 16))
+        except (ValueError, IndexError, np.linalg.LinAlgError):
+            fields.append(None)
+    assert fields[-1] is None
+    want = {}
+    widths = [f.shape[1] if f is not None else 0 for f in fields]
+    buckets_used = 0
+    for bucket, group in zip(cropper.BUCKETS, warp.width_buckets(widths, cropper.BUCKETS)):
+        group = [g for g in group if fields[g] is not None]
+        if not group:
+            continue
+        buckets_used += 1
+        stacked, kept = warp.pad_fields([fields[g] for g in group], bucket)
+        crops = warp.warp_fields_plain(torch.from_numpy(page), torch.from_numpy(stacked),
+                                       "u8").numpy()
+        for j, g in enumerate(group):
+            want[g] = crops[j, :, : kept[j]]
+    assert buckets_used >= 3
+
+    cropper.process_page(page, layout)
+    for i, line in enumerate(lines):
+        if i in want:
+            assert line.crop.dtype == np.uint8 and np.array_equal(line.crop, want[i])
+        else:
+            assert np.array_equal(line.crop, np.zeros((16, 32, 3), np.uint8))
 
 
 # ----------------------------------------------------------------------
