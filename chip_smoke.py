@@ -39,12 +39,23 @@ Phases (each raises on failure, so the run exits non-zero):
    run's last batch, at the command line's shapes (page batch 4, line
    slot 32, crop bucket 2048); the ``kernels`` line reports these under
    ``cli_*``.
+8. Stage by stage (``run_staged``): 8 pages through
+   ``PageParser(config, device="cuda").process_page`` and its command
+   line on 4 of them; the field warp checked and timed on the last page.
+9. Host C++ (``csrc/perotpu.cpp``, built with the kernels): config 2's
+   fast path and the staged run go on the C++ host route (the card's
+   default), the numpy route (``native=False``), the numpy route and
+   the C++ route again (A B B A); every run's Page XML must equal the
+   first's.  Then ``check_host_native`` holds each C++ function against
+   its numpy twin on the runs' own inputs (0 differences) and times
+   both.
 
 Kernel times are taken warm (inputs in L2 from the run before) and
 cold (a 128 MB scratch write before each timed run), since stage B finds
 its pages after the next batch's upload.
 
-The last four lines are the command line's numbers (``{"cli": ...}``),
+The last lines are the command lines' numbers (``{"cli": ...}``,
+``{"staged": ...}``), the host library's (``{"host_native": ...}``),
 the card's nvidia-smi line, one JSON object with the kernels' numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -70,16 +81,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pero_ocr_tpu_torch.core import geometry
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble_page_layout
 from pero_ocr_tpu_torch.document.page_parser import PageParser
+from pero_ocr_tpu_torch.layout_engines.cnn_engine import separator_penalties
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+from pero_ocr_tpu_torch.ops import morphology
 from pero_ocr_tpu_torch.ops import warp as warp_ops
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
-from pero_ocr_tpu_torch.utils import kernels, timing
+from pero_ocr_tpu_torch.utils import kernels, native, timing
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores.
@@ -436,9 +450,11 @@ def line_recall(detected, lines, tol_px: float = 16.0) -> float:
     return found / total
 
 
-def bench_pipeline() -> TorchPagePipeline:
+def bench_pipeline(native=None) -> TorchPagePipeline:
     """The page pipeline at bench widths on the card: ParseNet with the
-    hand-set edge detector, the recognizer with seeded random weights."""
+    hand-set edge detector, the recognizer with seeded random weights.
+    ``native``: TorchPagePipeline's host route (None: the C++ on the
+    card)."""
     pn = ParseNet(base_features=32, depth=4, stem="s2d", out_upsample=2)
     edge_detector_(pn)
     rec = CTCRecognizer(RecognizerSpec(
@@ -448,6 +464,7 @@ def bench_pipeline() -> TorchPagePipeline:
     return TorchPagePipeline(
         pn, rec, downsample=4, crop_bucket=BUCKET, crop_height=CROP_H,
         line_slot=LINES_PER_PAGE, adaptive_downsample=True, device="cuda",
+        native=native,
     )
 
 
@@ -556,23 +573,38 @@ def run_config2(pipe, rng, smi: str):
     with alpha-shape regions -> Page XML bytes, through
     ``FastPagePipeline.process_pages`` (assembly on its consumer thread,
     the XML serialized as each page arrives, inside the timed window).
-    Returns the warp's launches, the run's numbers and the last stage-B
-    batch's warp arguments (the main path's shapes)."""
+    Then the host-route A/B: the same pages through a pipeline on the
+    numpy route (``native=False``) twice and this one again, each run's
+    Page XML equal to the first's.  Returns the warp's launches, the
+    run's numbers, the last stage-B batch's warp arguments (the main
+    path's shapes) and the host record for check_host_native (the last
+    batch's stage-A transport, scale and lines, the host calls, the
+    A/B)."""
     n_pages = 2 * PAGE_BATCH
     pages, lines = synthetic_pages(rng, n_pages, TWO_COLUMNS)
     ids = [f"p{i:04d}" for i in range(n_pages)]
     fast = FastPagePipeline(pipe, BENCH_CHARS, page_batch=PAGE_BATCH)
-    last_b, slots = [], []
-    stage_b = pipe.stage_b
+    last_b, slots, last_batch, last_unpack = [], [], [], []
+    stage_b, batch_lines, unpack = pipe.stage_b, pipe._batch_lines, pipe._unpack_stage_a
 
     def kept_stage_b(*b_args):
         last_b[:] = [b_args]
         slots.append(b_args[1].shape[1])
         return stage_b(*b_args)
 
-    pipe.stage_b = kept_stage_b
+    def kept_unpack(*transport):
+        last_unpack[:] = [transport]
+        return unpack(*transport)
 
-    def drive(n):
+    def kept_batch_lines(pages_, ids_, override, masks, ds=None):
+        out = batch_lines(pages_, ids_, override, masks, ds)
+        last_batch[:] = [(last_unpack[0], ds, out[0])]
+        return out
+
+    pipe.stage_b, pipe._batch_lines, pipe._unpack_stage_a = (
+        kept_stage_b, kept_batch_lines, kept_unpack)
+
+    def drive(fast, n):
         out = []
         t0 = time.perf_counter()
         for layout in fast.process_pages(pages[:n], ids[:n]):
@@ -581,12 +613,15 @@ def run_config2(pipe, rng, smi: str):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    drive(PAGE_BATCH)  # warm-up at the two-column shapes
+    drive(fast, PAGE_BATCH)  # warm-up at the two-column shapes
     timing.reset_timing()
     slots.clear()
     warp_ops.warp_lines.launches = 0
-    out, seconds = drive(n_pages)
+    native.calls.clear()
+    out, seconds = drive(fast, n_pages)
     launches = warp_ops.warp_lines.launches
+    host_calls = dict(native.calls)
+    native_stats = timing.timing_stats()
 
     if [layout.id for layout, _ in out] != ids:
         raise AssertionError("config 2: layouts out of page order")
@@ -619,7 +654,24 @@ def run_config2(pipe, rng, smi: str):
     if launches != len(batches_with_lines) or launches == 0:
         raise AssertionError("config 2: warp kernel launches != stage-B batches")
     log("stage times (config 2 run):\n" + timing.timing_report())
-    pipe.stage_b = stage_b
+    pipe.stage_b, pipe._batch_lines, pipe._unpack_stage_a = stage_b, batch_lines, unpack
+    stage_a, ds, page_lines = last_batch[0]
+
+    # The A/B: the same pages on the numpy route (the same weights)
+    # twice, then on the C++ route again: A B B A.
+    numpy_pipe = bench_pipeline(native=False)
+    numpy_fast = FastPagePipeline(numpy_pipe, BENCH_CHARS, page_batch=PAGE_BATCH)
+    drive(numpy_fast, PAGE_BATCH)
+    runs = [("native", out, seconds, native_stats)]
+    for route, fast_ in (("numpy", numpy_fast), ("numpy", numpy_fast), ("native", fast)):
+        timing.reset_timing()
+        run_out, run_seconds = drive(fast_, n_pages)
+        runs.append((route, run_out, run_seconds, timing.timing_stats()))
+        log(f"stage times (config 2 run, {route} route, A/B run {len(runs)}):\n"
+            + timing.timing_report())
+    ab = route_ab(runs, FAST_STAGES, smi, "config 2", host_calls)
+    host = {"pipe": pipe, "numpy_pipe": numpy_pipe, "stage_a": stage_a, "ds": ds,
+            "page_lines": page_lines, "ab": ab}
     # Stage B's device time alone on the last batch.
     device = float(np.median([cuda_ms(lambda: pipe.stage_b(*last_b[0]), reps=1, warmup=1)
                               for _ in range(5)]))
@@ -628,7 +680,7 @@ def run_config2(pipe, rng, smi: str):
     return launches, {"config2_pages_per_s": n_pages / seconds, "config2_lines": n_lines,
                       "config2_regions": n_regions, "config2_stage_b_device_ms": device,
                       "config2_stage_b_slots": [int(n) for n in slots]}, (
-        *last_b[0], pipe.crop_height, pipe.crop_bucket)
+        *last_b[0], pipe.crop_height, pipe.crop_bucket), host
 
 
 # ----------------------------------------------------------------------
@@ -947,10 +999,16 @@ STAGE_TIMERS = ("layout", "parsenet_maps", "map_postprocess", "paragraph_cluster
 FIELD_OPS_PER_PIXEL, FIELD_OPS_PER_CHANNEL = 6, 9
 
 
-def staged_parser(ini: str, device: str) -> PageParser:
+def staged_parser(ini: str, device: str, native=None) -> PageParser:
+    """The config's PageParser; ``native``, where given, sets its
+    layout's host route (else it follows ``device``)."""
     config = configparser.ConfigParser()
     config.read(ini)
-    return PageParser(config, device=device, config_path=os.path.dirname(ini))
+    parser = PageParser(config, device=device, config_path=os.path.dirname(ini))
+    if native is not None:
+        for lp in parser.layout_parsers:
+            lp.engine.native = native
+    return parser
 
 
 def random_fields(rng, n: int, hc: int, wb: int, h: int, w: int) -> np.ndarray:
@@ -1241,8 +1299,11 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
     .process_page`` and into Page XML, with the bench modules loaded from
     flax msgpack checkpoints; then the command line without
     --fast-pipeline on 4 of the pages, whose files must equal the
-    in-process run's.  Returns the field warp's launches, the phase's
-    numbers and the last page's warp inputs."""
+    in-process run's.  Between the two, the host-route A/B: the same
+    pages through a PageParser on the numpy route twice and this one
+    again (A B B A), each run's Page XML equal to the first's.  Returns the field warp's launches, the
+    phase's numbers, the last page's warp inputs and the host record
+    for check_host_native (the last page's host inputs, the A/B)."""
     pages, lines = synthetic_pages(rng, PAGE_BATCH, TWO_COLUMNS)
     ids = [f"s{i:04d}" for i in range(len(pages))]
     n_cli = 4
@@ -1265,16 +1326,30 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
         detected.clear()
         timing.reset_timing()
         warp_ops.warp_fields.launches = warp_ops.warp_lines.launches = 0
-        out = []
-        t0 = time.perf_counter()
-        for pid, page in zip(ids, pages):
-            layout = parser.process_page(page, PageLayout(id=pid, page_size=page.shape[:2]))
-            with timing.stage_timer("document/pagexml"):
-                out.append((layout, layout.to_pagexml_string()))
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        native.calls.clear()
+        with HostInputs() as host_inputs:  # the host geometry's inputs, a page at a time
+            out, seconds = staged_pages(parser, ids, pages)
         launches, fused = warp_ops.warp_fields.launches, warp_ops.warp_lines.launches
+        host_calls = dict(native.calls)
         stats = timing.timing_stats()
+        log("stage times (staged run):\n" + timing.timing_report())
+
+        # The A/B: the same pages through a PageParser on the numpy
+        # route twice, then through this one again: A B B A.
+        engine.detect = detect
+        numpy_parser = staged_parser(ini, "cuda", native=False)
+        numpy_parser.process_page(warm, PageLayout(id="warm", page_size=warm.shape[:2]))
+        runs = [("native", out, seconds, stats)]
+        for route, parser_ in (("numpy", numpy_parser), ("numpy", numpy_parser),
+                               ("native", parser)):
+            wrapper = parser_.layout_parsers[0].engine.parsenet
+            wrapper.last_downsample = wrapper.init_downsample
+            timing.reset_timing()
+            run_out, run_seconds = staged_pages(parser_, ids, pages)
+            runs.append((route, run_out, run_seconds, timing.timing_stats()))
+            log(f"stage times (staged run, {route} route, A/B run {len(runs)}):\n"
+                + timing.timing_report())
+        ab = route_ab(runs, STAGED_HOST_STAGES, smi, "staged", host_calls)
 
         batched = []  # 1 for a page of DEVICE_BATCH_MIN lines or more: one launch
         n_lines = n_regions = 0
@@ -1296,7 +1371,6 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
         log(f"staged (PageParser.process_page): {len(pages)} pages, {n_lines} lines, {n_regions} "
             f"regions; line recall {recall:.3f}; {len(pages) / seconds:.3f} pages/s to Page XML "
             f"({seconds:.3f} s) on {smi}; ds {engine.parsenet.last_downsample}")
-        log("stage times (staged run):\n" + timing.timing_report())
         log(f"warp_fields launches in the staged run: {launches}, pages of "
             f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more: {sum(batched)} of "
             f"{len(batched)}; warp_lines launches: {fused}")
@@ -1345,7 +1419,224 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                "warp_fields_launches": launches, "pages_of_4_lines_or_more": sum(batched),
                "cli_pages_per_s": n_cli / float(timed.group(1)), "cli_wall_s": cli_seconds,
                "cli_warp_fields_launches": int(counted.group(1)), "card": smi}
-    return launches, numbers, last_page
+    return launches, numbers, last_page, {"inputs": host_inputs.pages[-1], "ab": ab}
+
+
+# ----------------------------------------------------------------------
+# The host C++ (csrc/perotpu.cpp) against its numpy twins
+FAST_STAGES = ("pipeline/host_geometry", "pipeline/cc_parse",
+               "pipeline/make_clusters", "pipeline/textlines", "pipeline/stage_a_sync", "pipeline/upload+dispatch_a", "pipeline/stage_b",
+               "document/assemble", "document/pagexml")
+STAGED_HOST_STAGES = ("layout", "parsenet_maps", "map_postprocess", "paragraph_clustering",
+                      "region_polygons", "line_crop", "ocr")
+HOST_FUNCTIONS = {  # binding: (C++ function, its line in the JAX package's native/perotpu.cpp)
+    "native_label": ("cc_label_u8", 46),
+    "native_cc_baselines": ("cc_baselines_f32", 317),
+    "native_separator_penalties": ("separator_penalties_f32", 405),
+    "native_polygons_close": ("polygons_close_f64", 512),
+    "native_cc_lines_packed": ("cc_lines_packed", 613),
+}
+HOST_REPEATS = 9
+
+
+def route_numbers(n_pages: int, seconds: float, stats: dict, stages) -> dict:
+    """pages/s and each stage's ms a call and calls, of one run."""
+    return {"pages_per_s": n_pages / seconds, "seconds": seconds,
+            "stage_ms": {k: 1e3 * stats[k][0] / stats[k][1] for k in stages if k in stats},
+            "stage_calls": {k: stats[k][1] for k in stages if k in stats}}
+
+
+def route_ab(runs, stages, smi: str, label: str, host_calls: dict) -> dict:
+    """The host-route A/B's record from its runs in order, each
+    (route, [(layout, xml)], seconds, stage stats): every run's numbers
+    and whether its Page XML equals the first run's on every page."""
+    first = runs[0][1]
+    record = {"order": [r[0] for r in runs], "pages": len(first), "host_calls": host_calls,
+              "runs": [], "page_xml_equal": []}
+    for route, out, seconds, stats in runs:
+        record["runs"].append({"route": route, **route_numbers(len(out), seconds, stats, stages)})
+        same = [mask_pagexml(a) == mask_pagexml(b) for (_, a), (_, b) in zip(first, out)]
+        record["page_xml_equal"].append(sum(same))
+        if not all(same):
+            page = same.index(False)
+            diff = difflib.unified_diff(mask_pagexml(first[page][1]).splitlines(),
+                                        mask_pagexml(out[page][1]).splitlines(),
+                                        "run 1", route, lineterm="")
+            log("\n".join(list(diff)[:60]))
+            raise AssertionError(f"{label}: the {route} run's Page XML differs on page {page}")
+    log(f"{label} host-route A/B on {smi}, in the order run: " + ", ".join(
+        f"{r['route']} {r['pages_per_s']:.3f} pages/s" for r in record["runs"])
+        + f"; Page XML equal on {record['page_xml_equal']} of {len(first)} pages; host calls "
+        f"in the first C++ run {host_calls}")
+    return record
+
+
+def staged_pages(parser: PageParser, ids, pages):
+    """Each page through ``parser.process_page`` into Page XML, ``random``
+    seeded first (it orders the lines of a row); (layouts and XML, s)."""
+    random.seed(0)
+    out = []
+    t0 = time.perf_counter()
+    for pid, page in zip(ids, pages):
+        layout = parser.process_page(page, PageLayout(id=pid, page_size=page.shape[:2]))
+        with timing.stage_timer("document/pagexml"):
+            out.append((layout, layout.to_pagexml_string()))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+class HostInputs:
+    """Keeps the staged layout's host-geometry inputs a page at a time
+    (a page starts at its labeling): the connected mask and the
+    arguments of every pair test and penalty call."""
+
+    def __init__(self):
+        self.pages = []
+        self._saved = {}
+
+    def __enter__(self):
+        label = morphology.connected_components
+
+        def labeling(mask, route=False):
+            self.pages.append({"connected": mask, "native_polygons_close": [],
+                               "native_separator_penalties": []})
+            return label(mask, route)
+
+        self._saved = {(morphology, "connected_components"): label}
+        morphology.connected_components = labeling
+        for name in ("native_polygons_close", "native_separator_penalties"):
+            fn = getattr(native, name)
+            self._saved[(native, name)] = fn
+
+            def kept(*args, fn=fn, name=name):
+                self.pages[-1][name].append(args)
+                return fn(*args)
+
+            setattr(native, name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        for (module, name), fn in self._saved.items():
+            setattr(module, name, fn)
+        return False
+
+
+def host_ms(fn, repeats: int = HOST_REPEATS) -> float:
+    """Median host wall time of ``fn`` in ms, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _lines_differ(a, b) -> int:
+    """0 when two (baselines, heights) lists are equal, else 1."""
+    (ab, ah), (bb, bh) = a, b
+    return int(len(ab) != len(bb) or ah != bh
+               or any(not np.array_equal(x, y) for x, y in zip(ab, bb)))
+
+
+def check_host_native(fast: dict, staged: dict, smi: str) -> dict:
+    """Every C++ function of the host library against its numpy twin on
+    the card run's own inputs (config 2's last fast-path batch: its
+    packed masks, heights and separator, its lines and clusters; the
+    staged run's last page: its connected mask and its close pairs),
+    with 0 differences allowed, and each timed on both routes (host
+    median of HOST_REPEATS).  Returns the ``host_native`` record."""
+    pipe, numpy_pipe = fast["pipe"], fast["numpy_pipe"]
+    (packed, heights_q, sep_q), ds, page_lines = fast["stage_a"], fast["ds"], fast["page_lines"]
+    pages = range(len(page_lines))
+    hf = packed.shape[1] // heights_q.shape[1]
+    masks, connecteds, heights_maps, sep_pooled = numpy_pipe._unpack_stage_a(
+        packed, heights_q, sep_q)
+    sep_pool = masks.shape[1] // sep_pooled.shape[1]
+    record = {}
+
+    def compare(name, inputs, differences, native_fn, numpy_fn):
+        cpp, line = HOST_FUNCTIONS[name]
+        record[cpp] = {"differences": differences, "inputs": inputs,
+                       "native_ms": host_ms(native_fn), "numpy_ms": host_ms(numpy_fn),
+                       "source": "pero_ocr_tpu_torch/csrc/perotpu.cpp",
+                       "replaces": f"native/perotpu.cpp:{line}"}
+        log(f"host {cpp} on {inputs}: {differences} differences from its numpy twin; "
+            f"{record[cpp]['native_ms']:.4f} ms C++, {record[cpp]['numpy_ms']:.4f} ms numpy")
+
+    # cc_lines_packed (the JAX crop transport's parse; the page transport
+    # labels the unpacked mask): lines, set-bit counts and histograms of
+    # each page, against unpacking, dilation, labeling and the numpy
+    # parse.  The page transport's own lines must equal the numpy parse.
+    def packed_native():
+        return [native.native_cc_lines_packed(packed[s], heights_q[s], hf) for s in pages]
+
+    def packed_numpy():
+        m, c, h, _ = numpy_pipe._unpack_stage_a(packed, heights_q, sep_q)
+        return [numpy_pipe._lines_from_masks(m[s], c[s], h[s], ds) for s in pages]
+
+    got, want = packed_native(), packed_numpy()
+    q0 = heights_q[..., 0].repeat(hf, axis=1).repeat(hf, axis=2)
+    diff = 0
+    for s in pages:
+        sel = masks[s] > 0
+        pts, npts, hts, n = got[s][:4]
+        diff += _lines_differ(([ds * pts[c, : npts[c]] for c in range(n)],
+                               [[ds * float(hts[c, 0]), ds * float(hts[c, 1])] for c in range(n)]),
+                              want[s])
+        diff += _lines_differ(page_lines[s][:2], want[s])
+        diff += int(got[s][4] != int(sel.sum()))
+        diff += int(not np.array_equal(got[s][5], np.bincount(q0[s][sel], minlength=256)))
+    compare("native_cc_lines_packed", f"config 2's last batch, {len(pages)} pages", diff,
+            packed_native, packed_numpy)
+
+    # cc_label_u8 on the batch's connected masks and the staged page's.
+    connected = [connecteds[s] for s in pages] + [staged["inputs"]["connected"]]
+    diff = 0
+    for c in connected:
+        a, b = (morphology.connected_components(c, route) for route in (True, False))
+        diff += int(a[1] != b[1] or not np.array_equal(a[0], b[0]))
+    compare("native_label", f"{len(connected)} connected masks (the batch's, the staged "
+            "page's)", diff,
+            lambda: [morphology.connected_components(c, True) for c in connected],
+            lambda: [morphology.connected_components(c, False) for c in connected])
+
+    # cc_baselines_f32 on the batch's labels.
+    labelled = []
+    for s in pages:
+        labels, num = morphology.connected_components(connecteds[s], False)
+        labelled.append((labels * masks[s], num, heights_maps[s]))
+    diff = sum(_lines_differ(pipe._component_lines(*x, ds), numpy_pipe._component_lines(*x, ds))
+               for x in labelled)
+    compare("native_cc_baselines", f"config 2's last batch, {len(pages)} pages", diff,
+            lambda: [pipe._component_lines(*x, ds) for x in labelled],
+            lambda: [numpy_pipe._component_lines(*x, ds) for x in labelled])
+
+    # The clustering's pair tests and penalties: the batch's pages
+    # clustered again with their inputs kept, and the staged page's.
+    with HostInputs() as kept:
+        kept.pages.append({"connected": None, "native_polygons_close": [],
+                           "native_separator_penalties": []})
+        clusters = [pipe._cluster_lines(b, h, sep_pooled[s], ds, sep_pool)[0]
+                    for s, (b, h, _, _) in enumerate(page_lines)]
+    diff_clusters = sum(c != p[2] for c, p in zip(clusters, page_lines))
+    for name, twin in (("native_polygons_close", geometry.polygons_close),
+                       ("native_separator_penalties", separator_penalties)):
+        calls = kept.pages[0][name] + staged["inputs"][name]
+        fn = getattr(native, name)
+        diff = diff_clusters + sum(int(not np.array_equal(fn(*args), twin(*args)))
+                                   for args in calls)
+        n = sum(len(args[1] if name == "native_polygons_close" else args[3]) for args in calls)
+        compare(name, f"{len(calls)} calls ({len(kept.pages[0][name])} of the batch's pages, "
+                f"{len(staged['inputs'][name])} of the staged page), {n} pairs or queries",
+                diff, lambda fn=fn, calls=calls: [fn(*args) for args in calls],
+                lambda twin=twin, calls=calls: [twin(*args) for args in calls])
+
+    bad = {k: v["differences"] for k, v in record.items() if v["differences"]}
+    if bad:
+        raise AssertionError(f"host C++ differs from its numpy twins: {bad}")
+    return {"card": smi, "repeats": HOST_REPEATS, "functions": record,
+            "fast_path": fast["ab"], "staged": staged["ab"]}
 
 
 def main() -> int:
@@ -1362,16 +1653,17 @@ def main() -> int:
     kernels.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for name, text in kernels.build_logs.items():
-        log(f"nvcc {name}:\n{text.strip()}")
+        log(f"build {name}:\n{text.strip()}")
 
     rng = np.random.default_rng(0)
     mixed = check_warp(mixed_line_args(rng), "mixed lines")
     check_against_cpu(rng)
     pipe, launches_page_transport, stage_b = run_main_path(rng)
-    launches, config2, main_args = run_config2(pipe, rng, smi)
+    launches, config2, main_args, fast_host = run_config2(pipe, rng, smi)
     launches_cli, cli, cli_args = run_cli(pipe, rng, smi)
     check_staged_against_cpu(rng)
-    launches_staged, staged, staged_args = run_staged(pipe, rng, smi)
+    launches_staged, staged, staged_args, staged_host = run_staged(pipe, rng, smi)
+    host_native = check_host_native(fast_host, staged_host, smi)
     # The kernel against its plain version, and its times, at the main
     # path's shapes (the last config-2 batch's pages and detected lines)
     # and at the command line's (its last batch: page batch 4, line slot
@@ -1399,6 +1691,7 @@ def main() -> int:
 
     print(json.dumps({"cli": cli}))
     print(json.dumps({"staged": staged}))
+    print(json.dumps({"host_native": host_native}))
     print(smi)
     print(json.dumps({"kernels": [warp, fields]}))
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,7 @@ def main() -> int:
     pages, _ = cs.synthetic_pages(np.random.default_rng(0), cs.PAGE_BATCH, cs.TWO_COLUMNS)
     calls = []
     clusterer = pipe._clusterer
+    clusterer.native = False  # A and B are numpy pair tests
     make_clusters = clusterer.make_clusters
 
     def kept(*args, **kwargs):

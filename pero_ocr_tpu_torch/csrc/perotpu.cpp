@@ -1,0 +1,544 @@
+// Host geometry of the layout parse: the port's own copy of the five
+// functions of the JAX package's C++ library (native/perotpu.cpp) that
+// config 2's two paths run, with the same C interface and semantics.
+// Each has a numpy twin in the port, which the CPU path runs and the
+// tests hold it against:
+//
+//   cc_label_u8              ops/morphology.connected_components
+//   cc_baselines_f32         parallel/pipeline.py component lines
+//   cc_lines_packed          parallel/pipeline.py unpack + label + lines
+//   separator_penalties_f32  layout_engines/cnn_engine.separator_penalties
+//   polygons_close_f64       core/geometry.polygons_close
+//
+// Built with the host compiler and loaded through ctypes by
+// pero_ocr_tpu_torch/utils/kernels.py; bound in utils/native.py.
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+extern "C" {
+
+// ---------------------------------------------------------------------
+// Connected components, 8-connectivity, two-pass union-find.
+// mask: h*w uint8 (nonzero = foreground); labels_out: h*w int32.
+// Returns the number of components.
+// ---------------------------------------------------------------------
+static inline int32_t uf_find(std::vector<int32_t>& parent, int32_t x) {
+    int32_t root = x;
+    while (parent[root] != root) root = parent[root];
+    while (parent[x] != root) {
+        int32_t next = parent[x];
+        parent[x] = root;
+        x = next;
+    }
+    return root;
+}
+
+static inline void uf_union(std::vector<int32_t>& parent, int32_t a, int32_t b) {
+    int32_t ra = uf_find(parent, a);
+    int32_t rb = uf_find(parent, b);
+    if (ra != rb) parent[std::max(ra, rb)] = std::min(ra, rb);
+}
+
+int32_t cc_label_u8(const uint8_t* mask, int32_t h, int32_t w,
+                    int32_t* labels_out) {
+    std::vector<int32_t> parent;
+    parent.reserve(1024);
+    parent.push_back(0);  // background sentinel
+
+    // First pass: provisional labels + equivalences.
+    for (int32_t y = 0; y < h; ++y) {
+        for (int32_t x = 0; x < w; ++x) {
+            const int64_t idx = (int64_t)y * w + x;
+            if (!mask[idx]) {
+                labels_out[idx] = 0;
+                continue;
+            }
+            int32_t neighbors[4];
+            int n_neighbors = 0;
+            if (y > 0) {
+                const int64_t up = idx - w;
+                if (x > 0 && labels_out[up - 1]) neighbors[n_neighbors++] = labels_out[up - 1];
+                if (labels_out[up]) neighbors[n_neighbors++] = labels_out[up];
+                if (x + 1 < w && labels_out[up + 1]) neighbors[n_neighbors++] = labels_out[up + 1];
+            }
+            if (x > 0 && labels_out[idx - 1]) neighbors[n_neighbors++] = labels_out[idx - 1];
+
+            if (n_neighbors == 0) {
+                const int32_t fresh = (int32_t)parent.size();
+                parent.push_back(fresh);
+                labels_out[idx] = fresh;
+            } else {
+                int32_t lo = neighbors[0];
+                for (int i = 1; i < n_neighbors; ++i) lo = std::min(lo, neighbors[i]);
+                labels_out[idx] = lo;
+                for (int i = 0; i < n_neighbors; ++i) uf_union(parent, lo, neighbors[i]);
+            }
+        }
+    }
+
+    // Flatten equivalences into dense labels 1..n.
+    std::vector<int32_t> dense(parent.size(), 0);
+    int32_t next_label = 0;
+    for (size_t i = 1; i < parent.size(); ++i) {
+        const int32_t root = uf_find(parent, (int32_t)i);
+        if (dense[root] == 0) dense[root] = ++next_label;
+        dense[i] = dense[root];
+    }
+
+    const int64_t total = (int64_t)h * w;
+    for (int64_t i = 0; i < total; ++i) {
+        if (labels_out[i]) labels_out[i] = dense[labels_out[i]];
+    }
+    return next_label;
+}
+
+// ---------------------------------------------------------------------
+// Per-component baseline extraction (the CC-parse hot loop of the
+// device pipeline's host geometry; semantics identical to the numpy
+// loop of TorchPagePipeline._component_lines):
+//   for each label c in [1, num]: collect its pixels in row-major
+//   order; components with <= 5 px are invalid; baseline point per
+//   unique x = FIRST-seen y (row-major => min y), xs ascending;
+//   decimate to target = clamp(n_unique/10, 2, 10) points via
+//   numpy-linspace index truncation; pos[0].x -= 2, pos[-1].x += 2;
+//   heights = per-channel MEDIAN (numpy percentile-50 interpolation)
+//   of max(heights_map, 0) over ALL component pixels.
+// ---------------------------------------------------------------------
+static double median_of(std::vector<float>& v) {
+    const size_t n = v.size();
+    if (n == 0) return 0.0;
+    const size_t mid = n / 2;
+    std::nth_element(v.begin(), v.begin() + mid, v.end());
+    const double hi = v[mid];
+    if (n % 2 == 1) return hi;
+    const double lo =
+        *std::max_element(v.begin(), v.begin() + mid);
+    return 0.5 * (lo + hi);
+}
+
+void cc_baselines_f32(const int32_t* labels, int32_t h, int32_t w,
+                      int32_t num, const float* heights,
+                      int32_t max_pts, double* out_pts,
+                      int32_t* out_npts, double* out_heights,
+                      uint8_t* out_valid) {
+    std::vector<std::vector<std::pair<int32_t, int32_t>>> px(num + 1);
+    std::vector<std::vector<float>> h0(num + 1), h1(num + 1);
+    for (int32_t y = 0; y < h; ++y) {
+        const int32_t* row = labels + (size_t)y * w;
+        const float* hrow = heights + (size_t)y * w * 2;
+        for (int32_t x = 0; x < w; ++x) {
+            const int32_t c = row[x];
+            if (c <= 0 || c > num) continue;
+            px[c].push_back({x, y});
+            h0[c].push_back(std::max(hrow[2 * x], 0.f));
+            h1[c].push_back(std::max(hrow[2 * x + 1], 0.f));
+        }
+    }
+    std::vector<std::pair<int32_t, int32_t>> uniq;
+    for (int32_t c = 1; c <= num; ++c) {
+        const int32_t o = c - 1;
+        out_npts[o] = 0;
+        out_valid[o] = 0;
+        if ((int64_t)px[c].size() <= 5) continue;
+        // First-seen y per x (pixels are row-major, so first = min y),
+        // then ascending x: stable sort by x keeps encounter order.
+        uniq.clear();
+        {
+            // px[c] is row-major; collect first occurrence per x.
+            // xs are bounded by w: use a visit stamp array lazily.
+            static thread_local std::vector<int32_t> first_y;
+            if ((int32_t)first_y.size() < w) first_y.assign(w, -1);
+            std::vector<int32_t> touched;
+            for (const auto& p : px[c]) {
+                if (first_y[p.first] < 0) {
+                    first_y[p.first] = p.second;
+                    touched.push_back(p.first);
+                }
+            }
+            std::sort(touched.begin(), touched.end());
+            for (int32_t x : touched) {
+                uniq.push_back({x, first_y[x]});
+                first_y[x] = -1;  // reset for the next component
+            }
+        }
+        const int64_t n_unique = (int64_t)uniq.size();
+        int32_t target = (int32_t)std::min<int64_t>(10, n_unique / 10);
+        target = std::max(target, 2);
+        target = std::min<int32_t>(target, max_pts);
+        // numpy linspace(0, n-1, target).astype(int): delta * k,
+        // truncated toward zero.
+        const double delta =
+            (double)(n_unique - 1) / (double)(target - 1);
+        double* pts = out_pts + (size_t)o * max_pts * 2;
+        for (int32_t k = 0; k < target; ++k) {
+            // numpy pins the linspace endpoint exactly.
+            int64_t idx =
+                (k == target - 1) ? n_unique - 1 : (int64_t)(delta * k);
+            if (idx > n_unique - 1) idx = n_unique - 1;
+            pts[2 * k] = (double)uniq[idx].first;
+            pts[2 * k + 1] = (double)uniq[idx].second;
+        }
+        pts[0] -= 2.0;
+        pts[2 * (target - 1)] += 2.0;
+        out_npts[o] = target;
+        out_heights[2 * o] = median_of(h0[c]);
+        out_heights[2 * o + 1] = median_of(h1[c]);
+        out_valid[o] = 1;
+    }
+}
+
+// ---------------------------------------------------------------------
+// Batched separator-map penalties for paragraph clustering (the
+// per-pair Python loop was the clustering's hot path at ~0.1-0.2ms per
+// query).  Query q samples line q_line[q]'s polyline (points sorted by
+// x, already map-scale), shifted by q_shift[q], over integer columns
+// [round(q_x1), round(q_x2)) clipped to the polyline span and the map,
+// sums a 3-row band of sep_map around round(interp(y)), and divides by
+// (q_x2 - q_x1).  Columns outside the span contribute nothing; empty
+// sample sets yield 1.0 — exactly the semantics of the numpy
+// layout_engines/cnn_engine.py separator_penalties.
+// ---------------------------------------------------------------------
+// ``pool``: the sep_map is POOL-pooled (H/pool, W/pool) while h/w stay
+// the FULL map dims the query coordinates live in — sampling indexes
+// sep_map[(yy/pool) * (w/pool) + x/pool], which equals sampling the
+// repeat-upsampled full-res map (values constant within each cell), so
+// the pooled call is byte-exact vs pool=1 on the upsampled array
+// without ever materializing it (36MB/batch at the ds-2 shapes).
+void separator_penalties_f32(
+    const double* bx, const double* by, const int32_t* offs,
+    const int32_t* q_line, const double* q_shift,
+    const double* q_x1, const double* q_x2, int32_t n_q,
+    const float* sep_map, int32_t h, int32_t w, int32_t pool,
+    double* out) {
+    const int32_t wq = w / pool;
+    for (int32_t q = 0; q < n_q; ++q) {
+        const int32_t lo = offs[q_line[q]];
+        const int32_t hi = offs[q_line[q] + 1];
+        const int32_t npts = hi - lo;
+        const double* px = bx + lo;
+        const double* py = by + lo;
+        const double shift = q_shift[q];
+        const int64_t x1 = (int64_t)std::llround(q_x1[q]);
+        const int64_t x2 = (int64_t)std::llround(q_x2[q]);
+        const double denom = std::max(q_x2[q] - q_x1[q], 1e-6);
+        if (x2 <= x1 || npts < 1 || px[npts - 1] <= px[0]) {
+            out[q] = 1.0;
+            continue;
+        }
+        int64_t xa = std::max(
+            x1, (int64_t)std::ceil(std::max(px[0], 0.0)));
+        int64_t xb = std::min(
+            {x2 - 1, (int64_t)std::floor(px[npts - 1]), (int64_t)w - 1});
+        if (xa > xb) {
+            out[q] = 1.0;
+            continue;
+        }
+        double total = 0.0;
+        int32_t seg = 0;
+        bool any = false;
+        for (int64_t x = xa; x <= xb; ++x) {
+            const double xf = (double)x;
+            double y;
+            if (xf <= px[0]) {
+                y = py[0];
+            } else if (xf >= px[npts - 1]) {
+                y = py[npts - 1];
+            } else {
+                while (seg + 2 < npts && px[seg + 1] < xf) ++seg;
+                const double dx = px[seg + 1] - px[seg];
+                const double t_ = dx > 0 ? (xf - px[seg]) / dx : 0.0;
+                y = py[seg] + t_ * (py[seg + 1] - py[seg]);
+            }
+            const int64_t yc = (int64_t)std::llround(y + shift);
+            for (int64_t dy = -1; dy <= 1; ++dy) {
+                const int64_t yy =
+                    std::min((int64_t)h - 1, std::max((int64_t)0, yc + dy));
+                total += sep_map[(yy / pool) * wq + x / pool];
+            }
+            any = true;
+        }
+        out[q] = any ? total / denom : 1.0;
+    }
+}
+
+// ---------------------------------------------------------------------
+// Batched polygon proximity test for paragraph clustering: for each
+// candidate pair (a, b), decide whether the minimum boundary distance
+// between polygon a and polygon b is <= thresholds[k] (the Minkowski
+// dilated-intersection test, cnn_engine.make_clusters).  Early-exits on
+// the first segment pair under the threshold — the common case for
+// same-paragraph neighbors.  Unlike the reference, pairs whose bounding
+// boxes lie clearly farther apart than the threshold are rejected
+// before the segment loop (core/geometry.polygons_close's first bound),
+// with the same answers.
+// verts: (n_polys, pmax, 2) float64, padded by repeating the last
+// vertex; npts: per-polygon vertex counts; pairs: (K, 2) int32;
+// out: (K,) uint8 booleans.
+// ---------------------------------------------------------------------
+static inline double seg_seg_dist2(double ax, double ay, double bx,
+                                   double by, double cx, double cy,
+                                   double dx_, double dy_) {
+    const double d1x = bx - ax, d1y = by - ay;
+    const double d2x = dx_ - cx, d2y = dy_ - cy;
+    const double rx = ax - cx, ry = ay - cy;
+    const double A = d1x * d1x + d1y * d1y;
+    const double E = d2x * d2x + d2y * d2y;
+    const double B = d1x * d2x + d1y * d2y;
+    const double C = d1x * rx + d1y * ry;
+    const double F = d2x * rx + d2y * ry;
+    const double denom = A * E - B * B;
+    // Convex quadratic over the [0,1]^2 box: the minimum is either the
+    // unconstrained stationary point (when it lands inside) or on one
+    // of the four boundary edges, each a 1-D convex problem in closed
+    // form.  Evaluating all candidates is exact — a single clamped
+    // alternation pass is not.
+    auto dist2_at = [&](double s, double t) {
+        const double px = ax + s * d1x - (cx + t * d2x);
+        const double py = ay + s * d1y - (cy + t * d2y);
+        return px * px + py * py;
+    };
+    auto clamp01 = [](double v) { return std::min(1.0, std::max(0.0, v)); };
+    const double t_s0 = (E > 1e-12) ? clamp01(F / E) : 0.0;
+    const double t_s1 = (E > 1e-12) ? clamp01((B + F) / E) : 0.0;
+    const double s_t0 = (A > 1e-12) ? clamp01(-C / A) : 0.0;
+    const double s_t1 = (A > 1e-12) ? clamp01((B - C) / A) : 0.0;
+    double best = std::min(
+        std::min(dist2_at(0.0, t_s0), dist2_at(1.0, t_s1)),
+        std::min(dist2_at(s_t0, 0.0), dist2_at(s_t1, 1.0)));
+    if (denom > 1e-12) {
+        const double s = (B * F - C * E) / denom;
+        const double t = (B * s + F) / E;
+        if (s > 0.0 && s < 1.0 && t > 0.0 && t < 1.0)
+            best = std::min(best, dist2_at(s, t));
+    }
+    return best;
+}
+
+void polygons_close_f64(const double* verts, const int32_t* npts,
+                        int32_t pmax, const int32_t* pairs, int32_t k,
+                        const double* thresholds, uint8_t* out) {
+    // Each polygon's bounding box (x0, y0, x1, y1), for the reject below.
+    int32_t n_polys = 0;
+    for (int32_t q = 0; q < 2 * k; ++q) n_polys = std::max(n_polys, pairs[q] + 1);
+    std::vector<double> box((size_t)n_polys * 4);
+    for (int32_t p = 0; p < n_polys; ++p) {
+        const double* v = verts + (size_t)p * pmax * 2;
+        double* b = box.data() + (size_t)p * 4;
+        b[0] = b[2] = npts[p] > 0 ? v[0] : 0.0;
+        b[1] = b[3] = npts[p] > 0 ? v[1] : 0.0;
+        for (int32_t i = 1; i < npts[p]; ++i) {
+            b[0] = std::min(b[0], v[2 * i]);
+            b[2] = std::max(b[2], v[2 * i]);
+            b[1] = std::min(b[1], v[2 * i + 1]);
+            b[3] = std::max(b[3], v[2 * i + 1]);
+        }
+    }
+    for (int32_t q = 0; q < k; ++q) {
+        const int32_t ia = pairs[2 * q], ib = pairs[2 * q + 1];
+        const double* va = verts + (size_t)ia * pmax * 2;
+        const double* vb = verts + (size_t)ib * pmax * 2;
+        const int32_t na = npts[ia], nb = npts[ib];
+        const double thr2 = thresholds[q] * thresholds[q];
+        uint8_t close = 0;
+        // No boundary point lies outside its box, so a gap between the
+        // boxes bounds the distance from below.  The reject keeps a
+        // margin far above seg_seg_dist2's rounding (a few ulps of the
+        // coordinates, squared), so a rejected pair is one the segment
+        // loop would also find apart: the answers stay the reference's.
+        const double* ba = box.data() + (size_t)ia * 4;
+        const double* bb = box.data() + (size_t)ib * 4;
+        const double gx = std::max(std::max(ba[0] - bb[2], bb[0] - ba[2]), 0.0);
+        const double gy = std::max(std::max(ba[1] - bb[3], bb[1] - ba[3]), 0.0);
+        double scale = 1.0;
+        for (int32_t c = 0; c < 4; ++c)
+            scale = std::max(scale, std::max(std::fabs(ba[c]), std::fabs(bb[c])));
+        if (gx * gx + gy * gy > thr2 + 1e-9 * scale * scale) {
+            out[q] = 0;
+            continue;
+        }
+        for (int32_t i = 0; i < na && !close; ++i) {
+            const int32_t i2 = (i + 1 == na) ? 0 : i + 1;
+            const double ax = va[2 * i], ay = va[2 * i + 1];
+            const double bx = va[2 * i2], by = va[2 * i2 + 1];
+            for (int32_t j = 0; j < nb; ++j) {
+                const int32_t j2 = (j + 1 == nb) ? 0 : j + 1;
+                if (seg_seg_dist2(ax, ay, bx, by, vb[2 * j], vb[2 * j + 1],
+                                  vb[2 * j2], vb[2 * j2 + 1]) <= thr2) {
+                    close = 1;
+                    break;
+                }
+            }
+        }
+        out[q] = close;
+    }
+}
+
+// ---------------------------------------------------------------------
+// Fused packed-mask -> component baselines (the fast path's CC parse in
+// one pass, in place of unpacking, the connection dilation, labeling
+// and the per-component loop).
+//
+// Input is the stage-A transport's 1-bit baseline mask (8 px/byte, bit
+// k = pixel x = byte*8 + k) and the pooled heights_q (hqh, hqw, 2)
+// uint8 quarter-pixels with pool factor hf.  Replicates EXACTLY the
+// numpy path (TorchPagePipeline._unpack_stage_a + ops.morphology +
+// TorchPagePipeline._lines_from_masks):
+//
+//   connected = dilate(mask, ones(5,3)); label(connected, ones(3,3));
+//   labels *= mask; per component with >5 px: unique-x first-y points,
+//   linspace to clamp(n/10, 2, 10) pts, endpoints x -+= 2, heights =
+//   per-channel median of the pooled map sampled at component pixels.
+//
+// The (5,3) dilation + 8-connected labeling collapses to a direct rule
+// on baseline pixels: p ~ q iff |dy| <= 5 and |dx| <= 3 (their dilated
+// rects touch 8-connectedly), so the labeling is a sparse union-find
+// over set bits only -- no dilated image is ever materialized.
+// Component order matches scipy's raster numbering (first baseline
+// pixel in raster order; the constant (-2,-1) shift to the first
+// DILATED pixel preserves comparisons except for components starting
+// within 2 px of the top border, where scipy's clamped rows can tie).
+//
+// Also emits the adaptation statistics the caller otherwise needed the
+// unpacked mask for (TorchPagePipeline._adapt_target_ds): total set-bit
+// count and a 256-bin histogram of the channel-0 heights_q value under
+// every set bit (batch-exact median of q/4 = median over the upsampled
+// float map, which is constant within each hf x hf cell).
+//
+// out_pts: (max_comps, max_pts, 2); out_npts/out_heights: per emitted
+// component; returns the number of components emitted (valid only,
+// in component order), or -1 if max_comps would overflow.
+// ---------------------------------------------------------------------
+int32_t cc_lines_packed(
+    const uint8_t* packed, int32_t h, int32_t wb,
+    const uint8_t* hq, int32_t hqw, int32_t hf,
+    int32_t max_comps, int32_t max_pts,
+    double* out_pts, int32_t* out_npts, double* out_heights,
+    int64_t* out_npx, int64_t* hist0) {
+    struct Px { int32_t x, y; };
+    std::vector<Px> px;
+    px.reserve(4096);
+    std::vector<int32_t> row_start(h + 1, 0);
+    for (int32_t y = 0; y < h; ++y) {
+        row_start[y] = (int32_t)px.size();
+        const uint8_t* row = packed + (size_t)y * wb;
+        const int32_t yq = y / hf;
+        for (int32_t b = 0; b < wb; ++b) {
+            uint8_t v = row[b];
+            while (v) {
+                const int32_t k = __builtin_ctz(v);
+                v = (uint8_t)(v & (v - 1));
+                const int32_t x = b * 8 + k;
+                px.push_back({x, y});
+                ++hist0[hq[((size_t)yq * hqw + x / hf) * 2]];
+            }
+        }
+    }
+    row_start[h] = (int32_t)px.size();
+    const int32_t n = (int32_t)px.size();
+    *out_npx = n;
+    if (n == 0) return 0;
+
+    std::vector<int32_t> parent(n);
+    for (int32_t i = 0; i < n; ++i) parent[i] = i;
+    // Pixels are raster-ordered: same-row links need only the previous
+    // pixel (sorted x, transitive); cross-row links sweep rows y-5..y-1
+    // with a monotone cursor per row pair.
+    for (int32_t y = 0; y < h; ++y) {
+        const int32_t lo = row_start[y], hi = row_start[y + 1];
+        if (lo == hi) continue;
+        for (int32_t i = lo + 1; i < hi; ++i) {
+            if (px[i].x - px[i - 1].x <= 3) uf_union(parent, i, i - 1);
+        }
+        for (int32_t yp = std::max(0, y - 5); yp < y; ++yp) {
+            int32_t j = row_start[yp];
+            const int32_t jhi = row_start[yp + 1];
+            if (j == jhi) continue;
+            for (int32_t i = lo; i < hi; ++i) {
+                const int32_t x = px[i].x;
+                while (j < jhi && px[j].x < x - 3) ++j;
+                for (int32_t jj = j; jj < jhi && px[jj].x <= x + 3; ++jj) {
+                    uf_union(parent, i, jj);
+                }
+            }
+        }
+    }
+
+    // Component numbering by first (raster-order) pixel: uf_union is
+    // union-by-min, so each root is its component's minimal pixel
+    // index and first-encounter order IS raster order.
+    std::vector<int32_t> comp_of(n);
+    std::vector<int32_t> comp_id_of_root(n, -1);
+    int32_t n_comp = 0;
+    for (int32_t i = 0; i < n; ++i) {
+        const int32_t r = uf_find(parent, i);
+        if (comp_id_of_root[r] < 0) comp_id_of_root[r] = n_comp++;
+        comp_of[i] = comp_id_of_root[r];
+    }
+
+    // Gather per-component pixel lists (raster order preserved).
+    std::vector<int32_t> comp_count(n_comp, 0);
+    for (int32_t i = 0; i < n; ++i) ++comp_count[comp_of[i]];
+    std::vector<int32_t> comp_off(n_comp + 1, 0);
+    for (int32_t c = 0; c < n_comp; ++c)
+        comp_off[c + 1] = comp_off[c] + comp_count[c];
+    std::vector<int32_t> comp_px(n);
+    {
+        std::vector<int32_t> cur(comp_off.begin(), comp_off.end() - 1);
+        for (int32_t i = 0; i < n; ++i) comp_px[cur[comp_of[i]]++] = i;
+    }
+
+    int32_t emitted = 0;
+    std::vector<int32_t> first_y;
+    std::vector<int32_t> touched;
+    std::vector<float> h0, h1;
+    const int32_t w = wb * 8;
+    first_y.assign(w, -1);
+    for (int32_t c = 0; c < n_comp; ++c) {
+        const int32_t lo = comp_off[c], hi = comp_off[c + 1];
+        if (hi - lo <= 5) continue;
+        if (emitted >= max_comps) return -1;
+        touched.clear();
+        h0.clear();
+        h1.clear();
+        for (int32_t t = lo; t < hi; ++t) {
+            const Px& p = px[comp_px[t]];
+            if (first_y[p.x] < 0) {
+                first_y[p.x] = p.y;
+                touched.push_back(p.x);
+            }
+            const uint8_t* cell =
+                hq + ((size_t)(p.y / hf) * hqw + p.x / hf) * 2;
+            h0.push_back(cell[0] * 0.25f);
+            h1.push_back(cell[1] * 0.25f);
+        }
+        std::sort(touched.begin(), touched.end());
+        const int64_t n_unique = (int64_t)touched.size();
+        int32_t target = (int32_t)std::min<int64_t>(10, n_unique / 10);
+        target = std::max(target, 2);
+        target = std::min<int32_t>(target, max_pts);
+        const double delta =
+            (double)(n_unique - 1) / (double)(target - 1);
+        double* pts = out_pts + (size_t)emitted * max_pts * 2;
+        for (int32_t k = 0; k < target; ++k) {
+            int64_t idx =
+                (k == target - 1) ? n_unique - 1 : (int64_t)(delta * k);
+            if (idx > n_unique - 1) idx = n_unique - 1;
+            pts[2 * k] = (double)touched[idx];
+            pts[2 * k + 1] = (double)first_y[touched[idx]];
+        }
+        pts[0] -= 2.0;
+        pts[2 * (target - 1)] += 2.0;
+        out_npts[emitted] = target;
+        out_heights[2 * emitted] = median_of(h0);
+        out_heights[2 * emitted + 1] = median_of(h1);
+        for (int32_t x : touched) first_y[x] = -1;
+        ++emitted;
+    }
+    return emitted;
+}
+
+}  // extern "C"

@@ -7,7 +7,9 @@
   does it on the host).
 - :class:`ParagraphClusterer`: the host paragraph clustering, which
   groups the parsed lines into paragraphs by the separator map between
-  them (the fast path's).
+  them (the fast path's).  Its pair tests and penalties run the port's
+  C++ (``utils/native.py``) or their numpy twins here and in
+  ``core/geometry.py``.
 - :class:`LayoutEngine`: its ParseNet and settings, and the
   stage-by-stage ``detect``: maps at adaptive resolution
   (``ParseNetWrapper``), ``parse`` (connected components to baselines,
@@ -31,6 +33,7 @@ from pero_ocr_tpu_torch.core import geometry
 from pero_ocr_tpu_torch.layout_engines import helpers
 from pero_ocr_tpu_torch.layout_engines.parsenet_wrapper import ParseNetWrapper
 from pero_ocr_tpu_torch.ops import morphology
+from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.timing import stage_timer
 
 
@@ -147,10 +150,14 @@ def separator_penalties(bx, by, offs, q_line, q_shift, q_x1, q_x2, sep_map,
 class ParagraphClusterer:
     """Paragraph clustering of parsed lines on a separator map: candidate
     pairs by dilated-outline proximity, an edge where the separator
-    penalty between the two lines is low, connected components."""
+    penalty between the two lines is low, connected components.
+    ``native``: the pair tests and penalties in the port's C++
+    (``polygons_close_f64``, ``separator_penalties_f32``), else in
+    numpy; both give the same answers."""
 
-    def __init__(self, paragraph_line_threshold: float = 0.3):
+    def __init__(self, paragraph_line_threshold: float = 0.3, native: bool = False):
         self.paragraph_line_threshold = paragraph_line_threshold
+        self.native = native
 
     def get_penalty(self, baseline, shift, x_1, x_2, sep_map, thickness=1, pool=1):
         """Mean separator-map mass along a baseline shifted by ``shift``
@@ -213,7 +220,9 @@ class ParagraphClusterer:
             q_shift = np.stack([shift_i, shift_j], axis=1).ravel()
             x1 = np.repeat(np.trunc(lo[sel]).astype(np.float64) / ds, 2)
             x2 = np.repeat(np.trunc(hi[sel]).astype(np.float64) / ds, 2)
-            out = separator_penalties(
+            penalties_of = (native_lib.native_separator_penalties if self.native
+                            else separator_penalties)
+            out = penalties_of(
                 np.concatenate(bxs), np.concatenate(bys), offs,
                 q_line, q_shift, x1, x2, sep_map, pool,
             )
@@ -257,7 +266,8 @@ class ParagraphClusterer:
             # intersect iff their boundary distance is <= d_i + d_j
             # (touching counts).
             thresholds = dilate_d[pairs[:, 0]] + dilate_d[pairs[:, 1]]
-            close = geometry.polygons_close(polys, pairs, thresholds)
+            close_of = native_lib.native_polygons_close if self.native else geometry.polygons_close
+            close = close_of(polys, pairs, thresholds.astype(np.float64))
             close_pairs = pairs[close]
             pen = self._pair_penalties_batch(
                 b_list, h_list, close_pairs, separator_map, ds, pool=sep_pool,
@@ -296,8 +306,11 @@ class LayoutEngine(ParagraphClusterer):
         device=None,
     ):
         """``device``: where ParseNet and the map post-processing run;
-        None means CUDA (resolved at the first page)."""
-        super().__init__(paragraph_line_threshold)
+        None means CUDA (resolved at the first page).  The labeling and
+        clustering follow it (:func:`~pero_ocr_tpu_torch.utils.native.use_native`):
+        the port's C++ on CUDA, numpy/scipy on the CPU; set ``native``
+        to take the other."""
+        super().__init__(paragraph_line_threshold, native_lib.use_native(None, device))
         self.parsenet = ParseNetWrapper(
             model_path,
             downsample=downsample,
@@ -362,7 +375,7 @@ class LayoutEngine(ParagraphClusterer):
                 mask, connected, heights_map = (t.cpu().numpy()
                                                 for t in (mask, connected, heights_map))
 
-        labels_img, num = morphology.connected_components(connected)
+        labels_img, num = morphology.connected_components(connected, self.native)
         labels_img = labels_img * mask
 
         b_list: List[np.ndarray] = []

@@ -3,7 +3,8 @@
 Grey dilation and vertical non-maxima suppression are window max
 filters with lax ``'SAME'`` (-inf) padding; the box smooth is a
 separable mean filter with zero padding.  All take (..., H, W) tensors.
-Connected-component labeling stays on the host (scipy).
+Connected-component labeling stays on the host (the port's C++ or
+scipy).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from pero_ocr_tpu_torch.models.parsenet import same_pads
+from pero_ocr_tpu_torch.utils import native as native_lib
 
 
 def _as_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -58,8 +60,12 @@ def vertical_nonmaxima_suppression(x: torch.Tensor, window: int = 5) -> torch.Te
     return torch.where(x == _max_window(x, window, 1), x, 0.0)
 
 
-def connected_components(mask: np.ndarray):
-    """Host-side 8-connected component labeling: (labels, count)."""
+def connected_components(mask: np.ndarray, native: bool = False):
+    """Host-side 8-connected component labeling: (labels, count).
+    ``native``: the port's C++ (``cc_label_u8``), which numbers the
+    components as scipy does; else scipy."""
+    if native:
+        return native_lib.native_label(mask)
     from scipy import ndimage
 
     return ndimage.label(np.asarray(mask), structure=np.ones((3, 3)))

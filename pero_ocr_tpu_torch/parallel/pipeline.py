@@ -12,7 +12,10 @@ per byte, ``transport_bits=4``) feeds everything:
   per-component baselines and median heights (``_lines_from_masks``);
   the adaptive downsample may re-run stage A at a corrected scale on the
   pages already on the device; textline outlines and paragraph
-  clustering on the pooled separator map (``_cluster_lines``).
+  clustering on the pooled separator map (``_cluster_lines``).  The
+  labeling, the component lines and the clustering's pair tests and
+  penalties run the port's C++ (``utils/native.py``) on CUDA, as the
+  JAX page transport runs its own, and their numpy twins on the CPU.
 - **Stage B** (device): the line-crop warp (the hand-written CUDA
   kernel of :mod:`pero_ocr_tpu_torch.ops.warp`, which stores the crops
   divided by 255 in the recognizer's dtype) -> ``CTCRecognizer`` ->
@@ -50,6 +53,7 @@ from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer
 from pero_ocr_tpu_torch.ops import ctc as ctc_ops
 from pero_ocr_tpu_torch.ops.morphology import connected_components
 from pero_ocr_tpu_torch.ops.warp import warp_lines
+from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.timing import stage_timer
 
 
@@ -103,12 +107,15 @@ class TorchPagePipeline:
         want_logits: bool = False,
         mesh=None,
         device=None,
+        native: Optional[bool] = None,
     ):
         """``parsenet``/``recognizer``: :class:`ParseNet` and
         :class:`CTCRecognizer` modules, moved to ``device`` in place.
         ``device``: None means CUDA (raises when absent); pass "cpu" for
-        the plain-PyTorch CPU path.  The other arguments mean what they
-        mean for ``TPUPagePipeline``."""
+        the plain-PyTorch CPU path.  ``native``: the host geometry in the
+        port's C++ (True) or in numpy/scipy (False); None follows
+        ``device`` (:func:`~pero_ocr_tpu_torch.utils.native.use_native`).
+        The other arguments mean what they mean for ``TPUPagePipeline``."""
         if transport != "page":
             raise not_ported(f"transport={transport!r}", CROP_TRANSPORT)
         if want_logits:
@@ -122,6 +129,7 @@ class TorchPagePipeline:
         if transport_bits not in (4, 8):
             raise ValueError(f"transport_bits={transport_bits} invalid for the page transport")
         self.device = resolve_device(device)
+        self.native = native_lib.use_native(native, self.device)
         self.parsenet = parsenet.to(self.device).eval()
         self.recognizer = recognizer.to(self.device).eval()
         self.map_upsample = parsenet.out_upsample
@@ -137,7 +145,7 @@ class TorchPagePipeline:
         self.max_lines = max_lines
         self.line_slot = line_slot if max_lines is None else min(line_slot, max_lines)
         self.cluster_paragraphs = cluster_paragraphs
-        self._clusterer = ParagraphClusterer(paragraph_line_threshold)
+        self._clusterer = ParagraphClusterer(paragraph_line_threshold, self.native)
 
     def prime(self, pages, page_batch: int = 8) -> None:
         raise not_ported("prime()", CROP_TRANSPORT)
@@ -317,10 +325,25 @@ class TorchPagePipeline:
         """Host layout parse of one page: components of the connected
         mask restricted to the baseline mask -> decimated baselines and
         median heights, scaled by ``ds`` to page pixels."""
+        labels_img, num = connected_components(connected, self.native)
+        return self._component_lines(labels_img * baselines_mask, num, heights_map, ds)
+
+    def _component_lines(self, labels_img, num, heights_map, ds=None):
+        """Each component 1..num of ``labels_img`` with more than 5
+        pixels: its first row at each column (at most 10 points,
+        decimated, ends moved out by 2 px) and the median of its
+        heights, scaled by ``ds``.  ``cc_baselines_f32`` on the native
+        route."""
         ds = self.downsample if ds is None else ds
-        labels_img, num = connected_components(connected)
-        labels_img = labels_img * baselines_mask
         b_list, h_list = [], []
+        if self.native:
+            if num == 0:
+                return b_list, h_list
+            pts, npts, hts, valid = native_lib.native_cc_baselines(labels_img, heights_map, num)
+            for c in np.nonzero(valid)[0]:
+                b_list.append(ds * pts[c, : npts[c]])
+                h_list.append([ds * float(hts[c, 0]), ds * float(hts[c, 1])])
+            return b_list, h_list
         ys, xs = np.nonzero(labels_img > 0)
         comp = labels_img[ys, xs]
         order = np.argsort(comp, kind="stable")

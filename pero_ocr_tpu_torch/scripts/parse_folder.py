@@ -15,7 +15,10 @@ the page batches go through ``FastPagePipeline.process_pages`` (stage B
 warps the lines with the fused CUDA kernel); a config that the fast path
 would run differently (``FastPagePipeline.unsupported_features``) falls
 back to the stage-by-stage path, as in the JAX command line.
-``--device cpu`` runs the plain PyTorch versions instead.
+``--device cpu`` runs the plain PyTorch versions instead.  The host
+geometry (connected components, paragraph clustering, the fast path's
+parse) follows the device too: the port's C++ on CUDA, numpy/scipy on
+the CPU.
 
 Options and config features the port lacks exit with code 2 and name
 their ROADMAP item, rather than change what the run means.  The JAX

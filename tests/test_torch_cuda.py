@@ -356,3 +356,49 @@ def test_warp_fields_kernel_on_a_page_past_int32(cuda):
         _assert_bit_equal(warp.warp_fields(page, f_t, store),
                           warp.warp_fields_plain(page, f_t, store), store)
     torch.cuda.synchronize()
+
+
+# ----------------------------------------------------------------------
+# The host C++ on the card's path: the route follows the device.
+
+def _tiny_pipeline(**kwargs):
+    from pero_ocr_tpu_torch.models.parsenet import ParseNet
+    from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+    from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
+
+    pn = ParseNet(base_features=4, depth=2, stem="s2d", out_upsample=2,
+                  generator=torch.Generator().manual_seed(0))
+    rec = CTCRecognizer(RecognizerSpec(num_classes=6, line_height=16, conv_features=(4, 8),
+                                       lstm_layers=1, lstm_features=8),
+                        generator=torch.Generator().manual_seed(1))
+    return TorchPagePipeline(pn, rec, crop_height=16, crop_bucket=64, line_slot=4, **kwargs)
+
+
+def test_cuda_takes_the_native_route(cuda):
+    from pero_ocr_tpu_torch.layout_engines.cnn_engine import LayoutEngine
+    from pero_ocr_tpu_torch.utils import native
+
+    pipe = _tiny_pipeline(device="cuda")
+    assert pipe.native and pipe._clusterer.native
+    assert LayoutEngine(device="cuda").native and LayoutEngine().native
+    assert not LayoutEngine(device="cpu").native
+    pages = [np.random.default_rng(0).integers(0, 256, (128, 192, 3), dtype=np.uint8)] * 3
+    calls = native.calls["cc_label_u8"]
+    assert [r.page_index for r in pipe.run(pages, page_batch=2)] == [0, 1, 2]
+    assert native.calls["cc_label_u8"] - calls == 3  # one a page
+    with open("/proc/self/maps") as f:
+        assert not any("native/libperotpu" in line for line in f)
+
+
+def test_cuda_failed_host_build_raises(cuda, monkeypatch, tmp_path):
+    from pero_ocr_tpu_torch.utils import kernels, native
+
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-c++"))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(kernels, "_libraries", {})
+    pipe = _tiny_pipeline(device="cuda")
+    pages = [np.zeros((128, 192, 3), np.uint8)]
+    calls = native.calls["cc_label_u8"]
+    with pytest.raises(RuntimeError, match="compiler"):
+        list(pipe.run(pages, page_batch=1))
+    assert native.calls["cc_label_u8"] == calls

@@ -10,6 +10,7 @@ other tests."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -135,3 +136,66 @@ def test_port_runs_without_jax_and_host_libraries():
     if got["cuda"]:
         pytest.skip("a CUDA device is present: the no-device error cannot show")
     assert got["raised"] is not None and "device='cpu'" in got["raised"]
+
+
+NATIVE_SCRIPT = r"""
+import json, re, sys
+for name in %(blocked)r:
+    sys.modules[name] = None
+
+import numpy as np
+import torch
+from pero_ocr_tpu_torch.models.parsenet import ParseNet
+from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
+from pero_ocr_tpu_torch.utils import kernels, native
+
+pn = ParseNet(base_features=4, depth=2, stem="s2d", out_upsample=2,
+              generator=torch.Generator().manual_seed(0))
+rec = CTCRecognizer(RecognizerSpec(num_classes=6, line_height=16, conv_features=(4, 8),
+                                   lstm_layers=1, lstm_features=8),
+                    generator=torch.Generator().manual_seed(1))
+pages = [np.random.default_rng(0).integers(0, 256, (128, 192, 3), dtype=np.uint8)] * 2
+pipe = TorchPagePipeline(pn, rec, crop_height=16, crop_bucket=64, line_slot=4, device="cpu",
+                         native=True)
+list(pipe.run(pages, page_batch=2))
+with open("/proc/self/maps") as f:
+    maps = sorted({line.split()[-1] for line in f if "perotpu" in line})
+print(json.dumps({
+    "maps": maps,
+    "calls": native.calls["cc_label_u8"],
+    "target": str(kernels._target("perotpu", kernels._command("perotpu"))),
+    "source": str(kernels.source("perotpu")),
+    "loaded": sorted(k for k in sys.modules
+                     if k == "pero_ocr_tpu" or k.startswith("pero_ocr_tpu.")),
+}))
+"""
+
+
+def test_native_route_loads_only_the_ports_library():
+    """A native-route run loads the port's build of csrc/perotpu.cpp and
+    never the JAX package's native/libperotpu.so; no module of the port
+    imports the JAX package (its native bindings included)."""
+    import shutil
+
+    if shutil.which(os.environ.get("CXX") or "c++") is None:
+        pytest.skip("no host C++ compiler")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", NATIVE_SCRIPT % {"blocked": BLOCKED}],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["calls"] == 2  # one cc_label_u8 call a page
+    assert got["maps"] == [got["target"]]
+    assert "/build/kernels/" in got["target"] and "/native/" not in got["target"]
+    assert got["source"] == os.path.join(REPO, "pero_ocr_tpu_torch", "csrc", "perotpu.cpp")
+    assert got["loaded"] == []
+    port = os.path.join(REPO, "pero_ocr_tpu_torch")
+    imports = re.compile(r"^\s*(from|import)\s+pero_ocr_tpu(\.|\s|$)", re.M)
+    for root, _, files in os.walk(port):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name), encoding="utf-8") as f:
+                    assert not imports.search(f.read()), os.path.join(root, name)

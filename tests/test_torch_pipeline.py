@@ -20,6 +20,7 @@ Page XML text apart from the Created and LastChange timestamps.
 import hashlib
 import os
 import re
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,7 @@ from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
+from pero_ocr_tpu_torch.utils import native as native_port
 from pero_ocr_tpu_torch.utils.convert import (
     parsenet_params_from_flax,
     recognizer_params_from_flax,
@@ -189,6 +191,63 @@ def test_page_xml_matches_jax(models, case):
     """The main path to Page XML: CNN detection, paragraph clustering,
     recognition, alpha-shape regions, Page XML.  The override case has
     no clusters: all its lines go into one region."""
+    _page_xml_against_jax(models, case)
+
+
+# The port's C++ route (its own build of the host library) on the CPU.
+@pytest.mark.skipif(native.get_library() is None or shutil.which(os.environ.get("CXX") or "c++")
+                    is None, reason="no host C++ compiler")
+@pytest.mark.parametrize("case", ["cnn_8bit", "cnn_4bit", "cnn_adaptive"])
+def test_page_xml_matches_jax_on_the_native_route(models, case):
+    calls = native_port.calls["cc_label_u8"], native_port.calls["cc_baselines_f32"]
+    _page_xml_against_jax(models, case, native=True)
+    assert native_port.calls["cc_label_u8"] > calls[0]
+    assert native_port.calls["cc_baselines_f32"] > calls[1]
+
+
+def _top_border_artifacts(port, pages):
+    """Stage A's artifacts for ``pages`` (one batch) with two lines
+    added at the top of the first page's map: A from row 1, x 10 and B
+    from row 0, x 40.  B comes first in the mask's raster order (the
+    order of ``cc_lines_packed``), A first after the (5, 3) connection
+    dilation clamps both to row 0 (scipy's order)."""
+    stack = torch.from_numpy(port._stack_grays(port._gray(p) for p in pages))
+    packed, heights_q, sep_q = (t.cpu().numpy().copy() for t in port.stage_a(stack, 4))
+    bits = np.unpackbits(packed[0], axis=1, bitorder="little")
+    bits[:4] = 0
+    bits[1, 10:30] = 1
+    bits[0, 40:60] = 1
+    packed[0] = np.packbits(bits, axis=1, bitorder="little")
+    heights_q[0, 0] = (40, 12)  # 10 px up, 3 px down
+    return packed, heights_q, sep_q
+
+
+@pytest.mark.skipif(native.get_library() is None or shutil.which(os.environ.get("CXX") or "c++")
+                    is None, reason="no host C++ compiler")
+@pytest.mark.parametrize("route", [True, False], ids=["native", "numpy"])
+def test_page_xml_matches_jax_with_lines_at_the_top_border(models, route):
+    """Lines whose components reach the top map rows, where
+    ``cc_lines_packed``'s numbering and scipy's differ: with the same
+    stage-A artifacts on both sides, the Page XML equals the JAX page
+    transport's on both host routes."""
+    _, torch_models = models
+    pn, rec = torch_models()
+    port = TorchPagePipeline(pn, rec, device="cpu", native=route, **PIPELINE)
+    pages = [_page(), _page(shift=8, seed=1)]
+    packed, heights_q, sep_q = _top_border_artifacts(port, pages)
+    hf = packed.shape[1] // heights_q.shape[1]
+    by_mask_pixel = native_port.native_cc_lines_packed(packed[0], heights_q[0], hf)
+    masks, connecteds, heights_maps, _ = port._unpack_stage_a(packed, heights_q, sep_q)
+    by_label, _ = port._lines_from_masks(masks[0], connecteds[0], heights_maps[0], 1)
+    assert [b[0, 0] for b in by_label[:2]] == [8.0, 38.0]
+    assert [p[0, 0] for p in by_mask_pixel[0][:2]] == [38.0, 8.0]
+    _page_xml_against_jax(models, "cnn_8bit", native=route, stage_a=(packed, heights_q, sep_q))
+
+
+def _page_xml_against_jax(models, case, native=None, stage_a=None):
+    """``native``: the port's host route.  ``stage_a``: numpy (packed,
+    heights_q, sep_q) that stage A returns on both sides for every batch
+    in place of the detector's."""
     (flax_pn, pn_vars, flax_rec, rec_vars), torch_models = models
     spec = CASES[case]
     pages = [_page(), _page(shift=8, seed=1), _page(shift=-4, seed=2)]
@@ -200,13 +259,18 @@ def test_page_xml_matches_jax(models, case):
         cluster_paragraphs=True, **PIPELINE, **spec["kwargs"],
     )
     jax_pipe._stage_b_warp = jax_pipe._stage_b_warp_gather
+    if stage_a is not None:
+        jax_pipe._stage_a = lambda stack, ds: stage_a
     want_results = list(jax_pipe.run(pages, lines_override=override,
                                      page_batch=spec["page_batch"]))
     want = [jax_assemble(r, ids[r.page_index], pages[r.page_index].shape[:2], CHARS)
             for r in want_results]
 
     pn, rec = torch_models()
-    port = TorchPagePipeline(pn, rec, device="cpu", **PIPELINE, **spec["kwargs"])
+    port = TorchPagePipeline(pn, rec, device="cpu", native=native, **PIPELINE,
+                             **spec["kwargs"])
+    if stage_a is not None:
+        port.stage_a = lambda stack, ds: tuple(torch.from_numpy(a) for a in stage_a)
     if override is None:
         got = list(FastPagePipeline(port, CHARS, page_batch=spec["page_batch"])
                    .process_pages(pages, ids))
@@ -255,3 +319,38 @@ def test_unported_options_raise(models):
         fast.prime([_page()])
     with pytest.raises(ValueError, match="Crop transport"):
         fast.process_existing_layouts([_page()], [])
+
+
+@pytest.mark.skipif(native.get_library() is None or shutil.which(os.environ.get("CXX") or "c++")
+                    is None, reason="no host C++ compiler")
+def test_adaptive_decision_matches_jax_on_the_slice_pages(models):
+    """On the slice pages' stage A, at every first-pass scale, the
+    port's decision from the unpacked maps equals the JAX page
+    transport's, and the JAX crop transport's from the port's
+    ``cc_lines_packed`` histograms."""
+    (flax_pn, pn_vars, flax_rec, rec_vars), torch_models = models
+    pn, rec = torch_models()
+    pages = [_page(), _page(shift=8, seed=1), _page(shift=-4, seed=2)]
+    pipe = TorchPagePipeline(pn, rec, device="cpu", adaptive_downsample=True, **PIPELINE)
+    jax_pipe = TPUPagePipeline(flax_pn, pn_vars, flax_rec, rec_vars, transport="page",
+                               adaptive_downsample=True, **PIPELINE)
+    stack = torch.from_numpy(pipe._stack_grays(pipe._gray(p) for p in pages))
+    decided = []
+    for ds in (1, 2, 4, 8):
+        packed, heights_q, sep_q = (t.cpu().numpy() for t in pipe.stage_a(stack, ds))
+        pipe._last_ds = PIPELINE["downsample"]
+        got = (pipe._adapt_target_ds(pipe._unpack_stage_a(packed, heights_q, sep_q), ds),
+               pipe._last_ds)
+        hf = packed.shape[1] // heights_q.shape[1]
+        stats = [native_port.native_cc_lines_packed(packed[s], heights_q[s], hf)
+                 for s in range(len(pages))]
+        for from_stats in (True, False):
+            jax_pipe._last_ds = PIPELINE["downsample"]
+            want = (jax_pipe._adapt_from_stats(sum(o[4] for o in stats),
+                                               sum(o[5] for o in stats), ds) if from_stats
+                    else jax_pipe._adapt_target_ds(
+                        jax_pipe._unpack_stage_a(packed, heights_q, sep_q), ds),
+                    jax_pipe._last_ds)
+            assert got == want
+        decided.append(got[0])
+    assert any(d is not None for d in decided)

@@ -55,6 +55,7 @@ from pero_ocr_tpu_torch.layout_engines import helpers
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import LayoutEngine, postprocess_maps
 from pero_ocr_tpu_torch.ocr.ctc_engine import CTCEngineLineOCR
 from pero_ocr_tpu_torch.ops import warp
+from pero_ocr_tpu_torch.utils import native as native_port
 from pero_ocr_tpu_torch.utils.resize import remap_linear, resize_area
 from tests.test_torch_cli import (  # noqa: F401  (bundle, float32_parsenets: fixtures)
     BF16_MASK_FLIPS, _config, _masked, _run_port, assert_lines_close, assert_xml_equal, bundle,
@@ -398,11 +399,16 @@ def _pages():
     return [_page(), _page(shift=8, seed=1), _page(shift=-4, seed=2)]
 
 
-def _engines(config_path):
+def _engines(config_path, native=None):
+    """The port's PageParser on the CPU (its layout's host route set to
+    ``native`` where given) and the JAX one, on one config."""
     config = _config(config_path)
     root = str(config_path.parent)
-    return (PageParser(config, device="cpu", config_path=root),
-            JaxPageParser(config, config_path=root))
+    ours = PageParser(config, device="cpu", config_path=root)
+    if native is not None:
+        for lp in ours.layout_parsers:
+            lp.engine.native = native
+    return ours, JaxPageParser(config, config_path=root)
 
 
 def _close(a, b, atol=1e-3):
@@ -494,6 +500,30 @@ def test_page_parser_matches_jax(bundle, tmp_path, float32_parsenets):
             assert abs(a.transcription_confidence - b.transcription_confidence) <= 0.001
             # Logits within 1e-3: a crop value one gray level apart moves them.
             assert np.abs(a.logits.toarray() - b.logits.toarray()).max() < 1e-3
+
+
+@needs_native
+def test_page_parser_native_route_matches_jax(bundle, tmp_path, float32_parsenets):
+    """The port's C++ labeling and clustering (its own build of the host
+    library) on the CPU: the same layouts and Page XML as the JAX
+    PageParser, and the same as the numpy route's."""
+    ours, theirs = _engines(staged_config(bundle, tmp_path), native=True)
+    numpy_route, _ = _engines(staged_config(bundle, tmp_path))
+    engine = ours.layout_parsers[0].engine
+    assert engine.native and not numpy_route.layout_parsers[0].engine.native
+    pages = _pages()
+    calls = (native_port.calls["cc_label_u8"], native_port.calls["polygons_close_f64"],
+             native_port.calls["separator_penalties_f32"])
+    got = _run_pages(ours, PageLayout, pages)
+    assert native_port.calls["cc_label_u8"] - calls[0] == len(pages)
+    assert native_port.calls["polygons_close_f64"] > calls[1]
+    assert native_port.calls["separator_penalties_f32"] > calls[2]
+    want = _run_pages(theirs, JaxPageLayout, pages)
+    twin = _run_pages(numpy_route, PageLayout, pages)
+    for g, w, t in zip(got, want, twin):
+        _layouts_equal(g, w)
+        _xml_equal(g, w)
+        assert _masked(g.to_pagexml_string()) == _masked(t.to_pagexml_string())
 
 
 @needs_native
