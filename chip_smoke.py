@@ -42,20 +42,35 @@ Phases (each raises on failure, so the run exits non-zero):
 8. Stage by stage (``run_staged``): 8 pages through
    ``PageParser(config, device="cuda").process_page`` and its command
    line on 4 of them; the field warp checked and timed on the last page.
-9. Host C++ (``csrc/perotpu.cpp``, built with the kernels): config 2's
-   fast path and the staged run go on the C++ host route (the card's
-   default), the numpy route (``native=False``), the numpy route and
-   the C++ route again (A B B A); every run's Page XML must equal the
-   first's.  Then ``check_host_native`` holds each C++ function against
-   its numpy twin on the runs' own inputs (0 differences) and times
-   both.
+9. Config 1 (``run_config1``): 6 synthetic printed A4 pages at 300 dpi
+   (40 rows) through ``PageParser(config 1, device="cuda")`` (whole-page
+   region, the classical line detector, the field warp, the recognizer
+   at bench widths) to Page XML, its layout equal to a CPU run's layout
+   stages, the field warp bit-equal on every page's own fields, and the
+   command line on 3 pages; the field warp timed on the last page
+   (``config1_*``).
+10. Config 5's outputs (``run_config5``): the page transport with
+    ``want_logits`` and stage by stage, each with and without the logits
+    pickle and ALTO (A B B A), the card's top-k against ``torch.topk``
+    on the CPU, and the command line with --output-logit-path and
+    --output-alto-path on both paths, every file loaded back against
+    the in-process run's; warp_lines timed on its last batch
+    (``config5_*``).
+11. Host C++ (``csrc/perotpu.cpp``, built with the kernels): config 2's
+    fast path and the staged run go on the C++ host route (the card's
+    default), the numpy route (``native=False``), the numpy route and
+    the C++ route again (A B B A); every run's Page XML must equal the
+    first's.  Then ``check_host_native`` holds each C++ function against
+    its numpy twin on the runs' own inputs (0 differences; the forced
+    alignment's on config 5's lines) and times both.
 
 Kernel times are taken warm (inputs in L2 from the run before) and
 cold (a 128 MB scratch write before each timed run), since stage B finds
 its pages after the next batch's upload.
 
 The last lines are the command lines' numbers (``{"cli": ...}``,
-``{"staged": ...}``), the host library's (``{"host_native": ...}``),
+``{"staged": ...}``), config 1's and config 5's (``{"config1": ...}``,
+``{"config5": ...}``), the host library's (``{"host_native": ...}``),
 the card's nvidia-smi line, one JSON object with the kernels' numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -67,8 +82,10 @@ import copy
 import difflib
 import json
 import os
+import pickle
 import random
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -82,10 +99,11 @@ import torch
 import torch.nn.functional as F
 
 from pero_ocr_tpu_torch.core import geometry
+from pero_ocr_tpu_torch.core.force_alignment import viterbi_ctc
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble_page_layout
-from pero_ocr_tpu_torch.document.page_parser import PageParser
+from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor, PageParser
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import separator_penalties
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
@@ -95,6 +113,7 @@ from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
 from pero_ocr_tpu_torch.utils import kernels, native, timing
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -233,6 +252,44 @@ def synthetic_pages(rng, n: int, columns=ONE_COLUMN):
         pages.append(np.repeat(gray[:, :, None], 3, axis=2))
         lines.append((b_list, h_list))
     return pages, lines
+
+
+def printed_pages(rng, n: int, h: int, w: int, rows: int):
+    """n BGR printed-like pages of ``rows`` text rows: glyph-like ink
+    outlines (strokes about an eighth of the x-height) on grey paper,
+    words and line ends of random length.  Returns the pages and each
+    page's row baselines (y)."""
+    pages, baselines = [], []
+    margin = max(h, w) // 20
+    pitch = (h - 2 * margin) / rows
+    xh = max(int(pitch * 0.32), 6)
+    stroke = max(xh // 8, 2)
+    for _ in range(n):
+        gray = rng.normal(240, 5, (h, w)).clip(0, 255).astype(np.uint8)
+        ys = []
+        for r in range(rows):
+            y = int(margin + (r + 0.8) * pitch)
+            x = margin + int(rng.integers(0, 3 * xh))
+            x_end = w - margin - int(rng.integers(0, 6 * xh))
+            while x < x_end:
+                gw = int(rng.integers(xh // 2, xh + 1))
+                top = y - xh - (xh // 2 if rng.random() < 0.3 else 0)
+                bottom = y + (int(xh * 0.4) if rng.random() < 0.15 else 0)
+                ink = int(rng.integers(10, 60))
+                glyph = gray[top:bottom, x:x + gw]
+                glyph[:, :stroke] = ink
+                glyph[:, -stroke:] = ink
+                if rng.random() < 0.6:
+                    glyph[:stroke] = ink
+                if rng.random() < 0.6:
+                    glyph[-stroke:] = ink
+                x += gw + int(rng.integers(stroke, 2 * stroke + 2))
+                if rng.random() < 0.18:
+                    x += xh  # a word gap
+            ys.append(y)
+        pages.append(np.repeat(gray[:, :, None], 3, axis=2))
+        baselines.append(ys)
+    return pages, baselines
 
 
 # ----------------------------------------------------------------------
@@ -875,26 +932,40 @@ def write_bundle(tmp: str, pn: ParseNet, rec: CTCRecognizer, pages: dict):
     """The command line's inputs in ``tmp``: ``pages`` (id -> BGR page)
     as PNG files under images/, the modules as flax msgpack checkpoints,
     the OCR JSON and CLI_INI.  Returns (ini path, images dir)."""
-    fold_lstm_input_bias_(rec)
+    images = write_pages(tmp, pages)
+    write_flax_checkpoint(flax_parsenet_variables(pn), os.path.join(tmp, "parsenet.msgpack"))
+    write_recognizer(tmp, rec)
+    ini = os.path.join(tmp, "config.ini")
+    with open(ini, "w", encoding="utf-8") as f:
+        f.write(CLI_INI)
+    return ini, images
+
+
+def write_pages(tmp: str, pages: dict) -> str:
+    """``pages`` (id -> BGR page) as PNG files under ``tmp``/images/."""
     images = os.path.join(tmp, "images")
     os.makedirs(images)
     for page_id, page in pages.items():
         with open(os.path.join(images, page_id + ".png"), "wb") as f:
             f.write(png_bytes(page))
-    write_flax_checkpoint(flax_parsenet_variables(pn), os.path.join(tmp, "parsenet.msgpack"))
-    write_flax_checkpoint(flax_recognizer_variables(rec), os.path.join(tmp, "recognizer.msgpack"))
+    return images
+
+
+def write_recognizer(folder: str, rec: CTCRecognizer) -> None:
+    """The recognizer as a flax msgpack checkpoint beside its OCR JSON
+    (``ocr.json``, BENCH_CHARS, bfloat16) in ``folder``; its LSTM input
+    biases are folded first, so that the module equals what loads."""
+    fold_lstm_input_bias_(rec)
+    write_flax_checkpoint(flax_recognizer_variables(rec),
+                          os.path.join(folder, "recognizer.msgpack"))
     spec = rec.spec
-    with open(os.path.join(tmp, "ocr.json"), "w", encoding="utf-8") as f:
-        json.dump({"characters": BENCH_CHARS[:-1], "line_px_height": CROP_H,
+    with open(os.path.join(folder, "ocr.json"), "w", encoding="utf-8") as f:
+        json.dump({"characters": BENCH_CHARS[:-1], "line_px_height": spec.line_height,
                    "checkpoint": "recognizer.msgpack", "net_spec": {
                        "conv_features": list(spec.conv_features),
                        "subsampling": spec.subsampling, "lstm_layers": spec.lstm_layers,
                        "lstm_features": spec.lstm_features, "stem": spec.stem,
                        "norm": spec.norm, "dtype": "bfloat16"}}, f)
-    ini = os.path.join(tmp, "config.ini")
-    with open(ini, "w", encoding="utf-8") as f:
-        f.write(CLI_INI)
-    return ini, images
 
 
 def run_cli(pipe: TorchPagePipeline, rng, smi: str):
@@ -1007,7 +1078,8 @@ def staged_parser(ini: str, device: str, native=None) -> PageParser:
     parser = PageParser(config, device=device, config_path=os.path.dirname(ini))
     if native is not None:
         for lp in parser.layout_parsers:
-            lp.engine.native = native
+            if isinstance(lp, LayoutExtractor):
+                lp.engine.native = native
     return parser
 
 
@@ -1423,6 +1495,523 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
 
 
 # ----------------------------------------------------------------------
+# Config 1: one whole-page region, the classical line detector, greedy
+# CTC, stage by stage (configs/config1_printed_greedy.ini)
+A4_H, A4_W, A4_ROWS = 3508, 2480, 40  # an A4 page at 300 dpi, 40 text rows
+CONFIG1_PAGES, CONFIG1_CLI_PAGES = 6, 3
+CONFIG1_STAGES = ("layout", "line_crop", "ocr", "document/pagexml")
+TEXT_EQUIV = re.compile(r"\s*<TextEquiv[^>]*>.*?</TextEquiv>", re.S)
+
+
+def config1_recognizer(seed: int = 3) -> CTCRecognizer:
+    """The bench recognizer's widths (bench.py) at config 1's line height,
+    seeded random weights."""
+    with open(os.path.join(REPO, "configs", "config1_printed_greedy.ini"), encoding="utf-8") as f:
+        line_h = int(re.search(r"^LINE_HEIGHT = (\d+)$", f.read(), re.M).group(1))
+    return CTCRecognizer(RecognizerSpec(
+        num_classes=80, line_height=line_h, conv_features=(48, 96, 192, 384), subsampling=4,
+        lstm_layers=2, lstm_features=256, stem="s2d", norm="group",
+    ), generator=torch.Generator().manual_seed(seed))
+
+
+def write_config1_bundle(tmp: str, rec: CTCRecognizer, pages: dict):
+    """Config 1's ini as the repository has it, its recognizer under
+    ocr_engine/ (flax msgpack and OCR JSON) and ``pages`` as PNG files.
+    Returns (ini path, images dir)."""
+    images = write_pages(tmp, pages)
+    os.makedirs(os.path.join(tmp, "ocr_engine"))
+    write_recognizer(os.path.join(tmp, "ocr_engine"), rec)
+    ini = os.path.join(tmp, "config.ini")
+    with open(os.path.join(REPO, "configs", "config1_printed_greedy.ini"), encoding="utf-8") as f:
+        text = f.read()
+    with open(ini, "w", encoding="utf-8") as f:
+        f.write(text)
+    return ini, images
+
+
+def layout_xml(xml: str) -> str:
+    """Page XML without its transcriptions and timestamps: the layout."""
+    return mask_pagexml(TEXT_EQUIV.sub("", xml))
+
+
+def rows_found(layout, rows, tol_px: float = 16.0) -> float:
+    """Share of a printed page's text rows that a detected baseline
+    lies within ``tol_px`` of."""
+    ys = [float(np.mean(np.asarray(ln.baseline)[:, 1])) for ln in layout.lines_iterator()]
+    return float(np.mean([any(abs(y - r) <= tol_px for y in ys) for r in rows]))
+
+
+def run_config1(rng, smi: str):
+    """Config 1 on the card: CONFIG1_PAGES synthetic printed A4 pages at
+    300 dpi (A4_ROWS rows of glyph outlines) through
+    ``PageParser(config 1, device="cuda").process_page`` into Page XML,
+    the recognizer at the bench widths with random weights, loaded from
+    flax msgpack.  Checks: every row found and every page of 4 lines or
+    more, one warp_fields launch a page; the layout part of each Page XML
+    equal to a CPU PageParser's layout stages on the same page (host
+    code both); warp_fields bit-equal to its plain version on every
+    page's own fields; the command line on CONFIG1_CLI_PAGES pages,
+    whose files must equal the in-process run's.  Returns the field
+    warp's launches, the phase's numbers and the last page's warp
+    inputs."""
+    pages, rows = printed_pages(rng, CONFIG1_PAGES, A4_H, A4_W, A4_ROWS)
+    ids = [f"c{i:04d}" for i in range(len(pages))]
+    with tempfile.TemporaryDirectory(prefix="config1_") as tmp:
+        ini, images = write_config1_bundle(
+            tmp, config1_recognizer(), dict(zip(ids[:CONFIG1_CLI_PAGES], pages)))
+        parser = staged_parser(ini, "cuda")
+        parser.process_page(pages[-1], PageLayout(id="warm", page_size=pages[-1].shape[:2]))
+        timing.reset_timing()
+        warp_ops.warp_fields.launches = warp_ops.warp_lines.launches = 0
+        out, seconds = staged_pages(parser, ids, pages)
+        launches, fused = warp_ops.warp_fields.launches, warp_ops.warp_lines.launches
+        stats = timing.timing_stats()
+        log("stage times (config 1 run):\n" + timing.timing_report())
+
+        n_lines = [len(list(layout.lines_iterator())) for layout, _ in out]
+        found = [rows_found(layout, r) for (layout, _), r in zip(out, rows)]
+        log(f"config 1 (PageParser.process_page): {len(pages)} A4 pages ({A4_W}x{A4_H}), lines "
+            f"a page {n_lines}, rows found {found}; {len(pages) / seconds:.3f} pages/s to Page "
+            f"XML ({seconds:.3f} s) on {smi}; warp_fields launches {launches}, warp_lines {fused}")
+        if min(found) < 1.0 or min(n_lines) < parser.line_cropper.DEVICE_BATCH_MIN:
+            raise AssertionError(f"config 1: rows found {found}, lines {n_lines}")
+        if launches != len(pages) or fused != 0:
+            raise AssertionError(f"config 1: warp_fields launches {launches} != {len(pages)} pages")
+
+        # The layout is host code: a CPU PageParser's layout stages give
+        # the same regions and lines.
+        cpu = staged_parser(ini, "cpu")
+        for (layout, xml), pid, page in zip(out, ids, pages):
+            ref = PageLayout(id=pid, page_size=page.shape[:2])
+            for stage in cpu.layout_parsers:
+                ref = stage.process_page(page, ref)
+            if layout_xml(ref.to_pagexml_string()) != layout_xml(xml):
+                raise AssertionError(f"config 1 page {pid}: the card's layout differs from "
+                                     "the CPU's")
+        log(f"config 1: the layout of all {len(pages)} pages equals a CPU run's layout stages")
+
+        # The field warp on every page's own fields: bit-equal.
+        max_abs = 0.0
+        for (layout, _), page in zip(out, pages):
+            args = page_buckets(parser, layout, page)
+            max_abs = max(max_abs, packed_equal(*args, f"config 1 page {layout.id}"))
+        last_page = page_buckets(parser, out[-1][0], pages[-1])
+
+        # The command line on the first pages.
+        out_dir = os.path.join(tmp, "page_xml")
+        proc, cli_seconds = run_parse_folder(
+            ["-c", ini, "-i", images, "--output-xml-path", out_dir, "--timing-report"],
+            "config 1 command line")
+        counted = re.search(r"^warp_fields kernel launches: (\d+)$", proc.stdout, re.M)
+        timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
+        differ = [layout.id for layout, xml in out[:CONFIG1_CLI_PAGES]
+                  if not same_staged_page(read_text(out_dir, layout.id + ".xml"), xml)]
+        log(f"config 1 command line vs in-process: {CONFIG1_CLI_PAGES - len(differ)} of "
+            f"{CONFIG1_CLI_PAGES} files equal; its warp_fields launches "
+            f"{counted.group(1) if counted else None}")
+        if differ or counted is None or timed is None \
+                or int(counted.group(1)) != CONFIG1_CLI_PAGES:
+            raise AssertionError(f"config 1 command line: files differ {differ} or launches")
+
+    numbers = {"pages": len(pages), "page_size": [A4_H, A4_W], "rows": A4_ROWS,
+               "pages_per_s": len(pages) / seconds, "lines": sum(n_lines),
+               "stage_ms": {k: 1e3 * stats[k][0] / stats[k][1] for k in CONFIG1_STAGES
+                            if k in stats},
+               "stage_calls": {k: stats[k][1] for k in CONFIG1_STAGES if k in stats},
+               "warp_fields_launches": launches, "warp_fields_max_abs_err": max_abs,
+               "cli_pages_per_s": CONFIG1_CLI_PAGES / float(timed.group(1)),
+               "cli_wall_s": cli_seconds, "card": smi}
+    return launches, numbers, last_page
+
+
+def run_parse_folder(args, label: str):
+    """The port's command line in a subprocess from the repository root;
+    raises when it fails.  Returns (the completed process, wall s)."""
+    command = [sys.executable, "-m", "pero_ocr_tpu_torch.scripts.parse_folder", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    log(f"{label}: exit {proc.returncode} in {seconds:.3f} s\n{proc.stdout.strip()[-3000:]}\n"
+        f"{proc.stderr.strip()[-3000:]}")
+    if proc.returncode != 0 or "ERROR" in proc.stdout:
+        raise AssertionError(f"{label} failed ({proc.returncode})")
+    return proc, seconds
+
+
+def read_text(folder: str, name: str) -> str:
+    with open(os.path.join(folder, name), encoding="utf-8") as f:
+        return f.read()
+
+
+# ----------------------------------------------------------------------
+# Config 5's outputs: top-k logits, logits files, forced alignment, ALTO
+CONFIG5_CLI_FAST, CONFIG5_STAGED_PAGES = 8, 4  # the staged command line runs as many
+ALTO_DATETIME = re.compile(r"<processingDateTime>[^<]*</processingDateTime>")
+ALTO_NS = "{http://www.loc.gov/standards/alto/ns-v2#}"
+# A logits file of the command line against the in-process run's: the
+# same lines, charsets and coordinates; values present in both within
+# one bfloat16 step of the logit (LOGITS_REL), and the kept classes the
+# same in all but LOGITS_PATTERN_SHARE of the frames (the two processes
+# may batch lines in another order and pick other cuDNN algorithms).
+# Its ALTO file must equal what the writer here makes of its logits.
+LOGITS_REL, LOGITS_PATTERN_SHARE = 2.0 ** -7, 0.01
+
+
+def outputs_of(layout):
+    """A page's three outputs as the command line on the card writes
+    them: Page XML, the logits pickle's bytes and ALTO (C++ alignment)."""
+    with timing.stage_timer("document/pagexml"):
+        xml = layout.to_pagexml_string()
+    with timing.stage_timer("document/logits"):
+        logits = layout.save_logits_bytes()
+    with timing.stage_timer("document/alto"):
+        alto = layout.to_altoxml_string(native=True)
+    return xml, logits, alto
+
+
+def topk_check(pipe: TorchPagePipeline, b_args) -> dict:
+    """Stage B once on ``b_args`` with the recognizer's logits kept: the
+    card's top-k values and indices against ``torch.topk`` of the same
+    logits on the CPU.  Values (float16) must be equal frame by frame as
+    sorted lists; index sets equal wherever the k-th logit is larger
+    than the (k+1)-th (on a tie at the boundary either class is a top-k
+    class, and each index must still point at its value)."""
+    rec = pipe.recognizer
+    kept = []
+
+    def keeping(images):
+        kept.append(rec(images))
+        return kept[-1]
+
+    keeping.spec = rec.spec
+    pipe.recognizer = keeping
+    try:
+        *_, vals, idx = pipe.stage_b(*b_args)
+    finally:
+        pipe.recognizer = rec
+    logits = kept[0].float().cpu()
+    k = vals.shape[-1]
+    vals, idx = vals.cpu().reshape(logits.shape[0], logits.shape[1], k), idx.cpu().long()
+    idx = idx.reshape(vals.shape)
+    ref_vals, ref_idx = torch.topk(logits, k + 1, dim=-1)
+    if not torch.equal(vals.float().sort(dim=-1, descending=True).values,
+                       ref_vals[..., :k].half().float()):
+        raise AssertionError("top-k: the card's values differ from torch.topk on the CPU")
+    if not torch.equal(torch.gather(logits, -1, idx).half(), vals):
+        raise AssertionError("top-k: an index does not point at its value")
+    clear = ref_vals[..., k - 1] > ref_vals[..., k]
+    same = (idx.sort(dim=-1).values == ref_idx[..., :k].sort(dim=-1).values).all(dim=-1)
+    bad = int((clear & ~same).sum())
+    frames = int(clear.numel())
+    log(f"top-k (k={k}) on the card vs torch.topk on the CPU: {frames} frames, values equal; "
+        f"index sets equal on all {int(clear.sum())} frames without a tie at the k-th logit "
+        f"({bad} differ); {frames - int(clear.sum())} frames tie there")
+    if bad:
+        raise AssertionError(f"top-k: {bad} frames select other classes than torch.topk")
+    return {"frames": frames, "boundary_ties": frames - int(clear.sum()), "k": k}
+
+
+def baseline_ids(xml: str) -> dict:
+    """A Page XML's line ids by their baselines' points."""
+    root = ET.fromstring(xml.encode("utf-8"))
+    return {line.find(f"{PAGE_NS}Baseline").get("points"): line.get("id")
+            for line in root.iter(f"{PAGE_NS}TextLine")}
+
+
+def same_lines(cli_xml: str, own_xml: str, label: str) -> dict:
+    """The command line's line ids -> the in-process run's, matched by
+    baseline: stage by stage, lines that share a row take their numbers
+    from ``random``, which each process draws anew."""
+    cli, own = baseline_ids(cli_xml), baseline_ids(own_xml)
+    if sorted(cli) != sorted(own):
+        raise AssertionError(f"{label}: the command line found other lines")
+    return {cli[points]: own[points] for points in cli}
+
+
+def logits_close(blob: bytes, layout, rename=None) -> dict:
+    """A command-line logits file against the in-process layout's lines
+    (see LOGITS_REL), its line ids mapped by ``rename`` where given: the
+    file's numbers; raises when they differ."""
+    got = pickle.loads(blob)
+    if rename is not None:
+        got = {"line_characters": {rename[k]: v for k, v in got["line_characters"].items()},
+               "logit_coords": {rename[k]: v for k, v in got["logit_coords"].items()},
+               **{rename[k]: v for k, v in got.items()
+                  if k not in ("line_characters", "logit_coords")}}
+    lines = {ln.id: ln for ln in layout.lines_iterator()}
+    if sorted(k for k in got if k not in ("line_characters", "logit_coords")) != sorted(lines):
+        raise AssertionError(f"logits {layout.id}: other line ids")
+    frames = pattern = exact = 0
+    worst = 0.0
+    for key, line in lines.items():
+        a, b = got[key].toarray(), line.logits.toarray()
+        if (got["line_characters"][key] != line.characters
+                or list(got["logit_coords"][key]) != list(line.logit_coords) or a.shape != b.shape):
+            raise AssertionError(f"logits {layout.id} {key}: charset, coordinates or shape")
+        both = (a != 0) & (b != 0)
+        frames += a.shape[0]
+        pattern += int(((a != 0) != (b != 0)).any(axis=1).sum())
+        exact += int(np.array_equal(a, b))
+        rel = np.abs(a - b)[both] / np.maximum(np.abs(b[both]), 1.0)
+        worst = max(worst, float(rel.max(initial=0.0)))
+    if worst > LOGITS_REL or pattern > LOGITS_PATTERN_SHARE * frames:
+        raise AssertionError(f"logits {layout.id}: values {worst} apart, {pattern} frames keep "
+                             "other classes")
+    return {"lines": len(lines), "lines_equal": exact, "frames": frames,
+            "frames_other_classes": pattern, "max_rel": worst}
+
+
+def alto_words(xml: str):
+    """An ALTO file's words, (CONTENT, HPOS, VPOS, WIDTH, HEIGHT), in
+    lines ordered by their position within each block."""
+    root = ET.fromstring(xml.encode("utf-8"))
+    out = []
+    for block in root.iter(ALTO_NS + "TextBlock"):
+        lines = sorted(block.iter(ALTO_NS + "TextLine"), key=lambda e: tuple(
+            int(e.get(k)) for k in ("VPOS", "HPOS", "BASELINE")))
+        out += [[(s.get("CONTENT"), *(int(s.get(k)) for k in ("HPOS", "VPOS", "WIDTH", "HEIGHT")))
+                 for s in line.iter(ALTO_NS + "String")] for line in lines]
+    return out
+
+
+def alto_same(cli: str, own: str, label: str) -> bool:
+    """The command line's ALTO file against the in-process writer's on
+    the same logits: equal apart from the processing time (True), or
+    equal lines taken in position order within each block (False:
+    stage by stage, lines that share a row take their order from
+    ``random``); raises otherwise."""
+    if ALTO_DATETIME.sub("", cli) == ALTO_DATETIME.sub("", own):
+        return True
+    if alto_words(cli) != alto_words(own):
+        raise AssertionError(f"ALTO {label}: the command line's words or boxes differ")
+    return False
+
+
+def load_logits_renamed(layout, blob: bytes, rename: dict) -> None:
+    """A command-line logits file's logits onto the in-process layout's
+    lines, its line ids mapped by ``rename``."""
+    got = pickle.loads(blob)
+    by_own = {own: key for key, own in rename.items()}
+    for line in layout.lines_iterator():
+        key = by_own[line.id]
+        line.logits = got[key]
+        line.characters = got["line_characters"][key]
+        line.logit_coords = got["logit_coords"][key]
+
+
+class ViterbiInputs:
+    """Keeps the arguments of every ``native_viterbi_ctc`` call (the
+    forced alignment's gathered costs and skip masks)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self._fn = native.native_viterbi_ctc
+
+        def kept(costs, skip):
+            self.calls.append((np.array(costs, np.float32), np.array(skip, bool)))
+            return self._fn(costs, skip)
+
+        native.native_viterbi_ctc = kept
+        return self
+
+    def __exit__(self, *exc):
+        native.native_viterbi_ctc = self._fn
+        return False
+
+
+def run_config5(pipe: TorchPagePipeline, rng, smi: str):
+    """Config 5's outputs on the card, on both paths, with the bench
+    modules (config 2's pages, detector and recognizer; the outputs are
+    what config 5 adds):
+
+    - the page transport with ``want_logits`` (stage B's top-k download)
+      through FastPagePipeline to Page XML, the logits pickle and ALTO
+      (the forced alignment in the port's C++), against the same pages
+      without logits: A B B A, pages/s of each; top-k held against
+      ``torch.topk`` on the CPU on the last batch's logits;
+    - stage by stage (PageParser) with and without the outputs;
+    - the command line with --output-logit-path and --output-alto-path
+      on both paths: every logits file loaded back against the
+      in-process layout's lines, every ALTO file against the in-process
+      writer's.
+
+    Returns the kernels' launches on each path, the phase's numbers, the
+    last batch's warp arguments and the forced alignment's inputs (for
+    check_host_native)."""
+    n_pages = 2 * PAGE_BATCH
+    pages, _ = synthetic_pages(rng, n_pages, TWO_COLUMNS)
+    ids = [f"a{i:04d}" for i in range(n_pages)]
+    common = dict(downsample=4, crop_bucket=BUCKET, crop_height=CROP_H,
+                  line_slot=LINES_PER_PAGE, adaptive_downsample=True, device="cuda")
+    plain = FastPagePipeline(TorchPagePipeline(pipe.parsenet, pipe.recognizer, **common),
+                             BENCH_CHARS, page_batch=PAGE_BATCH)
+    logits_pipe = TorchPagePipeline(pipe.parsenet, pipe.recognizer, want_logits=True, **common)
+    with_logits = FastPagePipeline(logits_pipe, BENCH_CHARS, page_batch=PAGE_BATCH)
+    last_b = []
+    stage_b = logits_pipe.stage_b
+
+    def kept_stage_b(*b_args):
+        last_b[:] = [b_args]
+        return stage_b(*b_args)
+
+    logits_pipe.stage_b = kept_stage_b
+
+    def drive(fast, outputs: bool):
+        out = []
+        t0 = time.perf_counter()
+        for layout in fast.process_pages(pages, ids):
+            out.append((layout, *(outputs_of(layout) if outputs else
+                                  (layout.to_pagexml_string(), None, None))))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    drive(plain, False)  # warm-up: the adaptive scale, cuDNN plans
+    drive(with_logits, True)
+    runs, launches = [], None
+    for name, fast, outputs in (("page xml", plain, False), ("outputs", with_logits, True),
+                                ("outputs", with_logits, True), ("page xml", plain, False)):
+        timing.reset_timing()
+        warp_ops.warp_lines.launches = warp_ops.warp_fields.launches = 0
+        native.calls.clear()
+        out, seconds = drive(fast, outputs)
+        if outputs and launches is None:
+            launches, host_calls = warp_ops.warp_lines.launches, dict(native.calls)
+            fast_out, stats, report = out, timing.timing_stats(), timing.timing_report()
+            if warp_ops.warp_fields.launches:
+                raise AssertionError("config 5 fast path launched warp_fields")
+        runs.append({"run": name, "pages_per_s": n_pages / seconds, "seconds": seconds})
+        log(f"config 5 fast path ({name}): {n_pages} pages, {n_pages / seconds:.3f} pages/s on "
+            f"{smi}")
+    logits_pipe.stage_b = stage_b
+    batches = len({i // PAGE_BATCH for i, (layout, *_) in enumerate(fast_out)
+                   if any(True for _ in layout.lines_iterator())})
+    n_lines = sum(len(list(layout.lines_iterator())) for layout, *_ in fast_out)
+    log("stage times (config 5 fast path, first run with outputs):\n" + report)
+    log(f"config 5 fast path: warp_lines launches {launches}, stage-B batches {batches}, "
+        f"{n_lines} lines; host calls {host_calls}")
+    if launches != batches or launches == 0 or host_calls.get("viterbi_ctc_f32", 0) == 0:
+        raise AssertionError("config 5: warp_lines launches != stage-B batches, or no C++ "
+                             "forced alignment")
+    for layout, xml, blob, alto in fast_out:
+        if any(ln.logits is None for ln in layout.lines_iterator() if ln.transcription):
+            raise AssertionError(f"config 5: a line of {layout.id} has no logits")
+        logits_close(blob, layout)  # the pickle round trip
+        ET.fromstring(alto.encode("utf-8"))
+    topk = topk_check(logits_pipe, last_b[0])
+
+    # Stage by stage, with and without the outputs.
+    with tempfile.TemporaryDirectory(prefix="config5_") as tmp:
+        ini, images = write_bundle(tmp, pipe.parsenet, pipe.recognizer,
+                                   dict(zip(ids[:CONFIG5_CLI_FAST], pages)))
+        parser = staged_parser(ini, "cuda")
+        parser.process_page(pages[0], PageLayout(id="warm", page_size=pages[0].shape[:2]))
+        staged_runs = []
+        for outputs in (False, True, True, False):
+            wrapper = parser.layout_parsers[0].engine.parsenet
+            wrapper.last_downsample = wrapper.init_downsample
+            timing.reset_timing()
+            warp_ops.warp_fields.launches = warp_ops.warp_lines.launches = 0
+            random.seed(0)
+            t0 = time.perf_counter()
+            out = []
+            for pid, page in zip(ids[:CONFIG5_STAGED_PAGES], pages):
+                layout = parser.process_page(page, PageLayout(id=pid, page_size=page.shape[:2]))
+                out.append((layout, *(outputs_of(layout) if outputs else
+                                      (layout.to_pagexml_string(), None, None))))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if outputs and not any(r["outputs"] for r in staged_runs):
+                staged_out, staged_launches = out, warp_ops.warp_fields.launches
+                staged_stats = timing.timing_stats()
+                log("stage times (config 5 stage by stage, first run with outputs):\n"
+                    + timing.timing_report())
+            staged_runs.append({"outputs": outputs, "seconds": seconds,
+                                "pages_per_s": CONFIG5_STAGED_PAGES / seconds})
+            log(f"config 5 stage by stage ({'outputs' if outputs else 'page xml'}): "
+                f"{CONFIG5_STAGED_PAGES} pages, {CONFIG5_STAGED_PAGES / seconds:.3f} pages/s")
+        batched = sum(len(list(layout.lines_iterator())) >= parser.line_cropper.DEVICE_BATCH_MIN
+                      for layout, *_ in staged_out)
+        if staged_launches != batched or staged_launches == 0:
+            raise AssertionError("config 5 staged: warp_fields launches != pages of 4 lines+")
+
+        # The forced alignment's inputs, on the runs' own lines (three
+        # pages: the numpy twin takes ms a line in check_host_native).
+        with ViterbiInputs() as viterbi:
+            for layout, *_ in fast_out[-2:] + staged_out[:1]:
+                layout.to_altoxml_string(native=True)
+
+        # The command line on both paths, with the outputs.
+        files = {}
+        for path, flags, n in (("fast", ["--fast-pipeline"], CONFIG5_CLI_FAST),
+                               ("staged", [], CONFIG5_STAGED_PAGES)):
+            folder = os.path.join(tmp, path)
+            sub_images = os.path.join(folder, "images")
+            os.makedirs(sub_images)
+            for pid in ids[:n]:
+                shutil.copyfile(os.path.join(images, pid + ".png"),
+                                os.path.join(sub_images, pid + ".png"))
+            proc, wall = run_parse_folder(
+                ["-c", ini, "-i", sub_images, "--output-xml-path", os.path.join(folder, "xml"),
+                 "--output-logit-path", os.path.join(folder, "logits"), "--output-alto-path",
+                 os.path.join(folder, "alto"), "--timing-report", *flags],
+                f"config 5 command line ({path})")
+            timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
+            files[path] = {"wall_s": wall, "pages_per_s": n / float(timed.group(1)),
+                           "logits": {}, "alto": {}, "xml": {}}
+            for pid in ids[:n]:
+                with open(os.path.join(folder, "logits", pid + ".logits"), "rb") as f:
+                    files[path]["logits"][pid] = f.read()
+                files[path]["alto"][pid] = read_text(os.path.join(folder, "alto"), pid + ".xml")
+                files[path]["xml"][pid] = read_text(os.path.join(folder, "xml"), pid + ".xml")
+
+    # The in-process layouts with the command line's settings: the fast
+    # path's (page batch 4, line slot 32, crop bucket 2048) anew, the
+    # staged run's as they are.
+    same = TorchPagePipeline(
+        pipe.parsenet, pipe.recognizer, downsample=4, crop_height=CROP_H,
+        crop_bucket=FastPagePipeline.CROP_BUCKET, line_slot=FastPagePipeline.LINE_SLOT,
+        transport_bits=4, adaptive_downsample=True, want_logits=True, device="cuda")
+    fast_own = FastPagePipeline(same, BENCH_CHARS, page_batch=CLI_PAGE_BATCH)
+    own = {"fast": [(layout, layout.to_pagexml_string()) for layout in fast_own.process_pages(
+               pages[:CONFIG5_CLI_FAST], ids[:CONFIG5_CLI_FAST])],
+           "staged": [(layout, xml) for layout, xml, *_ in staged_out]}
+    cli = {}
+    for path, layouts in own.items():
+        checked, alto_equal = [], 0
+        for layout, xml in layouts:
+            cli_xml, blob = files[path]["xml"][layout.id], files[path]["logits"][layout.id]
+            if not (same_staged_page(cli_xml, xml) if path == "staged"
+                    else mask_pagexml(cli_xml) == mask_pagexml(xml)):
+                raise AssertionError(f"config 5 command line ({path}): Page XML of {layout.id}")
+            rename = same_lines(cli_xml, xml, layout.id)
+            checked.append(logits_close(blob, layout, rename))
+            # The ALTO writer on the command line's own logits, here.
+            load_logits_renamed(layout, blob, rename)
+            alto_equal += alto_same(files[path]["alto"][layout.id],
+                                    layout.to_altoxml_string(native=True), layout.id)
+        cli[path] = {"pages": len(layouts), "pages_per_s": files[path]["pages_per_s"],
+                     "wall_s": files[path]["wall_s"], "alto_files_equal": alto_equal,
+                     "logits_lines": sum(c["lines"] for c in checked),
+                     "logits_lines_equal": sum(c["lines_equal"] for c in checked),
+                     "logits_frames_other_classes": sum(c["frames_other_classes"]
+                                                        for c in checked),
+                     "logits_max_rel": max(c["max_rel"] for c in checked)}
+        log(f"config 5 command line ({path}) vs in-process: {cli[path]}")
+
+    numbers = {"pages": n_pages, "lines": n_lines, "fast_runs": runs, "staged_runs": staged_runs,
+               "fast_stage_ms": {k: 1e3 * v[0] / v[1] for k, v in stats.items()
+                                 if k.startswith("document/")},
+               "staged_stage_ms": {k: 1e3 * v[0] / v[1] for k, v in staged_stats.items()
+                                   if k in STAGED_HOST_STAGES or k.startswith("document/")},
+               "warp_lines_launches": launches, "warp_fields_launches": staged_launches,
+               "host_calls": host_calls, "topk": topk, "cli": cli, "card": smi}
+    return {"warp_lines": launches, "warp_fields": staged_launches}, numbers, (
+        *last_b[0], logits_pipe.crop_height, logits_pipe.crop_bucket), viterbi.calls
+
+
+# ----------------------------------------------------------------------
 # The host C++ (csrc/perotpu.cpp) against its numpy twins
 FAST_STAGES = ("pipeline/host_geometry", "pipeline/cc_parse",
                "pipeline/make_clusters", "pipeline/textlines", "pipeline/stage_a_sync", "pipeline/upload+dispatch_a", "pipeline/stage_b",
@@ -1435,6 +2024,7 @@ HOST_FUNCTIONS = {  # binding: (C++ function, its line in the JAX package's nati
     "native_separator_penalties": ("separator_penalties_f32", 405),
     "native_polygons_close": ("polygons_close_f64", 512),
     "native_cc_lines_packed": ("cc_lines_packed", 613),
+    "native_viterbi_ctc": ("viterbi_ctc_f32", 539),
 }
 HOST_REPEATS = 9
 
@@ -1539,13 +2129,30 @@ def _lines_differ(a, b) -> int:
                or any(not np.array_equal(x, y) for x, y in zip(ab, bb)))
 
 
-def check_host_native(fast: dict, staged: dict, smi: str) -> dict:
+def viterbi_path(fn, costs: np.ndarray, skip: np.ndarray):
+    """``fn``'s Viterbi path, or None where no path has a finite cost."""
+    try:
+        return fn(costs, skip)
+    except ValueError:
+        return None
+
+
+def path_cost(costs: np.ndarray, path: np.ndarray) -> float:
+    """A Viterbi path's cost, summed in float64."""
+    return float(costs[np.arange(len(path)), path].astype(np.float64).sum())
+
+
+def check_host_native(fast: dict, staged: dict, viterbi, smi: str) -> dict:
     """Every C++ function of the host library against its numpy twin on
     the card run's own inputs (config 2's last fast-path batch: its
     packed masks, heights and separator, its lines and clusters; the
-    staged run's last page: its connected mask and its close pairs),
-    with 0 differences allowed, and each timed on both routes (host
-    median of HOST_REPEATS).  Returns the ``host_native`` record."""
+    staged run's last page: its connected mask and its close pairs;
+    ``viterbi``: the forced alignments of config 5's ALTO output), with
+    0 differences allowed, and each timed on both routes (host median of
+    HOST_REPEATS).  Two Viterbi paths that differ count as a tie, not a
+    difference, when their float64 costs lie within the float32 sums'
+    rounding (T * 2**-23 of the cost).  Returns the ``host_native``
+    record."""
     pipe, numpy_pipe = fast["pipe"], fast["numpy_pipe"]
     (packed, heights_q, sep_q), ds, page_lines = fast["stage_a"], fast["ds"], fast["page_lines"]
     pages = range(len(page_lines))
@@ -1632,6 +2239,31 @@ def check_host_native(fast: dict, staged: dict, smi: str) -> dict:
                 diff, lambda fn=fn, calls=calls: [fn(*args) for args in calls],
                 lambda twin=twin, calls=calls: [twin(*args) for args in calls])
 
+    # viterbi_ctc_f32: float32 sums against numpy's float64 sums; a line
+    # too short for its text has no path on either route.
+    diff = ties = no_path = 0
+    for costs, skip in viterbi:
+        a, b = viterbi_path(native.native_viterbi_ctc, costs, skip), viterbi_path(
+            viterbi_ctc, costs, skip)
+        if a is None or b is None:
+            no_path += a is None and b is None
+            diff += (a is None) != (b is None)
+        elif not np.array_equal(a, b):
+            ca, cb = path_cost(costs, a), path_cost(costs, b)
+            if abs(ca - cb) <= len(costs) * 2.0 ** -23 * max(abs(ca), abs(cb)):
+                ties += 1
+            else:
+                diff += 1
+    aligned = [x for x in viterbi if viterbi_path(viterbi_ctc, *x) is not None]
+    frames = sum(len(c) for c, _ in aligned)
+    compare("native_viterbi_ctc", f"{len(viterbi)} lines of config 5's ALTO output ({no_path} "
+            f"without a path on both routes; timed on the other {len(aligned)}, {frames} "
+            "frames)", diff, lambda: [native.native_viterbi_ctc(*x) for x in aligned],
+            lambda: [viterbi_ctc(*x) for x in aligned])
+    record["viterbi_ctc_f32"].update(ties=ties, no_path=no_path)
+    log(f"host viterbi_ctc_f32: {ties} of {len(aligned)} paths differ from numpy's at a tie "
+        "within float32 rounding")
+
     bad = {k: v["differences"] for k, v in record.items() if v["differences"]}
     if bad:
         raise AssertionError(f"host C++ differs from its numpy twins: {bad}")
@@ -1663,13 +2295,16 @@ def main() -> int:
     launches_cli, cli, cli_args = run_cli(pipe, rng, smi)
     check_staged_against_cpu(rng)
     launches_staged, staged, staged_args, staged_host = run_staged(pipe, rng, smi)
-    host_native = check_host_native(fast_host, staged_host, smi)
+    launches_config1, config1, config1_args = run_config1(rng, smi)
+    launches_config5, config5, config5_args, viterbi_inputs = run_config5(pipe, rng, smi)
+    host_native = check_host_native(fast_host, staged_host, viterbi_inputs, smi)
     # The kernel against its plain version, and its times, at the main
     # path's shapes (the last config-2 batch's pages and detected lines)
     # and at the command line's (its last batch: page batch 4, line slot
     # 32, crop bucket 2048).
     main_check = check_warp(main_args, "config 2")
     cli_check = check_warp(cli_args, "command line")
+    config5_check = check_warp(config5_args, "config 5")
     warp = {
         "name": "warp_lines", "route": "cuda",
         "source": "pero_ocr_tpu_torch/csrc/warp_lines.cu",
@@ -1679,6 +2314,8 @@ def main() -> int:
         **stage_b, **config2,
         **{f"mixed_lines_{k}": v for k, v in mixed.items()},
         **{f"cli_{k}": v for k, v in cli_check.items()},
+        "launches_config5": launches_config5["warp_lines"],
+        **{f"config5_{k}": v for k, v in config5_check.items()},
     }
 
     fields = {
@@ -1687,10 +2324,16 @@ def main() -> int:
         "replaces": "pero_ocr_tpu/ops/warp.py:188",
         "launches": launches_staged,
         **check_warp_fields(*staged_args, rng, "staged, last page"),
+        "launches_config1": launches_config1,
+        "launches_config5": launches_config5["warp_fields"],
+        **{f"config1_{k}": v for k, v in check_warp_fields(
+            *config1_args, rng, "config 1, last A4 page").items()},
     }
 
     print(json.dumps({"cli": cli}))
     print(json.dumps({"staged": staged}))
+    print(json.dumps({"config1": config1}))
+    print(json.dumps({"config5": config5}))
     print(json.dumps({"host_native": host_native}))
     print(smi)
     print(json.dumps({"kernels": [warp, fields]}))

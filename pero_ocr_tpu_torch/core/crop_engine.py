@@ -37,8 +37,8 @@ class EngineLineCropper:
     def crop(self, img: np.ndarray, baseline, heights) -> np.ndarray:
         """The (line_height, W, C) uint8 crop of one line; a line whose
         field cannot be built gives a (line_height, 32, C) zero crop.
-        (The JAX engine's reverse mappings for ALTO and ``blend_in`` are
-        ROADMAP item 9.)"""
+        (The JAX engine's ``reverse_xy_mapping`` and ``blend_in`` have no
+        caller on its paths and are not ported; ROADMAP item 9.)"""
         try:
             field = self.get_crop_inputs(baseline, heights, self.line_height)
             return self.fast_remap(img, field)

@@ -1,10 +1,12 @@
 """Document layout data model (from pero_ocr_tpu/core/layout.py):
 ``TextLine``, ``RegionLayout`` and ``PageLayout`` with Page XML
-(de)serialization, which lives in :mod:`pero_ocr_tpu_torch.core.pagexml`.
+(de)serialization (:mod:`pero_ocr_tpu_torch.core.pagexml`), the ALTO
+writer (:mod:`~pero_ocr_tpu_torch.core.altoxml`) and the logits pickle
+(:mod:`~pero_ocr_tpu_torch.core.logits_io`).
 
-``TextLine`` densifies the sparse CTC logits that the stage-by-stage
-OCR stores (``get_dense_logits``, ``get_full_logprobs``); the logits
-files, ALTO, rendering and quality methods are ROADMAP item 9 and later.
+``TextLine`` densifies the sparse CTC logits that both paths store
+(``get_dense_logits``, ``get_full_logprobs``).  Reading ALTO, the page
+quality and rendering are not ported yet (ROADMAP items 9 and 15).
 """
 
 from __future__ import annotations
@@ -100,6 +102,17 @@ class TextLine:
         """Dense per-frame log-probabilities."""
         return log_softmax_np(self.get_dense_logits(zero_logit_value))
 
+    def get_labels(self) -> np.ndarray:
+        """The transcription as charset label ids; characters outside the
+        charset (and the blank) map to label 0."""
+        char_to_idx = {c: i for i, c in enumerate(self.characters)}
+        blank_idx = self.logits.shape[1] - 1
+        labels = []
+        for ch in self.transcription:
+            idx = char_to_idx.get(ch, 0)
+            labels.append(idx if idx < blank_idx else 0)
+        return np.asarray(labels, dtype=np.int64)
+
 
 class RegionLayout:
     """A page region (paragraph/block) with an outline polygon and its lines."""
@@ -175,3 +188,54 @@ class PageLayout:
         )
         with open(file_name, "w", encoding="utf-8") as f:
             f.write(xml_string)
+
+    # ------------------------------------------------------------------
+    # ALTO XML
+    def to_altoxml_string(
+        self,
+        ocr_processing_element=None,
+        page_uuid: Optional[str] = None,
+        min_line_confidence: float = 0,
+        native: Optional[bool] = None,
+    ) -> str:
+        """``native``: the forced alignment's route (the C++ for None or
+        True, numpy for False)."""
+        from pero_ocr_tpu_torch.core import altoxml
+
+        return altoxml.write_altoxml_string(
+            self,
+            ocr_processing_element=ocr_processing_element,
+            page_uuid=page_uuid,
+            min_line_confidence=min_line_confidence,
+            native=native,
+        )
+
+    def to_altoxml(
+        self,
+        file_name: str,
+        ocr_processing_element=None,
+        page_uuid: Optional[str] = None,
+        native: Optional[bool] = None,
+    ) -> None:
+        alto_string = self.to_altoxml_string(
+            ocr_processing_element=ocr_processing_element, page_uuid=page_uuid, native=native
+        )
+        with open(file_name, "w", encoding="utf-8") as f:
+            f.write(alto_string)
+
+    # ------------------------------------------------------------------
+    # Logits pickle
+    def save_logits(self, file_name: str, missing_line_logits_ok: bool = False) -> None:
+        from pero_ocr_tpu_torch.core import logits_io
+
+        logits_io.save_logits(self, file_name, missing_line_logits_ok)
+
+    def save_logits_bytes(self, missing_line_logits_ok: bool = False) -> bytes:
+        from pero_ocr_tpu_torch.core import logits_io
+
+        return logits_io.save_logits_bytes(self, missing_line_logits_ok)
+
+    def load_logits(self, file) -> None:
+        from pero_ocr_tpu_torch.core import logits_io
+
+        logits_io.load_logits(self, file)

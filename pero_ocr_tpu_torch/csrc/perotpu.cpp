@@ -1,14 +1,16 @@
-// Host geometry of the layout parse: the port's own copy of the five
-// functions of the JAX package's C++ library (native/perotpu.cpp) that
-// config 2's two paths run, with the same C interface and semantics.
-// Each has a numpy twin in the port, which the CPU path runs and the
-// tests hold it against:
+// Host code of the layout parse and of the forced alignment: the port's
+// own copy of the six functions of the JAX package's C++ library
+// (native/perotpu.cpp) that config 2's two paths and config 5's ALTO
+// output run, with the same C interface and semantics.  Each has a
+// numpy twin in the port, which the CPU path runs and the tests hold it
+// against:
 //
 //   cc_label_u8              ops/morphology.connected_components
 //   cc_baselines_f32         parallel/pipeline.py component lines
 //   cc_lines_packed          parallel/pipeline.py unpack + label + lines
 //   separator_penalties_f32  layout_engines/cnn_engine.separator_penalties
 //   polygons_close_f64       core/geometry.polygons_close
+//   viterbi_ctc_f32          core/force_alignment.viterbi_ctc
 //
 // Built with the host compiler and loaded through ctypes by
 // pero_ocr_tpu_torch/utils/kernels.py; bound in utils/native.py.
@@ -539,6 +541,56 @@ int32_t cc_lines_packed(
         ++emitted;
     }
     return emitted;
+}
+
+// ---------------------------------------------------------------------
+// CTC forced alignment: Viterbi over the blank-interleaved state chain.
+// neg_logprobs_states: (t, s) float32 costs gathered per state (+inf
+// clamped to 1e30 by the caller); skip_ok: (s,) whether the advance by
+// two into a state is legal.  Each frame takes, per state, the cheapest
+// of stay, advance by one and advance by two, the first of equals
+// (as numpy's argmin).  The path must end in one of the last two
+// states, the last label before the last blank on a tie.  path_out:
+// (t,) state per frame.  Returns 0, or -1 when no path has a finite
+// cost.
+// ---------------------------------------------------------------------
+int32_t viterbi_ctc_f32(const float* neg_logprobs_states, int32_t t,
+                        int32_t s, const uint8_t* skip_ok,
+                        int32_t* path_out) {
+    const float INF = 1e30f;
+    std::vector<float> cost(s, INF);
+    std::vector<float> next(s);
+    std::vector<int8_t> deltas((size_t)t * s, 0);
+
+    cost[0] = neg_logprobs_states[0];
+    if (s > 1) cost[1] = neg_logprobs_states[1];
+
+    for (int32_t i = 1; i < t; ++i) {
+        const float* frame = neg_logprobs_states + (size_t)i * s;
+        int8_t* drow = deltas.data() + (size_t)i * s;
+        for (int32_t k = 0; k < s; ++k) {
+            float best = cost[k];
+            int8_t d = 0;
+            if (k >= 1 && cost[k - 1] < best) { best = cost[k - 1]; d = 1; }
+            if (k >= 2 && skip_ok[k] && cost[k - 2] < best) { best = cost[k - 2]; d = 2; }
+            next[k] = best + frame[k];
+            drow[k] = d;
+        }
+        std::swap(cost, next);
+    }
+
+    float best = INF;
+    int32_t state = -1;
+    for (int32_t k = std::max(0, s - 2); k < s; ++k) {
+        if (cost[k] < best) { best = cost[k]; state = k; }
+    }
+    if (state < 0 || best >= INF * 0.5f) return -1;
+
+    for (int32_t i = t - 1; i >= 0; --i) {
+        path_out[i] = state;
+        if (i > 0) state -= deltas[(size_t)i * s + state];
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -9,10 +9,12 @@ becomes one whole-page region.
 
 :meth:`FastPagePipeline.from_page_parser` builds the device pipeline
 from a config's ``PageParser``, with the JAX command line's settings.
+With ``want_logits`` each line also gets sparse (T, C) logits rebuilt
+from stage B's top-k download, its charset and its ``logit_coords``,
+which the logits files and the ALTO writer read.
 
 Not ported yet (each raises ``ValueError`` naming its ROADMAP item): line
-crops, logits, re-OCR of existing layouts, the crop transport and
-``prime``.
+crops, re-OCR of existing layouts, the crop transport and ``prime``.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator, List, Sequence
 
 import numpy as np
+from scipy import sparse
 
-from pero_ocr_tpu_torch import CROP_TRANSPORT, LOGITS, not_ported
+from pero_ocr_tpu_torch import CROP_TRANSPORT, not_ported
 from pero_ocr_tpu_torch.core import geometry
 from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
 from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor
@@ -32,11 +35,13 @@ from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.utils.timing import stage_timer
 
 
-def assemble_page_layout(result, page_id, page_size, characters) -> PageLayout:
+def assemble_page_layout(result, page_id, page_size, characters,
+                         line_hook=None) -> PageLayout:
     """Build the full PageLayout for one :class:`PageResult`: TextLines
     (outline polygons, transcriptions, confidences) grouped into one
     region per paragraph cluster with alpha-shape region outlines.
-    ``characters``: the CTC charset; labels outside it are dropped."""
+    ``characters``: the CTC charset; labels outside it are dropped.
+    ``line_hook(line, i)`` runs after each line's own fields are set."""
     h, w = page_size
     layout = PageLayout(id=page_id, page_size=page_size)
     n_emit = len(characters)
@@ -63,6 +68,8 @@ def assemble_page_layout(result, page_id, page_size, characters) -> PageLayout:
                 line.transcription_confidence = float(result.confidences[i])
         else:
             line.transcription = ""
+        if line_hook is not None:
+            line_hook(line, i)
         lines.append(line)
 
     # One region per paragraph cluster; whole-page region when
@@ -102,20 +109,19 @@ class FastPagePipeline:
     :class:`~pero_ocr_tpu_torch.parallel.pipeline.TorchPagePipeline`."""
 
     def __init__(self, pipeline, characters: Sequence[str], page_batch: int = 4,
-                 want_logits: bool = False, want_crops: bool = False,
-                 reocr: bool = False):
-        """``pipeline``: a TorchPagePipeline; ``characters``: the
-        recognizer's charset (CTC blank last), which maps labels to
-        text."""
+                 want_crops: bool = False, reocr: bool = False):
+        """``pipeline``: a TorchPagePipeline; its ``want_logits`` decides
+        whether the lines get logits.  ``characters``: the recognizer's
+        charset (CTC blank last), which maps labels to text."""
         if want_crops:
             raise not_ported("want_crops", CROP_TRANSPORT)
-        if want_logits:
-            raise not_ported("want_logits", LOGITS)
         if reocr:
             raise not_ported("reocr", CROP_TRANSPORT)
         self.pipeline = pipeline
         self.characters = list(characters)
         self.page_batch = page_batch
+        # A frame's width in crop pixels, for the lines' logit_coords.
+        self.net_subsampling = pipeline.recognizer.spec.subsampling
 
     @staticmethod
     def unsupported_features(page_parser) -> List[str]:
@@ -158,13 +164,15 @@ class FastPagePipeline:
     CROP_BUCKET = 2048
 
     @classmethod
-    def from_page_parser(cls, page_parser, page_batch: int = 4,
-                         transport_bits: int = 4) -> "FastPagePipeline":
+    def from_page_parser(cls, page_parser, page_batch: int = 4, transport_bits: int = 4,
+                         want_logits: bool = False, logits_topk: int = 8
+                         ) -> "FastPagePipeline":
         """The JAX ``FastPagePipeline(page_parser, ...)``, page transport:
         the config's ParseNet and recognizer with its LAYOUT_CNN, line
         cropper and OCR settings and the JAX defaults (LINE_SLOT,
         CROP_BUCKET, 4-bit transport, page batch 4), on
-        ``page_parser.device``."""
+        ``page_parser.device``.  ``want_logits``: stage B also copies
+        each frame's ``logits_topk`` largest logits."""
         extractor = next(
             (lp for lp in page_parser.layout_parsers if isinstance(lp, LayoutExtractor)), None
         )
@@ -189,6 +197,8 @@ class FastPagePipeline:
             height_scale=cropper.scale,
             transport_bits=transport_bits,
             adaptive_downsample=bool(parsenet_wrapper.adaptive_downsample),
+            want_logits=want_logits,
+            logits_topk=logits_topk,
             device=page_parser.device,
         )
         return cls(pipeline, ocr_engine.characters, page_batch=page_batch)
@@ -199,12 +209,34 @@ class FastPagePipeline:
     def process_existing_layouts(self, pages, layouts):
         raise not_ported("process_existing_layouts", CROP_TRANSPORT)
 
+    def _attach_logits(self, line, result, i) -> None:
+        """The line's sparse logits from stage B's top-k: a (T, C)
+        float32 csc_matrix, the charset, and ``logit_coords`` from the
+        crop width (the crops sit at column 0: [0, width //
+        net_subsampling])."""
+        vals = result.logits_vals[i].astype(np.float32)  # (T, K)
+        idx = result.logits_idx[i].astype(np.int64)
+        t, k = vals.shape
+        rows = np.repeat(np.arange(t), k)
+        line.logits = sparse.coo_matrix(
+            (vals.ravel(), (rows, idx.ravel())), shape=(t, len(self.characters))
+        ).tocsc()
+        line.characters = list(self.characters)
+        w = int(result.crops_width[i]) if result.crops_width is not None else 0
+        line.logit_coords = [0, min(t, w // self.net_subsampling)]
+
     def _consume_result(self, result, pages, page_ids) -> PageLayout:
         page = pages[result.page_index]
+
+        def line_hook(line, i):
+            if (result.logits_vals is not None and result.labels is not None
+                    and i < result.labels.shape[0]):
+                self._attach_logits(line, result, i)
+
         with stage_timer("document/assemble"):
             return assemble_page_layout(
                 result, page_ids[result.page_index], (page.shape[0], page.shape[1]),
-                self.characters,
+                self.characters, line_hook=line_hook,
             )
 
     def process_pages(self, pages: Iterable[np.ndarray], page_ids: List[str]

@@ -4,11 +4,13 @@ pero_ocr_tpu/document/page_parser.py).
 The factories read the same ``[PAGE_PARSER]``, ``[LAYOUT_PARSER_n]``,
 ``[LINE_CROPPER]`` and ``[OCR]`` keys with the same fallbacks as the JAX
 package.  ``PageParser(config, device).process_page(image, layout)``
-runs config 2's stages one page at a time, each on ``device`` (None
+runs configs 1 and 2 one page at a time, each stage on ``device`` (None
 means CUDA, "cpu" the plain PyTorch path):
 
-- ``LayoutExtractor``: CNN regions and lines (``LayoutEngine.detect``),
-  the lines clipped into their regions;
+- layout: ``LayoutExtractor`` (config 2: CNN regions and lines,
+  ``LayoutEngine.detect``, the lines clipped into their regions), or
+  ``WholePageRegion`` and ``TextlineExtractorSimple`` (config 1: one
+  region over the page, the classical line detector on the host);
 - ``LineCropper``: every line's warp field on the host, then, for pages
   of four lines or more, one upload of the page and of all its width
   buckets' fields in one buffer, one
@@ -17,15 +19,16 @@ means CUDA, "cpu" the plain PyTorch path):
   crops back;
   fewer lines are remapped on the host;
 - ``PageOCR``: the lines' crops in width-bucketed batches through the
-  CTC recognizer, sparse logits kept on each line;
+  CTC recognizer, sparse logits kept on each line (the logits files and
+  the ALTO output read them);
 - line confidences from the logits, and the confident-line filter.
 
 :meth:`~pero_ocr_tpu_torch.document.fast_pipeline.FastPagePipeline.from_page_parser`
 builds the device pipeline of ``--fast-pipeline`` from the same engines.
-What the port lacks raises ``ValueError`` naming its ROADMAP item: other
-layout methods and the ``LAYOUT_CNN`` options ``MULTI_ORIENTATION``,
+What the port lacks raises ``ValueError`` naming its ROADMAP item: the
+other layout methods and the ``LAYOUT_CNN`` options ``MULTI_ORIENTATION``,
 ``MERGE_LINES``, ``ADJUST_HEIGHTS``, ``ADJUST_BASELINES`` and
-``DETECT_STRAIGHT_LINES_IN_REGIONS`` (items 8b-8d), ``RUN_DECODER``
+``DETECT_STRAIGHT_LINES_IN_REGIONS`` (items 8c, 8d), ``RUN_DECODER``
 (item 10) and transformer OCR (item 11).
 """
 
@@ -44,6 +47,7 @@ from pero_ocr_tpu_torch.core import crop_engine as cropper
 from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
 from pero_ocr_tpu_torch.layout_engines import helpers
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import LayoutEngine
+from pero_ocr_tpu_torch.layout_engines.simple_baseline_engine import EngineLineDetectorSimple
 from pero_ocr_tpu_torch.ocr.ctc_engine import CTCEngineLineOCR
 from pero_ocr_tpu_torch.ops import warp
 from pero_ocr_tpu_torch.utils.paths import compose_path
@@ -53,17 +57,20 @@ logger = logging.getLogger(__name__)
 
 # The JAX package's other layout stages (page_parser.py:51-68).
 OTHER_LAYOUT_METHODS = (
-    "REGION_WHOLE_PAGE", "REGION_SIMPLE_THRESHOLD", "LINES_SIMPLE_THRESHOLD",
-    "LINE_FILTER", "LINE_POSTPROCESSING", "LAYOUT_POSTPROCESSING",
-    "REGION_SORTER_NAIVE", "REGION_SORTER_SMART",
+    "REGION_SIMPLE_THRESHOLD", "LINE_FILTER", "LINE_POSTPROCESSING",
+    "LAYOUT_POSTPROCESSING", "REGION_SORTER_NAIVE", "REGION_SORTER_SMART",
 )
 
 
 def layout_parser_factory(config, device=None, config_path="", order=1):
     section = config[f"LAYOUT_PARSER_{order}"]
     method = section["METHOD"]
+    if method == "REGION_WHOLE_PAGE":
+        return WholePageRegion(section, config_path=config_path)
     if method == "LAYOUT_CNN":
         return LayoutExtractor(section, device, config_path=config_path)
+    if method == "LINES_SIMPLE_THRESHOLD":
+        return TextlineExtractorSimple(section, config_path=config_path)
     if method in OTHER_LAYOUT_METHODS:
         raise not_ported(f"[LAYOUT_PARSER_{order}] METHOD = {method}", STAGE_BY_STAGE)
     raise ValueError(f"Unknown layout parser method: {method}")
@@ -91,6 +98,42 @@ def get_prob(best_ids: np.ndarray, best_probs: np.ndarray) -> float:
         else:
             last_prob = max(prob, last_prob)
     return min(worst_prob, last_prob)
+
+
+class WholePageRegion:
+    """One region covering the whole page (JAX page_parser.py:139-150)."""
+
+    def __init__(self, config=None, config_path=""):
+        pass
+
+    def process_page(self, img, page_layout: PageLayout) -> PageLayout:
+        h, w = page_layout.page_size
+        corners = np.asarray([[0, 0], [w, 0], [w, h], [0, h]])
+        page_layout.regions = [RegionLayout("r1", corners)]
+        return page_layout
+
+
+class TextlineExtractorSimple:
+    """Classical line detection in the page's regions (JAX
+    page_parser.py:153-181), on the host."""
+
+    def __init__(self, config, config_path=""):
+        self.engine = EngineLineDetectorSimple(
+            adaptive_threshold=config.getint("ADAPTIVE_THRESHOLD", fallback=91),
+            block_size=config.getint("BLOCK_SIZE", fallback=21),
+            minimum_length=config.getint("MINIMUM_LENGTH", fallback=6),
+            ignored_border_pixels=config.getint("IGNORED_BORDER_PIXELS", fallback=10),
+        )
+
+    def process_page(self, img, page_layout: PageLayout) -> PageLayout:
+        for region in page_layout.regions:
+            b_list, h_list, t_list = self.engine.detect_lines(img, region.polygon)
+            for i, (baseline, heights, textline) in enumerate(zip(b_list, h_list, t_list)):
+                region.lines.append(TextLine(
+                    id=f"{region.id}-l{i + 1:03d}", baseline=baseline, polygon=textline,
+                    heights=heights,
+                ))
+        return page_layout
 
 
 class LayoutExtractor:

@@ -19,8 +19,11 @@ per byte, ``transport_bits=4``) feeds everything:
 - **Stage B** (device): the line-crop warp (the hand-written CUDA
   kernel of :mod:`pero_ocr_tpu_torch.ops.warp`, which stores the crops
   divided by 255 in the recognizer's dtype) -> ``CTCRecognizer`` ->
-  greedy CTC labels and worst-run confidences.  Label copies to the host
-  trail their dispatch by one batch.
+  greedy CTC labels and worst-run confidences; with ``want_logits``, also
+  each frame's ``logits_topk`` largest logits (float16) and their class
+  indices, from which the document layer rebuilds the sparse logits of
+  the logits files and the ALTO output.  Copies to the host trail their
+  dispatch by one batch.
 
 The next batch's host prep, upload and stage A run on a worker thread
 while this thread parses and recognizes the current batch.  Page
@@ -28,9 +31,9 @@ transport decodes all T frames of every crop (no width mask), as the
 JAX page transport does.
 
 Not ported yet (each raises ``ValueError`` naming its ROADMAP item): the
-crop transport, ``want_logits``, the device mesh, transformer
-recognizers and ``prime``.  :mod:`pero_ocr_tpu_torch.document.fast_pipeline`
-turns the :class:`PageResult` stream into Page XML.
+crop transport, the device mesh, transformer recognizers and ``prime``.
+:mod:`pero_ocr_tpu_torch.document.fast_pipeline` turns the
+:class:`PageResult` stream into Page XML.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from pero_ocr_tpu_torch import (
-    CROP_TRANSPORT, LOGITS, SCALE_OUT, TRANSFORMERS, not_ported, resolve_device,
+    CROP_TRANSPORT, SCALE_OUT, TRANSFORMERS, not_ported, resolve_device,
 )
 from pero_ocr_tpu_torch.core import line_geometry
 from pero_ocr_tpu_torch.layout_engines import helpers
@@ -67,6 +70,10 @@ class PageResult:
     crops_width: Optional[np.ndarray]
     clusters: Optional[List[int]] = None   # paragraph id per line
     confidences: Optional[np.ndarray] = None  # (N,) worst-run prob per line
+    # want_logits: each frame's top-k logits, (N, T, K) float16, and
+    # their class indices, (N, T, K) uint16.
+    logits_vals: Optional[np.ndarray] = None
+    logits_idx: Optional[np.ndarray] = None
     # Textline outline polygons (one per line), built for the clustering
     # and reused by the layout assembly.  None when clustering is off
     # or the lines came from an override.
@@ -105,6 +112,7 @@ class TorchPagePipeline:
         cluster_paragraphs: bool = True,
         paragraph_line_threshold: float = 0.3,
         want_logits: bool = False,
+        logits_topk: int = 8,
         mesh=None,
         device=None,
         native: Optional[bool] = None,
@@ -118,8 +126,6 @@ class TorchPagePipeline:
         The other arguments mean what they mean for ``TPUPagePipeline``."""
         if transport != "page":
             raise not_ported(f"transport={transport!r}", CROP_TRANSPORT)
-        if want_logits:
-            raise not_ported("want_logits", LOGITS)
         if mesh is not None:
             raise not_ported("mesh", SCALE_OUT)
         if not isinstance(recognizer, CTCRecognizer):
@@ -145,6 +151,8 @@ class TorchPagePipeline:
         self.max_lines = max_lines
         self.line_slot = line_slot if max_lines is None else min(line_slot, max_lines)
         self.cluster_paragraphs = cluster_paragraphs
+        self.want_logits = want_logits
+        self.logits_topk = logits_topk
         self._clusterer = ParagraphClusterer(paragraph_line_threshold, self.native)
 
     def prime(self, pages, page_batch: int = 8) -> None:
@@ -197,7 +205,9 @@ class TorchPagePipeline:
     def stage_b(self, pages_u8, baselines, heights):
         """pages_u8 (PB, H, W) u8; baselines (PB, N, P, 2); heights
         (PB, N, 2) -> (labels (PB, N, T), lengths (PB, N), confidences
-        (PB, N)).  The warp stores the crops divided by 255 in the
+        (PB, N), top-k logits (PB, N, T, K) float16 and their indices
+        (PB, N, T, K) int32, or None and None without ``want_logits``).
+        The warp stores the crops divided by 255 in the
         recognizer's dtype."""
         crops = warp_lines(
             pages_u8, baselines, heights, self.crop_height, self.crop_bucket,
@@ -218,7 +228,18 @@ class TorchPagePipeline:
         labels, lengths = ctc_ops.greedy_ctc_labels(logits, valid)
         confs = ctc_ops.greedy_worst_run_confidence(logits, valid)
         n = crops.shape[0] // pb
-        return labels.reshape(pb, n, -1), lengths.reshape(pb, n), confs.reshape(pb, n)
+        vals = idx = None
+        if self.want_logits:
+            # The K largest logits a frame (JAX: lax.top_k in XLA) stand
+            # in for the staged path's p < 1e-4 pruning; float16 values
+            # and int32 indices (uint16 on the host) cut the copy.
+            k = min(self.logits_topk, logits.shape[-1])
+            vals, idx = torch.topk(logits, k, dim=-1)
+            t = logits.shape[1]
+            vals = vals.to(torch.float16).reshape(pb, n, t, k)
+            idx = idx.to(torch.int32).reshape(pb, n, t, k)
+        return (labels.reshape(pb, n, -1), lengths.reshape(pb, n), confs.reshape(pb, n),
+                vals, idx)
 
     @staticmethod
     def unpack4(packed_u8: torch.Tensor) -> torch.Tensor:
@@ -538,10 +559,13 @@ class TorchPagePipeline:
                 yield from self._drain(*inflight)
 
     def _drain(self, ids, geoms, outs_b):
-        labels = lengths = confs = None
+        labels = lengths = confs = lvals = lidx = None
         if outs_b is not None:
             with stage_timer("pipeline/labels_sync"):
-                labels, lengths, confs = (t.cpu().numpy() for t in outs_b)
+                labels, lengths, confs, lvals, lidx = (
+                    None if t is None else t.cpu().numpy() for t in outs_b)
+            if lidx is not None:
+                lidx = lidx.astype(np.uint16)
         for slot, (i, (b_list, h_list, widths, clusters, tlines)) in enumerate(zip(ids, geoms)):
             if widths is None or labels is None:
                 yield PageResult(i, b_list, h_list, None, None, None, clusters,
@@ -549,5 +573,8 @@ class TorchPagePipeline:
             else:
                 yield PageResult(
                     i, b_list, h_list, labels[slot], lengths[slot], widths, clusters,
-                    confs[slot], textlines=tlines,
+                    confs[slot],
+                    lvals[slot] if lvals is not None else None,
+                    lidx[slot] if lidx is not None else None,
+                    textlines=tlines,
                 )

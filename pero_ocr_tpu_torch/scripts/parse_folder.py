@@ -1,12 +1,15 @@
-"""Folder OCR to Page XML on one GPU: the port of scripts/parse_folder.py.
+"""Folder OCR on one GPU: the port of scripts/parse_folder.py.
 
     python3 -m pero_ocr_tpu_torch.scripts.parse_folder \\
-        -c config.ini -i images/ --output-xml-path page_xml/ [--fast-pipeline]
+        -c config.ini -i images/ --output-xml-path page_xml/ [--fast-pipeline] \\
+        [--output-logit-path logits/] [--output-alto-path alto/]
 
 It reads the config and its OCR JSON, loads the flax msgpack checkpoints
 they name into the port's models, decodes the pages (PNG or binary PNM,
-:mod:`pero_ocr_tpu_torch.utils.image_io`) and writes one Page XML file
-per page.  Without ``--fast-pipeline`` each page goes through
+:mod:`pero_ocr_tpu_torch.utils.image_io`) and writes, per page, a Page
+XML file, a ``.logits`` pickle of the lines' sparse logits and an ALTO
+file with word boxes from the forced alignment, each where asked.
+Without ``--fast-pipeline`` each page goes through
 ``PageParser.process_page`` (the stage-by-stage path; the line crops are
 sampled by the hand-written CUDA field warp), with the next page decoded
 on a worker thread, and a page that fails is reported and skipped, as
@@ -17,8 +20,8 @@ would run differently (``FastPagePipeline.unsupported_features``) falls
 back to the stage-by-stage path, as in the JAX command line.
 ``--device cpu`` runs the plain PyTorch versions instead.  The host
 geometry (connected components, paragraph clustering, the fast path's
-parse) follows the device too: the port's C++ on CUDA, numpy/scipy on
-the CPU.
+parse) and the ALTO output's forced alignment follow the device too: the
+port's C++ on CUDA, numpy/scipy on the CPU.
 
 Options and config features the port lacks exit with code 2 and name
 their ROADMAP item, rather than change what the run means.  The JAX
@@ -41,12 +44,13 @@ from queue import Queue
 from typing import List, Optional, Set
 
 from pero_ocr_tpu_torch import (
-    CROP_TRANSPORT, IMAGES, LOGITS, SCALE_OUT, STAGE_BY_STAGE, not_ported, resolve_device,
+    CROP_TRANSPORT, IMAGES, SCALE_OUT, STAGE_BY_STAGE, not_ported, resolve_device,
 )
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
 from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor, PageParser
 from pero_ocr_tpu_torch.ops.warp import warp_fields, warp_lines
+from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.checkpoint import set_strict_loading
 from pero_ocr_tpu_torch.utils.image_io import imread
 from pero_ocr_tpu_torch.utils.timing import reset_timing, stage_timer, timing_report
@@ -58,7 +62,7 @@ PAGE_BATCH = 4  # the JAX command line's page batch on one device
 
 def parse_arguments(argv=None):
     parser = argparse.ArgumentParser(
-        description="Page images -> Page XML with the PyTorch/CUDA port."
+        description="Page images -> Page XML, logits and ALTO with the PyTorch/CUDA port."
     )
     parser.add_argument("-c", "--config", required=True, help="Path to input config file.")
     parser.add_argument("-s", "--skip-processed", action="store_true",
@@ -153,8 +157,6 @@ def refusals(args, paths) -> List[str]:
     asked = [
         (paths["INPUT_XML_PATH"], "-x/--input-xml-path (re-OCR of existing layouts)",
          CROP_TRANSPORT),
-        (paths["OUTPUT_LOGIT_PATH"], "--output-logit-path", LOGITS),
-        (paths["OUTPUT_ALTO_PATH"], "--output-alto-path", LOGITS),
         (paths["OUTPUT_LINE_PATH"], "--output-line-path (line crops)", CROP_TRANSPORT),
         (paths["OUTPUT_RENDER_PATH"], "--output-render-path (JPEG renders)", IMAGES),
         (args.transport == "crops", "--transport crops", CROP_TRANSPORT),
@@ -216,6 +218,18 @@ def main(argv=None) -> None:
                 for name in lp.unported_options()]
     if unported:
         refuse([str(not_ported(f"[LAYOUT_PARSER] {', '.join(unported)}", STAGE_BY_STAGE))])
+    output_logit_path = paths["OUTPUT_LOGIT_PATH"]
+    output_alto_path = paths["OUTPUT_ALTO_PATH"]
+    # No CTC logits, no ALTO or logits files (the JAX command line's
+    # preflight).
+    if not page_parser.provides_ctc_logits and output_alto_path:
+        logging.error("Cannot create ALTO with current PageParser "
+                      "(transformer outputs are incompatible)")
+        sys.exit(2)
+    if not page_parser.provides_ctc_logits and output_logit_path:
+        logging.error("Cannot store logits with current PageParser "
+                      "(transformer outputs are incompatible)")
+        sys.exit(2)
     fast_pipeline = args.fast_pipeline
     if fast_pipeline:
         unsupported = FastPagePipeline.unsupported_features(page_parser)
@@ -234,8 +248,11 @@ def main(argv=None) -> None:
             "INPUT_IMAGE_PATH has to be specified (INPUT_XML_PATH needs the crop "
             f"transport). It is missing in {config_path}."
         )
-    if output_xml_path is not None:
-        os.makedirs(output_xml_path, exist_ok=True)
+    for path in (output_xml_path, output_logit_path, output_alto_path):
+        if path is not None:
+            os.makedirs(path, exist_ok=True)
+    outputs = PageOutputs(output_xml_path, output_logit_path, output_alto_path,
+                          native_lib.use_native(None, device))
 
     ignored = {"", ".xml", ".logits"}
     images_to_process = sorted(
@@ -250,7 +267,7 @@ def main(argv=None) -> None:
         logger.info("Shard %d/%d: %d file(s).", args.shard_index, args.shard_count,
                     len(ids_to_process))
     if args.skip_processed:
-        done = load_already_processed_files([output_xml_path])
+        done = load_already_processed_files([output_xml_path, output_logit_path])
         if done:
             logger.info("Already processed %d file(s).", len(done))
             images_to_process = [
@@ -261,10 +278,10 @@ def main(argv=None) -> None:
     t_start = time.time()
     if fast_pipeline:
         results = run_fast(page_parser, args, input_image_path, images_to_process,
-                           ids_to_process, output_xml_path)
+                           ids_to_process, outputs)
     else:
         results = run_staged(page_parser, input_image_path, images_to_process,
-                             ids_to_process, output_xml_path)
+                             ids_to_process, outputs)
 
     if args.output_transcriptions_file_path is not None:
         with open(args.output_transcriptions_file_path, "w", encoding="utf-8") as f:
@@ -278,14 +295,44 @@ def main(argv=None) -> None:
         print(f"warp_fields kernel launches: {warp_fields.launches}")
 
 
+class PageOutputs:
+    """The files written for each page, in the JAX command line's order:
+    Page XML, the logits pickle, ALTO.  ``native``: the route of the
+    ALTO output's forced alignment."""
+
+    def __init__(self, xml_path: Optional[str], logit_path: Optional[str],
+                 alto_path: Optional[str], native: bool):
+        self.xml_path = xml_path
+        self.logit_path = logit_path
+        self.alto_path = alto_path
+        self.native = native
+
+    @property
+    def want_logits(self) -> bool:
+        return bool(self.logit_path or self.alto_path)
+
+    def write(self, layout: PageLayout, file_id: str) -> None:
+        if self.xml_path is not None:
+            with stage_timer("cli/write_xml"):
+                layout.to_pagexml(os.path.join(self.xml_path, file_id + ".xml"))
+        if self.logit_path is not None:
+            with stage_timer("cli/write_logits"):
+                layout.save_logits(os.path.join(self.logit_path, file_id + ".logits"))
+        if self.alto_path is not None:
+            with stage_timer("cli/write_alto"):
+                layout.to_altoxml(os.path.join(self.alto_path, file_id + ".xml"),
+                                  native=self.native)
+
+
 def run_fast(page_parser, args, input_image_path, images_to_process, ids_to_process,
-             output_xml_path) -> List[List[str]]:
+             outputs: PageOutputs) -> List[List[str]]:
     """The ``--fast-pipeline`` loop: decode every page, then stream the
     page batches through ``FastPagePipeline``.  Returns each page's
     transcription lines."""
     with stage_timer("cli/build"):
         fast = FastPagePipeline.from_page_parser(
             page_parser, transport_bits=args.transport_bits, page_batch=PAGE_BATCH,
+            want_logits=outputs.want_logits,
         )
     results = []
     with stage_timer("cli/pages"):
@@ -294,9 +341,7 @@ def run_fast(page_parser, args, input_image_path, images_to_process, ids_to_proc
             with stage_timer("cli/decode"):
                 images.append(imread(os.path.join(input_image_path, f)))
         for layout in fast.process_pages(images, ids_to_process):
-            if output_xml_path is not None:
-                with stage_timer("cli/write_xml"):
-                    layout.to_pagexml(os.path.join(output_xml_path, layout.id + ".xml"))
+            outputs.write(layout, layout.id)
             results.append([
                 f"{layout.id}-{line.id}.jpg {line.transcription}"
                 for line in layout.lines_iterator() if line.transcription
@@ -329,10 +374,10 @@ class ImagePrefetcher:
 
 
 def process_one(page_parser, image, file_id: str, index: int, count: int,
-                output_xml_path: Optional[str]) -> List[str]:
-    """One page through ``PageParser.process_page`` and into its Page
-    XML file (the JAX ``Computator``): a failure is printed and the page
-    skipped.  Returns the page's transcription lines."""
+                outputs: PageOutputs) -> List[str]:
+    """One page through ``PageParser.process_page`` and into its files
+    (the JAX ``Computator``): a failure is printed and the page skipped.
+    Returns the page's transcription lines."""
     print(f"Processing {file_id}")
     t1 = time.time()
     annotations = []
@@ -341,9 +386,7 @@ def process_one(page_parser, image, file_id: str, index: int, count: int,
             raise image
         page_layout = PageLayout(id=file_id, page_size=(image.shape[0], image.shape[1]))
         page_layout = page_parser.process_page(image, page_layout)
-        if output_xml_path is not None:
-            with stage_timer("cli/write_xml"):
-                page_layout.to_pagexml(os.path.join(output_xml_path, file_id + ".xml"))
+        outputs.write(page_layout, file_id)
         for line in sorted(page_layout.lines_iterator(), key=lambda x: x.id):
             if line.transcription:
                 annotations.append(f"{file_id}-{line.id}.jpg " + line.transcription)
@@ -362,7 +405,7 @@ def process_one(page_parser, image, file_id: str, index: int, count: int,
 
 
 def run_staged(page_parser, input_image_path, images_to_process, ids_to_process,
-               output_xml_path) -> List[List[str]]:
+               outputs: PageOutputs) -> List[List[str]]:
     """The stage-by-stage loop: one page at a time, the next decoded on
     a worker thread.  Returns each page's transcription lines."""
     results = []
@@ -370,7 +413,7 @@ def run_staged(page_parser, input_image_path, images_to_process, ids_to_process,
         prefetcher = ImagePrefetcher(input_image_path, images_to_process)
         for index, file_id in enumerate(ids_to_process):
             results.append(process_one(page_parser, prefetcher.get(), file_id, index,
-                                       len(ids_to_process), output_xml_path))
+                                       len(ids_to_process), outputs))
     return results
 
 

@@ -1,6 +1,7 @@
 """ctypes bindings of the port's host C++ (``csrc/perotpu.cpp``), the
 counterpart of the JAX package's ``pero_ocr_tpu/utils/native.py`` for
-the five functions config 2's paths run.
+the five functions config 2's paths run and the forced alignment of
+config 5's ALTO output (``viterbi_ctc_f32``).
 
 The arguments and return values are the JAX bindings'.  Where those
 return None for a missing library, these raise: the library is built
@@ -54,6 +55,9 @@ _SIGNATURES = {  # name: (restype, argtypes), as in csrc/perotpu.cpp
     "polygons_close_f64": (None, [
         ctypes.POINTER(_F64), ctypes.POINTER(_I32), _I32, ctypes.POINTER(_I32), _I32,
         ctypes.POINTER(_F64), ctypes.POINTER(_U8),
+    ]),
+    "viterbi_ctc_f32": (_I32, [
+        ctypes.POINTER(_F32), _I32, _I32, ctypes.POINTER(_U8), ctypes.POINTER(_I32),
     ]),
 }
 
@@ -211,3 +215,25 @@ def native_polygons_close(polys: Sequence[np.ndarray], pairs: np.ndarray,
         _ptr(thresholds, _F64), _ptr(out, _U8),
     )
     return out.astype(bool)
+
+
+def native_viterbi_ctc(neg_logprobs_states: np.ndarray, skip_ok: np.ndarray) -> np.ndarray:
+    """The Viterbi path over (T, S) gathered CTC costs, in float32
+    (``viterbi_ctc_f32``): (T,) int32 states.  Raises ValueError when no
+    path has a finite cost."""
+    lib = get_library()
+    calls["viterbi_ctc_f32"] += 1
+    costs = np.ascontiguousarray(neg_logprobs_states, dtype=np.float32)
+    costs = np.minimum(costs, 1e30)  # +inf to the C++'s finite sentinel
+    skip = np.ascontiguousarray(skip_ok, dtype=np.uint8)
+    if costs.ndim != 2 or skip.shape != (costs.shape[1],) or costs.shape[0] < 1:
+        raise ValueError(f"viterbi: costs {costs.shape} with skip mask {skip.shape}")
+    t, s = costs.shape
+    path = np.empty(t, dtype=np.int32)
+    rc = lib.viterbi_ctc_f32(_ptr(costs, _F32), t, s, _ptr(skip, _U8), _ptr(path, _I32))
+    if rc != 0:
+        raise ValueError(
+            "It was not possible to align the states with the logits, "
+            "best path has cost of np.inf"
+        )
+    return path

@@ -23,11 +23,14 @@ case asks for the same number of pages, regions and lines per page.
 
 import configparser
 import functools
+import importlib.util
 import json
 import logging
 import os
+import pickle
 import random
 import re
+import sys
 import xml.etree.ElementTree as ET
 
 import cv2
@@ -40,11 +43,12 @@ import torch
 from pero_ocr_tpu.core.layout import PageLayout as JaxPageLayout
 from pero_ocr_tpu.document.fast_pipeline import FastPagePipeline as JaxFastPagePipeline
 from pero_ocr_tpu.document.page_parser import PageParser as JaxPageParser
+from pero_ocr_tpu.parallel import pipeline as jax_pipeline
+from pero_ocr_tpu.utils import checkpoint as jax_checkpoint
 from pero_ocr_tpu.layout_engines import parsenet_wrapper as jax_parsenet_wrapper
 from pero_ocr_tpu.models.parsenet import ParseNet as FlaxParseNet
 from pero_ocr_tpu.models.recognizer import CTCRecognizer as FlaxRecognizer
 from pero_ocr_tpu.models.recognizer import RecognizerSpec as FlaxSpec
-from pero_ocr_tpu.utils import native
 from pero_ocr_tpu.utils.checkpoint import save_variables
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
@@ -55,6 +59,7 @@ from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.scripts import parse_folder
 from pero_ocr_tpu_torch.utils import checkpoint
 from tests.test_torch_pipeline import CHARS, DETECTOR, RECOGNIZER, _page, _train_detector
+from tests.test_torch_native import jax_native_library
 
 PAGE_NS = "{http://schema.primaresearch.org/PAGE/gts/pagecontent/2019-07-15}"
 INI = """[PAGE_PARSER]
@@ -192,6 +197,22 @@ def _run_port(args):
         checkpoint.set_strict_loading(False)  # main() sets it process-wide
 
 
+def _jax_cli(args):
+    """The JAX command line (scripts/parse_folder.py) in this process."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_parse_folder", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "scripts", "parse_folder.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    argv = sys.argv
+    sys.argv = ["parse_folder.py", *args]
+    try:
+        module.main()
+    finally:
+        sys.argv = argv
+        jax_checkpoint.set_strict_loading(False)
+
+
 def _jax_layouts(bundle):
     page_parser = JaxPageParser(_config(bundle / "config.ini"), config_path=str(bundle))
     fast = JaxFastPagePipeline(page_parser, page_batch=4, transport_bits=4)
@@ -210,7 +231,7 @@ def _port_xml(bundle, out, *extra):
 
 # The JAX pipeline clusters through its native library; its Python
 # fallback rounds the penalty windows differently (ROADMAP.md, section 3).
-@pytest.mark.skipif(native.get_library() is None, reason="native library unavailable")
+@pytest.mark.skipif(jax_native_library() is None, reason="native library unavailable")
 def test_cli_page_xml_equals_jax(bundle, tmp_path, float32_parsenets, capsys):
     got = _port_xml(bundle, tmp_path / "xml", "--timing-report")
     printed = capsys.readouterr().out
@@ -260,7 +281,7 @@ def assert_lines_close(got_lines, want_lines):
         assert np.abs(np.subtract(a.heights, b.heights)).max() <= BF16_HEIGHT_PX
 
 
-@pytest.mark.skipif(native.get_library() is None, reason="native library unavailable")
+@pytest.mark.skipif(jax_native_library() is None, reason="native library unavailable")
 def test_cli_bfloat16_detector_counts_match_jax(bundle, tmp_path):
     """No patch: both ParseNets in bfloat16, as the config builds them:
     stage A's masks, and the command line's Page XML against the JAX
@@ -376,8 +397,6 @@ def test_unsupported_features_match_jax(bundle):
 
 REFUSED = [
     (["-x", "xml"], "Crop transport"),
-    (["--output-logit-path", "{tmp}/l"], "Logits, forced alignment and ALTO"),
-    (["--output-alto-path", "{tmp}/a"], "Logits, forced alignment and ALTO"),
     (["--output-line-path", "{tmp}/lines"], "Crop transport"),
     (["--output-render-path", "{tmp}/r"], "JPEG/TIFF decoding"),
     (["--transport", "crops"], "Crop transport"),
@@ -401,7 +420,7 @@ def test_cli_refuses_unported_options(bundle, tmp_path, caplog, extra, item):
     assert not (tmp_path / "xml").exists()
 
 
-@pytest.mark.skipif(native.get_library() is None, reason="native library unavailable")
+@pytest.mark.skipif(jax_native_library() is None, reason="native library unavailable")
 @pytest.mark.parametrize("fast", [False, True], ids=["no_fast", "fallback_filter"])
 def test_cli_stage_by_stage_equals_jax_page_parser(bundle, tmp_path, float32_parsenets, capsys,
                                                     fast):
@@ -476,3 +495,136 @@ def test_cli_fails_without_checkpoint_or_decoder(bundle, tmp_path):
     with pytest.raises(ValueError, match="JPEG/TIFF decoding"):
         _run_port(["-c", str(bundle / "config.ini"), "-i", str(jpeg), "--fast-pipeline",
                    "--device", "cpu"])
+
+
+# The command lines' logits and ALTO files.  Held to: equal Page XML
+# (timestamps masked, conf within 0.001); per logits file the same line
+# ids, charsets and logit_coords, the same sparsity pattern and values
+# within LOGITS_ATOL (the staged path's float32 logits differ by about
+# 1e-5 between the packages, the fast path's float16 top-k by one
+# float16 ulp); ALTO with the same lines and words, boxes within
+# ALTO_BOX_PX and WC within ALTO_WC_TOL.
+LOGITS_ATOL = 1e-3
+ALTO_BOX_PX = 4
+ALTO_WC_TOL = 0.02
+ALTO_NS = "{http://www.loc.gov/standards/alto/ns-v2#}"
+
+
+def _load_pickle(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def assert_logits_files_close(got_path, want_path):
+    got, want = _load_pickle(got_path), _load_pickle(want_path)
+    assert sorted(got) == sorted(want)
+    assert got["line_characters"] == want["line_characters"]
+    assert {k: list(v) for k, v in got["logit_coords"].items()} == {
+        k: list(v) for k, v in want["logit_coords"].items()}
+    lines = [k for k in got if k not in ("line_characters", "logit_coords")]
+    for key in lines:
+        a, b = got[key], want[key]
+        assert a.format == b.format == "csc" and a.shape == b.shape and a.dtype == b.dtype
+        a, b = a.toarray(), b.toarray()
+        np.testing.assert_array_equal(a != 0, b != 0)
+        np.testing.assert_allclose(a, b, atol=LOGITS_ATOL, rtol=0)
+    return len(lines)
+
+
+def alto_lines(xml):
+    root = ET.fromstring(xml.encode("utf-8"))
+    return [[{k: s.get(k) for k in ("CONTENT", "HPOS", "VPOS", "WIDTH", "HEIGHT", "WC")}
+             for s in line.iter(ALTO_NS + "String")]
+            for line in root.iter(ALTO_NS + "TextLine")]
+
+
+def assert_alto_close(got, want):
+    mask = functools.partial(re.sub, r"<processingDateTime>[^<]*</processingDateTime>",
+                             "<processingDateTime/>")
+    strip = functools.partial(re.sub, r"<String [^>]*/>|<SP [^>]*/>", "")
+    assert strip(mask(got)) == strip(mask(want))  # all but the words' attributes
+    got_lines, want_lines = alto_lines(got), alto_lines(want)
+    assert [[w["CONTENT"] for w in ln] for ln in got_lines] == [
+        [w["CONTENT"] for w in ln] for ln in want_lines]
+    for a_line, b_line in zip(got_lines, want_lines):
+        for a, b in zip(a_line, b_line):
+            for key in ("HPOS", "VPOS", "WIDTH", "HEIGHT"):
+                assert abs(int(a[key]) - int(b[key])) <= ALTO_BOX_PX, (key, a, b)
+            assert (a["WC"] is None) == (b["WC"] is None)
+            if a["WC"] is not None:
+                assert abs(float(a["WC"]) - float(b["WC"])) <= ALTO_WC_TOL
+    return sum(len(ln) for ln in got_lines)
+
+
+@pytest.fixture
+def jax_gather_warp(monkeypatch):
+    """Every JAX page pipeline built in the test runs its exact gather
+    warp, the operation the port's kernel computes."""
+    init = jax_pipeline.TPUPagePipeline.__init__
+
+    def gather_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self._stage_b_warp = self._stage_b_warp_gather
+
+    monkeypatch.setattr(jax_pipeline.TPUPagePipeline, "__init__", gather_init)
+
+
+@pytest.mark.skipif(jax_native_library() is None, reason="native library unavailable")
+@pytest.mark.parametrize("fast", [False, True], ids=["staged", "fast_pipeline"])
+def test_cli_logits_and_alto_equal_jax_cli(bundle, tmp_path, float32_parsenets, jax_gather_warp,
+                                           capsys, fast):
+    """Both command lines with --output-xml-path, --output-logit-path
+    and --output-alto-path, without and with --fast-pipeline."""
+    ini = staged_config(bundle, tmp_path) if not fast else bundle / "config.ini"
+    flags = ["--fast-pipeline"] if fast else []
+    runs = {}
+    for name, run in (("port", _run_port), ("jax", _jax_cli)):
+        out = tmp_path / name
+        random.seed(0)
+        run(["-c", str(ini), "-i", str(bundle / "images"), "--device", "cpu",
+             "--output-xml-path", str(out / "xml"), "--output-logit-path", str(out / "logits"),
+             "--output-alto-path", str(out / "alto")] + flags)
+        runs[name] = out
+    printed = capsys.readouterr().out
+    assert printed.count("(fast pipeline)") == (6 if fast else 0)
+    lines = words = 0
+    for page in [f"page-{i}" for i in range(3)]:
+        got, want = runs["port"], runs["jax"]
+        assert_xml_equal((got / "xml" / f"{page}.xml").read_text(encoding="utf-8"),
+                         (want / "xml" / f"{page}.xml").read_text(encoding="utf-8"))
+        lines += assert_logits_files_close(got / "logits" / f"{page}.logits",
+                                           want / "logits" / f"{page}.logits")
+        words += assert_alto_close((got / "alto" / f"{page}.xml").read_text(encoding="utf-8"),
+                                   (want / "alto" / f"{page}.xml").read_text(encoding="utf-8"))
+    assert lines >= 9 and words > 0
+    for name in ("xml", "logits", "alto"):
+        assert sorted(os.listdir(runs["port"] / name)) == sorted(os.listdir(runs["jax"] / name))
+
+
+def test_cli_skips_pages_with_logits_and_refuses_alto_without_ctc(bundle, tmp_path, capsys,
+                                                                  caplog):
+    """-s needs a page in every asked output, as in the JAX command line;
+    ALTO and logits files need a CTC recognizer (the JAX preflight)."""
+    out = tmp_path / "out"
+    args = ["-c", str(bundle / "config.ini"), "-i", str(bundle / "images"), "--device", "cpu",
+            "--fast-pipeline", "--output-xml-path", str(out / "xml"),
+            "--output-logit-path", str(out / "logits")]
+    _run_port(args)
+    os.remove(out / "logits" / "page-1.logits")
+    capsys.readouterr()
+    _run_port(args + ["-s"])
+    assert [line for line in capsys.readouterr().out.splitlines()
+            if line.startswith("DONE")] == ["DONE page-1 (fast pipeline)"]
+    assert sorted(os.listdir(out / "logits")) == [f"page-{i}.logits" for i in range(3)]
+
+    config = _config(bundle / "config.ini")
+    config.remove_section("OCR")
+    config["PAGE_PARSER"]["RUN_OCR"] = "no"
+    with open(tmp_path / "no_ocr.ini", "w") as f:
+        config.write(f)
+    os.symlink(bundle / "layout", tmp_path / "layout")
+    for option in ("--output-alto-path", "--output-logit-path"):
+        with caplog.at_level(logging.ERROR), pytest.raises(SystemExit) as e:
+            _run_port(["-c", str(tmp_path / "no_ocr.ini"), "-i", str(bundle / "images"),
+                       "--device", "cpu", option, str(tmp_path / "x")])
+        assert e.value.code == 2 and "transformer outputs are incompatible" in caplog.text

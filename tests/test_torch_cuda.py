@@ -402,3 +402,61 @@ def test_cuda_failed_host_build_raises(cuda, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="compiler"):
         list(pipe.run(pages, page_batch=1))
     assert native.calls["cc_label_u8"] == calls
+
+
+def test_config1_field_warp_matches_plain(cuda):
+    """Config 1's crops: the classical detector's lines on a printed page
+    (host code), their fields packed as LineCropper packs them, one
+    warp_fields launch on the card, bit-equal to the plain version; and
+    LineCropper on the card gives the CPU's crops."""
+    import configparser
+
+    from chip_smoke import printed_pages
+    from pero_ocr_tpu_torch.core.layout import PageLayout
+    from pero_ocr_tpu_torch.document.page_parser import (
+        LineCropper, TextlineExtractorSimple, WholePageRegion,
+    )
+
+    page = printed_pages(np.random.default_rng(0), 1, 1400, 1000, 16)[0][0]
+    config = configparser.ConfigParser()
+    config.read_string("[L]\n[C]\nLINE_HEIGHT = 40\nLINE_SCALE = 1.0\n")
+    crops = {}
+    for device in ("cpu", "cuda"):
+        layout = PageLayout(id="p", page_size=page.shape[:2])
+        layout = WholePageRegion().process_page(page, layout)
+        layout = TextlineExtractorSimple(config["L"]).process_page(page, layout)
+        cropper = LineCropper(config["C"], device=device)
+        before = warp.warp_fields.launches
+        cropper.process_page(page, layout)
+        assert warp.warp_fields.launches - before == (device == "cuda")
+        crops[device] = [line.crop for line in layout.lines_iterator()]
+    assert len(crops["cuda"]) == 16
+    for a, b in zip(crops["cuda"], crops["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    fields = [cropper.crop_engine.get_crop_inputs(ln.baseline, ln.heights, 40)
+              for ln in layout.lines_iterator()]
+    buffer, shapes, _, _ = cropper.pack_fields(fields)
+    page_t = torch.from_numpy(page).cuda()
+    packed = torch.from_numpy(buffer).cuda().view(1, 1, -1, 2)
+    for store in warp.FIELD_STORES:
+        got = warp.warp_fields(page_t, packed, store).view(-1)
+        for out, f in zip(warp.split_fields(got, shapes, 3), warp.split_fields(buffer, shapes)):
+            want = warp.warp_fields_plain(page_t, torch.from_numpy(f).cuda(), store)
+            assert torch.equal(out.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_top_k_logits_on_the_card_match_cpu_topk(cuda):
+    """Stage B's top-k on the card against torch.topk on the CPU of the
+    same logits: values equal as sorted lists, index sets equal wherever
+    the k-th logit is larger than the (k+1)-th, each index pointing at
+    its value."""
+    from chip_smoke import topk_check
+
+    pipe = _tiny_pipeline(device="cuda", want_logits=True, logits_topk=3)
+    rng = np.random.default_rng(1)
+    pages = torch.from_numpy(rng.integers(0, 256, (2, 128, 192), dtype=np.uint8)).cuda()
+    bl, hh = _lines(rng, 4, 128, 192)
+    bl = torch.from_numpy(np.stack([bl, bl])).cuda()
+    hh = torch.from_numpy(np.stack([hh, hh])).cuda()
+    record = topk_check(pipe, (pages, bl, hh))
+    assert record["k"] == 3 and record["frames"] > 0

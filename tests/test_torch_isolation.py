@@ -4,7 +4,9 @@ pero_ocr_tpu_torch and chip_smoke.py imports, a tiny CPU
 TorchPagePipeline runs through FastPagePipeline to Page XML that
 xml.etree parses, the command line turns a folder of PNG pages into Page
 XML files (a flax checkpoint written by chip_smoke.py, a missing one
-with --allow-random-weights), and no module of the JAX package gets
+with --allow-random-weights), with logits and ALTO files on both paths,
+config 1 (whole-page region, classical line detector) runs through the
+command line to Page XML and ALTO, and no module of the JAX package gets
 loaded.  Runs in a subprocess so the blocking does not leak into the
 other tests."""
 
@@ -95,6 +97,34 @@ cli_main(["-c", os.path.join(tmp, "config.ini"), "-i", os.path.join(tmp, "images
 cli_main(["-c", os.path.join(tmp, "config.ini"), "-i", os.path.join(tmp, "images"),
           "--output-xml-path", os.path.join(tmp, "xml_staged"), "--device", "cpu",
           "--allow-random-weights"])
+for flag, out in (("--fast-pipeline", "fast"), ("--skip-processed", "staged")):
+    cli_main(["-c", os.path.join(tmp, "config.ini"), "-i", os.path.join(tmp, "images"),
+              "--output-logit-path", os.path.join(tmp, out + "_logits"), "--output-alto-path",
+              os.path.join(tmp, out + "_alto"), flag, "--device", "cpu",
+              "--allow-random-weights"])
+printed, _ = chip_smoke.printed_pages(np.random.default_rng(3), 2, 240, 320, 5)
+os.makedirs(os.path.join(tmp, "printed"))
+for i, page in enumerate(printed):
+    with open(os.path.join(tmp, "printed", f"c{i}.png"), "wb") as f:
+        f.write(chip_smoke.png_bytes(page))
+with open(os.path.join(tmp, "config1.ini"), "w") as f:
+    f.write("[PAGE_PARSER]\nRUN_LAYOUT_PARSER = yes\nRUN_LINE_CROPPER = yes\nRUN_OCR = yes\n"
+            "[LAYOUT_PARSER_1]\nMETHOD = REGION_WHOLE_PAGE\n"
+            "[LAYOUT_PARSER_2]\nMETHOD = LINES_SIMPLE_THRESHOLD\n"
+            "[LINE_CROPPER]\nLINE_HEIGHT = 16\n[OCR]\nOCR_JSON = ocr.json\n")
+cli_main(["-c", os.path.join(tmp, "config1.ini"), "-i", os.path.join(tmp, "printed"),
+          "--output-xml-path", os.path.join(tmp, "xml1"), "--output-alto-path",
+          os.path.join(tmp, "alto1"), "--device", "cpu"])
+outputs = {out: sorted(os.listdir(os.path.join(tmp, out)))
+           for out in ("fast_logits", "fast_alto", "staged_logits", "staged_alto", "xml1", "alto1")}
+alto_ns = "{http://www.loc.gov/standards/alto/ns-v2#}"
+config1_lines = []
+for name in outputs["xml1"]:
+    with open(os.path.join(tmp, "xml1", name), "rb") as f:
+        config1_lines.append(len(ET.fromstring(f.read()).findall(f".//{ns}TextLine")))
+    with open(os.path.join(tmp, "alto1", name), "rb") as f:
+        ET.fromstring(f.read()).find(alto_ns + "Layout")
+
 cli = []
 for out in ("xml", "xml_staged"):
     for name in sorted(os.listdir(os.path.join(tmp, out))):
@@ -111,6 +141,8 @@ print(json.dumps({
                      if k == "pero_ocr_tpu" or k.startswith("pero_ocr_tpu.")),
     "cuda": torch.cuda.is_available(),
     "cli": cli,
+    "outputs": outputs,
+    "config1_lines": config1_lines,
 }))
 """
 
@@ -128,6 +160,11 @@ def test_port_runs_without_jax_and_host_libraries():
     assert got["loaded"] == []
     assert "pero_ocr_tpu_torch.scripts.parse_folder" in got["modules"]
     assert got["cli"] == [[f"p{i}.xml", f"p{i}"] for i in range(3)] * 2  # fast, staged
+    for path in ("fast", "staged"):
+        assert got["outputs"][path + "_logits"] == [f"p{i}.logits" for i in range(3)]
+        assert got["outputs"][path + "_alto"] == [f"p{i}.xml" for i in range(3)]
+    assert got["outputs"]["xml1"] == got["outputs"]["alto1"] == ["c0.xml", "c1.xml"]
+    assert got["config1_lines"] == [5, 5]
     assert got["override"] == [[0, 4], [1, 4], [2, 4]]  # one slot of line_slot 4
     assert got["cnn_pages"] == [0, 1, 2]
     # CNN pages (random weights), then the override pages with their line.

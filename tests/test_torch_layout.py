@@ -29,11 +29,12 @@ from pero_ocr_tpu_torch.document.fast_pipeline import assemble_page_layout
 from pero_ocr_tpu_torch.layout_engines import helpers
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import ParagraphClusterer
 from pero_ocr_tpu_torch.parallel.pipeline import PageResult
+from tests.test_torch_native import jax_native_library
 
 # The JAX pipeline clusters through its native library; without it, its
 # Python fallback rounds the penalty windows differently (ROADMAP.md,
 # section 3), so the tests that hold the port to it need the library.
-needs_native = pytest.mark.skipif(native.get_library() is None,
+needs_native = pytest.mark.skipif(jax_native_library() is None,
                                   reason="native library unavailable")
 
 

@@ -18,6 +18,7 @@ Skipped only where there is no host C++ compiler, as
 import os
 import shutil
 import stat
+import time
 
 import numpy as np
 import pytest
@@ -39,13 +40,35 @@ from pero_ocr_tpu_torch.utils import native
 
 RECOGNIZER = dict(num_classes=6, line_height=16, conv_features=(4, 8), subsampling=4,
                   lstm_layers=1, lstm_features=8)
+JAX_BUILD_WAIT_S = 60
+
+
+def jax_native_library():
+    """The JAX package's native library (``native/libperotpu.so``), or
+    None where it cannot be built.
+
+    Its loader builds the file with ``make -C native`` at first use,
+    writing it in place, and remembers a failed load for the rest of the
+    process.  pytest-xdist's workers import the test files at once: a
+    worker that finds the file while another worker's build is still
+    writing it fails to load it, and every test of that worker that
+    needs the library would skip.  So while the file exists and does not
+    load, ask the loader again, for up to JAX_BUILD_WAIT_S seconds."""
+    lib = jax_native.get_library()
+    deadline = time.monotonic() + JAX_BUILD_WAIT_S
+    while lib is None and os.path.exists(jax_native._LIB_PATH) and time.monotonic() < deadline:
+        time.sleep(0.5)
+        with jax_native._lock:
+            jax_native._load_attempted = False
+        lib = jax_native.get_library()
+    return lib
 
 
 @pytest.fixture(autouse=True)
 def _compiler():
     if shutil.which(os.environ.get("CXX") or "c++") is None:
         pytest.skip("no host C++ compiler")
-    if jax_native.get_library() is None:
+    if jax_native_library() is None:
         pytest.skip("the JAX package's native library is unavailable")
 
 
@@ -458,6 +481,63 @@ def test_polygons_close_empty_and_bad_pairs():
     assert native.native_polygons_close(polys, np.zeros((0, 2), int), np.zeros(0)).shape == (0,)
     with pytest.raises(ValueError):
         native.native_polygons_close(polys, np.array([[0, 4]]), np.ones(1))
+
+
+# ----------------------------------------------------------------------
+# The forced alignment's Viterbi
+
+def _viterbi_inputs(rng, case):
+    """(T, S) gathered costs and the skip mask of a label sequence with
+    repeats; ``uniform``: every path costs the same; ``inf``: costs of
+    +inf (log 0) on some states; ``long``: a page-wide line."""
+    n = {"short": 2, "random": 9, "uniform": 4, "inf": 6, "long": 60}[case]
+    t = {"short": 5, "random": 40, "uniform": 12, "inf": 30, "long": 512}[case]
+    labels = rng.integers(0, 10, n)
+    labels[1::3] = labels[0::3][: len(labels[1::3])]
+    states = np.full(2 * n + 1, 10)
+    states[1::2] = labels
+    skip = np.zeros(len(states), bool)
+    skip[3::2] = states[3::2] != states[1:-2:2]
+    logits = rng.normal(0, 3, (t, 11))
+    if case == "uniform":
+        logits[:] = 0.0
+    logprobs = (logits - np.logaddexp.reduce(logits, axis=1, keepdims=True)).astype(np.float32)
+    costs = -logprobs[:, states]
+    if case == "inf":
+        costs[rng.random(costs.shape) < 0.1] = np.inf
+        costs[:, -2:] = np.minimum(costs[:, -2:], 50.0)
+    return costs, skip
+
+
+@pytest.mark.parametrize("case", ["short", "random", "uniform", "inf", "long"])
+def test_viterbi_matches_numpy_and_jax(case):
+    """viterbi_ctc_f32 against the JAX binding of its own library (equal
+    paths) and the numpy twin, whose float64 sums equal the float32 ones
+    here (ties: stay, then advance, then skip; the last label before the
+    last blank)."""
+    from pero_ocr_tpu_torch.core.force_alignment import viterbi_ctc
+
+    costs, skip = _viterbi_inputs(np.random.default_rng(len(case)), case)
+    got = native.native_viterbi_ctc(costs, skip)
+    assert got.dtype == np.int32 and got.shape == (costs.shape[0],)
+    np.testing.assert_array_equal(got, jax_native.native_viterbi_ctc(costs, skip))
+    np.testing.assert_array_equal(got, viterbi_ctc(costs, skip))
+    assert got[-1] >= costs.shape[1] - 2 and (np.diff(got) >= 0).all()
+
+
+def test_viterbi_without_a_path_raises_as_jax():
+    costs = np.zeros((2, 7), np.float32)  # 3 labels need 3 frames or more
+    skip = np.array([0, 0, 0, 1, 0, 1, 0], bool)
+    with pytest.raises(ValueError) as got:
+        native.native_viterbi_ctc(costs, skip)
+    with pytest.raises(ValueError) as want:
+        jax_native.native_viterbi_ctc(costs, skip)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError):
+        native.native_viterbi_ctc(costs, skip[:-1])
+    before = native.calls["viterbi_ctc_f32"]
+    native.native_viterbi_ctc(np.zeros((3, 3), np.float32), np.zeros(3, bool))
+    assert native.calls["viterbi_ctc_f32"] == before + 1
 
 
 # ----------------------------------------------------------------------

@@ -35,7 +35,6 @@ from pero_ocr_tpu.models.recognizer import (
 )
 from pero_ocr_tpu.document.fast_pipeline import assemble_page_layout as jax_assemble
 from pero_ocr_tpu.parallel.pipeline import TPUPagePipeline
-from pero_ocr_tpu.utils import native
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble_page_layout
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
@@ -45,6 +44,7 @@ from pero_ocr_tpu_torch.utils.convert import (
     parsenet_params_from_flax,
     recognizer_params_from_flax,
 )
+from tests.test_torch_native import jax_native_library
 
 LINES = [(64 + 40 * r, 32, 288) for r in range(4)]
 DETECTOR = dict(base_features=8, depth=2, out_upsample=2)
@@ -185,7 +185,7 @@ def _masked(xml):
 
 # The JAX pipeline clusters through its native library; its Python
 # fallback rounds the penalty windows differently (ROADMAP.md, section 3).
-@pytest.mark.skipif(native.get_library() is None, reason="native library unavailable")
+@pytest.mark.skipif(jax_native_library() is None, reason="native library unavailable")
 @pytest.mark.parametrize("case", ["cnn_8bit", "cnn_4bit", "cnn_adaptive", "override_callable"])
 def test_page_xml_matches_jax(models, case):
     """The main path to Page XML: CNN detection, paragraph clustering,
@@ -195,7 +195,7 @@ def test_page_xml_matches_jax(models, case):
 
 
 # The port's C++ route (its own build of the host library) on the CPU.
-@pytest.mark.skipif(native.get_library() is None or shutil.which(os.environ.get("CXX") or "c++")
+@pytest.mark.skipif(jax_native_library() is None or shutil.which(os.environ.get("CXX") or "c++")
                     is None, reason="no host C++ compiler")
 @pytest.mark.parametrize("case", ["cnn_8bit", "cnn_4bit", "cnn_adaptive"])
 def test_page_xml_matches_jax_on_the_native_route(models, case):
@@ -222,7 +222,7 @@ def _top_border_artifacts(port, pages):
     return packed, heights_q, sep_q
 
 
-@pytest.mark.skipif(native.get_library() is None or shutil.which(os.environ.get("CXX") or "c++")
+@pytest.mark.skipif(jax_native_library() is None or shutil.which(os.environ.get("CXX") or "c++")
                     is None, reason="no host C++ compiler")
 @pytest.mark.parametrize("route", [True, False], ids=["native", "numpy"])
 def test_page_xml_matches_jax_with_lines_at_the_top_border(models, route):
@@ -298,7 +298,6 @@ def test_unported_options_raise(models):
     _, torch_models = models
     pn, rec = torch_models()
     for kwargs, item in (({"transport": "crops"}, "Crop transport"),
-                         ({"want_logits": True}, "Logits"),
                          ({"mesh": object()}, "Training and scale-out")):
         with pytest.raises(ValueError, match=item):
             TorchPagePipeline(pn, rec, device="cpu", **kwargs)
@@ -310,7 +309,6 @@ def test_unported_options_raise(models):
         list(TorchPagePipeline(pn, rec, device="cpu").run([_page()], lines_override=[]))
     pipe = TorchPagePipeline(pn, rec, device="cpu")
     for kwargs, item in (({"want_crops": True}, "Crop transport"),
-                         ({"want_logits": True}, "Logits"),
                          ({"reocr": True}, "Crop transport")):
         with pytest.raises(ValueError, match=item):
             FastPagePipeline(pipe, CHARS, **kwargs)
@@ -321,7 +319,7 @@ def test_unported_options_raise(models):
         fast.process_existing_layouts([_page()], [])
 
 
-@pytest.mark.skipif(native.get_library() is None or shutil.which(os.environ.get("CXX") or "c++")
+@pytest.mark.skipif(jax_native_library() is None or shutil.which(os.environ.get("CXX") or "c++")
                     is None, reason="no host C++ compiler")
 def test_adaptive_decision_matches_jax_on_the_slice_pages(models):
     """On the slice pages' stage A, at every first-pass scale, the

@@ -46,7 +46,6 @@ from pero_ocr_tpu.layout_engines.cnn_engine import LayoutEngine as JaxLayoutEngi
 from pero_ocr_tpu.layout_engines.cnn_engine import _postprocess_maps
 from pero_ocr_tpu.ocr.ctc_engine import CTCEngineLineOCR as JaxCTCEngine
 from pero_ocr_tpu.ops import warp as jax_warp
-from pero_ocr_tpu.utils import native
 from pero_ocr_tpu_torch.core import geometry, line_geometry
 from pero_ocr_tpu_torch.core.crop_engine import EngineLineCropper
 from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
@@ -62,10 +61,11 @@ from tests.test_torch_cli import (  # noqa: F401  (bundle, float32_parsenets: fi
     float32_parsenets, jax_staged_layouts, staged_config,
 )
 from tests.test_torch_pipeline import LINES
+from tests.test_torch_native import jax_native_library
 
 # The JAX clustering runs its native library when it builds; its Python
 # fallback rounds the penalty windows otherwise (ROADMAP.md, section 3).
-needs_native = pytest.mark.skipif(native.get_library() is None,
+needs_native = pytest.mark.skipif(jax_native_library() is None,
                                   reason="native library unavailable")
 
 
