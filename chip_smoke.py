@@ -56,7 +56,21 @@ Phases (each raises on failure, so the run exits non-zero):
     --output-alto-path on both paths, every file loaded back against
     the in-process run's; warp_lines timed on its last batch
     (``config5_*``).
-11. Host C++ (``csrc/perotpu.cpp``, built with the kernels): config 2's
+11. Config 3 (``run_config3``): 4 two-column pages through
+    ``PageParser(config 3, device="cuda")``: the staged layout, the field
+    warp, CTC OCR at line height 40, then the batched beam search (K = 8,
+    float16 transport) with a CharLM at the spec defaults stepped inside
+    its frame loop, one decode a line carrying the LM state
+    (CARRY_H_OVER), each decode shape a CUDA graph; 16 of the last page's
+    decodes held against the CPU port's and the eager loop's (equal
+    backpointers, near-ties counted apart), a GRU LM and the batched
+    route (lines padded to a power of two a 128-frame bucket) on one
+    page each, held against both the same way (the GRU's first 8 lines,
+    every decode of the batched page), the command line on 2 pages;
+    warp_fields held against its plain version on the last page's
+    buckets (``config3_*``).  Then torch.profiler splits one config-2
+    stage-B call and one config-3 line decode.
+12. Host C++ (``csrc/perotpu.cpp``, built with the kernels): config 2's
     fast path and the staged run go on the C++ host route (the card's
     default), the numpy route (``native=False``), the numpy route and
     the C++ route again (A B B A); every run's Page XML must equal the
@@ -69,8 +83,9 @@ cold (a 128 MB scratch write before each timed run), since stage B finds
 its pages after the next batch's upload.
 
 The last lines are the command lines' numbers (``{"cli": ...}``,
-``{"staged": ...}``), config 1's and config 5's (``{"config1": ...}``,
-``{"config5": ...}``), the host library's (``{"host_native": ...}``),
+``{"staged": ...}``), config 1's, config 5's and config 3's
+(``{"config1": ...}``, ``{"config5": ...}``, ``{"config3": ...}``), the
+host library's (``{"host_native": ...}``),
 the card's nvidia-smi line, one JSON object with the kernels' numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -79,6 +94,7 @@ from __future__ import annotations
 
 import configparser
 import copy
+import dataclasses
 import difflib
 import json
 import os
@@ -93,6 +109,7 @@ import tempfile
 import time
 import xml.etree.ElementTree as ET
 import zlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -105,8 +122,11 @@ from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble_page_layout
 from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor, PageParser
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import separator_penalties
+from pero_ocr_tpu_torch.decoding.tpu_decoder import NEG_INF, TorchBeamSearchDecoder
+from pero_ocr_tpu_torch.models.charlm import CharLM, CharLMSpec, state_map
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+from pero_ocr_tpu_torch.ops import ctc as pipeline_ctc_ops
 from pero_ocr_tpu_torch.ops import morphology
 from pero_ocr_tpu_torch.ops import warp as warp_ops
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
@@ -830,6 +850,45 @@ def flax_recognizer_variables(rec: CTCRecognizer) -> dict:
     return {"params": p}
 
 
+def flax_charlm_variables(lm: CharLM) -> dict:
+    """The flax variables of the JAX CharLM that ``lm`` ports
+    (``charlm_params_from_flax`` inverted)."""
+    sd = lm.state_dict()
+    hidden = lm.spec.hidden_dim
+    p = {"embed": {"embedding": _np(sd["embed.weight"])},
+         "head": {"kernel": np.ascontiguousarray(_np(sd["head.weight"]).T),
+                  "bias": _np(sd["head.bias"])}}
+    for k in range(lm.spec.num_layers):
+        w_i, w_h = _np(sd[f"cells.{k}.weight_i"]), _np(sd[f"cells.{k}.weight_h"])
+
+        def gate(w, g):
+            return np.ascontiguousarray(w[:, g * hidden:(g + 1) * hidden])
+
+        if lm.spec.cell_type == "lstm":
+            b_h = _np(sd[f"cells.{k}.bias_h"])
+            cell = {}
+            for g, name in enumerate("ifgo"):
+                cell[f"i{name}"] = {"kernel": gate(w_i, g)}
+                cell[f"h{name}"] = {"kernel": gate(w_h, g),
+                                    "bias": b_h[g * hidden:(g + 1) * hidden]}
+        else:
+            b_i = _np(sd[f"cells.{k}.bias_i"])
+            cell = {f"i{name}": {"kernel": gate(w_i, g), "bias": b_i[g * hidden:(g + 1) * hidden]}
+                    for g, name in enumerate("rzn")}
+            cell.update({f"h{name}": {"kernel": gate(w_h, g)} for g, name in enumerate("rzn")})
+            cell["hn"]["bias"] = _np(sd[f"cells.{k}.bias_hn"])
+        p[f"cells_{k}"] = cell
+    return {"params": p}
+
+
+def write_charlm(lm: CharLM, path: str) -> None:
+    """``lm`` as a ``[DECODER] LM`` file: the flax msgpack checkpoint and
+    its sidecar spec (``path + ".json"``)."""
+    write_flax_checkpoint(flax_charlm_variables(lm), path)
+    with open(path + ".json", "w", encoding="utf-8") as f:
+        json.dump(dataclasses.asdict(lm.spec), f)
+
+
 def fold_lstm_input_bias_(rec: CTCRecognizer) -> None:
     """Move each LSTM layer's ``bias_ih`` into ``bias_hh`` (in the
     module's dtype), so that the module is exactly what its flax export
@@ -1508,6 +1567,12 @@ def config1_recognizer(seed: int = 3) -> CTCRecognizer:
     seeded random weights."""
     with open(os.path.join(REPO, "configs", "config1_printed_greedy.ini"), encoding="utf-8") as f:
         line_h = int(re.search(r"^LINE_HEIGHT = (\d+)$", f.read(), re.M).group(1))
+    return bench_recognizer(line_h, seed)
+
+
+def bench_recognizer(line_h: int, seed: int = 3) -> CTCRecognizer:
+    """The bench recognizer's widths (bench.py) at line height ``line_h``,
+    seeded random weights."""
     return CTCRecognizer(RecognizerSpec(
         num_classes=80, line_height=line_h, conv_features=(48, 96, 192, 384), subsampling=4,
         lstm_layers=2, lstm_features=256, stem="s2d", norm="group",
@@ -1624,10 +1689,12 @@ def run_config1(rng, smi: str):
     return launches, numbers, last_page
 
 
-def run_parse_folder(args, label: str):
-    """The port's command line in a subprocess from the repository root;
-    raises when it fails.  Returns (the completed process, wall s)."""
-    command = [sys.executable, "-m", "pero_ocr_tpu_torch.scripts.parse_folder", *args]
+def run_parse_folder(args, label: str, program=None):
+    """The port's command line in a subprocess from the repository root
+    (``python -m``, or ``python -c program`` where given); raises when it
+    fails.  Returns (the completed process, wall s)."""
+    command = [sys.executable, *(("-c", program) if program else
+                                 ("-m", "pero_ocr_tpu_torch.scripts.parse_folder")), *args]
     t0 = time.perf_counter()
     proc = subprocess.run(command, cwd=REPO, capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
@@ -2012,6 +2079,588 @@ def run_config5(pipe: TorchPagePipeline, rng, smi: str):
 
 
 # ----------------------------------------------------------------------
+# Config 3: the staged path, then the beam search with a character LM
+# stepped inside its frame loop (configs/config3_beam_lm.ini)
+CONFIG3_PAGES, CONFIG3_CLI_PAGES, CONFIG3_CHECK_LINES = 4, 2, 16
+CONFIG3_STAGES = ("layout", "line_crop", "ocr", "decoder", "document/pagexml")
+# The LM at the spec defaults over the bench charset without the blank,
+# plus </s>.
+CONFIG3_LM = CharLMSpec(vocab_size=len(BENCH_CHARS), embed_dim=64, hidden_dim=512, num_layers=2)
+# The bench ParseNet's architecture keys, which the checkpoint needs
+# beside config 3's own.
+PARSENET_KEYS = {"FAST_STEM": "yes", "OUT_UPSAMPLE": "2", "BASE_FEATURES": "32", "DEPTH": "4"}
+# A small program run as the command line: ``random`` seeded first, so
+# that the rows' line order (order_lines_vertical's jitter), and with it
+# the LM state carried from line to line, is the in-process run's.
+SEEDED_CLI = ("import random, sys; random.seed(0); "
+              "from pero_ocr_tpu_torch.scripts.parse_folder import main; main(sys.argv[1:])")
+
+
+def write_config3_bundle(tmp: str, pn: ParseNet, rec: CTCRecognizer, pages: dict):
+    """Config 3's ini as the repository has it (with the bench ParseNet's
+    architecture keys), its ParseNet, recognizer and a seeded random
+    CharLM (LSTM; a GRU twin beside it) at the paths the ini names, and
+    ``pages`` as PNG files.  Returns ({"lstm", "gru", "batched"}: ini
+    path, images dir): the GRU LM, and CARRY_H_OVER = no."""
+    images = write_pages(tmp, pages)
+    for folder in ("layout_engine", "ocr_engine", "lm"):
+        os.makedirs(os.path.join(tmp, folder))
+    write_flax_checkpoint(flax_parsenet_variables(pn),
+                          os.path.join(tmp, "layout_engine", "parsenet.ckpt"))
+    write_recognizer(os.path.join(tmp, "ocr_engine"), rec)
+    for cell, seed in (("lstm", 5), ("gru", 6)):
+        lm = CharLM(dataclasses.replace(CONFIG3_LM, cell_type=cell),
+                    generator=torch.Generator().manual_seed(seed))
+        write_charlm(lm, os.path.join(tmp, "lm", f"charlm_{cell}.lm"))
+    inis = {}
+    for name, cell, carry in (("lstm", "lstm", "yes"), ("gru", "gru", "yes"),
+                              ("batched", "lstm", "no")):
+        config = configparser.ConfigParser()
+        config.read(os.path.join(REPO, "configs", "config3_beam_lm.ini"))
+        config["LAYOUT_PARSER_1"].update(PARSENET_KEYS)
+        config["DECODER"]["LM"] = f"./lm/charlm_{cell}.lm"
+        config["DECODER"]["CARRY_H_OVER"] = carry
+        inis[name] = os.path.join(tmp, f"config3_{name}.ini")
+        with open(inis[name], "w", encoding="utf-8") as f:
+            config.write(f)
+    return inis, images
+
+
+class DecodeRecorder:
+    """Wraps a TorchBeamSearchDecoder's ``run``: counts its decodes and
+    frames, and keeps the inputs and backpointers of the first ``keep``
+    decodes of the last page on the host (for the checks against the CPU
+    and the eager loop).  With CARRY_H_OVER (``carry``) a page's first
+    decode is the one without a carried state; without it every decode
+    is kept until ``keep``."""
+
+    def __init__(self, decoder, keep: int = 0, carry: bool = True):
+        self.decoder, self.keep, self.carry = decoder, keep, carry
+        self.calls, self.decodes, self.frames, self.padded_frames = [], 0, 0, 0
+        self._run = decoder.run
+
+        def run(logprobs, frame_lengths=None, model_eos=False, init_lm_states=None, **kw):
+            out = self._run(logprobs, frame_lengths, model_eos, init_lm_states, **kw)
+            self.decodes += 1
+            self.frames += int(np.sum(frame_lengths))
+            self.padded_frames += logprobs.shape[0] * logprobs.shape[1]
+            if init_lm_states is None and self.carry:  # a new page
+                self.calls = []
+            if len(self.calls) < self.keep:
+                init = None if init_lm_states is None else state_map(
+                    lambda x: x.cpu().clone(), init_lm_states)
+                self.calls.append((np.array(logprobs), np.array(frame_lengths), init,
+                                   out.bp_rows.cpu().numpy(), out.bp_cols.cpu().numpy()))
+            return out
+
+        decoder.run = run
+
+    def close(self):
+        self.decoder.run = self._run
+
+
+def decode_differs(got, want, margins, totals, lengths):
+    """Per line of one decode: None where the backpointers of ``got``
+    and ``want`` ((T, B, K) pairs) are equal on the line's frames, else
+    (first frame that differs, whether ``want``'s smallest gap between
+    consecutive totals among the K + 1 best there (``margins``, (T, B))
+    is within float32 rounding of the totals accumulated so far:
+    (t + 1) * 2**-23 * the magnitude of the line's finite final totals,
+    that gap, that rounding, and whether the frame kept the same set of
+    (row, col) cells in another order)."""
+    out = []
+    for i, n in enumerate(lengths):
+        same = [np.array_equal(g[:n, i], w[:n, i]) for g, w in zip(got, want)]
+        if all(same):
+            out.append(None)
+            continue
+        bad = np.flatnonzero(np.any(np.stack(
+            [(g[:n, i] != w[:n, i]).any(axis=1) for g, w in zip(got, want)]), axis=0))
+        t0 = int(bad[0])
+        finite = totals[i][totals[i] > NEG_INF / 2]
+        tol = (t0 + 1) * 2.0 ** -23 * max(1.0, float(np.abs(finite).max(initial=0.0)))
+        cells = [sorted(zip(*(bp[t0, i].tolist() for bp in pair))) for pair in (got, want)]
+        out.append((t0, bool(margins[t0, i] <= tol), float(margins[t0, i]), tol,
+                    cells[0] == cells[1]))
+    return out
+
+
+def check_decodes(decoder, calls, label: str) -> dict:
+    """The recorded decodes of a card decoder's page run (graph replays)
+    against the CPU port's decode of the same log-probs and carried
+    states, and against the eager loop on the card: per line, the same
+    backpointers (and the same best text), or a first difference where
+    the CPU's smallest gap between consecutive totals among the K + 1
+    best is within float32 rounding (a near-tie, counted and logged).  Raises on any other
+    difference.  Returns the counts, equal / near-tie / differ, and the
+    eager loop's and the graph's time a line on the card."""
+    cpu = TorchBeamSearchDecoder(
+        decoder.letters, k=decoder.k, lm=decoder.lm, lm_scale=decoder.lm_scale,
+        insertion_bonus=decoder.insertion_bonus, transport_dtype=decoder.transport_dtype,
+        vocab_map=None if decoder._lm_map is None else decoder._lm_map.cpu().numpy(),
+        device="cpu")
+    counts = {"cpu": [0, 0, 0], "eager": [0, 0, 0]}  # equal, near-tie, differ
+    eager_s = graph_s = 0.0
+    lines, differ = 0, []
+    for logprobs, lengths, init, bp_rows, bp_cols in calls:
+        lines += len(lengths)
+        ref = cpu.run(logprobs, lengths, init_lm_states=init, margins=True)
+        totals = (ref.p_total + cpu.lm_scale * ref.p_lm).numpy()
+        card_init = None if init is None else state_map(lambda x: x.cuda(), init)
+        t0 = time.perf_counter()
+        eager = decoder.run(logprobs, lengths, init_lm_states=card_init, graph=False)
+        eager_bags = decoder.hypotheses(eager)
+        eager_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph_bags = decoder.hypotheses(decoder.run(logprobs, lengths,
+                                                    init_lm_states=card_init))
+        graph_s += time.perf_counter() - t0
+        # The page run's (graph) backpointers against the CPU's and the
+        # eager loop's; near-ties judged by the CPU's cuts.
+        for name, want, bags in (
+                ("cpu", (ref.bp_rows.numpy(), ref.bp_cols.numpy()), cpu.hypotheses(ref)),
+                ("eager", (eager.bp_rows.cpu().numpy(), eager.bp_cols.cpu().numpy()),
+                 eager_bags)):
+            verdicts = decode_differs((bp_rows, bp_cols), want, ref.margins.numpy(), totals,
+                                      lengths)
+            for i, verdict in enumerate(verdicts):
+                if verdict is None:
+                    if bags[i].best_hyp() != graph_bags[i].best_hyp():
+                        raise AssertionError(f"{label}: same backpointers as {name}, other "
+                                             "best text")
+                    counts[name][0] += 1
+                elif verdict[1]:
+                    counts[name][1] += 1
+                    log(f"{label}: the {name} decode takes the other branch at a near-tie, "
+                        f"line {i} of {len(lengths)}, frame {verdict[0]}: smallest gap "
+                        f"{verdict[2]:.3g} against {verdict[3]:.3g}, same cells "
+                        f"{verdict[4]}")
+                else:
+                    counts[name][2] += 1
+                    log(f"{label}: the {name} decode differs on line {i} of {len(lengths)} "
+                        f"({lengths[i]} frames) from frame {verdict[0]}: smallest gap "
+                        f"{verdict[2]:.3g} against {verdict[3]:.3g}, same cells "
+                        f"{verdict[4]}")
+                    differ.append((logprobs, lengths, init, bp_rows, bp_cols, i))
+    log(f"{label} decode check on {lines} lines in {len(calls)} decodes: card vs CPU "
+        f"equal/near-tie/differ {counts['cpu']}, graph vs eager {counts['eager']}; eager "
+        f"{1e3 * eager_s / lines:.2f} ms a line, graph {1e3 * graph_s / lines:.2f}")
+    if counts["cpu"][2] or counts["eager"][2]:
+        # The decodes at fault, kept for a rerun off the card.
+        path = os.path.join(REPO, "build", re.sub(r"\W+", "_", label).strip("_") + ".npz")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        logprobs, lengths, init, bp_rows, bp_cols, line = differ[0]
+        np.savez_compressed(path, logprobs=logprobs, lengths=lengths, bp_rows=bp_rows,
+                            bp_cols=bp_cols, line=line, init_carried=init is not None)
+        raise AssertionError(f"{label}: decodes differ {counts}; the first in {path}")
+    return {"check_lines": lines, "check_decodes": len(calls),
+            "eager_ms_a_line": 1e3 * eager_s / lines, "graph_ms_a_line": 1e3 * graph_s / lines,
+            "card_vs_cpu_equal_near_tie_differ": counts["cpu"],
+            "graph_vs_eager_equal_near_tie_differ": counts["eager"]}
+
+
+def l2_bytes_per_s(n_bytes: int, n: int = 200) -> dict:
+    """The rate at which torch's own kernels move data that stays in the
+    card's L2 cache (50 MB): warm passes over a float32 tensor of
+    ``n_bytes``, each timed as ``n`` launches queued behind a busy wait
+    between two events: a sum by rows of 1024 (reads ``n_bytes``), a
+    copy into a second tensor and a negation in place (each reads and
+    writes ``n_bytes``).  The fastest rate is a lower bound of what the
+    L2 serves."""
+    buf = torch.randn(n_bytes // 4 // 1024 * 1024, device="cuda")
+    out = torch.empty_like(buf)
+    moves = {"sum_rows": (lambda: buf.view(-1, 1024).sum(dim=1), 1),
+             "copy": (lambda: out.copy_(buf), 2), "neg_in_place": (lambda: out.neg_(), 2)}
+    rates = {}
+    for name, (fn, passes) in moves.items():
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        rates[name] = passes * 4 * buf.numel() / (start.elapsed_time(end) / n * 1e-3)
+    return {"bytes_per_s": max(rates.values()), "by_pass": rates}
+
+
+def beam_step_bound_ms(lm: CharLM, k: int, v: int, l2_rate: Optional[float] = None) -> dict:
+    """The least time of one frame's beam step on the card for a line
+    (B = 1): bytes are the LM's float32 weights read once (of the
+    embedding only the K rows gathered), the K entries' LM states and
+    next-char log-probs read and written once, the frame read and the
+    backpointers written; operations are the LM's matmuls over the K
+    beams (2 flops a multiply-add).  Each over the card's peak.  The
+    weights are read again every frame and fit in the L2 cache: with
+    ``l2_rate`` (bytes/s) ``l2_bound_ms`` takes them at that rate, the
+    rest of the bytes at the HBM rate."""
+    sp = lm.spec
+    weights = sum(p.numel() for name, p in lm.named_parameters() if not name.startswith("embed"))
+    macs = k * sum(p.numel() for name, p in lm.named_parameters()
+                   if "weight" in name and not name.startswith("embed"))
+    leaves = sp.num_layers * (2 if sp.cell_type == "lstm" else 1)
+    n_bytes = (4 * (weights + k * sp.embed_dim) + 2 * 4 * k * (leaves * sp.hidden_dim + v)
+               + 4 * (v + 1) + 2 * k)
+    flops = 2 * macs
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    out = {"bytes": n_bytes, "weight_bytes": 4 * weights, "flops": flops,
+           "bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    if l2_rate is not None:
+        by_l2 = (4 * weights / l2_rate + (n_bytes - 4 * weights) / HBM_BYTES_PER_S) * 1e3
+        out.update(l2_bytes_per_s=l2_rate, l2_bound_ms=max(by_l2, by_ops),
+                   l2_bound_by="bytes" if by_l2 >= by_ops else "operations")
+    return out
+
+
+def _patched(ranges):
+    """Wrap each (object, attribute) of ``ranges`` (label -> pair) in a
+    torch.profiler record_function of its label; returns the undo."""
+    from torch.profiler import record_function
+
+    undo = []
+    for label, (obj, attr) in ranges.items():
+        orig, own = getattr(obj, attr), attr in vars(obj)
+
+        def wrapped(*a, _orig=orig, _label=label, **kw):
+            with record_function(_label):
+                return _orig(*a, **kw)
+
+        setattr(obj, attr, wrapped)
+        undo.append((obj, attr, orig, own))
+
+    def restore():
+        for obj, attr, orig, own in undo:
+            if own:
+                setattr(obj, attr, orig)
+            else:
+                delattr(obj, attr)
+    return restore
+
+
+def _kernel_ms(evt) -> float:
+    """Device ms of the kernels an op and its children launched."""
+    own = sum(getattr(k, "duration", 0) for k in getattr(evt, "kernels", []))
+    return own / 1e3 + sum(_kernel_ms(c) for c in getattr(evt, "cpu_children", []))
+
+
+def device_split(fn, ranges: dict, groups=()) -> dict:
+    """One call of ``fn`` (after one unprofiled call) under
+    torch.profiler: the span from the first kernel's start to the last
+    one's end, the kernels' busy time and the idle rest, the kernels'
+    ms under each record_function label of ``ranges``, and the ms of
+    the kernels whose names match each (label, regex) of ``groups``;
+    the count of kernels and the ten longest by name.  Raises when the
+    trace holds no device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    restore = _patched(ranges)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        restore()
+    events = prof.events()
+    # Device events, without the record_function ranges' own GPU-side
+    # annotation rows.
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        raise AssertionError("torch.profiler saw no device kernel")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -np.inf
+    for s, e in spans:  # the union of the kernels' intervals
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    span = max(e for _, e in spans) - spans[0][0]
+    by_range = {label: sum(_kernel_ms(e) for e in events
+                           if e.name == label and e.device_type == DeviceType.CPU)
+                for label in ranges}
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    by_group = {label: sum(ms for name, ms in by_name.items() if re.search(pattern, name, re.I))
+                for label, pattern in groups}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"span_ms": span / 1e3, "busy_ms": busy / 1e3, "idle_ms": (span - busy) / 1e3,
+            "idle_share": (span - busy) / span if span else 0.0, "kernels": len(kernels),
+            "ranges_ms": by_range, "groups_ms": by_group,
+            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+
+
+def _median_ms(fn, n: int = 5) -> float:
+    """Median device ms of ``fn`` alone, one call behind each wait
+    (several in flight make the allocator wait)."""
+    return float(np.median([cuda_ms(fn, reps=1, warmup=1) for _ in range(n)]))
+
+
+def _profiled(fn, ranges: dict, groups=()) -> dict:
+    """device_split, or {"not_measured": why} where the profiler sees no
+    device kernel."""
+    try:
+        return device_split(fn, ranges, groups)
+    except AssertionError as e:
+        return {"not_measured": str(e)}
+
+
+@torch.no_grad()
+def profile_stage_b(pipe: TorchPagePipeline, b_args) -> dict:
+    """Where one config-2 fast-path stage-B call's device time goes, on
+    its last batch: each part alone with CUDA events (the warp, the
+    convolutions of the VGG encoder, the BiLSTM, the Dense layer, CTC's
+    labels and confidences, and the whole call), and one call under
+    torch.profiler: the same parts as record_function ranges, the warp
+    kernel and the weight copies by kernel name, the idle share."""
+    rec = pipe.recognizer
+    pages, baselines, heights = b_args
+
+    def warp():
+        return warp_ops.warp_lines(pages, baselines, heights, pipe.crop_height,
+                                   pipe.crop_bucket, out_dtype=rec.spec.dtype, normalize=True)
+
+    crops = warp()
+    images = crops[..., None].expand(-1, -1, -1, 3).permute(0, 3, 1, 2).to(rec.spec.dtype)
+    features = rec.encoder(images)
+    sequence = rec.blstm(features)
+    logits = rec.dense(sequence.float())
+    valid = torch.full((logits.shape[0],), logits.shape[1], dtype=torch.int32,
+                       device=logits.device)
+    parts = {
+        "stage_b": _median_ms(lambda: pipe.stage_b(*b_args)),
+        "warp": _median_ms(warp),
+        "convolutions": _median_ms(lambda: rec.encoder(images)),
+        "bilstm": _median_ms(lambda: rec.blstm(features)),
+        "dense": _median_ms(lambda: rec.dense(sequence.float())),
+        "ctc": _median_ms(lambda: (pipeline_ctc_ops.greedy_ctc_labels(logits, valid),
+                                   pipeline_ctc_ops.greedy_worst_run_confidence(logits, valid))),
+    }
+    split = {"parts_ms": parts, "lines": int(logits.shape[0]), "frames": int(logits.shape[1]),
+             "profile": _profiled(lambda: pipe.stage_b(*b_args), {
+                 "convolutions": (rec.encoder, "forward"), "bilstm": (rec.blstm, "forward"),
+                 "dense": (rec.dense, "forward"),
+                 "ctc_labels": (pipeline_ctc_ops, "greedy_ctc_labels"),
+                 "ctc_confidence": (pipeline_ctc_ops, "greedy_worst_run_confidence"),
+             }, groups=(("warp_lines", r"warp_lines"), ("copies", r"copy|cat")))}
+    log(f"stage-B split (config 2, its last batch): {json.dumps(split)}")
+    return split
+
+
+def profile_beam_line(decoder, call) -> dict:
+    """Where one config-3 line decode's device time goes, in the eager
+    loop under torch.profiler (kernels a frame, the LM's advance and
+    head as record_function ranges; sorts, gathers and matmuls by kernel
+    name; the idle share), and the LM step alone with CUDA events (one
+    advance and head over the K beams)."""
+    logprobs, lengths, init = call[:3]
+    init = None if init is None else state_map(lambda x: x.to(decoder.device), init)
+    frames = logprobs.shape[1]
+    split = _profiled(
+        lambda: decoder.run(logprobs, lengths, init_lm_states=init, graph=False),
+        {"lm_advance": (decoder.lm, "advance"), "lm_log_probs": (decoder.lm, "log_probs")},
+        groups=(("sort", r"sort|radix|cub"), ("gather_scatter", r"gather|scatter|index"),
+                ("gemm", r"gemm|gemv|xmma|cutlass|matmul")))
+    split["frames"] = frames
+    if "kernels" in split:
+        split["kernels_a_frame"] = split["kernels"] / frames
+    state = decoder.line_start_states(decoder.k)
+    tokens = torch.zeros(decoder.k, dtype=torch.int64, device=decoder.device)
+    with torch.inference_mode():
+        split["lm_step_ms"] = _median_ms(
+            lambda: decoder.lm.log_probs(decoder.lm.advance(tokens, state)))
+    log(f"beam decode split (config 3, one line, eager): {json.dumps(split)}")
+    return split
+
+
+def run_config3(pipe: TorchPagePipeline, rng, smi: str):
+    """Config 3 on the card: CONFIG3_PAGES two-column pages (~90 lines a
+    page) through ``PageParser(config 3, device="cuda").process_page``:
+    the staged layout, the field warp, CTC OCR at line height 40, then
+    ``PageDecoder`` with CARRY_H_OVER: one beam search (K = 8, float16
+    transport) a line with a CharLM at the spec defaults stepped inside
+    the frame loop, each (1, bucket) shape a CUDA graph.  Checks: every
+    page's XML parses, each line decoded once and in the charset, one
+    warp_fields launch a page; the first CONFIG3_CHECK_LINES decodes of
+    the last page held against the CPU port's decode of the same
+    log-probs and carried states, and against
+    the eager loop on the card (``check_decodes``); a GRU LM and the
+    batched route (CARRY_H_OVER = no) on one page each, their decodes
+    held the same way; the command line on CONFIG3_CLI_PAGES pages equal
+    to the in-process run.  Returns the field warp's launches, the
+    phase's numbers, the field warp's inputs on the last page and a
+    recorded call (for the profile)."""
+    pages, lines = synthetic_pages(rng, CONFIG3_PAGES, TWO_COLUMNS)
+    ids = [f"b{i:04d}" for i in range(len(pages))]
+    with tempfile.TemporaryDirectory(prefix="config3_") as tmp:
+        inis, images = write_config3_bundle(tmp, pipe.parsenet, bench_recognizer(40),
+                                            dict(zip(ids[:CONFIG3_CLI_PAGES], pages)))
+        parser = staged_parser(inis["lstm"], "cuda")
+        page_decoder, decoder = parser.decoder, parser.decoder.decoder
+        if not (page_decoder.continue_lines and decoder.k == 8
+                and decoder.transport_dtype is np.float16):
+            raise AssertionError("config 3: not the decoder its ini asks for")
+        warm = pages[-1]
+        parser.process_page(warm, PageLayout(id="warm", page_size=warm.shape[:2]))
+        wrapper = parser.layout_parsers[0].engine.parsenet
+        wrapper.last_downsample = wrapper.init_downsample
+        capture_warm = decoder.graph_capture_seconds
+        timing.reset_timing()
+        warp_ops.warp_fields.launches = warp_ops.warp_lines.launches = 0
+        decoded_before = page_decoder.lines_decoded
+        counter = DecodeRecorder(decoder, keep=CONFIG3_CHECK_LINES)
+        try:
+            out, seconds = staged_pages(parser, ids, pages)
+        finally:
+            counter.close()
+        launches, fused = warp_ops.warp_fields.launches, warp_ops.warp_lines.launches
+        stats = timing.timing_stats()
+        capture_run = decoder.graph_capture_seconds - capture_warm
+        log("stage times (config 3 run):\n" + timing.timing_report())
+
+        n_lines = [len(list(layout.lines_iterator())) for layout, _ in out]
+        decoded = page_decoder.lines_decoded - decoded_before
+        charset = set(BENCH_CHARS[:-1])
+        for (layout, xml), pid in zip(out, ids):
+            root = ET.fromstring(xml.encode("utf-8"))
+            texts = [e.text or "" for e in root.iter(f"{PAGE_NS}Unicode")]
+            if len(texts) != len(list(layout.lines_iterator())) \
+                    or any(set(t) - charset for t in texts):
+                raise AssertionError(f"config 3 page {pid}: lines or their text off")
+        if decoded != sum(n_lines) or counter.decodes != decoded or min(n_lines) < 4:
+            raise AssertionError(f"config 3: {decoded} lines decoded in {counter.decodes} "
+                                 f"decodes, lines a page {n_lines}")
+        if launches != len(pages) or fused != 0:
+            raise AssertionError(f"config 3: warp_fields launches {launches} != {len(pages)}")
+        decoder_s = stats["decoder"][0]
+        log(f"config 3 (PageParser.process_page): {len(pages)} pages, lines a page {n_lines}, "
+            f"{len(pages) / seconds:.3f} pages/s to Page XML ({seconds:.3f} s) on {smi}; decoder "
+            f"{1e3 * decoder_s / len(pages):.1f} ms a page, {1e3 * decoder_s / decoded:.2f} ms a "
+            f"line, {counter.frames / decoder_s:.0f} frames/s ({counter.padded_frames} padded); "
+            f"graph capture {capture_warm:.3f} s at the warm-up, {capture_run:.3f} s in the run "
+            f"({len(decoder._graphs)} shapes); warp_fields launches {launches}")
+
+        # The last page's first decodes: card against the CPU port, and
+        # the graph against the eager loop.
+        calls = counter.calls
+        if len(calls) < CONFIG3_CHECK_LINES:
+            raise AssertionError(f"config 3: {len(calls)} decodes recorded")
+        check = check_decodes(decoder, calls, "config 3 (lstm)")
+        last_page = page_buckets(parser, out[-1][0], pages[-1])
+
+        # One line's graph replay alone (device time), against the bound.
+        logprobs, lengths, init = calls[0][:3]
+        decoder.run(logprobs, lengths, init_lm_states=None if init is None else state_map(
+            lambda x: x.cuda(), init))
+        runner = decoder._graphs[(1, logprobs.shape[1], False, False)]
+        replay_ms = cuda_ms(runner.graph.replay, reps=5, warmup=1)
+        bound = beam_step_bound_ms(decoder.lm, decoder.k, decoder.vocab)
+        l2 = l2_bytes_per_s(bound["weight_bytes"])
+        bound = beam_step_bound_ms(decoder.lm, decoder.k, decoder.vocab, l2["bytes_per_s"])
+        bound["l2_rate_by_pass"] = l2["by_pass"]
+        frame_ms = replay_ms / logprobs.shape[1]
+        log(f"beam step: graph replay {replay_ms:.3f} ms for {logprobs.shape[1]} frames = "
+            f"{1e3 * frame_ms:.2f} us a frame against a {1e3 * bound['bound_ms']:.2f} us bound "
+            f"by {bound['bound_by']} ({bound['bytes']} B, {bound['flops']} flops); with the "
+            f"weights read from L2 at the measured {bound['l2_bytes_per_s'] / 1e12:.2f} TB/s "
+            f"({l2['by_pass']}), "
+            f"{1e3 * bound['l2_bound_ms']:.2f} us by {bound['l2_bound_by']}")
+
+        # A GRU LM, and the batched route, on one page each, their
+        # decodes (the GRU's first lines, every bucket of the batched
+        # page) held against the CPU and the eager loop.
+        others = {}
+        for name in ("gru", "batched"):
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved()
+            other = staged_parser(inis[name], "cuda")
+            recorder = DecodeRecorder(other.decoder.decoder, carry=name == "gru",
+                                      keep=CONFIG3_CHECK_LINES // 2 if name == "gru" else 64)
+            random.seed(0)
+            try:
+                layout = other.process_page(pages[0], PageLayout(id=ids[0],
+                                                                 page_size=pages[0].shape[:2]))
+            finally:
+                recorder.close()
+            n = len(list(layout.lines_iterator()))
+            want_carry = name == "gru"
+            if other.decoder.continue_lines != want_carry or other.decoder.lines_decoded != n \
+                    or n < 4 or any(set(line.transcription) - charset
+                                    for line in layout.lines_iterator()):
+                raise AssertionError(f"config 3 ({name}): {other.decoder.lines_decoded} of {n} "
+                                     "lines decoded, or text off")
+            others[name] = {"lines": n, "decoded": other.decoder.lines_decoded,
+                            "graph_shapes": len(other.decoder.decoder._graphs),
+                            "decode_batches": [len(c[1]) for c in recorder.calls],
+                            "summary": other.decoder.decoding_summary(),
+                            **check_decodes(other.decoder.decoder, recorder.calls,
+                                            f"config 3 ({name})")}
+            if name == "batched":
+                # The route over the other pages (other line counts): how
+                # often its padded shapes repeat, what capturing costs a
+                # page, and the card memory held since the parser was built.
+                dec, per_page = other.decoder.decoder, []
+                for pid, page in zip(ids, pages):
+                    page_capture_s = dec.graph_capture_seconds
+                    page_decoder_s = other.decoder.seconds_decoding
+                    if pid != ids[0]:
+                        other.process_page(page, PageLayout(id=pid, page_size=page.shape[:2]))
+                        page_capture_s = dec.graph_capture_seconds - page_capture_s
+                        page_decoder_s = other.decoder.seconds_decoding - page_decoder_s
+                    torch.cuda.synchronize()
+                    per_page.append({
+                        "page": pid, "graph_shapes": sorted(key[:2] for key in dec._graphs),
+                        "capture_s": page_capture_s, "decoder_s": page_decoder_s,
+                        "memory_mb": (torch.cuda.memory_reserved() - reserved) / 2**20})
+                others[name]["pages"] = per_page
+            log(f"config 3 ({name}): {others[name]}")
+
+        # The command line on the first pages, ``random`` seeded as the
+        # in-process run was.
+        out_dir = os.path.join(tmp, "page_xml")
+        proc, cli_seconds = run_parse_folder(
+            ["-c", inis["lstm"], "-i", images, "--output-xml-path", out_dir, "--timing-report"],
+            "config 3 command line", program=SEEDED_CLI)
+        counted = re.search(r"^warp_fields kernel launches: (\d+)$", proc.stdout, re.M)
+        timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
+        decoder_timed = re.search(r"^decoder\s+([0-9.]+)\s+(\d+)\s", proc.stdout, re.M)
+        differ = [layout.id for layout, xml in out[:CONFIG3_CLI_PAGES]
+                  if not same_staged_page(read_text(out_dir, layout.id + ".xml"), xml)]
+        log(f"config 3 command line vs in-process: {CONFIG3_CLI_PAGES - len(differ)} of "
+            f"{CONFIG3_CLI_PAGES} files equal; its warp_fields launches "
+            f"{counted.group(1) if counted else None}")
+        if differ or counted is None or timed is None or decoder_timed is None \
+                or int(counted.group(1)) != CONFIG3_CLI_PAGES:
+            raise AssertionError(f"config 3 command line: files differ {differ} or launches")
+
+    numbers = {
+        "pages": len(pages), "pages_per_s": len(pages) / seconds, "lines": sum(n_lines),
+        "stage_ms": {k: 1e3 * stats[k][0] / stats[k][1] for k in CONFIG3_STAGES if k in stats},
+        "decoder_ms_a_page": 1e3 * decoder_s / len(pages),
+        "decoder_ms_a_line": 1e3 * decoder_s / decoded,
+        "frames_per_s": counter.frames / decoder_s,
+        "padded_frames_per_s": counter.padded_frames / decoder_s,
+        "graph_shapes": len(decoder._graphs), "graph_capture_s_warm_up": capture_warm,
+        "graph_capture_s_in_run": capture_run,
+        **check,
+        "beam_step": {"frames": logprobs.shape[1], "graph_replay_ms": replay_ms,
+                      "ms_a_frame": frame_ms, **bound},
+        "gru": others["gru"], "batched": others["batched"],
+        "warp_fields_launches": launches,
+        "cli_pages_per_s": CONFIG3_CLI_PAGES / float(timed.group(1)),
+        "cli_decoder_s": float(decoder_timed.group(1)), "cli_wall_s": cli_seconds,
+        "card": smi,
+    }
+    return launches, numbers, last_page, (decoder, calls[0])
+
+
+# ----------------------------------------------------------------------
 # The host C++ (csrc/perotpu.cpp) against its numpy twins
 FAST_STAGES = ("pipeline/host_geometry", "pipeline/cc_parse",
                "pipeline/make_clusters", "pipeline/textlines", "pipeline/stage_a_sync", "pipeline/upload+dispatch_a", "pipeline/stage_b",
@@ -2297,6 +2946,8 @@ def main() -> int:
     launches_staged, staged, staged_args, staged_host = run_staged(pipe, rng, smi)
     launches_config1, config1, config1_args = run_config1(rng, smi)
     launches_config5, config5, config5_args, viterbi_inputs = run_config5(pipe, rng, smi)
+    launches_config3, config3, config3_args, (beam_decoder, beam_call) = run_config3(
+        pipe, rng, smi)
     host_native = check_host_native(fast_host, staged_host, viterbi_inputs, smi)
     # The kernel against its plain version, and its times, at the main
     # path's shapes (the last config-2 batch's pages and detected lines)
@@ -2305,6 +2956,10 @@ def main() -> int:
     main_check = check_warp(main_args, "config 2")
     cli_check = check_warp(cli_args, "command line")
     config5_check = check_warp(config5_args, "config 5")
+    # Where the device time goes: one config-2 stage-B call and one
+    # config-3 line decode (eager) under torch.profiler.
+    config3["stage_b_split"] = profile_stage_b(pipe, main_args[:3])
+    config3["beam_line_split"] = profile_beam_line(beam_decoder, beam_call)
     warp = {
         "name": "warp_lines", "route": "cuda",
         "source": "pero_ocr_tpu_torch/csrc/warp_lines.cu",
@@ -2326,14 +2981,18 @@ def main() -> int:
         **check_warp_fields(*staged_args, rng, "staged, last page"),
         "launches_config1": launches_config1,
         "launches_config5": launches_config5["warp_fields"],
+        "launches_config3": launches_config3,
         **{f"config1_{k}": v for k, v in check_warp_fields(
             *config1_args, rng, "config 1, last A4 page").items()},
+        **{f"config3_{k}": v for k, v in check_warp_fields(
+            *config3_args, rng, "config 3, last page").items()},
     }
 
     print(json.dumps({"cli": cli}))
     print(json.dumps({"staged": staged}))
     print(json.dumps({"config1": config1}))
     print(json.dumps({"config5": config5}))
+    print(json.dumps({"config3": config3}))
     print(json.dumps({"host_native": host_native}))
     print(smi)
     print(json.dumps({"kernels": [warp, fields]}))

@@ -35,8 +35,6 @@ def resolve_device(device=None) -> torch.device:
 # Titles of the items in ROADMAP.md's queue 1 that unported features
 # name in their errors.
 STAGE_BY_STAGE = "Stage-by-stage path"
-LOGITS = "Logits, forced alignment and ALTO (config 5)"
-BEAM_LM = "Beam search with a character LM (config 3)"
 TRANSFORMERS = "Transformer recognizers"
 TORCHSCRIPT = "TorchScript checkpoints"
 CROP_TRANSPORT = "Crop transport"

@@ -21,6 +21,12 @@ means CUDA, "cpu" the plain PyTorch path):
 - ``PageOCR``: the lines' crops in width-bucketed batches through the
   CTC recognizer, sparse logits kept on each line (the logits files and
   the ALTO output read them);
+- ``PageDecoder`` (config 3, ``RUN_DECODER``): the lines' log-probs
+  through the ``[DECODER]``'s decoder; ``TPU-BEAM`` is the batched beam
+  search with the character LM on ``device``
+  (:mod:`pero_ocr_tpu_torch.decoding.tpu_decoder`), one decode a line
+  with ``CARRY_H_OVER`` (the LM state carried from line to line), one a
+  128-frame bucket of lines without;
 - line confidences from the logits, and the confident-line filter.
 
 :meth:`~pero_ocr_tpu_torch.document.fast_pipeline.FastPagePipeline.from_page_parser`
@@ -28,21 +34,21 @@ builds the device pipeline of ``--fast-pipeline`` from the same engines.
 What the port lacks raises ``ValueError`` naming its ROADMAP item: the
 other layout methods and the ``LAYOUT_CNN`` options ``MULTI_ORIENTATION``,
 ``MERGE_LINES``, ``ADJUST_HEIGHTS``, ``ADJUST_BASELINES`` and
-``DETECT_STRAIGHT_LINES_IN_REGIONS`` (items 8c, 8d), ``RUN_DECODER``
-(item 10) and transformer OCR (item 11).
+``DETECT_STRAIGHT_LINES_IN_REGIONS`` (items 8c, 8d) and transformer OCR
+(item 11).
 """
 
 from __future__ import annotations
 
 import logging
+import math
+import time
 from typing import List
 
 import numpy as np
 import torch
 
-from pero_ocr_tpu_torch import (
-    BEAM_LM, STAGE_BY_STAGE, TRANSFORMERS, not_ported, resolve_device,
-)
+from pero_ocr_tpu_torch import STAGE_BY_STAGE, TRANSFORMERS, not_ported, resolve_device
 from pero_ocr_tpu_torch.core import crop_engine as cropper
 from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
 from pero_ocr_tpu_torch.layout_engines import helpers
@@ -82,6 +88,35 @@ def line_cropper_factory(config, device=None, config_path=""):
 
 def ocr_factory(config, device=None, config_path=""):
     return PageOCR(config["OCR"], device, config_path=config_path)
+
+
+def page_decoder_factory(config, device=None, config_path=""):
+    from pero_ocr_tpu_torch.decoding import itf
+
+    ocr_chars = itf.get_ocr_charset(compose_path(config["OCR"]["OCR_JSON"], config_path))
+    decoder = itf.decoder_factory(config["DECODER"], ocr_chars, device, config_path=config_path)
+    return PageDecoder(
+        decoder,
+        line_confidence_threshold=config["DECODER"].getfloat("CONFIDENCE_THRESHOLD",
+                                                             fallback=math.inf),
+        carry_h_over=config["DECODER"].getboolean("CARRY_H_OVER", fallback=False),
+    )
+
+
+class MissingLogits(Exception):
+    pass
+
+
+def line_confident_enough(logits: np.ndarray, confidence_threshold: float) -> bool:
+    log_probs = logits - np.logaddexp.reduce(logits, axis=1)[:, np.newaxis]
+    worst_best_prob = np.exp(np.min(np.max(log_probs, axis=-1)))
+    return worst_best_prob > confidence_threshold
+
+
+def prepare_dense_logits(line: TextLine) -> np.ndarray:
+    if line.logits is None:
+        raise MissingLogits(f"Line {line.id} has {line.logits} in place of logits")
+    return line.get_full_logprobs()
 
 
 def get_prob(best_ids: np.ndarray, best_probs: np.ndarray) -> float:
@@ -317,6 +352,165 @@ class PageOCR:
         return isinstance(self.ocr_engine, CTCEngineLineOCR)
 
 
+DECODE_BUCKET = 128  # frames; lines pad to a multiple (at least one)
+
+
+def _bucket(n_frames: int) -> int:
+    return max(DECODE_BUCKET, int(math.ceil(n_frames / DECODE_BUCKET) * DECODE_BUCKET))
+
+
+def _padded(items, bucket: int):
+    """Lines' (T, C) log-probs in one (N, bucket, C) float32 batch; the
+    padding frames stay normalized: the blank sure (0), the rest -30.
+    Returns (batch, frame counts)."""
+    c = items[0].shape[1]
+    batch = np.zeros((len(items), bucket, c), np.float32)
+    lengths = np.zeros(len(items), np.int32)
+    for i, logits in enumerate(items):
+        t = min(logits.shape[0], bucket)
+        batch[i, :t] = logits[:t]
+        batch[i, t:, :] = -30.0
+        batch[i, t:, -1] = 0.0
+        lengths[i] = t
+    return batch, lengths
+
+
+class PageDecoder:
+    """The LM beam-search decode stage (JAX page_parser.py:548-709).
+
+    With a decoder that has ``decode_batch`` (``TPU-BEAM``) the page's
+    lines go through it: one decode a line, in page order, carrying the
+    best hypothesis's LM state over with ``CARRY_H_OVER`` (and an LM),
+    else one decode a 128-frame bucket of lines.  Other decoders take a
+    line at a time on the host (``decode_line``)."""
+
+    def __init__(self, decoder, line_confidence_threshold=None, carry_h_over=False):
+        self.decoder = decoder
+        self.line_confidence_threshold = line_confidence_threshold
+        self.lines_examined = 0
+        self.lines_decoded = 0
+        self.seconds_decoding = 0.0
+        self.continue_lines = carry_h_over
+        self.last_h = None
+        self.last_line = None
+
+    def process_page(self, page_layout: PageLayout) -> PageLayout:
+        self.last_h = None
+        if hasattr(self.decoder, "decode_batch"):
+            if self.continue_lines and getattr(self.decoder, "supports_carry", False):
+                return self._process_page_carry(page_layout)
+            # No LM -> nothing to carry; the batched path is exact.
+            return self._process_page_batched(page_layout)
+        for line in page_layout.lines_iterator():
+            try:
+                line.transcription = self.decode_line(line)
+            except Exception:  # a line that fails keeps its OCR text
+                logger.error("Failed to process line %s of page %s.", line.id,
+                             page_layout.id, exc_info=True)
+        return page_layout
+
+    def _lines_to_decode(self, page_layout: PageLayout):
+        """(line, log-probs) of the lines that need decoding."""
+        out = []
+        for line in page_layout.lines_iterator():
+            self.lines_examined += 1
+            try:
+                logits = prepare_dense_logits(line)
+            except MissingLogits:
+                continue
+            if self.line_confidence_threshold is not None and \
+                    line_confident_enough(logits, self.line_confidence_threshold):
+                continue
+            out.append((line, logits))
+        return out
+
+    def _process_page_batched(self, page_layout: PageLayout) -> PageLayout:
+        """All the page's lines, one ``decode_batch`` a 128-frame bucket."""
+        to_decode = self._lines_to_decode(page_layout)
+        if not to_decode:
+            return page_layout
+        t0 = time.time()
+        buckets: dict = {}
+        for line, logits in to_decode:
+            buckets.setdefault(_bucket(logits.shape[0]), []).append((line, logits))
+        for bucket, items in buckets.items():
+            batch, lengths = _padded([logits for _, logits in items], bucket)
+            bags = self.decoder.decode_batch(batch, lengths)
+            for (line, _), bag in zip(items, bags):
+                line.transcription = bag.best_hyp()
+        self.seconds_decoding += time.time() - t0
+        self.lines_decoded += len(to_decode)
+        return page_layout
+
+    def _process_page_carry(self, page_layout: PageLayout) -> PageLayout:
+        """CARRY_H_OVER: the lines one after another, each one decode
+        seeded with the previous line's final LM state (after ``</s>``).
+        A confident line keeps its OCR text and reseeds the LM from that
+        text at the next decoded line."""
+        state = None        # (1, ...) LM state on the decoder's device
+        last_line = None
+        for line in page_layout.lines_iterator():
+            self.lines_examined += 1
+            try:
+                logits = prepare_dense_logits(line)
+            except MissingLogits:
+                continue
+            if self.line_confidence_threshold is not None and \
+                    line_confident_enough(logits, self.line_confidence_threshold):
+                state = None
+                last_line = line.transcription
+                continue
+            if state is None and last_line:
+                state = self.decoder.states_from_line(last_line)
+            t0 = time.time()
+            batch, lengths = _padded([logits], _bucket(logits.shape[0]))
+            bags, final_states = self.decoder.decode_batch(
+                batch, lengths, init_lm_states=state, return_lm_states=True)
+            line.transcription = bags[0].best_hyp()
+            state = self.decoder.add_line_end(final_states)
+            last_line = line.transcription
+            self.seconds_decoding += time.time() - t0
+            self.lines_decoded += 1
+        return page_layout
+
+    def decode_line(self, line: TextLine) -> str:
+        """One line through a host decoder (``FAST-LOG-RAW``, ``GREEDY``)."""
+        self.lines_examined += 1
+        logits = prepare_dense_logits(line)
+        if self.line_confidence_threshold is not None:
+            if line_confident_enough(logits, self.line_confidence_threshold):
+                self.last_h = None
+                self.last_line = line.transcription
+                return line.transcription
+
+        t0 = time.time()
+        if self.continue_lines:
+            if not self.last_h and self.last_line:
+                self.last_h = self.decoder._lm.initial_h_from_line(self.last_line)
+            hypotheses, last_h = self.decoder(logits, return_h=True, init_h=self.last_h)
+            self.last_h = self.decoder._lm.add_line_end(last_h)
+        else:
+            hypotheses = self.decoder(logits)
+        self.seconds_decoding += time.time() - t0
+        self.lines_decoded += 1
+
+        transcription = hypotheses.best_hyp()
+        self.last_line = transcription
+        return transcription
+
+    def decoding_summary(self) -> str:
+        if self.lines_examined == 0:
+            return "This PageDecoder has not processed a single line yet"
+        if self.lines_decoded == 0:
+            return (f"Processed {self.lines_examined} lines, but none required "
+                    f"actual decoding")
+        decoded_pct = 100.0 * self.lines_decoded / self.lines_examined
+        ms_per_line = 1000.0 * self.seconds_decoding / self.lines_decoded
+        return (f"Ran on {self.lines_examined}, decoded {self.lines_decoded} "
+                f"lines ({decoded_pct:.1f} %) in {self.seconds_decoding:.2f}s "
+                f"({ms_per_line:.1f}ms per line)")
+
+
 class PageParser:
     """Top-level pipeline (JAX page_parser.py:712-794).  ``device`` is
     where its engines, and the fast pipeline built from it, run: None
@@ -349,7 +543,7 @@ class PageParser:
         if self.run_ocr:
             self.ocr = ocr_factory(config, device, config_path=config_path)
         if self.run_decoder:
-            raise not_ported("[PAGE_PARSER] RUN_DECODER", BEAM_LM)
+            self.decoder = page_decoder_factory(config, device, config_path=config_path)
 
     @staticmethod
     def compute_line_confidence(line: TextLine) -> float:
@@ -390,6 +584,9 @@ class PageParser:
             page_layout = self.line_cropper.process_page(image, page_layout)
         if self.run_ocr:
             page_layout = self.ocr.process_page(image, page_layout)
+        if self.run_decoder:
+            with stage_timer("decoder"):
+                page_layout = self.decoder.process_page(page_layout)
         self.update_confidences(page_layout)
         if self.filter_confident_lines_threshold > 0:
             page_layout = self.filter_confident_lines(page_layout)

@@ -11,7 +11,9 @@ XML file, a ``.logits`` pickle of the lines' sparse logits and an ALTO
 file with word boxes from the forced alignment, each where asked.
 Without ``--fast-pipeline`` each page goes through
 ``PageParser.process_page`` (the stage-by-stage path; the line crops are
-sampled by the hand-written CUDA field warp), with the next page decoded
+sampled by the hand-written CUDA field warp; with ``RUN_DECODER`` the
+lines then go through the beam search with the character LM), with the
+next page decoded
 on a worker thread, and a page that fails is reported and skipped, as
 the JAX command line's ``Computator`` does.  With ``--fast-pipeline``
 the page batches go through ``FastPagePipeline.process_pages`` (stage B
@@ -287,6 +289,8 @@ def main(argv=None) -> None:
         with open(args.output_transcriptions_file_path, "w", encoding="utf-8") as f:
             for page_lines in results:
                 print("\n".join(page_lines), file=f)
+    if page_parser.decoder:
+        logger.info(page_parser.decoder.decoding_summary())
     if ids_to_process:
         logger.info("AVERAGE PROCESSING TIME %s", (time.time() - t_start) / len(ids_to_process))
     if args.timing_report:

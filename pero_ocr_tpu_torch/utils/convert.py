@@ -1,9 +1,13 @@
-"""Flax parameter trees -> torch state dicts.
+"""Flax parameter trees -> torch state dicts, and torch LM files.
 
-Both functions take the flax ``params`` of a JAX model (a nested
-mapping of arrays, or the variables dict holding it under "params") and
-return a ``state_dict`` for the matching module of this package, in
-float32 (``load_state_dict`` casts to the module's dtype).
+The ``*_params_from_flax`` functions take the flax ``params`` of a JAX
+model (a nested mapping of arrays, or the variables dict holding it
+under "params") and return a ``state_dict`` for the matching module of
+this package, in float32 (``load_state_dict`` casts to the module's
+dtype).  ``load_torch_lm_file`` reads a torch character LM (state dict,
+pickled module or TorchScript) as the JAX package's
+``utils/convert_torch.py`` does: into the CharLM's flax tree, with its
+gate mapping, which ``charlm_params_from_flax`` then loads.
 
 Layout rules:
 
@@ -19,12 +23,15 @@ Layout rules:
   the same i, f, g, o, so the four kernels concatenate into
   ``weight_ih``/``weight_hh`` and the hidden biases into ``bias_hh``
   (``bias_ih`` is zero).
+- The CharLM (``models/charlm.py``) keeps the flax kernels' (in, out)
+  layout: a cell's gate kernels concatenate side by side (LSTM i, f,
+  g, o; GRU r, z, n), as ``OptimizedLSTMCell`` concatenates them.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -134,3 +141,203 @@ def recognizer_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 out[f"blstm.lstm.{name}_l{layer}{suffix}"] = value
     _put(out, "dense", _dense(p["Dense_0"]))
     return out
+
+
+def charlm_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for :class:`pero_ocr_tpu_torch.models.charlm.CharLM`
+    from the params of ``pero_ocr_tpu.models.charlm.CharLM``."""
+    p = _params(tree)
+    out = {"embed.weight": _t(p["embed"]["embedding"]),
+           "head.weight": _t(p["head"]["kernel"]).T.contiguous(),
+           "head.bias": _t(p["head"]["bias"])}
+    for k in range(_count(p, "cells")):
+        cell = p[f"cells_{k}"]
+        if "hi" in cell:  # OptimizedLSTMCell
+            out[f"cells.{k}.weight_i"] = torch.cat([_t(cell[f"i{g}"]["kernel"]) for g in _GATES], 1)
+            out[f"cells.{k}.weight_h"] = torch.cat([_t(cell[f"h{g}"]["kernel"]) for g in _GATES], 1)
+            out[f"cells.{k}.bias_h"] = torch.cat([_t(cell[f"h{g}"]["bias"]) for g in _GATES])
+        else:  # GRUCell
+            out[f"cells.{k}.weight_i"] = torch.cat([_t(cell[g]["kernel"]) for g in ("ir", "iz", "in")], 1)
+            out[f"cells.{k}.bias_i"] = torch.cat([_t(cell[g]["bias"]) for g in ("ir", "iz", "in")])
+            out[f"cells.{k}.weight_h"] = torch.cat([_t(cell[g]["kernel"]) for g in ("hr", "hz", "hn")], 1)
+            out[f"cells.{k}.bias_hn"] = _t(cell["hn"]["bias"])
+    return out
+
+
+def lm_spec_from_variables(variables: Mapping) -> Dict:
+    """The CharLM sidecar spec dict of a CharLM's flax variables (JAX
+    ``utils/convert_torch.py`` ``lm_spec_from_variables``)."""
+    params = _params(variables)
+    vocab_size, embed_dim = np.shape(params["embed"]["embedding"])
+    cell0 = params["cells_0"]
+    cell_type = "lstm" if "hi" in cell0 else "gru"
+    hidden_dim = np.shape(cell0["hi" if cell_type == "lstm" else "hr"]["kernel"])[0]
+    return {
+        "vocab_size": int(vocab_size),
+        "embed_dim": int(embed_dim),
+        "hidden_dim": int(hidden_dim),
+        "num_layers": _count(params, "cells"),
+        "cell_type": cell_type,
+    }
+
+
+# ----------------------------------------------------------------------
+# Torch character-LM files (copy of the LM part of the JAX package's
+# utils/convert_torch.py): a torch embedding, nn.LSTM or nn.GRU stack
+# and output Linear -> the CharLM's flax tree.
+def _np(tensor) -> np.ndarray:
+    try:
+        return tensor.detach().cpu().numpy()
+    except AttributeError:
+        return np.asarray(tensor)
+
+
+def _torch_rnn_layer(state_dict: Mapping, prefix: str, layer: int):
+    w_ih = _np(state_dict[f"{prefix}.weight_ih_l{layer}"])  # (gates*H, in)
+    w_hh = _np(state_dict[f"{prefix}.weight_hh_l{layer}"])  # (gates*H, H)
+    b_ih = _np(state_dict.get(f"{prefix}.bias_ih_l{layer}", np.zeros(w_ih.shape[0])))
+    b_hh = _np(state_dict.get(f"{prefix}.bias_hh_l{layer}", np.zeros(w_hh.shape[0])))
+    hidden = w_hh.shape[1]
+
+    def gate(idx):
+        lo, hi = idx * hidden, (idx + 1) * hidden
+        return w_ih[lo:hi].T, w_hh[lo:hi].T, b_ih[lo:hi], b_hh[lo:hi]
+
+    return gate
+
+
+def convert_lstm_layer(state_dict: Mapping, prefix: str, layer: int) -> Dict:
+    """One torch nn.LSTM layer -> flax OptimizedLSTMCell params: the
+    same gate order; torch's two biases summed into the hidden one."""
+    gate = _torch_rnn_layer(state_dict, prefix, layer)
+    gates = {}
+    for name, idx in (("i", 0), ("f", 1), ("g", 2), ("o", 3)):
+        wi, wh, bi, bh = gate(idx)
+        gates["i" + name] = {"kernel": wi}
+        gates["h" + name] = {"kernel": wh, "bias": bi + bh}
+    return gates
+
+
+def convert_gru_layer(state_dict: Mapping, prefix: str, layer: int) -> Dict:
+    """One torch nn.GRU layer (gates r, z, n) -> flax GRUCell params.
+
+    Both share r = sigma(W_ir x + W_hr h + b), z likewise, and
+    n = tanh(W_in x + b_in + r * (W_hn h + b_hn)); flax keeps no bias on
+    hr/hz, so those torch biases fold into ir/iz."""
+    gate = _torch_rnn_layer(state_dict, prefix, layer)
+    wi_r, wh_r, bi_r, bh_r = gate(0)
+    wi_z, wh_z, bi_z, bh_z = gate(1)
+    wi_n, wh_n, bi_n, bh_n = gate(2)
+    return {
+        "ir": {"kernel": wi_r, "bias": bi_r + bh_r},
+        "iz": {"kernel": wi_z, "bias": bi_z + bh_z},
+        "in": {"kernel": wi_n, "bias": bi_n},
+        "hr": {"kernel": wh_r},
+        "hz": {"kernel": wh_z},
+        "hn": {"kernel": wh_n, "bias": bh_n},
+    }
+
+
+def detect_lm_prefixes(state_dict: Mapping) -> Dict[str, str]:
+    """The (embed, recurrent stack, head) attribute prefixes of a torch
+    char-RNN LM state dict.
+
+    The recurrent stack is ``<p>.weight_ih_l0``.  The head is the 2-D
+    ``.weight`` whose input dim equals the recurrent hidden size; the
+    embedding is the 2-D ``.weight`` whose output dim equals the
+    recurrent input size (brnolm's ``model``/``decoder`` naming
+    included)."""
+    rnn_prefix = None
+    for key in state_dict:
+        if key.endswith(".weight_ih_l0"):
+            rnn_prefix = key[: -len(".weight_ih_l0")]
+            break
+    if rnn_prefix is None:
+        raise ValueError(
+            "no recurrent stack (*.weight_ih_l0) in the LM state dict; "
+            f"keys: {sorted(state_dict)[:10]}"
+        )
+    w_ih = _np(state_dict[f"{rnn_prefix}.weight_ih_l0"])
+    w_hh = _np(state_dict[f"{rnn_prefix}.weight_hh_l0"])
+    in_dim, hidden = w_ih.shape[1], w_hh.shape[1]
+    candidates = []  # (prefix, shape, has_bias) of 2-D .weight tensors
+    for key, value in state_dict.items():
+        if not key.endswith(".weight") or key.startswith(rnn_prefix + "."):
+            continue
+        arr = _np(value)
+        if arr.ndim != 2:
+            continue
+        prefix = key[: -len(".weight")]
+        candidates.append((prefix, arr.shape, prefix + ".bias" in state_dict))
+    embed_prefix = head_prefix = None
+    for prefix, shape, has_bias in candidates:
+        # nn.Embedding has no bias; nn.Linear heads usually do — use that
+        # first, since embed_dim == hidden makes the shapes ambiguous.
+        if shape[1] == hidden and has_bias and head_prefix is None:
+            head_prefix = prefix
+        elif shape[1] == in_dim and not has_bias and embed_prefix is None:
+            embed_prefix = prefix
+    for prefix, shape, _ in candidates:
+        if prefix in (embed_prefix, head_prefix):
+            continue
+        if embed_prefix is None and shape[1] == in_dim:
+            embed_prefix = prefix
+        elif head_prefix is None and shape[1] == hidden:
+            head_prefix = prefix
+    if embed_prefix is None or head_prefix is None:
+        raise ValueError(
+            "could not identify embedding/head Linear in the LM state "
+            f"dict (rnn={rnn_prefix}, in={in_dim}, hidden={hidden})"
+        )
+    return {"embed_prefix": embed_prefix, "lstm_prefix": rnn_prefix,
+            "head_prefix": head_prefix}
+
+
+def convert_torch_lm(state_dict: Mapping, embed_prefix: str = "embed",
+                     lstm_prefix: str = "lstm", head_prefix: str = "head",
+                     num_layers: Optional[int] = None) -> Dict:
+    """Torch char-RNN LM -> the CharLM's flax variables (numpy).  The
+    cell type follows the gate-row count (4H rows LSTM, 3H GRU)."""
+    if num_layers is None:
+        num_layers = 0
+        while f"{lstm_prefix}.weight_ih_l{num_layers}" in state_dict:
+            num_layers += 1
+    head = {"kernel": _np(state_dict[head_prefix + ".weight"]).T}
+    if head_prefix + ".bias" in state_dict:
+        head["bias"] = _np(state_dict[head_prefix + ".bias"])
+    params = {"embed": {"embedding": _np(state_dict[embed_prefix + ".weight"])}, "head": head}
+    w_ih = _np(state_dict[f"{lstm_prefix}.weight_ih_l0"])
+    w_hh = _np(state_dict[f"{lstm_prefix}.weight_hh_l0"])
+    gates = w_ih.shape[0] // w_hh.shape[1]
+    if gates == 3:
+        convert_layer = convert_gru_layer
+    elif gates == 4:
+        convert_layer = convert_lstm_layer
+    else:
+        raise ValueError(
+            f"unrecognized recurrent layer: {w_ih.shape[0]} gate rows for "
+            f"hidden size {w_hh.shape[1]}"
+        )
+    for k in range(num_layers):
+        params[f"cells_{k}"] = convert_layer(state_dict, lstm_prefix, k)
+    return {"params": params}
+
+
+def load_torch_lm_file(path: str):
+    """A torch LM file (state dict, pickled module or TorchScript) ->
+    (the CharLM's flax variables, its sidecar spec dict), the prefixes
+    detected from the keys."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    except Exception:  # not a pickle archive: TorchScript
+        obj = torch.jit.load(path, map_location="cpu")
+    state_dict = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    if isinstance(state_dict, dict):
+        # Unwrap common {checkpoint key: state_dict} containers.
+        for container_key in ("state_dict", "model_state_dict", "model"):
+            inner = state_dict.get(container_key)
+            if isinstance(inner, dict) and inner:
+                state_dict = inner
+                break
+    variables = convert_torch_lm(state_dict, **detect_lm_prefixes(state_dict))
+    return variables, lm_spec_from_variables(variables)

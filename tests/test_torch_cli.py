@@ -52,7 +52,8 @@ from pero_ocr_tpu.models.recognizer import RecognizerSpec as FlaxSpec
 from pero_ocr_tpu.utils.checkpoint import save_variables
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
-from pero_ocr_tpu_torch.document.page_parser import PageParser
+from pero_ocr_tpu_torch.decoding.tpu_decoder import TorchBeamSearchDecoder
+from pero_ocr_tpu_torch.document.page_parser import PageDecoder, PageParser
 from pero_ocr_tpu_torch.layout_engines import parsenet_wrapper
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
@@ -461,11 +462,18 @@ def test_cli_refuses_config_features(bundle, tmp_path, caplog):
     assert "Stage-by-stage path" in caplog.text
 
     config["LAYOUT_PARSER_1"]["MERGE_LINES"] = "no"
+    # RUN_DECODER is ported (config 3): the decoder stage is built.
     config["PAGE_PARSER"]["RUN_DECODER"] = "yes"
-    for section, item in ((None, "Beam search"), ("LAYOUT_PARSER_2", "Stage-by-stage path"),
+    config["DECODER"] = {"TYPE": "TPU-BEAM", "BEAM_SIZE": "4"}
+    decoder = PageParser(config, device="cpu", config_path=str(bundle)).decoder
+    assert isinstance(decoder, PageDecoder)
+    assert isinstance(decoder.decoder, TorchBeamSearchDecoder) and decoder.decoder.k == 4
+    assert "RUN_DECODER (beam/LM decoding stage)" in FastPagePipeline.unsupported_features(
+        PageParser(config, device="cpu", config_path=str(bundle)))
+    config["PAGE_PARSER"]["RUN_DECODER"] = "no"
+    for section, item in (("LAYOUT_PARSER_2", "Stage-by-stage path"),
                           ("OCR", "Transformer recognizers")):
         if section == "LAYOUT_PARSER_2":
-            config["PAGE_PARSER"]["RUN_DECODER"] = "no"
             config.add_section(section)
             config[section]["METHOD"] = "LINE_FILTER"
         elif section == "OCR":

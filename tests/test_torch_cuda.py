@@ -460,3 +460,99 @@ def test_top_k_logits_on_the_card_match_cpu_topk(cuda):
     hh = torch.from_numpy(np.stack([hh, hh])).cuda()
     record = topk_check(pipe, (pages, bl, hh))
     assert record["k"] == 3 and record["frames"] > 0
+
+
+# ----------------------------------------------------------------------
+# The beam search with a character LM (config 3) on the card: no
+# hand-written kernel, torch ops in a CUDA graph a decode shape.
+BEAM_LETTERS = ["a", "b", "c", "d", "e", "\u200b"]
+
+
+def _beam_decoders(cuda, cell_type):
+    from pero_ocr_tpu_torch.decoding.tpu_decoder import TorchBeamSearchDecoder
+    from pero_ocr_tpu_torch.models.charlm import CharLM, CharLMSpec
+
+    lm = CharLM(CharLMSpec(vocab_size=6, embed_dim=8, hidden_dim=32, num_layers=2,
+                           cell_type=cell_type), generator=torch.Generator().manual_seed(2))
+    kw = dict(k=8, lm=lm, lm_scale=0.5, insertion_bonus=0.2, transport_dtype=np.float16)
+    return (TorchBeamSearchDecoder(BEAM_LETTERS, device="cpu", **kw),
+            TorchBeamSearchDecoder(BEAM_LETTERS, device=cuda, **kw))
+
+
+def _beam_inputs(seed, b=3, t=128):
+    rng = np.random.default_rng(seed)
+    logits = np.log(rng.dirichlet(np.full(6, 0.3), size=(b, t))).astype(np.float32)
+    lengths = np.array([t, t - 40, 9][:b])
+    return logits, lengths
+
+
+@pytest.mark.parametrize("cell_type", ["lstm", "gru"])
+def test_beam_search_on_the_card_matches_cpu(cuda, cell_type):
+    """Lines of three lengths and a carried state: the card's graph
+    decode against the CPU port's, equal backpointers unless the CPU's
+    smallest gap among its K + 1 best totals is a float32 near-tie."""
+    from chip_smoke import decode_differs
+    from pero_ocr_tpu_torch.models.charlm import state_leaves, state_map
+
+    cpu, card = _beam_decoders(cuda, cell_type)
+    logits, lengths = _beam_inputs(1)
+    init = cpu.states_from_line("abcab")
+    init = state_map(lambda x: x.repeat(3, 1), init)
+    ref = cpu.run(logits, lengths, init_lm_states=init, margins=True)
+    out = card.run(logits, lengths, init_lm_states=state_map(lambda x: x.to(cuda), init))
+    totals = (ref.p_total + 0.5 * ref.p_lm).numpy()
+    verdicts = decode_differs((out.bp_rows.cpu().numpy(), out.bp_cols.cpu().numpy()),
+                              (ref.bp_rows.numpy(), ref.bp_cols.numpy()),
+                              ref.margins.numpy(), totals, lengths)
+    assert all(v is None or v[1] for v in verdicts), verdicts
+    for i, v in enumerate(verdicts):
+        if v is None:
+            assert np.allclose(out.p_total[i].cpu().numpy(), ref.p_total[i].numpy(), atol=1e-3)
+            assert card.hypotheses(out)[i].best_hyp() == cpu.hypotheses(ref)[i].best_hyp()
+    for g, w in zip(state_leaves(out.best_states), state_leaves(ref.best_states)):
+        if all(v is None for v in verdicts):
+            assert torch.allclose(g.cpu(), w, atol=1e-4)
+    assert len(card._graphs) == 1
+
+
+def test_beam_graph_replay_equals_the_eager_loop(cuda):
+    """A replayed graph gives the eager loop's backpointers and scores on
+    the card; one graph a (B, T) shape, B padded to a power of two,
+    reused; a carried-state chain through decode_batch."""
+    _, card = _beam_decoders(cuda, "lstm")
+    for seed in (2, 3):
+        logits, lengths = _beam_inputs(seed)
+        graph = card.run(logits, lengths)
+        graph = [t.clone() for t in (graph.bp_rows, graph.bp_cols, graph.p_total, graph.p_lm)]
+        eager = card.run(logits, lengths, graph=False)
+        for g, e in zip(graph, (eager.bp_rows, eager.bp_cols, eager.p_total, eager.p_lm)):
+            assert torch.equal(g, e)
+    assert list(card._graphs) == [(4, 128, False, False)]
+    assert card.graph_capture_seconds > 0
+    state = None
+    for seed in (4, 5):
+        line, _ = _beam_inputs(seed, b=1)
+        bags, final = card.decode_batch(line, init_lm_states=state, return_lm_states=True)
+        eager = card.hypotheses(card.run(line, init_lm_states=state, graph=False))
+        assert [h.transcript for h in bags[0]] == [h.transcript for h in eager[0]]
+        state = card.add_line_end(final)
+    assert (1, 128, False, False) in card._graphs
+
+
+def test_beam_graphs_are_bounded(cuda, monkeypatch):
+    """A batch of 3 lines runs as 4; past GRAPH_CACHE shapes the least
+    recently used graph goes, and a shape captured again still decodes
+    as the eager loop does."""
+    from pero_ocr_tpu_torch.decoding import tpu_decoder
+
+    monkeypatch.setattr(tpu_decoder, "GRAPH_CACHE", 2)
+    _, card = _beam_decoders(cuda, "lstm")
+    logits, lengths = _beam_inputs(6, t=256)
+    for b in (3, 2, 1):
+        card.run(logits[:b], lengths[:b])
+    assert list(card._graphs) == [(2, 256, False, False), (1, 256, False, False)]
+    out = card.run(logits, lengths)
+    assert list(card._graphs) == [(1, 256, False, False), (4, 256, False, False)]
+    assert out.bp_rows.shape[1] == 3
+    eager = card.run(logits, lengths, graph=False)
+    assert torch.equal(out.bp_rows, eager.bp_rows) and torch.equal(out.p_total, eager.p_total)

@@ -6,8 +6,9 @@ xml.etree parses, the command line turns a folder of PNG pages into Page
 XML files (a flax checkpoint written by chip_smoke.py, a missing one
 with --allow-random-weights), with logits and ALTO files on both paths,
 config 1 (whole-page region, classical line detector) runs through the
-command line to Page XML and ALTO, and no module of the JAX package gets
-loaded.  Runs in a subprocess so the blocking does not leak into the
+command line to Page XML and ALTO, config 3 (the beam search with a
+character LM written by chip_smoke.py) through the command line to Page
+XML, and no module of the JAX package gets loaded.  Runs in a subprocess so the blocking does not leak into the
 other tests."""
 
 import json
@@ -115,8 +116,25 @@ with open(os.path.join(tmp, "config1.ini"), "w") as f:
 cli_main(["-c", os.path.join(tmp, "config1.ini"), "-i", os.path.join(tmp, "printed"),
           "--output-xml-path", os.path.join(tmp, "xml1"), "--output-alto-path",
           os.path.join(tmp, "alto1"), "--device", "cpu"])
+from pero_ocr_tpu_torch.models.charlm import CharLM, CharLMSpec
+os.makedirs(os.path.join(tmp, "lm"))
+chip_smoke.write_charlm(CharLM(CharLMSpec(vocab_size=len(chars), embed_dim=8, hidden_dim=16),
+                               generator=torch.Generator().manual_seed(4)),
+                        os.path.join(tmp, "lm", "charlm.lm"))
+with open(os.path.join(tmp, "config.ini")) as f:
+    config3 = f.read().replace("RUN_OCR = yes\n", "RUN_OCR = yes\nRUN_DECODER = yes\n")
+with open(os.path.join(tmp, "config3.ini"), "w") as f:
+    f.write(config3 + "[DECODER]\nTYPE = TPU-BEAM\nBEAM_SIZE = 8\nLM = lm/charlm.lm\n"
+            "LM_SCALE = 0.5\nINSERTION_BONUS = 0.2\nTRANSPORT_DTYPE = float16\n"
+            "CARRY_H_OVER = yes\n")
+from pero_ocr_tpu_torch.utils.checkpoint import set_strict_loading
+set_strict_loading(False)  # the config-1 run above set it process-wide
+cli_main(["-c", os.path.join(tmp, "config3.ini"), "-i", os.path.join(tmp, "images"),
+          "--output-xml-path", os.path.join(tmp, "xml3"), "--fast-pipeline", "--device", "cpu",
+          "--allow-random-weights"])
 outputs = {out: sorted(os.listdir(os.path.join(tmp, out)))
-           for out in ("fast_logits", "fast_alto", "staged_logits", "staged_alto", "xml1", "alto1")}
+           for out in ("fast_logits", "fast_alto", "staged_logits", "staged_alto", "xml1", "alto1",
+                       "xml3")}
 alto_ns = "{http://www.loc.gov/standards/alto/ns-v2#}"
 config1_lines = []
 for name in outputs["xml1"]:
@@ -164,6 +182,7 @@ def test_port_runs_without_jax_and_host_libraries():
         assert got["outputs"][path + "_logits"] == [f"p{i}.logits" for i in range(3)]
         assert got["outputs"][path + "_alto"] == [f"p{i}.xml" for i in range(3)]
     assert got["outputs"]["xml1"] == got["outputs"]["alto1"] == ["c0.xml", "c1.xml"]
+    assert got["outputs"]["xml3"] == [f"p{i}.xml" for i in range(3)]  # config 3, decoded
     assert got["config1_lines"] == [5, 5]
     assert got["override"] == [[0, 4], [1, 4], [2, 4]]  # one slot of line_slot 4
     assert got["cnn_pages"] == [0, 1, 2]

@@ -20,14 +20,22 @@ and its port on them:
   medians of the two ParseNets' float32 maps, ~1e-5 apart) and Page XML
   (timestamps masked), ``conf`` within 0.001; ``process_lines`` logits
   within 2e-5 on the same crops, and within 1e-3 end to end, where a
-  crop value can round one gray level apart.
+  crop value can round one gray level apart;
+- config 3 (``RUN_DECODER``: TPU-BEAM, beam 8, a random character LM
+  written as a flax msgpack with its sidecar, float16 transport, with
+  and without CARRY_H_OVER, LSTM and GRU): ``PageParser`` and the
+  command line against the JAX PageParser and command line, the same
+  transcriptions line by line and equal Page XML.
 """
 
 import configparser
+import json
 import os
 import random
+import re
 
 import cv2
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,6 +50,9 @@ from pero_ocr_tpu.core.layout import RegionLayout as JaxRegionLayout
 from pero_ocr_tpu.core.layout import TextLine as JaxTextLine
 from pero_ocr_tpu.document.page_parser import PageParser as JaxPageParser
 from pero_ocr_tpu.layout_engines import helpers as jax_helpers
+from pero_ocr_tpu.models.charlm import CharLM as FlaxCharLM
+from pero_ocr_tpu.models.charlm import CharLMSpec as FlaxCharLMSpec
+from pero_ocr_tpu.utils.checkpoint import save_variables
 from pero_ocr_tpu.layout_engines.cnn_engine import LayoutEngine as JaxLayoutEngine
 from pero_ocr_tpu.layout_engines.cnn_engine import _postprocess_maps
 from pero_ocr_tpu.ocr.ctc_engine import CTCEngineLineOCR as JaxCTCEngine
@@ -57,10 +68,10 @@ from pero_ocr_tpu_torch.ops import warp
 from pero_ocr_tpu_torch.utils import native as native_port
 from pero_ocr_tpu_torch.utils.resize import remap_linear, resize_area
 from tests.test_torch_cli import (  # noqa: F401  (bundle, float32_parsenets: fixtures)
-    BF16_MASK_FLIPS, _config, _masked, _run_port, assert_lines_close, assert_xml_equal, bundle,
-    float32_parsenets, jax_staged_layouts, staged_config,
+    BF16_MASK_FLIPS, _config, _jax_cli, _masked, _run_port, assert_lines_close, assert_xml_equal,
+    bundle, float32_parsenets, jax_staged_layouts, staged_config,
 )
-from tests.test_torch_pipeline import LINES
+from tests.test_torch_pipeline import CHARS, LINES
 from tests.test_torch_native import jax_native_library
 
 # The JAX clustering runs its native library when it builds; its Python
@@ -683,3 +694,81 @@ def test_cli_stage_by_stage_shards_and_transcriptions(bundle, tmp_path, float32_
              if line.transcription]
     assert transcriptions.read_text(encoding="utf-8").split("\n")[:-1] == lines
     assert len(lines) >= 9
+
+
+# ----------------------------------------------------------------------
+# Config 3: the staged path, then the beam search with a character LM
+def config3_ini(bundle, tmp_path, cell_type="lstm", carry="yes"):
+    """The bundle's staged config with config 3's [DECODER] keys
+    (configs/config3_beam_lm.ini) and a random flax CharLM over the
+    bundle's charset (+ </s>) with its sidecar under lm/."""
+    ini = staged_config(bundle, tmp_path, PAGE_PARSER__RUN_DECODER="yes")
+    config = _config(ini)
+    spec = dict(vocab_size=len(CHARS), embed_dim=8, hidden_dim=16, num_layers=2,
+                cell_type=cell_type)
+    variables = FlaxCharLM(FlaxCharLMSpec(**spec)).init(jax.random.PRNGKey(5),
+                                                         jnp.zeros((1, 1), jnp.int32))
+    (tmp_path / "lm").mkdir(exist_ok=True)
+    save_variables(variables, str(tmp_path / "lm" / "charlm.lm"))
+    (tmp_path / "lm" / "charlm.lm.json").write_text(json.dumps(spec))
+    config["DECODER"] = {"TYPE": "TPU-BEAM", "BEAM_SIZE": "8", "LM": "./lm/charlm.lm",
+                         "LM_SCALE": "0.5", "INSERTION_BONUS": "0.2",
+                         "TRANSPORT_DTYPE": "float16", "CARRY_H_OVER": carry}
+    with open(ini, "w") as f:
+        config.write(f)
+    return ini
+
+
+@needs_native
+@pytest.mark.parametrize("cell_type,carry", [("lstm", "yes"), ("gru", "yes"), ("lstm", "no")],
+                         ids=["lstm_carry", "gru_carry", "lstm_batched"])
+def test_config3_page_parser_matches_jax(bundle, tmp_path, float32_parsenets, cell_type, carry):
+    ini = config3_ini(bundle, tmp_path, cell_type, carry)
+    ours, theirs = _engines(ini)
+    assert ours.decoder.continue_lines == (carry == "yes")
+    assert ours.decoder.decoder.transport_dtype is np.float16
+    pages = _pages()
+    got = _run_pages(ours, PageLayout, pages)
+    want = _run_pages(theirs, JaxPageLayout, pages)
+    decoded = 0
+    for g, w in zip(got, want):
+        _layouts_equal(g, w)
+        _xml_equal(g, w)
+        texts = [line.transcription for line in g.lines_iterator()]
+        assert texts == [line.transcription for line in w.lines_iterator()]
+        decoded += len(texts)
+    assert ours.decoder.lines_decoded == theirs.decoder.lines_decoded == decoded >= 9
+    if cell_type != "lstm" or carry != "yes":
+        return
+    # The LM moves the text: not every line keeps its greedy transcription.
+    greedy = PageParser(_config(staged_config(bundle, tmp_path)), device="cpu",
+                        config_path=str(tmp_path))
+    plain = _run_pages(greedy, PageLayout, pages)
+    assert any(a.transcription != b.transcription for p, q in zip(got, plain)
+               for a, b in zip(p.lines_iterator(), q.lines_iterator()))
+
+
+@needs_native
+def test_config3_cli_equals_jax_cli(bundle, tmp_path, float32_parsenets, capsys):
+    """Config 3 through the port's command line (with --fast-pipeline,
+    which falls back to the stage-by-stage path for RUN_DECODER) and the
+    JAX one: equal Page XML files and transcriptions."""
+    ini = config3_ini(bundle, tmp_path)
+    common = ["-c", str(ini), "-i", str(bundle / "images")]
+    random.seed(0)
+    _run_port(common + ["--output-xml-path", str(tmp_path / "xml"), "--device", "cpu",
+                        "--fast-pipeline", "--timing-report", "--output-transcriptions-file-path",
+                        str(tmp_path / "lines.txt")])
+    printed = capsys.readouterr().out
+    random.seed(0)
+    _jax_cli(common + ["--output-xml-path", str(tmp_path / "jax_xml"), "--fast-pipeline",
+                       "--output-transcriptions-file-path", str(tmp_path / "jax_lines.txt")])
+    names = sorted(os.listdir(tmp_path / "jax_xml"))
+    assert sorted(os.listdir(tmp_path / "xml")) == names == [f"page-{i}.xml" for i in range(3)]
+    for name in names:
+        assert_xml_equal((tmp_path / "xml" / name).read_text(encoding="utf-8"),
+                         (tmp_path / "jax_xml" / name).read_text(encoding="utf-8"))
+    assert (tmp_path / "lines.txt").read_text(encoding="utf-8") == \
+        (tmp_path / "jax_lines.txt").read_text(encoding="utf-8")
+    assert re.search(r"^decoder\s+[0-9.]+\s+3\s", printed, re.M)
+    assert "warp_fields kernel launches: 0" in printed  # the CPU runs the plain version
