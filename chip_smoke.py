@@ -70,7 +70,21 @@ Phases (each raises on failure, so the run exits non-zero):
     warp_fields held against its plain version on the last page's
     buckets (``config3_*``).  Then torch.profiler splits one config-2
     stage-B call and one config-3 line decode.
-12. Host C++ (``csrc/perotpu.cpp``, built with the kernels): config 2's
+12. Config 4 (``run_config4``): 3 two-column pages whose lines tilt by
+    1.5 degrees through ``PageParser(config 4, device="cuda")``: ParseNet
+    at the adaptive resolution, the CNN layout, ADJUST_HEIGHTS (a second
+    ParseNet pass), REGION_SORTER_SMART (its rotation must be the tilt),
+    the field warp at line height 48, the reference transformer at full
+    width (512 wide, 2048 feed-forward, 8 heads, 4 + 4 layers, a seeded
+    torch .pt) with its KV-cached greedy decode replayed as one CUDA
+    graph a decode shape; the last batches (16 lines or more) held
+    against the CPU port's decode (equal tokens, near-ties of float32
+    rounding counted apart) and the eager loop (bit-equal); one batch's
+    decode step timed as a graph and eagerly, its kernels counted under
+    torch.profiler, against its bound; the command line on 2 pages
+    equal to the in-process run; warp_fields held against its plain
+    version on the last page's buckets (``config4_*``).
+13. Host C++ (``csrc/perotpu.cpp``, built with the kernels): config 2's
     fast path and the staged run go on the C++ host route (the card's
     default), the numpy route (``native=False``), the numpy route and
     the C++ route again (A B B A); every run's Page XML must equal the
@@ -83,8 +97,9 @@ cold (a 128 MB scratch write before each timed run), since stage B finds
 its pages after the next batch's upload.
 
 The last lines are the command lines' numbers (``{"cli": ...}``,
-``{"staged": ...}``), config 1's, config 5's and config 3's
-(``{"config1": ...}``, ``{"config5": ...}``, ``{"config3": ...}``), the
+``{"staged": ...}``), config 1's, config 5's, config 3's and config 4's
+(``{"config1": ...}``, ``{"config5": ...}``, ``{"config3": ...}``,
+``{"config4": ...}``), the
 host library's (``{"host_native": ...}``),
 the card's nvidia-smi line, one JSON object with the kernels' numbers,
 and ``{"ok": true, "device": {...}}``.
@@ -122,10 +137,13 @@ from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble_page_layout
 from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor, PageParser
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import separator_penalties
+from pero_ocr_tpu_torch.layout_engines.smart_sorter import SmartRegionSorter
 from pero_ocr_tpu_torch.decoding.tpu_decoder import NEG_INF, TorchBeamSearchDecoder
 from pero_ocr_tpu_torch.models.charlm import CharLM, CharLMSpec, state_map
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+from pero_ocr_tpu_torch.models.transformer_ref import RefTransformerOCR, RefTransformerSpec
+from pero_ocr_tpu_torch.ocr.transformer_engine import TransformerEngineLineOCR
 from pero_ocr_tpu_torch.ops import ctc as pipeline_ctc_ops
 from pero_ocr_tpu_torch.ops import morphology
 from pero_ocr_tpu_torch.ops import warp as warp_ops
@@ -248,11 +266,13 @@ def line_mix(rng, n: int, h: int, w: int):
     return bls, hs
 
 
-def synthetic_pages(rng, n: int, columns=ONE_COLUMN):
+def synthetic_pages(rng, n: int, columns=ONE_COLUMN, tilt_deg: float = 0.0):
     """n BGR text-like pages and their text-line geometries: 40 lines in
-    each of ``columns``."""
+    each of ``columns``, each line's glyphs stepping down by
+    tan(``tilt_deg``) a pixel to the right."""
     pages, lines = [], []
     ys = np.linspace(90, PAGE_H - 70, LINES_PER_PAGE)
+    slope = float(np.tan(np.radians(tilt_deg)))
     for _ in range(n):
         gray = rng.normal(238, 6, (PAGE_H, PAGE_W)).clip(0, 255).astype(np.uint8)
         b_list, h_list = [], []
@@ -263,11 +283,12 @@ def synthetic_pages(rng, n: int, columns=ONE_COLUMN):
                 x = x0
                 while x < x1:
                     gw = int(rng.integers(6, 22))
-                    top = y - int(rng.integers(12, 24))
-                    bottom = y + (int(rng.integers(3, 8)) if rng.random() < 0.2 else 0)
+                    dy = int(round(slope * (x - x0)))
+                    top = y + dy - int(rng.integers(12, 24))
+                    bottom = y + dy + (int(rng.integers(3, 8)) if rng.random() < 0.2 else 0)
                     gray[top:bottom, x:x + gw] = rng.integers(20, 90)
                     x += gw + int(rng.integers(3, 12))
-                b_list.append(np.array([[x0, y], [x1, y]], float))
+                b_list.append(np.array([[x0, y], [x1, y + slope * (x1 - x0)]], float))
                 h_list.append([24.0, 8.0])
         pages.append(np.repeat(gray[:, :, None], 3, axis=2))
         lines.append((b_list, h_list))
@@ -2661,6 +2682,350 @@ def run_config3(pipe: TorchPagePipeline, rng, smi: str):
 
 
 # ----------------------------------------------------------------------
+# Config 4: ADJUST_HEIGHTS, the smart sorter, the transformer recognizer
+CONFIG4_PAGES, CONFIG4_CLI_PAGES, CONFIG4_CHECK_LINES = 3, 2, 16
+CONFIG4_TILT_DEG = 1.5
+CONFIG4_STAGES = ("layout", "parsenet_maps", "adjust_heights", "line_crop", "ocr",
+                  "ocr/encode", "ocr/decode", "document/pagexml")
+# The reference transformer at RefTransformerSpec's defaults (the
+# ``net_name`` of a reference OCR JSON) over 80 characters (+ U+200B and
+# '' in the engine).
+CONFIG4_NET = {"dim_model": 512, "dim_ff": 2048, "heads": 8, "encoder_layers": 4,
+               "decoder_layers": 4, "conv_subsampling": [8, 4], "max_seq_len": 500}
+CONFIG4_CHARS = [chr(0x21 + i) for i in range(80)]
+
+
+def write_ref_transformer(folder: str, chars, line_height: int, net: dict, seed: int) -> str:
+    """A seeded reference-style transformer (``net``, the OCR JSON's
+    ``net_name``) as a torch state dict ``transformer.pt`` and its OCR
+    JSON ``transformer.json`` in ``folder``; the ignore id's bias is
+    lowered so that random weights emit characters.  Returns the JSON's
+    path."""
+    spec = RefTransformerSpec.from_net_config(net, num_symbols=len(chars) + 2,
+                                              in_height=line_height)
+    model = RefTransformerOCR(spec, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        model.dec_out_proj.bias[spec.ignore_id] -= 3.0
+    os.makedirs(folder, exist_ok=True)
+    torch.save(model.state_dict(), os.path.join(folder, "transformer.pt"))
+    path = os.path.join(folder, "transformer.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"characters": list(chars), "line_px_height": line_height,
+                   "checkpoint": "transformer.pt", "net_name": json.dumps(net)}, f)
+    return path
+
+
+def write_config4_bundle(tmp: str, pn: ParseNet, pages: dict):
+    """Config 4's ini as the repository has it (with the bench ParseNet's
+    architecture keys), its ParseNet and the reference transformer at
+    the paths the ini names, and ``pages`` as PNG files.  Returns (ini,
+    OCR JSON, images dir)."""
+    images = write_pages(tmp, pages)
+    os.makedirs(os.path.join(tmp, "layout_engine"))
+    write_flax_checkpoint(flax_parsenet_variables(pn),
+                          os.path.join(tmp, "layout_engine", "parsenet.ckpt"))
+    config = configparser.ConfigParser()
+    config.read(os.path.join(REPO, "configs", "config4_handwritten.ini"))
+    config["LAYOUT_PARSER_1"].update(PARSENET_KEYS)
+    ocr_json = write_ref_transformer(os.path.join(tmp, "ocr_engine"), CONFIG4_CHARS,
+                                     config["LINE_CROPPER"].getint("LINE_HEIGHT"), CONFIG4_NET, 7)
+    ini = os.path.join(tmp, "config4.ini")
+    with open(ini, "w", encoding="utf-8") as f:
+        config.write(f)
+    return ini, ocr_json, images
+
+
+class OCRRecorder:
+    """Wraps a transformer engine's ``run_ocr``: counts its batches, real
+    and padded lines and decode steps, and keeps every batch's input on
+    the host (for the checks against the CPU and the eager loop)."""
+
+    def __init__(self, engine):
+        self.engine, self.calls = engine, []
+        self.batches = self.lines = self.padded = self.steps = 0
+        self._run = engine.run_ocr
+
+        def run(batch_data, widths):
+            self.batches += 1
+            self.lines += int((widths > 0).sum())
+            self.padded += len(widths)
+            self.steps += engine.decode_length(batch_data.shape[2])
+            self.calls.append((np.array(batch_data), np.array(widths)))
+            return self._run(batch_data, widths)
+
+        engine.run_ocr = run
+
+    def close(self):
+        self.engine.run_ocr = self._run
+
+
+def decode_step_bound_ms(model, n: int, frames: int, max_len: int) -> dict:
+    """The least time of one decode step of the reference transformer on
+    the card, averaged over a ``max_len``-step decode of ``n`` lines whose
+    memory has ``frames`` positions.  Bytes: the float32 weights a step
+    uses, read once (each decoder layer's self-attention, the query and
+    output projections of its cross-attention (the memory's keys and
+    values are projected once a batch), its feed-forward and norms; the
+    output projection; n embedding rows), the cross-attention's keys and
+    values read once a layer, the self-attention cache read up to the
+    step ((max_len + 1) / 2 entries on average), its new entries and the
+    logits written.  Operations: 2 flops a multiply-add of the same
+    matmuls and of the attention.  Each over the card's peak (float32
+    outside the tensor cores)."""
+    d = model.spec.dim_model
+    per_layer = 0
+    for name, p in model.decoder_layers[0].named_parameters():
+        per_layer += p.numel() // 3 if name.startswith("multihead_attn.in_proj") else p.numel()
+    layers = len(model.decoder_layers)
+    weights = layers * per_layer + sum(p.numel() for p in model.dec_out_proj.parameters())
+    attended = (max_len + 1) / 2
+    cache_read = layers * 2 * n * attended * d
+    cross_read = layers * 2 * n * frames * d
+    n_bytes = 4 * (weights + n * d + cache_read + cross_read + layers * 2 * n * d
+                   + n * model.spec.num_symbols)
+    flops = 2 * (n * weights + layers * n * 2 * (attended + frames) * d)
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return {"bytes": int(n_bytes), "weight_bytes": 4 * weights,
+            "cross_kv_bytes": int(4 * cross_read), "cache_bytes": int(4 * cache_read),
+            "flops": int(flops), "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def tokens_differ(got, want, want_logits, lines: int, terms: int):
+    """Per real line (the first ``lines``): None where the tokens
+    (N, max_len) are equal, else (the first step that differs, whether
+    ``want``'s two best logits there lie within float32 rounding: a
+    near-tie, that gap, that rounding: ``terms`` roundings of 2**-23 of
+    the row's largest magnitude)."""
+    out = []
+    for i in range(lines):
+        if np.array_equal(got[i], want[i]):
+            out.append(None)
+            continue
+        t = int(np.flatnonzero(got[i] != want[i])[0])
+        row = want_logits[i, t]
+        best2 = np.sort(row)[-2:]
+        tol = terms * 2.0 ** -23 * max(1.0, float(np.abs(row).max()))
+        out.append((t, bool(best2[1] - best2[0] <= tol), float(best2[1] - best2[0]), tol))
+    return out
+
+
+def check_transformer_decodes(engine, ocr_json: str, calls, label: str) -> dict:
+    """The recorded batches decoded on the card (graph replay, then the
+    eager loop) and by the port on the CPU, in float32 on both (TF32 off
+    for the check): the graph equals the eager loop bit for bit (tokens,
+    lengths, logits); the card's tokens equal the CPU's on every line,
+    or their first difference is a near-tie of the CPU's logits (counted
+    and logged).  Raises on any other difference."""
+    cpu = TransformerEngineLineOCR(ocr_json, device="cpu")
+    counts = {"cpu": [0, 0, 0], "eager": [0, 0]}  # equal, near-tie, differ; equal, differ
+    lines = 0
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for batch_data, widths in calls:
+            real = int((widths > 0).sum())
+            lines += real
+            max_len = engine.decode_length(batch_data.shape[2])
+            batch = torch.from_numpy(batch_data).cuda()
+            graph = [t.cpu().numpy() for t in engine.decode(batch, max_len)]
+            eager = [t.cpu().numpy() for t in engine.decode(batch, max_len, graph=False)]
+            same = all(np.array_equal(g, e) for g, e in zip(graph, eager))
+            counts["eager"][0 if same else 1] += real
+            ref = [t.numpy() for t in cpu.decode(torch.from_numpy(batch_data), max_len)]
+            for i, verdict in enumerate(tokens_differ(graph[0], ref[0], ref[2], real,
+                                                      engine.spec.dim_ff)):
+                if verdict is None:
+                    counts["cpu"][0] += 1
+                    if graph[1][i] != ref[1][i]:
+                        raise AssertionError(f"{label}: equal tokens, other length")
+                    continue
+                counts["cpu"][1 if verdict[1] else 2] += 1
+                log(f"{label}: line {i} of a batch of {real} differs from the CPU's from step "
+                    f"{verdict[0]}: its two best logits {verdict[2]:.3g} apart against a "
+                    f"rounding of {verdict[3]:.3g} ({'a near-tie' if verdict[1] else 'DIFFERS'})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    log(f"{label} decode check on {lines} lines in {len(calls)} batches ({time.perf_counter() - t0:.1f} "
+        f"s): card vs CPU equal/near-tie/differ {counts['cpu']}, graph vs eager equal/differ "
+        f"{counts['eager']}")
+    if counts["cpu"][2] or counts["eager"][1]:
+        raise AssertionError(f"{label}: decodes differ {counts}")
+    return {"check_lines": lines, "check_batches": len(calls),
+            "card_vs_cpu_equal_near_tie_differ": counts["cpu"],
+            "graph_vs_eager_equal_differ": counts["eager"]}
+
+
+def profile_decode_step(engine, batch_data: np.ndarray) -> dict:
+    """One recorded batch's decode on the card: the graph replay's and
+    the eager loop's ms a step (CUDA events; the eager loop's time holds
+    its host share), the eager loop under torch.profiler (kernels a step,
+    matmuls, softmax and copies by kernel name, the idle share), against
+    the step's bound."""
+    max_len = engine.decode_length(batch_data.shape[2])
+    batch = torch.from_numpy(batch_data).cuda()
+    engine.decode(batch, max_len)  # the shape's graph
+    runner = engine._graphs[(tuple(batch.shape), max_len)]
+    with torch.inference_mode():
+        memory = engine.model.encode(batch.float() / torch.tensor(255.0, device=batch.device))
+        runner.memory.copy_(memory)
+        graph_ms = cuda_ms(runner.graph.replay, reps=5, warmup=1)
+        eager_ms = cuda_ms(lambda: engine.decode_from_memory(memory, max_len), reps=3, warmup=1,
+                           ahead=False)
+        split = _profiled(lambda: engine.decode_from_memory(memory, max_len),
+                          {"decode_step": (engine.model, "decode_step")},
+                          groups=(("gemm", r"gemm|gemv|xmma|cutlass|matmul|sm90"),
+                                  ("softmax", r"softmax"), ("layer_norm", r"layer_norm|norm"),
+                                  ("copies", r"copy|cat|stack")))
+    bound = decode_step_bound_ms(engine.model, batch.shape[0], memory.shape[1], max_len)
+    out = {"lines": int(batch.shape[0]), "width": int(batch.shape[2]), "steps": max_len,
+           "memory_frames": int(memory.shape[1]), "graph_ms": graph_ms, "eager_ms": eager_ms,
+           "graph_ms_a_step": graph_ms / max_len, "eager_ms_a_step": eager_ms / max_len,
+           **bound, "profile": split}
+    if "kernels" in split:
+        out["kernels_a_step"] = split["kernels"] / max_len
+    log(f"decode step (config 4, a batch of {out['lines']} lines x {out['width']} px, "
+        f"{max_len} steps): graph {1e3 * out['graph_ms_a_step']:.1f} us a step, eager "
+        f"{1e3 * out['eager_ms_a_step']:.1f} us, against a {1e3 * bound['bound_ms']:.2f} us bound "
+        f"by {bound['bound_by']} ({bound['bytes']} B, {bound['flops']} flops); "
+        f"{out.get('kernels_a_step')} kernels a step eager; {json.dumps(split)}")
+    return out
+
+
+def run_config4(pipe: TorchPagePipeline, rng, smi: str):
+    """Config 4 on the card: CONFIG4_PAGES two-column pages whose lines
+    tilt by CONFIG4_TILT_DEG (after a warm-up page) through
+    ``PageParser(config 4, device="cuda").process_page``: ParseNet at the
+    adaptive resolution, the CNN layout, ADJUST_HEIGHTS (a second
+    ParseNet pass), REGION_SORTER_SMART, the field warp at LINE_HEIGHT
+    48, the reference transformer at full width (random weights from a
+    seed, a torch .pt), one CUDA graph a decode shape.  Checks: every
+    page's XML parses, two regions or more a page, the lines' text in
+    the charset, one warp_fields launch a page, the sorter's rotation is
+    the tilt; the last batches (CONFIG4_CHECK_LINES lines or more) held
+    against the CPU port's decode and the eager loop
+    (``check_transformer_decodes``); one batch's step timed, graph and
+    eager; the command line on CONFIG4_CLI_PAGES pages equal to the
+    in-process run.  Returns the field warp's launches, the phase's
+    numbers and the field warp's inputs on the last page."""
+    pages, _ = synthetic_pages(rng, CONFIG4_PAGES + 1, TWO_COLUMNS, tilt_deg=CONFIG4_TILT_DEG)
+    warm, pages = pages[0], pages[1:]
+    ids = [f"h{i:04d}" for i in range(len(pages))]
+    with tempfile.TemporaryDirectory(prefix="config4_") as tmp:
+        ini, ocr_json, images = write_config4_bundle(
+            tmp, pipe.parsenet, dict(zip(ids[:CONFIG4_CLI_PAGES], pages)))
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        parser = staged_parser(ini, "cuda")
+        engine = parser.ocr.ocr_engine
+        sorter = parser.layout_parsers[1]
+        if not (isinstance(engine, TransformerEngineLineOCR) and engine.ref_mode
+                and isinstance(sorter, SmartRegionSorter)
+                and parser.layout_parsers[0].adjust_heights
+                and parser.line_cropper.crop_engine.line_height == 48):
+            raise AssertionError("config 4: not the stages its ini asks for")
+        t0 = time.perf_counter()
+        parser.process_page(warm, PageLayout(id="warm", page_size=warm.shape[:2]))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        wrapper = parser.layout_parsers[0].engine.parsenet
+        wrapper.last_downsample = wrapper.init_downsample
+        capture_warm = engine.graph_capture_seconds
+        timing.reset_timing()
+        warp_ops.warp_fields.launches = warp_ops.warp_lines.launches = 0
+        recorder = OCRRecorder(engine)
+        try:
+            out, seconds = staged_pages(parser, ids, pages)
+        finally:
+            recorder.close()
+        launches, fused = warp_ops.warp_fields.launches, warp_ops.warp_lines.launches
+        stats = timing.timing_stats()
+        capture_run = engine.graph_capture_seconds - capture_warm
+        torch.cuda.synchronize()
+        memory_mb = (torch.cuda.memory_reserved() - reserved) / 2**20
+        log("stage times (config 4 run):\n" + timing.timing_report())
+
+        charset = set(CONFIG4_CHARS)
+        n_lines, n_regions, chars = [], [], 0
+        for (layout, xml), pid in zip(out, ids):
+            root = ET.fromstring(xml.encode("utf-8"))
+            texts = [e.text or "" for e in root.iter(f"{PAGE_NS}Unicode")]
+            n_lines.append(len(list(layout.lines_iterator())))
+            n_regions.append(len(layout.regions))
+            chars += sum(len(t) for t in texts)
+            if len(texts) != n_lines[-1] or any(set(t) - charset for t in texts):
+                raise AssertionError(f"config 4 page {pid}: lines or their text off")
+        rotation = sorter.get_rotation(max(out[-1][0].regions, key=lambda r: len(r.lines)).lines)
+        if min(n_regions) < 2 or min(n_lines) < 4 or recorder.lines != sum(n_lines) \
+                or abs(rotation - CONFIG4_TILT_DEG) > 0.5:
+            raise AssertionError(f"config 4: regions {n_regions}, lines {n_lines}, recognized "
+                                 f"{recorder.lines}, rotation {rotation:.3f} degrees")
+        if launches != len(pages) or fused != 0 or stats["adjust_heights"][1] != len(pages):
+            raise AssertionError(f"config 4: warp_fields launches {launches} != {len(pages)}")
+        ocr_s, encode_s, decode_s = (stats[k][0] for k in ("ocr", "ocr/encode", "ocr/decode"))
+        log(f"config 4 (PageParser.process_page): {len(pages)} pages, lines a page {n_lines}, "
+            f"regions a page {n_regions}, {len(pages) / seconds:.3f} pages/s to Page XML "
+            f"({seconds:.3f} s) on {smi}; ocr {1e3 * ocr_s / len(pages):.1f} ms a page: encode "
+            f"{1e3 * encode_s / recorder.batches:.2f} ms and decode {1e3 * decode_s / recorder.batches:.2f} "
+            f"ms a batch, {recorder.batches} batches ({recorder.lines} lines padded to "
+            f"{recorder.padded}), {recorder.steps} decode steps; graph capture {capture_warm:.3f} "
+            f"s at the warm-up ({warm_s:.1f} s in all), {capture_run:.3f} s in the run "
+            f"({len(engine._graphs)} shapes); card memory since the parser was built "
+            f"{memory_mb:.0f} MB; the sorter's rotation {rotation:.3f} degrees; warp_fields "
+            f"launches {launches}")
+
+        # The last batches: card against the CPU port, graph against eager.
+        calls, kept = [], 0
+        for call in reversed(recorder.calls):
+            if kept >= CONFIG4_CHECK_LINES:
+                break
+            calls.append(call)
+            kept += int((call[1] > 0).sum())
+        check = check_transformer_decodes(engine, ocr_json, calls[::-1], "config 4")
+        widest = max(recorder.calls, key=lambda c: (c[0].shape[0], c[0].shape[2]))
+        step = profile_decode_step(engine, widest[0])
+        last_page = page_buckets(parser, out[-1][0], pages[-1])
+
+        # The command line on the first pages, ``random`` seeded as the
+        # in-process run was.
+        out_dir = os.path.join(tmp, "page_xml")
+        proc, cli_seconds = run_parse_folder(
+            ["-c", ini, "-i", images, "--output-xml-path", out_dir, "--timing-report"],
+            "config 4 command line", program=SEEDED_CLI)
+        counted = re.search(r"^warp_fields kernel launches: (\d+)$", proc.stdout, re.M)
+        timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
+        decode_timed = re.search(r"^ocr/decode\s+([0-9.]+)\s+(\d+)\s", proc.stdout, re.M)
+        differ = [layout.id for layout, xml in out[:CONFIG4_CLI_PAGES]
+                  if not same_staged_page(read_text(out_dir, layout.id + ".xml"), xml)]
+        log(f"config 4 command line vs in-process: {CONFIG4_CLI_PAGES - len(differ)} of "
+            f"{CONFIG4_CLI_PAGES} files equal; its warp_fields launches "
+            f"{counted.group(1) if counted else None}")
+        if differ or counted is None or timed is None or decode_timed is None \
+                or int(counted.group(1)) != CONFIG4_CLI_PAGES:
+            raise AssertionError(f"config 4 command line: files differ {differ} or launches")
+
+    numbers = {
+        "pages": len(pages), "pages_per_s": len(pages) / seconds, "lines": sum(n_lines),
+        "regions": n_regions, "characters": chars, "rotation_deg": rotation,
+        "stage_ms_a_page": {k: 1e3 * stats[k][0] / len(pages) for k in CONFIG4_STAGES
+                            if k in stats},
+        "encode_ms_a_batch": 1e3 * encode_s / recorder.batches,
+        "decode_ms_a_batch": 1e3 * decode_s / recorder.batches,
+        "decode_share_of_page": decode_s / seconds, "batches": recorder.batches,
+        "padded_lines": recorder.padded, "decode_steps": recorder.steps,
+        "graph_shapes": sorted(list(k[0]) + [k[1]] for k in engine._graphs),
+        "graph_capture_s_warm_up": capture_warm, "graph_capture_s_in_run": capture_run,
+        "memory_mb_since_parser": memory_mb,
+        "weights_mb": sum(p.numel() * p.element_size() for p in engine.model.parameters()) / 2**20,
+        **check, "decode_step": step,
+        "warp_fields_launches": launches,
+        "cli_pages_per_s": CONFIG4_CLI_PAGES / float(timed.group(1)),
+        "cli_decode_s": float(decode_timed.group(1)), "cli_wall_s": cli_seconds, "card": smi,
+    }
+    return launches, numbers, last_page
+
+
+# ----------------------------------------------------------------------
 # The host C++ (csrc/perotpu.cpp) against its numpy twins
 FAST_STAGES = ("pipeline/host_geometry", "pipeline/cc_parse",
                "pipeline/make_clusters", "pipeline/textlines", "pipeline/stage_a_sync", "pipeline/upload+dispatch_a", "pipeline/stage_b",
@@ -2948,6 +3313,7 @@ def main() -> int:
     launches_config5, config5, config5_args, viterbi_inputs = run_config5(pipe, rng, smi)
     launches_config3, config3, config3_args, (beam_decoder, beam_call) = run_config3(
         pipe, rng, smi)
+    launches_config4, config4, config4_args = run_config4(pipe, rng, smi)
     host_native = check_host_native(fast_host, staged_host, viterbi_inputs, smi)
     # The kernel against its plain version, and its times, at the main
     # path's shapes (the last config-2 batch's pages and detected lines)
@@ -2982,10 +3348,13 @@ def main() -> int:
         "launches_config1": launches_config1,
         "launches_config5": launches_config5["warp_fields"],
         "launches_config3": launches_config3,
+        "launches_config4": launches_config4,
         **{f"config1_{k}": v for k, v in check_warp_fields(
             *config1_args, rng, "config 1, last A4 page").items()},
         **{f"config3_{k}": v for k, v in check_warp_fields(
             *config3_args, rng, "config 3, last page").items()},
+        **{f"config4_{k}": v for k, v in check_warp_fields(
+            *config4_args, rng, "config 4, last page").items()},
     }
 
     print(json.dumps({"cli": cli}))
@@ -2993,6 +3362,7 @@ def main() -> int:
     print(json.dumps({"config1": config1}))
     print(json.dumps({"config5": config5}))
     print(json.dumps({"config3": config3}))
+    print(json.dumps({"config4": config4}))
     print(json.dumps({"host_native": host_native}))
     print(smi)
     print(json.dumps({"kernels": [warp, fields]}))

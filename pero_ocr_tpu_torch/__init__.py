@@ -1,12 +1,16 @@
 """PyTorch/CUDA port of pero_ocr_tpu for NVIDIA Hopper (H100).
 
 The package mirrors the module layout of :mod:`pero_ocr_tpu` (the JAX
-reference) and imports nothing of it.  Plain tensor code is PyTorch;
-the line-crop warp, the one Pallas kernel of the JAX package, is two
-hand-written CUDA kernels built with ``nvcc`` on first use: the fast
-path's fused version (``csrc/warp_lines.cu``) and the stage-by-stage
-path's, which samples precomputed fields as the Pallas kernel does
-(``csrc/warp_fields.cu``).
+reference) and imports nothing of it.  It runs configs 1 to 5: the
+page transport and the stage-by-stage path, CTC and transformer
+recognizers (the reference's post-LN model from a torch ``.pt``, the
+native pre-LN model from a flax checkpoint), the beam search with a
+character LM, ``ADJUST_HEIGHTS`` and the smart region sorter.  Plain
+tensor code is PyTorch; the line-crop warp, the one Pallas kernel of
+the JAX package, is two hand-written CUDA kernels built with ``nvcc``
+on first use: the fast path's fused version (``csrc/warp_lines.cu``)
+and the stage-by-stage path's, which samples precomputed fields as the
+Pallas kernel does (``csrc/warp_fields.cu``).
 
 Entry points run on CUDA unless the caller asks for the CPU: see
 :func:`resolve_device`.

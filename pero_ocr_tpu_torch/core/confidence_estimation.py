@@ -1,10 +1,10 @@
-"""Character confidences of a line from its aligned CTC logits (port of
+"""Character confidences of a line from its logits (port of
 ``get_line_confidence`` in pero_ocr_tpu/core/confidence_estimation.py).
 
-The margin confidence of a character is its aligned label's probability
-less the best competing symbol's in a window around its frame.  The
-transformer form (one output frame per label) waits for the
-transformer recognizers, ROADMAP item 11.
+CTC logits: the margin confidence of a character is its aligned label's
+probability less the best competing symbol's in a window around its
+frame.  A transformer's logits (one output frame per label) give each
+character its label's probability at its own frame.
 """
 
 from __future__ import annotations
@@ -13,7 +13,6 @@ from typing import Optional
 
 import numpy as np
 
-from pero_ocr_tpu_torch import TRANSFORMERS, not_ported
 from pero_ocr_tpu_torch.core.force_alignment import align_text
 
 
@@ -24,12 +23,13 @@ def get_line_confidence(
     log_probs: Optional[np.ndarray] = None,
     native: Optional[bool] = None,
 ) -> np.ndarray:
-    """Per-character margin confidence of a CTC line.  ``native``: the
+    """Per-character confidence of a line: the margin confidence of CTC
+    logits, the label probability of a transformer's.  ``native``: the
     forced alignment's route when ``aligned_letters`` is not given
     (:func:`~pero_ocr_tpu_torch.core.force_alignment.force_align`)."""
     if line.logits.shape[0] == len(labels):
         # One output frame per label: an autoregressive model's logits.
-        raise not_ported("the confidence of transformer logits", TRANSFORMERS)
+        return get_line_confidence_transformer(line, labels)
 
     if log_probs is None:
         log_probs = line.get_full_logprobs()
@@ -54,3 +54,9 @@ def get_line_confidence(
         confidences[i] = max(0.0, label_prob - other_prob)
         last_border = next_border
     return confidences
+
+
+def get_line_confidence_transformer(line, labels: np.ndarray) -> np.ndarray:
+    """Each label's probability at its own frame."""
+    probs = np.exp(line.get_full_logprobs())
+    return probs[np.arange(len(labels)), labels]

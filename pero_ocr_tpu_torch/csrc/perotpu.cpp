@@ -1,7 +1,8 @@
 // Host code of the layout parse and of the forced alignment: the port's
-// own copy of the six functions of the JAX package's C++ library
-// (native/perotpu.cpp) that config 2's two paths and config 5's ALTO
-// output run, with the same C interface and semantics.  Each has a
+// own copy of the seven functions of the JAX package's C++ library
+// (native/perotpu.cpp) that config 2's two paths, config 5's ALTO
+// output and config 4's chunked transformer lines run, with the same C
+// interface and semantics.  Each has a
 // numpy twin in the port, which the CPU path runs and the tests hold it
 // against:
 //
@@ -11,6 +12,7 @@
 //   separator_penalties_f32  layout_engines/cnn_engine.separator_penalties
 //   polygons_close_f64       core/geometry.polygons_close
 //   viterbi_ctc_f32          core/force_alignment.viterbi_ctc
+//   levenshtein_i32          sequence_alignment.levenshtein_distance
 //
 // Built with the host compiler and loaded through ctypes by
 // pero_ocr_tpu_torch/utils/kernels.py; bound in utils/native.py.
@@ -553,6 +555,27 @@ int32_t cc_lines_packed(
 // states, the last label before the last blank on a tie.  path_out:
 // (t,) state per frame.  Returns 0, or -1 when no path has a finite
 // cost.
+// ---------------------------------------------------------------------
+// Levenshtein distance over int32 symbol sequences (rolling 1-row DP).
+// ---------------------------------------------------------------------
+int32_t levenshtein_i32(const int32_t* a, int32_t n, const int32_t* b,
+                        int32_t m) {
+    if (n == 0) return m;
+    if (m == 0) return n;
+    std::vector<int32_t> row(m + 1);
+    for (int32_t j = 0; j <= m; ++j) row[j] = j;
+    for (int32_t i = 1; i <= n; ++i) {
+        int32_t diag = row[0];
+        row[0] = i;
+        for (int32_t j = 1; j <= m; ++j) {
+            const int32_t sub = diag + (a[i - 1] != b[j - 1]);
+            diag = row[j];
+            row[j] = std::min(std::min(row[j] + 1, row[j - 1] + 1), sub);
+        }
+    }
+    return row[m];
+}
+
 // ---------------------------------------------------------------------
 int32_t viterbi_ctc_f32(const float* neg_logprobs_states, int32_t t,
                         int32_t s, const uint8_t* skip_ok,

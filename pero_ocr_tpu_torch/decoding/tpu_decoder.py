@@ -57,6 +57,7 @@ import torch
 from pero_ocr_tpu_torch import resolve_device
 from pero_ocr_tpu_torch.decoding.bag_of_hypotheses import BagOfHypotheses
 from pero_ocr_tpu_torch.models.charlm import CharLM, state_leaves, state_map
+from pero_ocr_tpu_torch.utils.graphs import capture
 
 NEG_INF = -1e30
 HASH_MULT = 1000003
@@ -480,29 +481,9 @@ class _GraphedDecode:
             lambda x: torch.empty_like(x, device=device), init_states)
         self._load(logprobs, lengths, init_states)
 
-        def decode():
-            return decoder._decode_device(self.logprobs, self.lengths, self.init, model_eos,
-                                          margins)
-
-        # One eager pass on a side stream first (cuBLAS and allocator
-        # warm-up, as capture requires), with synchronising ops raising.
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        debug_mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with torch.cuda.stream(stream):
-                decode()
-        finally:
-            torch.cuda.set_sync_debug_mode(debug_mode)
-        torch.cuda.current_stream(device).wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.out = decode()
-        except RuntimeError as e:
-            raise RuntimeError(f"the beam step cannot be captured in a CUDA graph: {e}") from e
-        torch.cuda.synchronize(device)
+        self.graph, self.out = capture(
+            lambda: decoder._decode_device(self.logprobs, self.lengths, self.init, model_eos,
+                                           margins), device, "the beam step")
         decoder.graph_capture_seconds += time.perf_counter() - t0
 
     def _load(self, logprobs, lengths, init_states) -> None:

@@ -4,13 +4,16 @@ pero_ocr_tpu/document/page_parser.py).
 The factories read the same ``[PAGE_PARSER]``, ``[LAYOUT_PARSER_n]``,
 ``[LINE_CROPPER]`` and ``[OCR]`` keys with the same fallbacks as the JAX
 package.  ``PageParser(config, device).process_page(image, layout)``
-runs configs 1 and 2 one page at a time, each stage on ``device`` (None
+runs configs 1 to 4 one page at a time, each stage on ``device`` (None
 means CUDA, "cpu" the plain PyTorch path):
 
-- layout: ``LayoutExtractor`` (config 2: CNN regions and lines,
-  ``LayoutEngine.detect``, the lines clipped into their regions), or
-  ``WholePageRegion`` and ``TextlineExtractorSimple`` (config 1: one
-  region over the page, the classical line detector on the host);
+- layout: ``LayoutExtractor`` (configs 2-4: CNN regions and lines,
+  ``LayoutEngine.detect``, the lines clipped into their regions; with
+  ``ADJUST_HEIGHTS`` a second ParseNet pass and each line's heights
+  from its maps), or ``WholePageRegion`` and ``TextlineExtractorSimple``
+  (config 1: one region over the page, the classical line detector on
+  the host); ``REGION_SORTER_SMART`` (config 4) orders the regions by
+  recursive XY cuts on the levelled page;
 - ``LineCropper``: every line's warp field on the host, then, for pages
   of four lines or more, one upload of the page and of all its width
   buckets' fields in one buffer, one
@@ -19,8 +22,10 @@ means CUDA, "cpu" the plain PyTorch path):
   crops back;
   fewer lines are remapped on the host;
 - ``PageOCR``: the lines' crops in width-bucketed batches through the
-  CTC recognizer, sparse logits kept on each line (the logits files and
-  the ALTO output read them);
+  CTC recognizer or, with ``METHOD = transformer`` (config 4), the
+  transformer engine (a KV-cached greedy decode, one CUDA graph a
+  decode shape on the card); logits kept on each line, sparse (the
+  logits files and the ALTO output read CTC logits);
 - ``PageDecoder`` (config 3, ``RUN_DECODER``): the lines' log-probs
   through the ``[DECODER]``'s decoder; ``TPU-BEAM`` is the batched beam
   search with the character LM on ``device``
@@ -33,9 +38,8 @@ means CUDA, "cpu" the plain PyTorch path):
 builds the device pipeline of ``--fast-pipeline`` from the same engines.
 What the port lacks raises ``ValueError`` naming its ROADMAP item: the
 other layout methods and the ``LAYOUT_CNN`` options ``MULTI_ORIENTATION``,
-``MERGE_LINES``, ``ADJUST_HEIGHTS``, ``ADJUST_BASELINES`` and
-``DETECT_STRAIGHT_LINES_IN_REGIONS`` (items 8c, 8d) and transformer OCR
-(item 11).
+``MERGE_LINES``, ``ADJUST_BASELINES`` and
+``DETECT_STRAIGHT_LINES_IN_REGIONS`` (item 8d).
 """
 
 from __future__ import annotations
@@ -48,13 +52,15 @@ from typing import List
 import numpy as np
 import torch
 
-from pero_ocr_tpu_torch import STAGE_BY_STAGE, TRANSFORMERS, not_ported, resolve_device
+from pero_ocr_tpu_torch import STAGE_BY_STAGE, not_ported, resolve_device
 from pero_ocr_tpu_torch.core import crop_engine as cropper
 from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
 from pero_ocr_tpu_torch.layout_engines import helpers
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import LayoutEngine
 from pero_ocr_tpu_torch.layout_engines.simple_baseline_engine import EngineLineDetectorSimple
+from pero_ocr_tpu_torch.layout_engines.smart_sorter import SmartRegionSorter
 from pero_ocr_tpu_torch.ocr.ctc_engine import CTCEngineLineOCR
+from pero_ocr_tpu_torch.ocr.transformer_engine import TransformerEngineLineOCR
 from pero_ocr_tpu_torch.ops import warp
 from pero_ocr_tpu_torch.utils.paths import compose_path
 from pero_ocr_tpu_torch.utils.timing import stage_timer
@@ -64,7 +70,7 @@ logger = logging.getLogger(__name__)
 # The JAX package's other layout stages (page_parser.py:51-68).
 OTHER_LAYOUT_METHODS = (
     "REGION_SIMPLE_THRESHOLD", "LINE_FILTER", "LINE_POSTPROCESSING",
-    "LAYOUT_POSTPROCESSING", "REGION_SORTER_NAIVE", "REGION_SORTER_SMART",
+    "LAYOUT_POSTPROCESSING", "REGION_SORTER_NAIVE",
 )
 
 
@@ -77,6 +83,8 @@ def layout_parser_factory(config, device=None, config_path="", order=1):
         return LayoutExtractor(section, device, config_path=config_path)
     if method == "LINES_SIMPLE_THRESHOLD":
         return TextlineExtractorSimple(section, config_path=config_path)
+    if method == "REGION_SORTER_SMART":
+        return SmartRegionSorter(section, config_path=config_path)
     if method in OTHER_LAYOUT_METHODS:
         raise not_ported(f"[LAYOUT_PARSER_{order}] METHOD = {method}", STAGE_BY_STAGE)
     raise ValueError(f"Unknown layout parser method: {method}")
@@ -211,11 +219,10 @@ class LayoutExtractor:
 
     def unported_options(self) -> List[str]:
         """The LAYOUT_CNN options set in the config that the
-        stage-by-stage path does not run yet (ROADMAP items 8c, 8d)."""
+        stage-by-stage path does not run yet (ROADMAP item 8d)."""
         return [name for flag, name in (
             (self.multi_orientation, "MULTI_ORIENTATION"),
             (self.merge_lines, "MERGE_LINES"),
-            (self.adjust_heights, "ADJUST_HEIGHTS"),
             (self.adjust_baselines, "ADJUST_BASELINES"),
             (self.detect_straight_lines_in_regions, "DETECT_STRAIGHT_LINES_IN_REGIONS"),
         ) if flag]
@@ -224,8 +231,14 @@ class LayoutExtractor:
         unported = self.unported_options()
         if unported:
             raise not_ported(f"[LAYOUT_PARSER] {', '.join(unported)}", STAGE_BY_STAGE)
-        if not (self.detect_regions or self.detect_lines):
-            return page_layout
+        if self.detect_regions or self.detect_lines:
+            self._detect(img, page_layout)
+        if self.adjust_heights:
+            with stage_timer("adjust_heights"):
+                self._adjust_heights(img, page_layout)
+        return page_layout
+
+    def _detect(self, img, page_layout: PageLayout) -> None:
         if self.detect_regions:
             page_layout.regions = []
         if self.detect_lines:
@@ -241,7 +254,17 @@ class LayoutExtractor:
             regions = helpers.assign_lines_to_regions(b_list, h_list, t_list, regions)
         if self.detect_regions:
             page_layout.regions += regions
-        return page_layout
+
+    def _adjust_heights(self, img, page_layout: PageLayout) -> None:
+        """ADJUST_HEIGHTS: the maps once more at the page's adaptive
+        resolution (a second ParseNet pass, as the JAX package makes),
+        then each line's heights from them at 40 points of its resampled
+        baseline, and its outline from those heights."""
+        maps, ds = self.engine.parsenet.get_maps_with_optimal_resolution(img)
+        for line in page_layout.lines_iterator():
+            sample_points = helpers.resample_baselines([line.baseline], num_points=40)[0]
+            line.heights = self.engine.get_heights(maps, ds, sample_points)
+            line.polygon = helpers.baseline_to_textline(line.baseline, line.heights)
 
 
 class LineCropper:
@@ -326,8 +349,9 @@ class PageOCR:
         json_file = compose_path(config["OCR_JSON"], config_path)
         method = config.get("METHOD", fallback="")
         if method in ("pytorch_ocr-transformer", "transformer"):
-            raise not_ported(f"[OCR] METHOD = {method}", TRANSFORMERS)
-        self.ocr_engine = CTCEngineLineOCR(json_file, device=device)
+            self.ocr_engine = TransformerEngineLineOCR(json_file, device=device)
+        else:
+            self.ocr_engine = CTCEngineLineOCR(json_file, device=device)
 
     def process_page(self, img, page_layout: PageLayout) -> PageLayout:
         lines = list(page_layout.lines_iterator())

@@ -1,7 +1,8 @@
 """Layout geometry helpers (from pero_ocr_tpu/layout_engines/helpers.py):
-textline outlines from baselines, region outlines from textlines, and
-the stage-by-stage layout's clipping of lines into regions and their
-top-to-bottom order."""
+textline outlines from baselines, region outlines from textlines, the
+stage-by-stage layout's clipping of lines into regions and their
+top-to-bottom order, and the polynomial resampling of baselines that
+``ADJUST_HEIGHTS`` samples the heights map at."""
 
 from __future__ import annotations
 
@@ -159,3 +160,24 @@ def order_lines_vertical(baselines, heights, textlines):
     idx = sorted(range(len(order)), key=lambda i: order[i])
     return ([baselines[i] for i in idx], [heights[i] for i in idx],
             [textlines[i] for i in idx])
+
+
+def resample_baselines(baselines, num_points: int = 10):
+    """Each baseline fitted with a polynomial (degree 1 for two points,
+    else 2) and sampled at ``num_points`` evenly spaced x between its
+    ends; a baseline that runs more vertically than horizontally is fit
+    with x and y swapped."""
+    out = []
+    for baseline in baselines:
+        baseline = np.asarray(baseline, dtype=float)
+        vertical = abs(baseline[0, 0] - baseline[-1, 0]) < abs(baseline[0, 1] - baseline[-1, 1])
+        if vertical:
+            baseline = baseline[:, ::-1]
+        order = 1 if baseline.shape[0] == 2 else 2
+        fit = np.poly1d(np.polyfit(baseline[:, 0], baseline[:, 1], order))
+        xs = np.linspace(baseline[0, 0], baseline[-1, 0], num_points)
+        resampled = np.stack([xs, fit(xs)], axis=-1)
+        if vertical:
+            resampled = resampled[:, ::-1]
+        out.append(resampled)
+    return out

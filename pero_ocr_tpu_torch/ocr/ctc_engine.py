@@ -33,9 +33,8 @@ class CTCEngineLineOCR(BaseEngineLineOCR):
         """``device``: where ``run_ocr`` runs; None means CUDA (resolved
         at the first batch, so that a config can be read without a
         card)."""
-        super().__init__(json_def)
+        super().__init__(json_def, device=device)
         self.characters = tuple(self.characters) + (BLANK_CHAR,)
-        self.device = device
         if self.checkpoint and is_torchscript_file(self.checkpoint):
             raise not_ported(f"TorchScript recognizer {self.checkpoint}", TORCHSCRIPT)
         self.spec = RecognizerSpec.from_json_dict(self.config, num_classes=len(self.characters))

@@ -5,16 +5,18 @@
         [--output-logit-path logits/] [--output-alto-path alto/]
 
 It reads the config and its OCR JSON, loads the flax msgpack checkpoints
-they name into the port's models, decodes the pages (PNG or binary PNM,
+(or a reference transformer's torch ``.pt``) they name into the port's
+models, decodes the pages (PNG or binary PNM,
 :mod:`pero_ocr_tpu_torch.utils.image_io`) and writes, per page, a Page
 XML file, a ``.logits`` pickle of the lines' sparse logits and an ALTO
 file with word boxes from the forced alignment, each where asked.
 Without ``--fast-pipeline`` each page goes through
 ``PageParser.process_page`` (the stage-by-stage path; the line crops are
 sampled by the hand-written CUDA field warp; with ``RUN_DECODER`` the
-lines then go through the beam search with the character LM), with the
-next page decoded
-on a worker thread, and a page that fails is reported and skipped, as
+lines then go through the beam search with the character LM; with
+``[OCR] METHOD = transformer`` the transformer engine recognizes them,
+and ``--timing-report`` lists its ``ocr/encode`` and ``ocr/decode``
+times), with the next page decoded on a worker thread, and a page that fails is reported and skipped, as
 the JAX command line's ``Computator`` does.  With ``--fast-pipeline``
 the page batches go through ``FastPagePipeline.process_pages`` (stage B
 warps the lines with the fused CUDA kernel); a config that the fast path

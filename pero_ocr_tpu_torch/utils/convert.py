@@ -23,6 +23,9 @@ Layout rules:
   the same i, f, g, o, so the four kernels concatenate into
   ``weight_ih``/``weight_hh`` and the hidden biases into ``bias_hh``
   (``bias_ih`` is zero).
+- Attention (``models/transformer.py``) keeps torch's layout: the
+  q/k/v kernels stack into ``in_proj_weight``, the output kernel
+  flattens its (heads, head_dim) axes.
 - The CharLM (``models/charlm.py``) keeps the flax kernels' (in, out)
   layout: a cell's gate kernels concatenate side by side (LSTM i, f,
   g, o; GRU r, z, n), as ``OptimizedLSTMCell`` concatenates them.
@@ -161,6 +164,48 @@ def charlm_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
             out[f"cells.{k}.bias_i"] = torch.cat([_t(cell[g]["bias"]) for g in ("ir", "iz", "in")])
             out[f"cells.{k}.weight_h"] = torch.cat([_t(cell[g]["kernel"]) for g in ("hr", "hz", "hn")], 1)
             out[f"cells.{k}.bias_hn"] = _t(cell["hn"]["bias"])
+    return out
+
+
+def _attention(node: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``MultiHeadDotProductAttention`` -> torch's attention layout:
+    the q/k/v ``DenseGeneral`` kernels (d, heads, head_dim) stacked into
+    ``in_proj_weight`` (3d, d), the output kernel (heads, head_dim, d)
+    into ``out_proj.weight`` (d, d)."""
+    parts = [node[name] for name in ("query", "key", "value")]
+    weight = torch.cat([_t(p["kernel"]).flatten(1).T for p in parts])
+    bias = torch.cat([_t(p["bias"]).flatten() for p in parts])
+    out = _t(node["out"]["kernel"])
+    return {"in_proj_weight": weight.contiguous(), "in_proj_bias": bias,
+            "out_proj.weight": out.reshape(-1, out.shape[-1]).T.contiguous(),
+            "out_proj.bias": _t(node["out"]["bias"])}
+
+
+def transformer_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for
+    :class:`pero_ocr_tpu_torch.models.transformer.TransformerOCR` from the
+    params of ``pero_ocr_tpu.models.transformer.TransformerOCR``."""
+    p = _params(tree)
+    out: dict = {}
+    front = p["frontend"]
+    n_conv = _count(front, "Conv") - 1
+    for i in range(n_conv):
+        _put(out, f"frontend.convs.{i}", _conv(front[f"Conv_{i}"]))
+    _put(out, "frontend.agg", _conv(front[f"Conv_{n_conv}"]))
+    for kind, names in (("encoder", ("self_attn",)), ("decoder", ("self_attn", "multihead_attn"))):
+        for i in range(_count(p, f"{kind}_layers_")):
+            node = p[f"{kind}_layers__{i}"]
+            prefix = f"{kind}_layers.{i}"
+            for j in range(len(names) + 1):
+                _put(out, f"{prefix}.norm{j + 1}", _norm(node[f"LayerNorm_{j}"]))
+            for j, name in enumerate(names):
+                _put(out, f"{prefix}.{name}", _attention(node[f"MultiHeadDotProductAttention_{j}"]))
+            _put(out, f"{prefix}.linear1", _dense(node["Dense_0"]))
+            _put(out, f"{prefix}.linear2", _dense(node["Dense_1"]))
+    _put(out, "encoder_norm", _norm(p["encoder_norm"]))
+    _put(out, "decoder_norm", _norm(p["decoder_norm"]))
+    out["embed.weight"] = _t(p["embed"]["embedding"])
+    _put(out, "out_proj", _dense(p["out_proj"]))
     return out
 
 

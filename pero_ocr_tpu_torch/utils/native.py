@@ -1,7 +1,8 @@
 """ctypes bindings of the port's host C++ (``csrc/perotpu.cpp``), the
 counterpart of the JAX package's ``pero_ocr_tpu/utils/native.py`` for
-the five functions config 2's paths run and the forced alignment of
-config 5's ALTO output (``viterbi_ctc_f32``).
+the five functions config 2's paths run, the forced alignment of
+config 5's ALTO output (``viterbi_ctc_f32``) and the edit distance that
+stitches config 4's over-wide transformer lines (``levenshtein_i32``).
 
 The arguments and return values are the JAX bindings'.  Where those
 return None for a missing library, these raise: the library is built
@@ -59,6 +60,7 @@ _SIGNATURES = {  # name: (restype, argtypes), as in csrc/perotpu.cpp
     "viterbi_ctc_f32": (_I32, [
         ctypes.POINTER(_F32), _I32, _I32, ctypes.POINTER(_U8), ctypes.POINTER(_I32),
     ]),
+    "levenshtein_i32": (_I32, [ctypes.POINTER(_I32), _I32, ctypes.POINTER(_I32), _I32]),
 }
 
 
@@ -237,3 +239,13 @@ def native_viterbi_ctc(neg_logprobs_states: np.ndarray, skip_ok: np.ndarray) -> 
             "best path has cost of np.inf"
         )
     return path
+
+
+def native_levenshtein(a: Sequence[int], b: Sequence[int]) -> int:
+    """Unit-cost edit distance of two int32 id sequences
+    (``levenshtein_i32``)."""
+    lib = get_library()
+    calls["levenshtein_i32"] += 1
+    a = np.ascontiguousarray(a, dtype=np.int32).reshape(-1)
+    b = np.ascontiguousarray(b, dtype=np.int32).reshape(-1)
+    return int(lib.levenshtein_i32(_ptr(a, _I32), len(a), _ptr(b, _I32), len(b)))

@@ -56,6 +56,7 @@ from pero_ocr_tpu_torch.decoding.tpu_decoder import TorchBeamSearchDecoder
 from pero_ocr_tpu_torch.document.page_parser import PageDecoder, PageParser
 from pero_ocr_tpu_torch.layout_engines import parsenet_wrapper
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
+from pero_ocr_tpu_torch.ocr.transformer_engine import TransformerEngineLineOCR
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.scripts import parse_folder
 from pero_ocr_tpu_torch.utils import checkpoint
@@ -471,16 +472,16 @@ def test_cli_refuses_config_features(bundle, tmp_path, caplog):
     assert "RUN_DECODER (beam/LM decoding stage)" in FastPagePipeline.unsupported_features(
         PageParser(config, device="cpu", config_path=str(bundle)))
     config["PAGE_PARSER"]["RUN_DECODER"] = "no"
-    for section, item in (("LAYOUT_PARSER_2", "Stage-by-stage path"),
-                          ("OCR", "Transformer recognizers")):
-        if section == "LAYOUT_PARSER_2":
-            config.add_section(section)
-            config[section]["METHOD"] = "LINE_FILTER"
-        elif section == "OCR":
-            config.remove_section("LAYOUT_PARSER_2")
-            config["OCR"]["METHOD"] = "transformer"
-        with pytest.raises(ValueError, match=item):
-            PageParser(config, device="cpu", config_path=str(bundle))
+    config.add_section("LAYOUT_PARSER_2")
+    config["LAYOUT_PARSER_2"]["METHOD"] = "LINE_FILTER"
+    with pytest.raises(ValueError, match="Stage-by-stage path"):
+        PageParser(config, device="cpu", config_path=str(bundle))
+    # Transformer OCR is ported (config 4): the engine is built (the
+    # bundle's JSON names no net_name: the native model).
+    config.remove_section("LAYOUT_PARSER_2")
+    config["OCR"]["METHOD"] = "transformer"
+    engine = PageParser(config, device="cpu", config_path=str(bundle)).ocr.ocr_engine
+    assert isinstance(engine, TransformerEngineLineOCR) and not engine.ref_mode
 
 
 def test_cli_fails_without_checkpoint_or_decoder(bundle, tmp_path):

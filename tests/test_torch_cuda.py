@@ -15,6 +15,9 @@ page and 0 when the two sides decide it one ulp apart.  The field warp
 (``warp_fields``) has no such test and is held to bit equality
 everywhere, in both stores."""
 
+import copy
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -556,3 +559,141 @@ def test_beam_graphs_are_bounded(cuda, monkeypatch):
     assert out.bp_rows.shape[1] == 3
     eager = card.run(logits, lengths, graph=False)
     assert torch.equal(out.bp_rows, eager.bp_rows) and torch.equal(out.p_total, eager.p_total)
+
+
+# ----------------------------------------------------------------------
+# The transformer recognizers (config 4) on the card: no hand-written
+# kernel, torch ops, each decode shape a CUDA graph.
+TRANSFORMER_CHARS = [chr(0x61 + i) for i in range(10)]
+SMALL_NET = {"dim_model": 32, "dim_ff": 64, "heads": 4, "encoder_layers": 2,
+             "decoder_layers": 2, "conv_subsampling": [8, 4], "max_seq_len": 64}
+
+
+def _transformer_engines(cuda, tmp_path, kind):
+    """(CPU engine, card engine) of one model: ``ref`` a reference .pt,
+    ``native`` / ``beam`` the native model (seeded, float32; ``beam``
+    with beam_size 3)."""
+    import dataclasses
+    import json
+
+    from chip_smoke import write_ref_transformer
+    from pero_ocr_tpu_torch.models.transformer import TransformerOCR
+    from pero_ocr_tpu_torch.ocr.transformer_engine import TransformerEngineLineOCR
+
+    os.makedirs(tmp_path, exist_ok=True)
+    if kind == "ref":
+        path = write_ref_transformer(str(tmp_path), TRANSFORMER_CHARS, 16, SMALL_NET, 3)
+    else:
+        path = str(tmp_path / "native.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump({"characters": TRANSFORMER_CHARS, "line_px_height": 16,
+                       "beam_size": 3 if kind == "beam" else 1,
+                       "net_spec": {"conv_features": [8, 16], "d_model": 32, "num_heads": 4,
+                                    "encoder_layers": 2, "decoder_layers": 2, "mlp_dim": 64,
+                                    "max_decode_len": 64}}, f)
+    engines = (TransformerEngineLineOCR(path, device="cpu"),
+               TransformerEngineLineOCR(path, device=cuda))
+    # The end id's bias raised so that lines end at different steps.
+    if kind == "ref":
+        for engine in engines:
+            with torch.no_grad():
+                engine.model.dec_out_proj.bias[engine.spec.boundary_id] += 1.5
+    else:
+        spec = dataclasses.replace(engines[0].spec, dtype=torch.float32)
+        model = TransformerOCR(spec, generator=torch.Generator().manual_seed(4)).eval()
+        with torch.no_grad():
+            model.out_proj.bias[spec.eos_id] += 0.5
+        for engine in engines:
+            engine.spec, engine.model = spec, copy.deepcopy(model)
+    return engines
+
+
+def _transformer_batch(seed, n=4, width=192):
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, 256, (n, 2, width // 8, 3), dtype=np.uint8)
+    return np.repeat(np.repeat(blocks, 8, 1), 8, 2)
+
+
+@pytest.mark.parametrize("kind", ["ref", "native", "beam"])
+def test_transformer_graph_replay_equals_the_eager_loop(cuda, tmp_path, kind):
+    """A replayed graph gives the eager loop's tokens, lengths and logits
+    bit for bit; one graph a (batch shape, steps), reused."""
+    _, card = _transformer_engines(cuda, tmp_path, kind)
+    for seed in (1, 2):
+        batch = torch.from_numpy(_transformer_batch(seed)).to(cuda)
+        graph = [t.clone() for t in card.decode(batch, 48)]
+        eager = card.decode(batch, 48, graph=False)
+        for g, e in zip(graph, eager):
+            assert g.dtype == e.dtype and torch.equal(g, e)
+    assert list(card._graphs) == [((4, 16, 192, 3), 48)]
+    assert card.graph_capture_seconds > 0
+
+
+@pytest.mark.parametrize("kind", ["ref", "native", "beam"])
+def test_transformer_on_the_card_matches_cpu(cuda, tmp_path, kind):
+    """The card's tokens (TF32 off) equal the CPU port's, unless the
+    first difference is a near-tie of the CPU's logits (float32
+    rounding over dim_ff terms); lengths equal where the tokens are."""
+    from chip_smoke import tokens_differ
+
+    cpu, card = _transformer_engines(cuda, tmp_path, kind)
+    batch = _transformer_batch(3, n=8)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = [t.cpu().numpy() for t in card.decode(torch.from_numpy(batch).to(cuda), 48)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    want = [t.numpy() for t in cpu.decode(torch.from_numpy(batch), 48)]
+    terms = SMALL_NET["dim_ff"]
+    verdicts = tokens_differ(got[0], want[0], want[2], len(batch), terms)
+    assert all(v is None or v[1] for v in verdicts), verdicts
+    assert sum(v is None for v in verdicts) >= len(batch) // 2
+    for i, v in enumerate(verdicts):
+        if v is None:
+            assert got[1][i] == want[1][i]
+            n = int(got[1][i])
+            np.testing.assert_allclose(got[2][i, :n], want[2][i, :n], rtol=0, atol=1e-3)
+    assert len(set(want[1].tolist())) > 1  # lines end at different steps
+
+
+def test_transformer_decode_loops_do_not_sync(cuda, tmp_path):
+    """The greedy and beam loops run with every synchronising op raising
+    (what capturing them needs)."""
+    from pero_ocr_tpu_torch.models import transformer, transformer_ref
+
+    for kind in ("ref", "beam"):
+        _, card = _transformer_engines(cuda, tmp_path / kind, kind)
+        card.model.to(cuda)
+        batch = torch.from_numpy(_transformer_batch(5)).to(cuda).float() / 255
+        with torch.inference_mode():
+            memory = card.model.encode(batch)
+            torch.cuda.synchronize()
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                if kind == "ref":
+                    transformer_ref.greedy_ref_from_memory(card.model, memory, 40)
+                else:
+                    transformer.beam_from_memory(card.model, memory, 40, 3)
+                    transformer.greedy_from_memory(card.model, memory, 40)
+                card.decode_from_memory(memory, 40)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.synchronize()
+
+
+def test_transformer_graphs_are_bounded(cuda, tmp_path, monkeypatch):
+    """Past GRAPH_CACHE shapes the least recently used graph goes; a
+    shape captured again still decodes as the eager loop does."""
+    from pero_ocr_tpu_torch.ocr import transformer_engine
+
+    monkeypatch.setattr(transformer_engine, "GRAPH_CACHE", 2)
+    _, card = _transformer_engines(cuda, tmp_path, "ref")
+    batches = {n: torch.from_numpy(_transformer_batch(6, n=n)).to(cuda) for n in (1, 2, 4)}
+    for n in (4, 2, 1):
+        card.decode(batches[n], 40)
+    assert [key[0][0] for key in card._graphs] == [2, 1]
+    out = [t.clone() for t in card.decode(batches[4], 40)]
+    assert [key[0][0] for key in card._graphs] == [1, 4]
+    for g, e in zip(out, card.decode(batches[4], 40, graph=False)):
+        assert torch.equal(g, e)

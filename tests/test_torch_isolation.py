@@ -8,7 +8,10 @@ with --allow-random-weights), with logits and ALTO files on both paths,
 config 1 (whole-page region, classical line detector) runs through the
 command line to Page XML and ALTO, config 3 (the beam search with a
 character LM written by chip_smoke.py) through the command line to Page
-XML, and no module of the JAX package gets loaded.  Runs in a subprocess so the blocking does not leak into the
+XML, config 4 (ADJUST_HEIGHTS, the smart sorter and a reference
+transformer .pt written here) through the command line to Page XML,
+PageParser's transformer engine runs on CUDA unless asked for the CPU,
+and no module of the JAX package gets loaded.  Runs in a subprocess so the blocking does not leak into the
 other tests."""
 
 import json
@@ -132,9 +135,39 @@ set_strict_loading(False)  # the config-1 run above set it process-wide
 cli_main(["-c", os.path.join(tmp, "config3.ini"), "-i", os.path.join(tmp, "images"),
           "--output-xml-path", os.path.join(tmp, "xml3"), "--fast-pipeline", "--device", "cpu",
           "--allow-random-weights"])
+from pero_ocr_tpu_torch.models.transformer_ref import RefTransformerOCR, RefTransformerSpec
+net = {"dim_model": 16, "dim_ff": 32, "heads": 2, "encoder_layers": 1, "decoder_layers": 1,
+       "max_seq_len": 64}
+torch.save(RefTransformerOCR(RefTransformerSpec(num_symbols=len(chars) + 1, in_height=16, **net),
+                             generator=torch.Generator().manual_seed(5)).state_dict(),
+           os.path.join(tmp, "ref.pt"))
+with open(os.path.join(tmp, "transformer.json"), "w", encoding="utf-8") as f:
+    json.dump({"characters": chars[:-1], "line_px_height": 16, "checkpoint": "ref.pt",
+               "net_name": json.dumps(net)}, f)
+with open(os.path.join(tmp, "config.ini")) as f:
+    config4 = f.read().replace("DEPTH = 2\n", "DEPTH = 2\nADJUST_HEIGHTS = yes\n")
+config4 = config4.replace("[LINE_CROPPER]", "[LAYOUT_PARSER_2]\nMETHOD = REGION_SORTER_SMART\n"
+                          "[LINE_CROPPER]").replace("OCR_JSON = ocr.json",
+                                                    "OCR_JSON = transformer.json\n"
+                                                    "METHOD = transformer")
+with open(os.path.join(tmp, "config4.ini"), "w") as f:
+    f.write(config4)
+cli_main(["-c", os.path.join(tmp, "config4.ini"), "-i", os.path.join(tmp, "images"),
+          "--output-xml-path", os.path.join(tmp, "xml4"), "--device", "cpu",
+          "--allow-random-weights"])
+import configparser
+from pero_ocr_tpu_torch.document.page_parser import PageParser
+parsed4 = configparser.ConfigParser()
+parsed4.read(os.path.join(tmp, "config4.ini"))
+engine4 = PageParser(parsed4, config_path=tmp).ocr.ocr_engine
+try:
+    engine4.run_ocr(np.zeros((1, 16, 64, 3), np.uint8), np.array([64]))
+    raised4 = None
+except RuntimeError as e:
+    raised4 = str(e)
 outputs = {out: sorted(os.listdir(os.path.join(tmp, out)))
            for out in ("fast_logits", "fast_alto", "staged_logits", "staged_alto", "xml1", "alto1",
-                       "xml3")}
+                       "xml3", "xml4")}
 alto_ns = "{http://www.loc.gov/standards/alto/ns-v2#}"
 config1_lines = []
 for name in outputs["xml1"]:
@@ -161,6 +194,8 @@ print(json.dumps({
     "cli": cli,
     "outputs": outputs,
     "config1_lines": config1_lines,
+    "engine4": [type(engine4).__name__, engine4.device, engine4.ref_mode],
+    "raised4": raised4,
 }))
 """
 
@@ -183,6 +218,8 @@ def test_port_runs_without_jax_and_host_libraries():
         assert got["outputs"][path + "_alto"] == [f"p{i}.xml" for i in range(3)]
     assert got["outputs"]["xml1"] == got["outputs"]["alto1"] == ["c0.xml", "c1.xml"]
     assert got["outputs"]["xml3"] == [f"p{i}.xml" for i in range(3)]  # config 3, decoded
+    assert got["outputs"]["xml4"] == [f"p{i}.xml" for i in range(3)]  # config 4, transformer
+    assert got["engine4"] == ["TransformerEngineLineOCR", None, True]  # CUDA by default
     assert got["config1_lines"] == [5, 5]
     assert got["override"] == [[0, 4], [1, 4], [2, 4]]  # one slot of line_slot 4
     assert got["cnn_pages"] == [0, 1, 2]
@@ -192,6 +229,7 @@ def test_port_runs_without_jax_and_host_libraries():
     if got["cuda"]:
         pytest.skip("a CUDA device is present: the no-device error cannot show")
     assert got["raised"] is not None and "device='cpu'" in got["raised"]
+    assert got["raised4"] is not None and "device='cpu'" in got["raised4"]
 
 
 NATIVE_SCRIPT = r"""

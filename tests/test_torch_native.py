@@ -541,6 +541,54 @@ def test_viterbi_without_a_path_raises_as_jax():
 
 
 # ----------------------------------------------------------------------
+# levenshtein_i32 (the transformer's chunk merge)
+LEVENSHTEIN_CASES = {
+    "empty": ("", ""),
+    "empty_source": ("", "abc"),
+    "empty_target": ("abcd", ""),
+    "equal": ("kitten", "kitten"),
+    "classic": ("kitten", "sitting"),
+    "unicode": ("žluťoučký kůň", "zlutoucky kun"),
+    "symbols": ("€€\u200b<>&", "<€&\u200b"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LEVENSHTEIN_CASES))
+def test_levenshtein_matches_numpy_and_jax(case):
+    """levenshtein_i32 on symbols mapped to ids (one table, in order of
+    first appearance) against its numpy twin, the JAX binding of its own
+    library and the JAX package's levenshtein_distance: equal."""
+    from pero_ocr_tpu.sequence_alignment import levenshtein_distance as jax_levenshtein
+    from pero_ocr_tpu_torch import sequence_alignment
+
+    a, b = LEVENSHTEIN_CASES[case]
+    src, tgt = sequence_alignment.symbols_to_ids(list(a), list(b))
+    before = native.calls["levenshtein_i32"]
+    got = native.native_levenshtein(src, tgt)
+    assert native.calls["levenshtein_i32"] == before + 1
+    assert got == sequence_alignment.levenshtein_ids(src, tgt) == \
+        jax_native.native_levenshtein(src, tgt) == jax_levenshtein(list(a), list(b))
+    for route in (True, False):
+        assert sequence_alignment.levenshtein_distance(list(a), list(b), route) == got
+    if case == "equal":
+        assert got == 0
+    elif case.startswith("empty"):
+        assert got == max(len(a), len(b))
+
+
+def test_levenshtein_seeded_pairs_match_numpy_and_jax():
+    from pero_ocr_tpu_torch import sequence_alignment
+
+    rng = np.random.default_rng(17)
+    for _ in range(200):
+        src = rng.integers(0, int(rng.integers(1, 8)), int(rng.integers(0, 40))).astype(np.int32)
+        tgt = rng.integers(0, int(rng.integers(1, 8)), int(rng.integers(0, 40))).astype(np.int32)
+        got = native.native_levenshtein(src, tgt)
+        assert got == sequence_alignment.levenshtein_ids(src, tgt)
+        assert got == jax_native.native_levenshtein(src, tgt)
+
+
+# ----------------------------------------------------------------------
 # The clustering on both routes
 
 def test_make_clusters_same_on_both_routes(pipes):

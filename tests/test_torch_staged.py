@@ -640,10 +640,12 @@ def test_parse_honours_connection_keys(bundle, tmp_path, float32_parsenets, keys
 
 
 def test_page_parser_refuses_unported_layout_options(bundle, tmp_path):
+    # ADJUST_HEIGHTS is ported (config 4): only the other option is named.
     path = staged_config(bundle, tmp_path, ADJUST_HEIGHTS="yes", MULTI_ORIENTATION="yes")
     ours = PageParser(_config(path), device="cpu", config_path=str(tmp_path))
     page = _pages()[0]
-    with pytest.raises(ValueError, match="MULTI_ORIENTATION, ADJUST_HEIGHTS.*Stage-by-stage"):
+    with pytest.raises(ValueError, match=r"\[LAYOUT_PARSER\] MULTI_ORIENTATION is not ported.*"
+                                         "Stage-by-stage"):
         ours.process_page(page, PageLayout(id="p", page_size=page.shape[:2]))
 
 
