@@ -91,6 +91,25 @@ Phases (each raises on failure, so the run exits non-zero):
     first's.  Then ``check_host_native`` holds each C++ function against
     its numpy twin on the runs' own inputs (0 differences; the forced
     alignment's on config 5's lines) and times both.
+14. Training (``run_train``): the five trainers of
+    ``parallel/train.py`` at full width (the bench recognizer on 64
+    crops of 32x768, float32; the detector on 4 of its pages a step at
+    map ds 4 and 2 with bench.py's painted targets and third phase;
+    OrientationNet on 8 tiles of 256x256; the native transformer at
+    TransformerSpec's defaults on 16 lines; the CharLM at its spec's
+    defaults, LSTM and GRU, on 64 x 128 tokens): each one's first step
+    held against the CPU's (float32, TF32 off: loss, gradients, global
+    norm, weights after the step) with a float64 witness on both (the
+    card's float64 step equals the CPU's; its float32 gradients are as
+    close to float64 as the CPU's), a learning run whose loss must fall
+    (the recognizer: bench.py's curriculum, whose loss must leave the
+    blank plateau, then the full lines; its held-out greedy CER is
+    printed), the recognizer, detector and LMs
+    exported as flax msgpack and read back through the serving loaders
+    (equal outputs), ms a step, peak memory, the recognizer step's
+    FLOPs and split.  Every warning of
+    the phases is recorded; the BiLSTM's "not part of single contiguous
+    chunk of memory" fails the run.
 
 Kernel times are taken warm (inputs in L2 from the run before) and
 cold (a 128 MB scratch write before each timed run), since stage B finds
@@ -100,7 +119,7 @@ The last lines are the command lines' numbers (``{"cli": ...}``,
 ``{"staged": ...}``), config 1's, config 5's, config 3's and config 4's
 (``{"config1": ...}``, ``{"config5": ...}``, ``{"config3": ...}``,
 ``{"config4": ...}``), the
-host library's (``{"host_native": ...}``),
+host library's (``{"host_native": ...}``), training's (``{"train": ...}``),
 the card's nvidia-smi line, one JSON object with the kernels' numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -108,6 +127,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import configparser
+import contextlib
 import copy
 import dataclasses
 import difflib
@@ -122,6 +142,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import xml.etree.ElementTree as ET
 import zlib
 from typing import Optional
@@ -139,17 +160,20 @@ from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor, PageParser
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import separator_penalties
 from pero_ocr_tpu_torch.layout_engines.smart_sorter import SmartRegionSorter
 from pero_ocr_tpu_torch.decoding.tpu_decoder import NEG_INF, TorchBeamSearchDecoder
-from pero_ocr_tpu_torch.models.charlm import CharLM, CharLMSpec, state_map
-from pero_ocr_tpu_torch.models.parsenet import ParseNet
+from pero_ocr_tpu_torch.decoding import itf
+from pero_ocr_tpu_torch.models.charlm import CharLM, CharLMSpec, sequence_logprobs, state_map
+from pero_ocr_tpu_torch.models.parsenet import OrientationNet, ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+from pero_ocr_tpu_torch.models.transformer import TransformerOCR, TransformerSpec
 from pero_ocr_tpu_torch.models.transformer_ref import RefTransformerOCR, RefTransformerSpec
 from pero_ocr_tpu_torch.ocr.transformer_engine import TransformerEngineLineOCR
 from pero_ocr_tpu_torch.ops import ctc as pipeline_ctc_ops
 from pero_ocr_tpu_torch.ops import morphology
 from pero_ocr_tpu_torch.ops import warp as warp_ops
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
+from pero_ocr_tpu_torch.parallel import train
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
-from pero_ocr_tpu_torch.utils import kernels, native, timing
+from pero_ocr_tpu_torch.utils import checkpoint, convert, kernels, native, timing
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
@@ -782,191 +806,8 @@ def run_config2(pipe, rng, smi: str):
 
 
 # ----------------------------------------------------------------------
-# The JAX package's file formats, written here: flax msgpack checkpoints
-# (the inverse of pero_ocr_tpu_torch/utils/convert.py) and PNG pages.
-def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
-
-
-def _flax_conv(sd, prefix: str) -> dict:
-    k = _np(sd[f"{prefix}.weight"])
-    k = k.transpose(2, 3, 1, 0) if k.ndim == 4 else k.transpose(2, 1, 0)
-    return {"kernel": np.ascontiguousarray(k), "bias": _np(sd[f"{prefix}.bias"])}
-
-
-def _flax_conv_transpose(sd, prefix: str) -> dict:
-    k = _np(sd[f"{prefix}.weight"])[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
-    return {"kernel": np.ascontiguousarray(k), "bias": _np(sd[f"{prefix}.bias"])}
-
-
-def _flax_norm(sd, prefix: str) -> dict:
-    return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
-
-
-def _flax_block(sd, prefix: str) -> dict:
-    node = {}
-    for i in (0, 1):
-        node[f"Conv_{i}"] = _flax_conv(sd, f"{prefix}.conv{i}")
-        if f"{prefix}.norm{i}.weight" in sd:
-            node[f"GroupNorm_{i}"] = _flax_norm(sd, f"{prefix}.norm{i}")
-    return node
-
-
-def flax_parsenet_variables(pn: ParseNet) -> dict:
-    """The flax variables of the JAX ParseNet that ``pn`` ports
-    (``parsenet_params_from_flax`` inverted), float32."""
-    sd = pn.state_dict()
-    n_levels, n_head = len(pn.down_blocks), len(pn.head_ups)
-    p = {}
-    for level in range(n_levels):
-        p[f"ConvBlock_{level}"] = _flax_block(sd, f"down_blocks.{level}")
-        p[f"Conv_{level}"] = _flax_conv(sd, f"down_convs.{level}")
-    p[f"ConvBlock_{n_levels}"] = _flax_block(sd, "bottleneck")
-    for level in range(n_levels):
-        p[f"ConvTranspose_{level}"] = _flax_conv_transpose(sd, f"up_convs.{level}")
-        p[f"ConvBlock_{n_levels + 1 + level}"] = _flax_block(sd, f"up_blocks.{level}")
-    for k in range(n_head):
-        p[f"ConvTranspose_{n_levels + k}"] = _flax_conv_transpose(sd, f"head_ups.{k}")
-        p[f"Conv_{n_levels + k}"] = _flax_conv(sd, f"head_convs.{k}")
-    p[f"Conv_{n_levels + n_head}"] = _flax_conv(sd, "out")
-    return {"params": p}
-
-
-def flax_recognizer_variables(rec: CTCRecognizer) -> dict:
-    """The flax variables of the JAX CTCRecognizer that ``rec`` ports
-    (``recognizer_params_from_flax`` inverted), float32.  Flax's LSTM
-    has no input bias: torch's ``bias_ih`` is added into the hidden bias
-    (exact when it is zero, as in a model loaded from flax)."""
-    sd = rec.state_dict()
-    enc = {}
-    for i in range(len(rec.encoder.convs)):
-        enc[f"Conv_{i}"] = _flax_conv(sd, f"encoder.convs.{i}")
-        if f"encoder.norms.{i}.weight" in sd:
-            enc[f"GroupNorm_{i}"] = _flax_norm(sd, f"encoder.norms.{i}")
-    p = {"VGGEncoder_0": enc, "Dense_0": {
-        "kernel": np.ascontiguousarray(_np(sd["dense.weight"]).T), "bias": _np(sd["dense.bias"]),
-    }}
-    if rec.spec.embed_num:
-        p["Embed_0"] = {"embedding": _np(sd["embedding.weight"])}
-    stack = {}
-    if rec.spec.lstm_layers == 0:
-        for i in range(2):
-            stack[f"Conv_{i}"] = _flax_conv(sd, f"blstm.convs.{i}")
-    for layer in range(rec.spec.lstm_layers):
-        step = {}
-        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
-            w_ih = _np(sd[f"blstm.lstm.weight_ih_l{layer}{suffix}"]).T
-            w_hh = _np(sd[f"blstm.lstm.weight_hh_l{layer}{suffix}"]).T
-            bias = _np(sd[f"blstm.lstm.bias_hh_l{layer}{suffix}"]
-                       + sd[f"blstm.lstm.bias_ih_l{layer}{suffix}"])
-            gates = {}
-            for g, name in enumerate("ifgo"):
-                cols = slice(g * w_hh.shape[0], (g + 1) * w_hh.shape[0])
-                gates[f"i{name}"] = {"kernel": np.ascontiguousarray(w_ih[:, cols])}
-                gates[f"h{name}"] = {"kernel": np.ascontiguousarray(w_hh[:, cols]),
-                                     "bias": bias[cols]}
-            step[direction] = gates
-        stack[f"FusedBiLSTM_{layer}"] = {"Scan_BiLSTMStep_0": step}
-    p["BLSTMStack_0"] = stack
-    return {"params": p}
-
-
-def flax_charlm_variables(lm: CharLM) -> dict:
-    """The flax variables of the JAX CharLM that ``lm`` ports
-    (``charlm_params_from_flax`` inverted)."""
-    sd = lm.state_dict()
-    hidden = lm.spec.hidden_dim
-    p = {"embed": {"embedding": _np(sd["embed.weight"])},
-         "head": {"kernel": np.ascontiguousarray(_np(sd["head.weight"]).T),
-                  "bias": _np(sd["head.bias"])}}
-    for k in range(lm.spec.num_layers):
-        w_i, w_h = _np(sd[f"cells.{k}.weight_i"]), _np(sd[f"cells.{k}.weight_h"])
-
-        def gate(w, g):
-            return np.ascontiguousarray(w[:, g * hidden:(g + 1) * hidden])
-
-        if lm.spec.cell_type == "lstm":
-            b_h = _np(sd[f"cells.{k}.bias_h"])
-            cell = {}
-            for g, name in enumerate("ifgo"):
-                cell[f"i{name}"] = {"kernel": gate(w_i, g)}
-                cell[f"h{name}"] = {"kernel": gate(w_h, g),
-                                    "bias": b_h[g * hidden:(g + 1) * hidden]}
-        else:
-            b_i = _np(sd[f"cells.{k}.bias_i"])
-            cell = {f"i{name}": {"kernel": gate(w_i, g), "bias": b_i[g * hidden:(g + 1) * hidden]}
-                    for g, name in enumerate("rzn")}
-            cell.update({f"h{name}": {"kernel": gate(w_h, g)} for g, name in enumerate("rzn")})
-            cell["hn"]["bias"] = _np(sd[f"cells.{k}.bias_hn"])
-        p[f"cells_{k}"] = cell
-    return {"params": p}
-
-
-def write_charlm(lm: CharLM, path: str) -> None:
-    """``lm`` as a ``[DECODER] LM`` file: the flax msgpack checkpoint and
-    its sidecar spec (``path + ".json"``)."""
-    write_flax_checkpoint(flax_charlm_variables(lm), path)
-    with open(path + ".json", "w", encoding="utf-8") as f:
-        json.dump(dataclasses.asdict(lm.spec), f)
-
-
-def fold_lstm_input_bias_(rec: CTCRecognizer) -> None:
-    """Move each LSTM layer's ``bias_ih`` into ``bias_hh`` (in the
-    module's dtype), so that the module is exactly what its flax export
-    loads back into."""
-    if rec.spec.lstm_layers == 0:
-        return
-    with torch.no_grad():
-        for name, b_ih in rec.blstm.lstm.named_parameters():
-            if name.startswith("bias_ih"):
-                getattr(rec.blstm.lstm, name.replace("bias_ih", "bias_hh")).add_(b_ih)
-                b_ih.zero_()
-
-
-def _msgpack(obj) -> bytes:
-    """msgpack of the types a flax checkpoint holds: str-keyed dicts,
-    lists/tuples, str, bytes, non-negative ints and numpy arrays (flax's
-    extension type 1: a msgpack (shape, dtype name, C-order bytes))."""
-    def sized(n, small_tag, small_max, tags):
-        if n <= small_max and small_tag is not None:
-            return bytes([small_tag | n])
-        for tag, fmt in tags:
-            if n < 1 << (8 * struct.calcsize(fmt)):
-                return bytes([tag]) + struct.pack(fmt, n)
-        raise ValueError(f"msgpack: length {n} too large")
-
-    if isinstance(obj, dict):
-        return sized(len(obj), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I"))) + b"".join(
-            _msgpack(k) + _msgpack(v) for k, v in obj.items())
-    if isinstance(obj, (list, tuple)):
-        return sized(len(obj), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I"))) + b"".join(
-            _msgpack(v) for v in obj)
-    if isinstance(obj, str):
-        raw = obj.encode("utf-8")
-        return sized(len(raw), 0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I"))) + raw
-    if isinstance(obj, bytes):
-        return sized(len(obj), None, -1, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I"))) + obj
-    if isinstance(obj, (int, np.integer)) and not isinstance(obj, bool) and obj >= 0:
-        return sized(int(obj), 0x00, 127, ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"),
-                                          (0xCF, ">Q")))
-    if isinstance(obj, np.ndarray):
-        payload = _msgpack((obj.shape, obj.dtype.name, np.ascontiguousarray(obj).tobytes()))
-        n = len(payload)
-        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-        head = bytes([fixext[n]]) if n in fixext else sized(
-            n, None, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
-        return head + bytes([1]) + payload
-    raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
-
-
-def write_flax_checkpoint(variables: dict, path: str) -> None:
-    """Write ``variables`` as ``flax.serialization.to_bytes`` does (the
-    JAX package's ``save_variables``); arrays stay under flax's 2**30-byte
-    chunk size."""
-    with open(path, "wb") as f:
-        f.write(_msgpack(variables))
-
-
+# PNG pages (the flax msgpack checkpoints are utils/checkpoint.save_variables
+# of utils/convert.py's *_params_to_flax).
 def png_bytes(page: np.ndarray) -> bytes:
     """An 8-bit RGB PNG of a BGR uint8 page, every row with filter 0."""
     def chunk(kind: bytes, body: bytes) -> bytes:
@@ -1013,7 +854,7 @@ def write_bundle(tmp: str, pn: ParseNet, rec: CTCRecognizer, pages: dict):
     as PNG files under images/, the modules as flax msgpack checkpoints,
     the OCR JSON and CLI_INI.  Returns (ini path, images dir)."""
     images = write_pages(tmp, pages)
-    write_flax_checkpoint(flax_parsenet_variables(pn), os.path.join(tmp, "parsenet.msgpack"))
+    checkpoint.save_variables(convert.parsenet_params_to_flax(pn), os.path.join(tmp, "parsenet.msgpack"))
     write_recognizer(tmp, rec)
     ini = os.path.join(tmp, "config.ini")
     with open(ini, "w", encoding="utf-8") as f:
@@ -1035,8 +876,8 @@ def write_recognizer(folder: str, rec: CTCRecognizer) -> None:
     """The recognizer as a flax msgpack checkpoint beside its OCR JSON
     (``ocr.json``, BENCH_CHARS, bfloat16) in ``folder``; its LSTM input
     biases are folded first, so that the module equals what loads."""
-    fold_lstm_input_bias_(rec)
-    write_flax_checkpoint(flax_recognizer_variables(rec),
+    convert.fold_lstm_input_bias_(rec)
+    checkpoint.save_variables(convert.recognizer_params_to_flax(rec),
                           os.path.join(folder, "recognizer.msgpack"))
     spec = rec.spec
     with open(os.path.join(folder, "ocr.json"), "w", encoding="utf-8") as f:
@@ -2126,13 +1967,13 @@ def write_config3_bundle(tmp: str, pn: ParseNet, rec: CTCRecognizer, pages: dict
     images = write_pages(tmp, pages)
     for folder in ("layout_engine", "ocr_engine", "lm"):
         os.makedirs(os.path.join(tmp, folder))
-    write_flax_checkpoint(flax_parsenet_variables(pn),
+    checkpoint.save_variables(convert.parsenet_params_to_flax(pn),
                           os.path.join(tmp, "layout_engine", "parsenet.ckpt"))
     write_recognizer(os.path.join(tmp, "ocr_engine"), rec)
     for cell, seed in (("lstm", 5), ("gru", 6)):
         lm = CharLM(dataclasses.replace(CONFIG3_LM, cell_type=cell),
                     generator=torch.Generator().manual_seed(seed))
-        write_charlm(lm, os.path.join(tmp, "lm", f"charlm_{cell}.lm"))
+        train.export_lm_checkpoint(lm, os.path.join(tmp, "lm", f"charlm_{cell}.lm"))
     inis = {}
     for name, cell, carry in (("lstm", "lstm", "yes"), ("gru", "gru", "yes"),
                               ("batched", "lstm", "no")):
@@ -2722,7 +2563,7 @@ def write_config4_bundle(tmp: str, pn: ParseNet, pages: dict):
     OCR JSON, images dir)."""
     images = write_pages(tmp, pages)
     os.makedirs(os.path.join(tmp, "layout_engine"))
-    write_flax_checkpoint(flax_parsenet_variables(pn),
+    checkpoint.save_variables(convert.parsenet_params_to_flax(pn),
                           os.path.join(tmp, "layout_engine", "parsenet.ckpt"))
     config = configparser.ConfigParser()
     config.read(os.path.join(REPO, "configs", "config4_handwritten.ini"))
@@ -3285,14 +3126,628 @@ def check_host_native(fast: dict, staged: dict, viterbi, smi: str) -> dict:
             "fast_path": fast["ab"], "staged": staged["ab"]}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+# ----------------------------------------------------------------------
+# Training on the card (run_train): the five trainers of
+# pero_ocr_tpu_torch/parallel/train.py at full width.
+TRAIN_DEVICE = "cuda"
+TRAIN_STEPS = 30  # learning steps a trainer (warm-up steps included)
+TRAIN_WARM = 3    # steps before the timed ones
+# The first step, card against CPU, the same weights and batch, TF32
+# off, with a float64 witness: the same step in float64 on the CPU and
+# on the card.  Gradients are compared leaf by leaf in units of the
+# leaf's largest float64 gradient (at least GRAD_FLOOR of the largest
+# of all); a trainer's error is its worst leaf's.
+# - the loss, card against CPU in float32: LOSS_RTOL relative, the
+#   CPU-to-JAX tolerance of tests/test_torch_train.py;
+# - the card computes the CPU's function: its float64 loss and
+#   gradients within F64_REL of the CPU's;
+# - the card's float32 gradients are as close to the float64 ones as
+#   the CPU's float32 gradients are: within GRAD_REL (the CPU-to-JAX
+#   1e-4) or F32_RATIO times the CPU's own error, whichever is larger.
+#   A leaf whose exact gradient is ~0 (a conv bias under GroupNorm)
+#   takes float32 rounding from both devices alike.
+GRAD_FLOOR = 1e-5
+LOSS_RTOL = 1e-5
+F64_REL = 1e-9
+GRAD_REL, F32_RATIO = 1e-4, 2.0
+STEP_ATOL_LR = 0.01  # a weight's card-CPU difference after the first step beyond
+                     # what its gradients' difference explains, in units of lr
+# The trainers' models and batches: bench.py's recognizer, this
+# script's detector, and OrientationNet, TransformerSpec and CharLMSpec
+# at their defaults.
+TRAIN_REC = dict(num_classes=80, line_height=32, conv_features=(48, 96, 192, 384),
+                 subsampling=4, lstm_layers=2, lstm_features=256, stem="s2d", norm="group")
+REC_BATCH, REC_WIDTH, REC_MAX_LABEL = 64, 768, 40
+# The recognizer's lines: REC_GLYPHS seeded glyphs 12 to 20 px wide (3
+# to 5 frames at subsampling 4, as bench's printed characters).  Its
+# learning run, bench.py's recipe: curriculum steps on crops of 2 to 10
+# glyphs, REC_CUR_WIDTH wide, until the mean of the last 25 losses is
+# under REC_CUR_STOP (bench's 1.0; the blank plateau of such crops is
+# ~20), which must happen within REC_CUR_STEPS, then TRAIN_STEPS steps
+# on the full lines.  (On 79 glyphs of 6 to 14 px the loss stays on the
+# plateau for 600 curriculum steps: PERF.md.)
+REC_GLYPHS = 20
+REC_CUR_WIDTH, REC_CUR_STEPS, REC_CUR_STOP = 256, 1000, 1.0
+TRAIN_PN = dict(base_features=32, depth=4, stem="s2d", out_upsample=2)
+PN_PAGES, PN_BATCH = 8, 4
+TRAIN_ORIENTATION = dict(base_features=16, depth=3)
+TILES, TILE = 8, 256
+TRAIN_TF = dict(num_classes=80)
+TF_BATCH, TF_WIDTH = 16, 768
+TRAIN_LM = dict(vocab_size=80)
+LM_BATCH, LM_LENGTH = 64, 128
+
+
+def glyph_bank(rng, classes: int, height: int, widths=(6, 14)):
+    """One seeded random bitmap a class (1 = ink), ``height`` rows,
+    ``widths`` columns (inclusive), the ink between a fifth and four
+    fifths of the rows."""
+    bank = []
+    for _ in range(classes):
+        g = np.zeros((height, int(rng.integers(widths[0], widths[1] + 1))), bool)
+        top, bottom = height // 5, height - height // 5
+        g[top:bottom] = rng.random((bottom - top, g.shape[1])) < 0.45
+        bank.append(g)
+    return bank
+
+
+def glyph_lines(rng, bank, n: int, height: int, width: int, max_len: int,
+                min_len: Optional[int] = None):
+    """n lines of random glyph strings (ink 0.1 on 0.9, RGB in [0, 1]),
+    their labels (n, max_len) and lengths: each line starts 8 px in and
+    stops before ``width``, after ``max_len`` glyphs, or, given
+    ``min_len``, after a number drawn from [min_len, max_len]."""
+    images = np.full((n, height, width, 3), 0.9, np.float32)
+    labels = np.zeros((n, max_len), np.int64)
+    lengths = np.zeros(n, np.int64)
+    for i in range(n):
+        x, k = 8, 0
+        cap = max_len if min_len is None else int(rng.integers(min_len, max_len + 1))
+        while k < cap:
+            c = int(rng.integers(0, len(bank)))
+            g = bank[c]
+            if x + g.shape[1] > width - 4:
+                break
+            images[i, :, x:x + g.shape[1]][g] = 0.1
+            labels[i, k] = c
+            x += g.shape[1] + int(rng.integers(2, 5))
+            k += 1
+        lengths[i] = k
+    return images, labels, lengths
+
+
+def greedy_cer(logits: torch.Tensor, labels, lengths) -> float:
+    """Greedy CTC decode (blank last) against the labels: edit distance
+    over label characters."""
+    from pero_ocr_tpu_torch.sequence_alignment import levenshtein_distance
+
+    best = logits.argmax(-1).cpu().numpy()
+    blank = logits.shape[-1] - 1
+    errors = 0
+    for row, lab, n in zip(best, labels, lengths):
+        keep = np.concatenate([[True], row[1:] != row[:-1]]) & (row != blank)
+        errors += levenshtein_distance(list(row[keep]), list(lab[:n]))
+    return errors / float(np.sum(lengths))
+
+
+def area_canvas(gray: np.ndarray, factor: int) -> np.ndarray:
+    """cv2.resize(INTER_AREA) by an integer factor (block means), padded
+    with zeros to multiples of 64, as bench.py's ParseNet trainer does."""
+    h, w = gray.shape[0] // factor, gray.shape[1] // factor
+    small = gray[:h * factor, :w * factor].reshape(h, factor, w, factor).mean((1, 3))
+    canvas = np.zeros((-(-h // 64) * 64, -(-w // 64) * 64), np.float32)
+    canvas[:h, :w] = np.round(small)
+    return canvas
+
+
+def parsenet_batch(pages, lines, ds: int, up: int = 2):
+    """bench.py's ``scale_batch`` (:207-259) without cv2: canvases at
+    map scale ``ds`` (canvas scale ds * up) and the targets painted from
+    the pages' known lines, aligned to up-blocks."""
+    images, targets = [], []
+    for page, (baselines, heights) in zip(pages, lines):
+        canvas = area_canvas(page[:, :, 0].astype(np.float32), ds * up)
+        tgt = np.zeros((canvas.shape[0] * up, canvas.shape[1] * up, 5), np.float32)
+        for b, (asc, desc) in zip(baselines, heights):
+            y = int(b[0][1]) // ds
+            x0, x1 = int(b[0][0]) // ds, int(b[1][0]) // ds
+            ya = (y // up) * up
+            xa0, xa1 = (x0 // up) * up, ((x1 + up - 1) // up) * up
+            tgt[ya:ya + up, xa0:xa1, 2] = 1.0
+            y0 = (max(y - int(asc // ds), 0) // up) * up
+            tgt[y0:ya + up, xa0:xa1, 0] = asc / ds
+            tgt[y0:ya + up, xa0:xa1, 1] = desc / ds
+            tgt[ya:ya + up, xa0:xa0 + up, 3] = 1.0
+            tgt[ya:ya + up, xa1 - up:xa1, 3] = 1.0
+        images.append(np.repeat(canvas[:, :, None], 3, 2) / 255.0)
+        targets.append(tgt)
+    return np.stack(images).astype(np.float32), np.stack(targets)
+
+
+def orientation_tiles(rng, n: int, size: int = 256):
+    """n tiles of parallel dark text bands at a random angle each
+    (+-45 degrees) on grainy paper, the unit direction of the bands
+    inside them, and the band mask."""
+    yy, xx = np.mgrid[:size, :size].astype(np.float32)
+    images = np.full((n, size, size, 3), 0.9, np.float32)
+    dirs = np.zeros((n, size, size, 2), np.float32)
+    masks = np.zeros((n, size, size), np.float32)
+    for i in range(n):
+        a = rng.uniform(-np.pi / 4, np.pi / 4)
+        across = -np.sin(a) * xx + np.cos(a) * yy + rng.uniform(0, 24)
+        band = (across % 24) < 10
+        images[i][band] = 0.15
+        # Paper grain: on flat tiles whole GroupNorm groups are nearly
+        # constant and their normalization magnifies float32 rounding
+        # (the CPU's float32 directions off float64's by 7e-4 of their
+        # largest; 1.7e-5 with the grain).
+        images[i] += rng.normal(0, 0.03, (size, size, 1)).astype(np.float32)
+        dirs[i] = (np.cos(a), np.sin(a))
+        masks[i] = band
+    return images, dirs, masks
+
+
+def lm_corpus(rng, n: int, length: int, vocab: int):
+    """n token sequences of ``length``: words drawn from 30 seeded random
+    words over the first 20 tokens, joined by token vocab - 2."""
+    words = [rng.integers(0, 20, int(rng.integers(2, 9))) for _ in range(30)]
+    out = np.zeros((n, length), np.int64)
+    for i in range(n):
+        seq = []
+        while len(seq) < length:
+            seq.extend(words[int(rng.integers(0, len(words)))].tolist() + [vocab - 2])
+        out[i] = seq[:length]
+    return out
+
+
+class Float64Casts(torch.overrides.TorchFunctionMode):
+    """``Tensor.float()`` runs as ``Tensor.double()``: a float64 copy of
+    a model (``float64_copy``) then keeps float64 through its float32
+    casts (the heads', the LayerNorm statistics', the trainer's
+    gradients)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.float:
+            return args[0].double()
+        return func(*args, **(kwargs or {}))
+
+
+def float64_copy(model):
+    """A float64 copy of ``model`` that computes in float64 under
+    ``Float64Casts`` (its ``dtype`` or ``spec.dtype`` set to float64)."""
+    model = copy.deepcopy(model).double()
+    if isinstance(getattr(model, "dtype", None), torch.dtype):
+        model.dtype = torch.float64
+    if isinstance(getattr(getattr(model, "spec", None), "dtype", None), torch.dtype):
+        model.spec = dataclasses.replace(model.spec, dtype=torch.float64)
+    return model
+
+
+def _grad_errors(grads, witness, scales):
+    """Per leaf, max |grads - witness| over the leaf's scale."""
+    return [float((g.double() - w).abs().max()) / s for g, w, s in zip(grads, witness, scales)]
+
+
+def first_step_parity(label: str, build, make_step, batch, lr: float) -> dict:
+    """One step of a trainer on the card and on the CPU from the same
+    weights and batch, in float32 (TF32 off) and in float64 (see
+    GRAD_REL): the float32 loss within LOSS_RTOL; the card's float64
+    loss and gradients within F64_REL of the CPU's; the card's float32
+    gradients within the float32 limit of the float64 ones, the global
+    norm within it of the CPU's; every weight after the step within
+    STEP_ATOL_LR * lr of the CPU's beyond what Adam's first update
+    makes of the two gradients' difference (see below; a gradient near
+    0 may take the other sign and move by up to 2 lr).  The card's
+    float32 step without cuDNN is printed beside, as information."""
+    initial = build()
+    runs = {}
+    for key, device, wide, cudnn in (("cpu", "cpu", False, True),
+                                     ("card", TRAIN_DEVICE, False, True),
+                                     ("cpu64", "cpu", True, True),
+                                     ("card64", TRAIN_DEVICE, True, True),
+                                     ("card_no_cudnn", TRAIN_DEVICE, False, False)):
+        model = float64_copy(initial) if wide else copy.deepcopy(initial)
+        optimizer = train.make_optimizer(lr)
+        with Float64Casts() if wide else contextlib.nullcontext(), \
+                torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+            state = train.init_train_state(model, optimizer, device=device)
+            state, loss = make_step(model, optimizer)(state, *batch)
+            grads = [g.cpu() for g in train.gradients(model, state)]
+        if device == TRAIN_DEVICE:
+            torch.cuda.synchronize()
+        runs[key] = dict(loss=float(loss), norm=float(state.opt_state.grad_norm), grads=grads,
+                         weights=[w.detach().cpu() for w in state.params.values()],
+                         names=list(state.params))
+        del model, state, optimizer
+    cpu, card, witness = runs["cpu"], runs["card"], runs["cpu64"]["grads"]
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in witness)
+    scales = [max(float(g.abs().max()), floor) for g in witness]
+    errors = {key: _grad_errors(runs[key]["grads"], witness, scales)
+              for key in ("cpu", "card", "card64", "card_no_cudnn")}
+    errors["card_vs_cpu"] = _grad_errors(card["grads"], [g.double() for g in cpu["grads"]],
+                                         scales)
+    rel = max(GRAD_REL, F32_RATIO * max(errors["cpu"]))
+    faults = []
+    if not abs(card["loss"] - cpu["loss"]) <= LOSS_RTOL * abs(cpu["loss"]):
+        faults.append(f"loss {card['loss']} vs CPU {cpu['loss']}")
+    loss64, loss64_card = runs["cpu64"]["loss"], runs["card64"]["loss"]
+    if not abs(loss64_card - loss64) <= F64_REL * abs(loss64):
+        faults.append(f"float64 loss {loss64_card} vs CPU {loss64}")
+    if not abs(card["norm"] - cpu["norm"]) <= rel * cpu["norm"]:
+        faults.append(f"global norm {card['norm']} vs CPU {cpu['norm']}")
+    for key, limit in (("card64", F64_REL), ("card", rel)):
+        for name, err in zip(cpu["names"], errors[key]):
+            if not err <= limit:
+                faults.append(f"{key} gradient {name} off by {err} of its scale (limit {limit})")
+    # Adam's first update is g / (|g| + eps') in units of lr (eps' =
+    # optax's eps on the clipped gradient, in units of the raw one), the
+    # same weight decay on the same weights: two gradients a and b move
+    # a weight apart by at most min(2, |a - b| / (min(|a|, |b|) + eps')).
+    eps = 1e-8 * max(1.0, cpu["norm"])
+    worst_excess, flips = 0.0, 0
+    for name, gc, gd, wc, wd in zip(cpu["names"], cpu["grads"], card["grads"], cpu["weights"],
+                                    card["weights"]):
+        moved = (wd - wc).abs() / lr
+        apart = torch.clamp((gd - gc).abs() / (torch.minimum(gc.abs(), gd.abs()) + eps), max=2.0)
+        excess = float((moved - apart).max())
+        worst_excess = max(worst_excess, excess)
+        if excess > STEP_ATOL_LR:
+            faults.append(f"weight {name} {excess} lr beyond its gradients' difference "
+                          f"after one step (lr {lr})")
+        flips += int((gc * gd < 0).sum())
+    out = dict(loss_cpu=cpu["loss"], loss_card=card["loss"], loss_cpu64=runs["cpu64"]["loss"],
+               loss_card64=runs["card64"]["loss"], grad_norm_cpu=cpu["norm"],
+               grad_norm_card=card["norm"],
+               grad_err_vs_f64={key: max(errors[key])
+                                for key in ("cpu", "card", "card64", "card_no_cudnn")},
+               grad_err_card_vs_cpu=max(errors["card_vs_cpu"]), grad_limit=rel,
+               worst_leaf={key: cpu["names"][int(np.argmax(errors[key]))]
+                           for key in ("cpu", "card", "card_no_cudnn")},
+               weight_excess_lr=worst_excess, gradient_sign_flips=flips,
+               weights=int(sum(w.numel() for w in cpu["weights"])))
+    if faults:
+        raise AssertionError(f"train {label}, first step card vs CPU: {json.dumps(out)}: "
+                             + "; ".join(faults[:8]))
+    log(f"train {label}, first step card vs CPU: {json.dumps(out)}")
+    return out
+
+
+def timed_steps(label: str, step, state, batches, lr_scale=None, batch_size=1,
+                shape_of=None, steps=None) -> dict:
+    """The learning run on the card: TRAIN_STEPS steps over ``batches``
+    (a function of the step index), host clock to synchronize each step;
+    the median after TRAIN_WARM steps (by ``shape_of(i)`` where the
+    batches have several shapes), samples a second, the peak memory,
+    and the losses (they must fall by a tenth)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = steps or TRAIN_STEPS
+    losses, ms = [], []
+    for i in range(steps):
+        args = batches(i)
+        t0 = time.perf_counter()
+        kw = {} if lr_scale is None else {"lr_scale": lr_scale(i)}
+        state, loss = step(state, *args, **kw)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    if not all(np.isfinite(losses)) or not last < 0.9 * first:
+        raise AssertionError(f"train {label}: the loss does not fall: {losses}")
+    median = float(np.median(ms[TRAIN_WARM:]))
+    out = {"ms_per_step": median, "samples_per_s": 1e3 * batch_size / median,
+           "max_memory_allocated": int(torch.cuda.max_memory_allocated()),
+           "loss_first4": first, "loss_last4": last, "steps": steps,
+           "losses": losses}
+    if shape_of is not None:
+        out["ms_per_step_by_shape"] = {
+            str(key): float(np.median([t for i, t in enumerate(ms)
+                                       if i >= TRAIN_WARM and shape_of(i) == key]))
+            for key in sorted({shape_of(i) for i in range(TRAIN_WARM, steps)})}
+    log(f"train {label}: {json.dumps(out)}")
+    return out
+
+
+def _sync_ms(fn, reps: int = 5) -> float:
+    """Median device ms of ``fn``, a function that waits for the device
+    itself (torch's CUDA CTC loss reads the label lengths on the host)."""
+    return cuda_ms(fn, reps=reps, warmup=2, ahead=False)
+
+
+def recognizer_flops(spec: RecognizerSpec, n: int, width: int) -> float:
+    """Forward multiply-adds x 2 of the recognizer on n lines of
+    ``width``, from the shapes (convolutions, LSTM gates, Dense)."""
+    h, w, c = spec.line_height // 2, width // 2, 12  # after the s2d stem
+    flops = 0.0
+    w_sub = int(np.log2(spec.subsampling)) - 1
+    for i, feat in enumerate(spec.conv_features):
+        flops += 2 * 9 * (c * feat + feat * feat) * h * w
+        c = feat
+        h, w = -(-h // 2), (-(-w // 2) if i < w_sub else w)
+    flops += 2 * h * c * c * w  # the height collapse
+    hidden, inp = spec.lstm_features, c
+    for _ in range(spec.lstm_layers):
+        flops += 2 * 2 * 4 * hidden * (inp + hidden) * w
+        inp = 2 * hidden
+    flops += 2 * inp * spec.num_classes * w
+    return n * flops
+
+
+def recognizer_split(model, optimizer, state, images, labels, lengths) -> dict:
+    """Where a recognizer step's device time goes: each part alone with
+    CUDA events (the convolutions forward, and forward with backward;
+    the BiLSTM alike; the Dense layer and CTC forward and backward; the
+    optimizer), the whole step also with cuDNN's autotuner and with TF32
+    convolutions, and one whole step under torch.profiler (busy, idle,
+    kernels by name)."""
+    x = torch.as_tensor(images, device=TRAIN_DEVICE)
+    labels_t = torch.as_tensor(labels, device=TRAIN_DEVICE)
+    lengths_t = torch.as_tensor(lengths, device=TRAIN_DEVICE)
+    step = train.make_train_step(model, optimizer)
+    model.train()
+    nchw = x.permute(0, 3, 1, 2)
+    feats = model.encoder(nchw)
+    seq = model.blstm(feats.detach())
+    g_feats, g_seq = torch.randn_like(feats), torch.randn_like(seq)
+
+    def conv_fwd():
+        with torch.no_grad():
+            model.encoder(nchw)
+
+    def conv_bwd():
+        torch.autograd.grad(model.encoder(nchw), list(model.encoder.parameters()), g_feats)
+
+    def lstm_fwd():
+        with torch.no_grad():
+            model.blstm(feats.detach())
+
+    def lstm_bwd():
+        f = feats.detach().requires_grad_(True)
+        torch.autograd.grad(model.blstm(f), [f] + [p for p in model.blstm.parameters()
+                                                  if p.requires_grad], g_seq)
+
+    def head_ctc():
+        s = seq.detach().requires_grad_(True)
+        logits = model.dense(s.float())
+        log_probs = F.log_softmax(logits, -1).transpose(0, 1)
+        loss = F.ctc_loss(log_probs, labels_t, torch.full((x.shape[0],), logits.shape[1],
+                                                           device=TRAIN_DEVICE, dtype=torch.long),
+                          lengths_t, blank=logits.shape[-1] - 1, reduction="none",
+                          zero_infinity=True).mean()
+        torch.autograd.grad(loss, [s] + list(model.dense.parameters()))
+
+    grads = train.gradients(model, state)
+
+    def opt():
+        optimizer.step_(list(state.params.values()), grads, copy.copy(state.opt_state))
+
+    parts = {"whole_step": _sync_ms(lambda: step(state, x, labels_t, lengths_t)),
+             "conv_forward": _median_ms(conv_fwd),
+             "conv_forward_backward": _median_ms(conv_bwd),
+             "lstm_forward": _median_ms(lstm_fwd),
+             "lstm_forward_backward": _median_ms(lstm_bwd),
+             "dense_ctc_forward_backward": _sync_ms(head_ctc), "optimizer": _median_ms(opt)}
+    # The same step with cuDNN's autotuner, and with TF32 convolutions
+    # (torch's default; run_train holds them off), then as before.
+    torch.backends.cudnn.benchmark = True
+    parts["whole_step_cudnn_benchmark"] = _sync_ms(lambda: step(state, x, labels_t, lengths_t))
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = True
+    parts["whole_step_tf32_convolutions"] = _sync_ms(lambda: step(state, x, labels_t, lengths_t))
+    torch.backends.cudnn.allow_tf32 = False
+    prof = _profiled(lambda: step(state, x, labels_t, lengths_t), {
+        "optimizer": (optimizer, "step_")},
+        groups=(("ctc", r"ctc"), ("rnn", r"rnn|lstm|elemWise|LSTM"),
+                ("conv", r"conv|dgrad|wgrad|xmma|implicit|cudnn"), ("foreach", r"foreach|multi_tensor")))
+    return {"parts_ms": parts, "profile": prof}
+
+
+def run_train(rng, smi: str) -> dict:
+    """The five trainers on the card at full width (see the module
+    docstring), float32 compute with TF32 off for the first-step parity;
+    the learning runs in each model's own dtype."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(os.cpu_count() or 1)
+    report = {"device": smi}
+    t_phase = time.perf_counter()
+    try:
+        # --- CTC recognizer: the bench recognizer, float32 compute.
+        spec32 = RecognizerSpec(dtype=torch.float32, **TRAIN_REC)
+        bank = glyph_bank(np.random.default_rng(7), REC_GLYPHS, spec32.line_height, (12, 20))
+        train_set = glyph_lines(rng, bank, 4 * REC_BATCH, spec32.line_height, REC_WIDTH,
+                                REC_MAX_LABEL)
+        held = glyph_lines(rng, bank, 32, spec32.line_height, REC_WIDTH, REC_MAX_LABEL)
+        lr = 3e-3
+
+        def rec_batch(i, data=train_set, n=REC_BATCH):
+            rows = np.arange(i * n, (i + 1) * n) % data[0].shape[0]
+            return tuple(a[rows] for a in data)
+
+        def build_rec():
+            return CTCRecognizer(spec32, generator=torch.Generator().manual_seed(11))
+
+        report["ctc"] = {"first_step": first_step_parity(
+            "ctc", build_rec, train.make_train_step, rec_batch(0), lr)}
+        # (b) bench.py's recipe (:467-524): adamw(1.0) under lr_scale =
+        # peak * min(1, (i + 1) / 100); a curriculum of short crops at
+        # peak 3e-3 (on the full lines alone the loss stays on the blank
+        # plateau, ~178, with a held-out CER of 1.0: PERF.md), then the
+        # full lines at 1e-3, timed.  The curriculum runs with TF32
+        # convolutions (torch's cuDNN default) to take its steps fast.
+        curriculum = glyph_lines(np.random.default_rng(9), bank, 8 * REC_BATCH,
+                                 spec32.line_height, REC_CUR_WIDTH, 10, min_len=2)
+        rec = build_rec()
+        opt = train.make_optimizer(1.0)
+        state = train.init_train_state(rec, opt, device=TRAIN_DEVICE)
+        rec_step = train.make_train_step(rec, opt)
+        t_cur, cur_losses = time.perf_counter(), []
+        torch.backends.cudnn.allow_tf32 = True
+        for i in range(REC_CUR_STEPS):
+            state, loss = rec_step(state, *rec_batch(i, curriculum),
+                                   lr_scale=3e-3 * min(1.0, (i + 1) / 100))
+            cur_losses.append(float(loss))
+            if i % 50 == 49 and np.mean(cur_losses[-25:]) < REC_CUR_STOP:
+                break
+        torch.backends.cudnn.allow_tf32 = False
+        cur = {"steps": len(cur_losses), "seconds": time.perf_counter() - t_cur,
+               "loss_first4": float(np.mean(cur_losses[:4])),
+               "loss_last25": float(np.mean(cur_losses[-25:])), "losses": cur_losses}
+        log(f"train ctc curriculum: {json.dumps(cur)}")
+        if not cur["loss_last25"] < REC_CUR_STOP:
+            raise AssertionError(f"train ctc: the curriculum loss stays on the plateau: {cur}")
+        report["ctc"]["curriculum"] = cur
+        report["ctc"].update(timed_steps("ctc", rec_step, state, rec_batch,
+                                         lambda i: 1e-3 * min(1.0, (i + 1) / 100), REC_BATCH))
+        with torch.no_grad():
+            held_logits = rec(torch.as_tensor(held[0], device=TRAIN_DEVICE))
+        report["ctc"]["held_out_greedy_cer"] = greedy_cer(held_logits, held[1], held[2])
+        flops = 3 * recognizer_flops(spec32, REC_BATCH, REC_WIDTH)
+        report["ctc"]["flops_per_step"] = flops
+        report["ctc"]["f32_peak_share"] = flops / (report["ctc"]["ms_per_step"] * 1e-3) \
+            / F32_FLOP_PER_S
+        # (c) the exported recognizer reads back to the same logits.
+        tmp = tempfile.mkdtemp(prefix="train_export_")
+        path = os.path.join(tmp, "rec.msgpack")
+        checkpoint.save_variables(convert.recognizer_params_to_flax(
+            rec, train.float32_state_dict(rec, state)), path)
+        back = CTCRecognizer(spec32)
+        back.load_state_dict(convert.recognizer_params_from_flax(checkpoint.load_variables(path)))
+        back.to(TRAIN_DEVICE)
+        with torch.no_grad():
+            same = torch.equal(back(torch.as_tensor(held[0], device=TRAIN_DEVICE)), held_logits)
+        if not same:
+            raise AssertionError("train ctc: the exported recognizer's logits differ")
+        report["ctc"]["export_logits_equal"] = True
+        report["ctc"]["split"] = recognizer_split(rec, train.make_optimizer(1e-3), state,
+                                                  *rec_batch(1))
+        del rec, back, state, opt, held_logits
+
+        # --- ParseNet: chip_smoke's detector, bench's third phase.
+        pages, lines = synthetic_pages(np.random.default_rng(21), PN_PAGES)
+        scales = {ds: parsenet_batch(pages, lines, ds) for ds in (4, 2)}
+        # The third phase's weights (every term of the loss runs) at the
+        # first two phases' lr: the third's 5e-4 settles a trained net.
+        weights = dict(height_weight=0.3, off_mask_height_weight=0.05, pos_weight=10.0,
+                       hard_neg_weight=8.0, height_over_weight=4.0)
+        lr = 5e-3
+
+        def pn_batch(i):
+            images, targets = scales[4 if i % 2 == 0 else 2]
+            rows = np.arange(PN_BATCH * (i // 2), PN_BATCH * (i // 2 + 1)) % len(pages)
+            return images[rows], targets[rows]
+
+        def make_pn_step(model, optimizer):
+            return train.make_parsenet_train_step(model, optimizer, **weights)
+
+        report["parsenet"] = {"first_step": first_step_parity(
+            "parsenet", lambda: ParseNet(dtype=torch.float32, **TRAIN_PN,
+                                         generator=torch.Generator().manual_seed(12)),
+            make_pn_step, pn_batch(0), lr)}
+        pn = ParseNet(**TRAIN_PN, generator=torch.Generator().manual_seed(12))
+        opt = train.make_optimizer(lr)
+        state = train.init_parsenet_train_state(pn, opt, device=TRAIN_DEVICE)
+        report["parsenet"].update(timed_steps("parsenet", make_pn_step(pn, opt), state,
+                                              pn_batch, batch_size=PN_BATCH,
+                                              shape_of=lambda i: f"ds{4 if i % 2 == 0 else 2}"))
+        path = os.path.join(tmp, "parsenet.msgpack")
+        checkpoint.save_variables(convert.parsenet_params_to_flax(
+            pn, train.float32_state_dict(pn, state)), path)
+        back = ParseNet(**TRAIN_PN)
+        back.load_state_dict(convert.parsenet_params_from_flax(checkpoint.load_variables(path)))
+        back.to(TRAIN_DEVICE)
+        probe = torch.as_tensor(scales[4][0][:2], device=TRAIN_DEVICE)
+        with torch.no_grad():
+            if not torch.equal(back(probe), pn(probe)):
+                raise AssertionError("train parsenet: the exported ParseNet's maps differ")
+        report["parsenet"]["export_maps_equal"] = True
+        del pn, back, state, opt, scales
+
+        # --- OrientationNet at its defaults, 8 tiles of 256x256.
+        tiles = orientation_tiles(rng, 4 * TILES, TILE)
+        lr = 1e-3
+
+        def or_batch(i):
+            rows = np.arange(TILES * i, TILES * (i + 1)) % (4 * TILES)
+            return tuple(a[rows] for a in tiles)
+
+        report["orientation"] = {"first_step": first_step_parity(
+            "orientation", lambda: OrientationNet(**TRAIN_ORIENTATION, dtype=torch.float32,
+                                                  generator=torch.Generator().manual_seed(13)),
+            train.make_orientation_train_step, or_batch(0), lr)}
+        onet = OrientationNet(**TRAIN_ORIENTATION, generator=torch.Generator().manual_seed(13))
+        opt = train.make_optimizer(lr)
+        state = train.init_train_state(onet, opt, device=TRAIN_DEVICE)
+        report["orientation"].update(timed_steps(
+            "orientation", train.make_orientation_train_step(onet, opt), state, or_batch,
+            batch_size=TILES))
+        del onet, state, opt
+
+        # --- the native transformer at TransformerSpec's defaults, 16 lines.
+        tspec = TransformerSpec(**TRAIN_TF)
+        # Glyphs of 12 of the 80 classes: the loss falls on what the
+        # decoder can learn in a few dozen steps.
+        tbank = glyph_bank(np.random.default_rng(8), 12, tspec.line_height)
+        tlines = glyph_lines(rng, tbank, 4 * TF_BATCH, tspec.line_height, TF_WIDTH, 48)
+        lr = 3e-4
+
+        def tf_batch(i):
+            rows = np.arange(TF_BATCH * i, TF_BATCH * (i + 1)) % (4 * TF_BATCH)
+            images, labels, lengths = (a[rows] for a in tlines)
+            return images, labels[:, :int(lengths.max())], lengths
+
+        report["transformer"] = {"first_step": first_step_parity(
+            "transformer", lambda: TransformerOCR(dataclasses.replace(tspec, dtype=torch.float32),
+                                                  generator=torch.Generator().manual_seed(14)),
+            train.make_transformer_train_step, tf_batch(0), lr)}
+        tmodel = TransformerOCR(tspec, generator=torch.Generator().manual_seed(14))
+        opt = train.make_optimizer(lr)
+        state = train.init_transformer_train_state(tmodel, opt, device=TRAIN_DEVICE)
+        report["transformer"].update(timed_steps(
+            "transformer", train.make_transformer_train_step(tmodel, opt), state,
+            tf_batch, batch_size=TF_BATCH))
+        del tmodel, state, opt
+
+        # --- the character LM at the spec defaults, and one GRU.
+        corpus = lm_corpus(rng, 4 * LM_BATCH, LM_LENGTH, TRAIN_LM["vocab_size"])
+        lr = 3e-3
+
+        def lm_batch(i):
+            return (corpus[np.arange(LM_BATCH * i, LM_BATCH * (i + 1)) % (4 * LM_BATCH)],)
+
+        for cell in ("lstm", "gru"):
+            lspec = CharLMSpec(**TRAIN_LM, cell_type=cell)
+            label = f"charlm_{cell}"
+            report[label] = {"first_step": first_step_parity(
+                label, lambda: CharLM(lspec, generator=torch.Generator().manual_seed(15)),
+                train.make_lm_train_step, lm_batch(0), lr)}
+            lm = CharLM(lspec, generator=torch.Generator().manual_seed(15))
+            opt = train.make_optimizer(lr)
+            state = train.init_lm_train_state(lm, opt, device=TRAIN_DEVICE)
+            report[label].update(timed_steps(label, train.make_lm_train_step(lm, opt), state,
+                                             lm_batch, batch_size=LM_BATCH))
+            path = os.path.join(tmp, f"{label}.lm")
+            train.export_lm_checkpoint(lm, path)
+            wrapper = itf.construct_lm(path, BENCH_CHARS[:lspec.vocab_size - 1])
+            wrapper.model.to(TRAIN_DEVICE)
+            tokens = torch.as_tensor(corpus[:4, :32], device=TRAIN_DEVICE)
+            with torch.no_grad():
+                same = torch.equal(sequence_logprobs(wrapper.model, tokens),
+                                   sequence_logprobs(lm, tokens))
+            if not same:
+                raise AssertionError(f"train {label}: the exported LM's log-probs differ")
+            report[label]["export_logprobs_equal"] = True
+            del lm, state, opt, wrapper
+        shutil.rmtree(tmp, ignore_errors=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"train: {json.dumps(report)}")
+    return report
+
+
+def run_phases(smi: str) -> list:
+    """Every phase in order; the lines to print at the end."""
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -3315,6 +3770,7 @@ def main() -> int:
         pipe, rng, smi)
     launches_config4, config4, config4_args = run_config4(pipe, rng, smi)
     host_native = check_host_native(fast_host, staged_host, viterbi_inputs, smi)
+    training = run_train(rng, smi)
     # The kernel against its plain version, and its times, at the main
     # path's shapes (the last config-2 batch's pages and detected lines)
     # and at the command line's (its last batch: page batch 4, line slot
@@ -3357,15 +3813,32 @@ def main() -> int:
             *config4_args, rng, "config 4, last page").items()},
     }
 
-    print(json.dumps({"cli": cli}))
-    print(json.dumps({"staged": staged}))
-    print(json.dumps({"config1": config1}))
-    print(json.dumps({"config5": config5}))
-    print(json.dumps({"config3": config3}))
-    print(json.dumps({"config4": config4}))
-    print(json.dumps({"host_native": host_native}))
-    print(smi)
-    print(json.dumps({"kernels": [warp, fields]}))
+    return [json.dumps({key: value}) for key, value in (
+        ("cli", cli), ("staged", staged), ("config1", config1), ("config5", config5),
+        ("config3", config3), ("config4", config4), ("host_native", host_native),
+        ("train", training))] + [smi, json.dumps({"kernels": [warp, fields]})]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    # Every warning of the serving and training phases is recorded; the
+    # BiLSTM's "not part of single contiguous chunk of memory" (cuDNN
+    # compacting the weights on every call) fails the run.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        lines = run_phases(smi)
+    messages = sorted({f"{w.category.__name__}: {w.message}" for w in caught})
+    log(f"warnings ({len(caught)}, {len(messages)} distinct):\n" + "\n".join(messages))
+    if any("contiguous chunk of memory" in m for m in messages):
+        raise AssertionError("an LSTM's weights were not one contiguous cuDNN buffer")
+    for line in lines:
+        print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -5,7 +5,8 @@ reference) and imports nothing of it.  It runs configs 1 to 5: the
 page transport and the stage-by-stage path, CTC and transformer
 recognizers (the reference's post-LN model from a torch ``.pt``, the
 native pre-LN model from a flax checkpoint), the beam search with a
-character LM, ``ADJUST_HEIGHTS`` and the smart region sorter.  Plain
+character LM, ``ADJUST_HEIGHTS`` and the smart region sorter, and it
+trains every model it serves (``parallel/train.py``).  Plain
 tensor code is PyTorch; the line-crop warp, the one Pallas kernel of
 the JAX package, is two hand-written CUDA kernels built with ``nvcc``
 on first use: the fast path's fused version (``csrc/warp_lines.cu``)

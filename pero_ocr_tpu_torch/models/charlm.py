@@ -8,6 +8,10 @@ The decoder drives it through three calls on a batch of states:
 - ``log_probs(state) -> (B, V)`` — the head on the top layer, in
   float32; ``</s>`` is the last vocabulary entry (``spec.eos_id``).
 
+:func:`sequence_logprobs` scores whole sequences (LM training), and
+``state_select``, ``state_assign`` and ``state_concat`` gather, scatter
+and join batched states, as the JAX module's helpers do.
+
 The cells are written out as the flax cells compute them, so that
 states keep the JAX package's layout (a tuple per layer: (c, h) pairs
 for the LSTM, bare h for the GRU) and the flax parameters map onto
@@ -122,7 +126,8 @@ class CharLM(nn.Module):
         return self.head.weight.device
 
     def initial_state(self, batch_size: int) -> Tuple:
-        zeros = torch.zeros(batch_size, self.spec.hidden_dim, device=self.device)
+        zeros = torch.zeros(batch_size, self.spec.hidden_dim, device=self.device,
+                            dtype=self.head.weight.dtype)
         if self.spec.cell_type == "gru":
             return tuple(zeros for _ in range(self.spec.num_layers))
         return tuple((zeros, zeros) for _ in range(self.spec.num_layers))
@@ -161,3 +166,37 @@ def state_map(fn, *states):
         else:
             out.append(fn(*layer))
     return tuple(out)
+
+
+def sequence_logprobs(model: CharLM, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, T) tokens -> (B, T, V) float32 log-probs of the NEXT token
+    after each position, from the initial (zero) state: the JAX scan of
+    ``advance`` then ``log_probs``, with the head applied once to every
+    step's top-layer h (the same rows, one product)."""
+    state = model.initial_state(tokens.shape[0])
+    tops = []
+    for t in range(tokens.shape[1]):
+        state = model.advance(tokens[:, t], state)
+        top = state[-1]
+        tops.append(top if model.spec.cell_type == "gru" else top[1])
+    return F.log_softmax(model.head(torch.stack(tops, 1).float()), dim=-1)
+
+
+def state_select(state, indices: torch.Tensor):
+    """The rows ``indices`` of every leaf of a batched state."""
+    return state_map(lambda x: x[indices], state)
+
+
+def state_assign(state, indices: torch.Tensor, values):
+    """``state`` with the rows ``indices`` of every leaf replaced by
+    ``values`` (a state of len(indices) rows); ``state`` is unchanged."""
+    def put(x, v):
+        x = x.clone()
+        x[indices] = v
+        return x
+    return state_map(put, state, values)
+
+
+def state_concat(states):
+    """States of one layout joined along the batch."""
+    return state_map(lambda *xs: torch.cat(xs, 0), *states)

@@ -1,4 +1,5 @@
-"""ParseNet: the layout-detection U-Net (port of pero_ocr_tpu/models/parsenet.py).
+"""ParseNet: the layout-detection U-Net, and OrientationNet (port of
+pero_ocr_tpu/models/parsenet.py).
 
 Same 5-channel output map contract as the JAX model:
 
@@ -12,6 +13,10 @@ The public boundary is NHWC, as in the JAX package: ``forward`` takes
 (N, H, W, 3) images in [0, 1] and returns (N, H*U, W*U, 5) float32
 maps.  Inside, the layers run NCHW in ``dtype`` (bfloat16 by default,
 as the JAX model); the 1x1 output conv runs in float32.
+
+OrientationNet shares the U-Net body (GroupNorm on every level) and
+returns (N, H, W, 2) float32 raw (x, y) text directions from a float32
+1x1 head.
 
 Padding follows flax ``'SAME'``: the stride-2 downsampling conv on an
 even input pads (0, 1), not torch's symmetric (1, 1).  GroupNorm uses
@@ -105,6 +110,43 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
                 m.weight.normal_(0.0, 1.0, generator=generator)
 
 
+def build_unet(net: nn.Module, in_c: int, features: int, n_levels: int,
+               down_norm, up_norm) -> int:
+    """Give ``net`` the U-Net's modules (``down_blocks``, ``down_convs``,
+    ``bottleneck``, ``up_convs``, ``up_blocks``, the flax module order):
+    ``n_levels`` levels from ``features`` channels, doubling down;
+    ``down_norm(level)`` and ``up_norm(level)`` say which ConvBlocks
+    carry GroupNorm.  Returns the output channels."""
+    net.down_blocks = nn.ModuleList()
+    net.down_convs = nn.ModuleList()
+    for level in range(n_levels):
+        net.down_blocks.append(ConvBlock(in_c, features, use_norm=down_norm(level)))
+        net.down_convs.append(SameConv2d(features, features, 3, stride=2))
+        in_c = features
+        features *= 2
+    net.bottleneck = ConvBlock(in_c, features)
+    net.up_convs = nn.ModuleList()
+    net.up_blocks = nn.ModuleList()
+    for level in range(n_levels):
+        features //= 2
+        net.up_convs.append(nn.ConvTranspose2d(2 * features, features, 2, 2))
+        net.up_blocks.append(ConvBlock(2 * features, features, use_norm=up_norm(level)))
+    return features
+
+
+def unet(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The body :func:`build_unet` gave ``net``, on NCHW ``x``."""
+    skips = []
+    for block, down in zip(net.down_blocks, net.down_convs):
+        x = block(x)
+        skips.append(x)
+        x = down(x)
+    x = net.bottleneck(x)
+    for up, block, skip in zip(net.up_convs, net.up_blocks, reversed(skips)):
+        x = block(torch.cat([up(x), skip], dim=1))
+    return x
+
+
 class ParseNet(nn.Module):
     """U-Net emitting the 5-channel layout map stack (see module doc).
 
@@ -138,22 +180,8 @@ class ParseNet(nn.Module):
             features, n_levels, in_c = base_features * 2, depth - 1, 12
         else:
             features, n_levels, in_c = base_features, depth, 3
-        self.down_blocks = nn.ModuleList()
-        self.down_convs = nn.ModuleList()
-        for level in range(n_levels):
-            self.down_blocks.append(ConvBlock(in_c, features, use_norm=level > 0))
-            self.down_convs.append(SameConv2d(features, features, 3, stride=2))
-            in_c = features
-            features *= 2
-        self.bottleneck = ConvBlock(in_c, features)
-        self.up_convs = nn.ModuleList()
-        self.up_blocks = nn.ModuleList()
-        for level in range(n_levels):
-            features //= 2
-            self.up_convs.append(nn.ConvTranspose2d(2 * features, features, 2, 2))
-            self.up_blocks.append(
-                ConvBlock(2 * features, features, use_norm=level < n_levels - 1)
-            )
+        features = build_unet(self, in_c, features, n_levels, lambda level: level > 0,
+                              lambda level: level < n_levels - 1)
         # Thin head levels: the s2d stem's return to input resolution,
         # then one per super-resolving octave.
         n_head = (stem == "s2d") + (out_upsample.bit_length() - 1)
@@ -175,16 +203,34 @@ class ParseNet(nn.Module):
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         if self.stem == "s2d":
             x = space_to_depth(x, 2)
-        skips = []
-        for block, down in zip(self.down_blocks, self.down_convs):
-            x = block(x)
-            skips.append(x)
-            x = down(x)
-        x = self.bottleneck(x)
-        for up, block, skip in zip(self.up_convs, self.up_blocks, reversed(skips)):
-            x = block(torch.cat([up(x), skip], dim=1))
+        x = unet(self, x)
         for up, conv in zip(self.head_ups, self.head_convs):
             x = F.relu(conv(F.relu(up(x))))
         x = self.out(x.float())
         x = torch.cat([F.softplus(x[:, :2]), torch.sigmoid(x[:, 2:])], dim=1)
         return x.permute(0, 2, 3, 1)
+
+
+class OrientationNet(nn.Module):
+    """Per-pixel text-direction (x, y) map (JAX ``OrientationNet``): the
+    U-Net at ``base_features`` and ``depth`` with GroupNorm on every
+    level, and a float32 1x1 head with no activation (consumers take
+    arctan2, so the magnitude carries no meaning)."""
+
+    def __init__(self, base_features: int = 16, depth: int = 3,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        features = build_unet(self, 3, base_features, depth, lambda level: True,
+                              lambda level: True)
+        self.to(dtype)
+        self.out = nn.Conv2d(features, 2, 1)  # float32
+        if generator is not None:
+            init_weights_(self, generator)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images: (N, H, W, 3) float in [0, 1]; H, W multiples of
+        2**depth.  Returns (N, H, W, 2) float32 directions (NHWC)."""
+        x = unet(self, images.permute(0, 3, 1, 2).to(self.dtype))
+        return self.out(x.float()).permute(0, 2, 3, 1)

@@ -148,8 +148,34 @@ class BLSTMStack(nn.Module):
             for conv in self.convs:
                 x = F.relu(conv(x))
             return x.transpose(1, 2)
-        self.lstm.flatten_parameters()  # cuDNN wants one weight buffer
+        flatten_lstm_(self.lstm)
         return self.lstm(x)[0]
+
+
+def flatten_lstm_(lstm: nn.LSTM) -> None:
+    """Put the LSTM's weights on the card into one cuDNN weight buffer
+    unless they already share one: after a move to the card (a float32
+    LSTM's ``_apply`` flattens itself, a bfloat16 one's does not) or
+    after a weight was replaced.  Loading a state dict and the trainer's
+    write-back copy into the buffer and keep it.  torch's
+    ``flatten_parameters`` leaves a bfloat16 LSTM alone
+    (``torch.backends.cudnn.is_acceptable`` admits float16, float32 and
+    float64 only), though cuDNN runs it, which then warns that the
+    weights "are not part of single contiguous chunk of memory" and
+    compacts them on every call; so this flattens bfloat16 itself."""
+    weights = lstm._flat_weights
+    if not weights[0].is_cuda or len({w.untyped_storage().data_ptr() for w in weights}) == 1:
+        return
+    if weights[0].dtype != torch.bfloat16 or not torch.backends.cudnn.enabled:
+        lstm.flatten_parameters()
+        return
+    from torch.backends.cudnn import rnn
+
+    with torch.no_grad():
+        torch._cudnn_rnn_flatten_weight(
+            weights, 4 if lstm.bias else 2, lstm.input_size, rnn.get_cudnn_mode(lstm.mode),
+            lstm.hidden_size, lstm.proj_size, lstm.num_layers, lstm.batch_first,
+            bool(lstm.bidirectional))
 
 
 class CTCRecognizer(nn.Module):

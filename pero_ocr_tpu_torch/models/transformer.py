@@ -380,6 +380,12 @@ class TransformerOCR(nn.Module, Seq2SeqDecoding):
             x = layer(x)
         return layer_norm(self.encoder_norm, x)
 
+    def forward(self, images: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """Training forward (the JAX ``__call__``): images (N, H, W, 3) and
+        start-prefixed targets (N, L) -> teacher-forced logits (N, L, V)
+        float32."""
+        return self.decode_train(self.encode(images), targets)
+
     def embed_positions(self, tokens: torch.Tensor, pos: Optional[int]) -> torch.Tensor:
         x = self.embed(tokens)
         pe = positions(self.pe, tokens.shape[1]) if pos is None else self.pe[pos:pos + 1]

@@ -3,8 +3,9 @@
 The JAX package stores flax variables with
 ``flax.serialization.to_bytes``: msgpack of nested string-keyed maps
 whose array leaves are msgpack extension objects.  The card's machine
-has no msgpack package, so this module decodes the format itself, in
-pure Python and numpy:
+has no msgpack package, so this module reads and writes the format
+itself, in pure Python and numpy (:func:`save_variables` writes the
+bytes ``to_bytes`` writes for the same tree).  The reader takes:
 
 - every msgpack type: nil, bool, all int widths, float32/64,
   str8/16/32, bin8/16/32, arrays, maps, fixext and ext8/16/32;
@@ -14,6 +15,13 @@ pure Python and numpy:
   lacks, becomes a ``torch.bfloat16`` tensor;
 - arrays over flax's ``MAX_CHUNK_SIZE`` (2**30 bytes), which flax writes
   as a map with the key ``__msgpack_chunked_array__``, are reassembled.
+
+The writer packs what a flax parameter checkpoint holds, in
+``msgpack.packb``'s encodings: str-keyed dicts (in insertion order, as
+``to_bytes`` keeps them), str, bool, non-negative int, bytes, tuples,
+and numpy arrays and ``torch`` tensors (extension type 1; a bfloat16
+tensor under flax's dtype name ``bfloat16``).  Arrays over
+``MAX_CHUNK_SIZE`` are written chunked, as flax writes them.
 
 Loading policy, as in the JAX package: by default a missing or
 unreadable checkpoint falls back to the caller's initialisation with a
@@ -40,6 +48,7 @@ _STRICT_LOADING = False
 
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
 CHUNKED_KEY = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2**30  # flax.serialization.MAX_CHUNK_SIZE, bytes
 
 
 class ExtType(NamedTuple):
@@ -159,6 +168,126 @@ def _plain_ext(code: int, payload: memoryview) -> ExtType:
 
 
 # ----------------------------------------------------------------------
+# msgpack encoding
+def _head(n: int, tags) -> bytes:
+    """The first byte(s) of an object of size ``n``: the first
+    (limit, tag, struct format) of ``tags`` whose limit holds ``n``; a
+    format of None ORs ``n`` into the tag (fix types)."""
+    for limit, tag, fmt in tags:
+        if n <= limit:
+            return bytes([tag | n]) if fmt is None else bytes([tag]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: size {n} too large")
+
+
+_U8, _U16, _U32 = 0xFF, 0xFFFF, 0xFFFFFFFF
+_STR_TAGS = ((31, 0xA0, None), (_U8, 0xD9, ">B"), (_U16, 0xDA, ">H"), (_U32, 0xDB, ">I"))
+_BIN_TAGS = ((_U8, 0xC4, ">B"), (_U16, 0xC5, ">H"), (_U32, 0xC6, ">I"))
+_ARRAY_TAGS = ((15, 0x90, None), (_U16, 0xDC, ">H"), (_U32, 0xDD, ">I"))
+_MAP_TAGS = ((15, 0x80, None), (_U16, 0xDE, ">H"), (_U32, 0xDF, ">I"))
+_EXT_TAGS = ((_U8, 0xC7, ">B"), (_U16, 0xC8, ">H"), (_U32, 0xC9, ">I"))
+_FIXEXT_TAGS = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+
+
+def _pack_uint(n: int) -> bytes:
+    """msgpack's smallest encoding of an integer ``n >= 0``."""
+    if 0 <= n < 0x80:
+        return bytes([n])
+    for hi, tag, fmt in ((_U8, 0xCC, ">B"), (_U16, 0xCD, ">H"), (_U32, 0xCE, ">I"),
+                         (2**64 - 1, 0xCF, ">Q")):
+        if 0 <= n <= hi:
+            return bytes([tag]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: integer {n} is negative or too large")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    head = bytes([_FIXEXT_TAGS[n]]) if n in _FIXEXT_TAGS else _head(n, _EXT_TAGS)
+    return head + struct.pack(">b", code) + payload
+
+
+def _array_payload(arr) -> bytes:
+    """flax's ndarray payload: msgpack of (shape, dtype name, C bytes)."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu()
+        if arr.dtype == torch.bfloat16:
+            raw = arr.contiguous().view(torch.int16).numpy().tobytes()
+            return packb((tuple(arr.shape), "bfloat16", raw))
+        arr = arr.numpy()
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("msgpack: object and structured dtypes are not supported")
+    return packb((arr.shape, arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(obj, out: list) -> None:
+    if obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif type(obj) is int:
+        out.append(_pack_uint(obj))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        out.append(_head(len(raw), _STR_TAGS) + raw)
+    elif isinstance(obj, bytes):
+        out.append(_head(len(obj), _BIN_TAGS) + obj)
+    elif isinstance(obj, tuple):
+        out.append(_head(len(obj), _ARRAY_TAGS))
+        for item in obj:
+            _pack(item, out)
+    elif isinstance(obj, dict):
+        out.append(_head(len(obj), _MAP_TAGS))
+        for key, value in obj.items():
+            _pack(key, out)
+            _pack(value, out)
+    elif isinstance(obj, (np.ndarray, torch.Tensor)):
+        out.append(_pack_ext(EXT_NDARRAY, _array_payload(obj)))
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """msgpack bytes of ``obj``, equal to ``msgpack.packb(obj,
+    default=<flax's extension hook>)`` for the types the module
+    docstring lists; any other raises ``TypeError``."""
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)
+
+
+def _itemsize(arr) -> int:
+    return arr.element_size() if isinstance(arr, torch.Tensor) else arr.dtype.itemsize
+
+
+def _nbytes(arr) -> int:
+    return arr.numel() * arr.element_size() if isinstance(arr, torch.Tensor) else arr.nbytes
+
+
+def _chunked(arr) -> dict:
+    """flax's ``_chunk``: the flat array in pieces of at most
+    MAX_CHUNK_SIZE bytes, with the shape."""
+    flat = arr.reshape(-1)
+    step = max(1, MAX_CHUNK_SIZE // _itemsize(arr))
+    chunks = [flat[i:i + step] for i in range(0, flat.shape[0], step)]
+    return {CHUNKED_KEY: True, "shape": {str(i): int(d) for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def _chunk_tree(node):
+    if isinstance(node, dict):
+        return {k: _chunk_tree(v) for k, v in node.items()}
+    if isinstance(node, (np.ndarray, torch.Tensor)) and _nbytes(node) > MAX_CHUNK_SIZE:
+        return _chunked(node)
+    return node
+
+
+def msgpack_serialize(tree) -> bytes:
+    """The bytes ``flax.serialization.msgpack_serialize(tree,
+    in_place=True)`` (what ``to_bytes`` calls) writes for a tree of
+    str-keyed dicts with array leaves: the dicts in their own key order,
+    arrays over MAX_CHUNK_SIZE bytes chunked (``tree`` itself is not
+    modified)."""
+    return packb(_chunk_tree(tree))
+
+
+# ----------------------------------------------------------------------
 # flax's tree format
 def _ndarray(payload: memoryview):
     shape, name, raw = unpackb(payload)
@@ -221,6 +350,26 @@ def is_torchscript_file(path: str) -> bool:
             return f.read(4) == b"PK\x03\x04"
     except OSError:
         return False
+
+
+def to_state_dict(tree) -> Any:
+    """flax's ``to_state_dict`` of a tree of dicts, lists and tuples:
+    str keys, and lists and tuples as dicts keyed "0", "1", ..."""
+    if isinstance(tree, dict):
+        return {str(k): to_state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): to_state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def save_variables(variables: Any, path: str) -> None:
+    """Write ``variables`` (nested str-keyed dicts of numpy arrays or
+    tensors) as the JAX package's ``save_variables`` does
+    (``flax.serialization.to_bytes``: the same bytes), so that both
+    packages' ``load_variables`` read it."""
+    data = msgpack_serialize(to_state_dict(variables))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def load_variables(path: str) -> Any:

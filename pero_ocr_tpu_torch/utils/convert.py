@@ -1,10 +1,15 @@
-"""Flax parameter trees -> torch state dicts, and torch LM files.
+"""Flax parameter trees <-> torch state dicts, and torch LM files.
 
 The ``*_params_from_flax`` functions take the flax ``params`` of a JAX
 model (a nested mapping of arrays, or the variables dict holding it
 under "params") and return a ``state_dict`` for the matching module of
 this package, in float32 (``load_state_dict`` casts to the module's
-dtype).  ``load_torch_lm_file`` reads a torch character LM (state dict,
+dtype).  The ``*_params_to_flax`` functions invert them: a module of
+this package (or, with ``tensors``, any tensors under its state-dict
+names, such as a trainer's float32 weights or its gradients) -> the
+flax variables ``{"params": ...}`` of the JAX model, float32 numpy, as
+``utils/checkpoint.save_variables`` writes them; ``from(to(m))``
+reproduces ``m``'s state dict exactly.  ``load_torch_lm_file`` reads a torch character LM (state dict,
 pickled module or TorchScript) as the JAX package's
 ``utils/convert_torch.py`` does: into the CharLM's flax tree, with its
 gate mapping, which ``charlm_params_from_flax`` then loads.
@@ -23,12 +28,18 @@ Layout rules:
   the same i, f, g, o, so the four kernels concatenate into
   ``weight_ih``/``weight_hh`` and the hidden biases into ``bias_hh``
   (``bias_ih`` is zero).
+  flax has no input bias, so ``*_to_flax`` adds torch's ``bias_ih``
+  into the hidden bias (exact when it is zero, as in a module loaded
+  from flax or folded by :func:`fold_lstm_input_bias_`).
 - Attention (``models/transformer.py``) keeps torch's layout: the
   q/k/v kernels stack into ``in_proj_weight``, the output kernel
   flattens its (heads, head_dim) axes.
 - The CharLM (``models/charlm.py``) keeps the flax kernels' (in, out)
   layout: a cell's gate kernels concatenate side by side (LSTM i, f,
-  g, o; GRU r, z, n), as ``OptimizedLSTMCell`` concatenates them.
+  g, o; GRU r, z, n), as ``OptimizedLSTMCell`` concatenates them.  The
+  GRU's ``hn`` bias stays apart (``bias_hn``): r scales only it.
+- ``OrientationNet`` has ParseNet's module names (no thin head), so
+  ParseNet's converters serve it.
 """
 
 from __future__ import annotations
@@ -207,6 +218,208 @@ def transformer_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     out["embed.weight"] = _t(p["embed"]["embedding"])
     _put(out, "out_proj", _dense(p["out_proj"]))
     return out
+
+
+def orientation_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict for
+    :class:`pero_ocr_tpu_torch.models.parsenet.OrientationNet` from the
+    params of ``pero_ocr_tpu.models.parsenet.OrientationNet``."""
+    return parsenet_params_from_flax(tree)
+
+
+# ----------------------------------------------------------------------
+# torch modules -> flax variables (the inverse of the above)
+def _f32(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _tensors(module: torch.nn.Module, tensors: Optional[Mapping]) -> Mapping:
+    return module.state_dict() if tensors is None else tensors
+
+
+def _flax_conv(sd: Mapping, prefix: str) -> dict:
+    k = _f32(sd[f"{prefix}.weight"])
+    k = k.transpose(2, 3, 1, 0) if k.ndim == 4 else k.transpose(2, 1, 0)
+    return {"kernel": np.ascontiguousarray(k), "bias": _f32(sd[f"{prefix}.bias"])}
+
+
+def _flax_conv_transpose(sd: Mapping, prefix: str) -> dict:
+    k = _f32(sd[f"{prefix}.weight"])[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    return {"kernel": np.ascontiguousarray(k), "bias": _f32(sd[f"{prefix}.bias"])}
+
+
+def _flax_norm(sd: Mapping, prefix: str) -> dict:
+    return {"scale": _f32(sd[f"{prefix}.weight"]), "bias": _f32(sd[f"{prefix}.bias"])}
+
+
+def _flax_dense(sd: Mapping, prefix: str) -> dict:
+    return {"kernel": np.ascontiguousarray(_f32(sd[f"{prefix}.weight"]).T),
+            "bias": _f32(sd[f"{prefix}.bias"])}
+
+
+def _flax_block(sd: Mapping, prefix: str) -> dict:
+    node = {}
+    for i in (0, 1):
+        node[f"Conv_{i}"] = _flax_conv(sd, f"{prefix}.conv{i}")
+        if f"{prefix}.norm{i}.weight" in sd:
+            node[f"GroupNorm_{i}"] = _flax_norm(sd, f"{prefix}.norm{i}")
+    return node
+
+
+def parsenet_params_to_flax(module, tensors: Optional[Mapping] = None) -> dict:
+    """The flax variables of the JAX ParseNet that ``module`` (a
+    :class:`~pero_ocr_tpu_torch.models.parsenet.ParseNet`) ports."""
+    sd = _tensors(module, tensors)
+    n_levels, n_head = len(module.down_blocks), len(getattr(module, "head_ups", ()))
+    p = {}
+    for level in range(n_levels):
+        p[f"ConvBlock_{level}"] = _flax_block(sd, f"down_blocks.{level}")
+        p[f"Conv_{level}"] = _flax_conv(sd, f"down_convs.{level}")
+    p[f"ConvBlock_{n_levels}"] = _flax_block(sd, "bottleneck")
+    for level in range(n_levels):
+        p[f"ConvTranspose_{level}"] = _flax_conv_transpose(sd, f"up_convs.{level}")
+        p[f"ConvBlock_{n_levels + 1 + level}"] = _flax_block(sd, f"up_blocks.{level}")
+    for k in range(n_head):
+        p[f"ConvTranspose_{n_levels + k}"] = _flax_conv_transpose(sd, f"head_ups.{k}")
+        p[f"Conv_{n_levels + k}"] = _flax_conv(sd, f"head_convs.{k}")
+    p[f"Conv_{n_levels + n_head}"] = _flax_conv(sd, "out")
+    return {"params": p}
+
+
+def orientation_params_to_flax(module, tensors: Optional[Mapping] = None) -> dict:
+    """The flax variables of the JAX OrientationNet that ``module`` (an
+    :class:`~pero_ocr_tpu_torch.models.parsenet.OrientationNet`) ports."""
+    return parsenet_params_to_flax(module, tensors)
+
+
+def recognizer_params_to_flax(module, tensors: Optional[Mapping] = None) -> dict:
+    """The flax variables of the JAX CTCRecognizer that ``module`` (a
+    :class:`~pero_ocr_tpu_torch.models.recognizer.CTCRecognizer`) ports.
+    Flax's LSTM has no input bias: torch's ``bias_ih`` is added into the
+    hidden bias."""
+    sd = _tensors(module, tensors)
+    spec = module.spec
+    enc = {}
+    for i in range(len(module.encoder.convs)):
+        enc[f"Conv_{i}"] = _flax_conv(sd, f"encoder.convs.{i}")
+        if f"encoder.norms.{i}.weight" in sd:
+            enc[f"GroupNorm_{i}"] = _flax_norm(sd, f"encoder.norms.{i}")
+    p = {"VGGEncoder_0": enc, "Dense_0": _flax_dense(sd, "dense")}
+    if spec.embed_num:
+        p["Embed_0"] = {"embedding": _f32(sd["embedding.weight"])}
+    stack = {}
+    if spec.lstm_layers == 0:
+        for i in range(2):
+            stack[f"Conv_{i}"] = _flax_conv(sd, f"blstm.convs.{i}")
+    for layer in range(spec.lstm_layers):
+        step = {}
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            name = f"blstm.lstm.{{}}_l{layer}{suffix}"
+            w_ih = _f32(sd[name.format("weight_ih")]).T
+            w_hh = _f32(sd[name.format("weight_hh")]).T
+            bias = _f32(sd[name.format("bias_hh")]) + _f32(sd[name.format("bias_ih")])
+            gates = {}
+            for g, gate in enumerate(_GATES):
+                cols = slice(g * w_hh.shape[0], (g + 1) * w_hh.shape[0])
+                gates[f"i{gate}"] = {"kernel": np.ascontiguousarray(w_ih[:, cols])}
+                gates[f"h{gate}"] = {"kernel": np.ascontiguousarray(w_hh[:, cols]),
+                                     "bias": bias[cols]}
+            step[direction] = gates
+        stack[f"FusedBiLSTM_{layer}"] = {"Scan_BiLSTMStep_0": step}
+    p["BLSTMStack_0"] = stack
+    return {"params": p}
+
+
+def fold_lstm_input_bias_(module) -> None:
+    """Move each LSTM layer's ``bias_ih`` of a CTCRecognizer into its
+    ``bias_hh`` (in the module's dtype) and zero it, so that the module
+    is exactly what its flax export loads back into, and ``bias_ih``
+    (which flax lacks) can stay frozen at zero in training."""
+    if module.spec.lstm_layers == 0:
+        return
+    lstm = module.blstm.lstm
+    with torch.no_grad():
+        for name, b_ih in lstm.named_parameters():
+            if name.startswith("bias_ih"):
+                getattr(lstm, name.replace("bias_ih", "bias_hh")).add_(b_ih)
+                b_ih.zero_()
+
+
+def _gate_columns(w: np.ndarray, g: int, hidden: int) -> np.ndarray:
+    return np.ascontiguousarray(w[..., g * hidden:(g + 1) * hidden])
+
+
+def charlm_params_to_flax(module, tensors: Optional[Mapping] = None) -> dict:
+    """The flax variables of the JAX CharLM that ``module`` (a
+    :class:`~pero_ocr_tpu_torch.models.charlm.CharLM`) ports."""
+    sd = _tensors(module, tensors)
+    spec = module.spec
+    hidden = spec.hidden_dim
+    p = {"embed": {"embedding": _f32(sd["embed.weight"])}, "head": _flax_dense(sd, "head")}
+    for k in range(spec.num_layers):
+        w_i, w_h = _f32(sd[f"cells.{k}.weight_i"]), _f32(sd[f"cells.{k}.weight_h"])
+        if spec.cell_type == "lstm":
+            b_h = _f32(sd[f"cells.{k}.bias_h"])
+            cell = {}
+            for g, gate in enumerate(_GATES):
+                cell[f"i{gate}"] = {"kernel": _gate_columns(w_i, g, hidden)}
+                cell[f"h{gate}"] = {"kernel": _gate_columns(w_h, g, hidden),
+                                    "bias": _gate_columns(b_h, g, hidden)}
+        else:
+            b_i = _f32(sd[f"cells.{k}.bias_i"])
+            cell = {f"i{gate}": {"kernel": _gate_columns(w_i, g, hidden),
+                                 "bias": _gate_columns(b_i, g, hidden)}
+                    for g, gate in enumerate("rzn")}
+            cell.update({f"h{gate}": {"kernel": _gate_columns(w_h, g, hidden)}
+                         for g, gate in enumerate("rzn")})
+            cell["hn"]["bias"] = _f32(sd[f"cells.{k}.bias_hn"])
+        p[f"cells_{k}"] = cell
+    return {"params": p}
+
+
+def _flax_attention(sd: Mapping, prefix: str, heads: int) -> dict:
+    """torch's attention layout -> flax ``MultiHeadDotProductAttention``
+    (``_attention`` inverted)."""
+    w = _f32(sd[f"{prefix}.in_proj_weight"])
+    b = _f32(sd[f"{prefix}.in_proj_bias"])
+    d = w.shape[1]
+    node = {}
+    for part, name in enumerate(("query", "key", "value")):
+        rows = slice(part * d, (part + 1) * d)
+        node[name] = {"kernel": np.ascontiguousarray(w[rows].T.reshape(d, heads, -1)),
+                      "bias": b[rows].reshape(heads, -1)}
+    out = _f32(sd[f"{prefix}.out_proj.weight"])
+    node["out"] = {"kernel": np.ascontiguousarray(out.T.reshape(heads, -1, d)),
+                   "bias": _f32(sd[f"{prefix}.out_proj.bias"])}
+    return node
+
+
+def transformer_params_to_flax(module, tensors: Optional[Mapping] = None) -> dict:
+    """The flax variables of the JAX TransformerOCR that ``module`` (a
+    :class:`~pero_ocr_tpu_torch.models.transformer.TransformerOCR`)
+    ports."""
+    sd = _tensors(module, tensors)
+    heads = module.spec.num_heads
+    front = {f"Conv_{i}": _flax_conv(sd, f"frontend.convs.{i}")
+             for i in range(len(module.frontend.convs))}
+    front[f"Conv_{len(module.frontend.convs)}"] = _flax_conv(sd, "frontend.agg")
+    p = {"frontend": front}
+    for kind, names in (("encoder", ("self_attn",)), ("decoder", ("self_attn", "multihead_attn"))):
+        for i in range(len(getattr(module, f"{kind}_layers"))):
+            prefix = f"{kind}_layers.{i}"
+            node = {f"LayerNorm_{j}": _flax_norm(sd, f"{prefix}.norm{j + 1}")
+                    for j in range(len(names) + 1)}
+            for j, name in enumerate(names):
+                node[f"MultiHeadDotProductAttention_{j}"] = _flax_attention(
+                    sd, f"{prefix}.{name}", heads)
+            node["Dense_0"] = _flax_dense(sd, f"{prefix}.linear1")
+            node["Dense_1"] = _flax_dense(sd, f"{prefix}.linear2")
+            p[f"{kind}_layers__{i}"] = node
+    p["encoder_norm"] = _flax_norm(sd, "encoder_norm")
+    p["decoder_norm"] = _flax_norm(sd, "decoder_norm")
+    p["embed"] = {"embedding": _f32(sd["embed.weight"])}
+    p["out_proj"] = _flax_dense(sd, "out_proj")
+    return {"params": p}
 
 
 def lm_spec_from_variables(variables: Mapping) -> Dict:

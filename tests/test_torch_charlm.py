@@ -224,15 +224,16 @@ def test_lm_prefixes_and_spec_match_jax(naming, cell_type):
 
 @pytest.mark.parametrize("cell_type", ["lstm", "gru"])
 def test_chip_smoke_writer_round_trips_through_flax(tmp_path, cell_type):
-    """chip_smoke.write_charlm (no flax on the card's machine) writes a
-    msgpack and sidecar that the JAX construct_lm reads into the same
-    LM, and that the port reads back bit for bit."""
-    import chip_smoke
+    """The port's export_lm_checkpoint (no flax on the card's machine;
+    chip_smoke.py writes its LMs with it) writes a msgpack and sidecar
+    that the JAX construct_lm reads into the same LM, and that the port
+    reads back bit for bit."""
+    from pero_ocr_tpu_torch.parallel.train import export_lm_checkpoint
 
     lm = CharLM(CharLMSpec(vocab_size=6, embed_dim=8, hidden_dim=16, num_layers=2,
                            cell_type=cell_type), generator=torch.Generator().manual_seed(1))
     path = str(tmp_path / "charlm.lm")
-    chip_smoke.write_charlm(lm, path)
+    export_lm_checkpoint(lm, path)
     ours, theirs = itf.construct_lm(path, SYMBOLS), jax_itf.construct_lm(path, SYMBOLS)
     for name, value in lm.state_dict().items():
         assert torch.equal(ours.model.state_dict()[name], value), name

@@ -1,6 +1,8 @@
 """The port's flax msgpack reader (pero_ocr_tpu_torch.utils.checkpoint)
-against the msgpack package and flax.serialization, and chip_smoke.py's
-writer and torch-to-flax mapping against flax and utils/convert.py.
+against the msgpack package and flax.serialization, and its writer
+(``save_variables``) and torch-to-flax mapping (utils/convert.py's
+``*_params_to_flax``, which chip_smoke.py writes its checkpoints with)
+against flax and utils/convert.py.
 
 Tolerances: the reader and the writer are exact (every leaf's dtype,
 shape and bytes).  The JAX models applied to the mapping's output match
@@ -221,7 +223,7 @@ def test_torchscript_files_are_refused(tmp_path):
 
 
 # ----------------------------------------------------------------------
-# chip_smoke.py's writer and mapping
+# the writer and the torch-to-flax mapping
 def test_chip_smoke_writer_restores_through_flax(tmp_path):
     rng = np.random.default_rng(1)
     tree = _random_variables(FlaxRecognizer(FlaxSpec(**BENCH_RECOGNIZER)),
@@ -235,7 +237,7 @@ def test_chip_smoke_writer_restores_through_flax(tmp_path):
         "tiny": np.zeros((0,), np.uint8),
     }
     path = str(tmp_path / "written.msgpack")
-    chip_smoke.write_flax_checkpoint(tree, path)
+    checkpoint.save_variables(tree, path)
     with open(path, "rb") as f:
         data = f.read()
     _assert_same_tree(flax.serialization.msgpack_restore(data), tree)
@@ -257,7 +259,7 @@ def test_parsenet_mapping_inverts_convert(stem, up):
     variables = _perturbed(flax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))), 0)
     module = ParseNet(dtype=torch.float32, **kw)
     module.load_state_dict(convert.parsenet_params_from_flax(variables))
-    _assert_same_tree(chip_smoke.flax_parsenet_variables(module), variables)
+    _assert_same_tree(convert.parsenet_params_to_flax(module), variables)
 
     seeded = ParseNet(dtype=torch.float32, generator=torch.Generator().manual_seed(3), **kw)
     with torch.no_grad():  # nonzero biases and norm parameters to place
@@ -265,7 +267,7 @@ def test_parsenet_mapping_inverts_convert(stem, up):
             p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(4)))
     x = np.random.default_rng(1).random((2, 64, 128, 3), np.float32)
     want = seeded(torch.from_numpy(x)).detach().numpy()
-    got = np.asarray(flax_model.apply(chip_smoke.flax_parsenet_variables(seeded), x))
+    got = np.asarray(flax_model.apply(convert.parsenet_params_to_flax(seeded), x))
     np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=0)
 
 
@@ -282,7 +284,7 @@ def test_recognizer_mapping_inverts_convert(stem, norm, lstm_layers, embed_num):
     variables = _perturbed(flax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 48, 3))), 0)
     module = CTCRecognizer(RecognizerSpec(dtype=torch.float32, **kw))
     module.load_state_dict(convert.recognizer_params_from_flax(variables))
-    _assert_same_tree(chip_smoke.flax_recognizer_variables(module), variables)
+    _assert_same_tree(convert.recognizer_params_to_flax(module), variables)
 
     # A seeded torch init has nonzero LSTM input biases: the mapping adds
     # them into flax's hidden biases.
@@ -290,14 +292,14 @@ def test_recognizer_mapping_inverts_convert(stem, norm, lstm_layers, embed_num):
                            generator=torch.Generator().manual_seed(3))
     x = np.random.default_rng(2).random((3, 16, 48, 3), np.float32)
     want = seeded(torch.from_numpy(x)).detach().numpy()
-    got = np.asarray(flax_model.apply(chip_smoke.flax_recognizer_variables(seeded), x))
+    got = np.asarray(flax_model.apply(convert.recognizer_params_to_flax(seeded), x))
     np.testing.assert_allclose(got, want, atol=F32_TOL, rtol=0)
     # Folded in place, the module is exactly what its export loads into.
     if lstm_layers:
-        chip_smoke.fold_lstm_input_bias_(seeded)
+        convert.fold_lstm_input_bias_(seeded)
         reloaded = CTCRecognizer(RecognizerSpec(dtype=torch.float32, **kw))
         reloaded.load_state_dict(convert.recognizer_params_from_flax(
-            chip_smoke.flax_recognizer_variables(seeded)))
+            convert.recognizer_params_to_flax(seeded)))
         for (name, p), q in zip(seeded.state_dict().items(), reloaded.state_dict().values()):
             assert torch.equal(p, q), name
 

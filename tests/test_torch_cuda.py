@@ -697,3 +697,67 @@ def test_transformer_graphs_are_bounded(cuda, tmp_path, monkeypatch):
     assert [key[0][0] for key in card._graphs] == [1, 4]
     for g, e in zip(out, card.decode(batches[4], 40, graph=False)):
         assert torch.equal(g, e)
+
+
+def test_bfloat16_lstm_weights_are_one_cudnn_buffer(cuda):
+    """A bf16 BiLSTM (stage B's) runs from one cuDNN weight buffer:
+    torch's flatten_parameters skips bfloat16 weights, so cuDNN warned
+    and compacted them on every call; flatten_lstm_ flattens them once."""
+    import warnings
+
+    from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+
+    rec = CTCRecognizer(RecognizerSpec(num_classes=7, line_height=16, conv_features=(4, 8),
+                                       lstm_layers=2, lstm_features=8),
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.rand(2, 16, 64, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.no_grad():
+            rec(x)
+        torch.cuda.synchronize()
+    assert not [w for w in caught if "contiguous chunk" in str(w.message)]
+    storages = {w.untyped_storage().data_ptr() for w in rec.blstm.lstm._flat_weights}
+    assert len(storages) == 1
+    # Flattened once: a later call, and a state dict loaded into the
+    # module, keep the buffer.
+    rec.load_state_dict(rec.state_dict())
+    with torch.no_grad():
+        rec(x)
+    assert {w.untyped_storage().data_ptr() for w in rec.blstm.lstm._flat_weights} == storages
+
+
+@pytest.mark.parametrize("kind", ["ctc", "lm"])
+def test_train_step_on_the_card_matches_cpu(cuda, kind):
+    """One training step on the card against the CPU's (float32, TF32
+    off), with chip_smoke.first_step_parity's tolerances (the loss to
+    1e-5 relative, as tests/test_torch_train.py holds it to JAX)."""
+    import chip_smoke
+    from pero_ocr_tpu_torch.models.charlm import CharLM, CharLMSpec
+    from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+    from pero_ocr_tpu_torch.parallel import train
+
+    rng = np.random.default_rng(0)
+    if kind == "ctc":
+        def build():
+            return CTCRecognizer(RecognizerSpec(num_classes=7, line_height=16,
+                                                conv_features=(8, 16), lstm_layers=2,
+                                                lstm_features=16, stem="s2d", norm="group",
+                                                dtype=torch.float32),
+                                 generator=torch.Generator().manual_seed(0))
+        labels = rng.integers(0, 6, (4, 5))
+        batch = (rng.random((4, 16, 96, 3), np.float32), labels, np.array([5, 3, 1, 4]))
+        make_step = train.make_train_step
+    else:
+        def build():
+            return CharLM(CharLMSpec(vocab_size=9, embed_dim=8, hidden_dim=32),
+                          generator=torch.Generator().manual_seed(0))
+        batch = (rng.integers(0, 9, (4, 12)),)
+        make_step = train.make_lm_train_step
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = chip_smoke.first_step_parity(kind, build, make_step, batch, 1e-3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert out["loss_card"] == pytest.approx(out["loss_cpu"], rel=1e-5)

@@ -1,13 +1,13 @@
-"""The port stands alone: with jax, flax, cv2, lxml, msgpack and PIL
+"""The port stands alone: with jax, flax, optax, cv2, lxml, msgpack and PIL
 blocked (none of them is installed beside the card), every module of
 pero_ocr_tpu_torch and chip_smoke.py imports, a tiny CPU
 TorchPagePipeline runs through FastPagePipeline to Page XML that
 xml.etree parses, the command line turns a folder of PNG pages into Page
-XML files (a flax checkpoint written by chip_smoke.py, a missing one
+XML files (a flax checkpoint written by the port's save_variables, a missing one
 with --allow-random-weights), with logits and ALTO files on both paths,
 config 1 (whole-page region, classical line detector) runs through the
 command line to Page XML and ALTO, config 3 (the beam search with a
-character LM written by chip_smoke.py) through the command line to Page
+character LM written by the port's export_lm_checkpoint) through the command line to Page
 XML, config 4 (ADJUST_HEIGHTS, the smart sorter and a reference
 transformer .pt written here) through the command line to Page XML,
 PageParser's transformer engine runs on CUDA unless asked for the CPU,
@@ -23,7 +23,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "flax", "cv2", "lxml", "msgpack", "PIL")
+BLOCKED = ("jax", "flax", "optax", "cv2", "lxml", "msgpack", "PIL")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
@@ -83,7 +83,8 @@ for page_id, page in zip(ids, pages):
         f.write(chip_smoke.png_bytes(page))
 small = RecognizerSpec(num_classes=6, line_height=16, conv_features=(4, 8), lstm_layers=1,
                        lstm_features=8)
-chip_smoke.write_flax_checkpoint(chip_smoke.flax_recognizer_variables(
+from pero_ocr_tpu_torch.utils import checkpoint, convert
+checkpoint.save_variables(convert.recognizer_params_to_flax(
     CTCRecognizer(small, generator=torch.Generator().manual_seed(2))),
     os.path.join(tmp, "rec.msgpack"))
 with open(os.path.join(tmp, "ocr.json"), "w", encoding="utf-8") as f:
@@ -121,9 +122,10 @@ cli_main(["-c", os.path.join(tmp, "config1.ini"), "-i", os.path.join(tmp, "print
           os.path.join(tmp, "alto1"), "--device", "cpu"])
 from pero_ocr_tpu_torch.models.charlm import CharLM, CharLMSpec
 os.makedirs(os.path.join(tmp, "lm"))
-chip_smoke.write_charlm(CharLM(CharLMSpec(vocab_size=len(chars), embed_dim=8, hidden_dim=16),
-                               generator=torch.Generator().manual_seed(4)),
-                        os.path.join(tmp, "lm", "charlm.lm"))
+from pero_ocr_tpu_torch.parallel.train import export_lm_checkpoint
+export_lm_checkpoint(CharLM(CharLMSpec(vocab_size=len(chars), embed_dim=8, hidden_dim=16),
+                            generator=torch.Generator().manual_seed(4)),
+                     os.path.join(tmp, "lm", "charlm.lm"))
 with open(os.path.join(tmp, "config.ini")) as f:
     config3 = f.read().replace("RUN_OCR = yes\n", "RUN_OCR = yes\nRUN_DECODER = yes\n")
 with open(os.path.join(tmp, "config3.ini"), "w") as f:
