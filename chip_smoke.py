@@ -91,7 +91,23 @@ Phases (each raises on failure, so the run exits non-zero):
     first's.  Then ``check_host_native`` holds each C++ function against
     its numpy twin on the runs' own inputs (0 differences; the forced
     alignment's on config 5's lines) and times both.
-14. Training (``run_train``): the five trainers of
+14. The crop transport (``run_crops``, after config 4): the main path's
+    modules on 16 two-column pages, CNN detection at transport bits 8,
+    4 and 2 with the width-trimmed strip and the dense buffer, and the
+    lines found as an override with and without ``skip_stage_a``, beside
+    the page transport; the rebuilt strip byte-equal to the dense buffer,
+    skip_stage_a's labels equal to stage A's, one batch's strip
+    recognized alike on card and CPU, the host C++ warp and packed parse
+    equal to their numpy twins; pages/s a transport, the strip rebuild's
+    device ms against its bound, the host warp's ms a page
+    (``{"crops": ...}``).
+15. Re-OCR (``run_reocr``): Page XML from the page transport re-read with
+    ``parse_folder -x`` and an OCR-only config on the card, with and
+    without --fast-pipeline, each equal to the same command on the CPU;
+    the full-width reference transformer through the fast re-OCR, its
+    graph equal to its eager loop and its tokens to the CPU's
+    (``{"reocr": ...}``).
+16. Training (``run_train``): the five trainers of
     ``parallel/train.py`` at full width (the bench recognizer on 64
     crops of 32x768, float32; the detector on 4 of its pages a step at
     map ds 4 and 2 with bench.py's painted targets and third phase;
@@ -118,7 +134,7 @@ its pages after the next batch's upload.
 The last lines are the command lines' numbers (``{"cli": ...}``,
 ``{"staged": ...}``), config 1's, config 5's, config 3's and config 4's
 (``{"config1": ...}``, ``{"config5": ...}``, ``{"config3": ...}``,
-``{"config4": ...}``), the
+``{"config4": ...}``), the crop transport's and re-OCR's, the
 host library's (``{"host_native": ...}``), training's (``{"train": ...}``),
 the card's nvidia-smi line, one JSON object with the kernels' numbers,
 and ``{"ok": true, "device": {...}}``.
@@ -165,11 +181,13 @@ from pero_ocr_tpu_torch.models.charlm import CharLM, CharLMSpec, sequence_logpro
 from pero_ocr_tpu_torch.models.parsenet import OrientationNet, ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
 from pero_ocr_tpu_torch.models.transformer import TransformerOCR, TransformerSpec
+from pero_ocr_tpu_torch.models import transformer_ref
 from pero_ocr_tpu_torch.models.transformer_ref import RefTransformerOCR, RefTransformerSpec
 from pero_ocr_tpu_torch.ocr.transformer_engine import TransformerEngineLineOCR
 from pero_ocr_tpu_torch.ops import ctc as pipeline_ctc_ops
 from pero_ocr_tpu_torch.ops import morphology
 from pero_ocr_tpu_torch.ops import warp as warp_ops
+from pero_ocr_tpu_torch.parallel.crop_transport import unpack_bits, warp_affine_lines
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.parallel import train
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
@@ -872,9 +890,9 @@ def write_pages(tmp: str, pages: dict) -> str:
     return images
 
 
-def write_recognizer(folder: str, rec: CTCRecognizer) -> None:
+def write_recognizer(folder: str, rec: CTCRecognizer, dtype: str = "bfloat16") -> None:
     """The recognizer as a flax msgpack checkpoint beside its OCR JSON
-    (``ocr.json``, BENCH_CHARS, bfloat16) in ``folder``; its LSTM input
+    (``ocr.json``, BENCH_CHARS, ``dtype``) in ``folder``; its LSTM input
     biases are folded first, so that the module equals what loads."""
     convert.fold_lstm_input_bias_(rec)
     checkpoint.save_variables(convert.recognizer_params_to_flax(rec),
@@ -886,7 +904,7 @@ def write_recognizer(folder: str, rec: CTCRecognizer) -> None:
                        "conv_features": list(spec.conv_features),
                        "subsampling": spec.subsampling, "lstm_layers": spec.lstm_layers,
                        "lstm_features": spec.lstm_features, "stem": spec.stem,
-                       "norm": spec.norm, "dtype": "bfloat16"}}, f)
+                       "norm": spec.norm, "dtype": dtype}}, f)
 
 
 def run_cli(pipe: TorchPagePipeline, rng, smi: str):
@@ -2867,6 +2885,480 @@ def run_config4(pipe: TorchPagePipeline, rng, smi: str):
 
 
 # ----------------------------------------------------------------------
+# The crop transport and the re-OCR of existing layouts
+CROP_RUNS = 3  # timed runs a transport and depth (median)
+CROP_DEPTHS = (8, 4, 2)
+REOCR_PAGES = 2
+REOCR_TF_LINES = 16
+OCR_ONLY_INI = """[PAGE_PARSER]
+RUN_LAYOUT_PARSER = no
+RUN_LINE_CROPPER = yes
+RUN_OCR = yes
+
+[LINE_CROPPER]
+INTERP = 2
+LINE_SCALE = 1.0
+LINE_HEIGHT = 32
+
+[OCR]
+OCR_JSON = ./ocr.json
+"""
+# The command line as a program with TF32 off, for the card-CPU check.
+NO_TF32_CLI = ("import sys, torch; torch.backends.cudnn.allow_tf32 = False; "
+               "from pero_ocr_tpu_torch.scripts.parse_folder import main; main(sys.argv[1:])")
+
+
+def crop_pipeline(pipe: TorchPagePipeline, **kwargs) -> TorchPagePipeline:
+    """The crop transport over ``pipe``'s modules and settings, from its
+    sticky scale."""
+    crops = TorchPagePipeline(
+        pipe.parsenet, pipe.recognizer, downsample=pipe.downsample,
+        crop_bucket=pipe.crop_bucket, crop_height=pipe.crop_height, line_slot=pipe.line_slot,
+        adaptive_downsample=pipe.adaptive_downsample, device="cuda", transport="crops",
+        **kwargs)
+    crops._last_ds = pipe._last_ds
+    return crops
+
+
+def label_agreement(got, want) -> dict:
+    """Two runs on the same lines: the real lines whose labels are equal,
+    and the labels' summed edit distance over ``want``'s summed count."""
+    equal = total = edits = count = 0
+    for g, w in zip(got, want):
+        for i in range(len(w.baselines)):
+            a = g.labels[i, : g.label_lengths[i]].astype(np.int32)
+            b = w.labels[i, : w.label_lengths[i]].astype(np.int32)
+            equal += int(np.array_equal(a, b))
+            total += 1
+            edits += native.native_levenshtein(a, b)
+            count += len(b)
+    return {"lines": total, "equal_share": equal / max(total, 1),
+            "edit_share": edits / max(count, 1)}
+
+
+class CropRecorder:
+    """Keeps a crop-transport pipeline's last batch: its crop payload,
+    stage-A artifacts and the host warp's inputs."""
+
+    def __init__(self, pipe: TorchPagePipeline):
+        self.pipe, self.last = pipe, {}
+        recognize, stage_a, crop_payload = (pipe._recognize_payload, pipe._stage_a_artifacts,
+                                            pipe._crop_payload)
+
+        def kept_recognize(payload, page_batch):
+            self.last["payload"] = payload
+            return recognize(payload, page_batch)
+
+        def kept_stage_a(small):
+            self.last["artifacts"] = stage_a(small)
+            return self.last["artifacts"]
+
+        def kept_payload(grays, page_lines, max_n, n_slot, page_batch):
+            self.last["host"] = (grays, page_lines, n_slot)
+            return crop_payload(grays, page_lines, max_n, n_slot, page_batch)
+
+        pipe._recognize_payload, pipe._stage_a_artifacts, pipe._crop_payload = (
+            kept_recognize, kept_stage_a, kept_payload)
+
+
+def host_crop_checks(pipe: TorchPagePipeline, last: dict) -> dict:
+    """The C++ host warp (AVX2 body where the host has one, and the
+    scalar body) and packed parse against their numpy twins on a run's
+    last batch (``CropRecorder.last``; the warp on its first two pages),
+    and their host ms a page (the twins' on one page)."""
+    grays, page_lines, n_slot = last["host"]
+    hc, bucket = pipe.crop_height, pipe.crop_bucket
+    straight = []  # (gray, mats, widths) a page
+    for gray, (b_list, h_list, *_) in zip(grays, page_lines):
+        entries = [a for a in (pipe._line_affine(b, h) for b, h in zip(b_list, h_list)) if a]
+        if entries:
+            straight.append((gray, np.stack([m for m, _ in entries]),
+                             np.asarray([w for _, w in entries], np.int32)))
+
+    def warp_all(fn, pages=2, **kwargs):
+        outs = []
+        for gray, mats, widths in straight[:pages]:
+            out = np.zeros((len(widths), hc, bucket), np.uint8)
+            fn(gray, mats, widths, hc, out, np.arange(len(widths), dtype=np.int64) * hc * bucket,
+               1, bucket, **kwargs)
+            outs.append(out)
+        return outs
+
+    twin, scalar, dispatch = (warp_all(warp_affine_lines),
+                              warp_all(native.native_warp_affine_lines, scalar=True),
+                              warp_all(native.native_warp_affine_lines))
+    scalar_diff = sum(int((a != b).sum()) for a, b in zip(scalar, twin))
+    dispatch_max = max(int(np.abs(a.astype(int) - b).max()) for a, b in zip(dispatch, twin))
+    dispatch_diff = sum(int((a != b).sum()) for a, b in zip(dispatch, twin))
+    pixels = sum(int(w.sum()) * hc for _, _, w in straight[:2])
+    arts = last["artifacts"]
+    parse_diff = 0
+    for slot in range(arts.packed.shape[0]):
+        pipe.native = False
+        twin_lines = pipe._lines_from_packed(arts.packed[slot], arts.heights_q[slot], 4)
+        pipe.native = True
+        parse_diff += _lines_differ(
+            pipe._lines_from_packed(arts.packed[slot], arts.heights_q[slot], 4), twin_lines)
+    pages = len(grays)
+    numbers = {
+        "straight_lines": sum(len(w) for _, _, w in straight), "warp_pixels": pixels,
+        "avx2": native.warp_affine_avx2(), "scalar_vs_twin_pixels_differ": scalar_diff,
+        "avx2_vs_twin_pixels_differ": dispatch_diff, "avx2_vs_twin_max": dispatch_max,
+        "packed_parse_pages_differ": parse_diff,
+        "warp_cpp_ms_a_page": host_ms(
+            lambda: warp_all(native.native_warp_affine_lines, len(straight))) / len(straight),
+        "warp_twin_ms_a_page": host_ms(lambda: warp_all(warp_affine_lines, 1), 3),
+    }
+    for route, name, n in ((True, "cpp", pages), (False, "twin", 1)):
+        pipe.native = route
+        numbers[f"parse_{name}_ms_a_page"] = host_ms(lambda: [pipe._lines_from_packed(
+            arts.packed[s], arts.heights_q[s], 4) for s in range(n)], 3) / n
+        numbers[f"strip_build_{name}_ms_a_page"] = host_ms(lambda: pipe._build_strip(
+            grays[:n], page_lines[:n], n_slot, n), 3) / n
+    pipe.native = True
+    log(f"crop transport host C++ against its twins on the last batch: {numbers}")
+    if scalar_diff or parse_diff or dispatch_max > 1:
+        raise AssertionError(f"crop transport host C++ differs from its numpy twins: {numbers}")
+    return numbers
+
+
+def rebuild_times(pipe: TorchPagePipeline, payload, label: str) -> dict:
+    """The strip rebuild (unpack, gather, mask) and the unpack alone on
+    the card, on a batch's strip: device ms and the bound by bytes (the
+    packed strip, offsets and widths read once, the crops written once)."""
+    strip, offsets, widths = (torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in payload)
+    rw = pipe._rebuild_width(payload[2])
+    crops_bytes = len(payload[1]) * pipe.crop_height * rw
+    read = strip.numel() + 8 * len(payload[1])
+    out = {"rebuild_ms": cuda_ms(lambda: pipe.rebuild_strip(strip, offsets, widths, rw)),
+           "rebuild_bound_ms": 1e3 * (read + crops_bytes) / HBM_BYTES_PER_S,
+           "rebuild_width": rw, "strip_bytes": strip.numel(), "crops_bytes": crops_bytes}
+    if pipe.transport_bits < 8:
+        unpacked = strip.numel() * 8 // pipe.transport_bits
+        out["unpack_ms"] = cuda_ms(lambda: unpack_bits(strip, pipe.transport_bits))
+        out["unpack_bound_ms"] = 1e3 * (strip.numel() + unpacked) / HBM_BYTES_PER_S
+    log(f"{label} strip on the card: {out}")
+    return out
+
+
+def crops_against_cpu(payload, rng) -> dict:
+    """One batch's strip recognized by a small float32 recognizer on the
+    card (TF32 off) and by the same weights on the CPU: labels and lengths
+    equal on every line, or a line's differing frames are near-ties (the
+    CPU's two best logits there closer than twice the card-CPU logit
+    difference on that line); confidences of the equal lines within
+    1e-4."""
+    rec = CTCRecognizer(RecognizerSpec(
+        num_classes=80, line_height=CROP_H, conv_features=(8, 16), subsampling=4,
+        lstm_layers=1, lstm_features=16, dtype=torch.float32, stem="s2d", norm="group",
+    ), generator=torch.Generator().manual_seed(int(rng.integers(1 << 30))))
+    pipes = {device: TorchPagePipeline(None, copy.deepcopy(rec), crop_height=CROP_H,
+                                       crop_bucket=BUCKET, transport="crops", device=device)
+             for device in ("cuda", "cpu")}
+    rw = pipes["cpu"]._rebuild_width(payload[2])
+    outs, devs = {}, {}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for device, p in pipes.items():
+            devs[device] = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in payload]
+            outs[device] = [t.cpu().numpy() for t in p._label_bytes(p.stage_b_strip(
+                *devs[device], PAGE_BATCH, rw))[:3]]
+        (cl, cn, cc), (pl, pn, pc) = outs["cuda"], outs["cpu"]
+        real = payload[2].reshape(PAGE_BATCH, -1) > 0
+        equal = np.all(cl == pl, axis=-1) & (cn == pn)
+        differ = np.flatnonzero((~equal & real).reshape(-1))
+        near_ties = []
+        if len(differ):
+            logits = {}
+            with torch.inference_mode():
+                for device, p in pipes.items():
+                    crops = p.rebuild_strip(*devs[device], rw)[torch.from_numpy(differ).to(device)]
+                    images = p._normalize(crops)[..., None].expand(-1, -1, -1, 3)
+                    logits[device] = p.recognizer(images).float().cpu().numpy()
+            for k, line in enumerate(differ):
+                card, cpu = logits["cuda"][k], logits["cpu"][k]
+                frames = np.flatnonzero(card.argmax(-1) != cpu.argmax(-1))
+                top2 = np.sort(cpu[frames], axis=-1)[:, -2:]
+                near_ties.append(bool(len(frames)) and bool(
+                    (top2[:, 1] - top2[:, 0] <= 2 * np.abs(card - cpu).max()).all()))
+                log(f"crop transport card vs CPU: line {line} differs at frames {frames[:8]}; the "
+                    f"CPU's two best logits {top2[:, 1] - top2[:, 0]} apart, the line's logits "
+                    f"{np.abs(card - cpu).max():.3g} apart ({'a near-tie' if near_ties[-1] else 'DIFFERS'})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    err = float(np.abs(cc - pc)[real & equal].max(initial=0.0))
+    n_real, n_equal = int(real.sum()), int((real & equal).sum())
+    log(f"crop transport card vs CPU on one batch's strip (float32, TF32 off): labels equal on "
+        f"{n_equal} of {n_real} lines, {sum(near_ties)} near-ties, confidences of the equal "
+        f"lines within {err:.3g}")
+    if n_equal + sum(near_ties) != n_real or err > 1e-4:
+        raise AssertionError("crop transport: the card's labels differ from the CPU port's")
+    return {"lines": n_real, "equal": n_equal, "near_ties": sum(near_ties),
+            "conf_max_diff": err}
+
+
+def run_crops(pipe: TorchPagePipeline, rng, smi: str):
+    """The crop transport with the main path's modules and shapes (16
+    two-column pages, 8 a batch, crop bucket 1024, 40 line slots): CNN
+    detection at transport bits 8, 4 and 2, each with the strip and the
+    dense buffer, then the lines the 8-bit strip run found as an override
+    on both transports, with and without ``skip_stage_a``.  Checks: the
+    crop transport finds the lines and launches no warp kernel; the strip
+    and the dense buffer give byte-equal crops and the same lines;
+    skip_stage_a gives stage A's labels; 4- and 2-bit crops give the same
+    lines and label shapes as 8-bit (their label agreement is printed);
+    one batch's strip recognized alike on card and CPU; the host C++
+    equal to its twins.  Times: pages/s a transport and depth (the median
+    of CROP_RUNS on the page transport and the 8- and 4-bit strip), the
+    strip rebuild and unpack's device ms a batch against their bound, the
+    host warp and parse ms a page."""
+    n_pages = 2 * PAGE_BATCH
+    pages, lines = synthetic_pages(rng, n_pages, TWO_COLUMNS)
+
+    def drive(p, n_runs=1, override=None, skip=False):
+        seconds = []
+        last_ds = p._last_ds
+        for _ in range(n_runs):
+            p._last_ds = last_ds  # every run from the same scale
+            t0 = time.perf_counter()
+            out = list(p.run(pages, lines_override=override, page_batch=PAGE_BATCH,
+                             skip_stage_a=skip))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        if [r.page_index for r in out] != list(range(n_pages)):
+            raise AssertionError("crop transport: results out of page order")
+        return out, n_pages / float(np.median(seconds))  # pages/s
+
+    runs, speeds = {}, {}
+    timing.reset_timing()
+    warp_ops.warp_lines.launches = 0
+    runs["page"], speeds["page"] = drive(pipe, CROP_RUNS)
+    page_launches = warp_ops.warp_lines.launches
+    log("stage times (the page transport's CNN runs):\n" + timing.timing_report())
+    drive(crop_pipeline(pipe, transport_bits=4))  # warm-up at the crop transport's widths
+    pipes, recorders = {}, {}
+    timing.reset_timing()
+    warp_ops.warp_lines.launches = 0
+    native.calls.clear()
+    for bits in CROP_DEPTHS:
+        for payload in ("strip", "dense"):
+            key = f"{bits}_{payload}"
+            pipes[key] = crop_pipeline(pipe, transport_bits=bits, trim_crops=payload == "strip")
+            recorders[key] = CropRecorder(pipes[key])
+            timed = payload == "strip" and bits in (8, 4)
+            runs[key], speeds[key] = drive(pipes[key], CROP_RUNS if timed else 1)
+    crop_stats = timing.timing_stats()
+    crop_report = timing.timing_report()
+    crop_calls = dict(native.calls)
+    crop_launches = warp_ops.warp_lines.launches
+    last = {key: dict(r.last) for key, r in recorders.items()}  # the CNN runs' last batches
+    override = [(r.baselines, r.heights) for r in runs["8_strip"]]
+    runs["page_override"], speeds["page_override"] = drive(pipe, override=override)
+    for bits in CROP_DEPTHS:
+        runs[f"{bits}_override"], speeds[f"{bits}_override"] = drive(pipes[f"{bits}_strip"],
+                                                                     override=override)
+    runs["8_skip"], speeds["8_skip"] = drive(pipes["8_strip"], override=override, skip=True)
+    # The page transport samples the page past each line's end and
+    # decodes every frame; the crop transport's crops end at the line's
+    # width and it decodes the valid frames: their labels are reported,
+    # not held equal (nor are they in the JAX package).
+    agreement = {f"{bits}_vs_8": label_agreement(runs[f"{bits}_override"], runs["8_override"])
+                 for bits in (4, 2)}
+    agreement["8_vs_page"] = label_agreement(runs["8_override"], runs["page_override"])
+    log(f"crop transport on {smi}, {n_pages} pages, pages/s (median of {CROP_RUNS} for page, "
+        "8_strip and 4_strip, one run otherwise): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in speeds.items()))
+    log("stage times (the crop transport's CNN runs, all depths):\n" + crop_report)
+    recall = {key: line_recall([r.baselines for r in runs[key]], lines)
+              for key in ["page"] + [f"{b}_strip" for b in CROP_DEPTHS]}
+    log(f"crop transport: line recall {recall}; warp_lines launches on the page transport "
+        f"{page_launches}, on the crop transport {crop_launches}; host calls {crop_calls}; "
+        f"label agreement on the same lines {agreement}")
+    if min(recall.values()) < MIN_LINE_RECALL:
+        raise AssertionError(f"crop transport: line recall {recall}")
+    if crop_launches or page_launches != 2 * CROP_RUNS:
+        raise AssertionError("crop transport: warp kernel launches on the wrong transport")
+    if crop_calls.get("cc_lines_packed", 0) < n_pages or not crop_calls.get(
+            "warp_affine_lines_u8"):
+        raise AssertionError(f"crop transport: the host C++ did not run: {crop_calls}")
+    for bits in CROP_DEPTHS:
+        strip, dense = runs[f"{bits}_strip"], runs[f"{bits}_dense"]
+        if any(_lines_differ((a.baselines, a.heights), (b.baselines, b.heights))
+               for a, b in zip(strip, dense)):
+            raise AssertionError(f"crop transport {bits}-bit: strip and dense lines differ")
+        s_payload = last[f"{bits}_strip"]["payload"]
+        d_payload = last[f"{bits}_dense"]["payload"]
+        p = pipes[f"{bits}_strip"]
+        rw = p._rebuild_width(s_payload[2])
+        rebuilt = p.rebuild_strip(*(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                                    for a in s_payload), rw)
+        dense_crops = unpack_bits(torch.from_numpy(d_payload[0]).cuda(), bits)
+        if not (torch.equal(rebuilt, dense_crops[..., :rw])
+                and not dense_crops[..., rw:].any()
+                and np.array_equal(s_payload[2], d_payload[1])):
+            raise AssertionError(f"crop transport {bits}-bit: the rebuilt strip differs from the "
+                                 "dense buffer")
+        # The JAX package's bound on quantized crops: the same lines and
+        # label tensors (tests/test_pipeline.py test_crop_transport_4bit).
+        for a, b in zip(runs[f"{bits}_override"], runs["8_override"]):
+            if len(a.baselines) != len(b.baselines) or a.labels.shape != b.labels.shape:
+                raise AssertionError(f"crop transport {bits}-bit: other lines or label shapes")
+    for a, b in zip(runs["8_skip"], runs["8_override"]):
+        if not (np.array_equal(a.labels, b.labels) and np.array_equal(a.label_lengths,
+                                                                       b.label_lengths)
+                and np.array_equal(a.confidences, b.confidences)):
+            raise AssertionError(f"crop transport: skip_stage_a changed page {a.page_index}")
+    log("crop transport: rebuilt strips equal the dense buffers at 8, 4 and 2 bits; "
+        "skip_stage_a gives stage A's labels")
+    numbers = {
+        "pages": n_pages, "pages_per_s": speeds, "line_recall": recall,
+        "label_agreement": agreement, "host_calls": crop_calls,
+        "stage_ms": {k: 1e3 * v[0] / v[1] for k, v in crop_stats.items()},
+        "stage_calls": {k: v[1] for k, v in crop_stats.items()},
+        "host": host_crop_checks(pipes["8_strip"], last["8_strip"]),
+        "against_cpu": crops_against_cpu(last["8_strip"]["payload"], rng),
+        "card": smi,
+    }
+    for bits in CROP_DEPTHS:
+        key = f"{bits}_strip"
+        numbers[f"strip_{bits}"] = rebuild_times(pipes[key], last[key]["payload"], f"{bits}-bit")
+    return numbers
+
+
+def transformer_reocr(layout: PageLayout, page: np.ndarray, smi: str) -> dict:
+    """A config-4 reference transformer at full width (CONFIG4_NET, line
+    height 48) through ``FastPagePipeline(reocr=True)`` on the card:
+    REOCR_TF_LINES lines of ``layout``, TF32 off.  On the crops that
+    reached stage B: the graph-replayed decode against the eager loop
+    (bit-equal tokens, lengths and confidences), and the tokens against
+    the CPU port's greedy decode (equal, or a first difference that is a
+    near-tie of float32 rounding)."""
+    chars = BENCH_CHARS[:-1]
+    spec = RefTransformerSpec.from_net_config(CONFIG4_NET, num_symbols=len(chars) + 2,
+                                              in_height=48)
+    model = RefTransformerOCR(spec, generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        model.dec_out_proj.bias[spec.ignore_id] -= 3.0
+    cpu_model = copy.deepcopy(model).eval()
+    trimmed = copy.deepcopy(layout)
+    for region in trimmed.regions:
+        region.lines = []
+    trimmed.regions[0].lines = list(layout.lines_iterator())[:REOCR_TF_LINES]
+    real = len(trimmed.regions[0].lines)
+    p = TorchPagePipeline(None, model, crop_height=48, crop_bucket=BUCKET,
+                          line_slot=REOCR_TF_LINES, transport="crops", cluster_paragraphs=False,
+                          device="cuda")
+    seen = []
+    recognize = p.stage_b_recognize
+
+    def kept(crops, pb, widths=None):
+        seen.append(crops)
+        return recognize(crops, pb, widths)
+
+    p.stage_b_recognize = kept
+    fast = FastPagePipeline(p, list(chars) + ["\u200b", ""], page_batch=1, reocr=True)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        (out,) = fast.process_existing_layouts([page], [trimmed])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        dec_len = max(8, min(p.crop_bucket // 4, spec.max_seq_len - 1))
+        with torch.inference_mode():
+            images = seen[0][..., None].expand(-1, -1, -1, 3)
+            memory = model.encode(images)
+            graph = [t.cpu().numpy() for t in p._graphed_decode(memory, dec_len)]
+            eager = [t.cpu().numpy() for t in p._decode_from_memory(memory, dec_len)]
+            cpu_tokens, _, cpu_logits = transformer_ref.greedy_decode_ref(
+                cpu_model, images.cpu(), dec_len)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    if not all(np.array_equal(g, e) for g, e in zip(graph, eager)):
+        raise AssertionError("re-OCR transformer: the graph's decode differs from the eager loop")
+    texts = [ln.transcription for ln in out.lines_iterator()]
+    if texts != ["".join(chars[t] for t in row[:n] if t < len(chars))
+                 for row, n in zip(graph[0][:real], graph[1][:real])]:
+        raise AssertionError("re-OCR transformer: the layout's text is not the decode's")
+    verdicts = tokens_differ(graph[0], cpu_tokens.numpy(), cpu_logits.numpy(), real,
+                             spec.dim_ff)
+    counts = [sum(v is None for v in verdicts), sum(bool(v and v[1]) for v in verdicts),
+              sum(bool(v and not v[1]) for v in verdicts)]
+    log(f"re-OCR with the reference transformer on {smi}: {real} lines, {dec_len} steps, "
+        f"{seconds:.3f} s (graph capture {p.graph_capture_seconds:.3f} s included); card vs "
+        f"CPU equal/near-tie/differ {counts}; graph equals eager; first text {texts[0][:40]!r}")
+    if counts[2]:
+        raise AssertionError(f"re-OCR transformer: tokens differ from the CPU's {verdicts}")
+    return {"lines": real, "steps": dec_len, "seconds": seconds,
+            "graph_capture_s": p.graph_capture_seconds,
+            "card_vs_cpu_equal_near_tie_differ": counts}
+
+
+def run_reocr(pipe: TorchPagePipeline, rng, smi: str):
+    """Re-OCR of existing layouts: REOCR_PAGES two-column pages to Page
+    XML with the page transport, then ``parse_folder -x <that xml> -i
+    <pages>`` with an OCR-only config (the bench recognizer's weights in
+    float32, TF32 off) on the card with --fast-pipeline (the crop
+    transport's recognize-only loop) and without (LineCropper's field
+    warp, one launch a page), each against the same command in this
+    process on the CPU (its host C++ route, as on the card): equal Page
+    XML (conf within 0.0015).  Then a reference transformer through the
+    fast re-OCR (``transformer_reocr``)."""
+    pages, _ = synthetic_pages(rng, REOCR_PAGES, TWO_COLUMNS)
+    ids = [f"x{i:04d}" for i in range(REOCR_PAGES)]
+    layouts = list(FastPagePipeline(pipe, BENCH_CHARS, page_batch=CLI_PAGE_BATCH)
+                   .process_pages(pages, ids))
+    rec32 = CTCRecognizer(dataclasses.replace(pipe.recognizer.spec, dtype=torch.float32))
+    rec32.load_state_dict({k: v.float() for k, v in pipe.recognizer.state_dict().items()})
+    numbers = {"pages": REOCR_PAGES, "lines": sum(len(list(lay.lines_iterator()))
+                                                  for lay in layouts), "card": smi}
+    with tempfile.TemporaryDirectory(prefix="reocr_") as tmp:
+        images = write_pages(tmp, dict(zip(ids, pages)))
+        xml_in = os.path.join(tmp, "xml_in")
+        os.makedirs(xml_in)
+        for layout in layouts:
+            layout.to_pagexml(os.path.join(xml_in, layout.id + ".xml"))
+        write_recognizer(tmp, rec32, dtype="float32")
+        ini = os.path.join(tmp, "ocr_only.ini")
+        with open(ini, "w", encoding="utf-8") as f:
+            f.write(OCR_ONLY_INI)
+        from pero_ocr_tpu_torch.scripts import parse_folder as cli
+
+        for flags, name in (([], "staged"), (["--fast-pipeline"], "fast")):
+            out, cpu_out = (os.path.join(tmp, f"{name}_{d}") for d in ("card", "cpu"))
+            args = ["-c", ini, "-i", images, "-x", xml_in, "--timing-report", *flags]
+            proc, seconds = run_parse_folder(args + ["--output-xml-path", out],
+                                             f"re-OCR command line ({name})", NO_TF32_CLI)
+            use_native = native.use_native
+            native.use_native = lambda route, device: True  # the card's host route
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(sys.stderr):
+                    cli.main(args + ["--output-xml-path", cpu_out, "--device", "cpu"])
+                cpu_seconds = time.perf_counter() - t0
+            finally:
+                native.use_native = use_native
+                checkpoint.set_strict_loading(False)
+            differ = [fid for fid in ids if not same_staged_page(
+                read_text(out, fid + ".xml"), read_text(cpu_out, fid + ".xml"))]
+            timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
+            launches = re.search(r"^warp_fields kernel launches: (\d+)$", proc.stdout, re.M)
+            numbers[name] = {"wall_s": seconds, "cpu_s": cpu_seconds,
+                             "pages_per_s": REOCR_PAGES / float(timed.group(1)),
+                             "warp_fields_launches": int(launches.group(1)),
+                             "pages_differ": differ}
+            log(f"re-OCR command line ({name}) on {smi}: {numbers[name]}")
+            if differ:
+                raise AssertionError(f"re-OCR ({name}): the card's Page XML differs from the "
+                                     f"CPU's on {differ}")
+            want = 0 if flags else REOCR_PAGES
+            if numbers[name]["warp_fields_launches"] != want:
+                raise AssertionError(f"re-OCR ({name}): warp_fields launched "
+                                     f"{numbers[name]['warp_fields_launches']} times, want {want}")
+    numbers["transformer"] = transformer_reocr(layouts[0], pages[0], smi)
+    return numbers
+
+
+# ----------------------------------------------------------------------
 # The host C++ (csrc/perotpu.cpp) against its numpy twins
 FAST_STAGES = ("pipeline/host_geometry", "pipeline/cc_parse",
                "pipeline/make_clusters", "pipeline/textlines", "pipeline/stage_a_sync", "pipeline/upload+dispatch_a", "pipeline/stage_b",
@@ -3769,6 +4261,8 @@ def run_phases(smi: str) -> list:
     launches_config3, config3, config3_args, (beam_decoder, beam_call) = run_config3(
         pipe, rng, smi)
     launches_config4, config4, config4_args = run_config4(pipe, rng, smi)
+    crops = run_crops(pipe, rng, smi)
+    reocr = run_reocr(pipe, rng, smi)
     host_native = check_host_native(fast_host, staged_host, viterbi_inputs, smi)
     training = run_train(rng, smi)
     # The kernel against its plain version, and its times, at the main
@@ -3815,7 +4309,8 @@ def run_phases(smi: str) -> list:
 
     return [json.dumps({key: value}) for key, value in (
         ("cli", cli), ("staged", staged), ("config1", config1), ("config5", config5),
-        ("config3", config3), ("config4", config4), ("host_native", host_native),
+        ("config3", config3), ("config4", config4), ("crops", crops), ("reocr", reocr),
+        ("host_native", host_native),
         ("train", training))] + [smi, json.dumps({"kernels": [warp, fields]})]
 
 

@@ -1,14 +1,15 @@
-// Host code of the layout parse and of the forced alignment: the port's
-// own copy of the seven functions of the JAX package's C++ library
-// (native/perotpu.cpp) that config 2's two paths, config 5's ALTO
-// output and config 4's chunked transformer lines run, with the same C
-// interface and semantics.  Each has a
-// numpy twin in the port, which the CPU path runs and the tests hold it
-// against:
+// Host code of the layout parse, the crop transport's line warp and the
+// forced alignment: the port's own copy of the eight functions of the
+// JAX package's C++ library (native/perotpu.cpp) that config 2's paths
+// (both transports and stage by stage), config 5's ALTO output and
+// config 4's chunked transformer lines run, with the same C interface
+// and semantics.  Each has a numpy twin in the port, which the CPU path
+// runs and the tests hold it against:
 //
 //   cc_label_u8              ops/morphology.connected_components
 //   cc_baselines_f32         parallel/pipeline.py component lines
-//   cc_lines_packed          parallel/pipeline.py unpack + label + lines
+//   cc_lines_packed          parallel/crop_transport.py packed_lines
+//   warp_affine_lines_u8     parallel/crop_transport.py warp_affine_lines
 //   separator_penalties_f32  layout_engines/cnn_engine.separator_penalties
 //   polygons_close_f64       core/geometry.polygons_close
 //   viterbi_ctc_f32          core/force_alignment.viterbi_ctc
@@ -22,6 +23,10 @@
 #include <cstdint>
 #include <cstring>
 #include <vector>
+
+#if defined(__x86_64__)
+#include <immintrin.h>
+#endif
 
 extern "C" {
 
@@ -98,6 +103,200 @@ int32_t cc_label_u8(const uint8_t* mask, int32_t h, int32_t w,
         if (labels_out[i]) labels_out[i] = dense[labels_out[i]];
     }
     return next_label;
+}
+
+// ---------------------------------------------------------------------
+// Batched inverse-affine line warp, uint8 gray page -> uint8 crops (the
+// crop transport's straight lines).  For each line n, output pixel
+// (row y, col x) samples the page bilinearly at
+//   sx = m[0]*x + m[1]*y + m[2],  sy = m[3]*x + m[4]*y + m[5]
+// (cv2.warpAffine's WARP_INVERSE_MAP convention, in float arithmetic);
+// out-of-page samples are 0.  The destination is addressed per line as
+//   out[offsets[n] + x * stride_col + y * stride_row]
+// so one call fills the width-major strip (stride_col = crop_h,
+// stride_row = 1) or the dense (Hc, bucket) buffer (stride_col = 1,
+// stride_row = bucket).
+//
+// Two bodies, as the JAX library has when it is built with
+// -march=native on an AVX2 host: an AVX2 body (8 pixels a step, float32
+// coordinates from fused multiply-adds) for the interior of a row, and a
+// scalar tail (coordinates accumulated in double) for the rest and the
+// page's edges.  This library is built without -march=native, so the
+// AVX2 body is compiled for avx2 and fma on its own and chosen at run
+// time; elsewhere the scalar body does every pixel.  The two round apart
+// by at most one gray level where their coordinates differ.
+// ---------------------------------------------------------------------
+static inline __attribute__((always_inline)) void warp_row_tail(
+    const uint8_t* gray, int32_t h, int32_t w, const double* m, int32_t width,
+    int32_t x, double sx, double sy, uint8_t* row_tmp) {
+    for (; x < width; ++x, sx += m[0], sy += m[3]) {
+        const int32_t x0 = (int32_t)std::floor(sx);
+        const int32_t y0 = (int32_t)std::floor(sy);
+        uint8_t value = 0;
+        if (x0 >= 0 && x0 + 1 < w && y0 >= 0 && y0 + 1 < h) {
+            const float fx = (float)(sx - x0);
+            const float fy = (float)(sy - y0);
+            const uint8_t* p = gray + (size_t)y0 * w + x0;
+            const float top = p[0] + fx * (p[1] - p[0]);
+            const float bot = p[w] + fx * (p[w + 1] - p[w]);
+            const float v = top + fy * (bot - top);
+            value = (uint8_t)(v + 0.5f);
+        } else if (x0 >= -1 && x0 < w && y0 >= -1 && y0 < h) {
+            const float fx = (float)(sx - x0);
+            const float fy = (float)(sy - y0);
+            const bool xl = x0 >= 0, xr = x0 + 1 < w;
+            const bool yt = y0 >= 0, yb = y0 + 1 < h;
+            const size_t idx = (size_t)y0 * w + x0;
+            const float p00 = (xl && yt) ? gray[idx] : 0.f;
+            const float p01 = (xr && yt) ? gray[idx + 1] : 0.f;
+            const float p10 = (xl && yb) ? gray[idx + w] : 0.f;
+            const float p11 = (xr && yb) ? gray[idx + w + 1] : 0.f;
+            const float top = p00 + fx * (p01 - p00);
+            const float bot = p10 + fx * (p11 - p10);
+            const float v = top + fy * (bot - top);
+            value = (uint8_t)std::min(255.f, std::max(0.f, v + 0.5f));
+        }
+        row_tmp[x] = value;
+    }
+}
+
+static inline __attribute__((always_inline)) void store_row(
+    const uint8_t* row_tmp, int32_t width, uint8_t* row, int64_t stride_col) {
+    if (stride_col == 1) {
+        std::memcpy(row, row_tmp, width);
+    } else {
+        for (int32_t i = 0; i < width; ++i) row[(int64_t)i * stride_col] = row_tmp[i];
+    }
+}
+
+void warp_affine_lines_u8_scalar(const uint8_t* gray, int32_t h, int32_t w,
+                                 const double* mats, const int32_t* widths,
+                                 int32_t n_lines, int32_t crop_h,
+                                 uint8_t* out, const int64_t* offsets,
+                                 int64_t stride_col, int64_t stride_row) {
+    std::vector<uint8_t> row_tmp;
+    for (int32_t n = 0; n < n_lines; ++n) {
+        const double* m = mats + (size_t)n * 6;
+        uint8_t* base = out + offsets[n];
+        const int32_t width = widths[n];
+        row_tmp.resize(width);
+        for (int32_t y = 0; y < crop_h; ++y) {
+            const double sx_d = m[1] * y + m[2];
+            const double sy_d = m[4] * y + m[5];
+            warp_row_tail(gray, h, w, m, width, 0, sx_d, sy_d, row_tmp.data());
+            store_row(row_tmp.data(), width, base + (int64_t)y * stride_row, stride_col);
+        }
+    }
+}
+
+#if defined(__x86_64__)
+__attribute__((target("avx2,fma")))
+static void warp_affine_lines_u8_avx2(const uint8_t* gray, int32_t h, int32_t w,
+                                      const double* mats, const int32_t* widths,
+                                      int32_t n_lines, int32_t crop_h,
+                                      uint8_t* out, const int64_t* offsets,
+                                      int64_t stride_col, int64_t stride_row) {
+    std::vector<uint8_t> row_tmp;
+    for (int32_t n = 0; n < n_lines; ++n) {
+        const double* m = mats + (size_t)n * 6;
+        uint8_t* base = out + offsets[n];
+        const int32_t width = widths[n];
+        row_tmp.resize(width);
+        for (int32_t y = 0; y < crop_h; ++y) {
+            double sx_d = m[1] * y + m[2];
+            double sy_d = m[4] * y + m[5];
+            int32_t x = 0;
+            // 8 pixels a step; a 32-bit gather at byte index idx holds
+            // p00|p01 in its low two bytes, one at idx + w p10|p11.  Lanes
+            // within 4 bytes of the page's right or bottom edge leave the
+            // block loop to the scalar tail (the gather would read past
+            // the buffer).
+            {
+                const __m256 lane = _mm256_setr_ps(0, 1, 2, 3, 4, 5, 6, 7);
+                const __m256 m0v = _mm256_set1_ps((float)m[0]);
+                const __m256 m3v = _mm256_set1_ps((float)m[3]);
+                const __m256 sx_row = _mm256_set1_ps((float)sx_d);
+                const __m256 sy_row = _mm256_set1_ps((float)sy_d);
+                const __m256 zero = _mm256_setzero_ps();
+                const __m256 xmax = _mm256_set1_ps((float)(w - 4));
+                const __m256 ymax = _mm256_set1_ps((float)(h - 2));
+                for (; x + 8 <= width; x += 8) {
+                    const __m256 xv = _mm256_add_ps(lane, _mm256_set1_ps((float)x));
+                    const __m256 sx_v = _mm256_fmadd_ps(xv, m0v, sx_row);
+                    const __m256 sy_v = _mm256_fmadd_ps(xv, m3v, sy_row);
+                    const __m256 fx0 = _mm256_floor_ps(sx_v);
+                    const __m256 fy0 = _mm256_floor_ps(sy_v);
+                    const __m256 ok = _mm256_and_ps(
+                        _mm256_and_ps(_mm256_cmp_ps(fx0, zero, _CMP_GE_OQ),
+                                      _mm256_cmp_ps(fx0, xmax, _CMP_LT_OQ)),
+                        _mm256_and_ps(_mm256_cmp_ps(fy0, zero, _CMP_GE_OQ),
+                                      _mm256_cmp_ps(fy0, ymax, _CMP_LT_OQ)));
+                    if (_mm256_movemask_ps(ok) != 0xFF) break;
+                    const __m256i x0 = _mm256_cvtps_epi32(fx0);
+                    const __m256i y0 = _mm256_cvtps_epi32(fy0);
+                    const __m256i idx = _mm256_add_epi32(
+                        _mm256_mullo_epi32(y0, _mm256_set1_epi32(w)), x0);
+                    const __m256i idx2 = _mm256_add_epi32(idx, _mm256_set1_epi32(w));
+                    const __m256i top2 = _mm256_i32gather_epi32((const int*)gray, idx, 1);
+                    const __m256i bot2 = _mm256_i32gather_epi32((const int*)gray, idx2, 1);
+                    const __m256i mask8 = _mm256_set1_epi32(0xFF);
+                    const __m256 p00 = _mm256_cvtepi32_ps(_mm256_and_si256(top2, mask8));
+                    const __m256 p01 = _mm256_cvtepi32_ps(
+                        _mm256_and_si256(_mm256_srli_epi32(top2, 8), mask8));
+                    const __m256 p10 = _mm256_cvtepi32_ps(_mm256_and_si256(bot2, mask8));
+                    const __m256 p11 = _mm256_cvtepi32_ps(
+                        _mm256_and_si256(_mm256_srli_epi32(bot2, 8), mask8));
+                    const __m256 fx = _mm256_sub_ps(sx_v, fx0);
+                    const __m256 fy = _mm256_sub_ps(sy_v, fy0);
+                    const __m256 top = _mm256_add_ps(
+                        p00, _mm256_mul_ps(fx, _mm256_sub_ps(p01, p00)));
+                    const __m256 bot = _mm256_add_ps(
+                        p10, _mm256_mul_ps(fx, _mm256_sub_ps(p11, p10)));
+                    const __m256 v = _mm256_add_ps(
+                        _mm256_add_ps(top, _mm256_mul_ps(fy, _mm256_sub_ps(bot, top))),
+                        _mm256_set1_ps(0.5f));
+                    const __m256i vi = _mm256_cvttps_epi32(v);
+                    const __m256i packed16 = _mm256_packs_epi32(vi, _mm256_setzero_si256());
+                    const __m256i packed8 = _mm256_packus_epi16(packed16,
+                                                                _mm256_setzero_si256());
+                    const uint32_t lo = (uint32_t)_mm256_extract_epi32(packed8, 0);
+                    const uint32_t hi = (uint32_t)_mm256_extract_epi32(packed8, 4);
+                    std::memcpy(row_tmp.data() + x, &lo, 4);
+                    std::memcpy(row_tmp.data() + x + 4, &hi, 4);
+                }
+                sx_d = m[1] * y + m[2] + m[0] * x;
+                sy_d = m[4] * y + m[5] + m[3] * x;
+            }
+            warp_row_tail(gray, h, w, m, width, x, sx_d, sy_d, row_tmp.data());
+            store_row(row_tmp.data(), width, base + (int64_t)y * stride_row, stride_col);
+        }
+    }
+}
+#endif
+
+// 1 when warp_affine_lines_u8 runs the AVX2 body on this host.
+int32_t warp_affine_avx2(void) {
+#if defined(__x86_64__)
+    return __builtin_cpu_supports("avx2") && __builtin_cpu_supports("fma");
+#else
+    return 0;
+#endif
+}
+
+void warp_affine_lines_u8(const uint8_t* gray, int32_t h, int32_t w,
+                          const double* mats, const int32_t* widths,
+                          int32_t n_lines, int32_t crop_h,
+                          uint8_t* out, const int64_t* offsets,
+                          int64_t stride_col, int64_t stride_row) {
+#if defined(__x86_64__)
+    if (warp_affine_avx2()) {
+        warp_affine_lines_u8_avx2(gray, h, w, mats, widths, n_lines, crop_h, out, offsets,
+                                  stride_col, stride_row);
+        return;
+    }
+#endif
+    warp_affine_lines_u8_scalar(gray, h, w, mats, widths, n_lines, crop_h, out, offsets,
+                                stride_col, stride_row);
 }
 
 // ---------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""Device page pipeline, page transport (port of
-pero_ocr_tpu/parallel/pipeline.py).
+"""Device page pipeline (port of pero_ocr_tpu/parallel/pipeline.py).
 
-Per batch of pages, one grayscale upload (optionally two 4-bit pixels
-per byte, ``transport_bits=4``) feeds everything:
+Two transports, as in the JAX package.  The page transport
+(``transport="page"``), per batch of pages, one grayscale upload
+(optionally two 4-bit pixels per byte, ``transport_bits=4``) feeds
+everything:
 
 - **Stage A** (device): area-downsample -> ParseNet maps -> map
   post-processing -> bit-packed baseline mask, quarter-pixel heights and
@@ -18,27 +19,36 @@ per byte, ``transport_bits=4``) feeds everything:
   JAX page transport runs its own, and their numpy twins on the CPU.
 - **Stage B** (device): the line-crop warp (the hand-written CUDA
   kernel of :mod:`pero_ocr_tpu_torch.ops.warp`, which stores the crops
-  divided by 255 in the recognizer's dtype) -> ``CTCRecognizer`` ->
-  greedy CTC labels and worst-run confidences; with ``want_logits``, also
-  each frame's ``logits_topk`` largest logits (float16) and their class
-  indices, from which the document layer rebuilds the sparse logits of
-  the logits files and the ALTO output.  Copies to the host trail their
-  dispatch by one batch.
+  divided by 255 in the recognizer's input dtype) -> the recognizer.  A
+  ``CTCRecognizer`` gives greedy CTC labels and worst-run confidences;
+  with ``want_logits``, also each frame's ``logits_topk`` largest
+  logits (float16) and their class indices, from which the document
+  layer rebuilds the sparse logits of the logits files and the ALTO
+  output.  A transformer (the native pre-LN ``TransformerOCR`` or the
+  reference's post-LN ``RefTransformerOCR``) decodes greedily with its
+  KV cache, each decode shape one CUDA graph on the card; its labels are
+  the tokens and its confidence the least chosen-token probability.
+  Copies to the host trail their dispatch by one batch.
 
 The next batch's host prep, upload and stage A run on a worker thread
 while this thread parses and recognizes the current batch.  Page
 transport decodes all T frames of every crop (no width mask), as the
 JAX page transport does.
 
-Not ported yet (each raises ``ValueError`` naming its ROADMAP item): the
-crop transport, the device mesh, transformer recognizers and ``prime``.
+The crop transport (``transport="crops"``: the page never reaches the
+device, the host warps the line crops) is
+:class:`~pero_ocr_tpu_torch.parallel.crop_transport.CropTransport`.  The
+device mesh is not ported (``ValueError`` naming its ROADMAP item).
 :mod:`pero_ocr_tpu_torch.document.fast_pipeline` turns the
 :class:`PageResult` stream into Page XML.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator, List, Optional
 
@@ -46,18 +56,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pero_ocr_tpu_torch import (
-    CROP_TRANSPORT, SCALE_OUT, TRANSFORMERS, not_ported, resolve_device,
-)
+from pero_ocr_tpu_torch import SCALE_OUT, not_ported, resolve_device
 from pero_ocr_tpu_torch.core import line_geometry
 from pero_ocr_tpu_torch.layout_engines import helpers
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import ParagraphClusterer, postprocess_maps
+from pero_ocr_tpu_torch.models import transformer as native_transformer
+from pero_ocr_tpu_torch.models import transformer_ref
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer
 from pero_ocr_tpu_torch.ops import ctc as ctc_ops
 from pero_ocr_tpu_torch.ops.morphology import connected_components
 from pero_ocr_tpu_torch.ops.warp import warp_lines
+from pero_ocr_tpu_torch.parallel.crop_transport import CropTransport, StageAArtifacts, unpack_bits
 from pero_ocr_tpu_torch.utils import native as native_lib
+from pero_ocr_tpu_torch.utils.graphs import capture
 from pero_ocr_tpu_torch.utils.timing import stage_timer
+
+GRAPH_CACHE = 16  # stage B's transformer decode shapes kept as CUDA graphs
 
 
 @dataclasses.dataclass
@@ -80,8 +94,8 @@ class PageResult:
     textlines: Optional[List[np.ndarray]] = None
 
 
-class TorchPagePipeline:
-    """Two-stage page pipeline over one device (page transport)."""
+class TorchPagePipeline(CropTransport):
+    """Two-stage page pipeline over one device, page or crop transport."""
 
     BASELINE_POINTS = 16
     VERTICAL_CONNECTION_RANGE = 5
@@ -113,33 +127,74 @@ class TorchPagePipeline:
         paragraph_line_threshold: float = 0.3,
         want_logits: bool = False,
         logits_topk: int = 8,
+        trim_crops: bool = True,
+        dither_2bit: bool = False,
+        override_inflight: int = 2,
+        canvas_bits: Optional[int] = None,
         mesh=None,
         device=None,
         native: Optional[bool] = None,
     ):
-        """``parsenet``/``recognizer``: :class:`ParseNet` and
-        :class:`CTCRecognizer` modules, moved to ``device`` in place.
+        """``parsenet``: a :class:`ParseNet`, or None for a recognize-only
+        pipeline (``run(..., skip_stage_a=True)``); ``recognizer``: a
+        :class:`CTCRecognizer`, :class:`TransformerOCR` or
+        :class:`RefTransformerOCR`; both moved to ``device`` in place.
         ``device``: None means CUDA (raises when absent); pass "cpu" for
-        the plain-PyTorch CPU path.  ``native``: the host geometry in the
-        port's C++ (True) or in numpy/scipy (False); None follows
-        ``device`` (:func:`~pero_ocr_tpu_torch.utils.native.use_native`).
-        The other arguments mean what they mean for ``TPUPagePipeline``."""
-        if transport != "page":
-            raise not_ported(f"transport={transport!r}", CROP_TRANSPORT)
+        the plain-PyTorch CPU path.  ``native``: the host geometry and
+        the crop transport's line warp in the port's C++ (True) or in
+        numpy/scipy (False); None follows ``device``
+        (:func:`~pero_ocr_tpu_torch.utils.native.use_native`).  The
+        other arguments mean what they mean for ``TPUPagePipeline``,
+        with its checks and messages."""
+        if transport not in ("page", "crops"):
+            raise ValueError("transport must be 'page' or 'crops'")
+        if transport_bits not in ((2, 4, 8) if transport == "crops" else (4, 8)):
+            raise ValueError(
+                f"transport_bits={transport_bits} invalid for "
+                f"transport='{transport}' (2-bit is crops-only)"
+            )
+        if canvas_bits is not None:
+            if transport != "crops":
+                raise ValueError("canvas_bits requires transport='crops'")
+            if canvas_bits not in (8, 4, 2):
+                raise ValueError(f"canvas_bits={canvas_bits} invalid")
         if mesh is not None:
             raise not_ported("mesh", SCALE_OUT)
-        if not isinstance(recognizer, CTCRecognizer):
-            raise not_ported(
-                f"recognizer {type(recognizer).__name__}", TRANSFORMERS
+        self.is_ref_transformer = isinstance(recognizer, transformer_ref.RefTransformerOCR)
+        self.is_transformer = self.is_ref_transformer or isinstance(
+            recognizer, native_transformer.TransformerOCR)
+        if not self.is_transformer and not isinstance(recognizer, CTCRecognizer):
+            raise ValueError(f"recognizer {type(recognizer).__name__} is neither a "
+                             "CTCRecognizer nor a transformer")
+        if want_logits and self.is_transformer:
+            raise ValueError(
+                "want_logits requires a CTC recognizer (AR transformer "
+                "outputs are incompatible with CTC logits, reference: "
+                "user_scripts/parse_folder.py:274-280)"
             )
-        if transport_bits not in (4, 8):
-            raise ValueError(f"transport_bits={transport_bits} invalid for the page transport")
+        spec = recognizer.spec
+        if self.is_ref_transformer:
+            # Padded steps emit the boundary id; the argmax reaches the
+            # ignore id at most.
+            self.recognizer_max_label = spec.num_symbols - 1
+        elif self.is_transformer:
+            self.recognizer_max_label = spec.num_classes + 1  # the EOS pad
+        else:
+            self.recognizer_max_label = spec.num_classes - 1
+        # Crops reach the recognizer as v / 255: in its dtype for CTC,
+        # float32 for the transformers (their encoders cast).
+        self.crop_dtype = torch.float32 if self.is_transformer else spec.dtype
+        self.transport = transport
+        self.transport_bits = transport_bits
+        self.canvas_bits = (canvas_bits if canvas_bits is not None
+                            else (4 if transport_bits in (2, 4) else 8))
+        self.trim_crops = trim_crops and transport == "crops"
+        self.dither_2bit = dither_2bit
         self.device = resolve_device(device)
         self.native = native_lib.use_native(native, self.device)
-        self.parsenet = parsenet.to(self.device).eval()
+        self.parsenet = None if parsenet is None else parsenet.to(self.device).eval()
         self.recognizer = recognizer.to(self.device).eval()
-        self.map_upsample = parsenet.out_upsample
-        self.transport_bits = transport_bits
+        self.map_upsample = 1 if parsenet is None else parsenet.out_upsample
         self.height_scale = height_scale
         self.downsample = downsample
         self.adaptive_downsample = adaptive_downsample
@@ -150,13 +205,23 @@ class TorchPagePipeline:
         self.crop_bucket = crop_bucket
         self.max_lines = max_lines
         self.line_slot = line_slot if max_lines is None else min(line_slot, max_lines)
+        # Label copies of the lines-override crop loop trail their
+        # dispatch by this many batches; the detection loop recognizes a
+        # batch crop_lag batches after its stage A.
+        self.override_inflight = max(1, int(override_inflight))
+        self.crop_lag = 2
         self.cluster_paragraphs = cluster_paragraphs
         self.want_logits = want_logits
         self.logits_topk = logits_topk
         self._clusterer = ParagraphClusterer(paragraph_line_threshold, self.native)
-
-    def prime(self, pages, page_batch: int = 8) -> None:
-        raise not_ported("prime()", CROP_TRANSPORT)
+        self._255 = torch.tensor(255.0, device=self.device)
+        # Stage B's transformer decodes as CUDA graphs, (memory shape,
+        # steps) -> (static memory, graph, outputs), least recently used
+        # first.  A capture holds the device lock, which the page
+        # transport's upload worker takes around its device work.
+        self._graphs: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+        self.graph_capture_seconds = 0.0
+        self._device_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     # Device stages
@@ -207,24 +272,30 @@ class TorchPagePipeline:
         (PB, N, 2) -> (labels (PB, N, T), lengths (PB, N), confidences
         (PB, N), top-k logits (PB, N, T, K) float16 and their indices
         (PB, N, T, K) int32, or None and None without ``want_logits``).
-        The warp stores the crops divided by 255 in the
-        recognizer's dtype."""
+        The warp stores the crops divided by 255 in ``crop_dtype``."""
         crops = warp_lines(
             pages_u8, baselines, heights, self.crop_height, self.crop_bucket,
-            out_dtype=self.recognizer.spec.dtype, normalize=True,
+            out_dtype=self.crop_dtype, normalize=True,
         )
         return self.stage_b_recognize(crops, baselines.shape[0])
 
     @torch.no_grad()
-    def stage_b_recognize(self, crops: torch.Tensor, pb: int):
-        """crops: (PB * N, crop_h, bucket) line images already in [0, 1]
-        and in the recognizer's dtype (``warp_lines(normalize=True)``),
-        so the recognizer's cast is a no-op and no copy is made."""
+    def stage_b_recognize(self, crops: torch.Tensor, pb: int, widths=None):
+        """crops: (PB * N, crop_h, W) line images already in [0, 1] and
+        in ``crop_dtype``, so the recognizer's cast is a no-op.
+        ``widths`` ((PB * N,) crop widths in pixels, the crop transport's):
+        CTC decodes each line's valid frames only, ceil(width /
+        subsampling) of them; None decodes every frame."""
         images = crops[..., None].expand(-1, -1, -1, 3)
+        if self.is_transformer:
+            return self._transformer_recognize(images, pb)
         logits = self.recognizer(images)
-        valid = torch.full(
-            (crops.shape[0],), logits.shape[1], dtype=torch.int32, device=crops.device
-        )
+        t = logits.shape[1]
+        if widths is None:
+            valid = torch.full((crops.shape[0],), t, dtype=torch.int32, device=crops.device)
+        else:
+            sub = max(1, crops.shape[2] // t)
+            valid = ((widths + sub - 1) // sub).clamp(0, t).to(torch.int32)
         labels, lengths = ctc_ops.greedy_ctc_labels(logits, valid)
         confs = ctc_ops.greedy_worst_run_confidence(logits, valid)
         n = crops.shape[0] // pb
@@ -241,14 +312,67 @@ class TorchPagePipeline:
         return (labels.reshape(pb, n, -1), lengths.reshape(pb, n), confs.reshape(pb, n),
                 vals, idx)
 
+    def _transformer_recognize(self, images: torch.Tensor, pb: int):
+        """The transformer branch of stage B: the encoder, then
+        ``dec_len`` = max(8, min(crop_bucket // 4, the model's cap))
+        greedy KV-cached steps (the reference model: tokens to its first
+        boundary, confidence the least softmax probability of a chosen
+        token over those steps; the native model: ``greedy_decode``'s
+        tokens, lengths and confidences).  On CUDA each (memory shape,
+        steps) decode is one CUDA graph, at most GRAPH_CACHE kept."""
+        spec = self.recognizer.spec
+        cap = spec.max_seq_len - 1 if self.is_ref_transformer else spec.max_decode_len
+        dec_len = max(8, min(self.crop_bucket // 4, cap))
+        memory = self.recognizer.encode(images)
+        if memory.device.type == "cuda":
+            tokens, lengths, confs = (t.clone() for t in self._graphed_decode(memory, dec_len))
+        else:
+            tokens, lengths, confs = self._decode_from_memory(memory, dec_len)
+        n = images.shape[0] // pb
+        return (tokens.reshape(pb, n, -1), lengths.reshape(pb, n), confs.reshape(pb, n),
+                None, None)
+
+    def _decode_from_memory(self, memory: torch.Tensor, dec_len: int):
+        """(tokens int32, lengths int32, confidences float32) a line."""
+        if self.is_ref_transformer:
+            tokens, lengths, logits = transformer_ref.greedy_ref_from_memory(
+                self.recognizer, memory, dec_len)
+            chosen = torch.gather(torch.softmax(logits, dim=-1), 2, tokens[..., None])[..., 0]
+            emitted = torch.arange(dec_len, device=memory.device)[None, :] < lengths[:, None]
+            confs = torch.where(emitted, chosen, 1.0).amin(dim=1)
+        else:
+            tokens, lengths, confs = native_transformer.greedy_from_memory(
+                self.recognizer, memory, dec_len)[:3]
+        return tokens.to(torch.int32), lengths.to(torch.int32), confs.float()
+
+    def _graphed_decode(self, memory: torch.Tensor, dec_len: int):
+        """``_decode_from_memory`` replayed from a CUDA graph of its
+        shape; the outputs are the graph's, overwritten by its next
+        replay."""
+        key = (tuple(memory.shape), memory.dtype, dec_len)
+        entry = self._graphs.pop(key, None)
+        if entry is None:
+            if len(self._graphs) >= GRAPH_CACHE:
+                del self._graphs[next(iter(self._graphs))]
+            t0 = time.perf_counter()
+            static = memory.clone()
+            with self._device_lock:
+                graph, out = capture(lambda: self._decode_from_memory(static, dec_len),
+                                     memory.device, "stage B's transformer decode")
+            self.graph_capture_seconds += time.perf_counter() - t0
+            entry = (static, graph, out)
+        self._graphs[key] = entry  # the most recently used last
+        static, graph, out = entry
+        static.copy_(memory)
+        graph.replay()
+        return out
+
     @staticmethod
     def unpack4(packed_u8: torch.Tensor) -> torch.Tensor:
-        """(PB, H, W/2) nibble pairs -> (PB, H, W) uint8; q*17 maps
-        0..15 back onto 0..255 exactly at the endpoints."""
-        hi = (packed_u8 >> 4) * 17
-        lo = (packed_u8 & 0xF) * 17
-        pb, h, w2 = packed_u8.shape
-        return torch.stack([hi, lo], dim=-1).reshape(pb, h, w2 * 2)
+        """(..., W/2) nibble pairs -> (..., W) uint8; q*17 maps 0..15
+        back onto 0..255 exactly at the endpoints."""
+        return unpack_bits(packed_u8, 4)
+
 
     # ------------------------------------------------------------------
     # Host helpers
@@ -413,15 +537,29 @@ class TorchPagePipeline:
     def _batch_lines(self, pages, ids, lines_override, masks, ds=None):
         """Per-page (baselines, heights, clusters, textlines) for one
         batch and the padded slot count: the densest page rounded up to a
-        line_slot multiple.  Paragraph clustering belongs to the CNN
-        layout parse: override lines get (None, None)."""
-        baselines_masks, connecteds, heights_maps, sep_pooled = masks
-        sep_pool = baselines_masks.shape[1] // sep_pooled.shape[1]
+        line_slot multiple.  ``masks``: ``_unpack_stage_a``'s maps, or
+        the crop transport's :class:`StageAArtifacts`, whose packed mask
+        is parsed directly (a page past the component budget, and the
+        rest of the batch, from the unpacked maps).  Paragraph clustering
+        belongs to the CNN layout parse: override lines get (None,
+        None)."""
+        arts = masks if isinstance(masks, StageAArtifacts) else None
+        if arts is not None:
+            sep_pooled, sep_pool = arts.sep_pooled
+        elif masks is not None:
+            baselines_masks, connecteds, heights_maps, sep_pooled = masks
+            sep_pool = baselines_masks.shape[1] // sep_pooled.shape[1]
         page_lines = []
         for slot, i in enumerate(ids):
             if lines_override is None:
                 with stage_timer("pipeline/cc_parse"):
-                    b_list, h_list = self._lines_from_masks(
+                    got = None if arts is None else self._lines_from_packed(
+                        arts.packed[slot], arts.heights_q[slot], ds)
+                    if arts is not None and got is None:
+                        baselines_masks, connecteds, heights_maps, sep_pooled = arts.unpacked
+                        sep_pool = baselines_masks.shape[1] // sep_pooled.shape[1]
+                        arts = None
+                    b_list, h_list = got if got is not None else self._lines_from_masks(
                         baselines_masks[slot], connecteds[slot], heights_maps[slot], ds
                     )
             elif callable(lines_override):
@@ -462,13 +600,16 @@ class TorchPagePipeline:
         pages: Iterable[np.ndarray],
         lines_override=None,
         page_batch: int = 4,
+        skip_stage_a: bool = False,
     ) -> Iterator[PageResult]:
         """Process pages ``page_batch`` at a time; yields one
         :class:`PageResult` per page, in page order.
 
         ``lines_override`` replaces the CNN line detection: a callable
         ``page -> (baselines, heights)`` or a sequence of such pairs
-        aligned with ``pages``.  Stage A still runs."""
+        aligned with ``pages``.  Stage A still runs, unless
+        ``skip_stage_a`` (crop transport with an override only: the
+        re-OCR of given lines, where the crops are the only upload)."""
         pages = list(pages)
         if not pages:
             return
@@ -479,7 +620,17 @@ class TorchPagePipeline:
                     f"lines_override sequence length {len(lines_override)} != "
                     f"number of pages {len(pages)}"
                 )
-        yield from self._run_page(pages, lines_override, page_batch)
+        if skip_stage_a and (self.transport != "crops" or lines_override is None):
+            raise ValueError(
+                "skip_stage_a requires transport='crops' and a "
+                "lines_override (there is no other line source)"
+            )
+        if self.transport == "crops" and lines_override is not None:
+            yield from self._run_crops_override(pages, lines_override, page_batch, skip_stage_a)
+        elif self.transport == "crops":
+            yield from self._run_crops(pages, page_batch)
+        else:
+            yield from self._run_page(pages, lines_override, page_batch)
 
     def _upload(self, grays: np.ndarray) -> torch.Tensor:
         if self.transport_bits == 4:
@@ -498,8 +649,10 @@ class TorchPagePipeline:
             ids = batches[batch_idx]
             # Pad the last batch by repeating its last page.
             padded = ids + [ids[-1]] * (page_batch - len(ids))
-            stack = self._upload(self._stack_grays(self._gray(pages[i]) for i in padded))
-            return stack, self.stage_a(stack, ds0), ds0
+            grays = self._stack_grays(self._gray(pages[i]) for i in padded)
+            with self._device_lock:
+                stack = self._upload(grays)
+                return stack, self.stage_a(stack, ds0), ds0
 
         # The next batch's prep, upload and stage A run on a worker
         # thread while this thread syncs and parses the current batch.

@@ -2,7 +2,10 @@
 
     python3 -m pero_ocr_tpu_torch.scripts.parse_folder \\
         -c config.ini -i images/ --output-xml-path page_xml/ [--fast-pipeline] \\
-        [--output-logit-path logits/] [--output-alto-path alto/]
+        [--transport crops] [--output-logit-path logits/] [--output-alto-path alto/]
+    python3 -m pero_ocr_tpu_torch.scripts.parse_folder \\
+        -c ocr_only.ini -i images/ -x page_xml_in/ [--input-logit-path logits/] \\
+        --output-xml-path page_xml/ [--fast-pipeline]
 
 It reads the config and its OCR JSON, loads the flax msgpack checkpoints
 (or a reference transformer's torch ``.pt``) they name into the port's
@@ -18,19 +21,32 @@ lines then go through the beam search with the character LM; with
 and ``--timing-report`` lists its ``ocr/encode`` and ``ocr/decode``
 times), with the next page decoded on a worker thread, and a page that fails is reported and skipped, as
 the JAX command line's ``Computator`` does.  With ``--fast-pipeline``
-the page batches go through ``FastPagePipeline.process_pages`` (stage B
-warps the lines with the fused CUDA kernel); a config that the fast path
+the page batches go through ``FastPagePipeline.process_pages``: on the
+page transport stage B warps the lines with the fused CUDA kernel; with
+``--transport crops`` the host warps them and only the crops and a
+small layout canvas reach the card (``--transport-bits 2`` and
+``--canvas-bits`` pack them further).  A config that the fast path
 would run differently (``FastPagePipeline.unsupported_features``) falls
 back to the stage-by-stage path, as in the JAX command line.
+
+``-x`` re-OCRs existing Page XML: stage by stage each page's layout is
+read from its XML (and with ``--input-logit-path`` its lines' logits
+from its ``.logits`` file, which a config with ``RUN_DECODER`` and no
+OCR decodes) before ``process_page``, as the JAX ``Computator`` does;
+with ``--fast-pipeline`` and a config without layout stages the lines go
+through ``FastPagePipeline.process_existing_layouts`` (the crop
+transport's recognize-only loop), else the run falls back to the
+stage-by-stage path.  Without ``-i`` the pages are the XML files'.
 ``--device cpu`` runs the plain PyTorch versions instead.  The host
 geometry (connected components, paragraph clustering, the fast path's
 parse) and the ALTO output's forced alignment follow the device too: the
 port's C++ on CUDA, numpy/scipy on the CPU.
 
 Options and config features the port lacks exit with code 2 and name
-their ROADMAP item, rather than change what the run means.  The JAX
-command line's ``prime`` (decoding the first batch, then starting its
-host prep while the rest decode) only overlaps work and is left out.
+their ROADMAP item, rather than change what the run means: line crops
+and renders (``--output-line-path``, ``--output-render-path``: JPEG
+files; the line crops' LMDB store also needs the lmdb package),
+``--dp``, ``--profile`` and ``--process-count``.
 """
 
 from __future__ import annotations
@@ -47,9 +63,7 @@ import traceback
 from queue import Queue
 from typing import List, Optional, Set
 
-from pero_ocr_tpu_torch import (
-    CROP_TRANSPORT, IMAGES, SCALE_OUT, STAGE_BY_STAGE, not_ported, resolve_device,
-)
+from pero_ocr_tpu_torch import IMAGES, SCALE_OUT, STAGE_BY_STAGE, not_ported, resolve_device
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
 from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor, PageParser
@@ -89,13 +103,19 @@ def parse_arguments(argv=None):
     parser.add_argument("--timing-report", action="store_true",
                         help="Print per-stage timing table at the end.")
     parser.add_argument("--fast-pipeline", action="store_true",
-                        help="Device-resident batched pipeline (page transport); "
-                             "without it, pages run stage by stage.")
+                        help="Device-resident batched pipeline; without it, pages run "
+                             "stage by stage.")
     parser.add_argument("--transport-bits", type=int, choices=[2, 4, 8], default=4,
-                        help="Upload depth: 4 packs two pixels per byte, 8 sends raw "
-                             "grayscale; 2 needs the crop transport.")
-    parser.add_argument("--canvas-bits", type=int, choices=[2, 4, 8], default=None)
-    parser.add_argument("--transport", choices=["page", "crops"], default="page")
+                        help="Fast-pipeline upload depth: 4 packs two pixels per byte, 8 "
+                             "sends raw grayscale; 2 (crop transport only) packs four "
+                             "crop pixels per byte while the layout canvas stays 4-bit.")
+    parser.add_argument("--canvas-bits", type=int, choices=[2, 4, 8], default=None,
+                        help="Fast-pipeline layout-canvas packing (crop transport only); "
+                             "the default follows --transport-bits.")
+    parser.add_argument("--transport", choices=["page", "crops"], default="page",
+                        help="Fast-pipeline transport: 'page' uploads the pages and warps "
+                             "the lines on the card; 'crops' uploads a small layout "
+                             "canvas and the lines warped on the host.")
     parser.add_argument("--dp", type=int, default=0, metavar="N")
     parser.add_argument("--process-count", type=int, default=1)
     parser.add_argument("--shard-index", type=int, default=0,
@@ -158,14 +178,12 @@ def refusals(args, paths) -> List[str]:
     """What this run asks for that the port lacks, each with its ROADMAP
     item.  ``paths``: the PARSE_FOLDER paths after the command line's
     overrides."""
+    line_path = paths["OUTPUT_LINE_PATH"]
     asked = [
-        (paths["INPUT_XML_PATH"], "-x/--input-xml-path (re-OCR of existing layouts)",
-         CROP_TRANSPORT),
-        (paths["OUTPUT_LINE_PATH"], "--output-line-path (line crops)", CROP_TRANSPORT),
+        (line_path and "lmdb" in line_path,
+         "--output-line-path into an LMDB store (the lmdb package, and JPEG encoding)", IMAGES),
+        (line_path and "lmdb" not in line_path, "--output-line-path (JPEG line crops)", IMAGES),
         (paths["OUTPUT_RENDER_PATH"], "--output-render-path (JPEG renders)", IMAGES),
-        (args.transport == "crops", "--transport crops", CROP_TRANSPORT),
-        (args.transport_bits == 2, "--transport-bits 2", CROP_TRANSPORT),
-        (args.canvas_bits is not None, "--canvas-bits", CROP_TRANSPORT),
         (args.dp > 1, "--dp", SCALE_OUT),
         (args.profile, "--profile (a torch.profiler trace)", SCALE_OUT),
         (args.process_count > 1, "--process-count", STAGE_BY_STAGE),
@@ -224,9 +242,13 @@ def main(argv=None) -> None:
         refuse([str(not_ported(f"[LAYOUT_PARSER] {', '.join(unported)}", STAGE_BY_STAGE))])
     output_logit_path = paths["OUTPUT_LOGIT_PATH"]
     output_alto_path = paths["OUTPUT_ALTO_PATH"]
+    input_image_path = paths["INPUT_IMAGE_PATH"]
+    input_xml_path = paths["INPUT_XML_PATH"]
+    input_logit_path = paths["INPUT_LOGIT_PATH"]
+    output_xml_path = paths["OUTPUT_XML_PATH"]
     # No CTC logits, no ALTO or logits files (the JAX command line's
-    # preflight).
-    if not page_parser.provides_ctc_logits and output_alto_path:
+    # preflight); stored logits can make the ALTO.
+    if not page_parser.provides_ctc_logits and not input_logit_path and output_alto_path:
         logging.error("Cannot create ALTO with current PageParser "
                       "(transformer outputs are incompatible)")
         sys.exit(2)
@@ -235,35 +257,52 @@ def main(argv=None) -> None:
                       "(transformer outputs are incompatible)")
         sys.exit(2)
     fast_pipeline = args.fast_pipeline
+    # Re-OCR of input XML with no layout stages: the recognize-only fast
+    # path; with layout stages they must re-run on the input layout, so
+    # the run goes stage by stage.
+    fast_reocr = input_xml_path is not None and not page_parser.layout_parsers
     if fast_pipeline:
         unsupported = FastPagePipeline.unsupported_features(page_parser)
+        if input_xml_path is not None and not fast_reocr:
+            unsupported.append("INPUT_XML_PATH with layout stages (stages must re-run on the "
+                               "input layout)")
         if unsupported:
             logging.warning("--fast-pipeline does not support %s; falling back to the "
                             "stage-by-stage path.", ", ".join(unsupported))
             fast_pipeline = False
+    if fast_pipeline:
+        if args.transport_bits == 2 and args.transport != "crops":
+            logging.error("--transport-bits 2 requires --transport crops "
+                          "(the layout page never drops below 4-bit).")
+            sys.exit(2)
+        if args.canvas_bits is not None and args.transport != "crops":
+            logging.error("--canvas-bits requires --transport crops.")
+            sys.exit(2)
 
-    input_image_path = paths["INPUT_IMAGE_PATH"]
-    output_xml_path = paths["OUTPUT_XML_PATH"]
-    if paths["INPUT_LOGIT_PATH"] is not None:
+    if input_logit_path is not None and input_xml_path is None:
+        input_logit_path = None
         logger.warning("Logit path specified and Page XML path not specified. "
                        "Logits will be ignored.")
-    if input_image_path is None:
-        raise Exception(
-            "INPUT_IMAGE_PATH has to be specified (INPUT_XML_PATH needs the crop "
-            f"transport). It is missing in {config_path}."
-        )
     for path in (output_xml_path, output_logit_path, output_alto_path):
         if path is not None:
             os.makedirs(path, exist_ok=True)
     outputs = PageOutputs(output_xml_path, output_logit_path, output_alto_path,
                           native_lib.use_native(None, device))
 
-    ignored = {"", ".xml", ".logits"}
-    images_to_process = sorted(
-        f for f in os.listdir(input_image_path)
-        if os.path.splitext(f)[1].lower() not in ignored
-    )
-    ids_to_process = [os.path.splitext(f)[0] for f in images_to_process]
+    if input_image_path is not None:
+        ignored = {"", ".xml", ".logits"}
+        images_to_process = sorted(
+            f for f in os.listdir(input_image_path)
+            if os.path.splitext(f)[1].lower() not in ignored
+        )
+        ids_to_process = [os.path.splitext(f)[0] for f in images_to_process]
+    elif input_xml_path is not None:
+        xmls = sorted(f for f in os.listdir(input_xml_path) if os.path.splitext(f)[1] == ".xml")
+        images_to_process = [None] * len(xmls)
+        ids_to_process = [os.path.splitext(f)[0] for f in xmls]
+    else:
+        raise Exception("Either INPUT_IMAGE_PATH or INPUT_XML_PATH has to be specified. "
+                        f"Both are missing in {config_path}.")
     if args.shard_count > 1:
         ids_to_process, images_to_process = shard_file_lists(
             ids_to_process, images_to_process, args.shard_index, args.shard_count,
@@ -278,14 +317,19 @@ def main(argv=None) -> None:
                 img for fid, img in zip(ids_to_process, images_to_process) if fid not in done
             ]
             ids_to_process = [fid for fid in ids_to_process if fid not in done]
+    if input_xml_path and args.skipp_missing_xml:
+        kept = [(fid, img) for fid, img in zip(ids_to_process, images_to_process)
+                if os.path.exists(os.path.join(input_xml_path, fid + ".xml"))]
+        ids_to_process = [fid for fid, _ in kept]
+        images_to_process = [img for _, img in kept]
 
     t_start = time.time()
     if fast_pipeline:
         results = run_fast(page_parser, args, input_image_path, images_to_process,
-                           ids_to_process, outputs)
+                           ids_to_process, outputs, input_xml_path if fast_reocr else None)
     else:
         results = run_staged(page_parser, input_image_path, images_to_process,
-                             ids_to_process, outputs)
+                             ids_to_process, outputs, input_xml_path, input_logit_path)
 
     if args.output_transcriptions_file_path is not None:
         with open(args.output_transcriptions_file_path, "w", encoding="utf-8") as f:
@@ -331,22 +375,44 @@ class PageOutputs:
 
 
 def run_fast(page_parser, args, input_image_path, images_to_process, ids_to_process,
-             outputs: PageOutputs) -> List[List[str]]:
-    """The ``--fast-pipeline`` loop: decode every page, then stream the
-    page batches through ``FastPagePipeline``.  Returns each page's
-    transcription lines."""
+             outputs: PageOutputs, input_xml_path: Optional[str] = None) -> List[List[str]]:
+    """The ``--fast-pipeline`` loop: decode the first page batch, start
+    its host prep (the crop transport's ``prime``), decode the rest, then
+    stream the page batches through ``FastPagePipeline``.  With
+    ``input_xml_path`` (a config without layout stages) the pages' input
+    layouts are re-OCRed instead.  Returns each page's transcription
+    lines."""
+    if input_image_path is None:
+        raise ValueError("--fast-pipeline reads the pages from INPUT_IMAGE_PATH (-i)")
     with stage_timer("cli/build"):
         fast = FastPagePipeline.from_page_parser(
             page_parser, transport_bits=args.transport_bits, page_batch=PAGE_BATCH,
-            want_logits=outputs.want_logits,
+            want_logits=outputs.want_logits, transport=args.transport,
+            canvas_bits=args.canvas_bits, reocr=input_xml_path is not None,
         )
+    def decode(names):
+        pages = []
+        for f in names:
+            with stage_timer("cli/decode"):
+                pages.append(imread(os.path.join(input_image_path, f)))
+        return pages
+
     results = []
     with stage_timer("cli/pages"):
-        images = []
-        for f in images_to_process:
-            with stage_timer("cli/decode"):
-                images.append(imread(os.path.join(input_image_path, f)))
-        for layout in fast.process_pages(images, ids_to_process):
+        images = decode(images_to_process[: fast.page_batch])
+        if input_xml_path is None:
+            fast.prime(images)
+        images += decode(images_to_process[fast.page_batch:])
+        if input_xml_path is not None:
+            layouts = []
+            for fid in ids_to_process:
+                layout = PageLayout(file=os.path.join(input_xml_path, fid + ".xml"))
+                layout.id = fid  # the outputs are named by the file id
+                layouts.append(layout)
+            stream = fast.process_existing_layouts(images, layouts)
+        else:
+            stream = fast.process_pages(images, ids_to_process)
+        for layout in stream:
             outputs.write(layout, layout.id)
             results.append([
                 f"{layout.id}-{line.id}.jpg {line.transcription}"
@@ -359,9 +425,9 @@ def run_fast(page_parser, args, input_image_path, images_to_process, ids_to_proc
 class ImagePrefetcher:
     """Decodes the next pages on a worker thread while the current one
     is processed; a page that fails to decode is handed on as its
-    exception."""
+    exception, a page without an image file as None."""
 
-    def __init__(self, image_dir: str, file_names: List[str]):
+    def __init__(self, image_dir: Optional[str], file_names: List[Optional[str]]):
         self.image_dir = image_dir
         self.queue: Queue = Queue(maxsize=2)
         self.thread = threading.Thread(target=self._worker, args=(file_names,), daemon=True)
@@ -369,6 +435,9 @@ class ImagePrefetcher:
 
     def _worker(self, file_names):
         for name in file_names:
+            if name is None or self.image_dir is None:
+                self.queue.put(None)
+                continue
             try:
                 with stage_timer("cli/decode"):
                     self.queue.put(imread(os.path.join(self.image_dir, name)))
@@ -380,17 +449,25 @@ class ImagePrefetcher:
 
 
 def process_one(page_parser, image, file_id: str, index: int, count: int,
-                outputs: PageOutputs) -> List[str]:
+                outputs: PageOutputs, input_xml_path: Optional[str] = None,
+                input_logit_path: Optional[str] = None) -> List[str]:
     """One page through ``PageParser.process_page`` and into its files
-    (the JAX ``Computator``): a failure is printed and the page skipped.
-    Returns the page's transcription lines."""
+    (the JAX ``Computator``): the layout from ``input_xml_path``'s
+    ``<file_id>.xml`` when given, the lines' logits from
+    ``input_logit_path``'s ``<file_id>.logits``; a failure is printed
+    and the page skipped.  Returns the page's transcription lines."""
     print(f"Processing {file_id}")
     t1 = time.time()
     annotations = []
     try:
         if isinstance(image, Exception):
             raise image
-        page_layout = PageLayout(id=file_id, page_size=(image.shape[0], image.shape[1]))
+        if input_xml_path:
+            page_layout = PageLayout(file=os.path.join(input_xml_path, file_id + ".xml"))
+        else:
+            page_layout = PageLayout(id=file_id, page_size=(image.shape[0], image.shape[1]))
+        if input_logit_path is not None:
+            page_layout.load_logits(os.path.join(input_logit_path, file_id + ".logits"))
         page_layout = page_parser.process_page(image, page_layout)
         outputs.write(page_layout, file_id)
         for line in sorted(page_layout.lines_iterator(), key=lambda x: x.id):
@@ -411,7 +488,8 @@ def process_one(page_parser, image, file_id: str, index: int, count: int,
 
 
 def run_staged(page_parser, input_image_path, images_to_process, ids_to_process,
-               outputs: PageOutputs) -> List[List[str]]:
+               outputs: PageOutputs, input_xml_path: Optional[str] = None,
+               input_logit_path: Optional[str] = None) -> List[List[str]]:
     """The stage-by-stage loop: one page at a time, the next decoded on
     a worker thread.  Returns each page's transcription lines."""
     results = []
@@ -419,7 +497,8 @@ def run_staged(page_parser, input_image_path, images_to_process, ids_to_process,
         prefetcher = ImagePrefetcher(input_image_path, images_to_process)
         for index, file_id in enumerate(ids_to_process):
             results.append(process_one(page_parser, prefetcher.get(), file_id, index,
-                                       len(ids_to_process), outputs))
+                                       len(ids_to_process), outputs, input_xml_path,
+                                       input_logit_path))
     return results
 
 

@@ -1,6 +1,6 @@
 """ctypes bindings of the port's host C++ (``csrc/perotpu.cpp``), the
 counterpart of the JAX package's ``pero_ocr_tpu/utils/native.py`` for
-the five functions config 2's paths run, the forced alignment of
+the six functions config 2's paths run, the forced alignment of
 config 5's ALTO output (``viterbi_ctc_f32``) and the edit distance that
 stitches config 4's over-wide transformer lines (``levenshtein_i32``).
 
@@ -12,9 +12,10 @@ the C++'s own: ``native_cc_lines_packed`` past ``max_comps`` components.
 
 The page transport and the stage-by-stage layout run the labeling, the
 component lines, the penalties and the pair tests, as the JAX page
-transport and layout engine do.  ``native_cc_lines_packed`` is the JAX
-crop transport's parse of the packed mask; the port's page transport,
-like the JAX one, labels the unpacked mask instead.
+transport and layout engine do.  The crop transport parses the packed
+mask (``native_cc_lines_packed``) and warps its straight lines on the
+host (``native_warp_affine_lines``), as the JAX crop transport does;
+the page transport, like the JAX one, labels the unpacked mask.
 
 Which route a caller takes: :func:`use_native`.  :data:`calls` counts
 each C++ function's calls.
@@ -61,7 +62,14 @@ _SIGNATURES = {  # name: (restype, argtypes), as in csrc/perotpu.cpp
         ctypes.POINTER(_F32), _I32, _I32, ctypes.POINTER(_U8), ctypes.POINTER(_I32),
     ]),
     "levenshtein_i32": (_I32, [ctypes.POINTER(_I32), _I32, ctypes.POINTER(_I32), _I32]),
+    "warp_affine_avx2": (_I32, []),
 }
+_WARP_AFFINE_ARGS = [
+    ctypes.POINTER(_U8), _I32, _I32, ctypes.POINTER(_F64), ctypes.POINTER(_I32), _I32, _I32,
+    ctypes.POINTER(_U8), ctypes.POINTER(_I64), _I64, _I64,
+]
+_SIGNATURES["warp_affine_lines_u8"] = (None, _WARP_AFFINE_ARGS)
+_SIGNATURES["warp_affine_lines_u8_scalar"] = (None, _WARP_AFFINE_ARGS)
 
 
 def use_native(native: Optional[bool], device) -> bool:
@@ -239,6 +247,45 @@ def native_viterbi_ctc(neg_logprobs_states: np.ndarray, skip_ok: np.ndarray) -> 
             "best path has cost of np.inf"
         )
     return path
+
+
+def native_warp_affine_lines(gray: np.ndarray, mats: np.ndarray, widths: np.ndarray,
+                             crop_h: int, out: np.ndarray, offsets: np.ndarray,
+                             stride_col: int, stride_row: int, scalar: bool = False) -> bool:
+    """Straight lines of one (h, w) uint8 gray page warped by their (N, 2,
+    3) inverse-affine matrices into ``out`` (``warp_affine_lines_u8``):
+    line n's pixel (row y, column x < widths[n]) lands at
+    ``out.flat[offsets[n] + x * stride_col + y * stride_row]``.  Returns
+    True, as the JAX binding does when its library is there.  The C++
+    runs its AVX2 body where the host has one (:func:`warp_affine_avx2`);
+    ``scalar`` forces the scalar body, which the numpy twin
+    (:func:`~pero_ocr_tpu_torch.parallel.crop_transport.warp_affine_lines`)
+    equals."""
+    lib = get_library()
+    calls["warp_affine_lines_u8"] += 1
+    gray = np.ascontiguousarray(gray, dtype=np.uint8)
+    mats = np.ascontiguousarray(mats, dtype=np.float64).reshape(-1, 2, 3)
+    widths = np.ascontiguousarray(widths, dtype=np.int32)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    if out.dtype != np.uint8 or not out.flags["C_CONTIGUOUS"] or gray.ndim != 2:
+        raise ValueError("warp_affine_lines: a 2-d gray page and a C-contiguous uint8 out")
+    n = len(widths)
+    if len(mats) != n or len(offsets) != n:
+        raise ValueError("warp_affine_lines: one matrix, width and offset a line")
+    if n and (widths.min() < 0 or offsets.min() < 0 or (offsets + (widths - 1).clip(0) * stride_col
+                                                        + (crop_h - 1) * stride_row).max()
+                                                       >= out.size):
+        raise ValueError("warp_affine_lines: a line's pixels fall outside out")
+    h, w = gray.shape
+    fn = lib.warp_affine_lines_u8_scalar if scalar else lib.warp_affine_lines_u8
+    fn(_ptr(gray, _U8), h, w, _ptr(mats, _F64), _ptr(widths, _I32), n, crop_h,
+       _ptr(out, _U8), _ptr(offsets, _I64), stride_col, stride_row)
+    return True
+
+
+def warp_affine_avx2() -> bool:
+    """Whether ``warp_affine_lines_u8`` runs its AVX2 body on this host."""
+    return bool(get_library().warp_affine_avx2())
 
 
 def native_levenshtein(a: Sequence[int], b: Sequence[int]) -> int:

@@ -2,7 +2,9 @@
 blocked (none of them is installed beside the card), every module of
 pero_ocr_tpu_torch and chip_smoke.py imports, a tiny CPU
 TorchPagePipeline runs through FastPagePipeline to Page XML that
-xml.etree parses, the command line turns a folder of PNG pages into Page
+xml.etree parses, and on the crop transport (2-bit, with CNN detection
+and skip_stage_a), the command line re-OCRs the Page XML it wrote
+(``-x``, fast and stage by stage), the command line turns a folder of PNG pages into Page
 XML files (a flax checkpoint written by the port's save_variables, a missing one
 with --allow-random-weights), with logits and ALTO files on both paths,
 config 1 (whole-page region, classical line detector) runs through the
@@ -57,6 +59,10 @@ lines = [([np.array([[10.0, 60.0], [150.0, 64.0]])], [[12.0, 4.0]])] * 3
 pipe = TorchPagePipeline(pn, rec, crop_height=16, crop_bucket=64, line_slot=4, device="cpu")
 override = list(pipe.run(pages, lines_override=lines, page_batch=2))
 cnn = list(pipe.run(pages, page_batch=2))
+crop_pipe = TorchPagePipeline(pn, rec, crop_height=16, crop_bucket=64, line_slot=4,
+                              device="cpu", transport="crops", transport_bits=2)
+crops = list(crop_pipe.run(pages, page_batch=2)) + list(
+    crop_pipe.run(pages, lines_override=lines, page_batch=2, skip_stage_a=True))
 chars = ["a", "&", "<", "ž", "'", "\u200b"]
 ids = ["p0", "p1", "p2"]
 xmls = [lay.to_pagexml_string()
@@ -102,6 +108,13 @@ cli_main(["-c", os.path.join(tmp, "config.ini"), "-i", os.path.join(tmp, "images
 cli_main(["-c", os.path.join(tmp, "config.ini"), "-i", os.path.join(tmp, "images"),
           "--output-xml-path", os.path.join(tmp, "xml_staged"), "--device", "cpu",
           "--allow-random-weights"])
+with open(os.path.join(tmp, "ocr_only.ini"), "w") as f:
+    f.write("[PAGE_PARSER]\nRUN_LINE_CROPPER = yes\nRUN_OCR = yes\n"
+            "[LINE_CROPPER]\nLINE_HEIGHT = 16\n[OCR]\nOCR_JSON = ocr.json\n")
+for flags, out in ((["--fast-pipeline", "--transport-bits", "2"], "reocr_fast"), ([], "reocr")):
+    cli_main(["-c", os.path.join(tmp, "ocr_only.ini"), "-i", os.path.join(tmp, "images"),
+              "-x", os.path.join(tmp, "xml"), "--output-xml-path", os.path.join(tmp, out),
+              "--device", "cpu", "--transport", "crops", "--allow-random-weights", *flags])
 for flag, out in (("--fast-pipeline", "fast"), ("--skip-processed", "staged")):
     cli_main(["-c", os.path.join(tmp, "config.ini"), "-i", os.path.join(tmp, "images"),
               "--output-logit-path", os.path.join(tmp, out + "_logits"), "--output-alto-path",
@@ -169,7 +182,7 @@ except RuntimeError as e:
     raised4 = str(e)
 outputs = {out: sorted(os.listdir(os.path.join(tmp, out)))
            for out in ("fast_logits", "fast_alto", "staged_logits", "staged_alto", "xml1", "alto1",
-                       "xml3", "xml4")}
+                       "xml3", "xml4", "reocr_fast", "reocr")}
 alto_ns = "{http://www.loc.gov/standards/alto/ns-v2#}"
 config1_lines = []
 for name in outputs["xml1"]:
@@ -188,6 +201,8 @@ print(json.dumps({
     "modules": modules,
     "override": [[r.page_index, r.labels.shape[0]] for r in override],
     "cnn_pages": [r.page_index for r in cnn],
+    "crops": [[r.page_index, str(r.labels.dtype) if r.labels is not None else None]
+              for r in crops],
     "xml": parsed,
     "raised": raised,
     "loaded": sorted(k for k in sys.modules
@@ -221,6 +236,10 @@ def test_port_runs_without_jax_and_host_libraries():
     assert got["outputs"]["xml1"] == got["outputs"]["alto1"] == ["c0.xml", "c1.xml"]
     assert got["outputs"]["xml3"] == [f"p{i}.xml" for i in range(3)]  # config 3, decoded
     assert got["outputs"]["xml4"] == [f"p{i}.xml" for i in range(3)]  # config 4, transformer
+    for out in ("reocr_fast", "reocr"):  # -x on the crop transport, and stage by stage
+        assert got["outputs"][out] == [f"p{i}.xml" for i in range(3)]
+    assert [c[0] for c in got["crops"]] == [0, 1, 2] * 2  # CNN, then skip_stage_a
+    assert got["crops"][3:] == [[i, "uint8"] for i in range(3)]
     assert got["engine4"] == ["TransformerEngineLineOCR", None, True]  # CUDA by default
     assert got["config1_lines"] == [5, 5]
     assert got["override"] == [[0, 4], [1, 4], [2, 4]]  # one slot of line_slot 4

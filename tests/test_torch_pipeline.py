@@ -295,28 +295,37 @@ def _page_xml_against_jax(models, case, native=None, stage_a=None):
 
 
 def test_unported_options_raise(models):
-    _, torch_models = models
+    """The mesh is the one option left unported; the other refusals are
+    the JAX pipeline's own checks, with its messages."""
+    (flax_pn, pn_vars, flax_rec, rec_vars), torch_models = models
     pn, rec = torch_models()
-    for kwargs, item in (({"transport": "crops"}, "Crop transport"),
-                         ({"mesh": object()}, "Training and scale-out")):
-        with pytest.raises(ValueError, match=item):
-            TorchPagePipeline(pn, rec, device="cpu", **kwargs)
-    with pytest.raises(ValueError, match="Transformer recognizers"):
+    with pytest.raises(ValueError, match="Training and scale-out"):
+        TorchPagePipeline(pn, rec, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="neither a CTCRecognizer nor a transformer"):
         TorchPagePipeline(pn, torch.nn.Linear(1, 1), device="cpu")
-    with pytest.raises(ValueError, match="Crop transport"):
-        TorchPagePipeline(pn, rec, device="cpu").prime([])
-    with pytest.raises(ValueError, match="lines_override sequence length"):
-        list(TorchPagePipeline(pn, rec, device="cpu").run([_page()], lines_override=[]))
+    for kwargs in ({"transport": "ribbon"}, {"transport_bits": 2},
+                   {"transport": "crops", "transport_bits": 3}, {"canvas_bits": 4},
+                   {"transport": "crops", "canvas_bits": 3}):
+        with pytest.raises(ValueError) as got:
+            TorchPagePipeline(pn, rec, device="cpu", **kwargs)
+        with pytest.raises(ValueError) as want:
+            TPUPagePipeline(flax_pn, pn_vars, flax_rec, rec_vars, **kwargs)
+        assert str(got.value) == str(want.value)
     pipe = TorchPagePipeline(pn, rec, device="cpu")
-    for kwargs, item in (({"want_crops": True}, "Crop transport"),
-                         ({"reocr": True}, "Crop transport")):
-        with pytest.raises(ValueError, match=item):
-            FastPagePipeline(pipe, CHARS, **kwargs)
-    fast = FastPagePipeline(pipe, CHARS)
-    with pytest.raises(ValueError, match="Crop transport"):
-        fast.prime([_page()])
-    with pytest.raises(ValueError, match="Crop transport"):
-        fast.process_existing_layouts([_page()], [])
+    with pytest.raises(ValueError, match="lines_override sequence length"):
+        list(pipe.run([_page()], lines_override=[]))
+    with pytest.raises(ValueError, match="skip_stage_a requires transport='crops'"):
+        list(pipe.run([_page()], lines_override=_override, skip_stage_a=True))
+    pipe.prime([_page()])  # a no-op on the page transport, as in JAX
+    assert getattr(pipe, "_primed", None) is None
+    with pytest.raises(ValueError, match="re-OCR runs on the crop transport"):
+        FastPagePipeline(pipe, CHARS, reocr=True)
+    crops = TorchPagePipeline(pn, rec, device="cpu", transport="crops")
+    with pytest.raises(ValueError, match="skip_stage_a requires"):
+        list(crops.run([_page()], skip_stage_a=True))
+    fast = FastPagePipeline(crops, CHARS, reocr=True)
+    with pytest.raises(ValueError, match="pages and layouts must align"):
+        list(fast.process_existing_layouts([_page()], []))
 
 
 @pytest.mark.skipif(jax_native_library() is None or shutil.which(os.environ.get("CXX") or "c++")
