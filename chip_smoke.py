@@ -107,7 +107,25 @@ Phases (each raises on failure, so the run exits non-zero):
     the full-width reference transformer through the fast re-OCR, its
     graph equal to its eager loop and its tokens to the CPU's
     (``{"reocr": ...}``).
-16. Training (``run_train``): the five trainers of
+16. TorchScript and item 8d (``run_torchscript``, after re-OCR): the
+    detector (the edge detector at base 32, depth 4, conv stem) and the
+    bench recognizer in float32, each traced on the CPU into a ``.pt``
+    archive as the reference ships its models, named by MODEL_PATH and
+    the OCR JSON's checkpoint and loaded for the card (their Device
+    constants rewritten, the LSTM weights flattened).  The fast path on
+    16 two-column pages (page transport): labels equal to the native
+    float32 modules' on the same pages and lines (near-ties counted
+    apart), one batch three times bit-equal, stage A's masks within
+    TS_MASK_FLIPS.  Stage by stage on 4 pages under ini (a)
+    (MULTI_ORIENTATION, MERGE_LINES, ADJUST_BASELINES, LINE_FILTER with a
+    seeded OrientationNet, LINE_POSTPROCESSING, LAYOUT_POSTPROCESSING,
+    REGION_SORTER_NAIVE) and ini (b) (DETECT_STRAIGHT_LINES_IN_REGIONS),
+    pages cut to 1,280 rows: the CPU from the card's maps gives the same
+    layouts and line crops on 2 of them; the command line on 2 pages
+    with ini (a) writes the in-process run's files.  warp_lines (float32 store) is held and
+    timed on the fast path's last batch, warp_fields on ini (a)'s last
+    page (``torchscript_*`` keys).
+17. Training (``run_train``): the five trainers of
     ``parallel/train.py`` at full width (the bench recognizer on 64
     crops of 32x768, float32; the detector on 4 of its pages a step at
     map ds 4 and 2 with bench.py's painted targets and third phase;
@@ -134,7 +152,7 @@ its pages after the next batch's upload.
 The last lines are the command lines' numbers (``{"cli": ...}``,
 ``{"staged": ...}``), config 1's, config 5's, config 3's and config 4's
 (``{"config1": ...}``, ``{"config5": ...}``, ``{"config3": ...}``,
-``{"config4": ...}``), the crop transport's and re-OCR's, the
+``{"config4": ...}``), the crop transport's, re-OCR's and TorchScript's, the
 host library's (``{"host_native": ...}``), training's (``{"train": ...}``),
 the card's nvidia-smi line, one JSON object with the kernels' numbers,
 and ``{"ok": true, "device": {...}}``.
@@ -192,6 +210,8 @@ from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.parallel import train
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
 from pero_ocr_tpu_torch.utils import checkpoint, convert, kernels, native, timing
+from pero_ocr_tpu_torch.utils import ts_adapters
+from pero_ocr_tpu_torch.utils.ts_adapters import TSParseNetModel, TSRecognizerModel
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
@@ -3359,6 +3379,466 @@ def run_reocr(pipe: TorchPagePipeline, rng, smi: str):
 
 
 # ----------------------------------------------------------------------
+# The reference's TorchScript archives on both paths, and the layout
+# stages and LAYOUT_CNN options of ROADMAP item 8d (run_torchscript)
+class ArchiveParseNet(torch.nn.Module):
+    """The port's ParseNet as the reference exports its detector: NCHW
+    images in [0, 1] -> (NCHW maps, a scalar)."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x):
+        maps = self.net(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return maps, maps.mean()
+
+
+class ArchiveRecognizer(torch.nn.Module):
+    """The port's CTCRecognizer as the reference exports it: NCHW line
+    images in [0, 1] -> (N, C, T) logits."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x):
+        return self.net(x.permute(0, 2, 3, 1)).permute(0, 2, 1)
+
+
+TS_RECOGNIZER = dict(num_classes=80, line_height=CROP_H, conv_features=(48, 96, 192, 384),
+                     subsampling=4, lstm_layers=2, lstm_features=256, stem="s2d", norm="group")
+# Stage by stage: 4 pages cut to their top 1,280 rows (MULTI_ORIENTATION's
+# turned passes find ~200 regions and ~500 lines on a whole page, ~23 s
+# of host layout a page on the card's host), the CPU replaying the first
+# 2; the command line on 2.
+TS_PAGES, TS_STAGED_PAGES, TS_CPU_PAGES, TS_CLI_PAGES = 2 * PAGE_BATCH, 4, 2, 2
+TS_STAGED_ROWS = 1280
+TS_INI = """[PAGE_PARSER]
+RUN_LAYOUT_PARSER = yes
+RUN_LINE_CROPPER = yes
+RUN_OCR = yes
+
+[LAYOUT_PARSER_1]
+METHOD = LAYOUT_CNN
+MODEL_PATH = ./parsenet.pt
+DOWNSAMPLE = 4
+DETECTION_THRESHOLD = 0.2
+MAX_MEGAPIXELS = 5
+ADAPTIVE_DOWNSAMPLE = yes
+{options}
+{stages}
+[LINE_CROPPER]
+INTERP = 2
+LINE_SCALE = 1.0
+LINE_HEIGHT = 32
+
+[OCR]
+OCR_JSON = ./ocr.json
+"""
+TS_STAGES_A = """
+[LAYOUT_PARSER_2]
+METHOD = LINE_FILTER
+FILTER_DIRECTIONS = yes
+MODEL_PATH = ./orientation.msgpack
+FILTER_INCOMPLETE_PAGES = yes
+
+[LAYOUT_PARSER_3]
+METHOD = LINE_POSTPROCESSING
+STRETCH_LINES = max
+RESAMPLE_LINES = yes
+
+[LAYOUT_PARSER_4]
+METHOD = LAYOUT_POSTPROCESSING
+RETRACE_REGIONS = yes
+
+[LAYOUT_PARSER_5]
+METHOD = REGION_SORTER_NAIVE
+"""
+# ini (a): the LAYOUT_CNN options and every stage after the CNN; ini
+# (b): straight lines in the CNN's regions.
+TS_INIS = {"a": ("MULTI_ORIENTATION = yes\nMERGE_LINES = yes\nADJUST_BASELINES = yes",
+                 TS_STAGES_A),
+           "b": ("DETECT_STRAIGHT_LINES_IN_REGIONS = yes", "")}
+TS_STAGE_TIMERS = STAGE_TIMERS + ("straight_lines", "adjust_baselines")
+# Share of stage A's baseline-mask pixels that the archive and the
+# native modules may set apart (vertical maxima that tie in float32).
+TS_MASK_FLIPS = 0.001
+
+
+def write_archives(tmp: str):
+    """The detector (the hand-set edge detector at base 32, depth 4, conv
+    stem, float32) and the bench recognizer (float32, seeded) traced on
+    the CPU into ``tmp``/parsenet.pt and recognizer.pt, the OCR JSON
+    naming the recognizer archive, a seeded OrientationNet as a flax
+    msgpack, and the two inis.  Returns (detector, recognizer): the CPU
+    modules the archives hold."""
+    det = ParseNet(base_features=32, depth=4, stem="conv", dtype=torch.float32)
+    edge_detector_(det)
+    rec = CTCRecognizer(RecognizerSpec(dtype=torch.float32, **TS_RECOGNIZER),
+                        generator=torch.Generator().manual_seed(1))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", torch.jit.TracerWarning)  # shape arithmetic, constant
+        torch.jit.trace(ArchiveParseNet(det).eval(), torch.rand(1, 3, 64, 64)).save(
+            os.path.join(tmp, "parsenet.pt"))
+        torch.jit.trace(ArchiveRecognizer(rec).eval(), torch.rand(1, 3, CROP_H, 128)).save(
+            os.path.join(tmp, "recognizer.pt"))
+    checkpoint.save_variables(convert.orientation_params_to_flax(
+        OrientationNet(generator=torch.Generator().manual_seed(5))),
+        os.path.join(tmp, "orientation.msgpack"))
+    with open(os.path.join(tmp, "ocr.json"), "w", encoding="utf-8") as f:
+        json.dump({"characters": BENCH_CHARS[:-1], "line_px_height": CROP_H,
+                   "checkpoint": "recognizer.pt"}, f)
+    for name, (options, stages) in [("fast", ("", ""))] + list(TS_INIS.items()):
+        with open(os.path.join(tmp, f"{name}.ini"), "w", encoding="utf-8") as f:
+            f.write(TS_INI.format(options=options, stages=stages))
+    log(f"archives traced on the CPU: the detector ({sum(p.numel() for p in det.parameters())} "
+        f"float32 weights), the recognizer ({sum(p.numel() for p in rec.parameters())})")
+    return det, rec
+
+
+def near_ties(model_a, model_b, images: torch.Tensor) -> list:
+    """For each of ``images`` (a line each, NHWC in [0, 1]) whose labels
+    two recognizers give apart: whether every frame whose argmax
+    differs is a near-tie, ``model_b``'s two best logits closer than
+    twice the two models' largest logit difference on the line."""
+    with torch.inference_mode():
+        a = model_a(images).float().cpu().numpy()
+        b = model_b(images).float().cpu().numpy()
+    out = []
+    for la, lb in zip(a, b):
+        frames = np.flatnonzero(la.argmax(-1) != lb.argmax(-1))
+        top2 = np.sort(lb[frames], axis=-1)[:, -2:]
+        out.append(bool(len(frames)) and bool(
+            (top2[:, 1] - top2[:, 0] <= 2 * np.abs(la - lb).max()).all()))
+    return out
+
+
+def ts_fast_path(tmp: str, det, rec, rng, smi: str, device: str):
+    """The fast path with both archives on the page transport (config 2's
+    command-line settings, 8 pages a batch), the archives' stage A and
+    stage B held against the native float32 modules on the same inputs,
+    one batch run three times."""
+    parser = staged_parser(os.path.join(tmp, "fast.ini"), device)
+    wrapper, engine = parser.layout_parsers[0].engine.parsenet, parser.ocr.ocr_engine
+    if not (isinstance(wrapper.model, TSParseNetModel) and isinstance(engine.model,
+                                                                       TSRecognizerModel)):
+        raise AssertionError("torchscript: the config did not load the archives")
+    traced = ts_adapters.device_constants(
+        torch.jit.load(os.path.join(tmp, "recognizer.pt"), map_location="cpu"))
+    loaded = ts_adapters.device_constants(engine.model.archive)
+    on_device = {p.device.type for m in (wrapper.model, engine.model) for p in m.parameters()}
+    log(f"torchscript: the recognizer archive's Device constants {sorted(set(traced))} as "
+        f"traced, {sorted(set(loaded))} as loaded for {device}; parameters on {on_device}; "
+        f"spec {engine.spec}")
+    if "cpu" not in traced or set(loaded) != {device} or on_device != {device}:
+        raise AssertionError("torchscript: the archives do not run on the device")
+    fast = FastPagePipeline.from_page_parser(parser, page_batch=PAGE_BATCH)
+    pipe = fast.pipeline
+    native_pipe = TorchPagePipeline(
+        det, rec, crop_height=pipe.crop_height, crop_bucket=pipe.crop_bucket,
+        detection_threshold=pipe.detection_threshold, line_end_weight=pipe.line_end_weight,
+        device=device)
+    pages, lines = synthetic_pages(rng, TS_PAGES, TWO_COLUMNS)
+    ids = [f"t{i:04d}" for i in range(len(pages))]
+    recorded, stage_a_in = [], []
+    stage_b, stage_a = pipe.stage_b, pipe.stage_a
+
+    def kept_stage_b(*b_args):
+        out = stage_b(*b_args)
+        recorded.append((b_args, [t.cpu() for t in out[:3]]))
+        return out
+
+    def kept_stage_a(pages_u8, ds_run):
+        stage_a_in[:] = [(pages_u8, ds_run)]
+        return stage_a(pages_u8, ds_run)
+
+    pipe.stage_b, pipe.stage_a = kept_stage_b, kept_stage_a
+
+    def drive(n):
+        out = []
+        t0 = time.perf_counter()
+        for layout in fast.process_pages(pages[:n], ids[:n]):
+            with timing.stage_timer("document/pagexml"):
+                out.append((layout, layout.to_pagexml_string()))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    drive(PAGE_BATCH)  # warm-up: cuDNN plans, the kernel's first load
+    recorded.clear()
+    timing.reset_timing()
+    warp_ops.warp_lines.launches = 0
+    out, seconds = drive(len(pages))
+    launches = warp_ops.warp_lines.launches
+    pipe.stage_b, pipe.stage_a = stage_b, stage_a
+    n_lines = sum(len(list(layout.lines_iterator())) for layout, _ in out)
+    recall = line_recall([[ln.baseline for ln in layout.lines_iterator()] for layout, _ in out],
+                         lines)
+    log(f"torchscript fast path (page transport, both archives): {len(pages)} pages, "
+        f"{n_lines} lines, line recall {recall:.3f}; {len(pages) / seconds:.3f} pages/s to Page "
+        f"XML ({seconds:.3f} s) on {smi}; warp_lines launches {launches}, stage-B batches "
+        f"{len(recorded)}")
+    log("stage times (torchscript fast path):\n" + timing.timing_report())
+    if recall < MIN_LINE_RECALL or launches != (len(recorded) if device == "cuda" else 0):
+        raise AssertionError("torchscript fast path: lines lost or launches != batches")
+
+    # Stage B: the archive's labels against the native modules' on the
+    # same pages and lines, near-ties counted apart.
+    n_real = n_equal = n_ties = 0
+    for (pages_u8, bl, hh), (labels, lengths, confs) in recorded:
+        want = [t.cpu() for t in native_pipe.stage_b(pages_u8, bl, hh)[:3]]
+        real = (bl.reshape(len(hh.reshape(-1, 2)), -1).abs().sum(dim=1) > 0).cpu()  # padding: 0
+        equal = (labels == want[0]).reshape(len(real), -1).all(dim=1) & (
+            lengths == want[1]).reshape(-1)
+        differ = torch.nonzero(real & ~equal).reshape(-1)
+        if len(differ):
+            crops = warp_ops.warp_lines(pages_u8, bl, hh, pipe.crop_height, pipe.crop_bucket,
+                                        out_dtype=torch.float32, normalize=True)
+            images = crops.reshape(-1, *crops.shape[-2:])[differ.to(crops.device)]
+            n_ties += sum(near_ties(pipe.recognizer, native_pipe.recognizer,
+                                    images[..., None].expand(-1, -1, -1, 3)))
+        n_real += int(real.sum())
+        n_equal += int((real & equal).sum())
+    pages_u8, bl, hh = recorded[-1][0]
+    runs = [[t.cpu() for t in pipe.stage_b(pages_u8, bl, hh)[:3]] for _ in range(3)]
+    repeat_equal = all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+    # The archives run under TorchScript's default (profiling) executor;
+    # the same batch with its optimizations off: labels and stage B's time.
+    if device == "cuda":
+        with torch.jit.optimized_execution(False):
+            unoptimized = [t.cpu() for t in pipe.stage_b(pages_u8, bl, hh)[:3]]
+            executor_off_ms = cuda_ms(lambda: pipe.stage_b(pages_u8, bl, hh), reps=5,
+                                      warmup=1, ahead=False)
+        executor_on_ms = cuda_ms(lambda: pipe.stage_b(pages_u8, bl, hh), reps=5, warmup=1,
+                                 ahead=False)
+        executor = {"stage_b_ms_default_executor": executor_on_ms,
+                    "stage_b_ms_executor_off": executor_off_ms,
+                    "executor_off_labels_equal": bool(
+                        torch.equal(unoptimized[0], runs[0][0])
+                        and torch.equal(unoptimized[1], runs[0][1]))}
+        log(f"torchscript stage B on one batch: {executor_on_ms:.3f} ms under the default "
+            f"executor, {executor_off_ms:.3f} ms with its optimizations off; labels "
+            f"{'equal' if executor['executor_off_labels_equal'] else 'apart'} on {smi}")
+    else:
+        executor = {}
+    pages_a, ds_a = stage_a_in[0]
+    masks = [np.unpackbits(p.stage_a(pages_a, ds_a)[0].cpu().numpy(), bitorder="little")
+             for p in (pipe, native_pipe)]
+    flips = int((masks[0] != masks[1]).sum())
+    log(f"torchscript vs native float32 modules: labels equal on {n_equal} of {n_real} lines, "
+        f"{n_ties} near-ties; one batch three times: {'equal' if repeat_equal else 'DIFFERS'}; "
+        f"stage A's last batch at ds {ds_a}: {flips} of {int(masks[1].sum())} mask pixels apart")
+    if n_equal + n_ties != n_real or not repeat_equal or flips > TS_MASK_FLIPS * masks[1].sum():
+        raise AssertionError("torchscript fast path: the archives differ from the native modules")
+    numbers = {"pages": len(pages), "pages_per_s": len(pages) / seconds, "lines": n_lines,
+               "line_recall": recall, "warp_lines_launches": launches,
+               "labels_equal": n_equal, "near_ties": n_ties, "lines_compared": n_real,
+               "repeat_equal": repeat_equal, "stage_a_mask_flips": flips, **executor,
+               "card": smi}
+    return launches, numbers, (pages_u8, bl, hh, pipe.crop_height, pipe.crop_bucket)
+
+
+def page_lines(xml: str):
+    """A Page XML's lines in document order as (id, text, conf); a line
+    without a TextEquiv has text None, one without a conf conf 0."""
+    out = []
+    for line in ET.fromstring(xml.encode("utf-8")).iter(f"{PAGE_NS}TextLine"):
+        equiv = line.find(f"{PAGE_NS}TextEquiv")
+        if equiv is None:
+            out.append((line.get("id"), None, 0.0))
+            continue
+        out.append((line.get("id"), equiv.find(f"{PAGE_NS}Unicode").text or "",
+                    float(equiv.get("conf", 0.0))))
+    return out
+
+
+def sparse_near_tie(card, cpu) -> bool:
+    """Whether two recognitions of one line (the engines' sparse (T, C)
+    logits: entries of probability below 1e-4 dropped) differ only at
+    near-ties: every frame whose argmax differs has the CPU's two best
+    logits closer than twice the largest difference of the logits both
+    kept."""
+    kept = [(m != 0).toarray() for m in (card, cpu)]
+    a, b = (np.where(k, m.toarray(), -np.inf) for k, m in zip(kept, (card, cpu)))
+    frames = np.flatnonzero(a.argmax(-1) != b.argmax(-1))
+    both = kept[0] & kept[1]
+    top2 = np.sort(b[frames], axis=-1)[:, -2:]
+    return bool(len(frames)) and bool(
+        (top2[:, 1] - top2[:, 0] <= 2 * np.abs(a - b)[both].max(initial=0.0)).all())
+
+
+def ts_staged(tmp: str, name: str, pages, ids, smi: str, device: str):
+    """ini ``name`` stage by stage on the device, then the first
+    TS_CPU_PAGES pages on the CPU from the device's ParseNet and
+    OrientationNet maps, both in float32 with TF32 off: their Page XML
+    equal apart from the texts, every line's crop equal, and each line's
+    text equal (conf within 0.0015) or apart only at near-ties of the
+    recognizer archive's logits (sparse_near_tie).  Returns (the device
+    run's layouts and XML, numbers, the device parser, wall seconds by
+    part)."""
+    ini = os.path.join(tmp, f"{name}.ini")
+    parsers = {d: staged_parser(ini, d) for d in (device, "cpu")}
+    card = parsers[device]
+    maps, replay = [], []
+
+    def wrap(obj, recording):
+        own = obj.get_maps
+
+        def get_maps(img, ds):
+            if recording:
+                maps.append(own(img, ds))
+                return maps[-1]
+            return replay.pop(0)
+
+        obj.get_maps = get_maps
+
+    for d, parser in parsers.items():
+        recording = d == device
+        wrap(parser.layout_parsers[0].engine.parsenet, recording)
+        for lp in parser.layout_parsers[1:]:
+            if getattr(lp, "filter_directions", False):
+                wrap(lp.engine.tiltnet, recording)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    wall = {}
+    try:
+        t0 = time.perf_counter()
+        warm = pages[-1]
+        card.process_page(warm, PageLayout(id="warm", page_size=warm.shape[:2]))
+        card.layout_parsers[0].engine.parsenet.last_downsample = \
+            card.layout_parsers[0].engine.parsenet.init_downsample
+        maps.clear()
+        wall[f"ini_{name}_warm_up"] = time.perf_counter() - t0
+        timing.reset_timing()
+        warp_ops.warp_fields.launches = 0
+        out, seconds = staged_pages(card, ids, pages)
+        launches = warp_ops.warp_fields.launches
+        wall[f"ini_{name}_card"] = seconds
+        stats = timing.timing_stats()
+        log(f"stage times (torchscript, ini ({name}), TF32 off):\n" + timing.timing_report())
+        replay[:] = maps
+        t0 = time.perf_counter()
+        cpu_out, _ = staged_pages(parsers["cpu"], ids[:TS_CPU_PAGES], pages[:TS_CPU_PAGES])
+        wall[f"ini_{name}_cpu_replay"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    no_text = re.compile(r"\s*<TextEquiv[^>]*>.*?</TextEquiv>", re.S)
+    n_compared = n_equal = n_ties = 0
+    conf_err = 0.0
+    for (layout, xml), (cpu_layout, cpu_xml) in zip(out, cpu_out):
+        if mask_pagexml(no_text.sub("", xml)) != mask_pagexml(no_text.sub("", cpu_xml)):
+            diff = difflib.unified_diff(no_text.sub("", cpu_xml).splitlines(),
+                                        no_text.sub("", xml).splitlines(), "cpu", "card",
+                                        lineterm="")
+            log("\n".join(list(diff)[:60]))
+            raise AssertionError(f"torchscript ini ({name}): the layouts differ from the CPU's")
+        logits = {}
+        for a, b in zip(layout.lines_iterator(), cpu_layout.lines_iterator()):
+            if not np.array_equal(a.crop, b.crop):
+                raise AssertionError(f"torchscript ini ({name}): line {a.id}'s crop differs")
+            logits[a.id] = (a.logits, b.logits)
+        for (line_id, text, conf), (_, cpu_text, cpu_conf) in zip(page_lines(xml),
+                                                                   page_lines(cpu_xml)):
+            n_compared += 1
+            if text == cpu_text:
+                n_equal += 1
+                conf_err = max(conf_err, abs(conf - cpu_conf))
+            elif sparse_near_tie(*logits[line_id]):
+                n_ties += 1
+                log(f"torchscript ini ({name}): line {line_id} reads {text!r} on the card, "
+                    f"{cpu_text!r} on the CPU: a near-tie")
+            else:
+                raise AssertionError(f"torchscript ini ({name}): line {line_id}'s text "
+                                     f"{text!r} differs from the CPU's {cpu_text!r}")
+    if conf_err > 0.0015:
+        raise AssertionError(f"torchscript ini ({name}): confidences {conf_err} apart")
+    n_lines = sum(len(list(layout.lines_iterator())) for layout, _ in out)
+    batched = sum(len(list(layout.lines_iterator())) >= card.line_cropper.DEVICE_BATCH_MIN
+                  for layout, _ in out)
+    regions = sum(len(layout.regions) for layout, _ in out)
+    log(f"torchscript ini ({name}) stage by stage (float32, TF32 off): {len(pages)} pages, "
+        f"{n_lines} lines, {regions} regions, {len(pages) / seconds:.3f} pages/s to Page XML "
+        f"({seconds:.3f} s) on {smi}; the CPU from the card's maps: {len(cpu_out)} pages' "
+        f"layouts and crops equal, texts equal on {n_equal} of {n_compared} lines, "
+        f"{n_ties} near-ties, confidences within {conf_err:.3g}; warp_fields launches "
+        f"{launches}, pages of {card.line_cropper.DEVICE_BATCH_MIN} lines or more {batched}")
+    if launches != (batched if device == "cuda" else 0) or n_lines < 10 * len(pages):
+        raise AssertionError(f"torchscript ini ({name}): launches or lines off")
+    numbers = {"pages": len(pages), "pages_per_s": len(pages) / seconds, "lines": n_lines,
+               "regions": regions, "cpu_pages_equal": len(cpu_out),
+               "cpu_lines_compared": n_compared, "cpu_texts_equal": n_equal,
+               "cpu_near_ties": n_ties, "cpu_conf_max_diff": conf_err,
+               "warp_fields_launches": launches,
+               "stage_ms": {k: 1e3 * stats[k][0] / stats[k][1] for k in TS_STAGE_TIMERS
+                            if k in stats},
+               "stage_calls": {k: stats[k][1] for k in TS_STAGE_TIMERS if k in stats},
+               "card": smi}
+    return out, numbers, card, wall
+
+
+def run_torchscript(rng, smi: str, device: str = "cuda"):
+    """The reference's model format on the card: both archives traced on
+    the CPU (write_archives) and loaded for ``device`` by the config's
+    MODEL_PATH and the OCR JSON's checkpoint.  The fast path on 16
+    two-column pages (ts_fast_path); stage by stage on 4 others under
+    ini (a) (MULTI_ORIENTATION, MERGE_LINES, ADJUST_BASELINES, then
+    LINE_FILTER, LINE_POSTPROCESSING, LAYOUT_POSTPROCESSING and
+    REGION_SORTER_NAIVE) and ini (b) (DETECT_STRAIGHT_LINES_IN_REGIONS)
+    against the CPU (ts_staged); the command line on 2 pages with ini
+    (a), its files equal to the in-process run's.  ``device`` "cpu"
+    rehearses the phase with the plain versions and no kernel checks.
+    Returns (warp_lines launches, warp_fields launches by ini, numbers,
+    the last fast batch's warp arguments, ini (a)'s last page buckets)."""
+    numbers, wall = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="torchscript_") as tmp:
+        det, rec = write_archives(tmp)
+        wall["trace_archives"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        launches, numbers["fast"], fast_args = ts_fast_path(tmp, det, rec, rng, smi, device)
+        wall["fast_path"] = time.perf_counter() - t0
+        pages, _ = synthetic_pages(rng, TS_STAGED_PAGES, TWO_COLUMNS)
+        pages = [np.ascontiguousarray(p[:TS_STAGED_ROWS]) for p in pages]
+        ids = [f"s{i:04d}" for i in range(len(pages))]
+        staged = {}
+        for name in TS_INIS:
+            t0 = time.perf_counter()
+            staged[name] = ts_staged(tmp, name, pages, ids, smi, device)
+            numbers[f"ini_{name}"] = staged[name][1]
+            wall.update(staged[name][3])
+            wall[f"ini_{name}"] = time.perf_counter() - t0
+        out_a, _, parser_a, _ = staged["a"]
+        last_page = page_buckets(parser_a, out_a[-1][0], pages[-1]) if device == "cuda" else None
+
+        # The command line on the first pages with ini (a), TF32 off as
+        # in the in-process run.
+        images = write_pages(tmp, dict(zip(ids[:TS_CLI_PAGES], pages[:TS_CLI_PAGES])))
+        out_dir = os.path.join(tmp, "page_xml")
+        _, cli_seconds = run_parse_folder(
+            ["-c", os.path.join(tmp, "a.ini"), "-i", images, "--output-xml-path", out_dir,
+             "--timing-report", "--device", device], "command line (torchscript, ini (a))",
+            NO_TF32_CLI)
+        differ = []
+        for pid, (_, xml) in zip(ids[:TS_CLI_PAGES], out_a):
+            with open(os.path.join(out_dir, pid + ".xml"), encoding="utf-8") as f:
+                if not same_staged_page(f.read(), xml):
+                    differ.append(pid)
+        log(f"torchscript command line vs in-process: {TS_CLI_PAGES - len(differ)} of "
+            f"{TS_CLI_PAGES} files equal (lines of a row as a set; conf within 0.0015)")
+        if differ:
+            raise AssertionError(f"the torchscript command line's files differ: {differ}")
+        numbers["cli_wall_s"] = wall["command_line"] = cli_seconds
+    wall["phase"] = time.perf_counter() - t_phase
+    numbers["wall_s"] = wall
+    log("torchscript phase, wall seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in wall.items()))
+    fields = {name: staged[name][1]["warp_fields_launches"] for name in TS_INIS}
+    return launches, fields, numbers, fast_args, last_page
+
+
+# ----------------------------------------------------------------------
 # The host C++ (csrc/perotpu.cpp) against its numpy twins
 FAST_STAGES = ("pipeline/host_geometry", "pipeline/cc_parse",
                "pipeline/make_clusters", "pipeline/textlines", "pipeline/stage_a_sync", "pipeline/upload+dispatch_a", "pipeline/stage_b",
@@ -4238,6 +4718,14 @@ def run_train(rng, smi: str) -> dict:
     return report
 
 
+@contextlib.contextmanager
+def phase(name: str):
+    """Log the wall seconds of the block, as "phase <name>: <s> s"."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def run_phases(smi: str) -> list:
     """Every phase in order; the lines to print at the end."""
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4249,22 +4737,37 @@ def run_phases(smi: str) -> list:
         log(f"build {name}:\n{text.strip()}")
 
     rng = np.random.default_rng(0)
-    mixed = check_warp(mixed_line_args(rng), "mixed lines")
-    check_against_cpu(rng)
-    pipe, launches_page_transport, stage_b = run_main_path(rng)
-    launches, config2, main_args, fast_host = run_config2(pipe, rng, smi)
-    launches_cli, cli, cli_args = run_cli(pipe, rng, smi)
-    check_staged_against_cpu(rng)
-    launches_staged, staged, staged_args, staged_host = run_staged(pipe, rng, smi)
-    launches_config1, config1, config1_args = run_config1(rng, smi)
-    launches_config5, config5, config5_args, viterbi_inputs = run_config5(pipe, rng, smi)
-    launches_config3, config3, config3_args, (beam_decoder, beam_call) = run_config3(
-        pipe, rng, smi)
-    launches_config4, config4, config4_args = run_config4(pipe, rng, smi)
-    crops = run_crops(pipe, rng, smi)
-    reocr = run_reocr(pipe, rng, smi)
-    host_native = check_host_native(fast_host, staged_host, viterbi_inputs, smi)
-    training = run_train(rng, smi)
+    with phase("check_warp mixed lines, check_against_cpu"):
+        mixed = check_warp(mixed_line_args(rng), "mixed lines")
+        check_against_cpu(rng)
+    with phase("main path"):
+        pipe, launches_page_transport, stage_b = run_main_path(rng)
+    with phase("config2"):
+        launches, config2, main_args, fast_host = run_config2(pipe, rng, smi)
+    with phase("cli"):
+        launches_cli, cli, cli_args = run_cli(pipe, rng, smi)
+    with phase("staged"):
+        check_staged_against_cpu(rng)
+        launches_staged, staged, staged_args, staged_host = run_staged(pipe, rng, smi)
+    with phase("config1"):
+        launches_config1, config1, config1_args = run_config1(rng, smi)
+    with phase("config5"):
+        launches_config5, config5, config5_args, viterbi_inputs = run_config5(pipe, rng, smi)
+    with phase("config3"):
+        launches_config3, config3, config3_args, (beam_decoder, beam_call) = run_config3(
+            pipe, rng, smi)
+    with phase("config4"):
+        launches_config4, config4, config4_args = run_config4(pipe, rng, smi)
+    with phase("crops"):
+        crops = run_crops(pipe, rng, smi)
+    with phase("reocr"):
+        reocr = run_reocr(pipe, rng, smi)
+    with phase("torchscript"):
+        ts_launches, ts_fields, torchscript, ts_args, ts_page = run_torchscript(rng, smi)
+    with phase("host_native"):
+        host_native = check_host_native(fast_host, staged_host, viterbi_inputs, smi)
+    with phase("train"):
+        training = run_train(rng, smi)
     # The kernel against its plain version, and its times, at the main
     # path's shapes (the last config-2 batch's pages and detected lines)
     # and at the command line's (its last batch: page batch 4, line slot
@@ -4272,6 +4775,7 @@ def run_phases(smi: str) -> list:
     main_check = check_warp(main_args, "config 2")
     cli_check = check_warp(cli_args, "command line")
     config5_check = check_warp(config5_args, "config 5")
+    ts_check = check_warp(ts_args, "torchscript fast path (f32 store)")
     # Where the device time goes: one config-2 stage-B call and one
     # config-3 line decode (eager) under torch.profiler.
     config3["stage_b_split"] = profile_stage_b(pipe, main_args[:3])
@@ -4287,6 +4791,8 @@ def run_phases(smi: str) -> list:
         **{f"cli_{k}": v for k, v in cli_check.items()},
         "launches_config5": launches_config5["warp_lines"],
         **{f"config5_{k}": v for k, v in config5_check.items()},
+        "launches_torchscript": ts_launches,
+        **{f"torchscript_{k}": v for k, v in ts_check.items()},
     }
 
     fields = {
@@ -4305,11 +4811,15 @@ def run_phases(smi: str) -> list:
             *config3_args, rng, "config 3, last page").items()},
         **{f"config4_{k}": v for k, v in check_warp_fields(
             *config4_args, rng, "config 4, last page").items()},
+        "launches_torchscript_a": ts_fields["a"], "launches_torchscript_b": ts_fields["b"],
+        **{f"torchscript_{k}": v for k, v in check_warp_fields(
+            *ts_page, rng, "torchscript ini (a), last page").items()},
     }
 
     return [json.dumps({key: value}) for key, value in (
         ("cli", cli), ("staged", staged), ("config1", config1), ("config5", config5),
         ("config3", config3), ("config4", config4), ("crops", crops), ("reocr", reocr),
+        ("torchscript", torchscript),
         ("host_native", host_native),
         ("train", training))] + [smi, json.dumps({"kernels": [warp, fields]})]
 

@@ -6,8 +6,9 @@ page and crop transports, the stage-by-stage path and the re-OCR of
 existing Page XML on both, CTC and transformer recognizers (the
 reference's post-LN model from a torch ``.pt``, the native pre-LN model
 from a flax checkpoint) on every path, the beam search with a character
-LM, ``ADJUST_HEIGHTS`` and the smart region sorter, and it trains every
-model it serves (``parallel/train.py``).  Plain
+LM, every layout stage of the JAX package but ``REGION_SIMPLE_THRESHOLD``,
+the reference's TorchScript ParseNet and CTC archives on both paths, and
+it trains every model it serves (``parallel/train.py``).  Plain
 tensor code is PyTorch; the line-crop warp, the one Pallas kernel of
 the JAX package, is two hand-written CUDA kernels built with ``nvcc``
 on first use: the fast path's fused version (``csrc/warp_lines.cu``)
@@ -41,7 +42,6 @@ def resolve_device(device=None) -> torch.device:
 # Titles of the items in ROADMAP.md's queue 1 that unported features
 # name in their errors.
 STAGE_BY_STAGE = "Stage-by-stage path"
-TORCHSCRIPT = "TorchScript checkpoints"
 SCALE_OUT = "Training and scale-out"
 IMAGES = "JPEG/TIFF decoding on the card's machine"
 

@@ -194,13 +194,15 @@ def bboxes_intersect(a: np.ndarray, b: np.ndarray) -> bool:
 
 
 def rasterize_polygon(polygon: np.ndarray, origin: Tuple[int, int],
-                      shape: Tuple[int, int]) -> np.ndarray:
+                      shape: Tuple[int, int], window: bool = False) -> np.ndarray:
     """uint8 mask of the polygon (vertices rounded half to even) in a
     raster of ``shape`` (h, w) whose pixel (0, 0) is page point
-    ``origin``; what lies off the raster is clipped."""
+    ``origin``: ``cv2.fillPoly`` on that raster, which clips the outline
+    and the edges; with ``window`` the polygon as drawn on an unbounded
+    raster, cut to this one."""
     mask = np.zeros(shape, dtype=np.uint8)
     pts = np.round(np.asarray(polygon, dtype=np.float64) - np.asarray(origin)[None, :])
-    _fill_polys(mask, pts.astype(np.int32)[None])
+    _fill_polys(mask, pts.astype(np.int32)[None], clip=not window)
     return mask
 
 
@@ -245,7 +247,8 @@ def polygon_intersection(a: np.ndarray, b: np.ndarray) -> Optional[np.ndarray]:
     bx0, by0, bx1, by1 = bbox(b)
     box = np.array([[max(ax0, bx0), max(ay0, by0)], [min(ax1, bx1), min(ay1, by1)]])
     x0, y0, w, h = _raster_frame(box)
-    inter = rasterize_polygon(a, (x0, y0), (h, w)) & rasterize_polygon(b, (x0, y0), (h, w))
+    inter = (rasterize_polygon(a, (x0, y0), (h, w), window=True)
+             & rasterize_polygon(b, (x0, y0), (h, w), window=True))
     if not inter.any():
         return None
     ring = _largest_external_contour(inter)
@@ -501,13 +504,69 @@ def convex_hull(points: np.ndarray) -> np.ndarray:
 _XY_SHIFT = 16
 
 
-def _draw_lines(mask: np.ndarray, p0: np.ndarray, p1: np.ndarray) -> None:
+def _inside(p0: np.ndarray, p1: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Which segments p0[k] -> p1[k] have both ends on a w x h image."""
+    return ((p0[:, 0] >= 0) & (p0[:, 0] < w) & (p0[:, 1] >= 0) & (p0[:, 1] < h)
+            & (p1[:, 0] >= 0) & (p1[:, 0] < w) & (p1[:, 1] >= 0) & (p1[:, 1] < h))
+
+
+def _clip_lines(p0: np.ndarray, p1: np.ndarray, w: int, h: int):
+    """OpenCV's ``clipLine`` of segments p0[k] -> p1[k] to a w x h image
+    (int64 arithmetic, the cut points truncated toward zero from float64,
+    p0's end cut first).  Returns the clipped ends and which segments
+    are left."""
+    x1, y1 = p0[:, 0].astype(np.int64), p0[:, 1].astype(np.int64)
+    x2, y2 = p1[:, 0].astype(np.int64), p1[:, 1].astype(np.int64)
+    right, bottom = w - 1, h - 1
+
+    def x_code(x):
+        return (x < 0).astype(np.int64) + (x > right) * 2
+
+    c1 = x_code(x1) + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = x_code(x2) + (y2 < 0) * 4 + (y2 > bottom) * 8
+
+    def cut(num, den):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return np.nan_to_num(np.trunc(num.astype(np.float64) * den[0] / den[1])).astype(
+                np.int64)
+
+    go = ((c1 & c2) == 0) & ((c1 | c2) != 0)
+    m = go & ((c1 & 12) != 0)
+    a = np.where(c1 < 8, 0, bottom)
+    x1 = np.where(m, x1 + cut(a - y1, (x2 - x1, y2 - y1)), x1)
+    y1 = np.where(m, a, y1)
+    c1 = np.where(m, x_code(x1), c1)
+    m = go & ((c2 & 12) != 0)
+    a = np.where(c2 < 8, 0, bottom)
+    x2 = np.where(m, x2 + cut(a - y2, (x2 - x1, y2 - y1)), x2)
+    y2 = np.where(m, a, y2)
+    c2 = np.where(m, x_code(x2), c2)
+    go &= ((c1 & c2) == 0) & ((c1 | c2) != 0)
+    m = go & (c1 != 0)
+    a = np.where(c1 == 1, 0, right)
+    y1 = np.where(m, y1 + cut(a - x1, (y2 - y1, x2 - x1)), y1)
+    x1 = np.where(m, a, x1)
+    c1 = np.where(m, 0, c1)
+    m = go & (c2 != 0)
+    a = np.where(c2 == 1, 0, right)
+    y2 = np.where(m, y2 + cut(a - x2, (y2 - y1, x2 - x1)), y2)
+    x2 = np.where(m, a, x2)
+    c2 = np.where(m, 0, c2)
+    return np.stack([x1, y1], 1), np.stack([x2, y2], 1), (c1 | c2) == 0
+
+
+def _draw_lines(mask: np.ndarray, p0: np.ndarray, p1: np.ndarray, clip: bool = True) -> None:
     """8-connected segments p0[k] -> p1[k] (int coordinates) as
-    ``cv2.line``/``LineIterator`` draws them (left to right, Bresenham
-    with OpenCV's error term), every point of every segment at once.
-    With M major and m minor steps the error starts at M - 2m, so after
-    i major steps the line has taken ceil((2 m i - M) / (2 M)) minor
-    ones."""
+    ``cv2.line``/``LineIterator`` draws them (clipped to the mask, then
+    left to right, Bresenham with OpenCV's error term), every point of
+    every segment at once; with ``clip`` False as drawn unclipped and
+    cut to the mask.  With M major and m minor steps the error starts at
+    M - 2m, so after i major steps the line has taken
+    ceil((2 m i - M) / (2 M)) minor ones."""
+    h, w = mask.shape
+    if clip and not _inside(p0, p1, w, h).all():
+        p0, p1, visible = _clip_lines(p0, p1, w, h)
+        p0, p1 = p0[visible], p1[visible]
     swap = p1[:, 0] < p0[:, 0]
     a = np.where(swap[:, None], p1, p0).astype(np.int64)
     b = np.where(swap[:, None], p0, p1).astype(np.int64)
@@ -527,31 +586,45 @@ def _draw_lines(mask: np.ndarray, p0: np.ndarray, p1: np.ndarray) -> None:
     big, small = major[seg], minor[seg]
     taken = -((big - 2 * small * i) // np.maximum(2 * big, 1))
     pts = a[seg] + i[:, None] * step_major[seg] + taken[:, None] * step_minor[seg]
-    h, w = mask.shape
     pts = pts[(pts[:, 0] >= 0) & (pts[:, 0] < w) & (pts[:, 1] >= 0) & (pts[:, 1] < h)]
     mask[pts[:, 1], pts[:, 0]] = 1
 
 
-def _fill_polys(mask: np.ndarray, polys: np.ndarray) -> None:
+def _fill_polys(mask: np.ndarray, polys: np.ndarray, clip: bool = True) -> None:
     """``cv2.fillPoly(mask, list(polys), 1)`` for (K, V, 2) int polygons
     (no shift, 8-connected): every edge is drawn as a line, then the
     scanline fill pairs the edges of ALL polygons by x on each row
-    (even-odd over the whole set) and fills between each pair.  What
-    lies off the mask is clipped."""
+    (even-odd over the whole set) and fills between each pair.  An
+    edge's x runs in 16-bit fixed point from its upper end; an edge with
+    an end off the mask runs from its ends clipped to the mask
+    (``clipLine``: their x, and their y unless the clipped segment is
+    level), as OpenCV 5 draws it.  With ``clip`` False the polygons are
+    drawn as on an unbounded raster and cut to the mask."""
     p0 = np.roll(polys, 1, axis=1).reshape(-1, 2).astype(np.int64)
     p1 = polys.reshape(-1, 2).astype(np.int64)
-    _draw_lines(mask, p0, p1)
+    _draw_lines(mask, p0, p1, clip)
     sloped = p0[:, 1] != p1[:, 1]
     p0, p1 = p0[sloped], p1[sloped]
-    x0 = p0[:, 0] << _XY_SHIFT
-    x1 = p1[:, 0] << _XY_SHIFT
-    num = x1 - x0
-    den = p1[:, 1] - p0[:, 1]
+    h, w = mask.shape
+    off = clip & ~_inside(p0, p1, w, h)
+    c0, c1 = p0, p1
+    if off.any():
+        c0, c1, _ = _clip_lines(p0, p1, w, h)
+    # An edge off the mask takes its clipped x, and its clipped y unless
+    # the clipped segment is level.
+    clipped_y = off & (c0[:, 1] != c1[:, 1])
+    e0 = np.stack([np.where(off, c0[:, 0], p0[:, 0]) << _XY_SHIFT,
+                   np.where(clipped_y, c0[:, 1], p0[:, 1])], 1)
+    e1 = np.stack([np.where(off, c1[:, 0], p1[:, 0]) << _XY_SHIFT,
+                   np.where(clipped_y, c1[:, 1], p1[:, 1])], 1)
+    num = e1[:, 0] - e0[:, 0]
+    den = e1[:, 1] - e0[:, 1]
     slope = np.abs(num) // np.abs(den) * np.sign(num) * np.sign(den)  # C division
     down = p0[:, 1] < p1[:, 1]
     ya = np.where(down, p0[:, 1], p1[:, 1])
     yb = np.where(down, p1[:, 1], p0[:, 1])
-    xa = np.where(down, x0, x1)
+    xa = np.where(down, e0[:, 0] + (p0[:, 1] - e0[:, 1]) * slope,
+                  e1[:, 0] + (p1[:, 1] - e1[:, 1]) * slope)
     rows = yb - ya
     if rows.sum() == 0:
         return
@@ -580,20 +653,33 @@ def _fill_polys(mask: np.ndarray, polys: np.ndarray) -> None:
 _CODE_DELTAS = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1), (1, 1))
 
 
-def _trace_outer_border(buf: bytes, width: int, x0: int, y0: int) -> np.ndarray:
+# Pixel values of the border follower's working image: unmarked ink,
+# ink on a traced border, and ink on a traced border whose right
+# neighbour (background) the trace examined (OpenCV's ``nbd`` and
+# ``nbd | -128``).
+_INK, _MARKED, _RIGHT_BOUND = 1, 2, 3
+
+
+def _trace_border(buf, width: int, x0: int, y0: int, hole: bool = False) -> np.ndarray:
     """OpenCV's border following (``icvFetchContour`` with
-    CHAIN_APPROX_SIMPLE) of the outer border that starts at pixel
-    (x0, y0); ``buf`` is the mask's bytes, zero on its frame.  Returns
-    the chain's corner pixels, first the start pixel."""
+    CHAIN_APPROX_SIMPLE) of the border that starts at pixel (x0, y0): an
+    outer border at its first pixel, a hole border at the ink pixel left
+    of the hole.  ``buf`` is the working image (zero on its frame),
+    ``bytes`` to only trace or a ``bytearray`` to also mark the border
+    as Suzuki's algorithm does.  Returns the chain's corner pixels,
+    first the start pixel."""
+    marks = isinstance(buf, bytearray)
     deltas = [dx + dy * width for dx, dy in _CODE_DELTAS] * 2
     i0 = x0 + y0 * width
-    s = s_end = 4
+    s = s_end = 0 if hole else 4
     while True:
         s = (s - 1) & 7
         i1 = i0 + deltas[s]
         if buf[i1] != 0 or s == s_end:
             break
-    if s == s_end:
+    if s == s_end:  # a lone pixel
+        if marks:
+            buf[i0] = _RIGHT_BOUND
         return np.asarray([[x0, y0]], np.float64)
     out = []
     px, py = x0, y0
@@ -608,6 +694,11 @@ def _trace_outer_border(buf: bytes, width: int, x0: int, y0: int) -> np.ndarray:
             if buf[i4] != 0:
                 break
         s &= 7
+        if marks:
+            if 0 < s <= s_end:
+                buf[i3] = _RIGHT_BOUND
+            elif buf[i3] == _INK:
+                buf[i3] = _MARKED
         if s != prev_s:
             out.append((px, py))
             prev_s = s
@@ -618,6 +709,56 @@ def _trace_outer_border(buf: bytes, width: int, x0: int, y0: int) -> np.ndarray:
         i3 = i4
         s = (s + 4) & 7
     return np.asarray(out, np.float64)
+
+
+def find_contours_tree(mask: np.ndarray) -> List[np.ndarray]:
+    """The contours of ``cv2.findContours(mask, RETR_TREE,
+    CHAIN_APPROX_SIMPLE)`` in cv2's order, every outer and every hole
+    border of the mask's nonzero pixels, as (P, 2) float arrays of pixel
+    (x, y).  Suzuki's raster scan finds them (a row scanned left to
+    right; an outer border starts at an unmarked ink pixel after
+    background, a hole border at the ink pixel before background unless
+    a traced border marked that pixel as its right bound); cv2 5 lists
+    them by a depth-first walk of their nesting tree, each node's
+    children latest found first.  An outer border's parent is the hole
+    its component lies in (the background left of its start pixel), a
+    hole border's the outer border of the component around it (its
+    start pixel's)."""
+    from scipy import ndimage
+
+    mask = np.asarray(mask)
+    h, w = mask.shape
+    work = np.zeros((h + 2, w + 2), np.uint8)  # cv2 pads the image by one pixel
+    work[1:-1, 1:-1] = mask != 0
+    ink = work != 0
+    components, _ = ndimage.label(ink, structure=np.ones((3, 3), int))
+    background, _ = ndimage.label(~ink)  # 4-connected
+    width = w + 2
+    rows, cols = np.nonzero(ink[:, 1:] != ink[:, :-1])
+    buf = bytearray(work.tobytes())
+    found = []  # (ring, its region's label, the surrounding region's label, hole)
+    for y, x in zip(rows.tolist(), (cols + 1).tolist()):
+        i = y * width + x
+        prev, p = buf[i - 1], buf[i]
+        if prev == 0 and p == _INK:
+            found.append((_trace_border(buf, width, x, y), components[y, x],
+                          background[y, x - 1], False))
+        elif p == 0 and prev in (_INK, _MARKED):
+            found.append((_trace_border(buf, width, x - 1, y, hole=True), background[y, x],
+                          components[y, x - 1], True))
+    outer_of = {own: k for k, (_, own, _, hole) in enumerate(found) if not hole}
+    hole_of = {own: k for k, (_, own, _, hole) in enumerate(found) if hole}
+    children: dict = {}
+    for k, (_, _, around, hole) in enumerate(found):
+        parent = outer_of[around] if hole else hole_of.get(around, -1)
+        children.setdefault(parent, []).append(k)
+    out: List[np.ndarray] = []
+    stack = list(children.get(-1, []))
+    while stack:
+        k = stack.pop()
+        out.append(found[k][0] - 1.0)
+        stack.extend(children.get(k, []))
+    return out
 
 
 def _largest_external_contour(mask: np.ndarray) -> Optional[np.ndarray]:
@@ -643,7 +784,7 @@ def _largest_external_contour(mask: np.ndarray) -> Optional[np.ndarray]:
     buf = window.tobytes()
     best, best_area = None, -1.0
     for k in sorted(first.tolist(), reverse=True):
-        ring = _trace_outer_border(buf, window.shape[1], int(xs[k]), int(ys[k]))
+        ring = _trace_border(buf, window.shape[1], int(xs[k]), int(ys[k]))
         area = abs(polygon_area(ring))
         if area > best_area:
             best, best_area = ring, area

@@ -9,7 +9,8 @@ becomes one whole-page region.
 
 :meth:`FastPagePipeline.from_page_parser` builds the device pipeline
 from a config's ``PageParser``, with the JAX command line's settings, on
-either transport, with a CTC or a transformer recognizer.  With
+either transport, with a CTC recognizer (native, or a TorchScript
+archive with a TorchScript ParseNet) or a transformer.  With
 ``want_logits`` each line also gets sparse (T, C) logits rebuilt from
 stage B's top-k download, its charset and its ``logit_coords``, which
 the logits files and the ALTO writer read; with ``want_crops`` its crop

@@ -9,11 +9,16 @@ means CUDA, "cpu" the plain PyTorch path):
 
 - layout: ``LayoutExtractor`` (configs 2-4: CNN regions and lines,
   ``LayoutEngine.detect``, the lines clipped into their regions; with
-  ``ADJUST_HEIGHTS`` a second ParseNet pass and each line's heights
-  from its maps), or ``WholePageRegion`` and ``TextlineExtractorSimple``
-  (config 1: one region over the page, the classical line detector on
-  the host); ``REGION_SORTER_SMART`` (config 4) orders the regions by
-  recursive XY cuts on the levelled page;
+  ``MULTI_ORIENTATION`` the detection again on the page turned by one
+  and three quarter turns; ``MERGE_LINES`` merges the lines of a row;
+  ``DETECT_STRAIGHT_LINES_IN_REGIONS``, ``ADJUST_HEIGHTS`` and
+  ``ADJUST_BASELINES`` read the maps of a second ParseNet pass), or
+  ``WholePageRegion`` and ``TextlineExtractorSimple`` (config 1: one
+  region over the page, the classical line detector on the host);
+  ``LINE_FILTER`` (OrientationNet directions, page position and
+  length), ``LINE_POSTPROCESSING``, ``LAYOUT_POSTPROCESSING`` (region
+  retrace), ``REGION_SORTER_NAIVE`` and ``REGION_SORTER_SMART`` (recursive
+  XY cuts on the levelled page, config 4) after it;
 - ``LineCropper``: every line's warp field on the host, then, for pages
   of four lines or more, one upload of the page and of all its width
   buckets' fields in one buffer, one
@@ -37,9 +42,7 @@ means CUDA, "cpu" the plain PyTorch path):
 :meth:`~pero_ocr_tpu_torch.document.fast_pipeline.FastPagePipeline.from_page_parser`
 builds the device pipeline of ``--fast-pipeline`` from the same engines.
 What the port lacks raises ``ValueError`` naming its ROADMAP item: the
-other layout methods and the ``LAYOUT_CNN`` options ``MULTI_ORIENTATION``,
-``MERGE_LINES``, ``ADJUST_BASELINES`` and
-``DETECT_STRAIGHT_LINES_IN_REGIONS`` (item 8d).
+layout method ``REGION_SIMPLE_THRESHOLD`` (item 8d).
 """
 
 from __future__ import annotations
@@ -56,7 +59,11 @@ from pero_ocr_tpu_torch import STAGE_BY_STAGE, not_ported, resolve_device
 from pero_ocr_tpu_torch.core import crop_engine as cropper
 from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
 from pero_ocr_tpu_torch.layout_engines import helpers
-from pero_ocr_tpu_torch.layout_engines.cnn_engine import LayoutEngine
+from pero_ocr_tpu_torch.layout_engines.baseline_refiner import refine_baseline
+from pero_ocr_tpu_torch.layout_engines.cnn_engine import LayoutEngine, LineFilterEngine
+from pero_ocr_tpu_torch.layout_engines.line_in_region_detector import detect_lines_in_region
+from pero_ocr_tpu_torch.layout_engines.line_postprocessing_engine import PostprocessingEngine
+from pero_ocr_tpu_torch.layout_engines.naive_sorter import NaiveRegionSorter
 from pero_ocr_tpu_torch.layout_engines.simple_baseline_engine import EngineLineDetectorSimple
 from pero_ocr_tpu_torch.layout_engines.smart_sorter import SmartRegionSorter
 from pero_ocr_tpu_torch.ocr.ctc_engine import CTCEngineLineOCR
@@ -67,11 +74,8 @@ from pero_ocr_tpu_torch.utils.timing import stage_timer
 
 logger = logging.getLogger(__name__)
 
-# The JAX package's other layout stages (page_parser.py:51-68).
-OTHER_LAYOUT_METHODS = (
-    "REGION_SIMPLE_THRESHOLD", "LINE_FILTER", "LINE_POSTPROCESSING",
-    "LAYOUT_POSTPROCESSING", "REGION_SORTER_NAIVE",
-)
+# The JAX package's layout stages that the port lacks.
+UNPORTED_LAYOUT_METHODS = ("REGION_SIMPLE_THRESHOLD",)
 
 
 def layout_parser_factory(config, device=None, config_path="", order=1):
@@ -83,9 +87,17 @@ def layout_parser_factory(config, device=None, config_path="", order=1):
         return LayoutExtractor(section, device, config_path=config_path)
     if method == "LINES_SIMPLE_THRESHOLD":
         return TextlineExtractorSimple(section, config_path=config_path)
+    if method == "LINE_FILTER":
+        return LineFilter(section, device, config_path=config_path)
+    if method == "LINE_POSTPROCESSING":
+        return LinePostprocessor(section, config_path=config_path)
+    if method == "LAYOUT_POSTPROCESSING":
+        return LayoutPostprocessor(section, config_path=config_path)
+    if method == "REGION_SORTER_NAIVE":
+        return NaiveRegionSorter(section, config_path=config_path)
     if method == "REGION_SORTER_SMART":
         return SmartRegionSorter(section, config_path=config_path)
-    if method in OTHER_LAYOUT_METHODS:
+    if method in UNPORTED_LAYOUT_METHODS:
         raise not_ported(f"[LAYOUT_PARSER_{order}] METHOD = {method}", STAGE_BY_STAGE)
     raise ValueError(f"Unknown layout parser method: {method}")
 
@@ -180,7 +192,8 @@ class TextlineExtractorSimple:
 
 
 class LayoutExtractor:
-    """CNN region and line detection (JAX page_parser.py:184-323)."""
+    """CNN region and line detection with the optional passes after it
+    (JAX page_parser.py:184-323)."""
 
     def __init__(self, config, device=None, config_path=""):
         self.detect_regions = config.getboolean("DETECT_REGIONS", fallback=True)
@@ -217,54 +230,154 @@ class LayoutExtractor:
             device=device,
         )
 
-    def unported_options(self) -> List[str]:
-        """The LAYOUT_CNN options set in the config that the
-        stage-by-stage path does not run yet (ROADMAP item 8d)."""
-        return [name for flag, name in (
-            (self.multi_orientation, "MULTI_ORIENTATION"),
-            (self.merge_lines, "MERGE_LINES"),
-            (self.adjust_baselines, "ADJUST_BASELINES"),
-            (self.detect_straight_lines_in_regions, "DETECT_STRAIGHT_LINES_IN_REGIONS"),
-        ) if flag]
-
     def process_page(self, img, page_layout: PageLayout) -> PageLayout:
-        unported = self.unported_options()
-        if unported:
-            raise not_ported(f"[LAYOUT_PARSER] {', '.join(unported)}", STAGE_BY_STAGE)
         if self.detect_regions or self.detect_lines:
             self._detect(img, page_layout)
+        if self.merge_lines:
+            for region in page_layout.regions:
+                self._merge_lines(region)
+        needs_maps = (self.detect_straight_lines_in_regions or self.adjust_heights
+                      or self.adjust_baselines)
+        if needs_maps:
+            # The maps once more at the page's adaptive resolution (a
+            # second ParseNet pass, as the JAX package makes).
+            maps, ds = self.engine.parsenet.get_maps_with_optimal_resolution(img)
+        if self.detect_straight_lines_in_regions:
+            with stage_timer("straight_lines"):
+                for region in page_layout.regions:
+                    b_list, h_list, t_list = detect_lines_in_region(region.polygon, maps, ds)
+                    region.lines = []
+                    helpers.assign_lines_to_regions(b_list, h_list, t_list, [region])
         if self.adjust_heights:
             with stage_timer("adjust_heights"):
-                self._adjust_heights(img, page_layout)
+                self._adjust_heights(page_layout, maps, ds)
+        if self.adjust_baselines:
+            with stage_timer("adjust_baselines"):
+                crop = cropper.EngineLineCropper(line_height=32, poly=0, scale=1)
+                for line in page_layout.lines_iterator():
+                    line.baseline = refine_baseline(line.baseline, line.heights, maps, ds, crop)
+                    line.polygon = helpers.baseline_to_textline(line.baseline, line.heights)
         return page_layout
 
     def _detect(self, img, page_layout: PageLayout) -> None:
+        """Regions and lines at rotation 0, and with MULTI_ORIENTATION at
+        1 and 3 quarter turns too (their regions ``r{rid:03d}_{rot}``)."""
         if self.detect_regions:
             page_layout.regions = []
         if self.detect_lines:
             for region in page_layout.regions:
                 region.lines = []
-        p_list, b_list, h_list, t_list = self.engine.detect(img)
-        regions = []
-        if self.detect_regions:
-            regions = [RegionLayout(f"r{rid:03d}", polygon) for rid, polygon in enumerate(p_list)]
-        if self.detect_lines:
-            if not self.detect_regions:
-                regions = page_layout.regions
-            regions = helpers.assign_lines_to_regions(b_list, h_list, t_list, regions)
-        if self.detect_regions:
-            page_layout.regions += regions
+        for rot in ([0, 1, 3] if self.multi_orientation else [0]):
+            p_list, b_list, h_list, t_list = self.engine.detect(img, rot=rot)
+            regions = []
+            if self.detect_regions:
+                regions = [RegionLayout(f"r{rid:03d}_{rot}" if rot > 0 else f"r{rid:03d}",
+                                        polygon) for rid, polygon in enumerate(p_list)]
+            if self.detect_lines:
+                if not self.detect_regions:
+                    regions = page_layout.regions
+                regions = helpers.assign_lines_to_regions(b_list, h_list, t_list, regions)
+            if self.detect_regions:
+                page_layout.regions += regions
 
-    def _adjust_heights(self, img, page_layout: PageLayout) -> None:
-        """ADJUST_HEIGHTS: the maps once more at the page's adaptive
-        resolution (a second ParseNet pass, as the JAX package makes),
-        then each line's heights from them at 40 points of its resampled
-        baseline, and its outline from those heights."""
-        maps, ds = self.engine.parsenet.get_maps_with_optimal_resolution(img)
+    @staticmethod
+    def _merge_lines(region) -> None:
+        """MERGE_LINES: the region's lines merged row by row and clipped
+        into the region again, until a pass merges none."""
+        while True:
+            original_count = len(region.lines)
+            b_list, h_list = helpers.merge_lines([line.baseline for line in region.lines],
+                                                 [line.heights for line in region.lines])
+            t_list = [helpers.baseline_to_textline(b, h) for b, h in zip(b_list, h_list)]
+            region.lines = []
+            helpers.assign_lines_to_regions(b_list, h_list, t_list, [region])
+            if len(region.lines) == original_count:
+                break
+
+    def _adjust_heights(self, page_layout: PageLayout, maps, ds) -> None:
+        """ADJUST_HEIGHTS: each line's heights from the maps at 40 points
+        of its resampled baseline, and its outline from those heights."""
         for line in page_layout.lines_iterator():
             sample_points = helpers.resample_baselines([line.baseline], num_points=40)[0]
             line.heights = self.engine.get_heights(maps, ds, sample_points)
             line.polygon = helpers.baseline_to_textline(line.baseline, line.heights)
+
+
+class LineFilter:
+    """Line filtering by direction, page position and page completeness
+    (JAX page_parser.py:326)."""
+
+    def __init__(self, config, device=None, config_path=""):
+        self.filter_directions = config.getboolean("FILTER_DIRECTIONS", fallback=False)
+        self.filter_incomplete_pages = config.getboolean("FILTER_INCOMPLETE_PAGES",
+                                                         fallback=False)
+        self.filter_pages_with_short_lines = config.getboolean("FILTER_PAGES_WITH_SHORT_LINES",
+                                                               fallback=False)
+        self.length_threshold = config.getint("LENGTH_THRESHOLD", fallback=0)
+        if self.filter_directions:
+            model_path = config.get("MODEL_PATH", fallback=None)
+            self.engine = LineFilterEngine(
+                model_path=compose_path(model_path, config_path) if model_path else None,
+                device=device)
+
+    def process_page(self, img, page_layout: PageLayout) -> PageLayout:
+        if self.filter_directions:
+            self.engine.predict_directions(img)
+            for region in page_layout.regions:
+                region.lines = [line for line in region.lines
+                                if self.engine.check_line_rotation(line.polygon, line.baseline)]
+        if self.filter_incomplete_pages:
+            for region in page_layout.regions:
+                region.lines = [line for line in region.lines
+                                if helpers.check_line_position(line.baseline,
+                                                               page_layout.page_size)]
+        if self.filter_pages_with_short_lines:
+            b_list = [line.baseline for line in page_layout.lines_iterator()]
+            if helpers.get_max_line_length(b_list) < self.length_threshold:
+                page_layout.regions = []
+        page_layout.regions = [r for r in page_layout.regions if r.lines]
+        return page_layout
+
+
+class LinePostprocessor:
+    """``LINE_POSTPROCESSING`` in every region (JAX page_parser.py:371)."""
+
+    def __init__(self, config, config_path=""):
+        stretch_lines = config["STRETCH_LINES"]
+        if stretch_lines != "max":
+            stretch_lines = int(stretch_lines)
+        self.engine = PostprocessingEngine(
+            stretch_lines=stretch_lines,
+            resample_lines=config.getboolean("RESAMPLE_LINES", fallback=False),
+            heights_from_regions=config.getboolean("HEIGHTS_FROM_REGIONS", fallback=False),
+        )
+
+    def process_page(self, img, page_layout: PageLayout) -> PageLayout:
+        if not page_layout.regions:
+            logger.warning("Skipping line post processing for page %s. No text region.",
+                           page_layout.id)
+            return page_layout
+        for region in page_layout.regions:
+            self.engine.postprocess(region)
+        return page_layout
+
+
+class LayoutPostprocessor:
+    """``LAYOUT_POSTPROCESSING``: with ``RETRACE_REGIONS`` each region's
+    outline rebuilt from its lines (JAX page_parser.py:394)."""
+
+    def __init__(self, config, config_path=""):
+        self.retrace_regions = config.getboolean("RETRACE_REGIONS", fallback=False)
+
+    def process_page(self, img, page_layout: PageLayout) -> PageLayout:
+        if not page_layout.regions:
+            logger.warning("Skipping layout post processing for page %s. No text region.",
+                           page_layout.id)
+            return page_layout
+        if self.retrace_regions:
+            for region in page_layout.regions:
+                helpers.retrace_region(region)
+        return page_layout
 
 
 class LineCropper:

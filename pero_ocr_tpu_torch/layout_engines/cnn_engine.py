@@ -15,8 +15,9 @@
   (``ParseNetWrapper``), ``parse`` (connected components to baselines,
   heights and outlines), the clustering, region polygons from alpha
   shapes with raster overlap resolution, and the top-to-bottom order.
-  The other layout stages of the JAX engine (``LineFilterEngine``) are
-  ROADMAP item 8d.
+- :class:`LineFilterEngine`: ``LINE_FILTER``'s ``FILTER_DIRECTIONS``,
+  the OrientationNet direction field of the page and the test of each
+  steep line against it.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ from scipy.sparse.csgraph import connected_components as graph_components
 from pero_ocr_tpu_torch import resolve_device
 from pero_ocr_tpu_torch.core import geometry
 from pero_ocr_tpu_torch.layout_engines import helpers
-from pero_ocr_tpu_torch.layout_engines.parsenet_wrapper import ParseNetWrapper
+from pero_ocr_tpu_torch.layout_engines.parsenet_wrapper import (
+    OrientationNetWrapper, ParseNetWrapper,
+)
 from pero_ocr_tpu_torch.ops import morphology
 from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.timing import stage_timer
@@ -495,3 +498,43 @@ def _subtract_polygon(poly: np.ndarray, sub: np.ndarray) -> Optional[np.ndarray]
         return None
     out = ring + [x0, y0]
     return out if len(out) >= 3 else None
+
+
+class LineFilterEngine:
+    """Drops lines whose baseline direction disagrees with the
+    OrientationNet direction field by pi/4 or more; lines within pi/4 of
+    horizontal always pass (JAX cnn_engine.py:556)."""
+
+    def __init__(self, model_path=None, device=None, downsample=4, max_mp=5):
+        """``device``: where OrientationNet runs; None means CUDA
+        (resolved at the first page)."""
+        self.tiltnet = OrientationNetWrapper(model_path, max_mp=max_mp, device=device)
+        self.downsample = downsample
+        self.predictions: Optional[np.ndarray] = None
+
+    @staticmethod
+    def get_angle_diff(angle_1, angle_2):
+        smaller = np.minimum(angle_1, angle_2)
+        larger = np.maximum(angle_1, angle_2)
+        return np.minimum(np.abs(larger - smaller), np.abs(larger - (smaller + 2 * np.pi)))
+
+    def predict_directions(self, image) -> None:
+        self.predictions = self.tiltnet.get_maps(image, self.downsample)
+
+    def check_line_rotation(self, polygon, baseline) -> bool:
+        """Whether the line stays: horizontal within pi/4, or its
+        direction within pi/4 of the median predicted direction over its
+        outline's pixels (a line whose outline covers none stays)."""
+        target_angle = np.arctan2(baseline[0, 1] - baseline[-1, 1],
+                                  baseline[-1, 0] - baseline[0, 0])
+        if -np.pi / 4 < target_angle < np.pi / 4:
+            return True
+        mask = geometry.rasterize_polygon(np.asarray(polygon, dtype=float) / self.downsample,
+                                          (0, 0), self.predictions.shape[:2])
+        inside = mask > 0
+        if not inside.any():
+            return True
+        predicted_x = np.median(self.predictions[:, :, 0][inside])
+        predicted_y = np.median(self.predictions[:, :, 1][inside])
+        predicted_angle = np.arctan2(predicted_y, predicted_x)
+        return self.get_angle_diff(predicted_angle, target_angle) < np.pi / 4

@@ -1,11 +1,17 @@
 """Layout geometry helpers (from pero_ocr_tpu/layout_engines/helpers.py):
 textline outlines from baselines, region outlines from textlines, the
 stage-by-stage layout's clipping of lines into regions and their
-top-to-bottom order, and the polynomial resampling of baselines that
-``ADJUST_HEIGHTS`` samples the heights map at."""
+top-to-bottom order, the polynomial resampling of baselines that
+``ADJUST_HEIGHTS`` samples the heights map at, and what the optional
+layout stages use: ``LINE_FILTER``'s position and length tests,
+``LAYOUT_POSTPROCESSING``'s region retrace, ``MERGE_LINES``, and the
+deskew of ``MERGE_LINES`` and ``LINE_POSTPROCESSING`` (the mean tilt of
+the longer lines, and cv2's ``getRotationMatrix2D`` and ``transform`` as
+the float64 affine map of :mod:`.smart_sorter`)."""
 
 from __future__ import annotations
 
+import math
 import random
 from typing import List, Optional
 
@@ -13,6 +19,30 @@ import numpy as np
 
 from pero_ocr_tpu_torch.core import geometry
 from pero_ocr_tpu_torch.core.layout import TextLine
+from pero_ocr_tpu_torch.layout_engines.smart_sorter import rotation_matrix, transform
+
+
+def check_line_position(baseline, page_size, margin=20, min_ratio=0.125) -> bool:
+    """False for a line that touches a side margin of the page without
+    reaching ``min_ratio`` of its width from that side (bleed-through
+    from a neighbouring page)."""
+    x_coords = np.asarray(baseline)[:, 0]
+    if np.any(x_coords < margin) and not np.any(x_coords > page_size[1] * min_ratio):
+        return False
+    if np.any(x_coords > (page_size[1] - margin)) and not np.any(
+            x_coords < page_size[1] * min_ratio):
+        return False
+    return True
+
+
+def get_max_line_length(baseline_list):
+    """The largest horizontal extent between a baseline's ends (0 for
+    none)."""
+    if not baseline_list:
+        return 0
+    x0 = np.asarray([b[0, 0] for b in baseline_list])
+    x1 = np.asarray([b[-1, 0] for b in baseline_list])
+    return np.abs(x1 - x0).max()
 
 
 def baseline_to_textline(baseline: np.ndarray, heights) -> np.ndarray:
@@ -181,3 +211,113 @@ def resample_baselines(baselines, num_points: int = 10):
             resampled = resampled[:, ::-1]
         out.append(resampled)
     return out
+
+
+def retrace_region(region) -> None:
+    """The region's outline rebuilt from its lines' outlines (the alpha
+    shape, simplified by 5 px); a region without lines keeps its own."""
+    textlines = [line.polygon for line in region.lines]
+    if not textlines:
+        return
+    region.polygon = geometry.simplify_polygon(region_from_textlines(textlines), 5)
+
+
+def get_rotation(lines) -> float:
+    """The mean tilt in degrees of the longer half of the lines (a line
+    whose ends lie on one row counts as length 0, tilt 0)."""
+    info = []
+    for line in lines:
+        first = np.asarray(line[0], dtype=np.float64)
+        last = np.asarray(line[-1], dtype=np.float64)
+        if last[1] != first[1]:
+            rotation = math.degrees(np.arctan2(last[1] - first[1], last[0] - first[0]))
+            info.append((float(np.hypot(*(last - first))), rotation))
+        else:
+            info.append((0.0, 0.0))
+    info.sort(key=lambda x: x[0], reverse=True)
+    info = info[: len(info) // 2]
+    if not info:
+        return 0.0
+    return sum(r for _, r in info) / len(info)
+
+
+def rotate_coords(coords, rotation: float, center) -> np.ndarray:
+    """Points turned by ``rotation`` degrees about ``center``, as cv2's
+    ``transform`` by ``getRotationMatrix2D(center, rotation, 1)``."""
+    return transform(coords, rotation_matrix(center, rotation))
+
+
+def merge_lines(baselines, heights):
+    """Lines of one visual row merged: deskewed by the mean tilt, two
+    lines pair when they overlap vertically by more than 0.7 of the
+    lower one's height, neither holds the other horizontally and their
+    gap is under twice that height; each group becomes one resampled
+    baseline with the larger heights.  The lines are then ordered top to
+    bottom by their first point's y, jittered by one draw of Python's
+    global ``random.uniform(0.001, 0.999)`` a line, and turned back."""
+    rotation = get_rotation(baselines)
+    baselines = [rotate_coords(b, rotation, (0, 0)) for b in baselines]
+
+    n = len(baselines)
+    avg_y = np.asarray([np.average(np.asarray(b)[:, 1]) for b in baselines])
+    x_min = np.asarray([np.amin(np.asarray(b)[:, 0]) for b in baselines])
+    x_max = np.asarray([np.amax(np.asarray(b)[:, 0]) for b in baselines])
+    h_asc = np.asarray([h[0] for h in heights], dtype=float)
+    h_desc = np.asarray([h[1] for h in heights], dtype=float)
+
+    merged = set()
+    groups: List[List[int]] = []
+    for i in range(n):
+        group = []
+        for j in range(n):
+            if i == j:
+                continue
+            contained = (x_min[i] > x_min[j] and x_max[i] < x_max[j]) or (
+                x_min[j] > x_min[i] and x_max[j] < x_max[i])
+            gap = max(x_min[i] - x_max[j], x_min[j] - x_max[i])
+            overlap = min(avg_y[i] + h_desc[i], avg_y[j] + h_desc[j]) - max(
+                avg_y[i] - h_asc[i], avg_y[j] - h_asc[j])
+            min_height = min(h_asc[i] + h_desc[i], h_asc[j] + h_desc[j])
+            if overlap > 0.7 * min_height and not contained and gap < 2 * min_height:
+                if i not in merged:
+                    group.append(i)
+                    merged.add(i)
+                if j not in merged:
+                    group.append(j)
+                    merged.add(j)
+        groups.append(group)
+
+    baselines = [np.asarray(b) for b in baselines]
+    heights = [list(h) for h in heights]
+    for group in groups:
+        if not group:
+            continue
+        pts = np.concatenate([baselines[g] for g in group], axis=0)
+        pts = pts[np.argsort(pts[:, 0])]
+        baselines.append(resample_baselines([pts])[0])
+        heights.append([max(heights[g][0] for g in group), max(heights[g][1] for g in group)])
+
+    keep = [i for i in range(len(baselines)) if i not in merged]
+    baselines = [baselines[i] for i in keep]
+    heights = [heights[i] for i in keep]
+
+    order = [b[0][1] + random.uniform(0.001, 0.999) for b in baselines]
+    baselines = [b for _, b in sorted(zip(order, baselines), key=lambda x: x[0])]
+    heights = [h for _, h in sorted(zip(order, heights), key=lambda x: x[0])]
+    baselines = [rotate_coords(b, -rotation, (0, 0)) for b in baselines]
+    return baselines, heights
+
+
+def filter_list(items_list, indices_to_remove):
+    """``items_list`` without the items at ``indices_to_remove``
+    (negative indices count from the end; one out of range raises
+    ``ValueError``)."""
+
+    def normalize(idx):
+        n = len(items_list)
+        if idx < -n or idx > n - 1:
+            raise ValueError(f"Cannot remove index {idx} from {n}-long data")
+        return idx if idx >= 0 else n + idx
+
+    to_remove = {normalize(i) for i in indices_to_remove}
+    return [x for i, x in enumerate(items_list) if i not in to_remove]

@@ -1,8 +1,11 @@
-"""ParseNet wrapper (port of pero_ocr_tpu/layout_engines/parsenet_wrapper.py).
+"""ParseNet and OrientationNet wrappers (port of
+pero_ocr_tpu/layout_engines/parsenet_wrapper.py).
 
 Builds :class:`~pero_ocr_tpu_torch.models.parsenet.ParseNet` from the
 layout config's architecture keys and loads the JAX package's flax
-checkpoint into it.  The fast path runs the model inside
+checkpoint into it; a ``MODEL_PATH`` that is a TorchScript archive (the
+reference's format) is loaded onto the wrapper's device instead
+(:class:`~pero_ocr_tpu_torch.utils.ts_adapters.TSParseNetModel`).  The fast path runs the model inside
 :class:`~pero_ocr_tpu_torch.parallel.pipeline.TorchPagePipeline`; the
 stage-by-stage path calls ``get_maps_with_optimal_resolution`` once a
 page: the colour page, area-resized on the host
@@ -12,6 +15,11 @@ about 12 map pixels, capped by ``MAX_MEGAPIXELS``, padded to a multiple
 of 64, divided by 255 and run through ParseNet on the wrapper's device.
 The downsample a page settles on is where the next page starts
 (``last_downsample``), so results depend on page order.
+
+``OrientationNetWrapper`` (``LINE_FILTER``'s ``FILTER_DIRECTIONS``) runs
+:class:`~pero_ocr_tpu_torch.models.parsenet.OrientationNet` on the page
+area-resized by a fixed downsample and divided by 256, as the JAX
+wrapper does.
 """
 
 from __future__ import annotations
@@ -21,11 +29,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from pero_ocr_tpu_torch import TORCHSCRIPT, not_ported, resolve_device
-from pero_ocr_tpu_torch.models.parsenet import ParseNet
+from pero_ocr_tpu_torch import resolve_device
+from pero_ocr_tpu_torch.models.parsenet import OrientationNet, ParseNet
 from pero_ocr_tpu_torch.utils.checkpoint import is_torchscript_file, load_or_init
-from pero_ocr_tpu_torch.utils.convert import parsenet_params_from_flax
+from pero_ocr_tpu_torch.utils.convert import (
+    orientation_params_from_flax, parsenet_params_from_flax,
+)
 from pero_ocr_tpu_torch.utils.resize import resize_area
+from pero_ocr_tpu_torch.utils.ts_adapters import TSParseNetModel
 
 
 def _pad_to_canvas(img: np.ndarray, multiple: int = 64) -> Tuple[np.ndarray, int, int]:
@@ -61,7 +72,8 @@ class ParseNetWrapper:
         device=None,
     ):
         """``device``: where ``get_maps`` runs ParseNet; None means CUDA
-        (resolved at the first page)."""
+        (resolved at the first page; a TorchScript archive is loaded onto
+        the device at once)."""
         self.detection_threshold = detection_threshold
         self.adaptive_downsample = adaptive_downsample
         self.init_downsample = downsample
@@ -69,7 +81,8 @@ class ParseNetWrapper:
         self.max_megapixels = max_mp
         self.device = device
         if model_path and is_torchscript_file(model_path):
-            raise not_ported(f"TorchScript ParseNet {model_path}", TORCHSCRIPT)
+            self.model = TSParseNetModel.load(model_path, resolve_device(device))
+            return
 
         def init() -> ParseNet:
             return ParseNet(
@@ -135,3 +148,38 @@ class ParseNetWrapper:
         heights = (out_map[:, :, 2] > self.detection_threshold).astype(float) * out_map[:, :, 0]
         positive = heights[heights > 0]
         return float(np.median(positive)) if positive.size else 0.0
+
+
+class OrientationNetWrapper:
+    """Per-pixel text directions of a page (JAX parsenet_wrapper.py:157)."""
+
+    def __init__(self, model_path: Optional[str] = None, max_mp: float = 5,
+                 base_features: int = 16, depth: int = 3, device=None):
+        """``device``: where ``get_maps`` runs OrientationNet; None means
+        CUDA (resolved at the first page)."""
+        self.max_megapixels = max_mp
+        self.device = device
+
+        def init() -> OrientationNet:
+            return OrientationNet(base_features=base_features, depth=depth,
+                                  generator=torch.Generator().manual_seed(0))
+
+        def restore(tree) -> OrientationNet:
+            model = init()
+            model.load_state_dict(orientation_params_from_flax(tree))
+            return model
+
+        self.model = load_or_init(model_path, init, name="OrientationNet", restore=restore)
+
+    def get_maps(self, img: np.ndarray, downsample: float) -> np.ndarray:
+        """(h, w, 2) float32 directions of ``img`` area-resized by
+        1/``downsample``, the canvas divided by 256."""
+        if downsample != 1:
+            img = resize_area(img, downsample)
+        canvas, h, w = _pad_to_canvas(img)
+        device = resolve_device(self.device)
+        model = self.model.to(device).eval()
+        with torch.inference_mode():
+            batch = torch.from_numpy(canvas[None]).to(device)
+            out = model(batch.float() / torch.tensor(256.0, device=device))[0]
+            return out[:h, :w].cpu().numpy()

@@ -17,6 +17,7 @@ counter-clockwise in image coordinates), written in numpy.
 from __future__ import annotations
 
 import math
+from fractions import Fraction
 from typing import List
 
 import numpy as np
@@ -29,16 +30,57 @@ def rotation_matrix(origin, angle: float) -> np.ndarray:
     map turning points by ``angle`` degrees about ``origin`` (a float32
     point in cv2)."""
     cx, cy = (float(np.float32(v)) for v in origin)
-    radians = angle * math.pi / 180
+    radians = angle * (math.pi / 180)
     alpha, beta = math.cos(radians), math.sin(radians)
     return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
                      [-beta, alpha, beta * cx + (1 - alpha) * cy]])
 
 
+def _two_sum(a, b):
+    """(a + b rounded, its exact rounding error)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(a):
+    c = 134217729.0 * a  # 2**27 + 1: Veltkamp's split into 26-bit halves
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def fma(a, b, c) -> np.ndarray:
+    """The float64 fused multiply-add ``a * b + c`` rounded once, as C's
+    ``fma`` computes it (numpy has none): the exact product as a sum of
+    two doubles (Dekker), the exact total as a sum of three, rounded;
+    the rare totals within a rounding error of a halfway point are
+    rounded exactly with fractions."""
+    a, b, c = np.broadcast_arrays(*(np.asarray(v, np.float64) for v in (a, b, c)))
+    shape = a.shape
+    a, b, c = (v.reshape(-1) for v in (a, b, c))
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s1, t1 = _two_sum(p, c)
+    s2, t2 = _two_sum(t1, e)
+    r, err = _two_sum(s1, s2)  # the exact total is r + err + t2
+    half = np.spacing(np.abs(r)) / 2
+    slack = 2 * np.abs(t2)
+    unsure = (t2 != 0) & ((np.abs(np.abs(err) - half) <= slack)
+                          | (np.abs(np.abs(err) - half / 2) <= slack))
+    for i in np.flatnonzero(unsure):
+        r[i] = float(Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i])))
+    return r.reshape(shape)
+
+
 def transform(points, matrix: np.ndarray) -> np.ndarray:
-    """cv2's ``transform`` of (P, 2) points by a 2x3 map, in float64."""
+    """cv2's ``transform`` of (P, 2) float64 points by a 2x3 map, bit for
+    bit: ``fma(m0, x, m1 * y) + m2`` a coordinate."""
     pts = np.asarray(points, dtype=np.float64).reshape(-1, 2)
-    return pts @ matrix[:, :2].T + matrix[:, 2]
+    m = np.asarray(matrix, np.float64)
+    x, y = pts[:, 0], pts[:, 1]
+    return np.stack([fma(r[0], x, r[1] * y) + r[2] for r in m], axis=1)
 
 
 def _groups_couple(bounds_a: np.ndarray, bounds_b: np.ndarray, axis: int,

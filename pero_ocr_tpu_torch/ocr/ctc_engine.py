@@ -2,7 +2,11 @@
 
 Appends the U+200B blank to the charset, builds
 :class:`~pero_ocr_tpu_torch.models.recognizer.CTCRecognizer` from the
-JSON's ``net_spec`` and loads the JAX package's flax checkpoint into it.
+JSON's ``net_spec`` and loads the JAX package's flax checkpoint into it;
+a ``checkpoint`` that is a TorchScript archive (the reference's format)
+is loaded onto the engine's device instead
+(:class:`~pero_ocr_tpu_torch.utils.ts_adapters.TSRecognizerModel`,
+which probes its class count and width subsampling there).
 ``run_ocr`` recognizes one padded batch of line crops on the engine's
 device (CUDA unless ``device="cpu"``): u8 in, divided by 255 in float32,
 the recognizer, then greedy CTC labels over every frame of the bucket
@@ -18,12 +22,13 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from pero_ocr_tpu_torch import TORCHSCRIPT, not_ported, resolve_device
+from pero_ocr_tpu_torch import resolve_device
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
 from pero_ocr_tpu_torch.ocr.line_ocr_engine import BaseEngineLineOCR
 from pero_ocr_tpu_torch.ops import ctc
 from pero_ocr_tpu_torch.utils.checkpoint import is_torchscript_file, load_or_init
 from pero_ocr_tpu_torch.utils.convert import recognizer_params_from_flax
+from pero_ocr_tpu_torch.utils.ts_adapters import TSRecognizerModel
 
 BLANK_CHAR = "\u200b"
 
@@ -31,12 +36,22 @@ BLANK_CHAR = "\u200b"
 class CTCEngineLineOCR(BaseEngineLineOCR):
     def __init__(self, json_def: str, device=None):
         """``device``: where ``run_ocr`` runs; None means CUDA (resolved
-        at the first batch, so that a config can be read without a
-        card)."""
+        at the first batch, so that a config can be read without a card;
+        a TorchScript archive is loaded, and probed, on the device at
+        once)."""
         super().__init__(json_def, device=device)
         self.characters = tuple(self.characters) + (BLANK_CHAR,)
         if self.checkpoint and is_torchscript_file(self.checkpoint):
-            raise not_ported(f"TorchScript recognizer {self.checkpoint}", TORCHSCRIPT)
+            self.model = TSRecognizerModel.load(
+                self.checkpoint, resolve_device(device), line_height=self.line_px_height,
+                embed_num=self.config.get("embed_num", 0) or 0)
+            self.spec = self.model.spec
+            if self.spec.num_classes != len(self.characters):
+                raise ValueError(
+                    f"TorchScript recognizer has {self.spec.num_classes} output classes but "
+                    f"the OCR JSON charset (+blank) has {len(self.characters)}")
+            self.net_subsampling = self.spec.subsampling
+            return
         self.spec = RecognizerSpec.from_json_dict(self.config, num_classes=len(self.characters))
         self.net_subsampling = self.spec.subsampling
 

@@ -70,6 +70,7 @@ from pero_ocr_tpu_torch.parallel.crop_transport import CropTransport, StageAArti
 from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.graphs import capture
 from pero_ocr_tpu_torch.utils.timing import stage_timer
+from pero_ocr_tpu_torch.utils.ts_adapters import TSRecognizerModel
 
 GRAPH_CACHE = 16  # stage B's transformer decode shapes kept as CUDA graphs
 
@@ -135,10 +136,13 @@ class TorchPagePipeline(CropTransport):
         device=None,
         native: Optional[bool] = None,
     ):
-        """``parsenet``: a :class:`ParseNet`, or None for a recognize-only
-        pipeline (``run(..., skip_stage_a=True)``); ``recognizer``: a
-        :class:`CTCRecognizer`, :class:`TransformerOCR` or
-        :class:`RefTransformerOCR`; both moved to ``device`` in place.
+        """``parsenet``: a :class:`ParseNet` or a TorchScript
+        ``TSParseNetModel``, or None for a recognize-only pipeline
+        (``run(..., skip_stage_a=True)``); ``recognizer``: a
+        :class:`CTCRecognizer`, a TorchScript ``TSRecognizerModel``, a
+        :class:`TransformerOCR` or a :class:`RefTransformerOCR`; both
+        moved to ``device`` in place (an archive must have been loaded
+        for it).
         ``device``: None means CUDA (raises when absent); pass "cpu" for
         the plain-PyTorch CPU path.  ``native``: the host geometry and
         the crop transport's line warp in the port's C++ (True) or in
@@ -163,7 +167,8 @@ class TorchPagePipeline(CropTransport):
         self.is_ref_transformer = isinstance(recognizer, transformer_ref.RefTransformerOCR)
         self.is_transformer = self.is_ref_transformer or isinstance(
             recognizer, native_transformer.TransformerOCR)
-        if not self.is_transformer and not isinstance(recognizer, CTCRecognizer):
+        if not self.is_transformer and not isinstance(recognizer,
+                                                      (CTCRecognizer, TSRecognizerModel)):
             raise ValueError(f"recognizer {type(recognizer).__name__} is neither a "
                              "CTCRecognizer nor a transformer")
         if want_logits and self.is_transformer:

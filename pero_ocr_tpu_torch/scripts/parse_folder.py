@@ -46,7 +46,8 @@ Options and config features the port lacks exit with code 2 and name
 their ROADMAP item, rather than change what the run means: line crops
 and renders (``--output-line-path``, ``--output-render-path``: JPEG
 files; the line crops' LMDB store also needs the lmdb package),
-``--dp``, ``--profile`` and ``--process-count``.
+``--dp``, ``--profile``, ``--process-count`` and the layout method
+``REGION_SIMPLE_THRESHOLD``.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ from typing import List, Optional, Set
 from pero_ocr_tpu_torch import IMAGES, SCALE_OUT, STAGE_BY_STAGE, not_ported, resolve_device
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
-from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor, PageParser
+from pero_ocr_tpu_torch.document.page_parser import UNPORTED_LAYOUT_METHODS, PageParser
 from pero_ocr_tpu_torch.ops.warp import warp_fields, warp_lines
 from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.checkpoint import set_strict_loading
@@ -174,10 +175,10 @@ def load_already_processed_files(directories: List[Optional[str]]) -> Set[str]:
     return done
 
 
-def refusals(args, paths) -> List[str]:
+def refusals(args, paths, config) -> List[str]:
     """What this run asks for that the port lacks, each with its ROADMAP
     item.  ``paths``: the PARSE_FOLDER paths after the command line's
-    overrides."""
+    overrides; ``config``: the ini."""
     line_path = paths["OUTPUT_LINE_PATH"]
     asked = [
         (line_path and "lmdb" in line_path,
@@ -187,6 +188,12 @@ def refusals(args, paths) -> List[str]:
         (args.dp > 1, "--dp", SCALE_OUT),
         (args.profile, "--profile (a torch.profiler trace)", SCALE_OUT),
         (args.process_count > 1, "--process-count", STAGE_BY_STAGE),
+    ] + [
+        (config.getboolean("PAGE_PARSER", "RUN_LAYOUT_PARSER", fallback=False),
+         f"[{section}] METHOD = {config[section]['METHOD']}", STAGE_BY_STAGE)
+        for section in config.sections()
+        if re.fullmatch(r"LAYOUT_PARSER_[1-9]", section)
+        and config[section].get("METHOD") in UNPORTED_LAYOUT_METHODS
     ]
     return [str(not_ported(what, item)) for flag, what, item in asked if flag]
 
@@ -225,7 +232,7 @@ def main(argv=None) -> None:
     setup_logging(config["PARSE_FOLDER"])
     paths = {key: get_value_or_none(config, "PARSE_FOLDER", key) for key in overrides}
 
-    refused = refusals(args, paths)
+    refused = refusals(args, paths, config)
     if refused:
         refuse(refused)
     device = resolve_device(args.device)
@@ -236,10 +243,6 @@ def main(argv=None) -> None:
 
     with stage_timer("cli/build"):
         page_parser = PageParser(config, device=device, config_path=os.path.dirname(config_path))
-    unported = [name for lp in page_parser.layout_parsers if isinstance(lp, LayoutExtractor)
-                for name in lp.unported_options()]
-    if unported:
-        refuse([str(not_ported(f"[LAYOUT_PARSER] {', '.join(unported)}", STAGE_BY_STAGE))])
     output_logit_path = paths["OUTPUT_LOGIT_PATH"]
     output_alto_path = paths["OUTPUT_ALTO_PATH"]
     input_image_path = paths["INPUT_IMAGE_PATH"]

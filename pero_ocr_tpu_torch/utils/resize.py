@@ -1,5 +1,5 @@
-"""Host copies of two OpenCV calls of the stage-by-stage path, equal to
-cv2 bit for bit on uint8 images with 1 or 3 channels.
+"""Host copies of the OpenCV calls of the stage-by-stage path that
+resample images, equal to cv2 5.0.0 bit for bit.
 
 - :func:`resize_area` is ``cv2.resize(img, (0, 0), fx=1/s, fy=1/s,
   interpolation=cv2.INTER_AREA)``, the ParseNet input of
@@ -11,10 +11,16 @@ cv2 bit for bit on uint8 images with 1 or 3 channels.
   ``EngineLineCropper.fast_remap``.  OpenCV 5 samples in float32 with
   fused multiply-adds (OpenCV 4 used 1/32 px fixed point instead; the
   JAX package's reference is the OpenCV installed beside it, 5.0.0).
+- :func:`remap_linear_f32` is the same remap of a float32 image (the
+  baseline map that ``ADJUST_BASELINES`` crops), and
+  :func:`warp_affine_linear` ``cv2.warpAffine(img, M, dsize)`` of a
+  float32 image (``DETECT_STRAIGHT_LINES_IN_REGIONS`` turns a region's
+  maps with it): OpenCV 5 maps every destination pixel through the
+  inverted matrix in float32, not to 1/32 px as OpenCV 4 did.
 
-Both follow OpenCV's ``imgproc/src/resize.cpp`` and ``imgwarp.cpp``
-step by step, in the same arithmetic types and summation order, with
-numpy vectorised over pixels.
+They follow OpenCV's ``imgproc/src/resize.cpp``, ``imgwarp.cpp`` and
+``warp_kernels.simd.hpp`` step by step, in the same arithmetic types and
+summation order, with numpy vectorised over pixels.
 """
 
 from __future__ import annotations
@@ -164,17 +170,32 @@ def remap_linear(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.nd
     [0, 255] (NaN stores 0)."""
     squeeze = np.asarray(img).ndim == 2
     src = _as_hwc(img)
+    v = _bilinear_f32(src, *_maps_f32(map_x, map_y))
+    with np.errstate(invalid="ignore"):
+        out = np.clip(np.nan_to_num(np.rint(v), nan=0.0), 0, 255).astype(np.uint8)
+    return out[:, :, 0] if squeeze else out
+
+
+def _maps_f32(map_x, map_y):
     map_x = np.asarray(map_x, np.float32)
     map_y = np.asarray(map_y, np.float32)
     if map_x.shape != map_y.shape or map_x.ndim != 2:
-        raise ValueError(f"remap_linear: maps {map_x.shape} and {map_y.shape}")
+        raise ValueError(f"remap: maps {map_x.shape} and {map_y.shape}")
+    return map_x, map_y
+
+
+# ----------------------------------------------------------------------
+# remap and warpAffine of float32 images, INTER_LINEAR, BORDER_CONSTANT 0
+def _bilinear_f32(src: np.ndarray, sx: np.ndarray, sy: np.ndarray) -> np.ndarray:
+    """OpenCV 5's float32 bilinear sample of ``src`` (H, W, C, any dtype)
+    at float32 coordinates: taps off the image read 0; v0 = p00 + a
+    (p01 - p00), v1 = p10 + a (p11 - p10), v = v0 + b (v1 - v0), each a
+    fused multiply-add; float32 (h, w, C)."""
     h, w, _ = src.shape
     with np.errstate(invalid="ignore"):
-        fx, fy = np.floor(map_x), np.floor(map_y)
-        a = (map_x - fx)[..., None]
-        b = (map_y - fy)[..., None]
-    # Clamp before the integer conversion: a tap beyond the page reads 0
-    # wherever it lies (NaN lands far off the page too).
+        fx, fy = np.floor(sx), np.floor(sy)
+        a = (sx - fx)[..., None]
+        b = (sy - fy)[..., None]
     x0 = np.nan_to_num(np.clip(fx, -2.0, w + 1.0), nan=-2.0).astype(np.int64)
     y0 = np.nan_to_num(np.clip(fy, -2.0, h + 1.0), nan=-2.0).astype(np.int64)
 
@@ -186,6 +207,65 @@ def remap_linear(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.nd
     with np.errstate(invalid="ignore"):
         v0 = _lerp(tap(y0, x0), tap(y0, x0 + 1), a)
         v1 = _lerp(tap(y0 + 1, x0), tap(y0 + 1, x0 + 1), a)
-        v = _lerp(v0, v1, b)
-        out = np.clip(np.nan_to_num(np.rint(v), nan=0.0), 0, 255).astype(np.uint8)
-    return out[:, :, 0] if squeeze else out
+        return _lerp(v0, v1, b)
+
+
+def remap_linear_f32(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.ndarray:
+    """``cv2.remap(img, map_x, map_y, cv2.INTER_LINEAR,
+    borderMode=cv2.BORDER_CONSTANT)`` for a float32 (H, W) or (H, W, C)
+    image and float32 (h, w) maps: :func:`remap_linear`'s sampling
+    without the rounding store.  Like cv2, a one-channel image comes
+    back (h, w)."""
+    img = np.asarray(img)
+    if img.dtype != np.float32 or img.ndim not in (2, 3):
+        raise ValueError(f"expected a float32 image, got {img.dtype} {img.shape}")
+    src = img[:, :, None] if img.ndim == 2 else img
+    out = _bilinear_f32(src, *_maps_f32(map_x, map_y))
+    return out[:, :, 0] if src.shape[2] == 1 else out
+
+
+# OpenCV 5.0.0's warpAffine kernel, as dispatched for AVX2, maps a row's
+# columns 16 at a time (two vectors of 8 float32 lanes) while 16 or more
+# remain, and the rest one at a time.
+_WARP_AFFINE_STEP = 16
+
+
+def warp_affine_linear(img: np.ndarray, matrix: np.ndarray, dsize) -> np.ndarray:
+    """``cv2.warpAffine(img, matrix, dsize)`` (INTER_LINEAR,
+    BORDER_CONSTANT 0) for a float32 (H, W) or (H, W, C) image, ``dsize``
+    (width, height).  As OpenCV 5.0.0 computes it: the 2x3 map is
+    inverted in float64 and rounded to float32 (M); destination pixel
+    (x, y) samples source point (sx, sy) with, in the vector columns,
+    ``sx = fma(M0, x, y M1 + M2)`` (the row term rounded twice) and, in
+    the columns after them, ``sx = fma(x, M0, y M1) + M2`` (sy alike),
+    then :func:`remap_linear_f32`'s bilinear sample."""
+    img = np.asarray(img)
+    if img.dtype != np.float32 or img.ndim not in (2, 3):
+        raise ValueError(f"expected a float32 image, got {img.dtype} {img.shape}")
+    src = img[:, :, None] if img.ndim == 2 else img
+    m = np.asarray(matrix, np.float64).reshape(-1).copy()
+    det = m[0] * m[4] - m[1] * m[3]
+    det = 1.0 / det if det != 0 else 0.0
+    a11, a22 = m[4] * det, m[0] * det
+    m[0] = a11
+    m[1] *= -det
+    m[3] *= -det
+    m[4] = a22
+    m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
+    m = m.astype(np.float32).astype(np.float64)
+
+    dw, dh = int(dsize[0]), int(dsize[1])
+    x = np.arange(dw, dtype=np.float64)[None, :]
+    y = np.arange(dh, dtype=np.float64)[:, None]
+    f32 = np.float32
+    vector = dw // _WARP_AFFINE_STEP * _WARP_AFFINE_STEP
+    coords = []
+    for c0, c1, c2 in ((m[0], m[1], m[2]), (m[3], m[4], m[5])):
+        y_term = (y * c1).astype(f32).astype(np.float64)
+        row = (y_term + c2).astype(f32).astype(np.float64)
+        head = (c0 * x[:, :vector] + row).astype(f32)
+        tail = ((x[:, vector:] * c0 + y_term).astype(f32).astype(np.float64) + c2).astype(f32)
+        coords.append(np.concatenate([np.broadcast_to(head, (dh, head.shape[1])),
+                                      np.broadcast_to(tail, (dh, tail.shape[1]))], axis=1))
+    out = _bilinear_f32(src, coords[0], coords[1])
+    return out[:, :, 0] if src.shape[2] == 1 else out

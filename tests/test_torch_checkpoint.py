@@ -214,12 +214,15 @@ def test_strict_and_lenient_loading(tmp_path, caplog):
 
 
 def test_torchscript_files_are_refused(tmp_path):
+    """TorchScript archives are read (tests/test_torch_torchscript.py);
+    a file with the zip magic that is no archive is refused by
+    ``torch.jit.load``, not taken for a flax checkpoint."""
     path = tmp_path / "model.pt"
     path.write_bytes(b"PK\x03\x04" + bytes(16))
     assert checkpoint.is_torchscript_file(str(path))
     assert not checkpoint.is_torchscript_file(str(tmp_path / "missing"))
-    with pytest.raises(ValueError, match="TorchScript checkpoints"):
-        ParseNetWrapper(str(path))
+    with pytest.raises(RuntimeError):
+        ParseNetWrapper(str(path), device="cpu")
 
 
 # ----------------------------------------------------------------------

