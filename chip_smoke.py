@@ -5,7 +5,13 @@
 Phases (each raises on failure, so the run exits non-zero):
 
 1. Environment: the card's name and power limit (nvidia-smi).
-2. Build: every ``pero_ocr_tpu_torch/csrc/*.cu`` with nvcc, in parallel.
+2. Build: every ``pero_ocr_tpu_torch/csrc/*.cu`` with nvcc and every
+   ``csrc/*.cpp`` with the host compiler, in parallel.  Then the JPEG
+   codec (``csrc/jpeg.cpp``, ``check_jpeg_fixtures``): this machine's
+   build reproduces every digest of ``tests/data/jpeg/fixtures.json``
+   (cv2's decodes and encodes of the committed fixtures), and its host
+   times: the decode of a 2560x1792 colour 4:2:0 page, the encode of a
+   32x1024 line crop (``{"jpeg": ...}``).
 3. Kernel check: each kernel against its plain PyTorch version on the
    card on random pages with mixed lines (straight, curved, tilted,
    off-page, padded), and its time beside the plain version's, one
@@ -28,20 +34,24 @@ Phases (each raises on failure, so the run exits non-zero):
    the main path's shapes; the ``kernels`` line reports these numbers
    (the mixed-line ones under ``mixed_lines_*``).
 7. Command line (run before that last kernel check): the config-2 pages
-   as PNG files and the bench modules as flax msgpack checkpoints, with
-   an OCR JSON and a config, through
+   as colour JPEG files (the port's encoder) and the bench modules as
+   flax msgpack checkpoints, with an OCR JSON and a config, through
    ``python -m pero_ocr_tpu_torch.scripts.parse_folder`` in a
-   subprocess; its Page XML files must equal an in-process
-   ``FastPagePipeline`` with the command line's settings on the same
-   modules and pages; the warp's launches are counted in both (the
-   command line prints its count with ``--timing-report``).  Then the
+   subprocess, without and with ``--output-line-path``; its Page XML
+   files must equal an in-process ``FastPagePipeline`` with the command
+   line's settings on the same modules and the same files decoded by
+   ``image_io.imread``, and its line files the in-process crops' JPEG
+   bytes; the warp's launches are counted in both (the command line
+   prints its count with ``--timing-report``).  Then the
    kernel is held against its plain version, and timed, on the in-process
    run's last batch, at the command line's shapes (page batch 4, line
    slot 32, crop bucket 2048); the ``kernels`` line reports these under
    ``cli_*``.
-8. Stage by stage (``run_staged``): 8 pages through
+8. Stage by stage (``run_staged``): 8 pages as gray JPEG files through
    ``PageParser(config, device="cuda").process_page`` and its command
-   line on 4 of them; the field warp checked and timed on the last page.
+   line with ``--output-line-path`` on 4 of them (the line files held to
+   the in-process crops: ``staged_line_files``); the field warp checked
+   and timed on the last page.
 9. Config 1 (``run_config1``): 6 synthetic printed A4 pages at 300 dpi
    (40 rows) through ``PageParser(config 1, device="cuda")`` (whole-page
    region, the classical line detector, the field warp, the recognizer
@@ -102,8 +112,9 @@ Phases (each raises on failure, so the run exits non-zero):
     device ms against its bound, the host warp's ms a page
     (``{"crops": ...}``).
 15. Re-OCR (``run_reocr``): Page XML from the page transport re-read with
-    ``parse_folder -x`` and an OCR-only config on the card, with and
-    without --fast-pipeline, each equal to the same command on the CPU;
+    ``parse_folder -x`` and an OCR-only config on the card from JPEG
+    pages with --output-line-path, with and without --fast-pipeline,
+    each equal to the same command on the CPU (line files byte for byte);
     the full-width reference transformer through the fast re-OCR, its
     graph equal to its eager loop and its tokens to the CPU's
     (``{"reocr": ...}``).
@@ -149,7 +160,8 @@ Kernel times are taken warm (inputs in L2 from the run before) and
 cold (a 128 MB scratch write before each timed run), since stage B finds
 its pages after the next batch's upload.
 
-The last lines are the command lines' numbers (``{"cli": ...}``,
+The last lines are the JPEG codec's (``{"jpeg": ...}``), the command
+lines' numbers (``{"cli": ...}``,
 ``{"staged": ...}``), config 1's, config 5's, config 3's and config 4's
 (``{"config1": ...}``, ``{"config5": ...}``, ``{"config3": ...}``,
 ``{"config4": ...}``), the crop transport's, re-OCR's and TorchScript's, the
@@ -165,6 +177,7 @@ import contextlib
 import copy
 import dataclasses
 import difflib
+import hashlib
 import json
 import os
 import pickle
@@ -208,9 +221,11 @@ from pero_ocr_tpu_torch.ops import warp as warp_ops
 from pero_ocr_tpu_torch.parallel.crop_transport import unpack_bits, warp_affine_lines
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.parallel import train
+from pero_ocr_tpu_torch.scripts.parse_folder import LINE_QUALITY
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
-from pero_ocr_tpu_torch.utils import checkpoint, convert, kernels, native, timing
+from pero_ocr_tpu_torch.utils import checkpoint, convert, image_io, kernels, native, timing
 from pero_ocr_tpu_torch.utils import ts_adapters
+from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg
 from pero_ocr_tpu_torch.utils.ts_adapters import TSParseNetModel, TSRecognizerModel
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -844,6 +859,61 @@ def run_config2(pipe, rng, smi: str):
 
 
 # ----------------------------------------------------------------------
+# The JPEG codec (csrc/jpeg.cpp): the committed fixtures of tests/data/jpeg
+# (cv2's digests, written where cv2 runs) reproduced by this machine's
+# build, and the codec's host times.
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+JPEG_CROP = (32, 1024)  # the encode timing's crop: one line at the recognizer's height
+
+
+def check_jpeg_fixtures(smi: str) -> dict:
+    """Every decode and encode of ``tests/data/jpeg/fixtures.json``
+    reproduced digest for digest by this machine's build of
+    ``csrc/jpeg.cpp`` (built by kernels.build with the host compiler);
+    then host times, median of HOST_REPEATS after a warm-up: the decode
+    of a 2560x1792 colour 4:2:0 page at JPEG_PAGE_QUALITY (a synthetic
+    page tinted apart in its three channels, encoded by the port) and the
+    encode of a 32x1024 crop at LINE_QUALITY (three equal channels, as
+    the fast path's crops)."""
+    with open(os.path.join(JPEG_FIXTURES, "fixtures.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    differ, n_encodes = [], 0
+    for name, digest in spec["decode"].items():
+        img = image_io.imread(os.path.join(JPEG_FIXTURES, name))
+        if (hashlib.sha256(img.tobytes()).hexdigest() != digest["sha256"]
+                or list(img.shape) != digest["shape"]):
+            differ.append(name)
+    for name, cases in spec["encode"].items():
+        crop = np.load(os.path.join(JPEG_FIXTURES, name))
+        for quality, digest in cases.items():
+            n_encodes += 1
+            if hashlib.sha256(image_io.encode_jpeg(crop, int(quality))).hexdigest() != digest:
+                differ.append(f"{name} at quality {quality}")
+    log(f"JPEG fixtures ({spec['made_with']}): {len(spec['decode'])} decodes and {n_encodes} "
+        f"encodes, {len(spec['decode']) + n_encodes - len(differ)} reproduced; differ: {differ}")
+    if differ:
+        raise AssertionError(f"the JPEG codec's build differs from the fixtures on {differ}")
+    rng = np.random.default_rng(16)
+    gray = synthetic_pages(rng, 1, TWO_COLUMNS)[0][0][:, :, 0].astype(np.int16)
+    page = np.dstack([gray, gray - 12, gray + 9]).clip(0, 255).astype(np.uint8)
+    data = image_io.encode_jpeg(page, JPEG_PAGE_QUALITY)
+    decode_ms = host_ms(lambda: decode_jpeg(data))
+    crop = np.ascontiguousarray(np.repeat(page[:JPEG_CROP[0], :JPEG_CROP[1], :1], 3, axis=2))
+    encode_ms = host_ms(lambda: image_io.encode_jpeg(crop, LINE_QUALITY), repeats=25)
+    numbers = {"fixtures_decoded": len(spec["decode"]), "fixtures_encoded": n_encodes,
+               "fixtures_made_with": spec["made_with"],
+               "decode_ms_page_2560x1792_420_q90": decode_ms, "page_bytes": len(data),
+               "encode_ms_crop_32x1024_q98": encode_ms,
+               "crop_bytes": len(image_io.encode_jpeg(crop, LINE_QUALITY)),
+               "host": "the card machine's CPU, one thread", "card": smi}
+    log(f"JPEG codec, host times on the card's machine (one thread): decode "
+        f"{decode_ms:.2f} ms a 2560x1792 colour 4:2:0 page at quality {JPEG_PAGE_QUALITY} "
+        f"({len(data)} B), encode {encode_ms:.3f} ms a 32x1024 crop at quality "
+        f"{LINE_QUALITY}; beside {smi}")
+    return numbers
+
+
+# ----------------------------------------------------------------------
 # PNG pages (the flax msgpack checkpoints are utils/checkpoint.save_variables
 # of utils/convert.py's *_params_to_flax).
 def png_bytes(page: np.ndarray) -> bytes:
@@ -887,11 +957,12 @@ OCR_JSON = ./ocr.json
 """
 
 
-def write_bundle(tmp: str, pn: ParseNet, rec: CTCRecognizer, pages: dict):
+def write_bundle(tmp: str, pn: ParseNet, rec: CTCRecognizer, pages: dict, jpeg=None):
     """The command line's inputs in ``tmp``: ``pages`` (id -> BGR page)
-    as PNG files under images/, the modules as flax msgpack checkpoints,
-    the OCR JSON and CLI_INI.  Returns (ini path, images dir)."""
-    images = write_pages(tmp, pages)
+    as image files under images/ (see :func:`write_pages`), the modules
+    as flax msgpack checkpoints, the OCR JSON and CLI_INI.  Returns (ini
+    path, images dir)."""
+    images = write_pages(tmp, pages, jpeg)
     checkpoint.save_variables(convert.parsenet_params_to_flax(pn), os.path.join(tmp, "parsenet.msgpack"))
     write_recognizer(tmp, rec)
     ini = os.path.join(tmp, "config.ini")
@@ -900,14 +971,53 @@ def write_bundle(tmp: str, pn: ParseNet, rec: CTCRecognizer, pages: dict):
     return ini, images
 
 
-def write_pages(tmp: str, pages: dict) -> str:
-    """``pages`` (id -> BGR page) as PNG files under ``tmp``/images/."""
+JPEG_PAGE_QUALITY = 90  # the JPEG pages the command lines read
+
+
+def write_pages(tmp: str, pages: dict, jpeg=None) -> str:
+    """``pages`` (id -> BGR page) as PNG files under ``tmp``/images/; with
+    ``jpeg`` "color" as JPEG files at JPEG_PAGE_QUALITY written by the
+    port's encoder (YCbCr 4:2:0), with "gray" as one-component JPEG of
+    the first channel."""
     images = os.path.join(tmp, "images")
     os.makedirs(images)
     for page_id, page in pages.items():
-        with open(os.path.join(images, page_id + ".png"), "wb") as f:
-            f.write(png_bytes(page))
+        if jpeg is None:
+            name, data = page_id + ".png", png_bytes(page)
+        else:
+            img = page[:, :, 0] if jpeg == "gray" else page
+            name, data = page_id + ".jpg", image_io.encode_jpeg(img, JPEG_PAGE_QUALITY)
+        with open(os.path.join(images, name), "wb") as f:
+            f.write(data)
     return images
+
+
+def read_pages(images: str, ids) -> list:
+    """The pages of ``images`` as the command line decodes them."""
+    names = {os.path.splitext(n)[0]: n for n in os.listdir(images)}
+    return [image_io.imread(os.path.join(images, names[pid])) for pid in ids]
+
+
+def timer_row(stdout: str, name: str):
+    """(total s, calls) of a ``--timing-report`` row, or None."""
+    m = re.search(rf"^{re.escape(name)}\s+([0-9.]+)\s+(\d+)\s", stdout, re.M)
+    return (float(m.group(1)), int(m.group(2))) if m else None
+
+
+def line_files(folder: str) -> dict:
+    """name -> bytes of the files of a line-crop folder."""
+    out = {}
+    for name in sorted(os.listdir(folder)):
+        with open(os.path.join(folder, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def crop_bytes(layout) -> dict:
+    """The line files a layout's crops make: name -> the port's JPEG at
+    the command line's quality, as its PageOutputs writes them."""
+    return {f"{layout.id}-{line.id}.jpg": image_io.encode_jpeg(
+        np.asarray(line.crop).astype(np.uint8), LINE_QUALITY) for line in layout.lines_iterator()}
 
 
 def write_recognizer(folder: str, rec: CTCRecognizer, dtype: str = "bfloat16") -> None:
@@ -929,46 +1039,53 @@ def write_recognizer(folder: str, rec: CTCRecognizer, dtype: str = "bfloat16") -
 
 def run_cli(pipe: TorchPagePipeline, rng, smi: str):
     """Config 2 through the port's command line: 16 two-column pages as
-    PNG files, the bench modules as flax msgpack checkpoints with an OCR
-    JSON and a config, ``python -m pero_ocr_tpu_torch.scripts.parse_folder``
-    in a subprocess, then each Page XML file against an in-process
-    FastPagePipeline with the command line's settings, on the same
-    modules (not reloaded) and the in-memory pages.  The warp must
-    launch once per stage-B batch in both runs.  Returns the warp's
-    launches in the in-process run, the phase's numbers and the last
-    stage-B batch's warp arguments (the command line's shapes)."""
+    colour JPEG files (the port's encoder, 4:2:0, JPEG_PAGE_QUALITY), the
+    bench modules as flax msgpack checkpoints with an OCR JSON and a
+    config, ``python -m pero_ocr_tpu_torch.scripts.parse_folder`` in a
+    subprocess, without and then with --output-line-path; then each Page
+    XML file against an in-process FastPagePipeline with the command
+    line's settings, on the same modules (not reloaded) and the same
+    files decoded in process by ``image_io.imread``, and each line file
+    against the in-process crop's JPEG bytes.  The warp must launch once
+    per stage-B batch in every run.  Returns the warp's launches in the
+    in-process run, the phase's numbers and the last stage-B batch's
+    warp arguments (the command line's shapes)."""
     n_pages = 2 * PAGE_BATCH
     pages, lines = synthetic_pages(rng, n_pages, TWO_COLUMNS)
     ids = [f"p{i:04d}" for i in range(n_pages)]
     pn, rec = pipe.parsenet, pipe.recognizer
+    runs = {}
     with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
-        ini, images = write_bundle(tmp, pn, rec, dict(zip(ids, pages)))
-        out_dir = os.path.join(tmp, "page_xml")
-        command = [sys.executable, "-m", "pero_ocr_tpu_torch.scripts.parse_folder", "-c", ini,
-                   "-i", images, "--output-xml-path", out_dir, "--fast-pipeline",
-                   "--timing-report"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(command, cwd=os.path.dirname(os.path.abspath(__file__)),
-                              capture_output=True, text=True, timeout=600)
-        cli_seconds = time.perf_counter() - t0
-        log(f"command line: exit {proc.returncode} in {cli_seconds:.3f} s\n"
-            f"{proc.stdout.strip()}\n{proc.stderr.strip()[-4000:]}")
-        if proc.returncode != 0:
-            raise AssertionError(f"the command line exited {proc.returncode}")
-        files = sorted(os.listdir(out_dir))
-        if files != [page_id + ".xml" for page_id in ids]:
-            raise AssertionError(f"the command line wrote {files}")
-        cli_xml = {}
-        for name in files:
-            with open(os.path.join(out_dir, name), encoding="utf-8") as f:
-                cli_xml[name[:-4]] = f.read()
-            ET.fromstring(cli_xml[name[:-4]].encode("utf-8"))
-    timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
-    counted = re.search(r"^warp_lines kernel launches: (\d+)$", proc.stdout, re.M)
-    if timed is None or counted is None:
-        raise AssertionError("the command line's timing report lacks cli/pages or launches")
-    cli_pages_per_s = n_pages / float(timed.group(1))
-    cli_launches = int(counted.group(1))
+        ini, images = write_bundle(tmp, pn, rec, dict(zip(ids, pages)), jpeg="color")
+        pages = read_pages(images, ids)
+        for export in (False, True):
+            out_dir = os.path.join(tmp, f"page_xml_{int(export)}")
+            line_dir = os.path.join(tmp, "lines")
+            proc, wall = run_parse_folder(
+                ["-c", ini, "-i", images, "--output-xml-path", out_dir, "--fast-pipeline",
+                 "--timing-report"] + (["--output-line-path", line_dir] if export else []),
+                "command line" + (" with line export" if export else ""))
+            files = sorted(os.listdir(out_dir))
+            if files != [page_id + ".xml" for page_id in ids]:
+                raise AssertionError(f"the command line wrote {files}")
+            xml = {}
+            for name in files:
+                with open(os.path.join(out_dir, name), encoding="utf-8") as f:
+                    xml[name[:-4]] = f.read()
+                ET.fromstring(xml[name[:-4]].encode("utf-8"))
+            timed = timer_row(proc.stdout, "cli/pages")
+            decode = timer_row(proc.stdout, "cli/decode")
+            counted = re.search(r"^warp_lines kernel launches: (\d+)$", proc.stdout, re.M)
+            if timed is None or counted is None or decode is None or decode[1] != n_pages:
+                raise AssertionError("the command line's timing report lacks cli/pages, "
+                                     "cli/decode a page or the launches")
+            written = timer_row(proc.stdout, "cli/write_lines")
+            if export and (written is None or written[1] != n_pages):
+                raise AssertionError("the command line's timing report lacks cli/write_lines")
+            runs[export] = {"xml": xml, "wall": wall, "pages_per_s": n_pages / timed[0],
+                            "launches": int(counted.group(1)), "decode_ms": 1e3 * decode[0] / n_pages,
+                            "write_lines_ms": 1e3 * written[0] / n_pages if export else None,
+                            "lines": line_files(line_dir) if export else None}
 
     same = TorchPagePipeline(
         pn, rec, downsample=4, detection_threshold=0.2, line_end_weight=1.0,
@@ -976,7 +1093,7 @@ def run_cli(pipe: TorchPagePipeline, rng, smi: str):
         line_slot=FastPagePipeline.LINE_SLOT, height_scale=1.0, transport_bits=4,
         adaptive_downsample=True, device="cuda",
     )
-    fast = FastPagePipeline(same, BENCH_CHARS, page_batch=CLI_PAGE_BATCH)
+    fast = FastPagePipeline(same, BENCH_CHARS, page_batch=CLI_PAGE_BATCH, want_crops=True)
     last_b, slots = [], []
     stage_b = same.stage_b
 
@@ -994,29 +1111,52 @@ def run_cli(pipe: TorchPagePipeline, rng, smi: str):
     launches = warp_ops.warp_lines.launches
     batches = len({i // CLI_PAGE_BATCH for i, (layout, _) in enumerate(out)
                    if any(True for _ in layout.lines_iterator())})
-    differ = [layout.id for layout, xml in out
-              if mask_pagexml(xml) != mask_pagexml(cli_xml[layout.id])]
+    differ = {export: [layout.id for layout, xml in out
+                       if mask_pagexml(xml) != mask_pagexml(run["xml"][layout.id])]
+              for export, run in runs.items()}
+    want_lines = {}
+    for layout, _ in out:
+        want_lines.update(crop_bytes(layout))
+    got_lines = runs[True]["lines"]
+    line_differ = sorted(n for n in set(want_lines) | set(got_lines)
+                         if want_lines.get(n) != got_lines.get(n))
     n_lines = sum(len(list(layout.lines_iterator())) for layout, _ in out)
     recall = line_recall(
         [[line.baseline for line in layout.lines_iterator()] for layout, _ in out], lines
     )
-    log(f"command line vs in-process: {n_pages - len(differ)} of {n_pages} Page XML files "
-        f"equal (timestamps masked), {n_lines} lines, line recall {recall:.3f}; warp_lines "
-        f"launches in-process {launches}, in the command line {cli_launches}, stage-B "
-        f"batches {batches}, line slots a page {slots}; command line "
-        f"{cli_pages_per_s:.3f} pages/s by its own timer ({cli_seconds:.3f} s wall), "
-        f"in-process {n_pages / seconds:.3f} pages/s, on {smi}")
-    if differ:
+    plain, export = runs[False], runs[True]
+    log(f"command line vs in-process (JPEG pages): {n_pages - len(differ[False])} / "
+        f"{n_pages - len(differ[True])} of {n_pages} Page XML files equal without / with line "
+        f"export (timestamps masked), {n_lines} lines, line recall {recall:.3f}; line files "
+        f"{len(got_lines)}, {len(want_lines) - len(line_differ)} of {len(want_lines)} equal to "
+        f"the in-process crops' JPEG; warp_lines launches in-process {launches}, in the command "
+        f"line {plain['launches']} / {export['launches']}, stage-B batches {batches}, line slots "
+        f"a page {slots}; command line {plain['pages_per_s']:.3f} pages/s without line export, "
+        f"{export['pages_per_s']:.3f} with it, by its own timer ({plain['wall']:.3f} / "
+        f"{export['wall']:.3f} s wall); cli/decode {plain['decode_ms']:.2f} / "
+        f"{export['decode_ms']:.2f} ms a page, cli/write_lines {export['write_lines_ms']:.2f} ms "
+        f"a page (host times); in-process {n_pages / seconds:.3f} pages/s with crops, on {smi}")
+    if differ[False] or differ[True]:
         raise AssertionError(f"the command line's Page XML differs on pages {differ}")
-    if not launches == cli_launches == batches == n_pages // CLI_PAGE_BATCH:
+    if line_differ or not got_lines:
+        raise AssertionError(f"the command line's line files differ: {line_differ[:10]}")
+    if not (launches == plain["launches"] == export["launches"] == batches
+            == n_pages // CLI_PAGE_BATCH):
         raise AssertionError("command line settings: warp kernel launches != stage-B batches")
     if recall < MIN_LINE_RECALL:
         raise AssertionError(f"command line: found {recall:.3f} < {MIN_LINE_RECALL} of the lines")
     same.stage_b = stage_b
-    return launches, {"pages": n_pages, "cli_wall_s": cli_seconds,
-                      "cli_pages_per_s": cli_pages_per_s,
+    return launches, {"pages": n_pages, "page_format": "jpeg 4:2:0 q90",
+                      "cli_wall_s": plain["wall"], "cli_pages_per_s": plain["pages_per_s"],
+                      "cli_export_wall_s": export["wall"],
+                      "cli_export_pages_per_s": export["pages_per_s"],
+                      "cli_decode_ms_a_page": plain["decode_ms"],
+                      "cli_export_decode_ms_a_page": export["decode_ms"],
+                      "cli_write_lines_ms_a_page": export["write_lines_ms"],
+                      "line_files": len(got_lines),
                       "in_process_pages_per_s": n_pages / seconds, "lines": n_lines,
-                      "warp_launches": launches, "cli_warp_launches": cli_launches,
+                      "warp_launches": launches, "cli_warp_launches": plain["launches"],
+                      "cli_export_warp_launches": export["launches"],
                       "stage_b_batches": batches, "stage_b_slots": [int(n) for n in slots],
                       "card": smi}, (*last_b[0], same.crop_height, same.crop_bucket)
 
@@ -1324,23 +1464,95 @@ def check_staged_against_cpu(rng) -> None:
         f"pages, {n_lines} lines")
 
 
+# Line crops of the staged command line against the in-process run's:
+# the two processes' ParseNet maps differ by float32 noise (cuDNN may pick
+# other algorithms), which moves a baseline by a fraction of a pixel and
+# the field warp's samples by a gray level, while the Page XML's rounded
+# numbers stay (same_staged_page).  Held to: files named as the command
+# line's lines, crops of the same shape, and a mean absolute difference
+# of their decoded pixels of at most STAGED_CROP_MEAN_ABS gray levels
+# (another line, or a crop shifted by a pixel, is tens of levels away).
+# The re-OCR command lines (-x, run_reocr) take their geometry from the
+# file, and their line files equal the CPU's byte for byte.
+STAGED_CROP_MEAN_ABS = 2.0
+
+
+def staged_line_files(line_dir: str, xml_dir: str, out, smi: str) -> dict:
+    """The layout run's line files against ``out``'s crops (see
+    STAGED_CROP_MEAN_ABS).  Line ids come from random's jitter, drawn
+    anew in each process, so a line may carry another id, or sit under
+    another region id, in the command line's files (same_staged_page
+    compares the lines as a set): a page's files must be named as the
+    lines of the command line's own Page XML, as many as the in-process
+    page has, and each must match its namesake or another crop of its
+    page; raises where one matches none."""
+    got = line_files(line_dir)
+    decoded = {}
+    same = permuted = 0
+    worst, bad = 0.0, []
+    for layout, _ in out:
+        want = crop_bytes(layout)
+        with open(os.path.join(xml_dir, layout.id + ".xml"), encoding="utf-8") as f:
+            ids = re.findall(r'<TextLine id="([^"]+)"', f.read())
+        names = sorted(f"{layout.id}-{line_id}.jpg" for line_id in ids)
+        mine = sorted(n for n in got if n.startswith(layout.id + "-"))
+        if mine != names or len(mine) != len(want):
+            raise AssertionError(f"the stage-by-stage line files of {layout.id} are not named "
+                                 f"as the lines of its Page XML or differ in number")
+        values = set(want.values())
+        for name in mine:
+            data = got[name]
+            if data == want.get(name):
+                same += 1
+                continue
+            if data in values:
+                permuted += 1
+                continue
+            if layout.id not in decoded:
+                decoded[layout.id] = [decode_jpeg(b).astype(np.int16) for b in want.values()]
+            a = decode_jpeg(data).astype(np.int16)
+            best = min((float(np.abs(a - b).mean()) for b in decoded[layout.id]
+                        if b.shape == a.shape), default=float("inf"))
+            worst = max(worst, best)
+            if best > STAGED_CROP_MEAN_ABS:
+                bad.append(name)
+    log(f"stage-by-stage line files: {len(got)}, named as the lines of the command line's Page "
+        f"XML, as many as in process; {same} equal byte for byte to their namesake, {permuted} "
+        f"to another line of the page (numbered otherwise), the rest within a mean of "
+        f"{worst:.3f} gray levels of an in-process crop's decoded JPEG (bound "
+        f"{STAGED_CROP_MEAN_ABS}); beyond it: {bad[:10]}")
+    if bad:
+        raise AssertionError(f"the stage-by-stage line files differ: {bad[:10]}")
+    return {"line_files": len(got), "same_bytes": same, "permuted": permuted,
+            "max_mean_abs_diff": worst}
+
+
 def run_staged(pipe: TorchPagePipeline, rng, smi: str):
     """Config 2 stage by stage on the card: each of 8 two-column
-    2560x1792 BGR pages through ``PageParser(config, device="cuda")
-    .process_page`` and into Page XML, with the bench modules loaded from
-    flax msgpack checkpoints; then the command line without
-    --fast-pipeline on 4 of the pages, whose files must equal the
-    in-process run's.  Between the two, the host-route A/B: the same
-    pages through a PageParser on the numpy route twice and this one
-    again (A B B A), each run's Page XML equal to the first's.  Returns the field warp's launches, the
-    phase's numbers, the last page's warp inputs and the host record
-    for check_host_native (the last page's host inputs, the A/B)."""
+    2560x1792 pages, written as one-component (gray) JPEG files by the
+    port's encoder and read back by ``image_io.imread``, through
+    ``PageParser(config, device="cuda").process_page`` and into Page XML,
+    with the bench modules loaded from flax msgpack checkpoints; then the
+    command line without --fast-pipeline on the first 4 of the files
+    with --output-line-path, whose Page XML must equal the in-process
+    run's and whose line files the in-process crops (staged_line_files).
+    Between the two, the host-route A/B: the same pages through a
+    PageParser on the numpy route twice and this one again (A B B A),
+    each run's Page XML equal to the first's.  Returns the field warp's
+    launches, the phase's numbers, the last page's warp inputs and the
+    host record for check_host_native (the last page's host inputs, the
+    A/B)."""
     pages, lines = synthetic_pages(rng, PAGE_BATCH, TWO_COLUMNS)
     ids = [f"s{i:04d}" for i in range(len(pages))]
     n_cli = 4
     with tempfile.TemporaryDirectory(prefix="staged_") as tmp:
         ini, images = write_bundle(tmp, pipe.parsenet, pipe.recognizer,
-                                   dict(zip(ids[:n_cli], pages[:n_cli])))
+                                   dict(zip(ids, pages)), jpeg="gray")
+        pages = read_pages(images, ids)
+        cli_images = os.path.join(tmp, "cli_images")
+        os.makedirs(cli_images)
+        for pid in ids[:n_cli]:
+            shutil.copy(os.path.join(images, pid + ".jpg"), cli_images)
         parser = staged_parser(ini, "cuda")
         engine = parser.layout_parsers[0].engine
         detected, detect = [], engine.detect
@@ -1411,33 +1623,41 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             raise AssertionError("staged: warp_fields launches != pages of "
                                  f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
 
-        # The command line without --fast-pipeline on the first pages.
+        # The command line without --fast-pipeline on the first pages,
+        # with the line crops.
         out_dir = os.path.join(tmp, "page_xml")
-        command = [sys.executable, "-m", "pero_ocr_tpu_torch.scripts.parse_folder", "-c", ini,
-                   "-i", images, "--output-xml-path", out_dir, "--timing-report"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(command, cwd=os.path.dirname(os.path.abspath(__file__)),
-                              capture_output=True, text=True, timeout=600)
-        cli_seconds = time.perf_counter() - t0
-        log(f"command line (stage by stage): exit {proc.returncode} in {cli_seconds:.3f} s\n"
-            f"{proc.stdout.strip()}\n{proc.stderr.strip()[-4000:]}")
-        if proc.returncode != 0 or "ERROR" in proc.stdout:
-            raise AssertionError(f"the stage-by-stage command line failed ({proc.returncode})")
+        line_dir = os.path.join(tmp, "lines")
+        proc, cli_seconds = run_parse_folder(
+            ["-c", ini, "-i", cli_images, "--output-xml-path", out_dir, "--output-line-path",
+             line_dir, "--timing-report"], "command line (stage by stage, line export)")
         counted = re.search(r"^warp_fields kernel launches: (\d+)$", proc.stdout, re.M)
-        timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
+        timed = timer_row(proc.stdout, "cli/pages")
+        decode = timer_row(proc.stdout, "cli/decode")
+        written = timer_row(proc.stdout, "cli/write_lines")
         differ = []
         for pid, (layout, xml) in zip(ids[:n_cli], out):
             with open(os.path.join(out_dir, pid + ".xml"), encoding="utf-8") as f:
                 cli_xml = f.read()
             if not same_staged_page(cli_xml, xml):
                 differ.append(pid)
-        log(f"stage-by-stage command line vs in-process: {n_cli - len(differ)} of {n_cli} files "
-            f"equal (lines of a row as a set; conf within 0.0015); its warp_fields "
-            f"launches {counted.group(1) if counted else None}; "
-            f"{n_cli / float(timed.group(1)) if timed else float('nan'):.3f} pages/s by its timer")
-        if differ or counted is None or timed is None:
-            raise AssertionError(f"the stage-by-stage command line's files differ: {differ}")
-        if int(counted.group(1)) != sum(batched[:n_cli]):
+        if differ or None in (counted, timed, decode, written) or written[1] != n_cli:
+            raise AssertionError(f"the stage-by-stage command line's files differ: {differ}, "
+                                 "or its timing report lacks a row")
+        cli_numbers = staged_line_files(line_dir, out_dir, out[:n_cli], smi)
+        # Line export adds only cli/write_lines here (LineCropper's crops
+        # exist either way): the pages/s without it from the same run.
+        cli_numbers.update(
+            pages_per_s=n_cli / timed[0], pages_per_s_without_write_lines=n_cli / (
+                timed[0] - written[0]), wall=cli_seconds, launches=int(counted.group(1)),
+            decode_ms=1e3 * decode[0] / decode[1], write_lines_ms=1e3 * written[0] / n_cli)
+        log(f"stage-by-stage command line vs in-process: {n_cli} of {n_cli} files equal (lines "
+            f"of a row as a set; conf within 0.0015); its warp_fields launches "
+            f"{cli_numbers['launches']}; {cli_numbers['pages_per_s']:.3f} pages/s by its timer "
+            f"with line export, {cli_numbers['pages_per_s_without_write_lines']:.3f} without "
+            f"cli/write_lines; cli/decode {cli_numbers['decode_ms']:.2f} ms a page (gray JPEG, "
+            f"on the decoding thread), cli/write_lines {cli_numbers['write_lines_ms']:.2f} ms a "
+            f"page (host times), on {smi}")
+        if cli_numbers["launches"] != sum(batched[:n_cli]):
             raise AssertionError("the stage-by-stage command line: warp_fields launches != "
                                  f"pages of {parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
         last_page = page_buckets(parser, out[-1][0], pages[-1])
@@ -1448,8 +1668,17 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                             if k in stats},
                "stage_calls": {k: stats[k][1] for k in STAGE_TIMERS if k in stats},
                "warp_fields_launches": launches, "pages_of_4_lines_or_more": sum(batched),
-               "cli_pages_per_s": n_cli / float(timed.group(1)), "cli_wall_s": cli_seconds,
-               "cli_warp_fields_launches": int(counted.group(1)), "card": smi}
+               "page_format": "jpeg gray q90",
+               "cli_pages_per_s": cli_numbers["pages_per_s"], "cli_wall_s": cli_numbers["wall"],
+               "cli_pages_per_s_without_write_lines": cli_numbers[
+                   "pages_per_s_without_write_lines"],
+               "cli_decode_ms_a_page": cli_numbers["decode_ms"],
+               "cli_write_lines_ms_a_page": cli_numbers["write_lines_ms"],
+               "cli_line_files": cli_numbers["line_files"],
+               "cli_line_files_same_bytes": cli_numbers["same_bytes"],
+               "cli_line_files_renumbered": cli_numbers["permuted"],
+               "cli_line_files_max_mean_abs_diff": cli_numbers["max_mean_abs_diff"],
+               "cli_warp_fields_launches": cli_numbers["launches"], "card": smi}
     return launches, numbers, last_page, {"inputs": host_inputs.pages[-1], "ab": ab}
 
 
@@ -3319,10 +3548,11 @@ def run_reocr(pipe: TorchPagePipeline, rng, smi: str):
     <pages>`` with an OCR-only config (the bench recognizer's weights in
     float32, TF32 off) on the card with --fast-pipeline (the crop
     transport's recognize-only loop) and without (LineCropper's field
-    warp, one launch a page), each against the same command in this
-    process on the CPU (its host C++ route, as on the card): equal Page
-    XML (conf within 0.0015).  Then a reference transformer through the
-    fast re-OCR (``transformer_reocr``)."""
+    warp, one launch a page), from colour JPEG pages with
+    --output-line-path, each against the same command in this process on
+    the CPU (its host C++ route, as on the card): equal Page XML (conf
+    within 0.0015) and line files equal byte for byte.  Then a reference
+    transformer through the fast re-OCR (``transformer_reocr``)."""
     pages, _ = synthetic_pages(rng, REOCR_PAGES, TWO_COLUMNS)
     ids = [f"x{i:04d}" for i in range(REOCR_PAGES)]
     layouts = list(FastPagePipeline(pipe, BENCH_CHARS, page_batch=CLI_PAGE_BATCH)
@@ -3332,7 +3562,7 @@ def run_reocr(pipe: TorchPagePipeline, rng, smi: str):
     numbers = {"pages": REOCR_PAGES, "lines": sum(len(list(lay.lines_iterator()))
                                                   for lay in layouts), "card": smi}
     with tempfile.TemporaryDirectory(prefix="reocr_") as tmp:
-        images = write_pages(tmp, dict(zip(ids, pages)))
+        images = write_pages(tmp, dict(zip(ids, pages)), jpeg="color")
         xml_in = os.path.join(tmp, "xml_in")
         os.makedirs(xml_in)
         for layout in layouts:
@@ -3346,30 +3576,40 @@ def run_reocr(pipe: TorchPagePipeline, rng, smi: str):
         for flags, name in (([], "staged"), (["--fast-pipeline"], "fast")):
             out, cpu_out = (os.path.join(tmp, f"{name}_{d}") for d in ("card", "cpu"))
             args = ["-c", ini, "-i", images, "-x", xml_in, "--timing-report", *flags]
-            proc, seconds = run_parse_folder(args + ["--output-xml-path", out],
-                                             f"re-OCR command line ({name})", NO_TF32_CLI)
+            proc, seconds = run_parse_folder(
+                args + ["--output-xml-path", out, "--output-line-path", out + "_lines"],
+                f"re-OCR command line ({name})", NO_TF32_CLI)
             use_native = native.use_native
             native.use_native = lambda route, device: True  # the card's host route
             try:
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(sys.stderr):
-                    cli.main(args + ["--output-xml-path", cpu_out, "--device", "cpu"])
+                    cli.main(args + ["--output-xml-path", cpu_out, "--output-line-path",
+                                     cpu_out + "_lines", "--device", "cpu"])
                 cpu_seconds = time.perf_counter() - t0
             finally:
                 native.use_native = use_native
                 checkpoint.set_strict_loading(False)
             differ = [fid for fid in ids if not same_staged_page(
                 read_text(out, fid + ".xml"), read_text(cpu_out, fid + ".xml"))]
+            card_lines, cpu_lines = line_files(out + "_lines"), line_files(cpu_out + "_lines")
+            lines_differ = sorted(n for n in set(card_lines) | set(cpu_lines)
+                                  if card_lines.get(n) != cpu_lines.get(n))
             timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
             launches = re.search(r"^warp_fields kernel launches: (\d+)$", proc.stdout, re.M)
             numbers[name] = {"wall_s": seconds, "cpu_s": cpu_seconds,
                              "pages_per_s": REOCR_PAGES / float(timed.group(1)),
                              "warp_fields_launches": int(launches.group(1)),
-                             "pages_differ": differ}
+                             "pages_differ": differ, "line_files": len(card_lines),
+                             "line_files_differ": lines_differ}
             log(f"re-OCR command line ({name}) on {smi}: {numbers[name]}")
             if differ:
                 raise AssertionError(f"re-OCR ({name}): the card's Page XML differs from the "
                                      f"CPU's on {differ}")
+            if lines_differ or len(card_lines) != numbers["lines"]:
+                raise AssertionError(f"re-OCR ({name}): the card's line files differ from the "
+                                     f"CPU's: {lines_differ[:10]}, {len(card_lines)} files for "
+                                     f"{numbers['lines']} lines")
             want = 0 if flags else REOCR_PAGES
             if numbers[name]["warp_fields_launches"] != want:
                 raise AssertionError(f"re-OCR ({name}): warp_fields launched "
@@ -4736,6 +4976,8 @@ def run_phases(smi: str) -> list:
     for name, text in kernels.build_logs.items():
         log(f"build {name}:\n{text.strip()}")
 
+    with phase("jpeg"):
+        jpeg_numbers = check_jpeg_fixtures(smi)
     rng = np.random.default_rng(0)
     with phase("check_warp mixed lines, check_against_cpu"):
         mixed = check_warp(mixed_line_args(rng), "mixed lines")
@@ -4817,7 +5059,8 @@ def run_phases(smi: str) -> list:
     }
 
     return [json.dumps({key: value}) for key, value in (
-        ("cli", cli), ("staged", staged), ("config1", config1), ("config5", config5),
+        ("jpeg", jpeg_numbers), ("cli", cli), ("staged", staged), ("config1", config1),
+        ("config5", config5),
         ("config3", config3), ("config4", config4), ("crops", crops), ("reocr", reocr),
         ("torchscript", torchscript),
         ("host_native", host_native),

@@ -8,7 +8,10 @@ reference's post-LN model from a torch ``.pt``, the native pre-LN model
 from a flax checkpoint) on every path, the beam search with a character
 LM, every layout stage of the JAX package but ``REGION_SIMPLE_THRESHOLD``,
 the reference's TorchScript ParseNet and CTC archives on both paths, and
-it trains every model it serves (``parallel/train.py``).  Plain
+it trains every model it serves (``parallel/train.py``).  Pages come in
+as baseline JPEG, PNG or binary PNM (turned by their EXIF orientation)
+and line crops go out as JPEG, equal to OpenCV's libjpeg-turbo to the
+bit (``utils/image_io.py``, the host C++ of ``csrc/jpeg.cpp``).  Plain
 tensor code is PyTorch; the line-crop warp, the one Pallas kernel of
 the JAX package, is two hand-written CUDA kernels built with ``nvcc``
 on first use: the fast path's fused version (``csrc/warp_lines.cu``)

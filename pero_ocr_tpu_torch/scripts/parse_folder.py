@@ -2,17 +2,20 @@
 
     python3 -m pero_ocr_tpu_torch.scripts.parse_folder \\
         -c config.ini -i images/ --output-xml-path page_xml/ [--fast-pipeline] \\
-        [--transport crops] [--output-logit-path logits/] [--output-alto-path alto/]
+        [--transport crops] [--output-logit-path logits/] [--output-alto-path alto/] \\
+        [--output-line-path lines/]
     python3 -m pero_ocr_tpu_torch.scripts.parse_folder \\
         -c ocr_only.ini -i images/ -x page_xml_in/ [--input-logit-path logits/] \\
         --output-xml-path page_xml/ [--fast-pipeline]
 
 It reads the config and its OCR JSON, loads the flax msgpack checkpoints
 (or a reference transformer's torch ``.pt``) they name into the port's
-models, decodes the pages (PNG or binary PNM,
-:mod:`pero_ocr_tpu_torch.utils.image_io`) and writes, per page, a Page
-XML file, a ``.logits`` pickle of the lines' sparse logits and an ALTO
-file with word boxes from the forced alignment, each where asked.
+models, decodes the pages (baseline JPEG, PNG or binary PNM, turned by
+their EXIF orientation, :mod:`pero_ocr_tpu_torch.utils.image_io`) and
+writes, per page, a Page XML file, a ``.logits`` pickle of the lines'
+sparse logits, an ALTO file with word boxes from the forced alignment
+and every line's crop as ``<file id>-<line id>.jpg`` at quality 98
+(cv2's bytes, ``image_io.imwrite_jpeg``), each where asked.
 Without ``--fast-pipeline`` each page goes through
 ``PageParser.process_page`` (the stage-by-stage path; the line crops are
 sampled by the hand-written CUDA field warp; with ``RUN_DECODER`` the
@@ -43,9 +46,9 @@ parse) and the ALTO output's forced alignment follow the device too: the
 port's C++ on CUDA, numpy/scipy on the CPU.
 
 Options and config features the port lacks exit with code 2 and name
-their ROADMAP item, rather than change what the run means: line crops
-and renders (``--output-line-path``, ``--output-render-path``: JPEG
-files; the line crops' LMDB store also needs the lmdb package),
+their ROADMAP item, rather than change what the run means: the line
+crops' LMDB store (an ``--output-line-path`` with ``lmdb`` in it: the
+lmdb package), renders (``--output-render-path``: the Hershey text),
 ``--dp``, ``--profile``, ``--process-count`` and the layout method
 ``REGION_SIMPLE_THRESHOLD``.
 """
@@ -64,6 +67,8 @@ import traceback
 from queue import Queue
 from typing import List, Optional, Set
 
+import numpy as np
+
 from pero_ocr_tpu_torch import IMAGES, SCALE_OUT, STAGE_BY_STAGE, not_ported, resolve_device
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
@@ -71,17 +76,19 @@ from pero_ocr_tpu_torch.document.page_parser import UNPORTED_LAYOUT_METHODS, Pag
 from pero_ocr_tpu_torch.ops.warp import warp_fields, warp_lines
 from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.checkpoint import set_strict_loading
-from pero_ocr_tpu_torch.utils.image_io import imread
+from pero_ocr_tpu_torch.utils.image_io import imread, imwrite_jpeg
 from pero_ocr_tpu_torch.utils.timing import reset_timing, stage_timer, timing_report
 
 logger = logging.getLogger(__name__)
 
 PAGE_BATCH = 4  # the JAX command line's page batch on one device
+LINE_QUALITY = 98  # the JAX command line's JPEG quality for line crops
 
 
 def parse_arguments(argv=None):
     parser = argparse.ArgumentParser(
-        description="Page images -> Page XML, logits and ALTO with the PyTorch/CUDA port."
+        description="Page images -> Page XML, logits, ALTO and line crops with the "
+                    "PyTorch/CUDA port."
     )
     parser.add_argument("-c", "--config", required=True, help="Path to input config file.")
     parser.add_argument("-s", "--skip-processed", action="store_true",
@@ -183,7 +190,6 @@ def refusals(args, paths, config) -> List[str]:
     asked = [
         (line_path and "lmdb" in line_path,
          "--output-line-path into an LMDB store (the lmdb package, and JPEG encoding)", IMAGES),
-        (line_path and "lmdb" not in line_path, "--output-line-path (JPEG line crops)", IMAGES),
         (paths["OUTPUT_RENDER_PATH"], "--output-render-path (JPEG renders)", IMAGES),
         (args.dp > 1, "--dp", SCALE_OUT),
         (args.profile, "--profile (a torch.profiler trace)", SCALE_OUT),
@@ -286,11 +292,12 @@ def main(argv=None) -> None:
         input_logit_path = None
         logger.warning("Logit path specified and Page XML path not specified. "
                        "Logits will be ignored.")
-    for path in (output_xml_path, output_logit_path, output_alto_path):
+    output_line_path = paths["OUTPUT_LINE_PATH"]
+    for path in (output_line_path, output_xml_path, output_logit_path, output_alto_path):
         if path is not None:
             os.makedirs(path, exist_ok=True)
     outputs = PageOutputs(output_xml_path, output_logit_path, output_alto_path,
-                          native_lib.use_native(None, device))
+                          native_lib.use_native(None, device), output_line_path)
 
     if input_image_path is not None:
         ignored = {"", ".xml", ".logits"}
@@ -350,15 +357,16 @@ def main(argv=None) -> None:
 
 class PageOutputs:
     """The files written for each page, in the JAX command line's order:
-    Page XML, the logits pickle, ALTO.  ``native``: the route of the
-    ALTO output's forced alignment."""
+    Page XML, the logits pickle, ALTO, then each line's crop as JPEG.
+    ``native``: the route of the ALTO output's forced alignment."""
 
     def __init__(self, xml_path: Optional[str], logit_path: Optional[str],
-                 alto_path: Optional[str], native: bool):
+                 alto_path: Optional[str], native: bool, line_path: Optional[str] = None):
         self.xml_path = xml_path
         self.logit_path = logit_path
         self.alto_path = alto_path
         self.native = native
+        self.line_path = line_path
 
     @property
     def want_logits(self) -> bool:
@@ -375,6 +383,11 @@ class PageOutputs:
             with stage_timer("cli/write_alto"):
                 layout.to_altoxml(os.path.join(self.alto_path, file_id + ".xml"),
                                   native=self.native)
+        if self.line_path is not None:
+            with stage_timer("cli/write_lines"):
+                for line in layout.lines_iterator():
+                    imwrite_jpeg(os.path.join(self.line_path, f"{file_id}-{line.id}.jpg"),
+                                 np.asarray(line.crop).astype(np.uint8), LINE_QUALITY)
 
 
 def run_fast(page_parser, args, input_image_path, images_to_process, ids_to_process,
@@ -392,6 +405,7 @@ def run_fast(page_parser, args, input_image_path, images_to_process, ids_to_proc
             page_parser, transport_bits=args.transport_bits, page_batch=PAGE_BATCH,
             want_logits=outputs.want_logits, transport=args.transport,
             canvas_bits=args.canvas_bits, reocr=input_xml_path is not None,
+            want_crops=bool(outputs.line_path),
         )
     def decode(names):
         pages = []

@@ -1,9 +1,14 @@
-"""Page image decoding without cv2 or PIL: the port's
-``cv2.imread(path, cv2.IMREAD_COLOR)``.
+"""Page images in and line crops out without cv2 or PIL: the port's
+``cv2.imread(path, cv2.IMREAD_COLOR)`` and, for JPEG,
+``cv2.imencode``/``cv2.imwrite``.
 
 :func:`imread` returns a BGR uint8 (H, W, 3) array, bit for bit what
 OpenCV 5 returns for the formats it reads here:
 
+- **JPEG** (the C++ codec of ``csrc/jpeg.cpp``, bound in
+  :mod:`pero_ocr_tpu_torch.utils.jpeg`): baseline sequential Huffman,
+  8-bit, gray or three components at any sampling, restart intervals;
+  libjpeg-turbo's integer IDCT, fancy upsampling and YCbCr tables.
 - **PNG** (numpy and ``zlib``): bit depths 8 and 16; gray, gray+alpha,
   RGB, RGBA and palette images; all five row filters.  As in OpenCV,
   16-bit samples keep their high byte, gray expands to three equal
@@ -13,9 +18,21 @@ OpenCV 5 returns for the formats it reads here:
   rescaled to maxval; 2-byte samples (maxval over 255) keep their high
   byte.
 
-Anything else (PNG at bit depths 1, 2 and 4, interlaced PNG, JPEG, TIFF,
-ASCII PNM, ...) raises
-``ValueError`` naming the file and the ROADMAP item; nothing is skipped.
+JPEG (an APP1 ``Exif\\0\\0`` segment) and PNG (an ``eXIf`` chunk) pages are
+turned by their EXIF orientation tag, all 8 values, as OpenCV's
+``ApplyExifOrientation`` turns them under ``IMREAD_COLOR``
+(:func:`exif_orientation`, :func:`apply_orientation`); a missing or
+unreadable tag turns nothing, as in OpenCV.
+
+Anything else (progressive, lossless, arithmetic, 12-bit or CMYK JPEG,
+truncated or corrupt JPEG data, PNG at bit depths 1, 2 and 4,
+interlaced PNG, TIFF, ASCII PNM, ...) raises ``ValueError`` naming the
+file and the ROADMAP item; nothing is skipped.
+
+:func:`encode_jpeg` and :func:`imwrite_jpeg` write what
+``cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, q])`` and
+``cv2.imwrite`` write, byte for byte: (h, w, 3) BGR as 4:2:0 YCbCr,
+(h, w) gray as one component.
 """
 
 from __future__ import annotations
@@ -23,10 +40,12 @@ from __future__ import annotations
 import re
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
 
 from pero_ocr_tpu_torch import IMAGES
+from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg, jpeg_header
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # Channels per PNG colour type: gray, RGB, palette, gray+alpha, RGBA.
@@ -42,19 +61,109 @@ def _refuse(path: str, what: str) -> ValueError:
 
 
 def imread(path: str) -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_COLOR)`` for PNG and binary PNM:
-    a BGR uint8 (H, W, 3) array.  Raises ``ValueError`` for other or
-    broken files (where cv2 returns None)."""
+    """``cv2.imread(path, cv2.IMREAD_COLOR)`` for JPEG, PNG and binary
+    PNM: a BGR uint8 (H, W, 3) array, turned by its EXIF orientation.
+    Raises ``ValueError`` for other or broken files (where cv2 returns
+    None, or for JPEG data it would fill with grey)."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
-        return decode_png(data, path)
+        return apply_orientation(decode_png(data, path), exif_orientation(png_exif(data, path)))
+    if data[:2] == b"\xff\xd8":
+        exif = jpeg_header(data, path)[3]
+        return apply_orientation(decode_jpeg(data, path), exif_orientation(exif))
     if data[:2] in (b"P5", b"P6"):
         return decode_pnm(data, path)
-    kind = {b"\xff\xd8": "a JPEG file", b"II": "a TIFF file", b"MM": "a TIFF file"}.get(
-        data[:2], "a file that is neither PNG nor binary PNM"
+    kind = {b"II": "a TIFF file", b"MM": "a TIFF file"}.get(
+        data[:2], "a file that is neither JPEG, PNG nor binary PNM"
     )
     raise _refuse(path, kind)
+
+
+def imwrite_jpeg(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """``cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_QUALITY, quality])`` for
+    a ``.jpg`` path: the bytes of :func:`encode_jpeg`."""
+    data = encode_jpeg(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+# ----------------------------------------------------------------------
+# EXIF orientation, as OpenCV's ExifReader reads it and
+# ApplyExifOrientation applies it
+_EXIF_ORIENTATION = 0x0112
+_EXIF_STRINGS = {0x010E, 0x010F, 0x0110, 0x0131, 0x0132, 0x8298}
+_EXIF_RATIONALS = {0x011A: 1, 0x011B: 1, 0x013E: 2, 0x013F: 6, 0x0211: 3, 0x0214: 6}
+
+
+class _ExifError(Exception):
+    pass
+
+
+def exif_orientation(tiff: Optional[bytes]) -> int:
+    """The orientation tag (0x0112) of an EXIF TIFF block, read as
+    OpenCV's ExifReader reads it: the IFD0 entries in order, each tag
+    OpenCV knows parsed as it parses it; the first orientation entry's
+    16 bits at its value field, whatever its type; a read past the
+    block ends the walk, keeping an orientation already read.  1 (no
+    turn) when there is none."""
+    if not tiff:
+        return 1
+    intel = len(tiff) > 1 and tiff[0] == tiff[1] == ord("I")
+
+    def u16(off: int) -> int:
+        if off + 1 >= len(tiff):
+            raise _ExifError
+        return int.from_bytes(tiff[off:off + 2], "little" if intel else "big")
+
+    def u32(off: int) -> int:
+        if off + 3 >= len(tiff):
+            raise _ExifError
+        return int.from_bytes(tiff[off:off + 4], "little" if intel else "big")
+
+    orientation = 1
+    try:
+        if u16(2) != 0x2A:
+            return 1
+        offset = u32(4)
+        count = u16(offset)
+        offset += 2
+        found = False
+        for _ in range(count):
+            tag = u16(offset)
+            if tag == _EXIF_ORIENTATION:
+                value = u16(offset + 8)
+                if not found:
+                    orientation, found = value, True
+            elif tag in _EXIF_STRINGS:
+                size = u32(offset + 4)
+                start = u32(offset + 8) if size > 4 else 8
+                if start > len(tiff) or start + size > len(tiff):
+                    raise _ExifError
+            elif tag in _EXIF_RATIONALS:
+                start = u32(offset + 8)
+                for k in range(_EXIF_RATIONALS[tag]):
+                    u32(start + 8 * k)
+                    u32(start + 8 * k + 4)
+            elif tag in (0x0128, 0x0213):  # resolution unit, YCbCr positioning
+                u16(offset + 8)
+            offset += 12
+    except _ExifError:
+        pass
+    return orientation
+
+
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """The page as OpenCV's ApplyExifOrientation turns it: 2 flips it
+    left-right, 3 turns it half round, 4 flips it top-bottom, 5-8
+    transpose it and then flip it not at all, left-right, both ways and
+    top-bottom.  Other values leave it."""
+    if orientation in (5, 6, 7, 8):
+        img = img.transpose(1, 0, 2)
+    flips = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    for axis in flips:
+        img = np.flip(img, axis)
+    return np.ascontiguousarray(img)
 
 
 # ----------------------------------------------------------------------
@@ -74,6 +183,16 @@ def _chunks(data: bytes, path: str):
             return
         pos += 12 + length
     raise ValueError(f"{path}: PNG ends without IEND")
+
+
+def png_exif(data: bytes, path: str = "<png>") -> Optional[bytes]:
+    """The first ``eXIf`` chunk's data (an EXIF TIFF block), before or
+    after the image data, or None; libpng drops a chunk that does not
+    start with ``II`` or ``MM``."""
+    for ctype, body in _chunks(data, path):
+        if ctype == b"eXIf":
+            return body if body[:2] in (b"II", b"MM") else None
+    return None
 
 
 def decode_png(data: bytes, path: str = "<png>") -> np.ndarray:

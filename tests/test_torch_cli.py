@@ -59,7 +59,7 @@ from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.ocr.transformer_engine import TransformerEngineLineOCR
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.scripts import parse_folder
-from pero_ocr_tpu_torch.utils import checkpoint
+from pero_ocr_tpu_torch.utils import checkpoint, native
 from tests.test_torch_pipeline import CHARS, DETECTOR, RECOGNIZER, _page, _train_detector
 from tests.test_torch_native import jax_native_library
 
@@ -400,11 +400,10 @@ def test_unsupported_features_match_jax(bundle):
 # (extra arguments, the error's text, whether it names a ROADMAP item),
 # ids as before the crop transport was ported: -x, --transport crops,
 # --transport-bits 2 and --canvas-bits run now, and what remains refused
-# around them is held here.
+# around them is held here.  The cases "x" and "output-line-path" (JPEG
+# line crops, with and without -x) run since the JPEG codec was ported:
+# test_cli_line_crops_equal_jax_cli holds their files.
 REFUSED = [
-    ("x", ["-x", "{tmp}/xml_in", "--output-line-path", "{tmp}/lines"],
-     "JPEG/TIFF decoding", True),
-    ("output-line-path", ["--output-line-path", "{tmp}/lines"], "JPEG/TIFF decoding", True),
     ("output-line-path-lmdb", ["--output-line-path", "{tmp}/lines.lmdb"], "LMDB store", True),
     ("output-render-path", ["--output-render-path", "{tmp}/r"], "JPEG/TIFF decoding", True),
     ("transport", ["--transport", "crops", "--dp", "2"], "Training and scale-out", True),
@@ -504,7 +503,8 @@ def test_cli_refuses_config_features(bundle, tmp_path, caplog):
     assert isinstance(engine, TransformerEngineLineOCR) and not engine.ref_mode
 
 
-def test_cli_fails_without_checkpoint_or_decoder(bundle, tmp_path):
+def test_cli_fails_without_checkpoint_or_decoder(bundle, tmp_path, float32_parsenets,
+                                                 jax_gather_warp):
     config = _config(bundle / "config.ini")
     config["LAYOUT_PARSER_1"]["MODEL_PATH"] = str(tmp_path / "missing.msgpack")
     with open(tmp_path / "missing.ini", "w") as f:
@@ -518,12 +518,83 @@ def test_cli_fails_without_checkpoint_or_decoder(bundle, tmp_path):
     _run_port(args + ["--allow-random-weights"])
     assert len(os.listdir(tmp_path / "xml")) == 3
 
+    # JPEG pages: the fast command line's Page XML equals the JAX
+    # command line's on the same files (cv2.imread there).
     jpeg = tmp_path / "jpeg_pages"
     jpeg.mkdir()
-    assert cv2.imwrite(str(jpeg / "scan.jpg"), _page())
-    with pytest.raises(ValueError, match="JPEG/TIFF decoding"):
-        _run_port(["-c", str(bundle / "config.ini"), "-i", str(jpeg), "--fast-pipeline",
-                   "--device", "cpu"])
+    assert cv2.imwrite(str(jpeg / "scan.jpg"), _page(), [cv2.IMWRITE_JPEG_QUALITY, 90])
+    for name, run in (("port", _run_port), ("jax", _jax_cli)):
+        run(["-c", str(bundle / "config.ini"), "-i", str(jpeg), "--fast-pipeline",
+             "--device", "cpu", "--output-xml-path", str(tmp_path / name)])
+    got, want = ((tmp_path / name / "scan.xml").read_text(encoding="utf-8")
+                 for name in ("port", "jax"))
+    assert_xml_equal(got, want)
+    assert "<TextLine" in got
+
+
+def jpeg_pages(bundle, folder):
+    """The bundle's pages as JPEG files (cv2, quality 90, 4:2:0)."""
+    folder.mkdir(exist_ok=True)
+    for name in sorted(os.listdir(bundle / "images")):
+        page = cv2.imread(str(bundle / "images" / name), 1)
+        assert cv2.imwrite(str(folder / (name[:-4] + ".jpg")), page,
+                           [cv2.IMWRITE_JPEG_QUALITY, 90])
+    return folder
+
+
+@pytest.mark.skipif(jax_native_library() is None, reason="native library unavailable")
+@pytest.mark.parametrize("fast", [False, True], ids=["staged", "fast_pipeline"])
+@pytest.mark.parametrize("reocr", [False, True], ids=["output-line-path", "x"])
+def test_cli_line_crops_equal_jax_cli(bundle, tmp_path, float32_parsenets, jax_gather_warp,
+                                      monkeypatch, capsys, reocr, fast):
+    """Both command lines from JPEG pages with --output-line-path, on
+    the layout config and (``-x``) re-OCRing Page XML with an OCR-only
+    config: the same Page XML (timestamps masked, conf within 0.001),
+    the same line files byte for byte (cv2.imwrite at quality 98 there,
+    the port's encoder here) and the same transcriptions file.  The
+    fast path's straight lines warp on the host, pinned to the C++ route
+    whose bytes equal the JAX library's."""
+    from tests.test_torch_reocr import OCR_ONLY, SHIFTS, _input_xml
+
+    monkeypatch.setattr(native, "use_native", lambda route, device: True)
+    images = jpeg_pages(bundle, tmp_path / "jpeg")
+    extra = ["--fast-pipeline"] if fast else []
+    if reocr:
+        (tmp_path / "ocr_only.ini").write_text(OCR_ONLY)
+        os.symlink(bundle / "ocr", tmp_path / "ocr")
+        ini = tmp_path / "ocr_only.ini"
+        xml_in = tmp_path / "xml_in"
+        xml_in.mkdir()
+        for i, shift in enumerate(SHIFTS):
+            page = cv2.imread(str(images / f"page-{i}.jpg"), 1)
+            (xml_in / f"page-{i}.xml").write_text(
+                _input_xml(f"page-{i}", page.shape[:2], shift), encoding="utf-8")
+        extra += ["-x", str(xml_in)]
+    else:
+        ini = staged_config(bundle, tmp_path) if not fast else bundle / "config.ini"
+    for name, run in (("port", _run_port), ("jax", _jax_cli)):
+        out = tmp_path / name
+        random.seed(0)
+        run(["-c", str(ini), "-i", str(images), "--device", "cpu",
+             "--output-xml-path", str(out / "xml"), "--output-line-path", str(out / "lines"),
+             "--output-transcriptions-file-path", str(out / "lines.txt"), "--timing-report"]
+            + extra)
+    printed = capsys.readouterr().out
+    assert re.search(r"^cli/write_lines\s+[0-9.]+\s+3\s", printed, re.M)
+    port, jax_out = tmp_path / "port", tmp_path / "jax"
+    for page in [f"page-{i}" for i in range(3)]:
+        assert_xml_equal((port / "xml" / f"{page}.xml").read_text(encoding="utf-8"),
+                         (jax_out / "xml" / f"{page}.xml").read_text(encoding="utf-8"))
+    names = sorted(os.listdir(jax_out / "lines"))
+    assert names == sorted(os.listdir(port / "lines")) and len(names) >= 9
+    for name in names:
+        assert (port / "lines" / name).read_bytes() == (jax_out / "lines" / name).read_bytes()
+    layout = PageLayout()
+    layout.from_pagexml_string((port / "xml" / "page-0.xml").read_text(encoding="utf-8"))
+    assert sorted(n for n in names if n.startswith("page-0-")) == sorted(
+        f"page-0-{line.id}.jpg" for line in layout.lines_iterator())
+    assert ((port / "lines.txt").read_text(encoding="utf-8")
+            == (jax_out / "lines.txt").read_text(encoding="utf-8"))
 
 
 # The command lines' logits and ALTO files.  Held to: equal Page XML

@@ -4,8 +4,11 @@ against cv2.imread(path, cv2.IMREAD_COLOR): bit for bit on every case.
 PNGs come from cv2.imwrite at every compression level, and from a
 test-local encoder that forces each row filter (and mixtures), colour
 type and bit depth (8 and 16); binary PNM from cv2.imwrite and by hand.
-Formats the reader does not take (1, 2 and 4-bit PNG among them) raise
-ValueError naming the file and the ROADMAP item.
+PNG (an eXIf chunk) and JPEG (an APP1 Exif segment) pages carry each of
+the 8 EXIF orientations and malformed tags, turned as cv2 turns them.
+Formats the reader does not take (1, 2 and 4-bit PNG, progressive JPEG
+among them) raise ValueError naming the file and the ROADMAP item.
+(The JPEG codec itself: tests/test_torch_jpeg.py.)
 """
 
 import struct
@@ -193,9 +196,10 @@ def test_pnm(tmp_path):
 
 def test_unread_formats_raise(tmp_path):
     img = _image(16, 16, 3)
-    for name in ("page.jpg", "page.tif"):
+    for name, params in (("page.jpg", [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]), ("page.tif", [])):
         path = str(tmp_path / name)
-        assert cv2.imwrite(path, img)
+        assert cv2.imwrite(path, img, params)
+        assert cv2.imread(path, cv2.IMREAD_COLOR) is not None
         with pytest.raises(ValueError, match=NOT_READ_ITEM) as e:
             imread(path)
         assert name in str(e.value)
@@ -229,3 +233,104 @@ def test_full_page_with_mixed_filters_decodes_fast(tmp_path):
     seconds = time.perf_counter() - t0
     np.testing.assert_array_equal(got, page[:, :, ::-1])
     assert seconds < 3.0, seconds
+
+
+# ----------------------------------------------------------------------
+# EXIF orientation: cv2.imread(path, IMREAD_COLOR) turns PNG and JPEG
+# pages by their orientation tag (0x0112).
+def _ifd(entries, endian="<"):
+    """A TIFF block with one IFD: entries [(tag, type, count, 4 value
+    bytes)]."""
+    body = (b"II" if endian == "<" else b"MM") + struct.pack(endian + "HI", 42, 8)
+    body += struct.pack(endian + "H", len(entries))
+    for tag, kind, count, value in entries:
+        body += struct.pack(endian + "HHI", tag, kind, count) + value
+    return body + struct.pack(endian + "I", 0)
+
+
+def _orientation(value, endian="<"):
+    return (0x0112, 3, 1, struct.pack(endian + "HH", value, 0))
+
+
+EXIF_CASES = {  # name: TIFF block
+    **{f"o{v}": _ifd([_orientation(v)]) for v in range(1, 9)},
+    "o6_big_endian": _ifd([_orientation(6, ">")], ">"),
+    "o6_as_long": _ifd([(0x0112, 4, 1, struct.pack("<I", 6))]),  # read as 16 bits
+    "o6_long_big_endian": _ifd([(0x0112, 4, 1, struct.pack(">I", 6))], ">"),  # reads 0
+    "o9_out_of_range": _ifd([_orientation(9)]),
+    "o3_twice_first_wins": _ifd([_orientation(3), _orientation(6)]),
+    "o5_after_sub_ifd_pointer": _ifd([(0x8769, 4, 1, struct.pack("<I", 5000)),
+                                      _orientation(5)]),
+    "o7_then_bad_count": _ifd([_orientation(7)])[:-4] + b"\x00" * 2,
+    "cut_in_value": _ifd([_orientation(6)])[:19],
+    "string_past_end_first": _ifd([(0x010E, 2, 100, struct.pack("<I", 5000)),
+                                   _orientation(6)]),
+    "rational_past_end_first": _ifd([(0x011A, 5, 1, struct.pack("<I", 5000)),
+                                     _orientation(8)]),
+    "bad_tag_mark": _ifd([_orientation(6)]).replace(b"*\x00", b"+\x00", 1),
+    "ifd_past_end": _ifd([_orientation(6)])[:4] + struct.pack("<I", 900)
+    + _ifd([_orientation(6)])[8:],
+    "mixed_byte_order": b"IM" + _ifd([_orientation(6)])[2:],
+}
+
+
+def _png_with_exif(img, tiff, after_idat):
+    data = cv2.imencode(".png", img)[1].tobytes()
+    at = data.index(b"IEND" if after_idat else b"IDAT") - 4
+    return data[:at] + _chunk(b"eXIf", tiff) + data[at:]
+
+
+def _jpeg_with_exif(img, tiff, header=b"Exif\x00\x00", before=b""):
+    data = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
+    app1 = before + header + tiff
+    return data[:2] + b"\xff\xe1" + struct.pack(">H", len(app1) + 2) + app1 + data[2:]
+
+
+@pytest.mark.parametrize("case", sorted(EXIF_CASES))
+@pytest.mark.parametrize("fmt", ["png", "png_after_idat", "jpeg"])
+def test_exif_orientation_equals_cv2(tmp_path, fmt, case):
+    img = _image(5, 7, 3, seed=len(case))
+    tiff = EXIF_CASES[case]
+    if fmt == "jpeg":
+        data = _jpeg_with_exif(img, tiff)
+    else:
+        data = _png_with_exif(img, tiff, fmt == "png_after_idat")
+    path = tmp_path / ("page.jpg" if fmt == "jpeg" else "page.png")
+    path.write_bytes(data)
+    want = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    got = imread(str(path))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["xmp_before_exif", "no_exif_header", "exif_header_only",
+                                  "two_exif_first_wins", "png_exif_with_jpeg_header",
+                                  "png_two_chunks"])
+def test_exif_segment_choice_equals_cv2(tmp_path, case):
+    """Which block cv2 reads: the first APP1 that starts with Exif\\0\\0
+    (an XMP APP1 before it is passed over), the first eXIf chunk that
+    starts with II or MM."""
+    img = _image(6, 4, 3, seed=2)
+    six, three = _ifd([_orientation(6)]), _ifd([_orientation(3)])
+    if case == "xmp_before_exif":
+        xmp = b"http://ns.adobe.com/xap/1.0/\x00<x/>"
+        data = _jpeg_with_exif(img, six)
+        data = data[:2] + b"\xff\xe1" + struct.pack(">H", len(xmp) + 2) + xmp + data[2:]
+    elif case == "no_exif_header":
+        data = _jpeg_with_exif(img, six, header=b"Exif\x00\xff")
+    elif case == "exif_header_only":
+        data = _jpeg_with_exif(img, b"")
+    elif case == "two_exif_first_wins":  # 6, then 3
+        data = _jpeg_with_exif(img, three)
+        second = b"Exif\x00\x00" + six
+        data = data[:2] + b"\xff\xe1" + struct.pack(">H", len(second) + 2) + second + data[2:]
+    elif case == "png_exif_with_jpeg_header":
+        data = _png_with_exif(img, b"Exif\x00\x00" + six, False)
+    else:
+        data = _png_with_exif(img, six, False)
+        at = data.index(b"IEND") - 4
+        data = data[:at] + _chunk(b"eXIf", three) + data[at:]
+    path = tmp_path / ("page.png" if case.startswith("png") else "page.jpg")
+    path.write_bytes(data)
+    want = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    np.testing.assert_array_equal(imread(str(path)), want)

@@ -14,7 +14,9 @@ XML, config 4 (ADJUST_HEIGHTS, the smart sorter and a reference
 transformer .pt written here) through the command line to Page XML,
 the layout stages and options of item 8d with TorchScript archives of
 the port's ParseNet and recognizer traced here through the command line
-to Page XML,
+to Page XML, JPEG pages written by the port's encoder (one with an EXIF
+orientation) re-OCRed by both command lines into Page XML and JPEG line
+crops that the port reads back,
 PageParser's transformer engine runs on CUDA unless asked for the CPU,
 and no module of the JAX package gets loaded.  Runs in a subprocess so the blocking does not leak into the
 other tests."""
@@ -31,7 +33,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "optax", "cv2", "lxml", "msgpack", "PIL", "sklearn")
 
 SCRIPT = r"""
-import importlib, json, pkgutil, sys
+import importlib, json, pkgutil, re, sys
 import xml.etree.ElementTree as ET
 for name in %(blocked)r:
     sys.modules[name] = None  # any import of it raises ImportError
@@ -118,6 +120,29 @@ for flags, out in ((["--fast-pipeline", "--transport-bits", "2"], "reocr_fast"),
     cli_main(["-c", os.path.join(tmp, "ocr_only.ini"), "-i", os.path.join(tmp, "images"),
               "-x", os.path.join(tmp, "xml"), "--output-xml-path", os.path.join(tmp, out),
               "--device", "cpu", "--transport", "crops", "--allow-random-weights", *flags])
+from pero_ocr_tpu_torch.utils.image_io import encode_jpeg, imread
+os.makedirs(os.path.join(tmp, "jpeg"))
+os.makedirs(os.path.join(tmp, "xml_lines"))
+for page_id, page, xml in zip(ids, pages, xmls[3:]):  # the override pages: one line each
+    with open(os.path.join(tmp, "jpeg", page_id + ".jpg"), "wb") as f:
+        f.write(encode_jpeg(page, 90))
+    with open(os.path.join(tmp, "xml_lines", page_id + ".xml"), "w", encoding="utf-8") as f:
+        f.write(xml)
+turned = encode_jpeg(pages[0], 90)
+exif = b"Exif\x00\x00II*\x00\x08\x00\x00\x00\x01\x00\x12\x01\x03\x00\x01\x00\x00\x00\x06\x00\x00\x00\x00\x00\x00\x00"
+turned = turned[:2] + b"\xff\xe1" + (len(exif) + 2).to_bytes(2, "big") + exif + turned[2:]
+with open(os.path.join(tmp, "turned.jpg"), "wb") as f:
+    f.write(turned)
+jpeg_shapes = [list(imread(os.path.join(tmp, "jpeg", "p0.jpg")).shape),
+               list(imread(os.path.join(tmp, "turned.jpg")).shape)]
+for flags, out in ((["--fast-pipeline"], "lines_fast"), ([], "lines_staged")):
+    cli_main(["-c", os.path.join(tmp, "ocr_only.ini"), "-i", os.path.join(tmp, "jpeg"),
+              "-x", os.path.join(tmp, "xml_lines"), "--output-line-path",
+              os.path.join(tmp, out), "--output-xml-path", os.path.join(tmp, out + "_xml"),
+              "--device", "cpu", "--allow-random-weights", *flags])
+line_files = {out: [[name, list(imread(os.path.join(tmp, out, name)).shape)]
+                    for name in sorted(os.listdir(os.path.join(tmp, out)))]
+              for out in ("lines_fast", "lines_staged")}
 for flag, out in (("--fast-pipeline", "fast"), ("--skip-processed", "staged")):
     cli_main(["-c", os.path.join(tmp, "config.ini"), "-i", os.path.join(tmp, "images"),
               "--output-logit-path", os.path.join(tmp, out + "_logits"), "--output-alto-path",
@@ -238,6 +263,9 @@ print(json.dumps({
     "cli": cli,
     "outputs": outputs,
     "config1_lines": config1_lines,
+    "jpeg_shapes": jpeg_shapes,
+    "line_files": line_files,
+    "line_ids": [re.search(r'TextLine id="([^"]+)"', x).group(1) for x in xmls[3:]],
     "engine4": [type(engine4).__name__, engine4.device, engine4.ref_mode],
     "raised4": raised4,
 }))
@@ -268,6 +296,12 @@ def test_port_runs_without_jax_and_host_libraries():
                  "line_postprocessing_engine"):
         assert f"pero_ocr_tpu_torch.layout_engines.{name}" in got["modules"]
     assert "pero_ocr_tpu_torch.utils.ts_adapters" in got["modules"]
+    assert "pero_ocr_tpu_torch.utils.jpeg" in got["modules"]
+    assert got["jpeg_shapes"] == [[128, 192, 3], [192, 128, 3]]  # EXIF orientation 6 turns
+    for out in ("lines_fast", "lines_staged"):  # one line a page, its crop 16 rows high
+        assert [name for name, _ in got["line_files"][out]] == [
+            f"p{i}-{lid}.jpg" for i, lid in enumerate(got["line_ids"])]
+        assert all(shape[0] == 16 and shape[2] == 3 for _, shape in got["line_files"][out])
     for out in ("reocr_fast", "reocr"):  # -x on the crop transport, and stage by stage
         assert got["outputs"][out] == [f"p{i}.xml" for i in range(3)]
     assert [c[0] for c in got["crops"]] == [0, 1, 2] * 2  # CNN, then skip_stage_a
