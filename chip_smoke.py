@@ -58,7 +58,20 @@ Phases (each raises on failure, so the run exits non-zero):
    at bench widths) to Page XML, its layout equal to a CPU run's layout
    stages, the field warp bit-equal on every page's own fields, and the
    command line on 3 pages; the field warp timed on the last page
-   (``config1_*``).
+   (``config1_*``).  Then REGION_SIMPLE_THRESHOLD (``run_simple_regions``):
+   config 1's ini with classical regions (``csrc/nlmeans.cpp``'s
+   NL-means among their steps) in place of the whole page, float32 with
+   TF32 off, on 4 A4 pages whose text runs to 24 px of the sides and 4
+   two-column 2560x1792 pages (two regions or more a page, ids in
+   order): layouts and crops equal to a CPU run's byte for byte, texts
+   equal or near-ties, the field warp bit-equal on every page, the C++
+   NL-means equal to its numpy twin on a crop and timed against it;
+   and ``--process-count`` (``run_process_count``): config 2's staged
+   command line on 8 gray JPEG pages in one process and with 2 spawned
+   workers on the card, each page's Page XML equal, pages/s of both
+   (``{"simple_regions": ...}``, ``{"process_count": ...}``,
+   ``simple_regions_*`` keys).  These two phases draw from their own
+   generator and log the seconds they add.
 10. Config 5's outputs (``run_config5``): the page transport with
     ``want_logits`` and stage by stage, each with and without the logits
     pickle and ALTO (A B B A), the card's top-k against ``torch.topk``
@@ -76,7 +89,7 @@ Phases (each raises on failure, so the run exits non-zero):
     backpointers, near-ties counted apart), a GRU LM and the batched
     route (lines padded to a power of two a 128-frame bucket) on one
     page each, held against both the same way (the GRU's first 8 lines,
-    every decode of the batched page), the command line on 2 pages;
+    every decode of the batched page), the command line on 1 page;
     warp_fields held against its plain version on the last page's
     buckets (``config3_*``).  Then torch.profiler splits one config-2
     stage-B call and one config-3 line decode.
@@ -132,7 +145,7 @@ Phases (each raises on failure, so the run exits non-zero):
     seeded OrientationNet, LINE_POSTPROCESSING, LAYOUT_POSTPROCESSING,
     REGION_SORTER_NAIVE) and ini (b) (DETECT_STRAIGHT_LINES_IN_REGIONS),
     pages cut to 1,280 rows: the CPU from the card's maps gives the same
-    layouts and line crops on 2 of them; the command line on 2 pages
+    layouts and line crops on 1 of them; the command line on 1 page
     with ini (a) writes the in-process run's files.  warp_lines (float32 store) is held and
     timed on the fast path's last batch, warp_fields on ini (a)'s last
     page (``torchscript_*`` keys).
@@ -162,8 +175,10 @@ its pages after the next batch's upload.
 
 The last lines are the JPEG codec's (``{"jpeg": ...}``), the command
 lines' numbers (``{"cli": ...}``,
-``{"staged": ...}``), config 1's, config 5's, config 3's and config 4's
-(``{"config1": ...}``, ``{"config5": ...}``, ``{"config3": ...}``,
+``{"staged": ...}``), config 1's, REGION_SIMPLE_THRESHOLD's,
+--process-count's, config 5's, config 3's and config 4's
+(``{"config1": ...}``, ``{"simple_regions": ...}``,
+``{"process_count": ...}``, ``{"config5": ...}``, ``{"config3": ...}``,
 ``{"config4": ...}``), the crop transport's, re-OCR's and TorchScript's, the
 host library's (``{"host_native": ...}``), training's (``{"train": ...}``),
 the card's nvidia-smi line, one JSON object with the kernels' numbers,
@@ -223,7 +238,7 @@ from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.parallel import train
 from pero_ocr_tpu_torch.scripts.parse_folder import LINE_QUALITY
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
-from pero_ocr_tpu_torch.utils import checkpoint, convert, image_io, kernels, native, timing
+from pero_ocr_tpu_torch.utils import checkpoint, convert, denoise, image_io, kernels, native, timing
 from pero_ocr_tpu_torch.utils import ts_adapters
 from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg
 from pero_ocr_tpu_torch.utils.ts_adapters import TSParseNetModel, TSRecognizerModel
@@ -372,13 +387,15 @@ def synthetic_pages(rng, n: int, columns=ONE_COLUMN, tilt_deg: float = 0.0):
     return pages, lines
 
 
-def printed_pages(rng, n: int, h: int, w: int, rows: int):
+def printed_pages(rng, n: int, h: int, w: int, rows: int, side: Optional[int] = None):
     """n BGR printed-like pages of ``rows`` text rows: glyph-like ink
     outlines (strokes about an eighth of the x-height) on grey paper,
-    words and line ends of random length.  Returns the pages and each
-    page's row baselines (y)."""
+    words and line ends of random length, ``side`` px of margin left and
+    right (default: a twentieth of the page's longer side, as above and
+    below).  Returns the pages and each page's row baselines (y)."""
     pages, baselines = [], []
     margin = max(h, w) // 20
+    side = margin if side is None else side
     pitch = (h - 2 * margin) / rows
     xh = max(int(pitch * 0.32), 6)
     stroke = max(xh // 8, 2)
@@ -387,8 +404,8 @@ def printed_pages(rng, n: int, h: int, w: int, rows: int):
         ys = []
         for r in range(rows):
             y = int(margin + (r + 0.8) * pitch)
-            x = margin + int(rng.integers(0, 3 * xh))
-            x_end = w - margin - int(rng.integers(0, 6 * xh))
+            x = side + int(rng.integers(0, 3 * xh))
+            x_end = w - side - int(rng.integers(0, 6 * xh))
             while x < x_end:
                 gw = int(rng.integers(xh // 2, xh + 1))
                 top = y - xh - (xh // 2 if rng.random() < 0.3 else 0)
@@ -1818,6 +1835,222 @@ def run_config1(rng, smi: str):
     return launches, numbers, last_page
 
 
+# ----------------------------------------------------------------------
+# REGION_SIMPLE_THRESHOLD: config 1 with classical regions in place of
+# the whole page; and the staged command line's --process-count
+SIMPLE_A4_PAGES, SIMPLE_COLUMN_PAGES = 4, 4
+# Side margin of the A4 pages: the classical line detector keeps a line
+# only where the region reaches past both sides of the page (it clips a
+# baseline across the region's bounding box to its outline, as the JAX
+# one does), so the text runs to within this many px of the sides.
+SIMPLE_SIDE = 24
+SIMPLE_STAGES = ("layout", "simple_regions/prepare", "simple_regions/denoise",
+                 "simple_regions/threshold", "simple_regions/components",
+                 "simple_regions/polygons", "line_crop", "ocr", "document/pagexml")
+NL_CROP = (160, 160)  # the numpy twin's timed crop of the denoiser's input
+PROCESS_COUNT = 2
+
+
+def write_simple_bundle(tmp: str, rec: CTCRecognizer) -> str:
+    """Config 1's ini with ``[LAYOUT_PARSER_1] METHOD =
+    REGION_SIMPLE_THRESHOLD`` and its recognizer (float32) under
+    ocr_engine/.  Returns the ini's path."""
+    os.makedirs(os.path.join(tmp, "ocr_engine"))
+    write_recognizer(os.path.join(tmp, "ocr_engine"), rec, dtype="float32")
+    with open(os.path.join(REPO, "configs", "config1_printed_greedy.ini"), encoding="utf-8") as f:
+        text = f.read()
+    if "METHOD = REGION_WHOLE_PAGE" not in text:
+        raise AssertionError("config 1's ini has no REGION_WHOLE_PAGE stage to replace")
+    ini = os.path.join(tmp, "config.ini")
+    with open(ini, "w", encoding="utf-8") as f:
+        f.write(text.replace("METHOD = REGION_WHOLE_PAGE", "METHOD = REGION_SIMPLE_THRESHOLD"))
+    return ini
+
+
+def run_simple_regions(rng, smi: str):
+    """REGION_SIMPLE_THRESHOLD on the card: SIMPLE_A4_PAGES printed A4
+    pages at 300 dpi (A4_ROWS rows, SIMPLE_SIDE px side margins) and
+    SIMPLE_COLUMN_PAGES two-column 2560x1792 pages through
+    ``PageParser(config 1 with the method, device="cuda")``: the regions
+    (the NL-means in csrc/nlmeans.cpp), the classical line detector, the
+    field warp and the bench recognizer in float32 (TF32 off) to Page
+    XML.  Checks: two regions or more on each two-column page, ids r-0,
+    r-1, ... in order; lines on every A4 page and one warp_fields launch
+    a page of DEVICE_BATCH_MIN lines or more; the same pages through a
+    CPU PageParser (the same host C++ denoiser) give the same layout
+    byte for byte and the same line crops, and each text equal (conf
+    within 0.0015) or apart only at near-ties; the field warp bit-equal
+    to its plain version on every page's own fields; the C++ denoiser
+    equal to its numpy twin on an NL_CROP crop of a page's input.
+    Returns the field warp's launches, the phase's numbers and the last
+    A4 page's warp inputs."""
+    a4, _ = printed_pages(rng, SIMPLE_A4_PAGES, A4_H, A4_W, A4_ROWS, side=SIMPLE_SIDE)
+    columns, _ = synthetic_pages(rng, SIMPLE_COLUMN_PAGES, TWO_COLUMNS)
+    pages = a4 + columns
+    ids = [f"r{i:04d}" for i in range(len(pages))]
+    inputs = []
+    nl_means = denoise.nl_means
+
+    def kept_nl_means(img, h, threads=0):
+        inputs.append((img, h))
+        return nl_means(img, h, threads)
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    denoise.nl_means = kept_nl_means
+    try:
+        with tempfile.TemporaryDirectory(prefix="simple_regions_") as tmp:
+            ini = write_simple_bundle(tmp, config1_recognizer())
+            parser = staged_parser(ini, "cuda")
+            parser.process_page(a4[-1], PageLayout(id="warm", page_size=a4[-1].shape[:2]))
+            timing.reset_timing()
+            warp_ops.warp_fields.launches = warp_ops.warp_lines.launches = 0
+            denoise.calls.clear()
+            inputs.clear()
+            out, seconds = staged_pages(parser, ids, pages)
+            launches, fused = warp_ops.warp_fields.launches, warp_ops.warp_lines.launches
+            cpp_calls = denoise.calls["nl_means_u8"]
+            stats = timing.timing_stats()
+            log("stage times (REGION_SIMPLE_THRESHOLD run):\n" + timing.timing_report())
+            cpu = staged_parser(ini, "cpu")
+            cpu.layout_parsers[0].native = True  # the host C++ the card's run took
+            t0 = time.perf_counter()
+            cpu_out, _ = staged_pages(cpu, ids, pages)
+            cpu_seconds = time.perf_counter() - t0
+    finally:
+        denoise.nl_means = nl_means
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    n_lines = [len(list(layout.lines_iterator())) for layout, _ in out]
+    n_regions = [len(layout.regions) for layout, _ in out]
+    batched = sum(n >= parser.line_cropper.DEVICE_BATCH_MIN for n in n_lines)
+    log(f"REGION_SIMPLE_THRESHOLD (PageParser.process_page): {len(a4)} A4 pages ({A4_W}x{A4_H}, "
+        f"side margins {SIMPLE_SIDE} px) and {len(columns)} two-column pages; regions a page "
+        f"{n_regions}, lines a page {n_lines}; {len(pages) / seconds:.3f} pages/s to Page XML "
+        f"({seconds:.3f} s) on {smi}; warp_fields launches {launches} (pages of "
+        f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more: {batched}), warp_lines {fused}; "
+        f"NL-means C++ calls {cpp_calls}")
+    for i, layout in enumerate(layout for layout, _ in out):
+        if [r.id for r in layout.regions] != [f"r-{k}" for k in range(len(layout.regions))]:
+            raise AssertionError(f"simple regions: page {i}'s region ids are out of order")
+    if min(n_lines[:len(a4)]) == 0 or min(n_regions[len(a4):]) < 2:
+        raise AssertionError(f"simple regions: lines {n_lines}, regions {n_regions}")
+    if launches != batched or launches == 0 or fused != 0 or cpp_calls != len(pages):
+        raise AssertionError(f"simple regions: warp_fields launches {launches} != {batched} "
+                             f"pages, or NL-means calls {cpp_calls} != {len(pages)}")
+
+    # The layout is host code: the CPU's is the same to the byte, the
+    # crops too; the texts equal or near-ties of float32 rounding.
+    no_text = re.compile(r"\s*<TextEquiv[^>]*>.*?</TextEquiv>", re.S)
+    n_compared = n_equal = n_ties = 0
+    conf_err = 0.0
+    for (layout, xml), (cpu_layout, cpu_xml) in zip(out, cpu_out):
+        if mask_pagexml(no_text.sub("", xml)) != mask_pagexml(no_text.sub("", cpu_xml)):
+            raise AssertionError(f"simple regions: page {layout.id}'s layout differs from the "
+                                 "CPU's")
+        logits = {}
+        for a, b in zip(layout.lines_iterator(), cpu_layout.lines_iterator()):
+            if not np.array_equal(a.crop, b.crop):
+                raise AssertionError(f"simple regions: line {a.id}'s crop differs")
+            logits[a.id] = (a.logits, b.logits)
+        for (line_id, text, conf), (_, cpu_text, cpu_conf) in zip(page_lines(xml),
+                                                                   page_lines(cpu_xml)):
+            n_compared += 1
+            if text == cpu_text:
+                n_equal += 1
+                conf_err = max(conf_err, abs(conf - cpu_conf))
+            elif sparse_near_tie(*logits[line_id]):
+                n_ties += 1
+                log(f"simple regions: line {line_id} reads {text!r} on the card, {cpu_text!r} "
+                    "on the CPU: a near-tie")
+            else:
+                raise AssertionError(f"simple regions: line {line_id}'s text {text!r} differs "
+                                     f"from the CPU's {cpu_text!r}")
+    if conf_err > 0.0015:
+        raise AssertionError(f"simple regions: confidences {conf_err} apart")
+
+    max_abs = 0.0
+    for (layout, _), page in zip(out, pages):
+        if len(list(layout.lines_iterator())) >= parser.line_cropper.DEVICE_BATCH_MIN:
+            max_abs = max(max_abs, packed_equal(*page_buckets(parser, layout, page),
+                                                f"simple regions page {layout.id}"))
+    last = max(i for i, n in enumerate(n_lines) if n >= parser.line_cropper.DEVICE_BATCH_MIN)
+    last_page = page_buckets(parser, out[last][0], pages[last])
+
+    # The denoiser: the C++ on a whole A4 page's input, and against its
+    # numpy twin on a crop of it.
+    img, strength = inputs[len(a4) - 1]
+    crop = np.ascontiguousarray(img[:NL_CROP[0], :NL_CROP[1]])
+    if not np.array_equal(denoise.nl_means(crop, strength), denoise.nl_means_plain(crop, strength)):
+        raise AssertionError("NL-means: the C++ differs from its numpy twin")
+    nl = {"page_input": list(img.shape), "cpp_ms_a_page": host_ms(
+              lambda: denoise.nl_means(img, strength), 5),
+          "crop": list(crop.shape),
+          "cpp_ms_crop": host_ms(lambda: denoise.nl_means(crop, strength)),
+          "plain_ms_crop": host_ms(lambda: denoise.nl_means_plain(crop, strength), 3),
+          "threads": os.cpu_count()}
+    log(f"simple regions vs the CPU: {len(pages)} pages' layouts and crops equal, texts equal on "
+        f"{n_equal} of {n_compared} lines, {n_ties} near-ties, confidences within "
+        f"{conf_err:.3g} (CPU run {cpu_seconds:.1f} s); warp_fields max abs err {max_abs}; "
+        f"NL-means {json.dumps(nl)} (host, on {smi})")
+    numbers = {"pages": len(pages), "a4_pages": len(a4), "column_pages": len(columns),
+               "pages_per_s": len(pages) / seconds, "regions": n_regions, "lines": n_lines,
+               "stage_ms": {k: 1e3 * stats[k][0] / stats[k][1] for k in SIMPLE_STAGES
+                            if k in stats},
+               "stage_calls": {k: stats[k][1] for k in SIMPLE_STAGES if k in stats},
+               "cpu_lines_compared": n_compared, "cpu_texts_equal": n_equal,
+               "cpu_near_ties": n_ties, "cpu_conf_max_diff": conf_err,
+               "warp_fields_launches": launches, "warp_fields_max_abs_err": max_abs,
+               "nl_means": nl, "card": smi}
+    return launches, numbers, last_page
+
+
+def run_process_count(pipe: TorchPagePipeline, rng, smi: str) -> dict:
+    """``--process-count``: 8 two-column pages as gray JPEG files through
+    the staged command line (config 2, the bench modules from flax
+    msgpack) in one process, then with PROCESS_COUNT spawned workers on
+    the same card.  Each page's Page XML of the workers' run must equal
+    the one-process run's (same_staged_page: two processes draw their
+    own row jitter), no page may fail, and the workers' warp_fields
+    launches (summed into the report) must equal the one-process run's.
+    Returns pages/s of both by their cli/pages timers, and wall s."""
+    pages, _ = synthetic_pages(rng, PAGE_BATCH, TWO_COLUMNS)
+    ids = [f"p{i:04d}" for i in range(len(pages))]
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="process_count_") as tmp:
+        ini, images = write_bundle(tmp, pipe.parsenet, pipe.recognizer, dict(zip(ids, pages)),
+                                   jpeg="gray")
+        for count in (1, PROCESS_COUNT):
+            out_dir = os.path.join(tmp, f"xml_{count}")
+            proc, wall = run_parse_folder(
+                ["-c", ini, "-i", images, "--output-xml-path", out_dir, "--timing-report",
+                 "--process-count", str(count)], f"command line, --process-count {count}")
+            timed = timer_row(proc.stdout, "cli/pages")
+            counted = re.search(r"^warp_fields kernel launches: (\d+)$", proc.stdout, re.M)
+            done = len(re.findall(r"^DONE \d+/", proc.stdout, re.M))
+            if timed is None or counted is None or done != len(ids):
+                raise AssertionError(f"--process-count {count}: {done} pages done, or its "
+                                     "timing report lacks a row")
+            runs[count] = {"xml": {pid: read_text(out_dir, pid + ".xml") for pid in ids},
+                           "pages_per_s": len(ids) / timed[0], "wall_s": wall,
+                           "launches": int(counted.group(1))}
+    differ = [pid for pid in ids if not same_staged_page(runs[PROCESS_COUNT]["xml"][pid],
+                                                         runs[1]["xml"][pid])]
+    one, many = runs[1], runs[PROCESS_COUNT]
+    log(f"--process-count {PROCESS_COUNT} vs 1: {len(ids) - len(differ)} of {len(ids)} pages' "
+        f"Page XML equal; {many['pages_per_s']:.3f} against {one['pages_per_s']:.3f} pages/s by "
+        f"cli/pages (wall {many['wall_s']:.1f} / {one['wall_s']:.1f} s), warp_fields launches "
+        f"{many['launches']} / {one['launches']}, on {smi}")
+    if differ or many["launches"] != one["launches"] or one["launches"] == 0:
+        raise AssertionError(f"--process-count {PROCESS_COUNT}: pages differ {differ}, or "
+                             "launches")
+    return {"pages": len(ids), "process_count": PROCESS_COUNT,
+            "pages_per_s": many["pages_per_s"], "pages_per_s_one_process": one["pages_per_s"],
+            "wall_s": many["wall_s"], "wall_s_one_process": one["wall_s"],
+            "warp_fields_launches": many["launches"], "page_format": "jpeg gray q90",
+            "card": smi}
+
+
 def run_parse_folder(args, label: str, program=None):
     """The port's command line in a subprocess from the repository root
     (``python -m``, or ``python -c program`` where given); raises when it
@@ -2210,7 +2443,9 @@ def run_config5(pipe: TorchPagePipeline, rng, smi: str):
 # ----------------------------------------------------------------------
 # Config 3: the staged path, then the beam search with a character LM
 # stepped inside its frame loop (configs/config3_beam_lm.ini)
-CONFIG3_PAGES, CONFIG3_CLI_PAGES, CONFIG3_CHECK_LINES = 4, 2, 16
+# One page through the command line (it took 2 until the phases of
+# REGION_SIMPLE_THRESHOLD and --process-count needed the time).
+CONFIG3_PAGES, CONFIG3_CLI_PAGES, CONFIG3_CHECK_LINES = 4, 1, 16
 CONFIG3_STAGES = ("layout", "line_crop", "ocr", "decoder", "document/pagexml")
 # The LM at the spec defaults over the bench charset without the blank,
 # plus </s>.
@@ -3651,8 +3886,9 @@ TS_RECOGNIZER = dict(num_classes=80, line_height=CROP_H, conv_features=(48, 96, 
 # Stage by stage: 4 pages cut to their top 1,280 rows (MULTI_ORIENTATION's
 # turned passes find ~200 regions and ~500 lines on a whole page, ~23 s
 # of host layout a page on the card's host), the CPU replaying the first
-# 2; the command line on 2.
-TS_PAGES, TS_STAGED_PAGES, TS_CPU_PAGES, TS_CLI_PAGES = 2 * PAGE_BATCH, 4, 2, 2
+# page; the command line on 1 (each took 2 until the phases of
+# REGION_SIMPLE_THRESHOLD and --process-count needed the time).
+TS_PAGES, TS_STAGED_PAGES, TS_CPU_PAGES, TS_CLI_PAGES = 2 * PAGE_BATCH, 4, 1, 1
 TS_STAGED_ROWS = 1280
 TS_INI = """[PAGE_PARSER]
 RUN_LAYOUT_PARSER = yes
@@ -4026,8 +4262,8 @@ def run_torchscript(rng, smi: str, device: str = "cuda"):
     ini (a) (MULTI_ORIENTATION, MERGE_LINES, ADJUST_BASELINES, then
     LINE_FILTER, LINE_POSTPROCESSING, LAYOUT_POSTPROCESSING and
     REGION_SORTER_NAIVE) and ini (b) (DETECT_STRAIGHT_LINES_IN_REGIONS)
-    against the CPU (ts_staged); the command line on 2 pages with ini
-    (a), its files equal to the in-process run's.  ``device`` "cpu"
+    against the CPU (ts_staged); the command line on TS_CLI_PAGES pages
+    with ini (a), its files equal to the in-process run's.  ``device`` "cpu"
     rehearses the phase with the plain versions and no kernel checks.
     Returns (warp_lines launches, warp_fields launches by ini, numbers,
     the last fast batch's warp arguments, ini (a)'s last page buckets)."""
@@ -4993,6 +5229,15 @@ def run_phases(smi: str) -> list:
         launches_staged, staged, staged_args, staged_host = run_staged(pipe, rng, smi)
     with phase("config1"):
         launches_config1, config1, config1_args = run_config1(rng, smi)
+    # The phases of REGION_SIMPLE_THRESHOLD and --process-count draw from
+    # their own generator: the other phases keep their pages.
+    t_new = time.perf_counter()
+    new_rng = np.random.default_rng(17)
+    with phase("simple_regions"):
+        launches_simple, simple, simple_args = run_simple_regions(new_rng, smi)
+    with phase("process_count"):
+        process_count = run_process_count(pipe, new_rng, smi)
+    log(f"REGION_SIMPLE_THRESHOLD and --process-count add {time.perf_counter() - t_new:.1f} s")
     with phase("config5"):
         launches_config5, config5, config5_args, viterbi_inputs = run_config5(pipe, rng, smi)
     with phase("config3"):
@@ -5056,11 +5301,15 @@ def run_phases(smi: str) -> list:
         "launches_torchscript_a": ts_fields["a"], "launches_torchscript_b": ts_fields["b"],
         **{f"torchscript_{k}": v for k, v in check_warp_fields(
             *ts_page, rng, "torchscript ini (a), last page").items()},
+        "launches_simple_regions": launches_simple,
+        "launches_process_count": process_count["warp_fields_launches"],
+        **{f"simple_regions_{k}": v for k, v in check_warp_fields(
+            *simple_args, rng, "simple regions, last A4 page with lines").items()},
     }
 
     return [json.dumps({key: value}) for key, value in (
         ("jpeg", jpeg_numbers), ("cli", cli), ("staged", staged), ("config1", config1),
-        ("config5", config5),
+        ("simple_regions", simple), ("process_count", process_count), ("config5", config5),
         ("config3", config3), ("config4", config4), ("crops", crops), ("reocr", reocr),
         ("torchscript", torchscript),
         ("host_native", host_native),

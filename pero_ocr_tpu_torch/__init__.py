@@ -6,7 +6,9 @@ page and crop transports, the stage-by-stage path and the re-OCR of
 existing Page XML on both, CTC and transformer recognizers (the
 reference's post-LN model from a torch ``.pt``, the native pre-LN model
 from a flax checkpoint) on every path, the beam search with a character
-LM, every layout stage of the JAX package but ``REGION_SIMPLE_THRESHOLD``,
+LM, every layout stage of the JAX package (``REGION_SIMPLE_THRESHOLD``'s
+OpenCV chain copied bit for bit, its NL-means in the host C++ of
+``csrc/nlmeans.cpp``), the command line's ``--process-count`` workers,
 the reference's TorchScript ParseNet and CTC archives on both paths, and
 it trains every model it serves (``parallel/train.py``).  Pages come in
 as baseline JPEG, PNG or binary PNM (turned by their EXIF orientation)
@@ -44,7 +46,6 @@ def resolve_device(device=None) -> torch.device:
 
 # Titles of the items in ROADMAP.md's queue 1 that unported features
 # name in their errors.
-STAGE_BY_STAGE = "Stage-by-stage path"
 SCALE_OUT = "Training and scale-out"
 IMAGES = "JPEG/TIFF decoding on the card's machine"
 

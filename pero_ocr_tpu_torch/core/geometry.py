@@ -766,8 +766,9 @@ def _largest_external_contour(mask: np.ndarray) -> Optional[np.ndarray]:
     CHAIN_APPROX_SIMPLE)[0], key=cv2.contourArea)`` picks: the outer
     border of each 8-connected component, traced from its first pixel
     in raster order; the largest shoelace area wins (later-found first
-    on ties, the order findContours lists them in).  ``mask`` must be
-    zero on its one-pixel frame."""
+    on ties, the order findContours lists them in).  Components may touch
+    the mask's edge: the set pixels' bounding box is traced inside a zero
+    frame, as findContours treats what lies off the image."""
     from scipy import ndimage
 
     # Work on the set pixels' bounding box with a zero frame: the same

@@ -14,7 +14,9 @@ means CUDA, "cpu" the plain PyTorch path):
   ``DETECT_STRAIGHT_LINES_IN_REGIONS``, ``ADJUST_HEIGHTS`` and
   ``ADJUST_BASELINES`` read the maps of a second ParseNet pass), or
   ``WholePageRegion`` and ``TextlineExtractorSimple`` (config 1: one
-  region over the page, the classical line detector on the host);
+  region over the page, the classical line detector on the host), or
+  ``SimpleThresholdRegion`` (``REGION_SIMPLE_THRESHOLD``: regions from a
+  denoised, thresholded and closed copy of the page, on the host);
   ``LINE_FILTER`` (OrientationNet directions, page position and
   length), ``LINE_POSTPROCESSING``, ``LAYOUT_POSTPROCESSING`` (region
   retrace), ``REGION_SORTER_NAIVE`` and ``REGION_SORTER_SMART`` (recursive
@@ -41,8 +43,7 @@ means CUDA, "cpu" the plain PyTorch path):
 
 :meth:`~pero_ocr_tpu_torch.document.fast_pipeline.FastPagePipeline.from_page_parser`
 builds the device pipeline of ``--fast-pipeline`` from the same engines.
-What the port lacks raises ``ValueError`` naming its ROADMAP item: the
-layout method ``REGION_SIMPLE_THRESHOLD`` (item 8d).
+Every layout method of the JAX package is ported.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ from typing import List
 import numpy as np
 import torch
 
-from pero_ocr_tpu_torch import STAGE_BY_STAGE, not_ported, resolve_device
+from pero_ocr_tpu_torch import resolve_device
 from pero_ocr_tpu_torch.core import crop_engine as cropper
 from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
 from pero_ocr_tpu_torch.layout_engines import helpers
@@ -65,6 +66,7 @@ from pero_ocr_tpu_torch.layout_engines.line_in_region_detector import detect_lin
 from pero_ocr_tpu_torch.layout_engines.line_postprocessing_engine import PostprocessingEngine
 from pero_ocr_tpu_torch.layout_engines.naive_sorter import NaiveRegionSorter
 from pero_ocr_tpu_torch.layout_engines.simple_baseline_engine import EngineLineDetectorSimple
+from pero_ocr_tpu_torch.layout_engines.simple_region_engine import SimpleThresholdRegion
 from pero_ocr_tpu_torch.layout_engines.smart_sorter import SmartRegionSorter
 from pero_ocr_tpu_torch.ocr.ctc_engine import CTCEngineLineOCR
 from pero_ocr_tpu_torch.ocr.transformer_engine import TransformerEngineLineOCR
@@ -74,15 +76,14 @@ from pero_ocr_tpu_torch.utils.timing import stage_timer
 
 logger = logging.getLogger(__name__)
 
-# The JAX package's layout stages that the port lacks.
-UNPORTED_LAYOUT_METHODS = ("REGION_SIMPLE_THRESHOLD",)
-
 
 def layout_parser_factory(config, device=None, config_path="", order=1):
     section = config[f"LAYOUT_PARSER_{order}"]
     method = section["METHOD"]
     if method == "REGION_WHOLE_PAGE":
         return WholePageRegion(section, config_path=config_path)
+    if method == "REGION_SIMPLE_THRESHOLD":
+        return SimpleThresholdRegion(section, device, config_path=config_path)
     if method == "LAYOUT_CNN":
         return LayoutExtractor(section, device, config_path=config_path)
     if method == "LINES_SIMPLE_THRESHOLD":
@@ -97,8 +98,6 @@ def layout_parser_factory(config, device=None, config_path="", order=1):
         return NaiveRegionSorter(section, config_path=config_path)
     if method == "REGION_SORTER_SMART":
         return SmartRegionSorter(section, config_path=config_path)
-    if method in UNPORTED_LAYOUT_METHODS:
-        raise not_ported(f"[LAYOUT_PARSER_{order}] METHOD = {method}", STAGE_BY_STAGE)
     raise ValueError(f"Unknown layout parser method: {method}")
 
 

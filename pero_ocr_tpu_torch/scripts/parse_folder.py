@@ -23,8 +23,13 @@ lines then go through the beam search with the character LM; with
 ``[OCR] METHOD = transformer`` the transformer engine recognizes them,
 and ``--timing-report`` lists its ``ocr/encode`` and ``ocr/decode``
 times), with the next page decoded on a worker thread, and a page that fails is reported and skipped, as
-the JAX command line's ``Computator`` does.  With ``--fast-pipeline``
-the page batches go through ``FastPagePipeline.process_pages``: on the
+the JAX command line's ``Computator`` does.  With ``--process-count N``
+(N > 1) N spawned worker processes share the pages, each with its own
+``PageParser`` on the same device (a process forked after CUDA is set
+up cannot use the card); the transcriptions come back in page order.
+With ``--fast-pipeline`` (which ignores ``--process-count``, as the JAX
+command line does) the page batches go through
+``FastPagePipeline.process_pages``: on the
 page transport stage B warps the lines with the fused CUDA kernel; with
 ``--transport crops`` the host warps them and only the crops and a
 small layout canvas reach the card (``--transport-bits 2`` and
@@ -45,12 +50,10 @@ geometry (connected components, paragraph clustering, the fast path's
 parse) and the ALTO output's forced alignment follow the device too: the
 port's C++ on CUDA, numpy/scipy on the CPU.
 
-Options and config features the port lacks exit with code 2 and name
-their ROADMAP item, rather than change what the run means: the line
-crops' LMDB store (an ``--output-line-path`` with ``lmdb`` in it: the
-lmdb package), renders (``--output-render-path``: the Hershey text),
-``--dp``, ``--profile``, ``--process-count`` and the layout method
-``REGION_SIMPLE_THRESHOLD``.
+Options the port lacks exit with code 2 and name their ROADMAP item,
+rather than change what the run means: the line crops' LMDB store (an
+``--output-line-path`` with ``lmdb`` in it: the lmdb package), renders
+(``--output-render-path``: the Hershey text), ``--dp`` and ``--profile``.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from __future__ import annotations
 import argparse
 import configparser
 import logging
+import multiprocessing
 import os
 import re
 import sys
@@ -68,16 +72,19 @@ from queue import Queue
 from typing import List, Optional, Set
 
 import numpy as np
+import torch
 
-from pero_ocr_tpu_torch import IMAGES, SCALE_OUT, STAGE_BY_STAGE, not_ported, resolve_device
+from pero_ocr_tpu_torch import IMAGES, SCALE_OUT, not_ported, resolve_device
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
-from pero_ocr_tpu_torch.document.page_parser import UNPORTED_LAYOUT_METHODS, PageParser
+from pero_ocr_tpu_torch.document.page_parser import PageParser
 from pero_ocr_tpu_torch.ops.warp import warp_fields, warp_lines
 from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.checkpoint import set_strict_loading
 from pero_ocr_tpu_torch.utils.image_io import imread, imwrite_jpeg
-from pero_ocr_tpu_torch.utils.timing import reset_timing, stage_timer, timing_report
+from pero_ocr_tpu_torch.utils.timing import (
+    add_timing, reset_timing, stage_timer, timing_report, timing_stats,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -182,10 +189,10 @@ def load_already_processed_files(directories: List[Optional[str]]) -> Set[str]:
     return done
 
 
-def refusals(args, paths, config) -> List[str]:
+def refusals(args, paths) -> List[str]:
     """What this run asks for that the port lacks, each with its ROADMAP
     item.  ``paths``: the PARSE_FOLDER paths after the command line's
-    overrides; ``config``: the ini."""
+    overrides."""
     line_path = paths["OUTPUT_LINE_PATH"]
     asked = [
         (line_path and "lmdb" in line_path,
@@ -193,13 +200,6 @@ def refusals(args, paths, config) -> List[str]:
         (paths["OUTPUT_RENDER_PATH"], "--output-render-path (JPEG renders)", IMAGES),
         (args.dp > 1, "--dp", SCALE_OUT),
         (args.profile, "--profile (a torch.profiler trace)", SCALE_OUT),
-        (args.process_count > 1, "--process-count", STAGE_BY_STAGE),
-    ] + [
-        (config.getboolean("PAGE_PARSER", "RUN_LAYOUT_PARSER", fallback=False),
-         f"[{section}] METHOD = {config[section]['METHOD']}", STAGE_BY_STAGE)
-        for section in config.sections()
-        if re.fullmatch(r"LAYOUT_PARSER_[1-9]", section)
-        and config[section].get("METHOD") in UNPORTED_LAYOUT_METHODS
     ]
     return [str(not_ported(what, item)) for flag, what, item in asked if flag]
 
@@ -238,7 +238,7 @@ def main(argv=None) -> None:
     setup_logging(config["PARSE_FOLDER"])
     paths = {key: get_value_or_none(config, "PARSE_FOLDER", key) for key in overrides}
 
-    refused = refusals(args, paths, config)
+    refused = refusals(args, paths)
     if refused:
         refuse(refused)
     device = resolve_device(args.device)
@@ -337,6 +337,11 @@ def main(argv=None) -> None:
     if fast_pipeline:
         results = run_fast(page_parser, args, input_image_path, images_to_process,
                            ids_to_process, outputs, input_xml_path if fast_reocr else None)
+    elif args.process_count > 1:
+        results = run_workers(args.process_count, (
+            config_path, args.device, not args.allow_random_weights, outputs,
+            input_image_path, input_xml_path, input_logit_path, args.process_count,
+        ), images_to_process, ids_to_process)
     else:
         results = run_staged(page_parser, input_image_path, images_to_process,
                              ids_to_process, outputs, input_xml_path, input_logit_path)
@@ -516,6 +521,81 @@ def run_staged(page_parser, input_image_path, images_to_process, ids_to_process,
             results.append(process_one(page_parser, prefetcher.get(), file_id, index,
                                        len(ids_to_process), outputs, input_xml_path,
                                        input_logit_path))
+    return results
+
+
+# A worker process's PageParser and paths (run_workers).
+_worker: dict = {}
+
+
+def _start_worker(config_path: str, device: str, strict: bool, outputs: PageOutputs,
+                  input_image_path, input_xml_path, input_logit_path,
+                  process_count: int) -> None:
+    """A ``--process-count`` worker's initializer: its own PageParser
+    from the ini on the command line's device, and its share of the
+    host's cores for torch's CPU threads (N processes whose threads spin
+    on all of them slow the CPU path many times over).  A failure is kept and raised by
+    the worker's first page, so that the command fails (``Pool`` would
+    start a worker whose initializer raised again and again)."""
+    try:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // process_count))
+        config = configparser.ConfigParser()
+        config.read(config_path)
+        if "PARSE_FOLDER" in config:
+            setup_logging(config["PARSE_FOLDER"])
+        set_strict_loading(strict)
+        _worker["parser"] = PageParser(config, device=resolve_device(device),
+                                       config_path=os.path.dirname(config_path))
+        _worker["paths"] = (outputs, input_image_path, input_xml_path, input_logit_path)
+    except Exception:
+        _worker["error"] = traceback.format_exc()
+
+
+def _worker_page(image_name: Optional[str], file_id: str, index: int, count: int):
+    """One page in a worker, as the JAX pool's ``Computator`` call: the
+    image read here, then :func:`process_one`.  Returns the page's
+    transcription lines, the worker's stage times for the page and its
+    (warp_fields, warp_lines) launches."""
+    if "error" in _worker:
+        raise RuntimeError(f"parse_folder worker {os.getpid()} could not build its "
+                           f"PageParser:\n{_worker['error']}")
+    outputs, input_image_path, input_xml_path, input_logit_path = _worker["paths"]
+    reset_timing()
+    launches = warp_fields.launches, warp_lines.launches
+    image = None
+    if input_image_path is not None and image_name is not None:
+        try:
+            with stage_timer("cli/decode"):
+                image = imread(os.path.join(input_image_path, image_name))
+        except Exception as e:  # handed to the page's own error report
+            image = e
+    annotations = process_one(_worker["parser"], image, file_id, index, count, outputs,
+                              input_xml_path, input_logit_path)
+    return annotations, timing_stats(), (warp_fields.launches - launches[0],
+                                         warp_lines.launches - launches[1])
+
+
+def run_workers(process_count: int, worker_args: tuple, images_to_process,
+                ids_to_process) -> List[List[str]]:
+    """``--process-count``: the pages shared by ``process_count``
+    spawned worker processes (``_start_worker`` builds each one's
+    PageParser from ``worker_args``), ``starmap``'s order, as the JAX
+    command line's pool does.  The workers' stage times and kernel
+    launches are added to this process's.  Returns each page's
+    transcription lines."""
+    tasks = [(name, fid, index, len(ids_to_process))
+             for index, (fid, name) in enumerate(zip(ids_to_process, images_to_process))]
+    with stage_timer("cli/pages"):
+        context = multiprocessing.get_context("spawn")
+        with context.Pool(process_count, initializer=_start_worker,
+                          initargs=worker_args) as pool:
+            done = pool.starmap(_worker_page, tasks)
+    results = []
+    for annotations, stats, (fields, fused) in done:
+        results.append(annotations)
+        add_timing(stats)
+        warp_fields.launches += fields
+        warp_lines.launches += fused
     return results
 
 

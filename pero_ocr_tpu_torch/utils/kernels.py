@@ -31,7 +31,7 @@ NVCC_FLAGS = [
 ]
 # No -march=native: a build directory copied to another machine must
 # not hold a library that its CPU cannot run.
-CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-Wall"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall"]
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}

@@ -6,6 +6,9 @@ resample images, equal to cv2 5.0.0 bit for bit.
   ``ParseNetWrapper.get_maps``.  OpenCV has two branches: an integer
   scale averages whole s x s cells (its "area fast" path), any other
   scale sums float32 area weights over the cells' source pixels.
+- :func:`resize_linear_u8` is ``cv2.resize(img, None, fx=1/s, fy=1/s)``
+  (the default ``INTER_LINEAR``) of a uint8 image by an integer factor
+  s, the first step of ``REGION_SIMPLE_THRESHOLD``.
 - :func:`remap_linear` is ``cv2.remap(img, map_x, map_y, INTER_LINEAR,
   BORDER_CONSTANT)`` with float32 maps, the line crop of
   ``EngineLineCropper.fast_remap``.  OpenCV 5 samples in float32 with
@@ -144,6 +147,47 @@ def resize_area(img: np.ndarray, scale: float) -> np.ndarray:
         out = _area_fast(src, dh, dw, ix, iy)
     else:
         out = _area_general(src, dh, dw, scale_x, scale_y)
+    return out[:, :, 0] if squeeze else out
+
+
+def resize_linear_u8(img: np.ndarray, downscale: int) -> np.ndarray:
+    """``cv2.resize(img, None, fx=1 / downscale, fy=1 / downscale)``
+    (``INTER_LINEAR``) for a uint8 (H, W) or (H, W, C) image and an
+    integer ``downscale`` >= 1.  The output is ``round(W / s)`` by
+    ``round(H / s)``, halves to even.
+
+    OpenCV maps output column x to source ``(x + 0.5) s - 0.5``, clamps
+    the taps to the image and blends them with weights in 1/2048.  For
+    an integer s that point is a pixel (s odd: the pixel itself) or the
+    midpoint of two (s even: weights 1024 each), so an even s gives
+    ``(a + b + c + d + 2) >> 2`` over rows ``s i + s/2 - 1`` and
+    ``s i + s/2`` (clamped to H - 1) and the same columns.  At s = 2
+    OpenCV switches to ``INTER_AREA``, whose whole 2 x 2 cells round
+    the same way (:func:`resize_area`).  Other factors raise."""
+    if isinstance(downscale, bool) or not float(downscale).is_integer() or downscale < 1:
+        raise ValueError(f"resize_linear_u8: downscale {downscale} is not an integer >= 1")
+    s = int(downscale)
+    squeeze = np.asarray(img).ndim == 2
+    src = _as_hwc(img)
+    if s == 1:
+        out = src.copy()
+    elif s == 2:
+        out = resize_area(src, 2)
+    else:
+        h, w = src.shape[:2]
+        dh, dw = int(np.rint(h / s)), int(np.rint(w / s))
+        if dw < 1 or dh < 1:
+            raise ValueError(f"resize_linear_u8: {w}x{h} at 1/{s} is empty")
+        first = s // 2 - 1 if s % 2 == 0 else (s - 1) // 2
+        rows = np.minimum(s * np.arange(dh) + first, h - 1)
+        cols = np.minimum(s * np.arange(dw) + first, w - 1)
+        if s % 2:
+            out = src[rows][:, cols]
+        else:
+            a = src.astype(np.int32)
+            r1, c1 = np.minimum(rows + 1, h - 1), np.minimum(cols + 1, w - 1)
+            out = ((a[rows][:, cols] + a[rows][:, c1] + a[r1][:, cols] + a[r1][:, c1] + 2)
+                   >> 2).astype(np.uint8)
     return out[:, :, 0] if squeeze else out
 
 

@@ -47,6 +47,14 @@ class TimingRegistry:
         with self._lock:
             self._stats.clear()
 
+    def add(self, stats: Dict[str, tuple]) -> None:
+        """Add another registry's :meth:`stats` (a worker process's)."""
+        with self._lock:
+            for name, (seconds, calls) in stats.items():
+                s = self._stats[name]
+                s.total_seconds += seconds
+                s.calls += calls
+
     def stats(self) -> Dict[str, tuple]:
         """{stage: (total seconds, calls)}."""
         with self._lock:
@@ -85,3 +93,7 @@ def timing_stats() -> Dict[str, tuple]:
 
 def reset_timing() -> None:
     GLOBAL_TIMING.reset()
+
+
+def add_timing(stats: Dict[str, tuple]) -> None:
+    GLOBAL_TIMING.add(stats)

@@ -249,6 +249,23 @@ def test_cli_page_xml_equals_jax(bundle, tmp_path, float32_parsenets, capsys):
     assert "warp_lines kernel launches: 0" in printed  # the CPU runs the plain version
 
 
+@pytest.mark.skipif(jax_native_library() is None, reason="native library unavailable")
+def test_cli_fast_pipeline_ignores_process_count(bundle, tmp_path, float32_parsenets, capsys):
+    """--fast-pipeline takes precedence over --process-count in both
+    command lines: the fast path's files and DONE lines, no workers."""
+    got = _port_xml(bundle, tmp_path / "xml", "--process-count", "2")
+    printed = capsys.readouterr().out
+    for lay in _jax_layouts(bundle):
+        assert _masked(got[lay.id]) == _masked(lay.to_pagexml_string())
+    assert [line for line in printed.splitlines() if line.startswith("DONE")] == [
+        f"DONE page-{i} (fast pipeline)" for i in range(3)]
+    _jax_cli(["-c", str(bundle / "config.ini"), "-i", str(bundle / "images"),
+              "--output-xml-path", str(tmp_path / "jax"), "--fast-pipeline", "--device", "cpu",
+              "--process-count", "2"])
+    printed = capsys.readouterr().out
+    assert printed.count("(fast pipeline)") == 3 and "Processing" not in printed
+
+
 # bf16 detectors, measured on the three toy pages (tests/test_torch_cli.py
 # bundle, CPU): stage A's baseline mask flips 0 of 754 pixels at ds 4,
 # 10 of 379 at ds 6 and at most 19 (of 599, ds 5) over ds 2-8; the
@@ -402,7 +419,9 @@ def test_unsupported_features_match_jax(bundle):
 # --transport-bits 2 and --canvas-bits run now, and what remains refused
 # around them is held here.  The cases "x" and "output-line-path" (JPEG
 # line crops, with and without -x) run since the JPEG codec was ported:
-# test_cli_line_crops_equal_jax_cli holds their files.
+# test_cli_line_crops_equal_jax_cli holds their files; "process-count"
+# runs since the spawned workers were ported:
+# test_cli_process_count_equals_one_process_and_jax holds its files.
 REFUSED = [
     ("output-line-path-lmdb", ["--output-line-path", "{tmp}/lines.lmdb"], "LMDB store", True),
     ("output-render-path", ["--output-render-path", "{tmp}/r"], "JPEG/TIFF decoding", True),
@@ -412,7 +431,6 @@ REFUSED = [
     ("canvas-bits", ["--canvas-bits", "4"], "--canvas-bits requires --transport crops", False),
     ("dp", ["--dp", "2"], "Training and scale-out", True),
     ("profile", ["--profile", "{tmp}/p"], "Training and scale-out", True),
-    ("process-count", ["--process-count", "2"], "Stage-by-stage path", True),
 ]
 
 
@@ -460,8 +478,10 @@ def test_cli_stage_by_stage_equals_jax_page_parser(bundle, tmp_path, float32_par
 
 
 def test_cli_refuses_config_features(bundle, tmp_path, caplog):
-    # The layout stages of item 8d run; REGION_SIMPLE_THRESHOLD is the
-    # one refused, by name, before anything is built.
+    # Every layout stage of item 8d runs, REGION_SIMPLE_THRESHOLD too:
+    # after LAYOUT_CNN it sends --fast-pipeline to the stage-by-stage
+    # path (an extra layout stage), whose Page XML equals the JAX
+    # command line's on the same flags.
     config = _config(bundle / "config.ini")
     config.add_section("LAYOUT_PARSER_2")
     config["LAYOUT_PARSER_2"]["METHOD"] = "REGION_SIMPLE_THRESHOLD"
@@ -469,11 +489,20 @@ def test_cli_refuses_config_features(bundle, tmp_path, caplog):
         config.write(f)
     for name in ("layout", "ocr"):  # the bundle's relative paths
         os.symlink(bundle / name, tmp_path / name)
-    with caplog.at_level(logging.ERROR), pytest.raises(SystemExit) as e:
-        _run_port(["-c", str(tmp_path / "threshold.ini"), "-i", str(bundle / "images"),
-                   "--fast-pipeline", "--device", "cpu"])
-    assert e.value.code == 2 and "REGION_SIMPLE_THRESHOLD" in caplog.text
-    assert "Stage-by-stage path" in caplog.text
+    assert "extra layout stage SimpleThresholdRegion" in FastPagePipeline.unsupported_features(
+        PageParser(config, device="cpu", config_path=str(bundle)))
+    common = ["-c", str(tmp_path / "threshold.ini"), "-i", str(bundle / "images"),
+              "--fast-pipeline", "--device", "cpu"]
+    with caplog.at_level(logging.ERROR):
+        _run_port(common + ["--output-xml-path", str(tmp_path / "port")])
+        _jax_cli(common + ["--output-xml-path", str(tmp_path / "jax")])
+    assert "ERROR" not in caplog.text
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 3
+    for name in names:  # the second stage's regions replace the first's, lines and all
+        got = (tmp_path / "port" / name).read_text(encoding="utf-8")
+        assert_xml_equal(got, (tmp_path / "jax" / name).read_text(encoding="utf-8"))
+        assert 'TextRegion id="r-0"' in got
     config.remove_section("LAYOUT_PARSER_2")
 
     # MERGE_LINES is built, and sends --fast-pipeline to the

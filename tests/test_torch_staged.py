@@ -641,8 +641,8 @@ def test_parse_honours_connection_keys(bundle, tmp_path, float32_parsenets, keys
 
 def test_page_parser_refuses_unported_layout_options(bundle, tmp_path):
     # The LAYOUT_CNN options are ported (ADJUST_HEIGHTS with config 4, the
-    # rest of item 8d since): they run.  REGION_SIMPLE_THRESHOLD is the
-    # one layout method left, refused by name.
+    # rest of item 8d since): they run.  So does the last layout method,
+    # REGION_SIMPLE_THRESHOLD: its regions equal the JAX PageParser's.
     path = staged_config(bundle, tmp_path, ADJUST_HEIGHTS="yes", MULTI_ORIENTATION="yes")
     ours = PageParser(_config(path), device="cpu", config_path=str(tmp_path))
     page = _pages()[0]
@@ -650,9 +650,14 @@ def test_page_parser_refuses_unported_layout_options(bundle, tmp_path):
     assert layout.regions and layout.to_pagexml_string()
     config = _config(path)
     config["LAYOUT_PARSER_1"]["METHOD"] = "REGION_SIMPLE_THRESHOLD"
-    with pytest.raises(ValueError, match=r"\[LAYOUT_PARSER_1\] METHOD = REGION_SIMPLE_THRESHOLD "
-                                         "is not ported.*Stage-by-stage"):
-        PageParser(config, device="cpu", config_path=str(tmp_path))
+    ours = PageParser(config, device="cpu", config_path=str(tmp_path))
+    theirs = JaxPageParser(config, config_path=str(tmp_path))
+    for i, page in enumerate(_pages()):
+        got = ours.process_page(page, PageLayout(id=f"p{i}", page_size=page.shape[:2]))
+        want = theirs.process_page(page, JaxPageLayout(id=f"p{i}", page_size=page.shape[:2]))
+        assert [r.id for r in got.regions] == [r.id for r in want.regions]
+        assert got.regions and _masked(got.to_pagexml_string()) == _masked(
+            want.to_pagexml_string())
 
 
 @needs_native
