@@ -67,18 +67,31 @@ Phases (each raises on failure, so the run exits non-zero):
    equal or near-ties, the field warp bit-equal on every page, the C++
    NL-means equal to its numpy twin on a crop and timed against it;
    and ``--process-count`` (``run_process_count``): config 2's staged
-   command line on 8 gray JPEG pages in one process and with 2 spawned
+   command line on 4 gray JPEG pages in one process and with 2 spawned
    workers on the card, each page's Page XML equal, pages/s of both
    (``{"simple_regions": ...}``, ``{"process_count": ...}``,
    ``simple_regions_*`` keys).  These two phases draw from their own
    generator and log the seconds they add.
 10. Config 5's outputs (``run_config5``): the page transport with
-    ``want_logits`` and stage by stage, each with and without the logits
+    ``want_logits`` on 16 pages and stage by stage on 4, each with and without the logits
     pickle and ALTO (A B B A), the card's top-k against ``torch.topk``
     on the CPU, and the command line with --output-logit-path and
     --output-alto-path on both paths, every file loaded back against
     the in-process run's; warp_lines timed on its last batch
-    (``config5_*``).
+    (``config5_*``).  Then the user scripts (``run_user_scripts``):
+    select_embed_id (--n-lines 64 --n-clusters 4, the KMeans route) on
+    the staged run's first pages with a bench-width float32 recognizer
+    of 16 writer embeddings, --device cuda against --device cpu (TF32
+    off: the same ids, CER lines and selected id, lines apart only at
+    near-ties; warp_fields one launch a page it reads), ms a line;
+    produce_2layer_pdf on config 5's staged Page XML and ALTO with the
+    committed Latin font (tests/data/pdf; the card's machine has no
+    system font): every xref offset resolves, the text layer decodes
+    through the ToUnicode map to the file's lines, the image stream is
+    ``encode_jpeg(page, 80)``, ms a page; compare_page_xml_texts on the
+    staged CPU check's Page XML (the differing characters it counts are
+    that check's, 0); levenshtein_batch_i32 against a call a line and
+    its numpy twin (``{"user_scripts": ...}``).
 11. Config 3 (``run_config3``): 4 two-column pages through
     ``PageParser(config 3, device="cuda")``: the staged layout, the field
     warp, CTC OCR at line height 40, then the batched beam search (K = 8,
@@ -140,7 +153,7 @@ Phases (each raises on failure, so the run exits non-zero):
     16 two-column pages (page transport): labels equal to the native
     float32 modules' on the same pages and lines (near-ties counted
     apart), one batch three times bit-equal, stage A's masks within
-    TS_MASK_FLIPS.  Stage by stage on 4 pages under ini (a)
+    TS_MASK_FLIPS.  Stage by stage on 2 pages under ini (a)
     (MULTI_ORIENTATION, MERGE_LINES, ADJUST_BASELINES, LINE_FILTER with a
     seeded OrientationNet, LINE_POSTPROCESSING, LAYOUT_POSTPROCESSING,
     REGION_SORTER_NAIVE) and ini (b) (DETECT_STRAIGHT_LINES_IN_REGIONS),
@@ -178,7 +191,8 @@ lines' numbers (``{"cli": ...}``,
 ``{"staged": ...}``), config 1's, REGION_SIMPLE_THRESHOLD's,
 --process-count's, config 5's, config 3's and config 4's
 (``{"config1": ...}``, ``{"simple_regions": ...}``,
-``{"process_count": ...}``, ``{"config5": ...}``, ``{"config3": ...}``,
+``{"process_count": ...}``, ``{"config5": ...}``, ``{"user_scripts": ...}``,
+``{"config3": ...}``,
 ``{"config4": ...}``), the crop transport's, re-OCR's and TorchScript's, the
 host library's (``{"host_native": ...}``), training's (``{"train": ...}``),
 the card's nvidia-smi line, one JSON object with the kernels' numbers,
@@ -193,6 +207,7 @@ import copy
 import dataclasses
 import difflib
 import hashlib
+import io
 import json
 import os
 import pickle
@@ -217,6 +232,7 @@ from pero_ocr_tpu_torch.core import geometry
 from pero_ocr_tpu_torch.core.force_alignment import viterbi_ctc
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
+from pero_ocr_tpu_torch.document import pdf
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble_page_layout
 from pero_ocr_tpu_torch.document.page_parser import LayoutExtractor, PageParser
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import separator_penalties
@@ -236,6 +252,8 @@ from pero_ocr_tpu_torch.ops import warp as warp_ops
 from pero_ocr_tpu_torch.parallel.crop_transport import unpack_bits, warp_affine_lines
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.parallel import train
+from pero_ocr_tpu_torch.sequence_alignment import levenshtein_ids_batch
+from pero_ocr_tpu_torch.scripts import compare_page_xml_texts, produce_2layer_pdf, select_embed_id
 from pero_ocr_tpu_torch.scripts.parse_folder import LINE_QUALITY
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
 from pero_ocr_tpu_torch.utils import checkpoint, convert, denoise, image_io, kernels, native, timing
@@ -1413,7 +1431,7 @@ def confs_close(a: str, b: str, tol: float = 0.0015) -> bool:
 STAGED_MAPS_ATOL = 1e-3
 
 
-def check_staged_against_cpu(rng) -> None:
+def check_staged_against_cpu(rng) -> dict:
     """A small float32 stage-by-stage run (TF32 off) on the card against
     the same PageParser on the CPU.  Each page's ParseNet maps must agree
     within STAGED_MAPS_ATOL; the CPU run then continues from the card's
@@ -1421,7 +1439,9 @@ def check_staged_against_cpu(rng) -> None:
     rest of the staged layout turns float heights into integer outlines
     (alpha shapes, the 5 px simplification, raster clipping), so maps
     1e-6 apart can move a vertex: equal maps isolate what follows them,
-    the field warp kernel and the recognizer on the card."""
+    the field warp kernel and the recognizer on the card.  Returns the
+    two runs' Page XML ({"cuda": [...], "cpu": [...]}), which
+    run_user_scripts compares again with compare_page_xml_texts."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     pn = ParseNet(base_features=8, depth=2, stem="s2d", out_upsample=2, dtype=torch.float32)
@@ -1479,6 +1499,7 @@ def check_staged_against_cpu(rng) -> None:
         raise AssertionError(f"staged reference check found only {n_lines} lines")
     log(f"staged reference check: from the same maps, card Page XML equals the CPU's on 2 "
         f"pages, {n_lines} lines")
+    return xml
 
 
 # Line crops of the staged command line against the in-process run's:
@@ -1556,9 +1577,10 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
     Between the two, the host-route A/B: the same pages through a
     PageParser on the numpy route twice and this one again (A B B A),
     each run's Page XML equal to the first's.  Returns the field warp's
-    launches, the phase's numbers, the last page's warp inputs and the
+    launches, the phase's numbers, the last page's warp inputs, the
     host record for check_host_native (the last page's host inputs, the
-    A/B)."""
+    A/B) and the first SCRIPT_PAGES pages' JPEG files and Page XML
+    (id -> (bytes, xml), for run_user_scripts)."""
     pages, lines = synthetic_pages(rng, PAGE_BATCH, TWO_COLUMNS)
     ids = [f"s{i:04d}" for i in range(len(pages))]
     n_cli = 4
@@ -1678,6 +1700,10 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             raise AssertionError("the stage-by-stage command line: warp_fields launches != "
                                  f"pages of {parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
         last_page = page_buckets(parser, out[-1][0], pages[-1])
+        script_pages = {}
+        for pid, (_, xml) in zip(ids[:SCRIPT_PAGES], out):
+            with open(os.path.join(images, pid + ".jpg"), "rb") as f:
+                script_pages[pid] = (f.read(), xml)
 
     numbers = {"pages": len(pages), "pages_per_s": len(pages) / seconds, "lines": n_lines,
                "regions": n_regions, "line_recall": recall,
@@ -1696,7 +1722,8 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                "cli_line_files_renumbered": cli_numbers["permuted"],
                "cli_line_files_max_mean_abs_diff": cli_numbers["max_mean_abs_diff"],
                "cli_warp_fields_launches": cli_numbers["launches"], "card": smi}
-    return launches, numbers, last_page, {"inputs": host_inputs.pages[-1], "ab": ab}
+    return (launches, numbers, last_page, {"inputs": host_inputs.pages[-1], "ab": ab},
+            script_pages)
 
 
 # ----------------------------------------------------------------------
@@ -1849,6 +1876,7 @@ SIMPLE_STAGES = ("layout", "simple_regions/prepare", "simple_regions/denoise",
                  "simple_regions/polygons", "line_crop", "ocr", "document/pagexml")
 NL_CROP = (160, 160)  # the numpy twin's timed crop of the denoiser's input
 PROCESS_COUNT = 2
+PROCESS_COUNT_PAGES = 4  # 8 before the user scripts' phase needed the time
 
 
 def write_simple_bundle(tmp: str, rec: CTCRecognizer) -> str:
@@ -2006,7 +2034,7 @@ def run_simple_regions(rng, smi: str):
 
 
 def run_process_count(pipe: TorchPagePipeline, rng, smi: str) -> dict:
-    """``--process-count``: 8 two-column pages as gray JPEG files through
+    """``--process-count``: 4 two-column pages as gray JPEG files through
     the staged command line (config 2, the bench modules from flax
     msgpack) in one process, then with PROCESS_COUNT spawned workers on
     the same card.  Each page's Page XML of the workers' run must equal
@@ -2014,7 +2042,7 @@ def run_process_count(pipe: TorchPagePipeline, rng, smi: str) -> dict:
     own row jitter), no page may fail, and the workers' warp_fields
     launches (summed into the report) must equal the one-process run's.
     Returns pages/s of both by their cli/pages timers, and wall s."""
-    pages, _ = synthetic_pages(rng, PAGE_BATCH, TWO_COLUMNS)
+    pages, _ = synthetic_pages(rng, PROCESS_COUNT_PAGES, TWO_COLUMNS)
     ids = [f"p{i:04d}" for i in range(len(pages))]
     runs = {}
     with tempfile.TemporaryDirectory(prefix="process_count_") as tmp:
@@ -2074,7 +2102,11 @@ def read_text(folder: str, name: str) -> str:
 
 # ----------------------------------------------------------------------
 # Config 5's outputs: top-k logits, logits files, forced alignment, ALTO
-CONFIG5_CLI_FAST, CONFIG5_STAGED_PAGES = 8, 4  # the staged command line runs as many
+# 16 pages on the fast path (two stage-B batches with the logits) and 4
+# through its command line (one page batch; 8 before the user scripts'
+# phase needed the time).
+CONFIG5_PAGES = 2 * PAGE_BATCH
+CONFIG5_CLI_FAST, CONFIG5_STAGED_PAGES = 4, 4  # the staged command line runs as many
 ALTO_DATETIME = re.compile(r"<processingDateTime>[^<]*</processingDateTime>")
 ALTO_NS = "{http://www.loc.gov/standards/alto/ns-v2#}"
 # A logits file of the command line against the in-process run's: the
@@ -2267,9 +2299,10 @@ def run_config5(pipe: TorchPagePipeline, rng, smi: str):
       writer's.
 
     Returns the kernels' launches on each path, the phase's numbers, the
-    last batch's warp arguments and the forced alignment's inputs (for
-    check_host_native)."""
-    n_pages = 2 * PAGE_BATCH
+    last batch's warp arguments, the forced alignment's inputs (for
+    check_host_native) and the staged run's pages with their Page XML and
+    ALTO (id -> (page, xml, alto), for run_user_scripts)."""
+    n_pages = CONFIG5_PAGES
     pages, _ = synthetic_pages(rng, n_pages, TWO_COLUMNS)
     ids = [f"a{i:04d}" for i in range(n_pages)]
     common = dict(downsample=4, crop_bucket=BUCKET, crop_height=CROP_H,
@@ -2436,8 +2469,409 @@ def run_config5(pipe: TorchPagePipeline, rng, smi: str):
                                    if k in STAGED_HOST_STAGES or k.startswith("document/")},
                "warp_lines_launches": launches, "warp_fields_launches": staged_launches,
                "host_calls": host_calls, "topk": topk, "cli": cli, "card": smi}
+    staged_files = {layout.id: (page, xml, alto)
+                    for page, (layout, xml, _, alto) in zip(pages, staged_out)}
     return {"warp_lines": launches, "warp_fields": staged_launches}, numbers, (
-        *last_b[0], logits_pipe.crop_height, logits_pipe.crop_bucket), viterbi.calls
+        *last_b[0], logits_pipe.crop_height, logits_pipe.crop_bucket), viterbi.calls, staged_files
+
+
+# ----------------------------------------------------------------------
+# The user scripts of item 18 on the card's outputs: select_embed_id
+# (the field warp on a new entry point), produce_2layer_pdf on config 5's
+# files, compare_page_xml_texts and the batched edit distance
+SCRIPT_PAGES = 2  # config 2's staged pages (and Page XML) that select_embed_id reads
+EMBED_NUM, EMBED_LINES, EMBED_CLUSTERS = 16, 64, 4
+LATIN_FONT = os.path.join(REPO, "tests", "data", "pdf", "DejaVuSans-Latin.ttf")
+# select_embed_id's config: CLI_INI's line cropper and OCR, no layout.
+EMBED_INI = """[PAGE_PARSER]
+RUN_LINE_CROPPER = yes
+RUN_OCR = yes
+
+[LINE_CROPPER]
+INTERP = 2
+LINE_SCALE = 1.0
+LINE_HEIGHT = 32
+
+[OCR]
+OCR_JSON = ./ocr.json
+"""
+CER_LINE = re.compile(r"^(\d+) (?:[0-9.]+|N/A) % CER \[ (\d+) / (\d+) \] Time: ([0-9.]+)$", re.M)
+
+
+def write_embed_bundle(folder: str, rec: CTCRecognizer, pages: dict) -> None:
+    """An OCR-only ini (the line cropper and the recognizer), ``rec`` as a
+    float32 flax checkpoint with an OCR JSON of ``embed_num`` writers,
+    and ``pages`` (id -> (JPEG bytes, Page XML)) under images/ and xml/."""
+    os.makedirs(os.path.join(folder, "images"))
+    os.makedirs(os.path.join(folder, "xml"))
+    write_recognizer(folder, copy.deepcopy(rec), dtype="float32")
+    with open(os.path.join(folder, "ocr.json"), encoding="utf-8") as f:
+        ocr = json.load(f)
+    ocr["embed_num"] = rec.spec.embed_num
+    ocr["net_spec"]["embed_dim"] = rec.spec.embed_dim
+    with open(os.path.join(folder, "ocr.json"), "w", encoding="utf-8") as f:
+        json.dump(ocr, f)
+    with open(os.path.join(folder, "config.ini"), "w", encoding="utf-8") as f:
+        f.write(EMBED_INI)
+    for pid, (jpeg, xml) in pages.items():
+        with open(os.path.join(folder, "images", pid + ".jpg"), "wb") as f:
+            f.write(jpeg)
+        with open(os.path.join(folder, "xml", pid + ".xml"), "w", encoding="utf-8") as f:
+            f.write(xml)
+
+
+def run_script(main, args) -> tuple:
+    """A script's ``main(args)`` in this process, numpy's global generator
+    seeded with 0 first, strict checkpoint loading restored after:
+    (stdout, wall seconds)."""
+    strict = checkpoint.strict_loading_enabled()
+    out = io.StringIO()
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            main(args)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    finally:
+        checkpoint.set_strict_loading(strict)
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def embed_runs(stdout: str) -> dict:
+    """select_embed_id's printed ids, CER counts a representative (id ->
+    (distance, characters)), recognition seconds a representative and
+    the selected id."""
+    ids = re.search(r"^REPRESENTATIVE EMBEDDING IDS: ([0-9,]+)$", stdout, re.M).group(1)
+    rows = CER_LINE.findall(stdout)
+    return {"ids": [int(x) for x in ids.split(",")],
+            "cer": {int(i): (int(d), int(n)) for i, d, n, _ in rows},
+            "seconds": {int(i): float(t) for i, _, _, t in rows},
+            "selected": int(re.search(r"^SELECTED EMBED ID WITH MIN CER: (\d+)$", stdout,
+                                      re.M).group(1))}
+
+
+def embed_near_ties(runs: dict, differing: dict) -> int:
+    """Of the lines whose texts differ between the card and the CPU
+    (embed id -> line numbers): how many are near-ties (``near_ties``)
+    in the padded batch the card's engine put the line in (cuDNN picks
+    its algorithms by batch shape, so a line alone rounds otherwise),
+    through each run's recognizer with the id applied.  ``runs``: role
+    -> (engine, crops), as each select_embed_id run kept them.  Raises
+    on a line that is not a near-tie."""
+    if not differing:
+        return 0
+    (card, crops), (cpu, _) = runs["card"], runs["cpu"]
+    batches = []
+
+    def kept_batch(batch, widths):
+        batches.append(batch)
+        return type(card).run_ocr(card, batch, widths)
+
+    card.run_ocr = kept_batch  # the engine's batches, as the script's run made them
+    try:
+        card.process_lines(crops, no_logits=True)
+    finally:
+        del card.run_ocr
+    pad, ties = card.line_padding_px, 0
+    for embed_id, lines in differing.items():
+        judged = {}  # batch index -> near_ties of its rows under this id
+        for i in lines:
+            crop, rows = crops[i], []
+            for b, batch in enumerate(batches):  # the line's batch and row
+                w = min(crop.shape[1], batch.shape[2] - 2 * pad)
+                if batch.shape[2] == card._bucket_for_width(crop.shape[1]):
+                    rows += [(b, row) for row in np.flatnonzero(
+                        (batch[:, :, pad: pad + w] == crop[:, :w]).all(axis=(1, 2, 3)))]
+            b, row = rows[0]
+            if b not in judged:
+                images = torch.from_numpy(batches[b]).float() / torch.tensor(255.0)
+                ids = torch.full((len(images),), embed_id)
+
+                def on(engine, device):
+                    return lambda x: engine.model(x.to(device), ids.to(device))
+
+                judged[b] = near_ties(on(card, "cuda"), on(cpu, "cpu"), images)
+            if not judged[b][row]:
+                raise AssertionError(f"select_embed_id: embed id {embed_id}, line {i} differs "
+                                     "between the card and the CPU beyond a near-tie")
+            ties += 1
+    return ties
+
+
+def select_embed_id_on_card(tmp: str, pages: dict, smi: str):
+    """select_embed_id --n-lines 64 --n-clusters 4 (the KMeans route) on
+    config 2's staged pages with a bench-width float32 recognizer of 16
+    writer embeddings (seeded), with --device cuda and --device cpu, TF32
+    off: the same representative ids, CER counts (lines apart only at
+    near-ties) and selected id (apart only if near-tie lines moved the
+    counts).  Returns (warp_fields launches of the card run, numbers,
+    the card run's (GT, text) pairs)."""
+    rec = CTCRecognizer(RecognizerSpec(
+        num_classes=80, line_height=CROP_H, conv_features=(48, 96, 192, 384), subsampling=4,
+        lstm_layers=2, lstm_features=256, stem="s2d", norm="group", embed_num=EMBED_NUM,
+        dtype=torch.float32), generator=torch.Generator().manual_seed(18))
+    folders = {role: os.path.join(tmp, f"embed_{role}") for role in ("card", "cpu")}
+    for folder in folders.values():
+        write_embed_bundle(folder, rec, pages)
+    # The pages the crops come from: each of 4 lines or more is one launch.
+    expected, lines = 0, 0
+    for pid in sorted(pages):
+        if lines >= EMBED_LINES:
+            break
+        expected += 1
+        layout = PageLayout()
+        layout.from_pagexml_string(pages[pid][1])
+        lines += sum(1 for ln in layout.lines_iterator() if ln.transcription)
+    runs, seconds, launches, kept = {}, {}, {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    crops_from = select_embed_id.crops_from_images_and_xmls
+    try:
+        for role, folder in folders.items():
+            device = "cuda" if role == "card" else "cpu"
+
+            def kept_crops(parser, *args):  # each run's engine and crops, for the near-ties
+                crops, gts = crops_from(parser, *args)
+                kept[role] = parser.ocr.ocr_engine, crops
+                return crops, gts
+
+            select_embed_id.crops_from_images_and_xmls = kept_crops
+            warp_ops.warp_fields.launches = 0
+            stdout, seconds[role] = run_script(select_embed_id.main, [
+                "-c", os.path.join(folder, "config.ini"), "-i", os.path.join(folder, "images"),
+                "-x", os.path.join(folder, "xml"), "--n-lines", str(EMBED_LINES), "--n-clusters",
+                str(EMBED_CLUSTERS), "--out", os.path.join(folder, "out"), "--device", device])
+            launches[role] = warp_ops.warp_fields.launches
+            runs[role] = embed_runs(stdout)
+            log(f"select_embed_id --device {device} ({seconds[role]:.2f} s):\n{stdout.strip()}")
+        card, cpu = runs["card"], runs["cpu"]
+        differing = {}
+        for embed_id in card["ids"]:
+            texts = {}
+            for role, folder in folders.items():
+                with open(os.path.join(folder, "out", f"{embed_id}.trans"),
+                          encoding="utf-8") as f:
+                    texts[role] = f.read().split("\n")
+            lines_apart = [i for i, (a, b) in enumerate(zip(texts["card"], texts["cpu"]))
+                           if a != b]
+            if lines_apart:
+                differing[embed_id] = lines_apart
+        ties = embed_near_ties(kept, differing)
+    finally:  # as the later phases expect them
+        select_embed_id.crops_from_images_and_xmls = crops_from
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    if card["ids"] != cpu["ids"] or len(card["ids"]) != EMBED_CLUSTERS:
+        raise AssertionError(f"select_embed_id: representative ids {card['ids']} on the card, "
+                             f"{cpu['ids']} on the CPU")
+    if not differing and card["cer"] != cpu["cer"]:
+        raise AssertionError("select_embed_id: CER lines differ with the same texts")
+    # The selected id may differ only where near-tie lines moved the CER
+    # counts, and is each run's fewest differing characters (every id
+    # reads the same lines; the first at a tie).
+    for run in (card, cpu):
+        if run["selected"] != run["ids"][int(np.argmin([run["cer"][i][0]
+                                                         for i in run["ids"]]))]:
+            raise AssertionError("select_embed_id: the selected id is not the lowest CER")
+    if card["cer"] == cpu["cer"] and card["selected"] != cpu["selected"]:
+        raise AssertionError("select_embed_id: the selected id differs with the same CER lines")
+    if launches["card"] != expected or launches["cpu"]:
+        raise AssertionError(f"select_embed_id: warp_fields launches {launches}, want "
+                             f"{expected} on the card (one a page) and 0 on the CPU")
+    with open(os.path.join(folders["card"], "out", f"{card['selected']}.gt"),
+              encoding="utf-8") as f:
+        gts = f.read().split("\n")[:-1]
+    with open(os.path.join(folders["card"], "out", f"{card['selected']}.trans"),
+              encoding="utf-8") as f:
+        texts = f.read().split("\n")[:-1]
+    n_lines = len(gts)
+    numbers = {"ids": card["ids"], "cer": {str(k): list(v) for k, v in card["cer"].items()},
+               "selected": card["selected"], "selected_cpu": cpu["selected"],
+               "lines": n_lines, "pages": expected, "warp_fields_launches": launches["card"],
+               "near_tie_lines": ties, "lines_apart": sum(len(v) for v in differing.values()),
+               "ms_a_line": 1e3 * seconds["card"] / n_lines,
+               "cpu_ms_a_line": 1e3 * seconds["cpu"] / n_lines,
+               "recognize_ms_a_line_a_id": 1e3 * float(np.mean(list(card["seconds"].values())))
+               / n_lines, "card": smi}
+    log(f"select_embed_id on the card: ids {card['ids']}, selected {card['selected']} (CPU "
+        f"{cpu['selected']}), {n_lines} lines from {expected} pages, warp_fields launches "
+        f"{launches['card']}, lines apart {numbers['lines_apart']} (near-ties {ties}); "
+        f"{numbers['ms_a_line']:.3f} ms a line on the card (the whole script), "
+        f"{numbers['cpu_ms_a_line']:.3f} on the CPU, on {smi}")
+    return launches["card"], numbers, list(zip(gts, texts))
+
+
+def pdf_pages(data: bytes) -> list:
+    """A PDF of the port's writer read back: every xref offset must start
+    its object; per page (in /Kids order) the text layer decoded through
+    the ToUnicode map (a string a Tj) and the image stream's bytes."""
+    xref = int(data[data.rindex(b"startxref") + 10: data.rindex(b"%%EOF")])
+    rows = data[xref:].split(b"\n")
+    if rows[0] != b"xref":
+        raise AssertionError("pdf: startxref does not point at the xref table")
+    count = int(rows[1].split()[1])
+    offsets = {i: int(r[:10]) for i, r in enumerate(rows[2: 2 + count]) if r.endswith(b" n ")}
+    ends = sorted(offsets.values()) + [xref]
+    objects = {}
+    for number, offset in offsets.items():
+        if not data.startswith(f"{number} 0 obj\n".encode(), offset):
+            raise AssertionError(f"pdf: xref offset of object {number} does not resolve")
+        objects[number] = data[offset: ends[ends.index(offset) + 1]]
+
+    def stream(body: bytes) -> bytes:
+        start = body.index(b"stream\n") + 7
+        raw = body[start: body.rindex(b"\nendstream")]
+        return zlib.decompress(raw) if b"/FlateDecode" in body[:start] else raw
+
+    (pages_obj,) = [b for b in objects.values() if b"/Type /Pages " in b]
+    kids = [int(k) for k in re.findall(rb"(\d+) 0 R", re.search(rb"/Kids \[([^\]]*)\]",
+                                                                  pages_obj).group(1))]
+    to_unicode = int(re.search(rb"/ToUnicode (\d+) 0 R", data).group(1))
+    glyphs = {int(g, 16): chr(int(c, 16)) for g, c in re.findall(
+        rb"<([0-9A-F]{4})> <([0-9A-F]{4})>", stream(objects[to_unicode]))}
+    out = []
+    for kid in kids:
+        page = objects[kid]
+        content = stream(objects[int(re.search(rb"/Contents (\d+) 0 R", page).group(1))])
+        texts = ["".join(glyphs[int(h[i: i + 4], 16)] for i in range(0, len(h), 4))
+                 for h in re.findall(rb"<([0-9A-F]*)> Tj", content)]
+        image = stream(objects[int(re.search(rb"/Im0 (\d+) 0 R", page).group(1))])
+        out.append((texts, image))
+    return out
+
+
+def alto_texts(alto: str) -> list:
+    """Each ALTO TextLine's words joined by spaces, as the PDF writer reads
+    them (lines without words left out)."""
+    root = ET.fromstring(alto.encode("utf-8"))
+    ns = root.tag[: root.tag.index("}") + 1]
+    texts = [" ".join(w.get("CONTENT") for w in line.iter(ns + "String"))
+             for line in root.iter(ns + "TextLine")]
+    return [t for t in texts if t]
+
+
+def pdf_on_card_outputs(tmp: str, files: dict, smi: str) -> dict:
+    """produce_2layer_pdf on config 5's staged pages (PNG) with their Page
+    XML and, apart, their ALTO, with the committed Latin font: every
+    PDF's xref resolves, its text layer is the file's lines in order and
+    its image stream the port's encode_jpeg of the page at quality 80."""
+    folder = os.path.join(tmp, "pdf")
+    for sub in ("images", "xml", "alto"):
+        os.makedirs(os.path.join(folder, sub))
+    for pid, (page, xml, alto) in files.items():
+        with open(os.path.join(folder, "images", pid + ".png"), "wb") as f:
+            f.write(png_bytes(page))
+        for sub, text in (("xml", xml), ("alto", alto)):
+            with open(os.path.join(folder, sub, pid + ".xml"), "w", encoding="utf-8") as f:
+                f.write(text)
+    log(f"find_unicode_font() on this machine: {pdf.find_unicode_font()}; the PDF check "
+        f"passes {os.path.relpath(LATIN_FONT, REPO)}")
+    numbers = {"pages": len(files), "font_bytes": os.path.getsize(LATIN_FONT)}
+    for kind in ("xml", "alto"):
+        out_dir = os.path.join(folder, "pdf_" + kind)
+        _, seconds = run_script(produce_2layer_pdf.main, [
+            os.path.join(folder, kind), os.path.join(folder, "images"), out_dir,
+            "--font", LATIN_FONT])
+        sizes = []
+        for pid, (page, xml, alto) in files.items():
+            with open(os.path.join(out_dir, pid + ".pdf"), "rb") as f:
+                data = f.read()
+            sizes.append(len(data))
+            ((texts, image),) = pdf_pages(data)
+            if kind == "xml":
+                layout = PageLayout()
+                layout.from_pagexml_string(xml)
+                want = [ln.transcription for ln in layout.lines_iterator() if ln.transcription]
+            else:
+                want = alto_texts(alto)
+            if texts != want or not want:
+                raise AssertionError(f"produce_2layer_pdf ({kind}): the text layer of {pid} is "
+                                     "not its file's lines")
+            if image != image_io.encode_jpeg(page, 80):
+                raise AssertionError(f"produce_2layer_pdf ({kind}): the image of {pid} is not "
+                                     "encode_jpeg(page, 80)")
+        numbers[kind] = {"ms_a_page": 1e3 * seconds / len(files),
+                         "bytes_a_page": float(np.mean(sizes))}
+    numbers["card"] = smi
+    log(f"produce_2layer_pdf on config 5's card outputs: {len(files)} pages, Page XML "
+        f"{numbers['xml']['ms_a_page']:.1f} ms a page, ALTO {numbers['alto']['ms_a_page']:.1f} "
+        f"ms a page (host), xref, text layer and image stream checked, on {smi}")
+    return numbers
+
+
+def compare_card_and_cpu_xml(tmp: str, staged_xml: dict) -> dict:
+    """compare_page_xml_texts with the card's Page XML of the staged CPU
+    check as hypothesis and the CPU's as reference: it must count the
+    differing characters that check counted (0: it holds the texts equal)
+    over all the reference's characters."""
+    folders = {}
+    for device, xmls in staged_xml.items():
+        folders[device] = os.path.join(tmp, "compare_" + device)
+        os.makedirs(folders[device])
+        for i, xml in enumerate(xmls):
+            with open(os.path.join(folders[device], f"c{i}.xml"), "w", encoding="utf-8") as f:
+                f.write(xml)
+    stdout, seconds = run_script(compare_page_xml_texts.main, [
+        "--hyp", folders["cuda"], "--ref", folders["cpu"], "--print-all"])
+    distance, chars = (int(x) for x in re.search(
+        r"^summary .* CER \[ (\d+) / (\d+) \]$", stdout, re.M).groups())
+    ref_chars = 0
+    for xml in staged_xml["cpu"]:
+        layout = PageLayout()
+        layout.from_pagexml_string(xml)
+        ref_chars += sum(len((ln.transcription or "").strip()) for ln in layout.lines_iterator())
+    log(f"compare_page_xml_texts, card vs CPU Page XML of the staged check:\n{stdout.strip()}")
+    if distance != 0 or chars != ref_chars:
+        raise AssertionError(f"compare_page_xml_texts counts [ {distance} / {chars} ], the "
+                             f"staged check [ 0 / {ref_chars} ]")
+    return {"pages": len(staged_xml["cpu"]), "distance": distance, "chars": chars,
+            "ms": 1e3 * seconds}
+
+
+def levenshtein_batch_times(pairs, smi: str) -> dict:
+    """The batched edit distance (one levenshtein_batch_i32 call) against
+    levenshtein_i32 a line and the numpy twin on ``pairs`` of texts:
+    equal distances, host medians."""
+    table: dict = {}
+    seqs_a = [np.asarray([table.setdefault(c, len(table)) for c in a], np.int32) for a, _ in pairs]
+    seqs_b = [np.asarray([table.setdefault(c, len(table)) for c in b], np.int32) for _, b in pairs]
+    batch = native.native_levenshtein_batch(seqs_a, seqs_b)
+    lines = [native.native_levenshtein(a, b) for a, b in zip(seqs_a, seqs_b)]
+    twin = levenshtein_ids_batch(seqs_a, seqs_b)
+    if list(batch) != lines or list(twin) != lines:
+        raise AssertionError("levenshtein_batch_i32 differs from levenshtein_i32 or its twin")
+    numbers = {"pairs": len(pairs), "chars": sum(len(a) + len(b) for a, b in pairs),
+               "distance": int(batch.sum()),
+               "batch_ms": host_ms(lambda: native.native_levenshtein_batch(seqs_a, seqs_b)),
+               "per_line_ms": host_ms(lambda: [native.native_levenshtein(a, b)
+                                               for a, b in zip(seqs_a, seqs_b)]),
+               "numpy_ms": host_ms(lambda: levenshtein_ids_batch(seqs_a, seqs_b), repeats=3),
+               "card": smi}
+    log(f"levenshtein_batch_i32 on {len(pairs)} lines: {numbers['batch_ms']:.4f} ms in one call, "
+        f"levenshtein_i32 a line {numbers['per_line_ms']:.4f} ms, numpy twin "
+        f"{numbers['numpy_ms']:.2f} ms (host medians, on {smi}'s host)")
+    return numbers
+
+
+def run_user_scripts(script_pages: dict, config5_files: dict, staged_xml: dict, smi: str):
+    """The phase of item 18's user scripts, on what earlier phases made:
+    select_embed_id on config 2's staged pages (select_embed_id_on_card),
+    produce_2layer_pdf on config 5's staged outputs (pdf_on_card_outputs),
+    compare_page_xml_texts on the staged CPU check's Page XML and the
+    batched edit distance on select_embed_id's lines.  Returns the
+    warp_fields launches of select_embed_id's card run and the phase's
+    numbers."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="user_scripts_") as tmp:
+        launches, embed, pairs = select_embed_id_on_card(tmp, script_pages, smi)
+        pdf_numbers = pdf_on_card_outputs(tmp, config5_files, smi)
+        compared = compare_card_and_cpu_xml(tmp, staged_xml)
+    numbers = {"select_embed_id": embed, "produce_2layer_pdf": pdf_numbers,
+               "compare_page_xml_texts": compared,
+               "levenshtein_batch": levenshtein_batch_times(pairs, smi),
+               "seconds": time.perf_counter() - t0}
+    log(f"the user scripts add {numbers['seconds']:.1f} s")
+    return launches, numbers
 
 
 # ----------------------------------------------------------------------
@@ -3883,12 +4317,16 @@ class ArchiveRecognizer(torch.nn.Module):
 
 TS_RECOGNIZER = dict(num_classes=80, line_height=CROP_H, conv_features=(48, 96, 192, 384),
                      subsampling=4, lstm_layers=2, lstm_features=256, stem="s2d", norm="group")
-# Stage by stage: 4 pages cut to their top 1,280 rows (MULTI_ORIENTATION's
+# Stage by stage: pages cut to their top 1,280 rows (MULTI_ORIENTATION's
 # turned passes find ~200 regions and ~500 lines on a whole page, ~23 s
 # of host layout a page on the card's host), the CPU replaying the first
 # page; the command line on 1 (each took 2 until the phases of
 # REGION_SIMPLE_THRESHOLD and --process-count needed the time).
-TS_PAGES, TS_STAGED_PAGES, TS_CPU_PAGES, TS_CLI_PAGES = 2 * PAGE_BATCH, 4, 1, 1
+# Stage by stage on 2 pages (4 before the user scripts' phase needed the
+# time); 4 are still drawn, so that later phases see the generator as
+# before.
+TS_PAGES, TS_STAGED_PAGES, TS_CPU_PAGES, TS_CLI_PAGES = 2 * PAGE_BATCH, 2, 1, 1
+TS_STAGED_DRAWN = 4
 TS_STAGED_ROWS = 1280
 TS_INI = """[PAGE_PARSER]
 RUN_LAYOUT_PARSER = yes
@@ -4275,8 +4713,8 @@ def run_torchscript(rng, smi: str, device: str = "cuda"):
         t0 = time.perf_counter()
         launches, numbers["fast"], fast_args = ts_fast_path(tmp, det, rec, rng, smi, device)
         wall["fast_path"] = time.perf_counter() - t0
-        pages, _ = synthetic_pages(rng, TS_STAGED_PAGES, TWO_COLUMNS)
-        pages = [np.ascontiguousarray(p[:TS_STAGED_ROWS]) for p in pages]
+        pages, _ = synthetic_pages(rng, TS_STAGED_DRAWN, TWO_COLUMNS)
+        pages = [np.ascontiguousarray(p[:TS_STAGED_ROWS]) for p in pages[:TS_STAGED_PAGES]]
         ids = [f"s{i:04d}" for i in range(len(pages))]
         staged = {}
         for name in TS_INIS:
@@ -5225,8 +5663,9 @@ def run_phases(smi: str) -> list:
     with phase("cli"):
         launches_cli, cli, cli_args = run_cli(pipe, rng, smi)
     with phase("staged"):
-        check_staged_against_cpu(rng)
-        launches_staged, staged, staged_args, staged_host = run_staged(pipe, rng, smi)
+        staged_xml = check_staged_against_cpu(rng)
+        launches_staged, staged, staged_args, staged_host, script_pages = run_staged(
+            pipe, rng, smi)
     with phase("config1"):
         launches_config1, config1, config1_args = run_config1(rng, smi)
     # The phases of REGION_SIMPLE_THRESHOLD and --process-count draw from
@@ -5239,7 +5678,11 @@ def run_phases(smi: str) -> list:
         process_count = run_process_count(pipe, new_rng, smi)
     log(f"REGION_SIMPLE_THRESHOLD and --process-count add {time.perf_counter() - t_new:.1f} s")
     with phase("config5"):
-        launches_config5, config5, config5_args, viterbi_inputs = run_config5(pipe, rng, smi)
+        launches_config5, config5, config5_args, viterbi_inputs, config5_files = run_config5(
+            pipe, rng, smi)
+    with phase("user_scripts"):
+        launches_scripts, user_scripts = run_user_scripts(script_pages, config5_files,
+                                                          staged_xml, smi)
     with phase("config3"):
         launches_config3, config3, config3_args, (beam_decoder, beam_call) = run_config3(
             pipe, rng, smi)
@@ -5303,6 +5746,7 @@ def run_phases(smi: str) -> list:
             *ts_page, rng, "torchscript ini (a), last page").items()},
         "launches_simple_regions": launches_simple,
         "launches_process_count": process_count["warp_fields_launches"],
+        "launches_select_embed_id": launches_scripts,
         **{f"simple_regions_{k}": v for k, v in check_warp_fields(
             *simple_args, rng, "simple regions, last A4 page with lines").items()},
     }
@@ -5310,6 +5754,7 @@ def run_phases(smi: str) -> list:
     return [json.dumps({key: value}) for key, value in (
         ("jpeg", jpeg_numbers), ("cli", cli), ("staged", staged), ("config1", config1),
         ("simple_regions", simple), ("process_count", process_count), ("config5", config5),
+        ("user_scripts", user_scripts),
         ("config3", config3), ("config4", config4), ("crops", crops), ("reocr", reocr),
         ("torchscript", torchscript),
         ("host_native", host_native),

@@ -460,9 +460,13 @@ def _convex_hull_indices(pts: np.ndarray) -> List[int]:
             br = br[:2]
     hull += [int(order[i]) for i in bl[:-1]]
     hull += [int(order[br[i]]) for i in range(len(br) - 1, 0, -1)]
+    return monotone_start(hull)
 
-    # Cyclic shift that makes the indices an ascending or descending
-    # sequence where one exists.
+
+def monotone_start(hull: List[int]) -> List[int]:
+    """OpenCV's last step of convexHull: the cyclic shift that makes the
+    hull's input indices an ascending or descending sequence, where one
+    exists."""
     nout = len(hull)
     if nout >= 3:
         min_idx = max_idx = lt = 0

@@ -1,8 +1,8 @@
 // Host code of the layout parse, the crop transport's line warp and the
-// forced alignment: the port's own copy of the eight functions of the
+// forced alignment: the port's own copy of the nine functions of the
 // JAX package's C++ library (native/perotpu.cpp) that config 2's paths
-// (both transports and stage by stage), config 5's ALTO output and
-// config 4's chunked transformer lines run, with the same C interface
+// (both transports and stage by stage), config 5's ALTO output, config
+// 4's chunked transformer lines and the CER scripts run, with the same C interface
 // and semantics.  Each has a numpy twin in the port, which the CPU path
 // runs and the tests hold it against:
 //
@@ -14,6 +14,7 @@
 //   polygons_close_f64       core/geometry.polygons_close
 //   viterbi_ctc_f32          core/force_alignment.viterbi_ctc
 //   levenshtein_i32          sequence_alignment.levenshtein_distance
+//   levenshtein_batch_i32    sequence_alignment.levenshtein_ids_batch
 //
 // Built with the host compiler and loaded through ctypes by
 // pero_ocr_tpu_torch/utils/kernels.py; bound in utils/native.py.
@@ -773,6 +774,18 @@ int32_t levenshtein_i32(const int32_t* a, int32_t n, const int32_t* b,
         }
     }
     return row[m];
+}
+
+// Batched: distances_out[i] = levenshtein_i32(a_i, b_i), the sequences
+// packed back to back, sequence i at [offsets[i], offsets[i + 1]).
+void levenshtein_batch_i32(const int32_t* data_a, const int32_t* offsets_a,
+                           const int32_t* data_b, const int32_t* offsets_b,
+                           int32_t count, int32_t* distances_out) {
+    for (int32_t i = 0; i < count; ++i) {
+        distances_out[i] = levenshtein_i32(
+            data_a + offsets_a[i], offsets_a[i + 1] - offsets_a[i],
+            data_b + offsets_b[i], offsets_b[i + 1] - offsets_b[i]);
+    }
 }
 
 // ---------------------------------------------------------------------

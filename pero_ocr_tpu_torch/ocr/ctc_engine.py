@@ -73,6 +73,16 @@ class CTCEngineLineOCR(BaseEngineLineOCR):
             return self.spec.embed_num
         return int(self.embed_id)
 
+    def embedding_table(self) -> np.ndarray:
+        """The writer-embedding matrix, (embed_num + 1, embed_dim) float32
+        with the mean row last (select_embed_id clusters its rows): the
+        first 2-D parameter with "embed" in its name (``embedding.weight``
+        of the port's recognizer; a TorchScript archive's own name)."""
+        for name, param in self.model.named_parameters():
+            if "embed" in name.lower() and param.dim() == 2:
+                return param.detach().float().cpu().numpy()
+        raise ValueError("Model has no embedding table")
+
     def run_ocr(self, batch_data: np.ndarray, widths: np.ndarray
                 ) -> Tuple[List[str], List[np.ndarray]]:
         device = resolve_device(self.device)

@@ -116,11 +116,14 @@ class BaseEngineLineOCR:
         parts.append(image[:, start: start + self.max_line_width])
         return parts
 
-    def process_lines(self, lines: Sequence[np.ndarray]) -> Tuple[List[str], List, List]:
+    def process_lines(self, lines: Sequence[np.ndarray], no_logits: bool = False
+                      ) -> Tuple[List[str], List, List]:
         """Recognize (H, W, 3) uint8 line crops.  Returns
         (transcriptions, sparse CSC logits, logit_coords) in input
         order; a CTC line's coords are the [start, stop) frames of its
-        unpadded width, a transformer line's [0, its length]."""
+        unpadded width, a transformer line's [0, its length].
+        ``no_logits``: the logits and coords are None a line (the
+        transcriptions only, as select_embed_id asks)."""
         for line in lines:
             if line.shape[0] != self.line_px_height:
                 raise ValueError(
@@ -175,6 +178,10 @@ class BaseEngineLineOCR:
                     unit_transcriptions[u: u + span], unit_logits[u: u + span], native)
             u += span
             transcriptions.append(transcription)
+            if no_logits:
+                all_logits.append(None)
+                all_logit_coords.append(None)
+                continue
             if self.model_type == "ctc":
                 all_logit_coords.append([pad // self.net_subsampling,
                                          (pad + line.shape[1]) // self.net_subsampling])
@@ -217,7 +224,7 @@ def find_best_overlap(text1: str, text2: str, native: bool = False) -> int:
     best_overlap = 0
     for i in range(1, min(len(text1), len(text2)) + 1):
         s1 = text1[-i:]
-        cer = levenshtein_distance(list(s1), list(text2[:i]), native) / len(s1)
+        cer = levenshtein_distance(list(s1), list(text2[:i]), native=native) / len(s1)
         if cer < best_cer:
             best_cer = cer
             best_overlap = i

@@ -1,8 +1,10 @@
 """ctypes bindings of the port's host C++ (``csrc/perotpu.cpp``), the
 counterpart of the JAX package's ``pero_ocr_tpu/utils/native.py`` for
 the six functions config 2's paths run, the forced alignment of
-config 5's ALTO output (``viterbi_ctc_f32``) and the edit distance that
-stitches config 4's over-wide transformer lines (``levenshtein_i32``).
+config 5's ALTO output (``viterbi_ctc_f32``), the edit distance that
+stitches config 4's over-wide transformer lines (``levenshtein_i32``)
+and its batch, which the CER scripts give a page's lines in one call
+(``levenshtein_batch_i32``).
 
 The arguments and return values are the JAX bindings'.  Where those
 return None for a missing library, these raise: the library is built
@@ -62,6 +64,10 @@ _SIGNATURES = {  # name: (restype, argtypes), as in csrc/perotpu.cpp
         ctypes.POINTER(_F32), _I32, _I32, ctypes.POINTER(_U8), ctypes.POINTER(_I32),
     ]),
     "levenshtein_i32": (_I32, [ctypes.POINTER(_I32), _I32, ctypes.POINTER(_I32), _I32]),
+    "levenshtein_batch_i32": (None, [
+        ctypes.POINTER(_I32), ctypes.POINTER(_I32), ctypes.POINTER(_I32), ctypes.POINTER(_I32),
+        _I32, ctypes.POINTER(_I32),
+    ]),
     "warp_affine_avx2": (_I32, []),
 }
 _WARP_AFFINE_ARGS = [
@@ -296,3 +302,29 @@ def native_levenshtein(a: Sequence[int], b: Sequence[int]) -> int:
     a = np.ascontiguousarray(a, dtype=np.int32).reshape(-1)
     b = np.ascontiguousarray(b, dtype=np.int32).reshape(-1)
     return int(lib.levenshtein_i32(_ptr(a, _I32), len(a), _ptr(b, _I32), len(b)))
+
+
+def _packed(seqs: Sequence[Sequence[int]]):
+    """Sequences back to back as int32 (one element at least, for the
+    pointer) and their (N + 1,) offsets."""
+    offsets = np.zeros(len(seqs) + 1, np.int32)
+    np.cumsum([len(s) for s in seqs], out=offsets[1:])
+    data = (np.concatenate([np.asarray(s, np.int32).reshape(-1) for s in seqs])
+            if offsets[-1] else np.zeros(1, np.int32))
+    return np.ascontiguousarray(data, np.int32), offsets
+
+
+def native_levenshtein_batch(seqs_a: Sequence[Sequence[int]], seqs_b: Sequence[Sequence[int]]
+                             ) -> np.ndarray:
+    """(N,) int32 unit-cost edit distances of N pairs of int32 id
+    sequences in one call (``levenshtein_batch_i32``)."""
+    if len(seqs_a) != len(seqs_b):
+        raise ValueError(f"levenshtein batch: {len(seqs_a)} sources, {len(seqs_b)} targets")
+    lib = get_library()
+    calls["levenshtein_batch_i32"] += 1
+    data_a, offsets_a = _packed(seqs_a)
+    data_b, offsets_b = _packed(seqs_b)
+    out = np.empty(len(seqs_a), np.int32)
+    lib.levenshtein_batch_i32(_ptr(data_a, _I32), _ptr(offsets_a, _I32), _ptr(data_b, _I32),
+                              _ptr(offsets_b, _I32), len(seqs_a), _ptr(out, _I32))
+    return out

@@ -1,5 +1,6 @@
-"""The port stands alone: with jax, flax, optax, cv2, lxml, msgpack, PIL and
-sklearn blocked (none of them is installed beside the card), every module of
+"""The port stands alone: with jax, flax, optax, cv2, lxml, msgpack, PIL,
+sklearn, fontTools and lmdb blocked (none of them is installed beside the
+card), every module of
 pero_ocr_tpu_torch and chip_smoke.py imports, a tiny CPU
 TorchPagePipeline runs through FastPagePipeline to Page XML that
 xml.etree parses, and on the crop transport (2-bit, with CNN detection
@@ -18,6 +19,10 @@ to Page XML, JPEG pages written by the port's encoder (one with an EXIF
 orientation) re-OCRed by both command lines into Page XML and JPEG line
 crops that the port reads back,
 PageParser's transformer engine runs on CUDA unless asked for the CPU,
+the user scripts run on the command line's Page XML (compare_page_xml_texts
+between its two paths, produce_2layer_pdf with the committed Latin font,
+select_embed_id's KMeans route with --device cpu on a recognizer of 4
+writer embeddings, which without --device asks for CUDA),
 and no module of the JAX package gets loaded.  Runs in a subprocess so the blocking does not leak into the
 other tests."""
 
@@ -30,7 +35,8 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "flax", "optax", "cv2", "lxml", "msgpack", "PIL", "sklearn")
+BLOCKED = ("jax", "flax", "optax", "cv2", "lxml", "msgpack", "PIL", "sklearn", "fontTools",
+           "lmdb")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, re, sys
@@ -232,9 +238,39 @@ try:
     raised4 = None
 except RuntimeError as e:
     raised4 = str(e)
+from pero_ocr_tpu_torch.scripts import compare_page_xml_texts, produce_2layer_pdf, select_embed_id
+compare_page_xml_texts.main(["--hyp", os.path.join(tmp, "xml_staged"), "--ref",
+                             os.path.join(tmp, "xml")])
+produce_2layer_pdf.main([os.path.join(tmp, "xml"), os.path.join(tmp, "images"),
+                         os.path.join(tmp, "pdf"), "--font",
+                         os.path.join("tests", "data", "pdf", "DejaVuSans-Latin.ttf")])
+embed = RecognizerSpec(num_classes=6, line_height=16, conv_features=(4, 8), lstm_layers=1,
+                       lstm_features=8, embed_num=4, embed_dim=4, dtype=torch.float32)
+checkpoint.save_variables(convert.recognizer_params_to_flax(
+    CTCRecognizer(embed, generator=torch.Generator().manual_seed(8))),
+    os.path.join(tmp, "embed.msgpack"))
+with open(os.path.join(tmp, "embed.json"), "w", encoding="utf-8") as f:
+    json.dump({"characters": chars[:-1], "line_px_height": 16, "checkpoint": "embed.msgpack",
+               "embed_num": 4, "net_spec": {"conv_features": [4, 8], "lstm_layers": 1,
+                                            "lstm_features": 8, "embed_dim": 4,
+                                            "dtype": "float32"}}, f)
+with open(os.path.join(tmp, "embed.ini"), "w") as f:
+    f.write("[PAGE_PARSER]\nRUN_LINE_CROPPER = yes\nRUN_OCR = yes\n"
+            "[LINE_CROPPER]\nLINE_HEIGHT = 16\n[OCR]\nOCR_JSON = embed.json\n")
+embed_args = ["-c", os.path.join(tmp, "embed.ini"), "-i", os.path.join(tmp, "images"), "-x",
+              os.path.join(tmp, "xml_lines"), "--n-clusters", "2", "--n-lines", "3"]
+np.random.seed(0)  # the representatives: a random member of each cluster
+select_embed_id.main(embed_args + ["--device", "cpu"])
+with open(os.path.join(tmp, "embed.json"), encoding="utf-8") as f:
+    selected = json.load(f)["embed_id"]
+try:
+    select_embed_id.main(embed_args)
+    raised_embed = None
+except RuntimeError as e:
+    raised_embed = str(e)
 outputs = {out: sorted(os.listdir(os.path.join(tmp, out)))
            for out in ("fast_logits", "fast_alto", "staged_logits", "staged_alto", "xml1", "alto1",
-                       "xml3", "xml4", "reocr_fast", "reocr", "xml8d")}
+                       "xml3", "xml4", "reocr_fast", "reocr", "xml8d", "pdf")}
 alto_ns = "{http://www.loc.gov/standards/alto/ns-v2#}"
 config1_lines = []
 for name in outputs["xml1"]:
@@ -268,6 +304,8 @@ print(json.dumps({
     "line_ids": [re.search(r'TextLine id="([^"]+)"', x).group(1) for x in xmls[3:]],
     "engine4": [type(engine4).__name__, engine4.device, engine4.ref_mode],
     "raised4": raised4,
+    "selected": selected,
+    "raised_embed": raised_embed,
 }))
 """
 
@@ -308,6 +346,15 @@ def test_port_runs_without_jax_and_host_libraries():
     assert got["crops"][3:] == [[i, "uint8"] for i in range(3)]
     assert got["engine4"] == ["TransformerEngineLineOCR", None, True]  # CUDA by default
     assert got["config1_lines"] == [5, 5]
+    assert got["outputs"]["pdf"] == [f"p{i}.pdf" for i in range(3)]
+    assert got["selected"] in ("0", "1", "2", "3", "4")  # 4: the mean row
+    for name in ("compare_page_xml_texts", "compare_txt", "eval_parity", "merge_ocr_results",
+                 "produce_2layer_pdf", "select_embed_id"):
+        assert f"pero_ocr_tpu_torch.scripts.{name}" in got["modules"]
+    for name in ("sequence_alignment", "error_summary", "char_confidences", "transcription_io",
+                 "line_images_io", "utils.kmeans", "utils.truetype", "document.pdf",
+                 "document_ocr.page_parser", "document_ocr.pdf_production"):
+        assert f"pero_ocr_tpu_torch.{name}" in got["modules"]
     assert got["override"] == [[0, 4], [1, 4], [2, 4]]  # one slot of line_slot 4
     assert got["cnn_pages"] == [0, 1, 2]
     # CNN pages (random weights), then the override pages with their line.
@@ -317,6 +364,7 @@ def test_port_runs_without_jax_and_host_libraries():
         pytest.skip("a CUDA device is present: the no-device error cannot show")
     assert got["raised"] is not None and "device='cpu'" in got["raised"]
     assert got["raised4"] is not None and "device='cpu'" in got["raised4"]
+    assert got["raised_embed"] is not None and "device='cpu'" in got["raised_embed"]
 
 
 NATIVE_SCRIPT = r"""

@@ -569,7 +569,7 @@ def test_levenshtein_matches_numpy_and_jax(case):
     assert got == sequence_alignment.levenshtein_ids(src, tgt) == \
         jax_native.native_levenshtein(src, tgt) == jax_levenshtein(list(a), list(b))
     for route in (True, False):
-        assert sequence_alignment.levenshtein_distance(list(a), list(b), route) == got
+        assert sequence_alignment.levenshtein_distance(list(a), list(b), native=route) == got
     if case == "equal":
         assert got == 0
     elif case.startswith("empty"):
