@@ -11,7 +11,14 @@ Phases (each raises on failure, so the run exits non-zero):
    build reproduces every digest of ``tests/data/jpeg/fixtures.json``
    (cv2's decodes and encodes of the committed fixtures), and its host
    times: the decode of a 2560x1792 colour 4:2:0 page, the encode of a
-   32x1024 line crop (``{"jpeg": ...}``).
+   32x1024 line crop (``{"jpeg": ...}``).  Then the TIFF reader
+   (``csrc/tiff.cpp``'s LZW, PackBits and CCITT decoders with
+   ``utils/tiff.py``, ``check_tiff_fixtures``): this machine's build
+   reproduces every digest of ``tests/data/tiff/fixtures.json`` (cv2's
+   reads of the committed fixtures) and refuses cv2's None cases; host
+   times of the committed A4 300-dpi Group 4 page and of a 2560x1792
+   gray Deflate + Predictor 2 page in strips and in tiles
+   (``{"tiff": ...}``).
 3. Kernel check: each kernel against its plain PyTorch version on the
    card on random pages with mixed lines (straight, curved, tilted,
    off-page, padded), and its time beside the plain version's, one
@@ -34,14 +41,17 @@ Phases (each raises on failure, so the run exits non-zero):
    the main path's shapes; the ``kernels`` line reports these numbers
    (the mixed-line ones under ``mixed_lines_*``).
 7. Command line (run before that last kernel check): the config-2 pages
-   as colour JPEG files (the port's encoder) and the bench modules as
-   flax msgpack checkpoints, with an OCR JSON and a config, through
-   ``python -m pero_ocr_tpu_torch.scripts.parse_folder`` in a
-   subprocess, without and with ``--output-line-path``; its Page XML
-   files must equal an in-process ``FastPagePipeline`` with the command
-   line's settings on the same modules and the same files decoded by
-   ``image_io.imread``, and its line files the in-process crops' JPEG
-   bytes; the warp's launches are counted in both (the command line
+   as colour JPEG files (the port's encoder), every second one as a
+   Deflate TIFF file (``tiff_bytes``: tiles and strips by turns), and
+   the bench modules as flax msgpack checkpoints, with an OCR JSON and a
+   config, through ``python -m pero_ocr_tpu_torch.scripts.parse_folder``
+   in a subprocess, without and with ``--output-line-path`` and
+   ``--output-render-path``; its Page XML files must equal an
+   in-process ``FastPagePipeline`` with the command line's settings on
+   the same modules and the same files decoded by ``image_io.imread``,
+   its line files the in-process crops' JPEG bytes, and its renders
+   ``render_layout`` of the in-process layouts on the decoded pages,
+   encoded at quality 70; the warp's launches are counted in both (the command line
    prints its count with ``--timing-report``).  Then the
    kernel is held against its plain version, and timed, on the in-process
    run's last batch, at the command line's shapes (page batch 4, line
@@ -49,9 +59,12 @@ Phases (each raises on failure, so the run exits non-zero):
    ``cli_*``.
 8. Stage by stage (``run_staged``): 8 pages as gray JPEG files through
    ``PageParser(config, device="cuda").process_page`` and its command
-   line with ``--output-line-path`` on 4 of them (the line files held to
-   the in-process crops: ``staged_line_files``); the field warp checked
-   and timed on the last page.
+   line with ``--output-line-path`` and ``--output-render-path`` on 4 of
+   them (2 rewritten as gray Deflate TIFF) and the committed A4 Group 4
+   page (also run in process); the line files held to the in-process
+   crops (``staged_line_files``), each render to ``render_layout`` of
+   the command line's own Page XML on the same decoded page; the field
+   warp checked and timed on the last page.
 9. Config 1 (``run_config1``): 6 synthetic printed A4 pages at 300 dpi
    (40 rows) through ``PageParser(config 1, device="cuda")`` (whole-page
    region, the classical line detector, the field warp, the recognizer
@@ -186,7 +199,8 @@ Kernel times are taken warm (inputs in L2 from the run before) and
 cold (a 128 MB scratch write before each timed run), since stage B finds
 its pages after the next batch's upload.
 
-The last lines are the JPEG codec's (``{"jpeg": ...}``), the command
+The last lines are the JPEG codec's (``{"jpeg": ...}``), the TIFF
+reader's (``{"tiff": ...}``), the command
 lines' numbers (``{"cli": ...}``,
 ``{"staged": ...}``), config 1's, REGION_SIMPLE_THRESHOLD's,
 --process-count's, config 5's, config 3's and config 4's
@@ -228,7 +242,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pero_ocr_tpu_torch.core import geometry
+from pero_ocr_tpu_torch.core import geometry, render
 from pero_ocr_tpu_torch.core.force_alignment import viterbi_ctc
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
@@ -254,9 +268,10 @@ from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.parallel import train
 from pero_ocr_tpu_torch.sequence_alignment import levenshtein_ids_batch
 from pero_ocr_tpu_torch.scripts import compare_page_xml_texts, produce_2layer_pdf, select_embed_id
-from pero_ocr_tpu_torch.scripts.parse_folder import LINE_QUALITY
+from pero_ocr_tpu_torch.scripts.parse_folder import LINE_QUALITY, RENDER_QUALITY
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
 from pero_ocr_tpu_torch.utils import checkpoint, convert, denoise, image_io, kernels, native, timing
+from pero_ocr_tpu_torch.utils import tiff as tiff_io
 from pero_ocr_tpu_torch.utils import ts_adapters
 from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg
 from pero_ocr_tpu_torch.utils.ts_adapters import TSParseNetModel, TSRecognizerModel
@@ -948,6 +963,108 @@ def check_jpeg_fixtures(smi: str) -> dict:
     return numbers
 
 
+TIFF_FIXTURES = os.path.join(REPO, "tests", "data", "tiff")
+TIFF_G4_PAGE = os.path.join(TIFF_FIXTURES, "a4_g4_text.tif")  # A4, 300 dpi, Group 4
+
+
+def tiff_bytes(page: np.ndarray, tile=None, rows: int = 64) -> bytes:
+    """A little-endian TIFF file of a gray (h, w) or BGR (h, w, 3) uint8
+    page: Deflate with Predictor 2, in strips of ``rows`` rows or in
+    ``tile`` = (width, length) tiles."""
+    samples = page[:, :, None] if page.ndim == 2 else page[:, :, ::-1]
+    h, w, n = samples.shape
+    if tile:
+        tw, th = tile
+        padded = np.zeros((-(-h // th) * th, -(-w // tw) * tw, n), np.uint8)
+        padded[:h, :w] = samples
+        parts = [padded[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+        layout = {322: (3, [tw]), 323: (3, [th])}
+    else:
+        parts = [samples[y:y + rows] for y in range(0, h, rows)]
+        layout = {278: (4, [rows])}
+    blob, offsets = bytearray(8), []
+    for part in parts:
+        diff = part.copy()
+        diff[:, 1:] = part[:, 1:] - part[:, :-1]  # wraps, as Predictor 2 does
+        offsets.append(len(blob))
+        blob += zlib.compress(diff.tobytes(), 1)  # fast to write; the reader inflates any level
+    counts = [b - a for a, b in zip(offsets, offsets[1:] + [len(blob)])]
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * n), 259: (3, [8]),
+            262: (3, [2 if n == 3 else 1]), 277: (3, [n]), 284: (3, [1]), 317: (3, [2]),
+            **layout, (324 if tile else 273): (4, offsets), (325 if tile else 279): (4, counts)}
+    entries = []
+    for tag in sorted(tags):
+        kind, values = tags[tag]
+        raw = struct.pack(f"<{len(values)}{'H' if kind == 3 else 'I'}", *values)
+        if len(raw) > 4:
+            field = struct.pack("<I", len(blob))
+            blob += raw
+        else:
+            field = raw.ljust(4, b"\0")
+        entries.append(struct.pack("<HHI", tag, kind, len(values)) + field)
+    blob[:8] = b"II" + struct.pack("<HI", 42, len(blob))
+    blob += struct.pack("<H", len(entries)) + b"".join(entries) + b"\0" * 4
+    return bytes(blob)
+
+
+def check_tiff_fixtures(smi: str) -> dict:
+    """Every file of ``tests/data/tiff/fixtures.json`` decoded by this
+    machine's build of ``csrc/tiff.cpp`` (built by kernels.build with the
+    host compiler) to its digest, and the files cv2 returns None for
+    refused as "Unable to read image"; then host decode times, median of
+    HOST_REPEATS after a warm-up: the committed A4 300-dpi Group 4 page,
+    and a 2560x1792 gray page written here with Deflate and Predictor 2
+    in strips of 64 rows and in 256x256 tiles."""
+    with open(os.path.join(TIFF_FIXTURES, "fixtures.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    tiff_io.calls.clear()
+    differ = []
+    for name, digest in spec["decode"].items():
+        img = image_io.imread(os.path.join(TIFF_FIXTURES, name))
+        if (hashlib.sha256(img.tobytes()).hexdigest() != digest["sha256"]
+                or list(img.shape) != digest["shape"]):
+            differ.append(name)
+    for name in spec["none"]:
+        try:
+            image_io.imread(os.path.join(TIFF_FIXTURES, name))
+            differ.append(name)
+        except ValueError as e:
+            if "Unable to read image" not in str(e):
+                differ.append(name)
+    native_calls = dict(tiff_io.calls)
+    log(f"TIFF fixtures ({spec['made_with']}): {len(spec['decode'])} decodes, "
+        f"{len(spec['none'])} refused as cv2's None; "
+        f"{len(spec['decode']) + len(spec['none']) - len(differ)} reproduced; calls into "
+        f"csrc/tiff.cpp {native_calls}; differ: {differ}")
+    if differ:
+        raise AssertionError(f"the TIFF reader's build differs from the fixtures on {differ}")
+    if not all(native_calls.get(k) for k in ("tiff_lzw", "tiff_packbits", "tiff_fax")):
+        raise AssertionError("a decompressor of csrc/tiff.cpp was not called")
+    with open(TIFF_G4_PAGE, "rb") as f:
+        g4 = f.read()
+    g4_ms = host_ms(lambda: image_io.decode_tiff(g4))
+    rng = np.random.default_rng(19)
+    gray = synthetic_pages(rng, 1, TWO_COLUMNS)[0][0][:, :, 0]
+    strips, tiles = tiff_bytes(gray), tiff_bytes(gray, tile=(256, 256))
+    for data in (strips, tiles):
+        if not np.array_equal(image_io.decode_tiff(data)[:, :, 1], gray):
+            raise AssertionError("the Deflate page does not read back")
+    strips_ms = host_ms(lambda: image_io.decode_tiff(strips))
+    tiles_ms = host_ms(lambda: image_io.decode_tiff(tiles))
+    numbers = {"fixtures_decoded": len(spec["decode"]), "fixtures_none": len(spec["none"]),
+               "fixtures_made_with": spec["made_with"], "native_calls": native_calls,
+               "decode_ms_a4_g4_page": g4_ms, "a4_g4_bytes": len(g4),
+               "decode_ms_2560x1792_gray_deflate_predictor_strips": strips_ms,
+               "decode_ms_2560x1792_gray_deflate_predictor_tiles": tiles_ms,
+               "deflate_strips_bytes": len(strips), "deflate_tiles_bytes": len(tiles),
+               "host": "the card machine's CPU, one thread", "card": smi}
+    log(f"TIFF reader, host times on the card's machine (one thread): {g4_ms:.2f} ms the A4 "
+        f"300-dpi Group 4 page ({len(g4)} B), {strips_ms:.2f} / {tiles_ms:.2f} ms a 2560x1792 "
+        f"gray Deflate + Predictor 2 page in 64-row strips / 256x256 tiles ({len(strips)} / "
+        f"{len(tiles)} B); beside {smi}")
+    return numbers
+
+
 # ----------------------------------------------------------------------
 # PNG pages (the flax msgpack checkpoints are utils/checkpoint.save_variables
 # of utils/convert.py's *_params_to_flax).
@@ -1033,6 +1150,24 @@ def read_pages(images: str, ids) -> list:
     return [image_io.imread(os.path.join(images, names[pid])) for pid in ids]
 
 
+def write_tiff_pages(images: str, ids, pages, every: int = 2) -> list:
+    """Every ``every``-th page of ``images`` (from the second) replaced
+    by a TIFF file of its ``pages`` entry: Deflate with Predictor 2, in
+    256x256 tiles and in 64-row strips by turns.  Returns their ids."""
+    done = []
+    for k, (pid, page) in enumerate(zip(ids, pages)):
+        if k % every != 1:
+            continue
+        for name in os.listdir(images):
+            if os.path.splitext(name)[0] == pid:
+                os.remove(os.path.join(images, name))
+        tile = (256, 256) if len(done) % 2 == 0 else None
+        with open(os.path.join(images, pid + ".tif"), "wb") as f:
+            f.write(tiff_bytes(page, tile=tile))
+        done.append(pid)
+    return done
+
+
 def timer_row(stdout: str, name: str):
     """(total s, calls) of a ``--timing-report`` row, or None."""
     m = re.search(rf"^{re.escape(name)}\s+([0-9.]+)\s+(\d+)\s", stdout, re.M)
@@ -1074,14 +1209,17 @@ def write_recognizer(folder: str, rec: CTCRecognizer, dtype: str = "bfloat16") -
 
 def run_cli(pipe: TorchPagePipeline, rng, smi: str):
     """Config 2 through the port's command line: 16 two-column pages as
-    colour JPEG files (the port's encoder, 4:2:0, JPEG_PAGE_QUALITY), the
+    colour JPEG files (the port's encoder, 4:2:0, JPEG_PAGE_QUALITY) and,
+    every second one, Deflate TIFF files (:func:`write_tiff_pages`), the
     bench modules as flax msgpack checkpoints with an OCR JSON and a
     config, ``python -m pero_ocr_tpu_torch.scripts.parse_folder`` in a
     subprocess, without and then with --output-line-path; then each Page
     XML file against an in-process FastPagePipeline with the command
     line's settings, on the same modules (not reloaded) and the same
-    files decoded in process by ``image_io.imread``, and each line file
-    against the in-process crop's JPEG bytes.  The warp must launch once
+    files decoded in process by ``image_io.imread``, each line file
+    against the in-process crop's JPEG bytes, and each render
+    (``--output-render-path`` in the second run) against
+    ``render_layout`` of the in-process layout on its decoded page.  The warp must launch once
     per stage-B batch in every run.  Returns the warp's launches in the
     in-process run, the phase's numbers and the last stage-B batch's
     warp arguments (the command line's shapes)."""
@@ -1092,14 +1230,18 @@ def run_cli(pipe: TorchPagePipeline, rng, smi: str):
     runs = {}
     with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
         ini, images = write_bundle(tmp, pn, rec, dict(zip(ids, pages)), jpeg="color")
+        tiff_ids = write_tiff_pages(images, ids, pages)
         pages = read_pages(images, ids)
+        render_dir = os.path.join(tmp, "render")
         for export in (False, True):
             out_dir = os.path.join(tmp, f"page_xml_{int(export)}")
             line_dir = os.path.join(tmp, "lines")
             proc, wall = run_parse_folder(
                 ["-c", ini, "-i", images, "--output-xml-path", out_dir, "--fast-pipeline",
-                 "--timing-report"] + (["--output-line-path", line_dir] if export else []),
-                "command line" + (" with line export" if export else ""))
+                 "--timing-report"]
+                + (["--output-line-path", line_dir, "--output-render-path", render_dir]
+                   if export else []),
+                "command line" + (" with line export and renders" if export else ""))
             files = sorted(os.listdir(out_dir))
             if files != [page_id + ".xml" for page_id in ids]:
                 raise AssertionError(f"the command line wrote {files}")
@@ -1115,12 +1257,17 @@ def run_cli(pipe: TorchPagePipeline, rng, smi: str):
                 raise AssertionError("the command line's timing report lacks cli/pages, "
                                      "cli/decode a page or the launches")
             written = timer_row(proc.stdout, "cli/write_lines")
-            if export and (written is None or written[1] != n_pages):
-                raise AssertionError("the command line's timing report lacks cli/write_lines")
+            drawn = timer_row(proc.stdout, "cli/write_render")
+            if export and (written is None or written[1] != n_pages or drawn is None
+                           or drawn[1] != n_pages):
+                raise AssertionError("the command line's timing report lacks cli/write_lines "
+                                     "or cli/write_render")
             runs[export] = {"xml": xml, "wall": wall, "pages_per_s": n_pages / timed[0],
                             "launches": int(counted.group(1)), "decode_ms": 1e3 * decode[0] / n_pages,
                             "write_lines_ms": 1e3 * written[0] / n_pages if export else None,
-                            "lines": line_files(line_dir) if export else None}
+                            "write_render_ms": 1e3 * drawn[0] / n_pages if export else None,
+                            "lines": line_files(line_dir) if export else None,
+                            "renders": line_files(render_dir) if export else None}
 
     same = TorchPagePipeline(
         pn, rec, downsample=4, detection_threshold=0.2, line_end_weight=1.0,
@@ -1155,6 +1302,16 @@ def run_cli(pipe: TorchPagePipeline, rng, smi: str):
     got_lines = runs[True]["lines"]
     line_differ = sorted(n for n in set(want_lines) | set(got_lines)
                          if want_lines.get(n) != got_lines.get(n))
+    # The renders: render_layout on the in-process layouts and the same
+    # decoded pages, encoded at the command line's quality.
+    t0 = time.perf_counter()
+    want_renders = {f"{layout.id}.jpg": image_io.encode_jpeg(
+        render.render_layout(layout, page.copy()), RENDER_QUALITY)
+        for (layout, _), page in zip(out, pages)}
+    render_s = time.perf_counter() - t0
+    got_renders = runs[True]["renders"]
+    render_differ = sorted(n for n in set(want_renders) | set(got_renders)
+                           if want_renders.get(n) != got_renders.get(n))
     n_lines = sum(len(list(layout.lines_iterator())) for layout, _ in out)
     recall = line_recall(
         [[line.baseline for line in layout.lines_iterator()] for layout, _ in out], lines
@@ -1171,6 +1328,14 @@ def run_cli(pipe: TorchPagePipeline, rng, smi: str):
         f"{export['wall']:.3f} s wall); cli/decode {plain['decode_ms']:.2f} / "
         f"{export['decode_ms']:.2f} ms a page, cli/write_lines {export['write_lines_ms']:.2f} ms "
         f"a page (host times); in-process {n_pages / seconds:.3f} pages/s with crops, on {smi}")
+    log(f"command line renders ({len(tiff_ids)} of the {n_pages} pages TIFF: Deflate + "
+        f"Predictor 2, tiles and strips): {len(got_renders)} files, "
+        f"{len(want_renders) - len(render_differ)} of {len(want_renders)} equal byte for byte "
+        f"to render_layout on the in-process layouts at quality {RENDER_QUALITY}; "
+        f"cli/write_render {export['write_render_ms']:.2f} ms a page, in process "
+        f"{1e3 * render_s / n_pages:.2f} ms a page (host times), on {smi}")
+    if render_differ or not got_renders:
+        raise AssertionError(f"the command line's renders differ: {render_differ[:10]}")
     if differ[False] or differ[True]:
         raise AssertionError(f"the command line's Page XML differs on pages {differ}")
     if line_differ or not got_lines:
@@ -1182,6 +1347,11 @@ def run_cli(pipe: TorchPagePipeline, rng, smi: str):
         raise AssertionError(f"command line: found {recall:.3f} < {MIN_LINE_RECALL} of the lines")
     same.stage_b = stage_b
     return launches, {"pages": n_pages, "page_format": "jpeg 4:2:0 q90",
+                      "tiff_pages": len(tiff_ids),
+                      "tiff_format": "rgb deflate predictor 2, 256x256 tiles or 64-row strips",
+                      "renders": len(got_renders),
+                      "cli_write_render_ms_a_page": export["write_render_ms"],
+                      "render_ms_a_page_in_process": 1e3 * render_s / n_pages,
                       "cli_wall_s": plain["wall"], "cli_pages_per_s": plain["pages_per_s"],
                       "cli_export_wall_s": export["wall"],
                       "cli_export_pages_per_s": export["pages_per_s"],
@@ -1565,18 +1735,28 @@ def staged_line_files(line_dir: str, xml_dir: str, out, smi: str) -> dict:
             "max_mean_abs_diff": worst}
 
 
+G4_ID = "s_g4"  # the committed Group 4 page in the staged command line's folder
+# The staged host-route A/B's runs after the first take the first 4 of
+# its 8 pages (8 before the TIFF pages and renders needed the time).
+STAGED_AB_PAGES = 4
+
+
 def run_staged(pipe: TorchPagePipeline, rng, smi: str):
     """Config 2 stage by stage on the card: each of 8 two-column
     2560x1792 pages, written as one-component (gray) JPEG files by the
     port's encoder and read back by ``image_io.imread``, through
     ``PageParser(config, device="cuda").process_page`` and into Page XML,
     with the bench modules loaded from flax msgpack checkpoints; then the
-    command line without --fast-pipeline on the first 4 of the files
-    with --output-line-path, whose Page XML must equal the in-process
-    run's and whose line files the in-process crops (staged_line_files).
-    Between the two, the host-route A/B: the same pages through a
-    PageParser on the numpy route twice and this one again (A B B A),
-    each run's Page XML equal to the first's.  Returns the field warp's
+    command line without --fast-pipeline on the first 4 of the files (2
+    rewritten as gray Deflate TIFF) and the committed A4 Group 4 page
+    (TIFF_G4_PAGE, run in process too, after the A/B), with
+    --output-line-path and --output-render-path, whose Page XML must
+    equal the in-process run's, whose line files the in-process crops
+    (staged_line_files) and whose renders ``render_layout`` of its own
+    Page XML on the decoded page.  Between the two, the host-route A/B:
+    the same pages through a PageParser on the numpy route twice and
+    this one again (A B B A), each run's Page XML equal to the first's.
+    Returns the field warp's
     launches, the phase's numbers, the last page's warp inputs, the
     host record for check_host_native (the last page's host inputs, the
     A/B) and the first SCRIPT_PAGES pages' JPEG files and Page XML
@@ -1592,6 +1772,10 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
         os.makedirs(cli_images)
         for pid in ids[:n_cli]:
             shutil.copy(os.path.join(images, pid + ".jpg"), cli_images)
+        # Two of them as gray TIFF (the decoded JPEG's pixels), and the
+        # committed A4 Group 4 page as a fifth.
+        tiff_ids = write_tiff_pages(cli_images, ids[:n_cli], [p[:, :, 0] for p in pages[:n_cli]])
+        shutil.copy(TIFF_G4_PAGE, os.path.join(cli_images, G4_ID + ".tif"))
         parser = staged_parser(ini, "cuda")
         engine = parser.layout_parsers[0].engine
         detected, detect = [], engine.detect
@@ -1627,7 +1811,8 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             wrapper = parser_.layout_parsers[0].engine.parsenet
             wrapper.last_downsample = wrapper.init_downsample
             timing.reset_timing()
-            run_out, run_seconds = staged_pages(parser_, ids, pages)
+            run_out, run_seconds = staged_pages(parser_, ids[:STAGED_AB_PAGES],
+                                                pages[:STAGED_AB_PAGES])
             runs.append((route, run_out, run_seconds, timing.timing_stats()))
             log(f"stage times (staged run, {route} route, A/B run {len(runs)}):\n"
                 + timing.timing_report())
@@ -1662,41 +1847,75 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             raise AssertionError("staged: warp_fields launches != pages of "
                                  f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
 
+        # The Group 4 page in process, after the runs above.
+        g4_page = image_io.imread(TIFF_G4_PAGE)
+        before = warp_ops.warp_fields.launches
+        random.seed(0)
+        g4_layout = parser.process_page(g4_page, PageLayout(id=G4_ID,
+                                                            page_size=g4_page.shape[:2]))
+        g4_out = (g4_layout, g4_layout.to_pagexml_string())
+        g4_launches = warp_ops.warp_fields.launches - before
+        cli_out = out[:n_cli] + [g4_out]
+        cli_pages = pages[:n_cli] + [g4_page]
+
         # The command line without --fast-pipeline on the first pages,
-        # with the line crops.
+        # with the line crops and the renders.
         out_dir = os.path.join(tmp, "page_xml")
         line_dir = os.path.join(tmp, "lines")
+        render_dir = os.path.join(tmp, "render")
         proc, cli_seconds = run_parse_folder(
             ["-c", ini, "-i", cli_images, "--output-xml-path", out_dir, "--output-line-path",
-             line_dir, "--timing-report"], "command line (stage by stage, line export)")
+             line_dir, "--output-render-path", render_dir, "--timing-report"],
+            "command line (stage by stage, line export, renders)")
         counted = re.search(r"^warp_fields kernel launches: (\d+)$", proc.stdout, re.M)
         timed = timer_row(proc.stdout, "cli/pages")
         decode = timer_row(proc.stdout, "cli/decode")
         written = timer_row(proc.stdout, "cli/write_lines")
-        differ = []
-        for pid, (layout, xml) in zip(ids[:n_cli], out):
-            with open(os.path.join(out_dir, pid + ".xml"), encoding="utf-8") as f:
+        drawn = timer_row(proc.stdout, "cli/write_render")
+        differ, render_differ = [], []
+        renders = line_files(render_dir)
+        for (layout, xml), page in zip(cli_out, cli_pages):
+            with open(os.path.join(out_dir, layout.id + ".xml"), encoding="utf-8") as f:
                 cli_xml = f.read()
             if not same_staged_page(cli_xml, xml):
-                differ.append(pid)
-        if differ or None in (counted, timed, decode, written) or written[1] != n_cli:
+                differ.append(layout.id)
+            # Its render: render_layout on the command line's own layout
+            # (read back from its Page XML, whose integer points are the
+            # render's rounding) on the same decoded page.  Line ids and
+            # a region's first vertex may differ from the in-process run's
+            # (see same_staged_page), and the circles sit on them.
+            own = PageLayout()
+            own.from_pagexml_string(cli_xml)
+            want = image_io.encode_jpeg(render.render_layout(own, page.copy()), RENDER_QUALITY)
+            if renders.get(layout.id + ".jpg") != want:
+                render_differ.append(layout.id)
+        if (differ or render_differ or len(renders) != len(cli_out)
+                or None in (counted, timed, decode, written, drawn)
+                or written[1] != len(cli_out) or drawn[1] != len(cli_out)):
             raise AssertionError(f"the stage-by-stage command line's files differ: {differ}, "
-                                 "or its timing report lacks a row")
-        cli_numbers = staged_line_files(line_dir, out_dir, out[:n_cli], smi)
+                                 f"renders {render_differ}, or its timing report lacks a row")
+        cli_numbers = staged_line_files(line_dir, out_dir, cli_out, smi)
         # Line export adds only cli/write_lines here (LineCropper's crops
         # exist either way): the pages/s without it from the same run.
+        n_files = len(cli_out)
         cli_numbers.update(
-            pages_per_s=n_cli / timed[0], pages_per_s_without_write_lines=n_cli / (
-                timed[0] - written[0]), wall=cli_seconds, launches=int(counted.group(1)),
-            decode_ms=1e3 * decode[0] / decode[1], write_lines_ms=1e3 * written[0] / n_cli)
-        log(f"stage-by-stage command line vs in-process: {n_cli} of {n_cli} files equal (lines "
-            f"of a row as a set; conf within 0.0015); its warp_fields launches "
-            f"{cli_numbers['launches']}; {cli_numbers['pages_per_s']:.3f} pages/s by its timer "
-            f"with line export, {cli_numbers['pages_per_s_without_write_lines']:.3f} without "
-            f"cli/write_lines; cli/decode {cli_numbers['decode_ms']:.2f} ms a page (gray JPEG, "
-            f"on the decoding thread), cli/write_lines {cli_numbers['write_lines_ms']:.2f} ms a "
-            f"page (host times), on {smi}")
-        if cli_numbers["launches"] != sum(batched[:n_cli]):
+            pages_per_s=n_files / timed[0], pages_per_s_without_write_lines=n_files / (
+                timed[0] - written[0]), wall=cli_seconds,
+            launches=int(counted.group(1)), decode_ms=1e3 * decode[0] / decode[1],
+            write_lines_ms=1e3 * written[0] / n_files, write_render_ms=1e3 * drawn[0] / n_files,
+            renders=len(renders), tiff_pages=len(tiff_ids) + 1)
+        log(f"stage-by-stage command line vs in-process: {n_files} of {n_files} files equal "
+            f"(lines of a row as a set; conf within 0.0015), the A4 Group 4 page and "
+            f"{len(tiff_ids)} gray Deflate TIFF pages among them; {len(renders)} renders equal "
+            f"byte for byte to render_layout on the command line's own Page XML; its "
+            f"warp_fields launches {cli_numbers['launches']}; {cli_numbers['pages_per_s']:.3f} "
+            f"pages/s by its timer with line export and renders, "
+            f"{cli_numbers['pages_per_s_without_write_lines']:.3f} without cli/write_lines; "
+            f"cli/decode {cli_numbers['decode_ms']:.2f} ms a page (gray JPEG "
+            f"and TIFF, on the decoding thread), cli/write_lines "
+            f"{cli_numbers['write_lines_ms']:.2f} ms, cli/write_render "
+            f"{cli_numbers['write_render_ms']:.2f} ms a page (host times), on {smi}")
+        if cli_numbers["launches"] != sum(batched[:n_cli]) + g4_launches:
             raise AssertionError("the stage-by-stage command line: warp_fields launches != "
                                  f"pages of {parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
         last_page = page_buckets(parser, out[-1][0], pages[-1])
@@ -1721,7 +1940,10 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                "cli_line_files_same_bytes": cli_numbers["same_bytes"],
                "cli_line_files_renumbered": cli_numbers["permuted"],
                "cli_line_files_max_mean_abs_diff": cli_numbers["max_mean_abs_diff"],
-               "cli_warp_fields_launches": cli_numbers["launches"], "card": smi}
+               "cli_warp_fields_launches": cli_numbers["launches"],
+               "cli_renders": cli_numbers["renders"], "cli_tiff_pages": cli_numbers["tiff_pages"],
+               "cli_write_render_ms_a_page": cli_numbers["write_render_ms"],
+               "g4_page_warp_fields_launches": g4_launches, "card": smi}
     return (launches, numbers, last_page, {"inputs": host_inputs.pages[-1], "ab": ab},
             script_pages)
 
@@ -5652,6 +5874,8 @@ def run_phases(smi: str) -> list:
 
     with phase("jpeg"):
         jpeg_numbers = check_jpeg_fixtures(smi)
+    with phase("tiff"):
+        tiff_numbers = check_tiff_fixtures(smi)
     rng = np.random.default_rng(0)
     with phase("check_warp mixed lines, check_against_cpu"):
         mixed = check_warp(mixed_line_args(rng), "mixed lines")
@@ -5752,7 +5976,8 @@ def run_phases(smi: str) -> list:
     }
 
     return [json.dumps({key: value}) for key, value in (
-        ("jpeg", jpeg_numbers), ("cli", cli), ("staged", staged), ("config1", config1),
+        ("jpeg", jpeg_numbers), ("tiff", tiff_numbers), ("cli", cli), ("staged", staged),
+        ("config1", config1),
         ("simple_regions", simple), ("process_count", process_count), ("config5", config5),
         ("user_scripts", user_scripts),
         ("config3", config3), ("config4", config4), ("crops", crops), ("reocr", reocr),

@@ -11,9 +11,11 @@ OpenCV chain copied bit for bit, its NL-means in the host C++ of
 ``csrc/nlmeans.cpp``), the command line's ``--process-count`` workers,
 the reference's TorchScript ParseNet and CTC archives on both paths, and
 it trains every model it serves (``parallel/train.py``).  Pages come in
-as baseline JPEG, PNG or binary PNM (turned by their EXIF orientation)
-and line crops go out as JPEG, equal to OpenCV's libjpeg-turbo to the
-bit (``utils/image_io.py``, the host C++ of ``csrc/jpeg.cpp``).  Plain
+as baseline JPEG, PNG, PNM or TIFF (turned by their EXIF or TIFF
+orientation) and line crops and layout renders go out as JPEG, equal to
+OpenCV 5's reader, drawing and libjpeg-turbo to the bit
+(``utils/image_io.py``, ``core/render.py``, the host C++ of
+``csrc/jpeg.cpp`` and ``csrc/tiff.cpp``).  Plain
 tensor code is PyTorch; the line-crop warp, the one Pallas kernel of
 the JAX package, is two hand-written CUDA kernels built with ``nvcc``
 on first use: the fast path's fused version (``csrc/warp_lines.cu``)
@@ -56,4 +58,13 @@ def not_ported(what: str, item: str) -> ValueError:
     return ValueError(
         f"{what} is not ported to pero_ocr_tpu_torch yet "
         f"(ROADMAP.md, queue 1: '{item}')"
+    )
+
+
+def not_read(path: str, what: str) -> ValueError:
+    """The error for an image file the port does not read (``what``
+    says which kind); it names item 15's title."""
+    return ValueError(
+        f"{path}: {what} cannot be read by pero_ocr_tpu_torch yet "
+        f"(ROADMAP.md, queue 1: '{IMAGES}'); convert it to PNG"
     )

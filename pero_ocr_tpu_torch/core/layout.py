@@ -5,8 +5,11 @@ writer (:mod:`~pero_ocr_tpu_torch.core.altoxml`) and the logits pickle
 (:mod:`~pero_ocr_tpu_torch.core.logits_io`).
 
 ``TextLine`` densifies the sparse CTC logits that both paths store
-(``get_dense_logits``, ``get_full_logprobs``).  Reading ALTO, the page
-quality and rendering are not ported yet (ROADMAP items 9 and 15).
+(``get_dense_logits``, ``get_full_logprobs``).  ``render_to_image``
+draws the layout as the JAX package does (:mod:`~pero_ocr_tpu_torch.core.render`,
+cv2's lines and circles copied bit for bit; ``render_order`` is item 15
+part c).  Reading ALTO and the page quality are not ported yet (ROADMAP
+item 9).
 """
 
 from __future__ import annotations
@@ -234,6 +237,15 @@ class PageLayout:
         from pero_ocr_tpu_torch.core import logits_io
 
         return logits_io.save_logits_bytes(self, missing_line_logits_ok)
+
+    def render_to_image(self, image: np.ndarray, thickness: int = 2, circles: bool = True,
+                        render_order: bool = False) -> np.ndarray:
+        """Draw the layout into ``image`` (BGR uint8) in place and return
+        it: :func:`pero_ocr_tpu_torch.core.render.render_layout`."""
+        from pero_ocr_tpu_torch.core import render
+
+        return render.render_layout(self, image, thickness=thickness, circles=circles,
+                                    render_order=render_order)
 
     def load_logits(self, file) -> None:
         from pero_ocr_tpu_torch.core import logits_io

@@ -3,19 +3,23 @@
     python3 -m pero_ocr_tpu_torch.scripts.parse_folder \\
         -c config.ini -i images/ --output-xml-path page_xml/ [--fast-pipeline] \\
         [--transport crops] [--output-logit-path logits/] [--output-alto-path alto/] \\
-        [--output-line-path lines/]
+        [--output-line-path lines/] [--output-render-path renders/]
     python3 -m pero_ocr_tpu_torch.scripts.parse_folder \\
         -c ocr_only.ini -i images/ -x page_xml_in/ [--input-logit-path logits/] \\
         --output-xml-path page_xml/ [--fast-pipeline]
 
 It reads the config and its OCR JSON, loads the flax msgpack checkpoints
 (or a reference transformer's torch ``.pt``) they name into the port's
-models, decodes the pages (baseline JPEG, PNG or binary PNM, turned by
-their EXIF orientation, :mod:`pero_ocr_tpu_torch.utils.image_io`) and
-writes, per page, a Page XML file, a ``.logits`` pickle of the lines'
-sparse logits, an ALTO file with word boxes from the forced alignment
-and every line's crop as ``<file id>-<line id>.jpg`` at quality 98
-(cv2's bytes, ``image_io.imwrite_jpeg``), each where asked.
+models, decodes the pages (baseline JPEG, PNG, PNM or TIFF, turned by
+their EXIF or TIFF orientation, :mod:`pero_ocr_tpu_torch.utils.image_io`)
+and writes, per page, a Page XML file, a ``.logits`` pickle of the
+lines' sparse logits, an ALTO file with word boxes from the forced
+alignment, every line's crop as ``<file id>-<line id>.jpg`` at quality
+98 and a render (the layout drawn on the decoded page by
+``PageLayout.render_to_image``) as ``<file id>.jpg`` at quality 70
+(cv2's bytes, ``image_io.imwrite_jpeg``), each where asked, in the JAX
+command line's order: stage by stage the render follows the Page XML,
+on the fast path it comes last.
 Without ``--fast-pipeline`` each page goes through
 ``PageParser.process_page`` (the stage-by-stage path; the line crops are
 sampled by the hand-written CUDA field warp; with ``RUN_DECODER`` the
@@ -50,10 +54,16 @@ geometry (connected components, paragraph clustering, the fast path's
 parse) and the ALTO output's forced alignment follow the device too: the
 port's C++ on CUDA, numpy/scipy on the CPU.
 
+A page that cv2.imread would return None for (a non-square TIFF page
+turned by Orientation 5-8, 2-bit TIFF, ...) fails as in the JAX command
+line: stage by stage it is reported ("Unable to read image") and
+skipped; on the fast path the run stops with a ``ValueError`` naming the
+file (the JAX one stops with a ``TypeError``).
+
 Options the port lacks exit with code 2 and name their ROADMAP item,
 rather than change what the run means: the line crops' LMDB store (an
-``--output-line-path`` with ``lmdb`` in it: the lmdb package), renders
-(``--output-render-path``: the Hershey text), ``--dp`` and ``--profile``.
+``--output-line-path`` with ``lmdb`` in it: the lmdb package), ``--dp``
+and ``--profile``.
 """
 
 from __future__ import annotations
@@ -90,6 +100,7 @@ logger = logging.getLogger(__name__)
 
 PAGE_BATCH = 4  # the JAX command line's page batch on one device
 LINE_QUALITY = 98  # the JAX command line's JPEG quality for line crops
+RENDER_QUALITY = 70  # and for renders
 
 
 def parse_arguments(argv=None):
@@ -197,7 +208,6 @@ def refusals(args, paths) -> List[str]:
     asked = [
         (line_path and "lmdb" in line_path,
          "--output-line-path into an LMDB store (the lmdb package, and JPEG encoding)", IMAGES),
-        (paths["OUTPUT_RENDER_PATH"], "--output-render-path (JPEG renders)", IMAGES),
         (args.dp > 1, "--dp", SCALE_OUT),
         (args.profile, "--profile (a torch.profiler trace)", SCALE_OUT),
     ]
@@ -293,11 +303,14 @@ def main(argv=None) -> None:
         logger.warning("Logit path specified and Page XML path not specified. "
                        "Logits will be ignored.")
     output_line_path = paths["OUTPUT_LINE_PATH"]
-    for path in (output_line_path, output_xml_path, output_logit_path, output_alto_path):
+    output_render_path = paths["OUTPUT_RENDER_PATH"]
+    for path in (output_render_path, output_line_path, output_xml_path, output_logit_path,
+                 output_alto_path):
         if path is not None:
             os.makedirs(path, exist_ok=True)
     outputs = PageOutputs(output_xml_path, output_logit_path, output_alto_path,
-                          native_lib.use_native(None, device), output_line_path)
+                          native_lib.use_native(None, device), output_line_path,
+                          output_render_path)
 
     if input_image_path is not None:
         ignored = {"", ".xml", ".logits"}
@@ -320,7 +333,8 @@ def main(argv=None) -> None:
         logger.info("Shard %d/%d: %d file(s).", args.shard_index, args.shard_count,
                     len(ids_to_process))
     if args.skip_processed:
-        done = load_already_processed_files([output_xml_path, output_logit_path])
+        done = load_already_processed_files([output_xml_path, output_logit_path,
+                                              output_render_path])
         if done:
             logger.info("Already processed %d file(s).", len(done))
             images_to_process = [
@@ -362,25 +376,34 @@ def main(argv=None) -> None:
 
 class PageOutputs:
     """The files written for each page, in the JAX command line's order:
-    Page XML, the logits pickle, ALTO, then each line's crop as JPEG.
-    ``native``: the route of the ALTO output's forced alignment."""
+    Page XML, the render (stage by stage), the logits pickle, ALTO, each
+    line's crop as JPEG, then the render (fast path).  ``native``: the
+    route of the ALTO output's forced alignment."""
 
     def __init__(self, xml_path: Optional[str], logit_path: Optional[str],
-                 alto_path: Optional[str], native: bool, line_path: Optional[str] = None):
+                 alto_path: Optional[str], native: bool, line_path: Optional[str] = None,
+                 render_path: Optional[str] = None):
         self.xml_path = xml_path
         self.logit_path = logit_path
         self.alto_path = alto_path
         self.native = native
         self.line_path = line_path
+        self.render_path = render_path
 
     @property
     def want_logits(self) -> bool:
         return bool(self.logit_path or self.alto_path)
 
-    def write(self, layout: PageLayout, file_id: str) -> None:
+    def write(self, layout: PageLayout, file_id: str, image: Optional[np.ndarray] = None,
+              render_last: bool = False) -> None:
+        """``image``: the decoded page, which a render draws on in place
+        (the JAX ``render_to_image(image)``); ``render_last``: the fast
+        path's order."""
         if self.xml_path is not None:
             with stage_timer("cli/write_xml"):
                 layout.to_pagexml(os.path.join(self.xml_path, file_id + ".xml"))
+        if not render_last:
+            self.write_render(layout, file_id, image)
         if self.logit_path is not None:
             with stage_timer("cli/write_logits"):
                 layout.save_logits(os.path.join(self.logit_path, file_id + ".logits"))
@@ -393,6 +416,15 @@ class PageOutputs:
                 for line in layout.lines_iterator():
                     imwrite_jpeg(os.path.join(self.line_path, f"{file_id}-{line.id}.jpg"),
                                  np.asarray(line.crop).astype(np.uint8), LINE_QUALITY)
+        if render_last:
+            self.write_render(layout, file_id, image)
+
+    def write_render(self, layout: PageLayout, file_id: str, image: Optional[np.ndarray]):
+        if self.render_path is not None:
+            with stage_timer("cli/write_render"):
+                layout.render_to_image(image)
+                imwrite_jpeg(os.path.join(self.render_path, file_id + ".jpg"), image,
+                             RENDER_QUALITY)
 
 
 def run_fast(page_parser, args, input_image_path, images_to_process, ids_to_process,
@@ -435,7 +467,8 @@ def run_fast(page_parser, args, input_image_path, images_to_process, ids_to_proc
         else:
             stream = fast.process_pages(images, ids_to_process)
         for layout in stream:
-            outputs.write(layout, layout.id)
+            outputs.write(layout, layout.id, images[ids_to_process.index(layout.id)],
+                          render_last=True)
             results.append([
                 f"{layout.id}-{line.id}.jpg {line.transcription}"
                 for line in layout.lines_iterator() if line.transcription
@@ -491,7 +524,7 @@ def process_one(page_parser, image, file_id: str, index: int, count: int,
         if input_logit_path is not None:
             page_layout.load_logits(os.path.join(input_logit_path, file_id + ".logits"))
         page_layout = page_parser.process_page(image, page_layout)
-        outputs.write(page_layout, file_id)
+        outputs.write(page_layout, file_id, image)
         for line in sorted(page_layout.lines_iterator(), key=lambda x: x.id):
             if line.transcription:
                 annotations.append(f"{file_id}-{line.id}.jpg " + line.transcription)

@@ -9,25 +9,39 @@ OpenCV 5 returns for the formats it reads here:
   :mod:`pero_ocr_tpu_torch.utils.jpeg`): baseline sequential Huffman,
   8-bit, gray or three components at any sampling, restart intervals;
   libjpeg-turbo's integer IDCT, fancy upsampling and YCbCr tables.
-- **PNG** (numpy and ``zlib``): bit depths 8 and 16; gray, gray+alpha,
-  RGB, RGBA and palette images; all five row filters.  As in OpenCV,
-  16-bit samples keep their high byte, gray expands to three equal
-  channels, palette indices map through PLTE, and alpha is dropped
-  without compositing.  Chunk CRCs are checked.
-- **Binary PNM** (P5 gray, P6 RGB): as in OpenCV, samples are not
-  rescaled to maxval; 2-byte samples (maxval over 255) keep their high
-  byte.
+- **PNG** (numpy and ``zlib``): every colour type and bit depth (1, 2,
+  4, 8 and 16), interlaced (Adam7) or not, all five row filters.  As
+  libpng expands them for OpenCV, 16-bit samples keep their high byte,
+  gray of 1, 2 and 4 bits is scaled to 8 (``x * 255 // (2**b - 1)``),
+  gray expands to three equal channels, palette indices map through
+  PLTE, and alpha is dropped without compositing.  Chunk CRCs are
+  checked.
+- **PNM** (P1-P6, OpenCV's PxM decoder, :func:`decode_pnm`): bitmaps
+  map 1 to black; binary samples are not rescaled to maxval, ASCII ones
+  are (``v * 255 // maxval``, clamped to maxval first); 2-byte samples
+  (maxval over 255) keep their high byte.
+- **TIFF** (:mod:`pero_ocr_tpu_torch.utils.tiff`, the host C++ of
+  ``csrc/tiff.cpp``): strips and tiles, classic and BigTIFF, both byte
+  orders, planar or not; none, LZW, Deflate, PackBits, CCITT (Modified
+  Huffman, T.4, T.6) and JPEG compression, Predictor 2, FillOrder 2;
+  gray, palette, RGB, alpha and 16 bits by libtiff's TIFFRGBAImage rules.
 
 JPEG (an APP1 ``Exif\\0\\0`` segment) and PNG (an ``eXIf`` chunk) pages are
 turned by their EXIF orientation tag, all 8 values, as OpenCV's
 ``ApplyExifOrientation`` turns them under ``IMREAD_COLOR``
 (:func:`exif_orientation`, :func:`apply_orientation`); a missing or
-unreadable tag turns nothing, as in OpenCV.
+unreadable tag turns nothing, as in OpenCV.  TIFF pages are turned by
+their Orientation tag as OpenCV 5 turns them (see
+:mod:`~pero_ocr_tpu_torch.utils.tiff`).
 
-Anything else (progressive, lossless, arithmetic, 12-bit or CMYK JPEG,
-truncated or corrupt JPEG data, PNG at bit depths 1, 2 and 4,
-interlaced PNG, TIFF, ASCII PNM, ...) raises ``ValueError`` naming the
-file and the ROADMAP item; nothing is skipped.
+What OpenCV reads and this module does not (progressive, lossless,
+arithmetic, 12-bit or CMYK JPEG; truncated or corrupt JPEG or TIFF
+data; TIFF of the compressions and photometrics that
+:mod:`~pero_ocr_tpu_torch.utils.tiff` lists; JPEG 2000, WebP, BMP, PAM
+and the rest) raises ``ValueError`` naming the file and the ROADMAP
+item; what OpenCV returns None for (2-bit TIFF, a non-square TIFF page
+turned by Orientation 5-8, ...) raises ``ValueError`` saying "Unable to
+read image", as the JAX command line does.  Nothing is skipped.
 
 :func:`encode_jpeg` and :func:`imwrite_jpeg` write what
 ``cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, q])`` and
@@ -44,8 +58,9 @@ from typing import Optional
 
 import numpy as np
 
-from pero_ocr_tpu_torch import IMAGES
+from pero_ocr_tpu_torch import not_read
 from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg, jpeg_header
+from pero_ocr_tpu_torch.utils import tiff
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # Channels per PNG colour type: gray, RGB, palette, gray+alpha, RGBA.
@@ -53,18 +68,11 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
-def _refuse(path: str, what: str) -> ValueError:
-    return ValueError(
-        f"{path}: {what} cannot be read by pero_ocr_tpu_torch yet "
-        f"(ROADMAP.md, queue 1: '{IMAGES}'); convert it to PNG"
-    )
-
-
 def imread(path: str) -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_COLOR)`` for JPEG, PNG and binary
-    PNM: a BGR uint8 (H, W, 3) array, turned by its EXIF orientation.
-    Raises ``ValueError`` for other or broken files (where cv2 returns
-    None, or for JPEG data it would fill with grey)."""
+    """``cv2.imread(path, cv2.IMREAD_COLOR)`` for JPEG, PNG, PNM and
+    TIFF: a BGR uint8 (H, W, 3) array, turned by its EXIF or TIFF
+    orientation.  Raises ``ValueError`` for other or broken files (where
+    cv2 returns None, or for data it would fill with grey)."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
@@ -72,12 +80,17 @@ def imread(path: str) -> np.ndarray:
     if data[:2] == b"\xff\xd8":
         exif = jpeg_header(data, path)[3]
         return apply_orientation(decode_jpeg(data, path), exif_orientation(exif))
-    if data[:2] in (b"P5", b"P6"):
+    if data[:1] == b"P" and data[1:2] in b"123456" and len(data) > 2:
         return decode_pnm(data, path)
-    kind = {b"II": "a TIFF file", b"MM": "a TIFF file"}.get(
-        data[:2], "a file that is neither JPEG, PNG nor binary PNM"
-    )
-    raise _refuse(path, kind)
+    if tiff.is_tiff(data):
+        return decode_tiff(data, path)
+    raise not_read(path, "a file that is neither JPEG, PNG, PNM nor TIFF")
+
+
+def decode_tiff(data: bytes, path: str = "<tiff>") -> np.ndarray:
+    """A TIFF file's bytes -> what ``cv2.imread`` returns for it: the
+    page of :func:`pero_ocr_tpu_torch.utils.tiff.decode_tiff`, turned."""
+    return apply_orientation(*tiff.decode_tiff(data, path))
 
 
 def imwrite_jpeg(path: str, img: np.ndarray, quality: int = 95) -> None:
@@ -195,6 +208,11 @@ def png_exif(data: bytes, path: str = "<png>") -> Optional[bytes]:
     return None
 
 
+# Adam7's passes: (x0, y0, dx, dy).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
 def decode_png(data: bytes, path: str = "<png>") -> np.ndarray:
     header, palette, idat = None, None, []
     for ctype, body in _chunks(data, path):
@@ -207,29 +225,35 @@ def decode_png(data: bytes, path: str = "<png>") -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{path}: PNG without IHDR or IDAT")
     width, height, depth, ctype, compression, filter_method, interlace = header
-    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype] or compression or filter_method:
+    if (ctype not in _CHANNELS or depth not in _DEPTHS[ctype] or compression or filter_method
+            or interlace > 1):
         raise ValueError(f"{path}: invalid PNG header (colour type {ctype}, depth {depth})")
-    if interlace:
-        raise _refuse(path, "an interlaced (Adam7) PNG")
-    if depth < 8:
-        raise _refuse(path, f"a PNG of bit depth {depth}")
     if width == 0 or height == 0:
         raise ValueError(f"{path}: empty PNG")
     channels = _CHANNELS[ctype]
-    row_bytes = width * channels * depth // 8
-    bpp = channels * depth // 8  # the filters' byte distance
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
-        raise ValueError(f"{path}: PNG data does not inflate: {e}") from e
-    if len(raw) < height * (row_bytes + 1):
-        raise ValueError(f"{path}: PNG data is truncated")
-    rows = np.frombuffer(raw, np.uint8, height * (row_bytes + 1)).reshape(height, row_bytes + 1)
-    filters = rows[:, 0]
-    if filters.max() > 4:
-        raise ValueError(f"{path}: PNG row filter {int(filters.max())} does not exist")
-    pixels = unfilter(rows[:, 1:], filters, bpp)
-    return _to_bgr(pixels, width, height, channels, depth, ctype, palette, path)
+        raise ValueError(f"{path}: PNG data does not inflate: {e}") from None
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    samples = np.empty((height, width, channels), np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue  # an empty pass has no rows, not even filter bytes
+        row_bytes = -(-w * channels * depth // 8)
+        if len(raw) < pos + h * (row_bytes + 1):
+            raise ValueError(f"{path}: PNG data is truncated")
+        rows = np.frombuffer(raw, np.uint8, h * (row_bytes + 1), pos).reshape(h, row_bytes + 1)
+        pos += h * (row_bytes + 1)
+        filters = rows[:, 0]
+        if filters.max() > 4:
+            raise ValueError(f"{path}: PNG row filter {int(filters.max())} does not exist")
+        # The filters' byte distance: a pixel's bytes, at least one.
+        pixels = unfilter(rows[:, 1:], filters, max(1, channels * depth // 8))
+        samples[y0::dy, x0::dx] = _unpack(pixels, w, channels, depth)
+    return _to_bgr(samples, depth, ctype, palette, path)
 
 
 def unfilter(filtered: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
@@ -304,12 +328,26 @@ def _unfilter_wavefront(filtered: np.ndarray, filters: np.ndarray, bpp: int) -> 
     return pixels.reshape(h, row_bytes)
 
 
-def _to_bgr(pixels, width, height, channels, depth, ctype, palette, path) -> np.ndarray:
+def _unpack(pixels: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered rows -> (h, width, channels) 8-bit samples: 16-bit
+    samples keep their high byte; 1, 2 and 4-bit samples are unpacked
+    from the most significant bits, unscaled."""
+    h = pixels.shape[0]
     if depth == 16:
-        samples = pixels.reshape(height, width * channels, 2)[:, :, 0]  # the high byte
-    else:
+        samples = pixels.reshape(h, width * channels, 2)[:, :, 0]
+    elif depth == 8:
         samples = pixels
-    samples = samples.reshape(height, width, channels)
+    else:
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        samples = ((pixels[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)
+        samples = samples[:, :width * channels]
+    return samples.reshape(h, width, channels)
+
+
+def _to_bgr(samples, depth, ctype, palette, path) -> np.ndarray:
+    """libpng's expansion for cv2: palette indexes through PLTE, gray of
+    1, 2 and 4 bits scaled to 8 (0x11 steps and the like), gray to three
+    equal channels, alpha dropped without compositing, BGR order."""
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without PLTE")
@@ -318,36 +356,123 @@ def _to_bgr(pixels, width, height, channels, depth, ctype, palette, path) -> np.
             raise ValueError(f"{path}: PNG palette index out of range")
         rgb = palette[index]
     elif ctype in (0, 4):
-        rgb = np.repeat(samples[:, :, :1], 3, axis=2)
+        gray = samples[:, :, :1]
+        if depth < 8:
+            gray = gray * np.uint8(255 // ((1 << depth) - 1))
+        rgb = np.repeat(gray, 3, axis=2)
     else:
         rgb = samples[:, :, :3]
     return np.ascontiguousarray(rgb[:, :, ::-1])
 
 
 # ----------------------------------------------------------------------
-# Binary PNM
-_PNM_HEADER = re.compile(
-    rb"(P[56])(?:\s|#[^\n]*\n)+(\d+)(?:\s|#[^\n]*\n)+(\d+)(?:\s|#[^\n]*\n)+(\d+)\s"
-)
+# PNM (PxMDecoder)
+_SPACE = frozenset(b" \t\n\v\f\r")
+
+
+class _PxmStream:
+    """OpenCV's ReadNumber over a PNM file: whitespace and ``#``
+    comments (to a line end) skipped, then digits; the byte after the
+    digits is consumed with them unless ``max_digits`` stopped first."""
+
+    def __init__(self, data: bytes, path: str):
+        self.data, self.path, self.pos = data, path, 2
+
+    def byte(self) -> int:
+        if self.pos >= len(self.data):
+            raise ValueError(f"{self.path}: PNM data is truncated")
+        self.pos += 1
+        return self.data[self.pos - 1]
+
+    def number(self, max_digits: int = 0) -> int:
+        code = self.byte()
+        while not 48 <= code <= 57:
+            if code == 35:  # '#'
+                while code not in (10, 13):
+                    code = self.byte()
+                code = self.byte()
+            elif code in _SPACE:
+                while code in _SPACE:
+                    code = self.byte()
+            else:
+                raise ValueError(f"{self.path}: unexpected byte {code:#x} in a PNM file")
+        value = digits = 0
+        while True:
+            value = value * 10 + code - 48
+            digits += 1
+            if value > 2**31 - 1:
+                raise ValueError(f"{self.path}: a PNM number is too large")
+            if max_digits and digits >= max_digits:
+                return value
+            if self.pos >= len(self.data):
+                return value
+            code = self.byte()
+            if not 48 <= code <= 57:
+                return value
+
+
+def _ascii_body(body: bytes, path: str) -> bytes:
+    """An ASCII PNM body without its comments; anything but digits and
+    whitespace (a comment right after a number among it) raises, as
+    ReadNumber does."""
+    body = re.sub(rb"(^|[ \t\n\v\f\r])#[^\n\r]*", rb"\1", body)
+    if re.search(rb"[^0-9 \t\n\v\f\r]", body):
+        raise ValueError(f"{path}: unexpected bytes in an ASCII PNM file")
+    return body
 
 
 def decode_pnm(data: bytes, path: str = "<pnm>") -> np.ndarray:
-    m = _PNM_HEADER.match(data)
-    if m is None:
+    """P1-P6 as OpenCV's PxM decoder reads them: ``P`` and a digit then
+    whitespace; width, height and (but for P1 and P4) maxval as
+    ReadNumber reads them.  Bitmaps (P1 ASCII digits, P4 packed bits) map
+    1 to black and 0 to white; 2-byte samples (maxval over 255) keep
+    their high byte; 1-byte binary samples are not rescaled to maxval,
+    while ASCII ones are clamped to it and scaled, ``v * 255 // maxval``.  Binary data starts after
+    the one byte that ends the header's last number."""
+    if len(data) < 3 or data[0] != 80 or not 49 <= data[1] <= 54 or data[2] not in _SPACE:
         raise ValueError(f"{path}: invalid PNM header")
-    magic, width, height, maxval = m.group(1), *(int(g) for g in m.groups()[1:])
+    kind = data[1] - 48
+    stream = _PxmStream(data, path)
+    width, height = stream.number(), stream.number()
+    maxval = 1 if kind in (1, 4) else stream.number()
     if not (0 < maxval < 65536 and width > 0 and height > 0):
         raise ValueError(f"{path}: invalid PNM header")
-    channels = 3 if magic == b"P6" else 1
-    size = 2 if maxval > 255 else 1
+    channels = 3 if kind in (3, 6) else 1
     n = width * height * channels
-    body = data[m.end():m.end() + n * size]
-    if len(body) != n * size:
-        raise ValueError(f"{path}: PNM data is truncated")
-    samples = np.frombuffer(body, np.uint8)
-    if size == 2:
-        samples = samples[0::2]  # big-endian: the high byte
-    samples = samples.reshape(height, width, channels)
+    if kind == 4:
+        row_bytes = -(-width // 8)
+        body = data[stream.pos:stream.pos + row_bytes * height]
+        if len(body) != row_bytes * height:
+            raise ValueError(f"{path}: PNM data is truncated")
+        bits = np.unpackbits(np.frombuffer(body, np.uint8).reshape(height, row_bytes), axis=1,
+                             count=width)
+        samples = ((1 - bits) * 255).astype(np.uint8)[:, :, None]
+    elif kind == 1:  # one digit a pixel, adjacent or not
+        digits = np.frombuffer(_ascii_body(data[stream.pos:], path), np.uint8)
+        digits = digits[(digits >= 48) & (digits <= 57)][:n]
+        if len(digits) != n:
+            raise ValueError(f"{path}: PNM data is truncated")
+        samples = np.where(digits == 48, 255, 0).astype(np.uint8).reshape(height, width, 1)
+    elif kind in (2, 3):
+        body = _ascii_body(data[stream.pos:], path)
+        tokens = body.split()
+        # ReadNumber reads the byte after a number's digits: the last
+        # sample needs one.
+        if len(tokens) < n or (len(tokens) == n and body[-1:].isdigit()):
+            raise ValueError(f"{path}: PNM data is truncated")
+        tokens = tokens[:n]
+        values = np.minimum(np.array([int(t) for t in tokens], np.int64), maxval)
+        samples = (values >> 8 if maxval > 255 else values * 255 // maxval).astype(np.uint8)
+        samples = samples.reshape(height, width, channels)
+    else:
+        size = 2 if maxval > 255 else 1
+        body = data[stream.pos:stream.pos + n * size]
+        if len(body) != n * size:
+            raise ValueError(f"{path}: PNM data is truncated")
+        samples = np.frombuffer(body, np.uint8)
+        if size == 2:
+            samples = samples[0::2]  # big-endian: the high byte
+        samples = samples.reshape(height, width, channels)
     if channels == 1:
         return np.repeat(samples, 3, axis=2)
     return np.ascontiguousarray(samples[:, :, ::-1])

@@ -32,6 +32,7 @@ import random
 import re
 import sys
 import xml.etree.ElementTree as ET
+import zlib
 
 import cv2
 import jax
@@ -421,10 +422,11 @@ def test_unsupported_features_match_jax(bundle):
 # line crops, with and without -x) run since the JPEG codec was ported:
 # test_cli_line_crops_equal_jax_cli holds their files; "process-count"
 # runs since the spawned workers were ported:
-# test_cli_process_count_equals_one_process_and_jax holds its files.
+# test_cli_process_count_equals_one_process_and_jax holds its files;
+# "output-render-path" runs since the renders were ported:
+# test_cli_renders_from_tiff_equal_jax_cli holds its files.
 REFUSED = [
     ("output-line-path-lmdb", ["--output-line-path", "{tmp}/lines.lmdb"], "LMDB store", True),
-    ("output-render-path", ["--output-render-path", "{tmp}/r"], "JPEG/TIFF decoding", True),
     ("transport", ["--transport", "crops", "--dp", "2"], "Training and scale-out", True),
     ("transport-bits", ["--transport-bits", "2"],
      "--transport-bits 2 requires --transport crops", False),
@@ -624,6 +626,102 @@ def test_cli_line_crops_equal_jax_cli(bundle, tmp_path, float32_parsenets, jax_g
         f"page-0-{line.id}.jpg" for line in layout.lines_iterator())
     assert ((port / "lines.txt").read_text(encoding="utf-8")
             == (jax_out / "lines.txt").read_text(encoding="utf-8"))
+
+
+def tiff_pages(bundle, folder, kinds=3):
+    """The bundle's first ``kinds`` pages as TIFF files, each of its own
+    kind: RGB LZW (PIL's libtiff), 16x16 tiles of Deflate with Predictor
+    2 (the test writer), gray PackBits in strips of 7 rows (PIL)."""
+    from PIL import Image
+
+    from tests.data.tiff.make_fixtures import base_tags, chunks_of, write_tiff
+
+    folder.mkdir(exist_ok=True)
+    for i, name in enumerate(sorted(os.listdir(bundle / "images"))[:kinds]):
+        page = cv2.imread(str(bundle / "images" / name), 1)
+        path = folder / (name[:-4] + ".tif")
+        if i == 0:
+            Image.fromarray(page[:, :, ::-1]).save(path, compression="tiff_lzw")
+        elif i == 1:
+            rgb = np.ascontiguousarray(page[:, :, ::-1])
+            tags = base_tags(rgb.shape[0], rgb.shape[1], 8, 3, 2, 8, tile=(16, 16),
+                             t317=(3, [2]))
+            chunks = chunks_of(rgb, 8, lambda raw, _: zlib.compress(raw), tile=(16, 16),
+                               predictor=True)
+            path.write_bytes(write_tiff(tags, chunks, tiled=True))
+        else:
+            Image.fromarray(page[:, :, 0]).save(path, compression="packbits",
+                                                strip_size=7 * page.shape[1])
+        assert cv2.imread(str(path), 1) is not None
+    return folder
+
+
+def unreadable_tiff(bundle, path):
+    """A page cv2.imread returns None for: a non-square TIFF with
+    Orientation 6."""
+    from tests.data.tiff.make_fixtures import base_tags, write_tiff
+
+    page = cv2.imread(str(bundle / "images" / "page-0.png"), 1)
+    rgb = np.ascontiguousarray(page[:40, :60, ::-1])
+    path.write_bytes(write_tiff(base_tags(40, 60, 8, 3, 2, 1, t274=(3, [6])), [rgb.tobytes()]))
+    assert cv2.imread(str(path), 1) is None
+    return path
+
+
+@pytest.mark.skipif(jax_native_library() is None, reason="native library unavailable")
+@pytest.mark.parametrize("fast", [False, True], ids=["staged", "fast_pipeline"])
+def test_cli_renders_from_tiff_equal_jax_cli(bundle, tmp_path, float32_parsenets,
+                                             jax_gather_warp, monkeypatch, capsys, fast):
+    """Both command lines from TIFF pages with --output-render-path: the
+    same Page XML (timestamps masked, conf within 0.001) and the same
+    render files byte for byte (cv2.polylines, cv2.circle and
+    cv2.imwrite at quality 70 there, the port's numpy copies and encoder
+    here), drawn after the Page XML stage by stage and last on the fast
+    path.  Stage by stage (two pages, to save time) a third page that
+    cv2.imread returns None for is reported by both ("Unable to read
+    image") and skipped."""
+    monkeypatch.setattr(native, "use_native", lambda route, device: True)
+    images = tiff_pages(bundle, tmp_path / "tiff", 3 if fast else 2)
+    pages = sorted(name[:-4] for name in os.listdir(images))
+    if not fast:
+        bad = unreadable_tiff(bundle, images / "page-9.tif")
+    ini = staged_config(bundle, tmp_path) if not fast else bundle / "config.ini"
+    for name, run in (("port", _run_port), ("jax", _jax_cli)):
+        out = tmp_path / name
+        random.seed(0)
+        run(["-c", str(ini), "-i", str(images), "--device", "cpu", "--timing-report",
+             "--output-xml-path", str(out / "xml"), "--output-render-path", str(out / "render")]
+            + (["--fast-pipeline"] if fast else []))
+        printed = capsys.readouterr().out
+        if not fast:
+            assert "ERROR: Failed to process file page-9." in printed
+            assert f'Unable to read image "{bad}"' in printed
+        if name == "port":
+            assert re.search(rf"^cli/write_render\s+[0-9.]+\s+{len(pages)}\s", printed, re.M)
+    port, jax_out = tmp_path / "port", tmp_path / "jax"
+    assert sorted(os.listdir(port / "render")) == sorted(os.listdir(jax_out / "render")) == [
+        f"{p}.jpg" for p in pages]
+    lines = 0
+    for page in pages:
+        got = (port / "xml" / f"{page}.xml").read_text(encoding="utf-8")
+        assert_xml_equal(got, (jax_out / "xml" / f"{page}.xml").read_text(encoding="utf-8"))
+        lines += got.count("<TextLine")
+        assert ((port / "render" / f"{page}.jpg").read_bytes()
+                == (jax_out / "render" / f"{page}.jpg").read_bytes())
+    assert lines >= 3 * len(pages)
+
+
+def test_cli_fast_path_stops_at_an_unreadable_page(bundle, tmp_path):
+    """On the fast path a page cv2.imread returns None for stops the run
+    with a ValueError naming the file (the JAX command line stops with a
+    TypeError), before any page is processed."""
+    images = tmp_path / "images"
+    images.mkdir()
+    bad = unreadable_tiff(bundle, images / "page-0.tif")
+    with pytest.raises(ValueError, match=f'Unable to read image "{bad}"'):
+        _run_port(["-c", str(bundle / "config.ini"), "-i", str(images), "--device", "cpu",
+                   "--output-xml-path", str(tmp_path / "fast"), "--fast-pipeline"])
+    assert not os.listdir(tmp_path / "fast")
 
 
 # The command lines' logits and ALTO files.  Held to: equal Page XML

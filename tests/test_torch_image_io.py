@@ -3,12 +3,13 @@ against cv2.imread(path, cv2.IMREAD_COLOR): bit for bit on every case.
 
 PNGs come from cv2.imwrite at every compression level, and from a
 test-local encoder that forces each row filter (and mixtures), colour
-type and bit depth (8 and 16); binary PNM from cv2.imwrite and by hand.
-PNG (an eXIf chunk) and JPEG (an APP1 Exif segment) pages carry each of
-the 8 EXIF orientations and malformed tags, turned as cv2 turns them.
-Formats the reader does not take (1, 2 and 4-bit PNG, progressive JPEG
-among them) raise ValueError naming the file and the ROADMAP item.
-(The JPEG codec itself: tests/test_torch_jpeg.py.)
+type and bit depth (1, 2, 4, 8 and 16), interlaced (Adam7) or not; PNM
+(P1-P6) from cv2.imwrite and by hand.  PNG (an eXIf chunk) and JPEG (an
+APP1 Exif segment) pages carry each of the 8 EXIF orientations and
+malformed tags, turned as cv2 turns them.  Formats the reader does not
+take (progressive JPEG, an LZMA TIFF among them) raise ValueError naming
+the file and the ROADMAP item.  (The JPEG codec itself:
+tests/test_torch_jpeg.py; TIFF: tests/test_torch_tiff.py.)
 """
 
 import struct
@@ -21,6 +22,7 @@ import pytest
 
 from pero_ocr_tpu_torch import IMAGES as NOT_READ_ITEM
 from pero_ocr_tpu_torch.utils.image_io import imread
+from tests.data.tiff.make_fixtures import base_tags, write_tiff
 
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -85,18 +87,38 @@ def _filter_rows(raw, bpp, filters):
     return out
 
 
-def _encode(samples, ctype, depth, filters, palette=None, interlace=0, chunks=()):
-    """samples: (H, W, channels) integers < 2**depth -> PNG bytes."""
+def _raw_rows(samples, depth):
+    """(h, w, c) samples -> (h, row_bytes) bytes as PNG stores them."""
     h, w, c = samples.shape
     if depth == 16:
-        raw = samples.astype(">u2").reshape(h, w * c).view(np.uint8)
-    elif depth == 8:
-        raw = samples.astype(np.uint8).reshape(h, w * c)
-    else:  # pack sub-byte samples, most significant first
-        bits = ((samples.reshape(h, w * c, 1) >> np.arange(depth - 1, -1, -1)) & 1)
-        raw = np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
+        return samples.astype(">u2").reshape(h, w * c).view(np.uint8)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, w * c)
+    # pack sub-byte samples, most significant first
+    bits = ((samples.reshape(h, w * c, 1) >> np.arange(depth - 1, -1, -1)) & 1)
+    return np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _encode(samples, ctype, depth, filters, palette=None, interlace=0, chunks=()):
+    """samples: (H, W, channels) integers < 2**depth -> PNG bytes; with
+    ``interlace`` the seven Adam7 passes, each row of each pass with the
+    filter of ``filters`` at its image row."""
+    h, w, c = samples.shape
     bpp = max(1, c * depth // 8)
-    body = _filter_rows(raw, bpp, filters)
+    if interlace:
+        parts = []
+        for x0, y0, dx, dy in ADAM7:
+            sub = samples[y0::dy, x0::dx]
+            if sub.size:
+                parts.append(_filter_rows(_raw_rows(sub, depth), bpp,
+                                          np.asarray(filters)[y0::dy]).tobytes())
+        body = np.frombuffer(b"".join(parts), np.uint8)
+    else:
+        body = _filter_rows(_raw_rows(samples, depth), bpp, filters)
     data = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
                                                               0, 0, interlace))
     for kind, chunk_body in chunks:
@@ -144,18 +166,28 @@ def test_forced_filters(tmp_path, filters, ctype, depth):
 
 @pytest.mark.parametrize("ctype,depth", [(0, 1), (0, 2), (0, 4), (3, 1), (3, 2), (3, 4)])
 def test_sub_byte_depths(tmp_path, ctype, depth):
-    """Gray and palette PNGs of 1, 2 and 4 bits, which cv2 reads, are
-    not read yet: they raise naming the file and the ROADMAP item."""
+    """Gray and palette PNGs of 1, 2 and 4 bits: gray scaled to 8 bits,
+    palette indexes through PLTE, as libpng expands them for cv2; rows
+    whose width leaves part of a byte unused."""
     h, w = 9, 13
     rng = np.random.default_rng(depth)
     samples = rng.integers(0, 1 << depth, (h, w, 1))
     palette = rng.integers(0, 256, (1 << depth, 3)) if ctype == 3 else None
-    path = tmp_path / "low_depth.png"
-    path.write_bytes(_encode(samples, ctype, depth, _filters("mixed", h, depth), palette))
-    assert cv2.imread(str(path), cv2.IMREAD_COLOR) is not None
-    with pytest.raises(ValueError, match=f"bit depth {depth}.*{NOT_READ_ITEM}") as e:
-        imread(str(path))
-    assert "low_depth.png" in str(e.value)
+    _check(tmp_path, _encode(samples, ctype, depth, _filters("mixed", h, depth), palette))
+
+
+@pytest.mark.parametrize("ctype,depth", [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8),
+                                         (2, 16), (3, 1), (3, 2), (3, 4), (3, 8), (4, 8),
+                                         (4, 16), (6, 8), (6, 16)])
+def test_interlaced(tmp_path, ctype, depth):
+    """Adam7 PNGs at every colour type and depth, mixed filters, on
+    sizes whose first passes are empty (1x1, 3x2) or partial."""
+    rng = np.random.default_rng(ctype * 100 + depth)
+    for h, w in ((1, 1), (3, 2), (9, 13), (17, 6)):
+        samples = rng.integers(0, 1 << depth, (h, w, CHANNELS[ctype]))
+        palette = rng.integers(0, 256, (1 << min(depth, 8), 3)) if ctype == 3 else None
+        _check(tmp_path, _encode(samples, ctype, depth, _filters("mixed", h, w), palette,
+                                 interlace=1))
 
 
 @pytest.mark.parametrize("shape", [(1, 17), (17, 1), (1, 1)])
@@ -192,25 +224,30 @@ def test_pnm(tmp_path):
         ("tabs.pgm", b"P5\t6\t4\t255\t" + gray.tobytes()),
     ):
         _check(tmp_path, data, name)
+    if data[1:2] in b"23":  # the last number at the end of the file: cv2 reads past it
+        path = tmp_path / ("cut_" + name)
+        path.write_bytes(data.rstrip())
+        assert cv2.imread(str(path), cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError, match="truncated"):
+            imread(str(path))
 
 
 def test_unread_formats_raise(tmp_path):
+    """What cv2 reads and the port does not: a progressive JPEG and an
+    LZMA TIFF raise naming the file and the ROADMAP item; broken PNG
+    data raises."""
     img = _image(16, 16, 3)
-    for name, params in (("page.jpg", [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]), ("page.tif", [])):
-        path = str(tmp_path / name)
-        assert cv2.imwrite(path, img, params)
-        assert cv2.imread(path, cv2.IMREAD_COLOR) is not None
-        with pytest.raises(ValueError, match=NOT_READ_ITEM) as e:
-            imread(path)
-        assert name in str(e.value)
-    interlaced = tmp_path / "adam7.png"
-    interlaced.write_bytes(_encode(img, 2, 8, [0] * 16, interlace=1))
-    with pytest.raises(ValueError, match=f"interlaced.*{NOT_READ_ITEM}"):
-        imread(str(interlaced))
-    ascii_pnm = tmp_path / "ascii.pgm"
-    ascii_pnm.write_bytes(b"P2\n2 1\n255\n0 255\n")
-    with pytest.raises(ValueError, match=NOT_READ_ITEM):
-        imread(str(ascii_pnm))
+    path = str(tmp_path / "page.jpg")
+    assert cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    assert cv2.imread(path, cv2.IMREAD_COLOR) is not None
+    with pytest.raises(ValueError, match=NOT_READ_ITEM) as e:
+        imread(path)
+    assert "page.jpg" in str(e.value)
+    lzma = tmp_path / "page.tif"
+    lzma.write_bytes(write_tiff(base_tags(16, 16, 8, 3, 2, 34925), [b"\0" * 64]))
+    with pytest.raises(ValueError, match=f"LZMA compression.*{NOT_READ_ITEM}") as e:
+        imread(str(lzma))
+    assert "page.tif" in str(e.value)
     broken = bytearray(_encode(img, 2, 8, [0] * 16))
     broken[40] ^= 0xFF  # inside IDAT: its CRC fails
     (tmp_path / "broken.png").write_bytes(bytes(broken))
@@ -219,6 +256,34 @@ def test_unread_formats_raise(tmp_path):
     (tmp_path / "short.png").write_bytes(_encode(img, 2, 8, [0] * 16)[:60])
     with pytest.raises(ValueError):
         imread(str(tmp_path / "short.png"))
+
+
+def test_formats_read_since_tiff_equal_cv2(tmp_path):
+    """Formats the port refused before it read TIFF: cv2.imwrite's TIFF
+    (LZW), an interlaced PNG and ASCII PNM, each equal to cv2."""
+    img = _image(16, 16, 3)
+    path = str(tmp_path / "page.tif")
+    assert cv2.imwrite(path, img)
+    np.testing.assert_array_equal(imread(path), cv2.imread(path, cv2.IMREAD_COLOR))
+    _check(tmp_path, _encode(img, 2, 8, [0] * 16, interlace=1), "adam7.png")
+    _check(tmp_path, b"P2\n2 1\n255\n0 255\n", "ascii.pgm")
+
+
+@pytest.mark.parametrize("name,data", [
+    ("p1.pbm", b"P1\n# bits\n5 2\n1 0 1 1 0\n0 0 1 1 1\n"),
+    ("p1_adjacent.pbm", b"P1 5 2 1011000111"),
+    ("p4.pbm", b"P4\n11 2\n\xa5\x40\x0f\xe0"),
+    ("p2_scaled.pgm", b"P2\n4 2\n100\n0 13 56 99\n100 120 7 1\n"),
+    ("p2_16bit.pgm", b"P2\n3 1 # deep\n1000\n0 513 999\n"),
+    ("p3.ppm", b"P3\n2 2\n255\n1 2 3 4 5 6\n7 8 9 250 251 300\n"),
+    ("p3_16bit.ppm", b"P3 1 2 65535 65535 256 0 1 2 3 "),
+    ("p5_over_maxval.pgm", b"P5\n3 1\n7\n\x01\x08\xff"),
+])
+def test_pnm_ascii_and_bitmaps(tmp_path, name, data):
+    """P1-P4 as cv2's PxM decoder reads them: ASCII samples clamped to
+    maxval and scaled to 8 bits, 2-byte ones by their high byte; bitmaps
+    1 = black; binary 1-byte samples unscaled."""
+    _check(tmp_path, data, name)
 
 
 def test_full_page_with_mixed_filters_decodes_fast(tmp_path):
