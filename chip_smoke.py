@@ -1,6 +1,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --config2-ab OTHER_CHECKOUT   # config 2's fast path,
+                                                        # OTHER and this, 4 runs each
 
 Phases (each raises on failure, so the run exits non-zero):
 
@@ -84,7 +86,19 @@ Phases (each raises on failure, so the run exits non-zero):
    workers on the card, each page's Page XML equal, pages/s of both
    (``{"simple_regions": ...}``, ``{"process_count": ...}``,
    ``simple_regions_*`` keys).  These two phases draw from their own
-   generator and log the seconds they add.
+   generator and log the seconds they add.  Then the device mesh
+   (``run_mesh``): config 2's first 8 pages through
+   ``TorchPagePipeline(mesh=Mesh([[cuda:0], [cuda:0]]))`` (two dp shards
+   of the one card, the bench modules shared) and without a mesh, A B
+   B A after a warm-up: equal layouts, texts equal or apart only at
+   near-ties of the logits each run gave the line, ``warp_lines``
+   launched twice for the batch under the mesh and once without,
+   pages/s of both; the sharded recognizer trainer in a world-size-1
+   NCCL group on ``make_mesh(1)`` (bench widths, 32 crops, TF32 off):
+   its first step against ``make_train_step``'s from a copy, ms a step
+   of both; ``parse_folder --fast-pipeline --dp 2`` exits 2 with the
+   JAX message and writes nothing (``{"mesh": ...}``, the kernels
+   line's ``launches_mesh*``).
 10. Config 5's outputs (``run_config5``): the page transport with
     ``want_logits`` on 16 pages and stage by stage on 4, each with and without the logits
     pickle and ALTO (A B B A), the card's top-k against ``torch.topk``
@@ -154,9 +168,12 @@ Phases (each raises on failure, so the run exits non-zero):
     ``parse_folder -x`` and an OCR-only config on the card from JPEG
     pages with --output-line-path, with and without --fast-pipeline,
     each equal to the same command on the CPU (line files byte for byte);
-    the full-width reference transformer through the fast re-OCR, its
-    graph equal to its eager loop and its tokens to the CPU's
-    (``{"reocr": ...}``).
+    the card's staged one runs with ``--profile``: its torch.profiler
+    trace must parse and hold CUDA kernel events, ``warp_fields_kernel``
+    among them (``profile_trace``), and its rate is reported as
+    ``pages_per_s_profiled``, apart from the untraced ones; the full-width reference transformer
+    through the fast re-OCR, its graph equal to its eager loop and its
+    tokens to the CPU's (``{"reocr": ...}``).
 16. TorchScript and item 8d (``run_torchscript``, after re-OCR): the
     detector (the edge detector at base 32, depth 4, conv stem) and the
     bench recognizer in float32, each traced on the CPU into a ``.pt``
@@ -185,7 +202,8 @@ Phases (each raises on failure, so the run exits non-zero):
     held against the CPU's (float32, TF32 off: loss, gradients, global
     norm, weights after the step) with a float64 witness on both (the
     card's float64 step equals the CPU's; its float32 gradients are as
-    close to float64 as the CPU's), a learning run whose loss must fall
+    close to float64 as the CPU's), a learning run of 20 steps whose
+    loss must fall
     (the recognizer: bench.py's curriculum, whose loss must leave the
     blank plateau, then the full lines; its held-out greedy CER is
     printed), the recognizer, detector and LMs
@@ -205,7 +223,8 @@ lines' numbers (``{"cli": ...}``,
 ``{"staged": ...}``), config 1's, REGION_SIMPLE_THRESHOLD's,
 --process-count's, config 5's, config 3's and config 4's
 (``{"config1": ...}``, ``{"simple_regions": ...}``,
-``{"process_count": ...}``, ``{"config5": ...}``, ``{"user_scripts": ...}``,
+``{"process_count": ...}``, ``{"mesh": ...}``, ``{"config5": ...}``,
+``{"user_scripts": ...}``,
 ``{"config3": ...}``,
 ``{"config4": ...}``), the crop transport's, re-OCR's and TorchScript's, the
 host library's (``{"host_native": ...}``), training's (``{"train": ...}``),
@@ -219,6 +238,7 @@ import configparser
 import contextlib
 import copy
 import dataclasses
+import datetime
 import difflib
 import hashlib
 import io
@@ -240,6 +260,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from pero_ocr_tpu_torch.core import geometry, render
@@ -265,6 +286,7 @@ from pero_ocr_tpu_torch.ops import morphology
 from pero_ocr_tpu_torch.ops import warp as warp_ops
 from pero_ocr_tpu_torch.parallel.crop_transport import unpack_bits, warp_affine_lines
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
+from pero_ocr_tpu_torch.parallel import mesh as mesh_lib
 from pero_ocr_tpu_torch.parallel import train
 from pero_ocr_tpu_torch.sequence_alignment import levenshtein_ids_batch
 from pero_ocr_tpu_torch.scripts import compare_page_xml_texts, produce_2layer_pdf, select_embed_id
@@ -896,7 +918,7 @@ def run_config2(pipe, rng, smi: str):
             + timing.timing_report())
     ab = route_ab(runs, FAST_STAGES, smi, "config 2", host_calls)
     host = {"pipe": pipe, "numpy_pipe": numpy_pipe, "stage_a": stage_a, "ds": ds,
-            "page_lines": page_lines, "ab": ab}
+            "page_lines": page_lines, "ab": ab, "pages": pages[:PAGE_BATCH]}
     # Stage B's device time alone on the last batch.
     device = float(np.median([cuda_ms(lambda: pipe.stage_b(*last_b[0]), reps=1, warmup=1)
                               for _ in range(5)]))
@@ -2299,6 +2321,233 @@ def run_process_count(pipe: TorchPagePipeline, rng, smi: str) -> dict:
             "wall_s": many["wall_s"], "wall_s_one_process": one["wall_s"],
             "warp_fields_launches": many["launches"], "page_format": "jpeg gray q90",
             "card": smi}
+
+
+# ----------------------------------------------------------------------
+# The device mesh (run_mesh): --dp's sharded page batches on two dp
+# shards of the one card, the sharded trainer in a world-size-1 NCCL
+# group, and --dp's exit where too few cards are visible.
+MESH_CONF_TOL = 0.0015     # a line's confidence, mesh run against one device
+MESH_STEP_TOL = 1e-6       # the sharded first step's loss (relative) against make_train_step's
+MESH_TRAIN_BATCH = 32      # crops of 32 x REC_WIDTH a step at the bench recognizer's widths
+MESH_TRAIN_STEPS, MESH_TRAIN_WARM = 7, 2
+MESH_BACKEND = "nccl"      # the trainer's process group (a CPU rehearsal: "gloo")
+
+
+def without_text(xml: str) -> str:
+    """Page XML without its timestamps and TextEquiv elements (texts and
+    confidences): the layout alone."""
+    return mask_pagexml(re.sub(r"<TextEquiv[^>]*>.*?</TextEquiv>", "", xml, flags=re.S))
+
+
+def logits_near_tie(la: np.ndarray, lb: np.ndarray) -> bool:
+    """Whether two (T, C) logits of one line whose greedy texts differ
+    differ only at near-ties: every frame whose argmax differs has its
+    two best logits (in ``lb``) closer than twice the largest logit
+    difference on the line (near_ties' rule)."""
+    frames = np.flatnonzero(la.argmax(-1) != lb.argmax(-1))
+    top2 = np.sort(lb[frames], axis=-1)[:, -2:]
+    return bool(len(frames)) and bool(
+        (top2[:, 1] - top2[:, 0] <= 2 * np.abs(la - lb).max()).all())
+
+
+def mesh_serving(pipe: TorchPagePipeline, pages, smi: str) -> dict:
+    """Config 2's fast path on ``pages`` (one batch of PAGE_BATCH) through
+    ``TorchPagePipeline(mesh=Mesh([[cuda:0], [cuda:0]]))``, two dp shards
+    of the one card sharing ``pipe``'s modules, and through ``pipe``
+    without a mesh, A B B A after a warm-up.  Every page's layout must be
+    equal, each line's text equal or apart only at near-ties of the
+    recognizer's logits (logits_near_tie, on the logits each run gave
+    the line), its confidence within MESH_CONF_TOL; warp_lines launches
+    twice a stage-B batch under the mesh, once without."""
+    ids = [f"m{i:04d}" for i in range(len(pages))]
+    meshed = TorchPagePipeline(
+        pipe.parsenet, pipe.recognizer, downsample=pipe.downsample, crop_bucket=pipe.crop_bucket,
+        crop_height=pipe.crop_height, line_slot=pipe.line_slot,
+        adaptive_downsample=pipe.adaptive_downsample,
+        mesh=mesh_lib.Mesh([[pipe.device], [pipe.device]]))
+    rec = pipe.recognizer
+    kept = {"mesh": [], "one": []}
+    runs = {"mesh": [], "one": []}
+
+    def keeper(name):
+        def keeping(images):
+            kept[name].append(rec(images))
+            return kept[name][-1]
+
+        keeping.spec = rec.spec
+        return keeping
+
+    start_ds = pipe._last_ds
+    try:
+        meshed.recognizer, pipe.recognizer = keeper("mesh"), keeper("one")
+        for name in ("mesh", "one", "mesh", "mesh", "one"):  # a warm-up, then A B B A
+            meshed._last_ds = pipe._last_ds = start_ds
+            fast = FastPagePipeline(meshed if name == "mesh" else pipe, BENCH_CHARS,
+                                    page_batch=len(pages))
+            kept[name].clear()
+            warp_ops.warp_lines.launches = 0
+            t0 = time.perf_counter()
+            out = [(layout, layout.to_pagexml_string())
+                   for layout in fast.process_pages(pages, ids)]
+            torch.cuda.synchronize()
+            runs[name].append({"seconds": time.perf_counter() - t0, "out": out,
+                               "launches": warp_ops.warp_lines.launches,
+                               "logits": [t.float().cpu().numpy() for t in kept[name]]})
+    finally:
+        pipe.recognizer, pipe._last_ds = rec, start_ds
+    mesh_run, one_run = runs["mesh"][-1], runs["one"][-1]
+    if (mesh_run["launches"], one_run["launches"]) != (2, 1) or len(mesh_run["logits"]) != 2:
+        raise AssertionError(f"mesh: warp_lines launched {mesh_run['launches']} times under "
+                             f"the mesh and {one_run['launches']} without, want 2 and 1")
+    (one_logits,), shard_logits = one_run["logits"], mesh_run["logits"]
+    slots = one_logits.shape[0] // len(pages)
+    per_shard = len(pages) // len(shard_logits)
+    lines = near = 0
+    worst_conf = 0.0
+    for p, ((lay_m, xml_m), (lay_o, xml_o)) in enumerate(zip(mesh_run["out"], one_run["out"])):
+        if lay_m.id != ids[p] or without_text(xml_m) != without_text(xml_o):
+            raise AssertionError(f"mesh: page {ids[p]}'s layout differs from one device's")
+        for lm, lo in zip(lay_m.lines_iterator(), lay_o.lines_iterator()):
+            lines += 1
+            if lm.transcription == lo.transcription:
+                worst_conf = max(worst_conf, abs(lm.transcription_confidence
+                                                 - lo.transcription_confidence))
+                continue
+            la = shard_logits[p // per_shard][(p % per_shard) * slots + lm.index]
+            lb = one_logits[p * slots + lo.index]
+            if not logits_near_tie(la, lb):
+                raise AssertionError(f"mesh: page {ids[p]} line {lm.id}: {lm.transcription!r} "
+                                     f"against {lo.transcription!r} on one device, not a "
+                                     "near-tie")
+            near += 1
+    if worst_conf > MESH_CONF_TOL:
+        raise AssertionError(f"mesh: a confidence differs by {worst_conf} from one device's")
+    pages_per_s = {name: [len(pages) / r["seconds"] for r in runs[name][-2:]]
+                   for name in ("mesh", "one")}
+    log(f"mesh (2 dp shards on one card) vs one device: {len(pages)} pages, {lines} lines, "
+        f"layouts equal, texts equal but {near} near-ties, confidences within {worst_conf}; "
+        f"warp_lines launches {mesh_run['launches']} / {one_run['launches']} a stage-B batch; "
+        f"pages/s mesh {pages_per_s['mesh']}, one device {pages_per_s['one']} (A B B A) on {smi}")
+    return {"pages": len(pages), "lines": lines, "near_ties": near, "worst_conf_diff": worst_conf,
+            "warp_lines_launches": mesh_run["launches"],
+            "warp_lines_launches_one_device": one_run["launches"],
+            "pages_per_s": float(np.median(pages_per_s["mesh"])),
+            "pages_per_s_one_device": float(np.median(pages_per_s["one"])),
+            "pages_per_s_runs": pages_per_s}
+
+
+def mesh_training(smi: str) -> dict:
+    """The sharded recognizer trainer in a world-size-1 NCCL group
+    (MESH_BACKEND) on a (1, 1) mesh of the card (TRAIN_DEVICE), float32 with TF32 off, at the bench
+    recognizer's widths on MESH_TRAIN_BATCH glyph lines: its first step
+    against make_train_step's on the same batch from a copy of the same
+    weights (the loss within MESH_STEP_TOL relative; every weight within
+    STEP_ATOL_LR * lr beyond what Adam's first update makes of the two
+    gradients' difference, first_step_parity's bound), then ms a step of
+    both (median after MESH_TRAIN_WARM)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = RecognizerSpec(dtype=torch.float32, **TRAIN_REC)
+    bank = glyph_bank(np.random.default_rng(7), REC_GLYPHS, spec.line_height, (12, 20))
+    batch = glyph_lines(np.random.default_rng(20), bank, MESH_TRAIN_BATCH, spec.line_height,
+                        REC_WIDTH, REC_MAX_LABEL)
+    lr = 1e-3
+    sharded_rec = CTCRecognizer(spec, generator=torch.Generator().manual_seed(11))
+    plain_rec = copy.deepcopy(sharded_rec)
+    out = {"batch": [MESH_TRAIN_BATCH, spec.line_height, REC_WIDTH], "card": smi}
+    try:
+        with tempfile.TemporaryDirectory(prefix="mesh_nccl_") as tmp:
+            t0 = time.perf_counter()
+            dist.init_process_group(MESH_BACKEND,
+                                    store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1,
+                                    timeout=datetime.timedelta(seconds=120))
+            try:
+                mesh = mesh_lib.make_mesh(1, device_type=TRAIN_DEVICE)
+                opt_s, opt_p = train.make_optimizer(lr), train.make_optimizer(lr)
+                s_state = train.shard_train_state(
+                    train.init_train_state(sharded_rec, opt_s, device=TRAIN_DEVICE), mesh)
+                p_state = train.init_train_state(plain_rec, opt_p, device=TRAIN_DEVICE)
+                s_step = train.make_sharded_train_step(sharded_rec, opt_s, mesh)
+                p_step = train.make_train_step(plain_rec, opt_p)
+                out["group_s"] = time.perf_counter() - t0
+                s_state, s_loss = s_step(s_state, *batch)
+                p_state, p_loss = p_step(p_state, *batch)
+                s_grads, p_grads = (train.gradients(m, st) for m, st in
+                                    ((sharded_rec, s_state), (plain_rec, p_state)))
+                eps = 1e-8 * max(1.0, float(p_state.opt_state.grad_norm))
+                worst = diff = 0.0
+                with torch.no_grad():
+                    for gs, gp, ws, wp in zip(s_grads, p_grads, s_state.params.values(),
+                                              p_state.params.values()):
+                        moved = (ws - wp).abs() / lr
+                        apart = torch.clamp(
+                            (gs - gp).abs() / (torch.minimum(gs.abs(), gp.abs()) + eps), max=2.0)
+                        worst = max(worst, float((moved - apart).max()))
+                        diff = max(diff, float((ws - wp).abs().max()))
+                out.update(loss=float(s_loss), loss_plain=float(p_loss), weight_excess_lr=worst,
+                           weights_max_abs_diff=diff)
+                if not (abs(out["loss"] - out["loss_plain"]) <= MESH_STEP_TOL * abs(
+                        out["loss_plain"]) and worst <= STEP_ATOL_LR):
+                    raise AssertionError(f"mesh: the sharded first step differs from "
+                                         f"make_train_step's: {out}")
+                for name, step, state in (("sharded", s_step, s_state), ("plain", p_step, p_state)):
+                    ms = []
+                    for _ in range(MESH_TRAIN_STEPS):
+                        t0 = time.perf_counter()
+                        state, loss = step(state, *batch)
+                        torch.cuda.synchronize()
+                        ms.append(1e3 * (time.perf_counter() - t0))
+                    out[f"ms_per_step_{name}"] = float(np.median(ms[MESH_TRAIN_WARM:]))
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    log(f"mesh training (world size 1, {MESH_BACKEND}, TF32 off): {json.dumps(out)}")
+    return out
+
+
+def mesh_cli_refuses(pipe: TorchPagePipeline, page) -> dict:
+    """``parse_folder --fast-pipeline --dp N`` with N one more than the
+    visible cards: exit 2 with the JAX command line's message, no output
+    written."""
+    n = torch.cuda.device_count() + 1
+    want = f"--dp {n} requested but only {n - 1} device(s) visible"
+    with tempfile.TemporaryDirectory(prefix="mesh_cli_") as tmp:
+        ini, images = write_bundle(tmp, pipe.parsenet, pipe.recognizer, {"m0000": page},
+                                   jpeg="gray")
+        out_dir = os.path.join(tmp, "xml")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pero_ocr_tpu_torch.scripts.parse_folder", "-c", ini, "-i",
+             images, "--output-xml-path", out_dir, "--fast-pipeline", "--dp", str(n)],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        log(f"--dp {n} on {n - 1} card(s): exit {proc.returncode} in {seconds:.1f} s\n"
+            f"{proc.stderr.strip()[-2000:]}")
+        if proc.returncode != 2 or want not in proc.stderr or os.path.exists(out_dir):
+            raise AssertionError(f"--dp {n}: exit {proc.returncode}, want 2 with {want!r} and "
+                                 "no output")
+    return {"dp": n, "exit": proc.returncode, "message": want, "wall_s": seconds}
+
+
+def run_mesh(pipe: TorchPagePipeline, pages, smi: str) -> dict:
+    """The device mesh on the card: mesh_serving, mesh_training and
+    mesh_cli_refuses; each part's wall seconds."""
+    out, wall = {}, {}
+    for name, part in (("serving", lambda: mesh_serving(pipe, pages, smi)),
+                       ("training", lambda: mesh_training(smi)),
+                       ("cli", lambda: mesh_cli_refuses(pipe, pages[0]))):
+        t0 = time.perf_counter()
+        out[name] = part()
+        # The cached blocks back to the card: the command lines run in
+        # processes of their own.
+        torch.cuda.empty_cache()
+        wall[name] = time.perf_counter() - t0
+    out["wall_s"] = wall
+    log(f"mesh phase, wall seconds by part: {json.dumps(wall)}")
+    return out
 
 
 def run_parse_folder(args, label: str, program=None):
@@ -4433,6 +4682,34 @@ def transformer_reocr(layout: PageLayout, page: np.ndarray, smi: str) -> dict:
             "card_vs_cpu_equal_near_tie_differ": counts}
 
 
+def profile_trace(trace_dir: str, kernel: str) -> dict:
+    """The ``--profile`` trace that a command line wrote to
+    ``trace_dir``: one ``*.pt.trace.json`` that parses as JSON and holds
+    CUDA kernel events, ``kernel`` (a hand-written kernel's name) among
+    them.  Returns its size, its kernel events and the named kernel's
+    count and summed device ms."""
+    names = [n for n in os.listdir(trace_dir) if n.endswith(".pt.trace.json")]
+    if len(names) != 1:
+        raise AssertionError(f"--profile wrote {names} to {trace_dir}, want one trace")
+    path = os.path.join(trace_dir, names[0])
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("--profile: torch.profiler recorded no CUDA kernel events (no "
+                             "CUPTI activity on this machine), only "
+                             f"{sorted({e.get('cat') for e in events} - {None})}")
+    named = [e for e in kernels if kernel in e.get("name", "")]
+    if not named:
+        raise AssertionError(f"--profile: no {kernel} among the trace's {len(kernels)} kernel "
+                             "events")
+    out = {"bytes": os.path.getsize(path), "events": len(events), "kernel_events": len(kernels),
+           f"{kernel}_events": len(named),
+           f"{kernel}_ms": sum(e.get("dur", 0) for e in named) / 1e3}
+    log(f"--profile trace {names[0]}: {json.dumps(out)}")
+    return out
+
+
 def run_reocr(pipe: TorchPagePipeline, rng, smi: str):
     """Re-OCR of existing layouts: REOCR_PAGES two-column pages to Page
     XML with the page transport, then ``parse_folder -x <that xml> -i
@@ -4467,8 +4744,10 @@ def run_reocr(pipe: TorchPagePipeline, rng, smi: str):
         for flags, name in (([], "staged"), (["--fast-pipeline"], "fast")):
             out, cpu_out = (os.path.join(tmp, f"{name}_{d}") for d in ("card", "cpu"))
             args = ["-c", ini, "-i", images, "-x", xml_in, "--timing-report", *flags]
+            trace_dir = os.path.join(tmp, f"trace_{name}")
             proc, seconds = run_parse_folder(
-                args + ["--output-xml-path", out, "--output-line-path", out + "_lines"],
+                args + ["--output-xml-path", out, "--output-line-path", out + "_lines"]
+                + ([] if flags else ["--profile", trace_dir]),
                 f"re-OCR command line ({name})", NO_TF32_CLI)
             use_native = native.use_native
             native.use_native = lambda route, device: True  # the card's host route
@@ -4488,8 +4767,11 @@ def run_reocr(pipe: TorchPagePipeline, rng, smi: str):
                                   if card_lines.get(n) != cpu_lines.get(n))
             timed = re.search(r"^cli/pages\s+([0-9.]+)\s+1\s", proc.stdout, re.M)
             launches = re.search(r"^warp_fields kernel launches: (\d+)$", proc.stdout, re.M)
+            # The staged run is traced (--profile), so its rate is
+            # not the untraced one of earlier runs: it keeps another key.
+            rate_key = "pages_per_s" if flags else "pages_per_s_profiled"
             numbers[name] = {"wall_s": seconds, "cpu_s": cpu_seconds,
-                             "pages_per_s": REOCR_PAGES / float(timed.group(1)),
+                             rate_key: REOCR_PAGES / float(timed.group(1)),
                              "warp_fields_launches": int(launches.group(1)),
                              "pages_differ": differ, "line_files": len(card_lines),
                              "line_files_differ": lines_differ}
@@ -4501,6 +4783,8 @@ def run_reocr(pipe: TorchPagePipeline, rng, smi: str):
                 raise AssertionError(f"re-OCR ({name}): the card's line files differ from the "
                                      f"CPU's: {lines_differ[:10]}, {len(card_lines)} files for "
                                      f"{numbers['lines']} lines")
+            if not flags:
+                numbers[name]["profile"] = profile_trace(trace_dir, "warp_fields_kernel")
             want = 0 if flags else REOCR_PAGES
             if numbers[name]["warp_fields_launches"] != want:
                 raise AssertionError(f"re-OCR ({name}): warp_fields launched "
@@ -5238,7 +5522,7 @@ def check_host_native(fast: dict, staged: dict, viterbi, smi: str) -> dict:
 # Training on the card (run_train): the five trainers of
 # pero_ocr_tpu_torch/parallel/train.py at full width.
 TRAIN_DEVICE = "cuda"
-TRAIN_STEPS = 30  # learning steps a trainer (warm-up steps included)
+TRAIN_STEPS = 20  # learning steps a trainer (warm-up steps included)
 TRAIN_WARM = 3    # steps before the timed ones
 # The first step, card against CPU, the same weights and batch, TF32
 # off, with a float64 witness: the same step in float64 on the CPU and
@@ -5449,11 +5733,13 @@ def first_step_parity(label: str, build, make_step, batch, lr: float) -> dict:
     float32 step without cuDNN is printed beside, as information."""
     initial = build()
     runs = {}
+    seconds = {}
     for key, device, wide, cudnn in (("cpu", "cpu", False, True),
                                      ("card", TRAIN_DEVICE, False, True),
                                      ("cpu64", "cpu", True, True),
                                      ("card64", TRAIN_DEVICE, True, True),
                                      ("card_no_cudnn", TRAIN_DEVICE, False, False)):
+        t0 = time.perf_counter()
         model = float64_copy(initial) if wide else copy.deepcopy(initial)
         optimizer = train.make_optimizer(lr)
         with Float64Casts() if wide else contextlib.nullcontext(), \
@@ -5467,6 +5753,7 @@ def first_step_parity(label: str, build, make_step, batch, lr: float) -> dict:
                          weights=[w.detach().cpu() for w in state.params.values()],
                          names=list(state.params))
         del model, state, optimizer
+        seconds[key] = time.perf_counter() - t0
     cpu, card, witness = runs["cpu"], runs["card"], runs["cpu64"]["grads"]
     floor = GRAD_FLOOR * max(float(g.abs().max()) for g in witness)
     scales = [max(float(g.abs().max()), floor) for g in witness]
@@ -5512,7 +5799,7 @@ def first_step_parity(label: str, build, make_step, batch, lr: float) -> dict:
                worst_leaf={key: cpu["names"][int(np.argmax(errors[key]))]
                            for key in ("cpu", "card", "card_no_cudnn")},
                weight_excess_lr=worst_excess, gradient_sign_flips=flips,
-               weights=int(sum(w.numel() for w in cpu["weights"])))
+               weights=int(sum(w.numel() for w in cpu["weights"])), seconds_by_run=seconds)
     if faults:
         raise AssertionError(f"train {label}, first step card vs CPU: {json.dumps(out)}: "
                              + "; ".join(faults[:8]))
@@ -5659,8 +5946,10 @@ def run_train(rng, smi: str) -> dict:
     torch.set_num_threads(os.cpu_count() or 1)
     report = {"device": smi}
     t_phase = time.perf_counter()
+    starts = []  # (trainer, wall clock at its start)
     try:
         # --- CTC recognizer: the bench recognizer, float32 compute.
+        starts.append(("ctc", time.perf_counter()))
         spec32 = RecognizerSpec(dtype=torch.float32, **TRAIN_REC)
         bank = glyph_bank(np.random.default_rng(7), REC_GLYPHS, spec32.line_height, (12, 20))
         train_set = glyph_lines(rng, bank, 4 * REC_BATCH, spec32.line_height, REC_WIDTH,
@@ -5732,6 +6021,7 @@ def run_train(rng, smi: str) -> dict:
         del rec, back, state, opt, held_logits
 
         # --- ParseNet: chip_smoke's detector, bench's third phase.
+        starts.append(("parsenet", time.perf_counter()))
         pages, lines = synthetic_pages(np.random.default_rng(21), PN_PAGES)
         scales = {ds: parsenet_batch(pages, lines, ds) for ds in (4, 2)}
         # The third phase's weights (every term of the loss runs) at the
@@ -5772,6 +6062,7 @@ def run_train(rng, smi: str) -> dict:
         del pn, back, state, opt, scales
 
         # --- OrientationNet at its defaults, 8 tiles of 256x256.
+        starts.append(("orientation", time.perf_counter()))
         tiles = orientation_tiles(rng, 4 * TILES, TILE)
         lr = 1e-3
 
@@ -5792,6 +6083,7 @@ def run_train(rng, smi: str) -> dict:
         del onet, state, opt
 
         # --- the native transformer at TransformerSpec's defaults, 16 lines.
+        starts.append(("transformer", time.perf_counter()))
         tspec = TransformerSpec(**TRAIN_TF)
         # Glyphs of 12 of the 80 classes: the loss falls on what the
         # decoder can learn in a few dozen steps.
@@ -5817,6 +6109,7 @@ def run_train(rng, smi: str) -> dict:
         del tmodel, state, opt
 
         # --- the character LM at the spec defaults, and one GRU.
+        starts.append(("charlm", time.perf_counter()))
         corpus = lm_corpus(rng, 4 * LM_BATCH, LM_LENGTH, TRAIN_LM["vocab_size"])
         lr = 3e-3
 
@@ -5850,6 +6143,8 @@ def run_train(rng, smi: str) -> dict:
     finally:
         torch.backends.cudnn.allow_tf32 = True
     report["seconds"] = time.perf_counter() - t_phase
+    ends = [t for _, t in starts[1:]] + [t_phase + report["seconds"]]
+    report["seconds_by_trainer"] = {name: end - t for (name, t), end in zip(starts, ends)}
     log(f"train: {json.dumps(report)}")
     return report
 
@@ -5901,6 +6196,8 @@ def run_phases(smi: str) -> list:
     with phase("process_count"):
         process_count = run_process_count(pipe, new_rng, smi)
     log(f"REGION_SIMPLE_THRESHOLD and --process-count add {time.perf_counter() - t_new:.1f} s")
+    with phase("mesh"):
+        mesh = run_mesh(pipe, fast_host["pages"], smi)
     with phase("config5"):
         launches_config5, config5, config5_args, viterbi_inputs, config5_files = run_config5(
             pipe, rng, smi)
@@ -5946,6 +6243,8 @@ def run_phases(smi: str) -> list:
         "launches_config5": launches_config5["warp_lines"],
         **{f"config5_{k}": v for k, v in config5_check.items()},
         "launches_torchscript": ts_launches,
+        "launches_mesh": mesh["serving"]["warp_lines_launches"],
+        "launches_mesh_one_device": mesh["serving"]["warp_lines_launches_one_device"],
         **{f"torchscript_{k}": v for k, v in ts_check.items()},
     }
 
@@ -5978,12 +6277,40 @@ def run_phases(smi: str) -> list:
     return [json.dumps({key: value}) for key, value in (
         ("jpeg", jpeg_numbers), ("tiff", tiff_numbers), ("cli", cli), ("staged", staged),
         ("config1", config1),
-        ("simple_regions", simple), ("process_count", process_count), ("config5", config5),
+        ("simple_regions", simple), ("process_count", process_count), ("mesh", mesh),
+        ("config5", config5),
         ("user_scripts", user_scripts),
         ("config3", config3), ("config4", config4), ("crops", crops), ("reocr", reocr),
         ("torchscript", torchscript),
         ("host_native", host_native),
         ("train", training))] + [smi, json.dumps({"kernels": [warp, fields]})]
+
+
+# One run of config 2's fast path in a checkout (its own chip_smoke.py's
+# run_main_path and run_config2, so an older checkout runs as it did).
+CONFIG2_RUN = ("import json, sys; import numpy as np; import chip_smoke as c; "
+               "c.kernels.build(); rng = np.random.default_rng(0); "
+               "pipe = c.run_main_path(rng)[0]; _, numbers, _, host = c.run_config2(pipe, rng, "
+               "sys.argv[1]); print(json.dumps({'config2': numbers, 'ab': host['ab']}, "
+               "default=str))")
+
+
+def config2_ab(other: str, smi: str) -> int:
+    """``chip_smoke.py --config2-ab OTHER``: config 2's fast path in the
+    checkout OTHER (say, a ``git archive`` of the parent commit) and in
+    this one, in the order OTHER, this, this, OTHER, this, OTHER, OTHER,
+    this (drift cancels), each in a process of its own on the one card;
+    prints each run's numbers as a JSON line and exits 0 when all ran."""
+    other = os.path.abspath(other)
+    for tree in (other, REPO, REPO, other, REPO, other, other, REPO):
+        proc = subprocess.run([sys.executable, "-c", CONFIG2_RUN, smi], cwd=tree,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            log(proc.stdout[-3000:] + proc.stderr[-3000:])
+            raise AssertionError(f"config 2 in {tree} failed ({proc.returncode})")
+        log(json.dumps({"tree": tree, "card": smi,
+                        **json.loads(proc.stdout.strip().splitlines()[-1])}))
+    return 0
 
 
 def main() -> int:
@@ -5994,6 +6321,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if sys.argv[1:2] == ["--config2-ab"]:
+        return config2_ab(sys.argv[2], smi)
     # Every warning of the serving and training phases is recorded; the
     # BiLSTM's "not part of single contiguous chunk of memory" (cuDNN
     # compacting the weights on every call) fails the run.

@@ -9,8 +9,11 @@ from a flax checkpoint) on every path, the beam search with a character
 LM, every layout stage of the JAX package (``REGION_SIMPLE_THRESHOLD``'s
 OpenCV chain copied bit for bit, its NL-means in the host C++ of
 ``csrc/nlmeans.cpp``), the command line's ``--process-count`` workers,
-the reference's TorchScript ParseNet and CTC archives on both paths, and
-it trains every model it serves (``parallel/train.py``).  Pages come in
+the reference's TorchScript ParseNet and CTC archives on both paths, the
+device mesh (``parallel/mesh.py``: ``--dp``'s page batches split over
+dp, the recognizer's trainer sharded over a ``torch.distributed``
+group) and ``--profile``'s ``torch.profiler`` trace, and it trains
+every model it serves (``parallel/train.py``).  Pages come in
 as baseline JPEG, PNG, PNM or TIFF (turned by their EXIF or TIFF
 orientation) and line crops and layout renders go out as JPEG, equal to
 OpenCV 5's reader, drawing and libjpeg-turbo to the bit

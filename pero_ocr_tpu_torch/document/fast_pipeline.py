@@ -118,9 +118,11 @@ class FastPagePipeline:
         two specials, which never reach the text).  ``want_crops``: each
         line also gets its crop.  ``reocr``: the pipeline recognizes
         given lines only (the crop transport; see
-        :meth:`process_existing_layouts`)."""
+        :meth:`process_existing_layouts`).  Under the pipeline's mesh
+        ``page_batch`` must be a multiple of its dp size."""
         if reocr and pipeline.transport != "crops":
             raise ValueError("re-OCR runs on the crop transport")
+        pipeline._shards(page_batch)  # raises when the batch does not split over dp
         self.pipeline = pipeline
         self.characters = list(characters)
         self.page_batch = page_batch
@@ -176,7 +178,7 @@ class FastPagePipeline:
     def from_page_parser(cls, page_parser, page_batch: int = 4, transport_bits: int = 4,
                          want_logits: bool = False, logits_topk: int = 8,
                          transport: str = "page", canvas_bits=None, want_crops: bool = False,
-                         reocr: bool = False) -> "FastPagePipeline":
+                         reocr: bool = False, mesh=None) -> "FastPagePipeline":
         """The JAX ``FastPagePipeline(page_parser, ...)``: the config's
         ParseNet and recognizer with its LAYOUT_CNN, line cropper and OCR
         settings and the JAX defaults (LINE_SLOT, CROP_BUCKET, 4-bit
@@ -184,7 +186,10 @@ class FastPagePipeline:
         ``want_logits``: stage B also copies each frame's
         ``logits_topk`` largest logits.  ``reocr``: the recognize-only
         pipeline for a config without layout stages (no ParseNet, the
-        crop transport, no paragraph clustering)."""
+        crop transport, no paragraph clustering).  ``mesh``: a
+        :class:`~pero_ocr_tpu_torch.parallel.mesh.Mesh` whose dp rows
+        share each page batch (a multiple of its dp size), on either
+        transport and in the recognize-only pipeline."""
         extractor = next(
             (lp for lp in page_parser.layout_parsers if isinstance(lp, LayoutExtractor)), None
         )
@@ -209,6 +214,7 @@ class FastPagePipeline:
             line_slot=cls.LINE_SLOT, height_scale=cropper.scale,
             transport_bits=transport_bits, transport=transport, canvas_bits=canvas_bits,
             want_logits=want_logits, logits_topk=logits_topk, device=page_parser.device,
+            mesh=mesh,
         )
         if reocr:
             pipeline = TorchPagePipeline(None, ocr_engine.model, cluster_paragraphs=False,

@@ -280,11 +280,14 @@ def warp_lines(
     n, p = baselines.shape[1], baselines.shape[2]
     out = torch.empty((pb * n, crop_h, bucket), dtype=out_dtype, device=pages.device)
     lib = _kernel_library()
-    rc = lib.warp_lines_u8(
-        pages.data_ptr(), baselines.data_ptr(), heights.data_ptr(), out.data_ptr(),
-        pb, h, w, n, p, crop_h, bucket, int(out_dtype == torch.bfloat16), int(normalize),
-        torch.cuda.current_stream(pages.device).cuda_stream,
-    )
+    # The launch goes to the current device, which must be the tensors'
+    # (a mesh puts pages on other devices than the thread's current one).
+    with torch.cuda.device(pages.device):
+        rc = lib.warp_lines_u8(
+            pages.data_ptr(), baselines.data_ptr(), heights.data_ptr(), out.data_ptr(),
+            pb, h, w, n, p, crop_h, bucket, int(out_dtype == torch.bfloat16), int(normalize),
+            torch.cuda.current_stream(pages.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"warp_lines kernel launch failed: cudaError_t {rc}")
     warp_lines.launches += 1
@@ -469,12 +472,14 @@ def warp_fields(page: torch.Tensor, fields: torch.Tensor, store: str = "f32") ->
         return out
     if fields.data_ptr() % 8:
         raise ValueError("warp_fields: fields must be 8-byte aligned (one float2 a sample)")
-    rc = _fields_library().warp_fields(
-        page.data_ptr(), fields.data_ptr(), out.data_ptr(), h, w, c,
-        fields.shape[0] * fields.shape[1] * fields.shape[2],
-        int(page.dtype == torch.float32), int(store == "u8"),
-        torch.cuda.current_stream(page.device).cuda_stream,
-    )
+    lib = _fields_library()
+    with torch.cuda.device(page.device):  # launch on the tensors' device
+        rc = lib.warp_fields(
+            page.data_ptr(), fields.data_ptr(), out.data_ptr(), h, w, c,
+            fields.shape[0] * fields.shape[1] * fields.shape[2],
+            int(page.dtype == torch.float32), int(store == "u8"),
+            torch.cuda.current_stream(page.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"warp_fields kernel launch failed: cudaError_t {rc}")
     warp_fields.launches += 1

@@ -34,6 +34,12 @@ host warp runs while the next batch's stage A is on the device.  With a
 runs unless ``skip_stage_a`` but is never read, each batch's crops go
 with it, and label copies trail by ``override_inflight`` batches.  The
 order and contents of the results equal the JAX loops'.
+
+Under a device mesh each dp shard's canvases go to its device for stage
+A; for stage B the strip (whose columns hold lines of every page) goes
+to every shard's device with that shard's line offsets and widths, and
+each device rebuilds only its shard's lines (the dense buffer splits by
+page), as the JAX loops shard them.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import torch
 
 from pero_ocr_tpu_torch.core import line_geometry
 from pero_ocr_tpu_torch.ops.morphology import connected_components
+from pero_ocr_tpu_torch.parallel.mesh import indexed_device
 from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.resize import remap_linear, resize_area
 from pero_ocr_tpu_torch.utils.timing import stage_timer
@@ -496,7 +503,8 @@ class CropTransport:
     def _normalize(self, crops_u8: torch.Tensor) -> torch.Tensor:
         """uint8 crops -> v / 255 (a true division) in float32, then the
         recognizer's input dtype."""
-        return (crops_u8.float() / self._255).to(self.crop_dtype)
+        return (crops_u8.float() / self._255s[indexed_device(crops_u8.device)]).to(
+            self.crop_dtype)
 
     @torch.no_grad()
     def stage_a_canvas(self, small_u8: torch.Tensor):
@@ -540,23 +548,41 @@ class CropTransport:
 
     def _recognize_payload(self, payload, page_batch: int):
         """Upload one batch's crop payload and recognize it; None for a
-        batch without lines."""
+        batch without lines, else each shard's outputs on its device.
+        Under a mesh each shard gets its pages' slots of the dense buffer,
+        or the whole strip with its slots' offsets and widths (the strip
+        holds lines of every page, so it goes to every device)."""
         if payload is None:
             return None
+        n = payload[-1].shape[0] // page_batch  # line slots a page
+        outs = []
         with stage_timer("pipeline/stage_b"):
-            dev = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in payload]
-            if self.trim_crops:
-                outs = self.stage_b_strip(*dev, page_batch, self._rebuild_width(payload[2]))
-            else:
-                outs = self.stage_b_crops(*dev, page_batch)
-            return self._label_bytes(outs)
+            for dev, slots in self._shards(page_batch):
+                lines = slice(slots.start * n, slots.stop * n)
+                pb = slots.stop - slots.start
+                if self.trim_crops:
+                    strip, offsets, widths = payload
+                    dev_args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                                for a in (strip, offsets[lines], widths[lines])]
+                    out = self.stage_b_strip(*dev_args, pb, self._rebuild_width(widths))
+                else:
+                    dev_args = [torch.from_numpy(np.ascontiguousarray(a[lines])).to(dev)
+                                for a in payload]
+                    out = self.stage_b_crops(*dev_args, pb)
+                outs.append(self._label_bytes(out))
+        return outs
+
+    def _stage_a_shards(self, small: np.ndarray):
+        """Upload a packed canvas batch, each shard's pages to its device,
+        and run stage A on each: the shards' outputs on their devices."""
+        return [self.stage_a_canvas(torch.from_numpy(small[slots]).to(dev))
+                for dev, slots in self._shards(small.shape[0])]
 
     def _stage_a_artifacts(self, small: np.ndarray) -> StageAArtifacts:
-        """Upload a packed canvas batch, run stage A, copy its artifacts
-        back."""
+        """Stage A on a packed canvas batch, its artifacts copied back to
+        the host in page order."""
         with stage_timer("pipeline/stage_a_sync"):
-            outs = self.stage_a_canvas(torch.from_numpy(small).to(self.device))
-            return StageAArtifacts(*(t.cpu().numpy() for t in outs), self)
+            return StageAArtifacts(*self._host(self._stage_a_shards(small)), self)
 
     # ------------------------------------------------------------------
     # Loops
@@ -659,7 +685,7 @@ class CropTransport:
                         raise ValueError("skip_stage_a currently requires trim_crops "
                                          "(the strip payload)")
                     if not skip_stage_a:
-                        self.stage_a_canvas(torch.from_numpy(small).to(self.device))
+                        self._stage_a_shards(small)
                 inflight.append((ids, geoms, self._recognize_payload(payload, page_batch)))
                 while len(inflight) > self.override_inflight:
                     yield from self._drain(*inflight.popleft())

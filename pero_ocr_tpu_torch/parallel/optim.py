@@ -20,6 +20,14 @@ The arithmetic is optax 0.2.6's, op for op, on float32 weights:
 Every update runs on the device with no host synchronisation (the clip
 decides on the device), as multi-tensor ``torch._foreach_*`` ops; the
 weights are updated in place.
+
+On a device mesh (``parallel/train.py``'s sharded step) the weights and
+moments a rank holds may be its shards of weights split over the ranks
+of a tp group.  Adam's arithmetic is elementwise, so a shard updates as
+its part of the whole; the global norm is taken over the whole
+gradient: the sums of squares of the shards are summed over the group,
+those of the replicated weights counted once, so the clip decides as
+the unsharded optimizer does.
 """
 
 from __future__ import annotations
@@ -44,15 +52,30 @@ class AdamWState:
     grad_norm: Optional[torch.Tensor] = None
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element of ``tensors``."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+def global_norm(tensors: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element of ``tensors``.
+    ``sharded``: per tensor, whether it is this rank's shard of a tensor
+    split over the ranks of the process group ``group``; the sum of
+    squares of the shards is summed over the group (an all-reduce)."""
+    norms = torch.stack(torch._foreach_norm(list(tensors)))
+    if sharded is None or not any(sharded):
+        return torch.linalg.vector_norm(norms)
+    import torch.distributed as dist
+
+    split = torch.tensor(list(sharded), device=norms.device)
+    squares = norms * norms
+    whole = torch.where(split, squares, 0).sum()  # no mask indexing: it would sync
+    dist.all_reduce(whole, group=group)
+    return torch.sqrt(whole + torch.where(split, 0, squares).sum())
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        sharded: Optional[Sequence[bool]] = None, group=None):
     """optax's ``clip_by_global_norm``: (the clipped gradients, new
-    tensors, and their global norm before the clip)."""
-    g_norm = global_norm(grads)
+    tensors, and their global norm before the clip); ``sharded`` and
+    ``group`` as for :func:`global_norm`."""
+    g_norm = global_norm(grads, sharded, group)
     keep = g_norm < max_norm
     one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
     # keep: g / 1 * 1 == g exactly; else optax's (g / g_norm) * max_norm.
@@ -88,11 +111,14 @@ class ClipAdamW:
 
     @torch.no_grad()
     def step_(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-              state: AdamWState, lr_scale: float = 1.0) -> AdamWState:
+              state: AdamWState, lr_scale: float = 1.0,
+              sharded: Optional[Sequence[bool]] = None, group=None) -> AdamWState:
         """One update of the float32 ``params`` in place from ``grads``
-        (float32, one per weight); returns ``state`` updated."""
+        (float32, one per weight); returns ``state`` updated.  On a mesh,
+        ``sharded`` marks the weights (and gradients and moments) that are
+        this rank's shards over the ranks of ``group``."""
         params, grads = list(params), list(grads)
-        g, state.grad_norm = clip_by_global_norm(grads, MAX_NORM)
+        g, state.grad_norm = clip_by_global_norm(grads, MAX_NORM, sharded, group)
         torch._foreach_mul_(state.mu, B1)
         torch._foreach_add_(state.mu, torch._foreach_mul(g, 1 - B1))
         torch._foreach_mul_(state.nu, B2)

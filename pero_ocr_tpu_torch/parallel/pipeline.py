@@ -37,15 +37,27 @@ JAX page transport does.
 
 The crop transport (``transport="crops"``: the page never reaches the
 device, the host warps the line crops) is
-:class:`~pero_ocr_tpu_torch.parallel.crop_transport.CropTransport`.  The
-device mesh is not ported (``ValueError`` naming its ROADMAP item).
+:class:`~pero_ocr_tpu_torch.parallel.crop_transport.CropTransport`.
 :mod:`pero_ocr_tpu_torch.document.fast_pipeline` turns the
 :class:`PageResult` stream into Page XML.
+
+Under a device mesh (``mesh``, :class:`~pero_ocr_tpu_torch.parallel.mesh.Mesh`)
+each page batch splits over dp into equal shards, as the JAX pipeline
+shards it: one process drives every shard, with one replica of the
+models on each dp row's first device.  Each shard's upload and stage A
+run on its device from the same worker thread; the host parse, the
+adaptive downsample's decision (its median over the whole batch, the
+corrected scale sticky for later batches) and the clustering run once
+over the whole batch, as on one device; each shard's lines then go
+through stage B on its pages' device, and the results come back in page
+order.  So the outputs equal the run without a mesh.  A tp size above 1
+replicates the models, as GSPMD replicates these unsharded programs.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import threading
 import time
@@ -56,7 +68,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pero_ocr_tpu_torch import SCALE_OUT, not_ported, resolve_device
+from pero_ocr_tpu_torch import resolve_device
 from pero_ocr_tpu_torch.core import line_geometry
 from pero_ocr_tpu_torch.layout_engines import helpers
 from pero_ocr_tpu_torch.layout_engines.cnn_engine import ParagraphClusterer, postprocess_maps
@@ -67,6 +79,7 @@ from pero_ocr_tpu_torch.ops import ctc as ctc_ops
 from pero_ocr_tpu_torch.ops.morphology import connected_components
 from pero_ocr_tpu_torch.ops.warp import warp_lines
 from pero_ocr_tpu_torch.parallel.crop_transport import CropTransport, StageAArtifacts, unpack_bits
+from pero_ocr_tpu_torch.parallel.mesh import indexed_device
 from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.graphs import capture
 from pero_ocr_tpu_torch.utils.timing import stage_timer
@@ -149,7 +162,13 @@ class TorchPagePipeline(CropTransport):
         numpy/scipy (False); None follows ``device``
         (:func:`~pero_ocr_tpu_torch.utils.native.use_native`).  The
         other arguments mean what they mean for ``TPUPagePipeline``,
-        with its checks and messages."""
+        with its checks and messages.
+
+        ``mesh``: a :class:`~pero_ocr_tpu_torch.parallel.mesh.Mesh`; page
+        batches (a multiple of its dp size) split over dp, each shard on
+        its dp row's first device, which holds a replica of the models
+        (see the module docstring).  Its devices replace ``device``,
+        which, where given, must be of their type."""
         if transport not in ("page", "crops"):
             raise ValueError("transport must be 'page' or 'crops'")
         if transport_bits not in ((2, 4, 8) if transport == "crops" else (4, 8)):
@@ -162,8 +181,6 @@ class TorchPagePipeline(CropTransport):
                 raise ValueError("canvas_bits requires transport='crops'")
             if canvas_bits not in (8, 4, 2):
                 raise ValueError(f"canvas_bits={canvas_bits} invalid")
-        if mesh is not None:
-            raise not_ported("mesh", SCALE_OUT)
         self.is_ref_transformer = isinstance(recognizer, transformer_ref.RefTransformerOCR)
         self.is_transformer = self.is_ref_transformer or isinstance(
             recognizer, native_transformer.TransformerOCR)
@@ -195,10 +212,27 @@ class TorchPagePipeline(CropTransport):
                             else (4 if transport_bits in (2, 4) else 8))
         self.trim_crops = trim_crops and transport == "crops"
         self.dither_2bit = dither_2bit
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.shard_devices = [self.device]
+        else:
+            if device is not None and resolve_device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not of the mesh's type "
+                                 f"({mesh.device_type})")
+            self.shard_devices = mesh.dp_devices
+            self.device = self.shard_devices[0]
         self.native = native_lib.use_native(native, self.device)
         self.parsenet = None if parsenet is None else parsenet.to(self.device).eval()
         self.recognizer = recognizer.to(self.device).eval()
+        # One replica of the models on each other device of the mesh's dp
+        # rows; the first device's are self.parsenet and self.recognizer.
+        self._replicas = {}
+        for dev in self.shard_devices:
+            if indexed_device(dev) != indexed_device(self.device):
+                self._replicas.setdefault(indexed_device(dev), (
+                    None if parsenet is None else copy.deepcopy(self.parsenet).to(dev).eval(),
+                    copy.deepcopy(self.recognizer).to(dev).eval()))
         self.map_upsample = 1 if parsenet is None else parsenet.out_upsample
         self.height_scale = height_scale
         self.downsample = downsample
@@ -219,14 +253,36 @@ class TorchPagePipeline(CropTransport):
         self.want_logits = want_logits
         self.logits_topk = logits_topk
         self._clusterer = ParagraphClusterer(paragraph_line_threshold, self.native)
-        self._255 = torch.tensor(255.0, device=self.device)
-        # Stage B's transformer decodes as CUDA graphs, (memory shape,
-        # steps) -> (static memory, graph, outputs), least recently used
-        # first.  A capture holds the device lock, which the page
-        # transport's upload worker takes around its device work.
+        # The crops' divisor, a device tensor (a true division) on each
+        # shard's device.
+        self._255s = {indexed_device(d): torch.tensor(255.0, device=d)
+                      for d in self.shard_devices}
+        # Stage B's transformer decodes as CUDA graphs, (device, memory
+        # shape, steps) -> (static memory, graph, outputs), least recently
+        # used first.  A capture holds the device lock, which the page
+        # transport's upload worker takes around its device work on every
+        # shard's device: one lock for all devices, because a capture
+        # forbids unsafe CUDA calls in every thread of the process
+        # (torch.cuda.graph's "global" capture mode).
         self._graphs: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
         self.graph_capture_seconds = 0.0
         self._device_lock = threading.Lock()
+
+    def _models(self, device: torch.device):
+        """(ParseNet, recognizer) of the replica on ``device``."""
+        if indexed_device(device) == indexed_device(self.device):
+            return self.parsenet, self.recognizer
+        return self._replicas[indexed_device(device)]
+
+    def _shards(self, page_batch: int):
+        """The page batch's slots split over the shard devices: (device,
+        slice of slots) per shard."""
+        dp = len(self.shard_devices)
+        if page_batch % dp:
+            raise ValueError(f"page_batch={page_batch} must be a multiple of the mesh's dp "
+                             f"size {dp}")
+        per = page_batch // dp
+        return [(d, slice(i * per, (i + 1) * per)) for i, d in enumerate(self.shard_devices)]
 
     # ------------------------------------------------------------------
     # Device stages
@@ -238,7 +294,7 @@ class TorchPagePipeline(CropTransport):
         u8 nibble pairs) at map resolution H, W; the pool factors double
         on canvases over 640 map rows."""
         images = (small / 255.0)[..., None].expand(-1, -1, -1, 3)
-        maps = self.parsenet(images)
+        maps = self._models(small.device)[0](images)
         mask, heights_map, separator = postprocess_maps(
             maps, self.detection_threshold, self.line_end_weight
         )
@@ -294,7 +350,7 @@ class TorchPagePipeline(CropTransport):
         images = crops[..., None].expand(-1, -1, -1, 3)
         if self.is_transformer:
             return self._transformer_recognize(images, pb)
-        logits = self.recognizer(images)
+        logits = self._models(crops.device)[1](images)
         t = logits.shape[1]
         if widths is None:
             valid = torch.full((crops.shape[0],), t, dtype=torch.int32, device=crops.device)
@@ -325,10 +381,11 @@ class TorchPagePipeline(CropTransport):
         token over those steps; the native model: ``greedy_decode``'s
         tokens, lengths and confidences).  On CUDA each (memory shape,
         steps) decode is one CUDA graph, at most GRAPH_CACHE kept."""
-        spec = self.recognizer.spec
+        recognizer = self._models(images.device)[1]
+        spec = recognizer.spec
         cap = spec.max_seq_len - 1 if self.is_ref_transformer else spec.max_decode_len
         dec_len = max(8, min(self.crop_bucket // 4, cap))
-        memory = self.recognizer.encode(images)
+        memory = recognizer.encode(images)
         if memory.device.type == "cuda":
             tokens, lengths, confs = (t.clone() for t in self._graphed_decode(memory, dec_len))
         else:
@@ -339,22 +396,23 @@ class TorchPagePipeline(CropTransport):
 
     def _decode_from_memory(self, memory: torch.Tensor, dec_len: int):
         """(tokens int32, lengths int32, confidences float32) a line."""
+        recognizer = self._models(memory.device)[1]
         if self.is_ref_transformer:
             tokens, lengths, logits = transformer_ref.greedy_ref_from_memory(
-                self.recognizer, memory, dec_len)
+                recognizer, memory, dec_len)
             chosen = torch.gather(torch.softmax(logits, dim=-1), 2, tokens[..., None])[..., 0]
             emitted = torch.arange(dec_len, device=memory.device)[None, :] < lengths[:, None]
             confs = torch.where(emitted, chosen, 1.0).amin(dim=1)
         else:
             tokens, lengths, confs = native_transformer.greedy_from_memory(
-                self.recognizer, memory, dec_len)[:3]
+                recognizer, memory, dec_len)[:3]
         return tokens.to(torch.int32), lengths.to(torch.int32), confs.float()
 
     def _graphed_decode(self, memory: torch.Tensor, dec_len: int):
         """``_decode_from_memory`` replayed from a CUDA graph of its
         shape; the outputs are the graph's, overwritten by its next
         replay."""
-        key = (tuple(memory.shape), memory.dtype, dec_len)
+        key = (memory.device, tuple(memory.shape), memory.dtype, dec_len)
         entry = self._graphs.pop(key, None)
         if entry is None:
             if len(self._graphs) >= GRAPH_CACHE:
@@ -369,7 +427,8 @@ class TorchPagePipeline(CropTransport):
         self._graphs[key] = entry  # the most recently used last
         static, graph, out = entry
         static.copy_(memory)
-        graph.replay()
+        with torch.cuda.device(memory.device):  # replays on the current device
+            graph.replay()
         return out
 
     @staticmethod
@@ -607,8 +666,9 @@ class TorchPagePipeline(CropTransport):
         page_batch: int = 4,
         skip_stage_a: bool = False,
     ) -> Iterator[PageResult]:
-        """Process pages ``page_batch`` at a time; yields one
-        :class:`PageResult` per page, in page order.
+        """Process pages ``page_batch`` at a time (a multiple of the
+        mesh's dp size); yields one :class:`PageResult` per page, in page
+        order.
 
         ``lines_override`` replaces the CNN line detection: a callable
         ``page -> (baselines, heights)`` or a sequence of such pairs
@@ -618,6 +678,7 @@ class TorchPagePipeline(CropTransport):
         pages = list(pages)
         if not pages:
             return
+        self._shards(page_batch)  # a page batch that does not split over dp raises
         if lines_override is not None and not callable(lines_override):
             lines_override = list(lines_override)
             if len(lines_override) != len(pages):
@@ -637,16 +698,31 @@ class TorchPagePipeline(CropTransport):
         else:
             yield from self._run_page(pages, lines_override, page_batch)
 
-    def _upload(self, grays: np.ndarray) -> torch.Tensor:
+    def _upload(self, grays: np.ndarray, device) -> torch.Tensor:
         if self.transport_bits == 4:
-            return self.unpack4(torch.from_numpy(self._pack4(grays)).to(self.device))
-        return torch.from_numpy(grays).to(self.device)
+            return self.unpack4(torch.from_numpy(self._pack4(grays)).to(device))
+        return torch.from_numpy(grays).to(device)
 
     def _first_pass_ds(self) -> int:
         return self._last_ds if self.adaptive_downsample else self.downsample
 
+    @staticmethod
+    def _cat(parts):
+        """One output's per-shard tensors -> a host array, the shards in
+        page order (a lone shard's as it is, uncopied)."""
+        if len(parts) == 1:
+            return parts[0].cpu().numpy()
+        return np.concatenate([t.cpu().numpy() for t in parts])
+
+    @classmethod
+    def _host(cls, shard_outs):
+        """Per-shard device outputs (tuples of tensors) -> one tuple of
+        host arrays."""
+        return tuple(cls._cat(parts) for parts in zip(*shard_outs))
+
     def _run_page(self, pages, lines_override, page_batch):
         n = len(pages)
+        shards = self._shards(page_batch)
         batches = [list(range(s, min(s + page_batch, n))) for s in range(0, n, page_batch)]
         zeros_b = np.zeros((1, self.BASELINE_POINTS, 2), np.float32)
 
@@ -656,30 +732,30 @@ class TorchPagePipeline(CropTransport):
             padded = ids + [ids[-1]] * (page_batch - len(ids))
             grays = self._stack_grays(self._gray(pages[i]) for i in padded)
             with self._device_lock:
-                stack = self._upload(grays)
-                return stack, self.stage_a(stack, ds0), ds0
+                stacks = [self._upload(grays[slots], dev) for dev, slots in shards]
+                return stacks, [self.stage_a(st, ds0) for st in stacks], ds0
 
         # The next batch's prep, upload and stage A run on a worker
         # thread while this thread syncs and parses the current batch.
         with ThreadPoolExecutor(max_workers=1) as uploader:
             pending = uploader.submit(dispatch_a, 0, self._first_pass_ds())
-            inflight = None  # (ids, geoms, stage-B outputs on the device)
+            inflight = None  # (ids, geoms, each shard's stage-B outputs on its device)
             for batch_idx, ids in enumerate(batches):
                 with stage_timer("pipeline/upload+dispatch_a"):
-                    stack, outs_a, ds_used = pending.result()
+                    stacks, outs_a, ds_used = pending.result()
                 if batch_idx + 1 < len(batches):
                     pending = uploader.submit(
                         dispatch_a, batch_idx + 1, self._first_pass_ds()
                     )
                 with stage_timer("pipeline/stage_a_sync"):
-                    masks = self._unpack_stage_a(*(t.cpu().numpy() for t in outs_a))
+                    masks = self._unpack_stage_a(*self._host(outs_a))
                 if self.adaptive_downsample and lines_override is None:
                     ds2 = self._adapt_target_ds(masks, ds_used)
                     if ds2 is not None:
                         # Second pass on the pages already on the device.
                         with stage_timer("pipeline/stage_a_second_pass"):
                             masks = self._unpack_stage_a(
-                                *(t.cpu().numpy() for t in self.stage_a(stack, ds2))
+                                *self._host([self.stage_a(st, ds2) for st in stacks])
                             )
                         ds_used = ds2
                 with stage_timer("pipeline/host_geometry"):
@@ -703,11 +779,11 @@ class TorchPagePipeline(CropTransport):
                             [g[1] if g[1] is not None else pad_h for g in geom3]
                             + [pad_h] * (page_batch - len(ids))
                         )
-                        outs_b = self.stage_b(
-                            stack,
-                            torch.from_numpy(bl).to(self.device),
-                            torch.from_numpy(hh).to(self.device),
-                        )
+                        outs_b = [
+                            self.stage_b(st, torch.from_numpy(bl[slots]).to(dev),
+                                         torch.from_numpy(hh[slots]).to(dev))
+                            for st, (dev, slots) in zip(stacks, shards)
+                        ]
                     geoms = [(b, h, g[2], c, t) for (b, h, c, t), g in zip(page_lines, geom3)]
 
                 if inflight is not None:
@@ -717,11 +793,13 @@ class TorchPagePipeline(CropTransport):
                 yield from self._drain(*inflight)
 
     def _drain(self, ids, geoms, outs_b):
+        """Yield one batch's results; ``outs_b``: each shard's stage-B
+        outputs on its device, in page order, or None."""
         labels = lengths = confs = lvals = lidx = None
         if outs_b is not None:
             with stage_timer("pipeline/labels_sync"):
                 labels, lengths, confs, lvals, lidx = (
-                    None if t is None else t.cpu().numpy() for t in outs_b)
+                    None if parts[0] is None else self._cat(parts) for parts in zip(*outs_b))
             if lidx is not None:
                 lidx = lidx.astype(np.uint16)
         for slot, (i, (b_list, h_list, widths, clusters, tlines)) in enumerate(zip(ids, geoms)):

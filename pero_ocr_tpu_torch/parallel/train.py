@@ -46,7 +46,19 @@ sequence a large finite loss (its ``log_epsilon`` is -1e5, so about
 and would turn every weight into NaN.
 
 The mesh trainer (``shard_train_state``, ``make_sharded_train_step``)
-is not ported: they raise.
+trains the CTC recognizer over a (dp, tp)
+:class:`~pero_ocr_tpu_torch.parallel.mesh.Mesh` in a
+``torch.distributed`` group of dp * tp ranks that the caller initialised
+(NCCL on CUDA, gloo on the CPU), one rank a mesh position.  Each rank
+keeps its shards of the float32 weights and of Adam's mu and nu, split
+over tp as ``mesh.shard_axes`` says (the count and the step
+are replicated).  A step runs forward and backward on the rank's dp
+share of the global batch, with the module holding the whole weights;
+the per-sequence losses are summed over the global batch and divided by
+its size, and the gradients summed over dp, so the loss is the global
+batch mean, as JAX's is.  Each rank then clips (the global norm over
+the whole gradient) and updates its shards, and the updated shards are
+gathered over tp into the module.
 """
 
 from __future__ import annotations
@@ -60,10 +72,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pero_ocr_tpu_torch import SCALE_OUT, not_ported, resolve_device
+from pero_ocr_tpu_torch import resolve_device
 from pero_ocr_tpu_torch.models.charlm import sequence_logprobs
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer
-from pero_ocr_tpu_torch.parallel.optim import ClipAdamW
+from pero_ocr_tpu_torch.parallel import mesh as mesh_lib
+from pero_ocr_tpu_torch.parallel.optim import AdamWState, ClipAdamW
 from pero_ocr_tpu_torch.utils import checkpoint, convert
 
 _FROZEN = re.compile(r"bias_ih_l\d+(_reverse)?")
@@ -74,12 +87,18 @@ class TrainState:
     """The JAX ``TrainState``: ``params`` the float32 weights by
     state-dict name (see the module docstring), ``opt_state`` the
     optimizer's, ``step`` the steps taken.  ``targets`` holds, weight
-    for weight, the module parameter each one trains."""
+    for weight, the module parameter each one trains, and ``model`` the
+    module.  A state sharded over a mesh (:func:`shard_train_state`)
+    holds this rank's shards of the weights and moments, and
+    ``shard_axes`` the torch axis of each weight split over tp (None
+    where it is replicated)."""
 
     params: Dict[str, torch.Tensor]
     opt_state: object
     step: int
     targets: List[nn.Parameter]
+    model: Optional[nn.Module] = dataclasses.field(default=None, repr=False)
+    shard_axes: Optional[Dict[str, Optional[int]]] = None
 
 
 def make_optimizer(learning_rate: float = 3e-4) -> ClipAdamW:
@@ -115,7 +134,7 @@ def init_train_state(model: nn.Module, optimizer: ClipAdamW, device=None) -> Tra
         p.requires_grad_(True)
         params[name] = p if p.dtype == torch.float32 else p.detach().float().clone()
         targets.append(p)
-    return TrainState(params, optimizer.init(list(params.values())), 0, targets)
+    return TrainState(params, optimizer.init(list(params.values())), 0, targets, model)
 
 
 init_parsenet_train_state = init_transformer_train_state = init_lm_train_state = init_train_state
@@ -132,8 +151,8 @@ def float32_state_dict(model: nn.Module, state: TrainState) -> Dict[str, torch.T
 def gradients(model: nn.Module, state: TrainState) -> List[torch.Tensor]:
     """The last backward's gradient of each trained weight, float32
     (zeros where the loss did not reach the parameter)."""
-    return [torch.zeros_like(w) if p.grad is None else p.grad.float()
-            for w, p in zip(state.params.values(), state.targets)]
+    return [torch.zeros(p.shape, dtype=torch.float32, device=p.device) if p.grad is None
+            else p.grad.float() for p in state.targets]
 
 
 def _apply_step(model, optimizer: ClipAdamW, state: TrainState,
@@ -166,17 +185,21 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 def ctc_loss_fn(model, images, labels, label_lengths) -> torch.Tensor:
     """Mean CTC loss of (B, H, W, 3) images against (B, S) labels of
     ``label_lengths``; blank is the last class."""
+    return ctc_losses(model, images, labels, label_lengths).mean()
+
+
+def ctc_losses(model, images, labels, label_lengths) -> torch.Tensor:
+    """:func:`ctc_loss_fn`'s loss of each sequence, (B,)."""
     device = _device_of(model)
     logits = model(_tensor(images, device, torch.float32))
     b, t, c = logits.shape
     log_probs = F.log_softmax(logits, dim=-1).transpose(0, 1)
-    per_seq = F.ctc_loss(
+    return F.ctc_loss(
         log_probs, _tensor(labels, device, torch.long),
         torch.full((b,), t, dtype=torch.long, device=device),
         _tensor(label_lengths, device, torch.long),
         blank=c - 1, reduction="none", zero_infinity=True,
     )
-    return per_seq.mean()
 
 
 def make_train_step(model, optimizer: ClipAdamW):
@@ -188,12 +211,89 @@ def make_train_step(model, optimizer: ClipAdamW):
     return train_step
 
 
-def shard_train_state(state, mesh):
-    raise not_ported("shard_train_state (the dp/tp mesh)", SCALE_OUT)
+def _all_gather(shard: torch.Tensor, axis: int, tp: int, group) -> torch.Tensor:
+    """The whole tensor from the tp ranks' shards split along ``axis``."""
+    import torch.distributed as dist
+
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    part = shard.movedim(axis, 0).contiguous()
+    whole = part.new_empty((tp * part.shape[0], *part.shape[1:]))
+    gather(whole, part, group=group)
+    return whole.movedim(0, axis)
 
 
-def make_sharded_train_step(model, optimizer, mesh):
-    raise not_ported("make_sharded_train_step (the dp/tp mesh)", SCALE_OUT)
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """This rank's part of ``state`` (the same unsharded state on every
+    rank, on the rank's mesh device): the weights and Adam's mu and nu
+    split over tp by ``mesh.shard_axes`` on the state's model,
+    the count and the step replicated.  Runs in the process group of
+    ``mesh`` (:func:`~pero_ocr_tpu_torch.parallel.mesh.device_mesh`)."""
+    dmesh = mesh_lib.device_mesh(mesh)
+    tp, tp_rank = mesh.shape["tp"], dmesh.get_local_rank("tp")
+    device = mesh.devices[tuple(dmesh.get_coordinate())]
+    rules = mesh_lib.shard_axes(state.model, mesh)
+    axes = {name: rules[name] for name in state.params}
+    for name, w in state.params.items():
+        if mesh_lib.indexed_device(w.device) != device:
+            raise ValueError(f"{name} is on {w.device}; this rank's mesh device is {device}")
+
+    def piece(name, t):
+        axis = axes[name]
+        return t if axis is None else t.chunk(tp, dim=axis)[tp_rank].contiguous()
+
+    names = list(state.params)
+    opt = state.opt_state
+    opt_state = AdamWState(opt.count, [piece(n, m) for n, m in zip(names, opt.mu)],
+                           [piece(n, v) for n, v in zip(names, opt.nu)], opt.grad_norm)
+    return TrainState({n: piece(n, w) for n, w in state.params.items()}, opt_state,
+                      state.step, state.targets, state.model, axes)
+
+
+def make_sharded_train_step(model, optimizer: ClipAdamW, mesh):
+    """``step(state, images, labels, label_lengths, lr_scale=1.0)`` on a
+    state from :func:`shard_train_state`: every rank passes the same
+    global batch, whose size dp divides, and gets the global batch's
+    mean loss."""
+    import torch.distributed as dist
+
+    dmesh = mesh_lib.device_mesh(mesh)
+    dp_group, tp_group = dmesh.get_group("dp"), dmesh.get_group("tp")
+    dp, dp_rank = mesh.shape["dp"], dmesh.get_local_rank("dp")
+    tp, tp_rank = mesh.shape["tp"], dmesh.get_local_rank("tp")
+
+    def train_step(state: TrainState, images, labels, label_lengths, lr_scale: float = 1.0):
+        if state.shard_axes is None:
+            raise ValueError("make_sharded_train_step takes a state from shard_train_state")
+        b = len(images)
+        if b % dp:
+            raise ValueError(f"batch of {b} does not split over dp={dp}")
+        rows = slice(dp_rank * (b // dp), (dp_rank + 1) * (b // dp))
+        model.train()
+        for p in state.targets:
+            p.grad = None
+        loss = ctc_losses(model, images[rows], labels[rows], label_lengths[rows]).sum() / b
+        loss.backward()
+        grads = gradients(model, state)
+        # The gradients and the loss summed over dp in one all-reduce.
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1).float()])
+        dist.all_reduce(flat, group=dp_group)
+        grads = [g.view_as(full) for g, full in
+                 zip(torch.split(flat[:-1], [g.numel() for g in grads]), grads)]
+        axes = [state.shard_axes[name] for name in state.params]
+        local = [g if axis is None else g.chunk(tp, dim=axis)[tp_rank]
+                 for g, axis in zip(grads, axes)]
+        optimizer.step_(list(state.params.values()), local, state.opt_state, lr_scale,
+                        sharded=[axis is not None for axis in axes], group=tp_group)
+        with torch.no_grad():
+            for w, p, axis in zip(state.params.values(), state.targets, axes):
+                if axis is not None:
+                    p.copy_(_all_gather(w, axis, tp, tp_group))
+                elif w is not p:
+                    p.copy_(w)
+        state.step += 1
+        return state, flat[-1]
+
+    return train_step
 
 
 # ----------------------------------------------------------------------

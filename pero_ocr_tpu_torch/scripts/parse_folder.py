@@ -60,10 +60,17 @@ line: stage by stage it is reported ("Unable to read image") and
 skipped; on the fast path the run stops with a ``ValueError`` naming the
 file (the JAX one stops with a ``TypeError``).
 
-Options the port lacks exit with code 2 and name their ROADMAP item,
+``--dp N`` with ``--fast-pipeline`` splits each page batch (N * max(1,
+4 // N) pages) over an (N, 1) device mesh, as the JAX command line does:
+one process drives N CUDA devices (it exits with 2 when fewer are
+visible), or N replicas on the CPU with ``--device cpu``; without
+``--fast-pipeline`` it changes nothing.  ``--profile DIR`` traces the
+processing loop with ``torch.profiler`` into DIR (a
+``*.pt.trace.json``), on both paths.
+
+An option the port lacks exits with code 2 and names its ROADMAP item,
 rather than change what the run means: the line crops' LMDB store (an
-``--output-line-path`` with ``lmdb`` in it: the lmdb package), ``--dp``
-and ``--profile``.
+``--output-line-path`` with ``lmdb`` in it: the lmdb package).
 """
 
 from __future__ import annotations
@@ -84,16 +91,17 @@ from typing import List, Optional, Set
 import numpy as np
 import torch
 
-from pero_ocr_tpu_torch import IMAGES, SCALE_OUT, not_ported, resolve_device
+from pero_ocr_tpu_torch import IMAGES, not_ported, resolve_device
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
 from pero_ocr_tpu_torch.document.page_parser import PageParser
 from pero_ocr_tpu_torch.ops.warp import warp_fields, warp_lines
+from pero_ocr_tpu_torch.parallel.mesh import Mesh, make_mesh
 from pero_ocr_tpu_torch.utils import native as native_lib
 from pero_ocr_tpu_torch.utils.checkpoint import set_strict_loading
 from pero_ocr_tpu_torch.utils.image_io import imread, imwrite_jpeg
 from pero_ocr_tpu_torch.utils.timing import (
-    add_timing, reset_timing, stage_timer, timing_report, timing_stats,
+    add_timing, reset_timing, stage_timer, timing_report, timing_stats, torch_profile,
 )
 
 logger = logging.getLogger(__name__)
@@ -125,7 +133,9 @@ def parse_arguments(argv=None):
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda (the hand-written kernels; no CPU fallback) or cpu "
                              "(the plain PyTorch versions).")
-    parser.add_argument("--profile", metavar="DIR")
+    parser.add_argument("--profile", metavar="DIR",
+                        help="Trace the processing loop with torch.profiler into DIR "
+                             "(a *.pt.trace.json: CPU ops and, on the card, kernels).")
     parser.add_argument("--timing-report", action="store_true",
                         help="Print per-stage timing table at the end.")
     parser.add_argument("--fast-pipeline", action="store_true",
@@ -142,7 +152,10 @@ def parse_arguments(argv=None):
                         help="Fast-pipeline transport: 'page' uploads the pages and warps "
                              "the lines on the card; 'crops' uploads a small layout "
                              "canvas and the lines warped on the host.")
-    parser.add_argument("--dp", type=int, default=0, metavar="N")
+    parser.add_argument("--dp", type=int, default=0, metavar="N",
+                        help="Fast-pipeline data parallelism: split page batches over "
+                             "N devices (N CPU replicas with --device cpu); the page "
+                             "batch becomes a multiple of N. 0 = one device.")
     parser.add_argument("--process-count", type=int, default=1)
     parser.add_argument("--shard-index", type=int, default=0,
                         help="This host's shard number (0-based): it processes every "
@@ -208,10 +221,21 @@ def refusals(args, paths) -> List[str]:
     asked = [
         (line_path and "lmdb" in line_path,
          "--output-line-path into an LMDB store (the lmdb package, and JPEG encoding)", IMAGES),
-        (args.dp > 1, "--dp", SCALE_OUT),
-        (args.profile, "--profile (a torch.profiler trace)", SCALE_OUT),
     ]
     return [str(not_ported(what, item)) for flag, what, item in asked if flag]
+
+
+def dp_mesh(dp: int, device: torch.device) -> Optional[Mesh]:
+    """``--dp``'s (dp, 1) mesh, as the JAX command line builds it: None
+    for dp <= 1; on CUDA the first dp devices, and exit 2 with the JAX
+    message when fewer are visible; on the CPU dp replicas."""
+    if dp <= 1:
+        return None
+    if device.type == "cuda" and torch.cuda.device_count() < dp:
+        logging.error("--dp %d requested but only %d device(s) visible", dp,
+                      torch.cuda.device_count())
+        sys.exit(2)
+    return make_mesh(dp, tp=1, device_type=device.type)
 
 
 def refuse(messages: List[str]) -> None:
@@ -297,6 +321,7 @@ def main(argv=None) -> None:
         if args.canvas_bits is not None and args.transport != "crops":
             logging.error("--canvas-bits requires --transport crops.")
             sys.exit(2)
+    mesh = dp_mesh(args.dp, device) if fast_pipeline else None
 
     if input_logit_path is not None and input_xml_path is None:
         input_logit_path = None
@@ -348,17 +373,21 @@ def main(argv=None) -> None:
         images_to_process = [img for _, img in kept]
 
     t_start = time.time()
-    if fast_pipeline:
-        results = run_fast(page_parser, args, input_image_path, images_to_process,
-                           ids_to_process, outputs, input_xml_path if fast_reocr else None)
-    elif args.process_count > 1:
-        results = run_workers(args.process_count, (
-            config_path, args.device, not args.allow_random_weights, outputs,
-            input_image_path, input_xml_path, input_logit_path, args.process_count,
-        ), images_to_process, ids_to_process)
-    else:
-        results = run_staged(page_parser, input_image_path, images_to_process,
-                             ids_to_process, outputs, input_xml_path, input_logit_path)
+    with torch_profile(args.profile):
+        if fast_pipeline:
+            results = run_fast(page_parser, args, input_image_path, images_to_process,
+                               ids_to_process, outputs, input_xml_path if fast_reocr else None,
+                               mesh)
+        elif args.process_count > 1:
+            results = run_workers(args.process_count, (
+                config_path, args.device, not args.allow_random_weights, outputs,
+                input_image_path, input_xml_path, input_logit_path, args.process_count,
+            ), images_to_process, ids_to_process)
+        else:
+            results = run_staged(page_parser, input_image_path, images_to_process,
+                                 ids_to_process, outputs, input_xml_path, input_logit_path)
+    if args.profile:
+        logger.info("torch.profiler trace written to %s", args.profile)
 
     if args.output_transcriptions_file_path is not None:
         with open(args.output_transcriptions_file_path, "w", encoding="utf-8") as f:
@@ -428,21 +457,26 @@ class PageOutputs:
 
 
 def run_fast(page_parser, args, input_image_path, images_to_process, ids_to_process,
-             outputs: PageOutputs, input_xml_path: Optional[str] = None) -> List[List[str]]:
+             outputs: PageOutputs, input_xml_path: Optional[str] = None,
+             mesh: Optional[Mesh] = None) -> List[List[str]]:
     """The ``--fast-pipeline`` loop: decode the first page batch, start
     its host prep (the crop transport's ``prime``), decode the rest, then
     stream the page batches through ``FastPagePipeline``.  With
     ``input_xml_path`` (a config without layout stages) the pages' input
-    layouts are re-OCRed instead.  Returns each page's transcription
+    layouts are re-OCRed instead.  ``mesh`` (``--dp``): the page batches,
+    dp * max(1, PAGE_BATCH // dp) pages as the JAX command line sizes
+    them, split over its dp devices.  Returns each page's transcription
     lines."""
     if input_image_path is None:
         raise ValueError("--fast-pipeline reads the pages from INPUT_IMAGE_PATH (-i)")
+    dp = 1 if mesh is None else mesh.shape["dp"]
     with stage_timer("cli/build"):
         fast = FastPagePipeline.from_page_parser(
-            page_parser, transport_bits=args.transport_bits, page_batch=PAGE_BATCH,
+            page_parser, transport_bits=args.transport_bits,
+            page_batch=dp * max(1, PAGE_BATCH // dp),
             want_logits=outputs.want_logits, transport=args.transport,
             canvas_bits=args.canvas_bits, reocr=input_xml_path is not None,
-            want_crops=bool(outputs.line_path),
+            want_crops=bool(outputs.line_path), mesh=mesh,
         )
     def decode(names):
         pages = []

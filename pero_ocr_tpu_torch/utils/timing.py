@@ -1,10 +1,12 @@
-"""Per-stage wall-time registry (the jax-free part of
+"""Per-stage wall-time registry and device traces (port of
 pero_ocr_tpu/utils/timing.py).
 
 ``stage_timer(name)`` accumulates host wall time and call counts per
 stage into one process-wide registry; ``timing_report()`` formats it.
 Device work is asynchronous, so a stage that does not end in a host
 copy or a ``torch.cuda.synchronize()`` measures its enqueue time.
+``torch_profile(log_dir)`` (the counterpart of ``jax_profile``) traces
+a block with ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import contextlib
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 
 class StageStats:
@@ -97,3 +99,22 @@ def reset_timing() -> None:
 
 def add_timing(stats: Dict[str, tuple]) -> None:
     GLOBAL_TIMING.add(stats)
+
+
+@contextlib.contextmanager
+def torch_profile(log_dir: Optional[str]) -> Iterator[None]:
+    """Trace the block with ``torch.profiler`` (CPU activity, and CUDA
+    activity where a card is present) into ``log_dir`` as a
+    ``*.pt.trace.json`` (``tensorboard_trace_handler``) when ``log_dir``
+    is set; a no-op for None and ""."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -424,15 +424,17 @@ def test_unsupported_features_match_jax(bundle):
 # runs since the spawned workers were ported:
 # test_cli_process_count_equals_one_process_and_jax holds its files;
 # "output-render-path" runs since the renders were ported:
-# test_cli_renders_from_tiff_equal_jax_cli holds its files.
+# test_cli_renders_from_tiff_equal_jax_cli holds its files.  The cases
+# "transport" (--transport crops --dp 2), "dp" and "profile" run since the
+# mesh was ported: test_cli_dp_equals_jax_and_one_device holds the files
+# of --dp 2 on both transports, test_cli_dp_mesh its exit where too few
+# cards are visible, and test_cli_profile_writes_a_trace --profile on
+# both paths.
 REFUSED = [
     ("output-line-path-lmdb", ["--output-line-path", "{tmp}/lines.lmdb"], "LMDB store", True),
-    ("transport", ["--transport", "crops", "--dp", "2"], "Training and scale-out", True),
     ("transport-bits", ["--transport-bits", "2"],
      "--transport-bits 2 requires --transport crops", False),
     ("canvas-bits", ["--canvas-bits", "4"], "--canvas-bits requires --transport crops", False),
-    ("dp", ["--dp", "2"], "Training and scale-out", True),
-    ("profile", ["--profile", "{tmp}/p"], "Training and scale-out", True),
 ]
 
 
@@ -450,6 +452,79 @@ def test_cli_refuses_unported_options(bundle, tmp_path, caplog, extra, text, roa
     assert e.value.code == 2
     assert text in caplog.text and ("ROADMAP.md" in caplog.text) == roadmap
     assert not (tmp_path / "xml").exists()
+
+
+def printed_done(capsys) -> int:
+    return capsys.readouterr().out.count("(fast pipeline)")
+
+
+def _layout(xml: str) -> PageLayout:
+    layout = PageLayout()
+    layout.from_pagexml_string(xml)
+    return layout
+
+
+@pytest.mark.skipif(jax_native_library() is None, reason="native library unavailable")
+@pytest.mark.parametrize("transport", ["page", "crops"])
+def test_cli_dp_equals_jax_and_one_device(bundle, tmp_path, float32_parsenets, jax_gather_warp,
+                                          monkeypatch, capsys, transport):
+    """--fast-pipeline --dp 2 --device cpu: a page batch of 4 split over
+    two CPU replicas.  Its Page XML files equal the port's without --dp
+    (timestamps masked) and the JAX command line's with --dp 2 (two of
+    its 8 virtual CPU devices; timestamps masked, conf within 0.001).
+    The crop transport's straight lines warp on the C++ route, whose
+    bytes equal the JAX library's."""
+    monkeypatch.setattr(native, "use_native", lambda route, device: True)
+    runs = {}
+    for name, run, extra in (("dp", _run_port, ["--dp", "2"]), ("one", _run_port, []),
+                             ("jax", _jax_cli, ["--dp", "2"])):
+        out = tmp_path / name
+        run(["-c", str(bundle / "config.ini"), "-i", str(bundle / "images"), "--device", "cpu",
+             "--output-xml-path", str(out), "--fast-pipeline", "--transport", transport]
+            + extra)
+        runs[name] = {f: (out / f).read_text(encoding="utf-8") for f in sorted(os.listdir(out))}
+    assert printed_done(capsys) == 9
+    assert list(runs["dp"]) == list(runs["one"]) == list(runs["jax"]) == [
+        f"page-{i}.xml" for i in range(3)]
+    for name, xml in runs["dp"].items():
+        assert _masked(xml) == _masked(runs["one"][name])
+        assert_xml_equal(xml, runs["jax"][name])
+    assert any(line.transcription for name in runs["dp"]
+               for line in _layout(runs["dp"][name]).lines_iterator())
+
+
+def test_cli_dp_mesh(monkeypatch, caplog):
+    """--dp's mesh: none for 0 and 1, N CPU replicas with --device cpu,
+    and on CUDA exit 2 with the JAX message when fewer cards are
+    visible."""
+    assert parse_folder.dp_mesh(0, torch.device("cpu")) is None
+    assert parse_folder.dp_mesh(1, torch.device("cuda")) is None
+    mesh = parse_folder.dp_mesh(2, torch.device("cpu"))
+    assert mesh.shape == {"dp": 2, "tp": 1} and mesh.dp_devices == [torch.device("cpu")] * 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with caplog.at_level(logging.ERROR), pytest.raises(SystemExit) as e:
+        parse_folder.dp_mesh(2, torch.device("cuda"))
+    assert e.value.code == 2
+    assert "--dp 2 requested but only 1 device(s) visible" in caplog.text
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["staged", "fast_pipeline"])
+def test_cli_profile_writes_a_trace(bundle, tmp_path, capsys, fast):
+    """--profile DIR: a torch.profiler trace of the processing loop lands
+    in DIR, on both paths, and the run writes its files.  Stage by stage
+    --dp changes nothing, as in the JAX command line."""
+    ini = bundle / "config.ini" if fast else staged_config(bundle, tmp_path)
+    _run_port(["-c", str(ini), "-i", str(bundle / "images"), "--device", "cpu",
+               "--output-xml-path", str(tmp_path / "xml"), "--profile",
+               str(tmp_path / "trace"), "--dp", "2"] + (["--fast-pipeline"] if fast else []))
+    printed = capsys.readouterr().out
+    assert printed.count("(fast pipeline)" if fast else "DONE ") == 3
+    assert sorted(os.listdir(tmp_path / "xml")) == [f"page-{i}.xml" for i in range(3)]
+    traces = [f for f in os.listdir(tmp_path / "trace") if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    with open(tmp_path / "trace" / traces[0], encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
 
 
 @pytest.mark.skipif(jax_native_library() is None, reason="native library unavailable")

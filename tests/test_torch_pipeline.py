@@ -15,6 +15,15 @@ equal heights, equal labels and lengths, confidences within 1e-4.  To
 Page XML (JAX's ``assemble_page_layout`` and lxml writer against the
 port's ``FastPagePipeline``): the same paragraph clusters and the same
 Page XML text apart from the Created and LastChange timestamps.
+
+Under a mesh of 2 and 8 CPU replicas (fixed lines, page batch 8, on the
+page transport, the crop transport and the recognize-only loop): labels,
+lengths and confidences equal to the run without a mesh, and to JAX's
+``TPUPagePipeline(mesh=make_mesh(8, tp=1))`` within the tolerances
+above (confidences within 1e-4 on the page transport, 1e-5 on the
+crops); with CNN detection and the adaptive downsample, whose corrected
+scale sticks from the first batch on, equal to the run without a mesh
+(the median is taken over the whole batch, not a shard).
 """
 
 import hashlib
@@ -34,10 +43,12 @@ from pero_ocr_tpu.models.recognizer import (
     RecognizerSpec as FlaxSpec,
 )
 from pero_ocr_tpu.document.fast_pipeline import assemble_page_layout as jax_assemble
+from pero_ocr_tpu.parallel import mesh as jax_mesh
 from pero_ocr_tpu.parallel.pipeline import TPUPagePipeline
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline, assemble_page_layout
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
+from pero_ocr_tpu_torch.parallel.mesh import Mesh, make_mesh
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.utils import native as native_port
 from pero_ocr_tpu_torch.utils.convert import (
@@ -295,12 +306,17 @@ def _page_xml_against_jax(models, case, native=None, stage_a=None):
 
 
 def test_unported_options_raise(models):
-    """The mesh is the one option left unported; the other refusals are
+    """No option is left unported: a mesh builds (its page batches must
+    split over dp; the mesh tests below run it); the refusals are
     the JAX pipeline's own checks, with its messages."""
     (flax_pn, pn_vars, flax_rec, rec_vars), torch_models = models
     pn, rec = torch_models()
-    with pytest.raises(ValueError, match="Training and scale-out"):
-        TorchPagePipeline(pn, rec, device="cpu", mesh=object())
+    meshed = TorchPagePipeline(pn, rec, device="cpu", mesh=make_mesh(2, device_type="cpu"))
+    assert meshed.shard_devices == [torch.device("cpu")] * 2 and meshed.device.type == "cpu"
+    with pytest.raises(ValueError, match="must be a multiple of the mesh's dp size 2"):
+        list(meshed.run([_page()], page_batch=3))
+    with pytest.raises(ValueError, match="must be a multiple of the mesh's dp size 2"):
+        FastPagePipeline(meshed, CHARS, page_batch=3)
     with pytest.raises(ValueError, match="neither a CTCRecognizer nor a transformer"):
         TorchPagePipeline(pn, torch.nn.Linear(1, 1), device="cpu")
     for kwargs in ({"transport": "ribbon"}, {"transport_bits": 2},
@@ -361,3 +377,112 @@ def test_adaptive_decision_matches_jax_on_the_slice_pages(models):
             assert got == want
         decided.append(got[0])
     assert any(d is not None for d in decided)
+
+
+# ----------------------------------------------------------------------
+# Under a mesh: page batches split over dp (counterpart of
+# tests/test_pipeline.py's mesh case)
+
+MESH_PAGES = [_page(shift=s, seed=i) for i, s in enumerate((0, 8, -4, 4, -8, 2, 6, -2))]
+
+
+def _assert_same(got, want, conf_atol):
+    assert [r.page_index for r in got] == [r.page_index for r in want] == list(range(8))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.crops_width, w.crops_width)
+        np.testing.assert_array_equal(g.labels, w.labels)
+        np.testing.assert_array_equal(g.label_lengths, w.label_lengths)
+        np.testing.assert_allclose(g.confidences, w.confidences, atol=conf_atol, rtol=0)
+
+
+@pytest.mark.skipif(jax_native_library() is None or shutil.which(os.environ.get("CXX") or "c++")
+                    is None, reason="no host C++ compiler or JAX native library")
+@pytest.mark.parametrize("loop", ["page", "crops", "recognize_only"])
+def test_pipeline_under_a_mesh_matches_one_device_and_jax(models, loop):
+    (flax_pn, pn_vars, flax_rec, rec_vars), torch_models = models
+    kwargs = dict(PIPELINE, transport="page" if loop == "page" else "crops",
+                  cluster_paragraphs=False)
+    skip = loop == "recognize_only"
+    override = [_override(p) for p in MESH_PAGES]
+    jmesh = jax_mesh.make_mesh(8, tp=1)
+    with jmesh:
+        jax_pipe = (TPUPagePipeline(None, None, flax_rec, rec_vars, mesh=jmesh, **kwargs) if skip
+                    else TPUPagePipeline(flax_pn, pn_vars, flax_rec, rec_vars, mesh=jmesh,
+                                         **kwargs))
+        jax_pipe._stage_b_warp = jax_pipe._stage_b_warp_gather
+        want = list(jax_pipe.run(MESH_PAGES, lines_override=override, page_batch=8,
+                                 skip_stage_a=skip))
+    runs = {}
+    for dp in (1, 2, 8):
+        pn, rec = torch_models()
+        mesh = None if dp == 1 else make_mesh(dp, device_type="cpu")
+        port = TorchPagePipeline(None if skip else pn, rec, device="cpu", native=True, mesh=mesh,
+                                 **kwargs)
+        assert len(port.shard_devices) == dp
+        runs[dp] = list(port.run(MESH_PAGES, lines_override=override, page_batch=8,
+                                 skip_stage_a=skip))
+    for dp in (2, 8):
+        _assert_same(runs[dp], runs[1], 0.0)
+    _assert_same(runs[8], want, 1e-4 if loop == "page" else 1e-5)
+    assert any(r.label_lengths.any() for r in want)
+
+
+@pytest.mark.parametrize("transport", ["page", "crops"])
+def test_adaptive_downsample_under_a_mesh_equals_one_device(models, transport):
+    """CNN detection with the adaptive downsample on 6 pages, page batch
+    2, over 2 CPU replicas: the first batch moves the sticky scale, the
+    later ones start from it; every result equals the run without a
+    mesh."""
+    _, torch_models = models
+    pages = [_page(shift=s, seed=i) for i, s in enumerate((0, 8, -4, 4, -8, 2))]
+    runs, scales = {}, {}
+    for dp in (1, 2):
+        pn, rec = torch_models()
+        port = TorchPagePipeline(
+            pn, rec, device="cpu", transport=transport, adaptive_downsample=True,
+            mesh=None if dp == 1 else make_mesh(dp, device_type="cpu"), **PIPELINE)
+        runs[dp] = list(port.run(pages, page_batch=2))
+        scales[dp] = port._last_ds
+    assert scales[2] == scales[1] != PIPELINE["downsample"]
+    assert [r.page_index for r in runs[2]] == list(range(6))
+    for g, w in zip(runs[2], runs[1]):
+        assert len(g.baselines) == len(w.baselines)
+        for bg, bw in zip(g.baselines, w.baselines):
+            np.testing.assert_array_equal(bg, bw)
+        assert g.heights == w.heights and g.clusters == w.clusters
+        for a, b in ((g.labels, w.labels), (g.label_lengths, w.label_lengths),
+                     (g.confidences, w.confidences)):
+            np.testing.assert_array_equal(a, b)
+
+
+
+
+def test_replicas_on_a_second_device(models):
+    """A mesh whose second dp row is another device (``cpu:1``, which the
+    mesh keeps apart from ``cpu``): that row gets its own replica of both
+    models, equal in weights and apart in storage, ``_models`` picks a
+    shard's models by its device, and the run equals the one-device run.
+    On the CPU every tensor lands on ``cpu``, so the run itself goes
+    through the first row's models; a card's second device takes its
+    replica."""
+    _, torch_models = models
+    second = torch.device("cpu", 1)
+    pn, rec = torch_models()
+    port = TorchPagePipeline(pn, rec, device="cpu", mesh=Mesh([["cpu"], [second]]), **PIPELINE)
+    assert port.shard_devices == [torch.device("cpu"), second]
+    assert list(port._replicas) == [second] and set(port._255s) == {torch.device("cpu"), second}
+    assert port._models(torch.device("cpu")) == (port.parsenet, port.recognizer)
+    replica = port._models(second)
+    for mine, theirs in zip(replica, (port.parsenet, port.recognizer)):
+        assert mine is not theirs
+        for (name, a), b in zip(mine.state_dict().items(), theirs.state_dict().values()):
+            assert torch.equal(a, b) and a.data_ptr() != b.data_ptr(), name
+    pages = MESH_PAGES[:4]
+    override = [_override(p) for p in pages]
+    got = list(port.run(pages, lines_override=override, page_batch=4))
+    pn, rec = torch_models()
+    want = list(TorchPagePipeline(pn, rec, device="cpu", **PIPELINE).run(
+        pages, lines_override=override, page_batch=4))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.labels, w.labels)
+        np.testing.assert_array_equal(g.confidences, w.confidences)

@@ -42,6 +42,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 
 from pero_ocr_tpu.decoding import itf as jax_itf
 from pero_ocr_tpu.models import charlm as jax_charlm
@@ -51,13 +52,13 @@ from pero_ocr_tpu.models.recognizer import CTCRecognizer as FlaxRecognizer
 from pero_ocr_tpu.models.recognizer import RecognizerSpec as FlaxSpec
 from pero_ocr_tpu.parallel import train as jax_train
 from pero_ocr_tpu.utils import checkpoint as jax_checkpoint
-from pero_ocr_tpu_torch import SCALE_OUT
 from pero_ocr_tpu_torch.decoding import itf
 from pero_ocr_tpu_torch.models import charlm
 from pero_ocr_tpu_torch.models import transformer as tf
 from pero_ocr_tpu_torch.models.parsenet import OrientationNet, ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
 from pero_ocr_tpu_torch.parallel import optim, train
+from pero_ocr_tpu_torch.parallel.mesh import make_mesh
 from pero_ocr_tpu_torch.utils import checkpoint, convert
 
 LOSS_RTOL = 1e-5
@@ -312,16 +313,39 @@ def test_bfloat16_spec_trains_from_float32_weights():
     assert any(p.dtype == torch.bfloat16 for p in state.targets)
 
 
-def test_trainers_default_to_cuda_and_the_mesh_is_not_ported():
+def test_trainers_default_to_cuda_and_the_mesh_is_not_ported(tmp_path):
+    """The trainers take CUDA unless asked for the CPU; the mesh trainer
+    runs (it needs a process group: here one gloo rank on a (1, 1) CPU
+    mesh, whose step equals make_train_step's; tests/test_torch_mesh.py
+    runs 2 and 4 ranks)."""
     module = CTCRecognizer(RecognizerSpec(num_classes=7, line_height=16, conv_features=(4, 8),
                                           lstm_layers=1, lstm_features=8))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.init_train_state(module, train.make_optimizer())
-    for fn, args in ((train.shard_train_state, (None, None)),
-                     (train.make_sharded_train_step, (module, None, None))):
-        with pytest.raises(ValueError, match=SCALE_OUT):
-            fn(*args)
+    mesh = make_mesh(1, device_type="cpu")
+    with pytest.raises(RuntimeError, match="init_process_group first"):
+        train.shard_train_state(None, mesh)
+    module = CTCRecognizer(RecognizerSpec(num_classes=7, line_height=16, conv_features=(4, 8),
+                                          lstm_layers=1, lstm_features=8, dtype=torch.float32),
+                           generator=torch.Generator().manual_seed(0))
+    twin = copy.deepcopy(module)
+    batch = _ctc_batch(3)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}", rank=0,
+                            world_size=1)
+    try:
+        state = train.shard_train_state(
+            train.init_train_state(module, train.make_optimizer(1e-3), device="cpu"), mesh)
+        step = train.make_sharded_train_step(module, train.make_optimizer(1e-3), mesh)
+        state, loss = step(state, *batch)
+    finally:
+        dist.destroy_process_group()
+    plain = train.init_train_state(twin, train.make_optimizer(1e-3), device="cpu")
+    plain, want = train.make_train_step(twin, train.make_optimizer(1e-3))(plain, *batch)
+    assert float(loss) == pytest.approx(float(want), rel=1e-6)
+    assert state.shard_axes and not any(state.shard_axes.values())  # tp 1: all replicated
+    for (name, got), w in zip(module.state_dict().items(), twin.state_dict().values()):
+        torch.testing.assert_close(got, w, rtol=0, atol=1e-7, msg=name)
 
 
 # ----------------------------------------------------------------------
