@@ -263,8 +263,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from pero_ocr_tpu_torch.core import geometry, render
-from pero_ocr_tpu_torch.core.force_alignment import viterbi_ctc
+from pero_ocr_tpu_torch.core import altoxml, geometry, render
+from pero_ocr_tpu_torch.core.force_alignment import align_text, force_align, viterbi_ctc
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.core.line_geometry import resample_baseline
 from pero_ocr_tpu_torch.document import pdf
@@ -288,8 +288,10 @@ from pero_ocr_tpu_torch.parallel.crop_transport import unpack_bits, warp_affine_
 from pero_ocr_tpu_torch.parallel.pipeline import TorchPagePipeline
 from pero_ocr_tpu_torch.parallel import mesh as mesh_lib
 from pero_ocr_tpu_torch.parallel import train
+from pero_ocr_tpu_torch.parallel.optim import Adam
 from pero_ocr_tpu_torch.sequence_alignment import levenshtein_ids_batch
 from pero_ocr_tpu_torch.scripts import compare_page_xml_texts, produce_2layer_pdf, select_embed_id
+from pero_ocr_tpu_torch.scripts import convert_torchscript
 from pero_ocr_tpu_torch.scripts.parse_folder import LINE_QUALITY, RENDER_QUALITY
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
 from pero_ocr_tpu_torch.utils import checkpoint, convert, denoise, image_io, kernels, native, timing
@@ -2589,6 +2591,24 @@ ALTO_NS = "{http://www.loc.gov/standards/alto/ns-v2#}"
 LOGITS_REL, LOGITS_PATTERN_SHARE = 2.0 ** -7, 0.01
 
 
+def alto_texts_back(alto, layout, label: str) -> int:
+    """Read ``alto`` (a string, or a file for ``from_altoxml``) into a
+    PageLayout; its lines' transcriptions must be ``layout``'s non-blank
+    ones, in order (words joined by one space).  Returns their count."""
+    back = PageLayout()
+    if isinstance(alto, str):
+        back.from_altoxml_string(alto)
+    else:
+        back.from_altoxml(alto)
+    got = [line.transcription for line in back.lines_iterator()]
+    want = [" ".join(line.transcription.split()) for line in layout.lines_iterator()
+            if (line.transcription or "").strip()]
+    if got != want or not want:
+        raise AssertionError(f"ALTO read back of {label}: {len(got)} lines, {len(want)} "
+                             "expected, or their texts differ")
+    return len(got)
+
+
 def outputs_of(layout):
     """A page's three outputs as the command line on the card writes
     them: Page XML, the logits pickle's bytes and ALTO (C++ alignment)."""
@@ -2733,23 +2753,33 @@ def load_logits_renamed(layout, blob: bytes, rename: dict) -> None:
 
 class ViterbiInputs:
     """Keeps the arguments of every ``native_viterbi_ctc`` call (the
-    forced alignment's gathered costs and skip masks)."""
+    forced alignment's gathered costs and skip masks) and of every
+    ``align_text`` call of the ALTO writer (``lines``: a line's float32
+    negative log-probabilities, labels and blank)."""
 
     def __init__(self):
         self.calls = []
+        self.lines = []
 
     def __enter__(self):
-        self._fn = native.native_viterbi_ctc
+        self._fn, self._align = native.native_viterbi_ctc, altoxml.align_text
 
         def kept(costs, skip):
             self.calls.append((np.array(costs, np.float32), np.array(skip, bool)))
             return self._fn(costs, skip)
 
+        def kept_align(neg_logprobs, labels, blank, native=None):
+            self.lines.append((np.array(neg_logprobs, np.float32), np.array(labels, np.int64),
+                               int(blank)))
+            return self._align(neg_logprobs, labels, blank, native=native)
+
         native.native_viterbi_ctc = kept
+        altoxml.align_text = kept_align
         return self
 
     def __exit__(self, *exc):
         native.native_viterbi_ctc = self._fn
+        altoxml.align_text = self._align
         return False
 
 
@@ -2912,7 +2942,7 @@ def run_config5(pipe: TorchPagePipeline, rng, smi: str):
            "staged": [(layout, xml) for layout, xml, *_ in staged_out]}
     cli = {}
     for path, layouts in own.items():
-        checked, alto_equal = [], 0
+        checked, alto_equal, alto_read = [], 0, 0
         for layout, xml in layouts:
             cli_xml, blob = files[path]["xml"][layout.id], files[path]["logits"][layout.id]
             if not (same_staged_page(cli_xml, xml) if path == "staged"
@@ -2922,10 +2952,19 @@ def run_config5(pipe: TorchPagePipeline, rng, smi: str):
             checked.append(logits_close(blob, layout, rename))
             # The ALTO writer on the command line's own logits, here.
             load_logits_renamed(layout, blob, rename)
-            alto_equal += alto_same(files[path]["alto"][layout.id],
-                                    layout.to_altoxml_string(native=True), layout.id)
+            own_alto = layout.to_altoxml_string(native=True)
+            alto_equal += alto_same(files[path]["alto"][layout.id], own_alto, layout.id)
+            # The ALTO reader gives each page's line transcriptions back:
+            # the command line's file against its own Page XML, the
+            # in-process string against its layout.
+            cli_layout = PageLayout()
+            cli_layout.from_pagexml_string(cli_xml)
+            alto_read += alto_texts_back(io.BytesIO(files[path]["alto"][layout.id].encode()),
+                                         cli_layout, f"{layout.id} ({path}, command line)")
+            alto_read += alto_texts_back(own_alto, layout, f"{layout.id} ({path}, card)")
         cli[path] = {"pages": len(layouts), "pages_per_s": files[path]["pages_per_s"],
                      "wall_s": files[path]["wall_s"], "alto_files_equal": alto_equal,
+                     "alto_lines_read_back": alto_read,
                      "logits_lines": sum(c["lines"] for c in checked),
                      "logits_lines_equal": sum(c["lines_equal"] for c in checked),
                      "logits_frames_other_classes": sum(c["frames_other_classes"]
@@ -2943,7 +2982,7 @@ def run_config5(pipe: TorchPagePipeline, rng, smi: str):
     staged_files = {layout.id: (page, xml, alto)
                     for page, (layout, xml, _, alto) in zip(pages, staged_out)}
     return {"warp_lines": launches, "warp_fields": staged_launches}, numbers, (
-        *last_b[0], logits_pipe.crop_height, logits_pipe.crop_bucket), viterbi.calls, staged_files
+        *last_b[0], logits_pipe.crop_height, logits_pipe.crop_bucket), viterbi, staged_files
 
 
 # ----------------------------------------------------------------------
@@ -5210,12 +5249,19 @@ def run_torchscript(rng, smi: str, device: str = "cuda"):
     with ini (a), its files equal to the in-process run's.  ``device`` "cpu"
     rehearses the phase with the plain versions and no kernel checks.
     Returns (warp_lines launches, warp_fields launches by ini, numbers,
-    the last fast batch's warp arguments, ini (a)'s last page buckets)."""
+    the last fast batch's warp arguments, ini (a)'s last page buckets,
+    ts_distill's (numbers, student) or None on the CPU)."""
     numbers, wall = {}, {}
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="torchscript_") as tmp:
         det, rec = write_archives(tmp)
         wall["trace_archives"] = time.perf_counter() - t_phase
+        distilled = None
+        if device == "cuda":
+            t0 = time.perf_counter()
+            distilled = ts_distill(tmp, smi)
+            numbers["distill"] = distilled[0]
+            wall["distill"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         launches, numbers["fast"], fast_args = ts_fast_path(tmp, det, rec, rng, smi, device)
         wall["fast_path"] = time.perf_counter() - t0
@@ -5255,7 +5301,7 @@ def run_torchscript(rng, smi: str, device: str = "cuda"):
     log("torchscript phase, wall seconds by part: " + ", ".join(
         f"{k} {v:.1f}" for k, v in wall.items()))
     fields = {name: staged[name][1]["warp_fields_launches"] for name in TS_INIS}
-    return launches, fields, numbers, fast_args, last_page
+    return launches, fields, numbers, fast_args, last_page, distilled
 
 
 # ----------------------------------------------------------------------
@@ -6149,6 +6195,178 @@ def run_train(rng, smi: str) -> dict:
     return report
 
 
+# ----------------------------------------------------------------------
+# The JAX package's last modules outside image decoding (the leftovers
+# phase): the batched CTC alignment on config 5's lines, and the
+# TorchScript archive distilled into a native recognizer.
+DISTILL_STEPS, DISTILL_BATCH = 5, 8
+DISTILL_RTOL = 1e-3  # the card's first-step loss against the CPU's
+
+
+def ts_distill(tmp: str, smi: str):
+    """``convert_torchscript distill --family ctc`` on the card against the
+    torchscript phase's recognizer archive: DISTILL_STEPS steps at the
+    default widths, batch DISTILL_BATCH, TF32 off; its first step's loss
+    against a CPU run's (DISTILL_RTOL); its checkpoint loaded into the
+    port's CTCRecognizer; ms a step of that student continued on the card
+    (CUDA events).  Returns (numbers, the loaded student on the CPU)."""
+    argv = ["distill", os.path.join(tmp, "recognizer.pt"), "--family", "ctc",
+            "--out", os.path.join(tmp, "distilled.ckpt"), "--steps", str(DISTILL_STEPS),
+            "--batch", str(DISTILL_BATCH)]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        stdout, seconds = run_script(convert_torchscript.main, argv)
+        args = convert_torchscript.parse_arguments(argv)
+        losses = {int(i): float(v) for i, v in
+                  re.findall(r"^step (\d+): distill loss (\S+)$", stdout, re.M)}
+        if sorted(losses) != [0, DISTILL_STEPS - 1] or "wrote native checkpoint" not in stdout:
+            raise AssertionError(f"distill on the card printed:\n{stdout}")
+        cpu_args = convert_torchscript.parse_arguments(
+            argv[:4] + ["--out", os.path.join(tmp, "cpu.ckpt"), "--steps", "1",
+                        "--batch", str(DISTILL_BATCH)])
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu_loss = convert_torchscript.distill(cpu_args, device="cpu")["losses"][0]
+        rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+        if not rel <= DISTILL_RTOL:
+            raise AssertionError(f"distill: the card's first loss {losses[0]} against the "
+                                 f"CPU's {cpu_loss} ({rel:.3g} relative)")
+        teacher = convert_torchscript.load_teacher(args, "cuda")
+        student = convert_torchscript.make_student(
+            args, teacher, variables=checkpoint.load_variables(args.out))
+        served = copy.deepcopy(student)
+        optimizer = Adam(args.learning_rate)
+        state = train.init_train_state(student, optimizer, "cuda")
+        step = train.make_loss_step(student, optimizer, lambda m, b, t: (
+            convert_torchscript.distill_loss("ctc", m(b), t)))
+        pages = convert_torchscript.synthetic_pages(
+            DISTILL_BATCH, convert_torchscript.input_shape(args), np.random.RandomState(1))
+        batch = torch.from_numpy(np.stack(pages).astype(np.float32) / 255.0).cuda()
+        with torch.no_grad():
+            target = teacher(batch)
+        step_ms = cuda_ms(lambda: step(state, batch, target), reps=5, warmup=1, ahead=False)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    numbers = {"steps": DISTILL_STEPS, "batch": DISTILL_BATCH, "losses_printed": losses,
+               "cpu_first_loss": cpu_loss, "first_loss_rel": rel, "script_wall_s": seconds,
+               "ms_a_step": step_ms, "classes": teacher.spec.num_classes,
+               "student_weights": sum(p.numel() for p in served.parameters()), "card": smi}
+    log(f"distill (ctc, {DISTILL_STEPS} steps, batch {DISTILL_BATCH}, default widths): "
+        f"{json.dumps(numbers)}")
+    return numbers, served
+
+
+def align_bytes(lp: np.ndarray, labels: np.ndarray) -> int:
+    """The bytes align_text_batch must move: the (B, T, C) float32
+    log-probabilities read once; the state and char paths (B, T) int64,
+    the positions (B, L) int32 and ``valid`` (B,) written once."""
+    b, t, _ = lp.shape
+    return lp.nbytes + 2 * 8 * b * t + 4 * labels.size + b
+
+
+def check_align_text_batch(lines, smi: str) -> dict:
+    """``ops.ctc.align_text_batch`` on the card over config 5's lines (the
+    ALTO writer's align_text inputs), one batch: its positions and
+    ``valid`` against the host route's ``align_text`` (C++
+    ``viterbi_ctc_f32``) line by line, a line whose positions differ
+    counted as a near-tie when its two paths' float64 costs lie within
+    the float32 sums' rounding (T * 2**-23 of the cost), and against the
+    same function on the CPU (equal); device ms a batch (CUDA events),
+    kernels a batch (torch.profiler), and the bound by bytes."""
+    empty = sum(len(lab) == 0 for _, lab, _ in lines)  # the host refuses an empty text
+    lines = [x for x in lines if len(x[1])]
+    b = len(lines)
+    frames = np.array([neg.shape[0] for neg, _, _ in lines])
+    lengths = np.array([len(lab) for _, lab, _ in lines])
+    c = lines[0][0].shape[1]
+    if any(neg.shape[1] != c or blank != c - 1 for neg, _, blank in lines):
+        raise AssertionError("config 5's lines have other class counts")
+    lp = np.zeros((b, frames.max(), c), np.float32)
+    labels = np.zeros((b, max(lengths.max(), 1)), np.int64)
+    for i, (neg, lab, _) in enumerate(lines):
+        lp[i, :len(neg)] = -neg
+        labels[i, :len(lab)] = lab
+    positions, valid = pipeline_ctc_ops.align_text_batch(lp, labels, lengths, frames)
+    cpu_positions, cpu_valid = pipeline_ctc_ops.align_text_batch(lp, labels, lengths, frames,
+                                                                 device="cpu")
+    if not (np.array_equal(positions, cpu_positions) and np.array_equal(valid, cpu_valid)):
+        raise AssertionError("align_text_batch: the card's positions differ from the CPU's")
+    tensors = [torch.from_numpy(x).cuda() for x in (lp, labels, lengths, frames)]
+    state_paths = pipeline_ctc_ops.viterbi_align_batch(*tensors)[0].cpu().numpy()
+    equal = ties = no_path = 0
+    for i, (neg, lab, blank) in enumerate(lines):
+        try:
+            want = align_text(neg, lab, blank, native=True)
+        except ValueError:
+            want = None
+        if want is None or not valid[i]:
+            if want is not None or valid[i]:
+                raise AssertionError(f"align_text_batch: line {i} valid {valid[i]}, host "
+                                     f"{'aligned' if want is not None else 'no path'}")
+            no_path += 1
+            continue
+        if np.array_equal(positions[i, :len(lab)], want):
+            equal += 1
+            continue
+        states = np.full(2 * len(lab) + 1, blank)
+        states[1::2] = lab
+        t = len(neg)
+        card_cost = float(-neg[np.arange(t), states[state_paths[i, :t]]].astype(np.float64).sum())
+        host_path = force_align(neg, lab, blank, native=True)
+        host_cost = float(-neg[np.arange(t), host_path].astype(np.float64).sum())
+        if abs(card_cost - host_cost) > t * 2.0 ** -23 * abs(host_cost):
+            raise AssertionError(f"align_text_batch: line {i} differs from the host's "
+                                 f"alignment ({card_cost} against {host_cost})")
+        ties += 1
+    # Thousands of small kernels a call fill the launch queue, so the
+    # calls cannot queue behind a busy-wait: the events hold the host's
+    # launch time too (the profiler's busy time is the kernels' alone).
+    device_ms = cuda_ms(lambda: pipeline_ctc_ops.viterbi_align_batch(*tensors), reps=5,
+                        warmup=1, ahead=False)
+    call_ms = cuda_ms(lambda: pipeline_ctc_ops.align_text_batch(lp, labels, lengths, frames),
+                      reps=3, warmup=1, ahead=False)
+    split = _profiled(lambda: pipeline_ctc_ops.viterbi_align_batch(*tensors), {})
+    whole = _profiled(lambda: pipeline_ctc_ops.align_text_batch(lp, labels, lengths, frames), {})
+    nbytes = align_bytes(lp, labels)
+    out = {"lines": b, "frames": int(frames.sum()), "max_frames": int(frames.max()),
+           "classes": c, "max_labels": int(lengths.max()), "equal": equal,
+           "near_ties": ties, "no_path": no_path, "empty_texts": empty, "device_ms": device_ms,
+           "call_ms": call_ms, "kernels": split.get("kernels"),
+           "kernels_call": whole.get("kernels"), "busy_ms": split.get("busy_ms"),
+           "idle_share": split.get("idle_share"),
+           "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+           "card": smi}
+    log(f"align_text_batch on config 5's lines: {json.dumps(out)}")
+    return out
+
+
+def run_leftovers(viterbi_lines, distilled, stage_b_args, smi: str) -> dict:
+    """The batched alignment (check_align_text_batch), and the distilled
+    recognizer (ts_distill) serving one stage-B batch of config 2's last
+    batch on the card: labels within its frames, confidences in [0, 1],
+    one warp_lines launch."""
+    t0 = time.perf_counter()
+    align = check_align_text_batch(viterbi_lines, smi)
+    align["wall_s"] = time.perf_counter() - t0
+    numbers, student = distilled
+    t0 = time.perf_counter()
+    pages, bl, hh, crop_h, bucket = stage_b_args
+    serve = TorchPagePipeline(None, student, crop_height=crop_h, crop_bucket=bucket,
+                              device="cuda")
+    before = warp_ops.warp_lines.launches
+    labels, lengths, confs, _, _ = serve.stage_b(pages, bl, hh)
+    torch.cuda.synchronize()
+    lengths, confs = lengths.cpu().numpy(), confs.float().cpu().numpy()
+    if (warp_ops.warp_lines.launches - before != 1 or lengths.max() > labels.shape[-1]
+            or not np.all((confs >= 0) & (confs <= 1))):
+        raise AssertionError("the distilled recognizer's stage-B batch is malformed")
+    numbers["stage_b"] = {"lines": int(lengths.size), "frames": int(labels.shape[-1]),
+                          "labels": int(lengths.sum()), "mean_confidence": float(confs.mean()),
+                          "wall_s": time.perf_counter() - t0}
+    log(f"distilled recognizer, one stage-B batch: {numbers['stage_b']}")
+    return {"align_text_batch": align, "distill": numbers}
+
+
 @contextlib.contextmanager
 def phase(name: str):
     """Log the wall seconds of the block, as "phase <name>: <s> s"."""
@@ -6199,7 +6417,7 @@ def run_phases(smi: str) -> list:
     with phase("mesh"):
         mesh = run_mesh(pipe, fast_host["pages"], smi)
     with phase("config5"):
-        launches_config5, config5, config5_args, viterbi_inputs, config5_files = run_config5(
+        launches_config5, config5, config5_args, viterbi, config5_files = run_config5(
             pipe, rng, smi)
     with phase("user_scripts"):
         launches_scripts, user_scripts = run_user_scripts(script_pages, config5_files,
@@ -6214,9 +6432,12 @@ def run_phases(smi: str) -> list:
     with phase("reocr"):
         reocr = run_reocr(pipe, rng, smi)
     with phase("torchscript"):
-        ts_launches, ts_fields, torchscript, ts_args, ts_page = run_torchscript(rng, smi)
+        ts_launches, ts_fields, torchscript, ts_args, ts_page, distilled = run_torchscript(
+            rng, smi)
     with phase("host_native"):
-        host_native = check_host_native(fast_host, staged_host, viterbi_inputs, smi)
+        host_native = check_host_native(fast_host, staged_host, viterbi.calls, smi)
+    with phase("leftovers"):
+        leftovers = run_leftovers(viterbi.lines, distilled, main_args, smi)
     with phase("train"):
         training = run_train(rng, smi)
     # The kernel against its plain version, and its times, at the main
@@ -6282,7 +6503,7 @@ def run_phases(smi: str) -> list:
         ("user_scripts", user_scripts),
         ("config3", config3), ("config4", config4), ("crops", crops), ("reocr", reocr),
         ("torchscript", torchscript),
-        ("host_native", host_native),
+        ("host_native", host_native), ("leftovers", leftovers),
         ("train", training))] + [smi, json.dumps({"kernels": [warp, fields]})]
 
 

@@ -12,16 +12,19 @@ word boxes with confidence 0 (a warning is logged).
 
 The tree is the Page XML writer's ``_Element``
 (:mod:`pero_ocr_tpu_torch.core.pagexml`), which serializes as lxml's
-pretty printer does.  The ALTO reader (JAX ``read_altoxml``) is not
-ported yet (ROADMAP item 9).
+pretty printer does.  The reader (``read_altoxml``) parses with
+``xml.etree.ElementTree`` into rectangular regions and lines, as the JAX
+package's reader does with lxml.
 """
 
 from __future__ import annotations
 
 import logging
 import re
+import xml.etree.ElementTree as ET
 from datetime import datetime, timezone
-from typing import Optional, Tuple
+from io import BytesIO
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
@@ -29,8 +32,8 @@ from pero_ocr_tpu_torch.core import line_geometry
 from pero_ocr_tpu_torch.core.arabic import ArabicHelper
 from pero_ocr_tpu_torch.core.confidence_estimation import get_line_confidence
 from pero_ocr_tpu_torch.core.force_alignment import align_text
-from pero_ocr_tpu_torch.core.layout import TextLine
-from pero_ocr_tpu_torch.core.pagexml import _Element
+from pero_ocr_tpu_torch.core.layout import RegionLayout, TextLine
+from pero_ocr_tpu_torch.core.pagexml import _Element, element_schema
 
 logger = logging.getLogger(__name__)
 
@@ -304,3 +307,47 @@ def write_altoxml_string(
     out = ["<?xml version='1.0' encoding='utf-8'?>\n"]
     root.write(out, 0)
     return "".join(out)
+
+
+def read_altoxml_string(layout, altoxml_string: str) -> None:
+    read_altoxml(layout, BytesIO(altoxml_string.encode("utf-8")))
+
+
+def read_altoxml(layout, file: Union[str, BytesIO]) -> None:
+    """Populate a PageLayout from an ALTO file: rectangular region and
+    line geometry, words joined into line transcriptions."""
+    root = ET.parse(file).getroot()
+    schema = element_schema(root)
+
+    alto_layout = root.findall(schema + "Layout")[0]
+    page = alto_layout.findall(schema + "Page")[0]
+
+    layout.id = page.attrib["ID"][3:]
+    layout.page_size = (int(page.attrib["HEIGHT"]), int(page.attrib["WIDTH"]))
+
+    print_space = page.findall(schema + "PrintSpace")[0]
+    for block in print_space.iter(schema + "TextBlock"):
+        x0 = int(block.get("HPOS"))
+        y0 = int(block.get("VPOS"))
+        x1 = x0 + int(block.get("WIDTH"))
+        y1 = y0 + int(block.get("HEIGHT"))
+        region = RegionLayout(
+            block.attrib["ID"], np.asarray([[x0, y0], [x1, y0], [x1, y1], [x0, y1]]).tolist()
+        )
+        for line_el in block.iter(schema + "TextLine"):
+            lx0 = int(line_el.attrib["HPOS"])
+            ly0 = int(line_el.attrib["VPOS"])
+            lw = int(line_el.attrib["WIDTH"])
+            lh = int(line_el.attrib["HEIGHT"])
+            baseline_y = int(line_el.attrib["BASELINE"])
+            line = TextLine(
+                baseline=np.asarray([[lx0, baseline_y], [lx0 + lw, baseline_y]]),
+                heights=np.asarray([lh + ly0 - baseline_y, baseline_y - ly0]),
+                polygon=np.asarray(
+                    [[lx0, ly0], [lx0 + lw, ly0], [lx0 + lw, ly0 + lh], [lx0, ly0 + lh]]
+                ),
+            )
+            words = [s.get("CONTENT") for s in line_el.iter(schema + "String")]
+            line.transcription = " ".join(words)
+            region.lines.append(line)
+        layout.regions.append(region)

@@ -8,8 +8,8 @@ writer (:mod:`~pero_ocr_tpu_torch.core.altoxml`) and the logits pickle
 (``get_dense_logits``, ``get_full_logprobs``).  ``render_to_image``
 draws the layout as the JAX package does (:mod:`~pero_ocr_tpu_torch.core.render`,
 cv2's lines and circles copied bit for bit; ``render_order`` is item 15
-part c).  Reading ALTO and the page quality are not ported yet (ROADMAP
-item 9).
+part c).  ``from_altoxml*`` reads ALTO back (:mod:`~pero_ocr_tpu_torch.core.altoxml`)
+and ``get_quality`` scores the page (:mod:`~pero_ocr_tpu_torch.core.quality`).
 """
 
 from __future__ import annotations
@@ -226,6 +226,16 @@ class PageLayout:
         with open(file_name, "w", encoding="utf-8") as f:
             f.write(alto_string)
 
+    def from_altoxml_string(self, altoxml_string: str) -> None:
+        from pero_ocr_tpu_torch.core import altoxml
+
+        altoxml.read_altoxml_string(self, altoxml_string)
+
+    def from_altoxml(self, file) -> None:
+        from pero_ocr_tpu_torch.core import altoxml
+
+        altoxml.read_altoxml(self, file)
+
     # ------------------------------------------------------------------
     # Logits pickle
     def save_logits(self, file_name: str, missing_line_logits_ok: bool = False) -> None:
@@ -251,3 +261,12 @@ class PageLayout:
         from pero_ocr_tpu_torch.core import logits_io
 
         logits_io.load_logits(self, file)
+
+    def get_quality(self, x: Optional[int] = None, y: Optional[int] = None,
+                    width: Optional[int] = None, height: Optional[int] = None,
+                    power: int = 6, native: Optional[bool] = None) -> float:
+        """:func:`pero_ocr_tpu_torch.core.quality.page_quality` of this page."""
+        from pero_ocr_tpu_torch.core import quality
+
+        return quality.page_quality(self, x=x, y=y, width=width, height=height, power=power,
+                                    native=native)

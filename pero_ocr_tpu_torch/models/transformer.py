@@ -149,7 +149,7 @@ class MultiHeadAttention(nn.Module):
     def attend(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Queries from ``x`` (N, Lq, d) over keys and values (N, h, Lk,
-        hd); ``mask`` (Lq, Lk) bool keeps True."""
+        hd); ``mask`` (Lq, Lk) or (N, 1, Lq or 1, Lk) bool keeps True."""
         q = self.project(x, 0) / self.depth_sqrt.to(x.dtype)
         w = q @ k.transpose(-1, -2)  # (N, h, Lq, Lk)
         if mask is not None:
@@ -181,6 +181,12 @@ def check_length(max_len: int, table: int) -> None:
 
 def causal_mask(length: int, device) -> torch.Tensor:
     return torch.ones(length, length, dtype=torch.bool, device=device).tril()
+
+
+def key_mask(src_valid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """flax ``make_attention_mask(ones, src_valid)``: (N, 1, 1, Lk), every
+    query keeps the valid memory frames (N, Lk) of its line."""
+    return None if src_valid is None else src_valid.bool()[:, None, None, :]
 
 
 def random_init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -247,8 +253,8 @@ class EncoderLayer(nn.Module):
         self.linear1 = nn.Linear(d, spec.mlp_dim)
         self.linear2 = nn.Linear(spec.mlp_dim, d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(layer_norm(self.norm1, x))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.self_attn(layer_norm(self.norm1, x), mask)
         return feed_forward(self.norm2, self.linear1, self.linear2, x)
 
 
@@ -268,14 +274,16 @@ class DecoderLayer(nn.Module):
         self.linear2 = nn.Linear(spec.mlp_dim, d)
 
     def forward(self, x, cross: Tuple[torch.Tensor, torch.Tensor],
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                cross_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.self_attn(layer_norm(self.norm1, x), mask)
-        x = x + self.multihead_attn.attend(layer_norm(self.norm2, x), *cross)
+        x = x + self.multihead_attn.attend(layer_norm(self.norm2, x), *cross, cross_mask)
         return feed_forward(self.norm3, self.linear1, self.linear2, x)
 
-    def step(self, x, pos: int, cache, cross) -> torch.Tensor:
+    def step(self, x, pos: int, cache, cross,
+             cross_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.self_attn.cached(layer_norm(self.norm1, x), pos, cache)
-        x = x + self.multihead_attn.attend(layer_norm(self.norm2, x), *cross)
+        x = x + self.multihead_attn.attend(layer_norm(self.norm2, x), *cross, cross_mask)
         return feed_forward(self.norm3, self.linear1, self.linear2, x)
 
 
@@ -299,22 +307,28 @@ class Seq2SeqDecoding:
                  torch.zeros(shape, dtype=self.cache_dtype, device=device))
                 for _ in self.decoder_layers]
 
-    def decode_train(self, memory: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    def decode_train(self, memory: torch.Tensor, targets: torch.Tensor,
+                     src_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Teacher-forced logits (N, L, V) float32 of ``targets`` (N, L)
-        (which start with the start id)."""
+        (which start with the start id); ``src_valid`` (N, W') bool
+        masks the memory frames the cross-attention reads."""
         x = self.embed_positions(targets, None)
         cross = self.cross_kv(memory)
         mask = causal_mask(targets.shape[1], targets.device)
+        cross_mask = key_mask(src_valid)
         for layer, kv in zip(self.decoder_layers, cross):
-            x = layer(x, kv, mask)
+            x = layer(x, kv, mask, cross_mask)
         return self.head(x)
 
-    def decode_step(self, token: torch.Tensor, pos: int, cache: Cache, cross) -> torch.Tensor:
+    def decode_step(self, token: torch.Tensor, pos: int, cache: Cache, cross,
+                    src_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One cached step: token (N,) at position ``pos`` -> logits
-        (N, V) float32; writes ``cache`` at ``pos``."""
+        (N, V) float32; writes ``cache`` at ``pos``.  ``src_valid`` as
+        in :meth:`decode_train`."""
         x = self.embed_positions(token[:, None], pos)
+        cross_mask = key_mask(src_valid)
         for layer, layer_cache, kv in zip(self.decoder_layers, cache, cross):
-            x = layer.step(x, pos, layer_cache, kv)
+            x = layer.step(x, pos, layer_cache, kv, cross_mask)
         return self.head(x)[:, 0]
 
 
@@ -371,13 +385,17 @@ class TransformerOCR(nn.Module, Seq2SeqDecoding):
     def cache_dtype(self) -> torch.dtype:
         return self.spec.dtype
 
-    def encode(self, images: torch.Tensor) -> torch.Tensor:
-        """images (N, H, W, 3) in [0, 1] -> memory (N, W', d)."""
+    def encode(self, images: torch.Tensor, src_valid: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """images (N, H, W, 3) in [0, 1] -> memory (N, W', d);
+        ``src_valid`` (N, W') bool masks the frames that self-attention
+        reads (a line's padding)."""
         sp = self.spec
         x = self.frontend(images.permute(0, 3, 1, 2).to(sp.dtype))
         x = x + positions(self.pe, x.shape[1]).to(sp.dtype)
+        mask = key_mask(src_valid)
         for layer in self.encoder_layers:
-            x = layer(x)
+            x = layer(x, mask)
         return layer_norm(self.encoder_norm, x)
 
     def forward(self, images: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -395,11 +413,13 @@ class TransformerOCR(nn.Module, Seq2SeqDecoding):
         return self.out_proj(layer_norm(self.decoder_norm, x).float())
 
 
-def greedy_decode(model: TransformerOCR, images: torch.Tensor, max_len: int
+def greedy_decode(model: TransformerOCR, images: torch.Tensor, max_len: int,
+                  src_valid: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """JAX ``greedy_decode``: (tokens (N, max_len), lengths (N,),
     confidences (N,)); the confidence is the least chosen-token
-    probability over the emitted characters."""
+    probability over the emitted characters.  ``src_valid`` is taken
+    and not used, as in the JAX function, which passes it to nothing."""
     return greedy_from_memory(model, model.encode(images), max_len)[:3]
 
 

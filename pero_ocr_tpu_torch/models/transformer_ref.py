@@ -180,15 +180,18 @@ class RefDecoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d, eps=1e-5)
         self.norm3 = nn.LayerNorm(d, eps=1e-5)
 
-    def _rest(self, x, cross) -> torch.Tensor:
-        x = self.norm2(x + self.multihead_attn.attend(x, *cross))
+    def _rest(self, x, cross, cross_mask) -> torch.Tensor:
+        x = self.norm2(x + self.multihead_attn.attend(x, *cross, cross_mask))
         return self.norm3(x + _feed_forward(self, x))
 
-    def forward(self, x, cross, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self._rest(self.norm1(x + self.self_attn(x, mask)), cross)
+    def forward(self, x, cross, mask: Optional[torch.Tensor] = None,
+                cross_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._rest(self.norm1(x + self.self_attn(x, mask)), cross, cross_mask)
 
-    def step(self, x, pos: int, cache, cross) -> torch.Tensor:
-        return self._rest(self.norm1(x + self.self_attn.cached(x, pos, cache)), cross)
+    def step(self, x, pos: int, cache, cross,
+             cross_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._rest(self.norm1(x + self.self_attn.cached(x, pos, cache)), cross,
+                          cross_mask)
 
 
 class _Layers(nn.Module):

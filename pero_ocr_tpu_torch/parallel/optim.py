@@ -1,6 +1,7 @@
 """optax's ``chain(clip_by_global_norm(1.0), adamw(learning_rate))``
 on torch tensors (the JAX trainers' ``make_optimizer``,
-``pero_ocr_tpu/parallel/train.py:33``).
+``pero_ocr_tpu/parallel/train.py:33``), and plain ``optax.adam`` (no
+clip, no weight decay: the JAX ``convert_torchscript distill``'s).
 
 The arithmetic is optax 0.2.6's, op for op, on float32 weights:
 
@@ -101,6 +102,9 @@ class ClipAdamW:
     """``optax.chain(optax.clip_by_global_norm(MAX_NORM),
     optax.adamw(learning_rate))`` at optax's defaults."""
 
+    max_norm: Optional[float] = MAX_NORM
+    weight_decay: float = WEIGHT_DECAY
+
     def __init__(self, learning_rate: float = 3e-4):
         self.learning_rate = learning_rate
 
@@ -118,7 +122,10 @@ class ClipAdamW:
         ``sharded`` marks the weights (and gradients and moments) that are
         this rank's shards over the ranks of ``group``."""
         params, grads = list(params), list(grads)
-        g, state.grad_norm = clip_by_global_norm(grads, MAX_NORM, sharded, group)
+        if self.max_norm is None:
+            g = grads
+        else:
+            g, state.grad_norm = clip_by_global_norm(grads, self.max_norm, sharded, group)
         torch._foreach_mul_(state.mu, B1)
         torch._foreach_add_(state.mu, torch._foreach_mul(g, 1 - B1))
         torch._foreach_mul_(state.nu, B2)
@@ -129,9 +136,19 @@ class ClipAdamW:
         denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, EPS)
         updates = torch._foreach_div(mu_hat, denom)
-        torch._foreach_add_(updates, torch._foreach_mul(params, WEIGHT_DECAY))
+        if self.weight_decay:
+            torch._foreach_add_(updates, torch._foreach_mul(params, self.weight_decay))
         torch._foreach_mul_(updates, -self.learning_rate)
         if lr_scale != 1.0:
             torch._foreach_mul_(updates, lr_scale)
         torch._foreach_add_(params, updates)
         return state
+
+
+class Adam(ClipAdamW):
+    """``optax.adam(learning_rate)`` at optax's defaults: the same Adam
+    arithmetic with no clip and no weight decay (``grad_norm`` stays
+    None)."""
+
+    max_norm = None
+    weight_decay = 0.0

@@ -172,6 +172,16 @@ def _apply_step(model, optimizer: ClipAdamW, state: TrainState,
     return state, loss.detach()
 
 
+def make_loss_step(model, optimizer: ClipAdamW, loss_fn: Callable[..., torch.Tensor]):
+    """``step(state, *inputs, lr_scale=1.0)`` for any ``loss_fn(model,
+    *inputs)``: the update of the other trainers' steps (used by
+    ``scripts/convert_torchscript.py distill``)."""
+    def train_step(state: TrainState, *inputs, lr_scale: float = 1.0):
+        return _apply_step(model, optimizer, state, lambda: loss_fn(model, *inputs), lr_scale)
+
+    return train_step
+
+
 def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 

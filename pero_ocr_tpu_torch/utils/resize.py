@@ -9,11 +9,23 @@ resample images, equal to cv2 5.0.0 bit for bit.
 - :func:`resize_linear_u8` is ``cv2.resize(img, None, fx=1/s, fy=1/s)``
   (the default ``INTER_LINEAR``) of a uint8 image by an integer factor
   s, the first step of ``REGION_SIMPLE_THRESHOLD``.
+- :func:`resize_linear_u8_to` is ``cv2.resize(img, (w, h))`` (the
+  default ``INTER_LINEAR``) of a uint8 image to any size, the image
+  input of ``convert_torchscript distill``: 11-bit weights, and OpenCV's
+  vector row blend (each sum shifted right by 4, high halves of the
+  products, then rounded by 2 bits) at every column.
 - :func:`remap_linear` is ``cv2.remap(img, map_x, map_y, INTER_LINEAR,
   BORDER_CONSTANT)`` with float32 maps, the line crop of
   ``EngineLineCropper.fast_remap``.  OpenCV 5 samples in float32 with
   fused multiply-adds (OpenCV 4 used 1/32 px fixed point instead; the
   JAX package's reference is the OpenCV installed beside it, 5.0.0).
+- :func:`remap_linear_transparent` is the same remap with
+  ``BORDER_TRANSPARENT`` into a given ``dst`` (``EngineLineCropper.blend_in``):
+  OpenCV 5 reads a tap off the image as the destination pixel's own
+  value, so a pixel with every tap off the image keeps its value.
+- :func:`resize_linear_up_f32` is ``cv2.resize(img, (0, 0), fx=s, fy=s,
+  interpolation=cv2.INTER_LINEAR)`` of a float32 (H, W) image by a
+  power of two s (``EngineLineCropper.reverse_xy_mapping``, s = 4).
 - :func:`remap_linear_f32` is the same remap of a float32 image (the
   baseline map that ``ADJUST_BASELINES`` crops), and
   :func:`warp_affine_linear` ``cv2.warpAffine(img, M, dsize)`` of a
@@ -191,6 +203,47 @@ def resize_linear_u8(img: np.ndarray, downscale: int) -> np.ndarray:
     return out[:, :, 0] if squeeze else out
 
 
+def _fixed_taps(n_src: int, n_dst: int, clamp: bool):
+    """OpenCV's linear taps of one axis in 11-bit fixed point: the first
+    source index and the two weights (they sum to 2048).  ``clamp``
+    (columns) puts a tap past an edge on the edge pixel with weight 0;
+    rows clamp their index instead."""
+    f = ((np.arange(n_dst) + 0.5) * (n_src / n_dst) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s).astype(np.float32)
+    if clamp:
+        edge = (s < 0) | (s >= n_src - 1)
+        f[edge] = 0
+        s = np.clip(s, 0, n_src - 1)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    return s, w0, w1
+
+
+def resize_linear_u8_to(img: np.ndarray, dsize) -> np.ndarray:
+    """``cv2.resize(img, dsize)`` (``INTER_LINEAR``) for a uint8 (H, W)
+    or (H, W, C) image and ``dsize`` = (width, height).
+
+    Columns blend in integers with 11-bit weights (clamped at the
+    edges); rows as OpenCV's vector code does, at every column of every
+    size: ``((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >> 16)``, then
+    ``(t + 2) >> 2`` saturated to [0, 255]."""
+    squeeze = np.asarray(img).ndim == 2
+    src = _as_hwc(img).astype(np.int64)
+    ow, oh = (int(v) for v in dsize)
+    h, w = src.shape[:2]
+    if ow < 1 or oh < 1:
+        raise ValueError(f"resize_linear_u8_to: empty size {dsize}")
+    sx, a0, a1 = _fixed_taps(w, ow, True)
+    rows = (src[:, sx] * a0[None, :, None]
+            + src[:, np.minimum(sx + 1, w - 1)] * a1[None, :, None])
+    sy, b0, b1 = _fixed_taps(h, oh, False)
+    r0, r1 = rows[np.clip(sy, 0, h - 1)], rows[np.clip(sy + 1, 0, h - 1)]
+    t = (((r0 >> 4) * b0[:, None, None]) >> 16) + (((r1 >> 4) * b1[:, None, None]) >> 16)
+    out = np.clip((t + 2) >> 2, 0, 255).astype(np.uint8)
+    return out[:, :, 0] if squeeze else out
+
+
 # ----------------------------------------------------------------------
 # remap, INTER_LINEAR, BORDER_CONSTANT 0
 def _lerp(p: np.ndarray, q: np.ndarray, t: np.ndarray) -> np.ndarray:
@@ -220,6 +273,74 @@ def remap_linear(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.nd
     return out[:, :, 0] if squeeze else out
 
 
+def remap_linear_transparent(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray,
+                             dst: np.ndarray) -> np.ndarray:
+    """``cv2.remap(img, map_x, map_y, cv2.INTER_LINEAR,
+    borderMode=cv2.BORDER_TRANSPARENT, dst=dst)`` for a uint8 (H, W) or
+    (H, W, C) image, float32 (h, w) maps and a uint8 ``dst`` of the
+    maps' size and the image's channels, written in place and returned.
+    The sampling is :func:`remap_linear`'s, but a tap off the image
+    reads the destination pixel's own value (per channel), not 0."""
+    squeeze = np.asarray(img).ndim == 2
+    src = _as_hwc(img)
+    map_x, map_y = _maps_f32(map_x, map_y)
+    if dst.dtype != np.uint8 or dst.shape[:2] != map_x.shape or (
+            dst.ndim == 2) != squeeze or (not squeeze and dst.shape[2] != src.shape[2]):
+        raise ValueError(f"remap: dst {dst.dtype} {dst.shape} for maps {map_x.shape}, "
+                         f"image {src.shape}")
+    out = dst[:, :, None] if squeeze else dst
+    v = _bilinear_f32(src, map_x, map_y, off=out.astype(np.float32))
+    with np.errstate(invalid="ignore"):
+        out[...] = np.clip(np.nan_to_num(np.rint(v), nan=0.0), 0, 255).astype(np.uint8)
+    return dst
+
+
+def _axis_taps(n: int, up: int):
+    """OpenCV's linear taps along one axis of an upscale by ``up``: the
+    source index and the float32 weight of the next one."""
+    f = ((np.arange(n * up) + 0.5) * (1.0 / up) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    return s, (f - s).astype(np.float32)
+
+
+def resize_linear_up_f32(img: np.ndarray, up: int) -> np.ndarray:
+    """``cv2.resize(img, (0, 0), fx=up, fy=up, interpolation=cv2.INTER_LINEAR)``
+    for a float32 (H, W) image and a power of two ``up`` (its tap
+    offsets are then exact; other factors raise).
+
+    Output pixel x samples source ``(x + 0.5) / up - 0.5``: taps past the
+    left or right edge clamp to the edge pixel with weight 0 (rows clamp
+    their index).  Rows are blended first, then columns.  With H and W
+    both above 1, OpenCV 5 blends each pair as ``p + f * (q - p)`` with
+    one rounding (a fused multiply-add); an image of one row or column
+    takes its generic path, ``p * (1 - f) + q * f`` rounded at each
+    step."""
+    src = np.asarray(img)
+    if src.dtype != np.float32 or src.ndim != 2:
+        raise ValueError(f"expected a float32 (H, W) image, got {src.dtype} {src.shape}")
+    if isinstance(up, bool) or int(up) != up or up < 1 or int(up) & (int(up) - 1):
+        raise ValueError(f"resize_linear_up_f32: up {up} is not a power of two")
+    h, w = src.shape
+    sx, fx = _axis_taps(w, int(up))
+    edge = (sx < 0) | (sx >= w - 1)
+    fx[edge] = 0
+    sx = np.clip(sx, 0, w - 1)
+    sy, fy = _axis_taps(h, int(up))
+    fy = fy[:, None]
+    y0, y1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    x1 = np.minimum(sx + 1, w - 1)
+    if h > 1 and w > 1:
+        rows = _lerp(src[:, sx], src[:, x1], fx)
+        return _lerp(rows[y0], rows[y1], fy)
+
+    def blend(p, q, f):
+        return ((p * (np.float32(1) - f)).astype(np.float32) + (q * f).astype(np.float32)
+                ).astype(np.float32)
+
+    rows = blend(src[:, sx], src[:, x1], fx)
+    return blend(rows[y0], rows[y1], fy)
+
+
 def _maps_f32(map_x, map_y):
     map_x = np.asarray(map_x, np.float32)
     map_y = np.asarray(map_y, np.float32)
@@ -230,11 +351,13 @@ def _maps_f32(map_x, map_y):
 
 # ----------------------------------------------------------------------
 # remap and warpAffine of float32 images, INTER_LINEAR, BORDER_CONSTANT 0
-def _bilinear_f32(src: np.ndarray, sx: np.ndarray, sy: np.ndarray) -> np.ndarray:
+def _bilinear_f32(src: np.ndarray, sx: np.ndarray, sy: np.ndarray,
+                  off: np.ndarray = None) -> np.ndarray:
     """OpenCV 5's float32 bilinear sample of ``src`` (H, W, C, any dtype)
-    at float32 coordinates: taps off the image read 0; v0 = p00 + a
-    (p01 - p00), v1 = p10 + a (p11 - p10), v = v0 + b (v1 - v0), each a
-    fused multiply-add; float32 (h, w, C)."""
+    at float32 coordinates: taps off the image read 0 (or ``off``, a
+    float32 (h, w, C) value a pixel); v0 = p00 + a (p01 - p00), v1 = p10
+    + a (p11 - p10), v = v0 + b (v1 - v0), each a fused multiply-add;
+    float32 (h, w, C)."""
     h, w, _ = src.shape
     with np.errstate(invalid="ignore"):
         fx, fy = np.floor(sx), np.floor(sy)
@@ -246,7 +369,7 @@ def _bilinear_f32(src: np.ndarray, sx: np.ndarray, sy: np.ndarray) -> np.ndarray
     def tap(yy, xx):
         inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
         t = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)].astype(np.float32)
-        return np.where(inside[..., None], t, np.float32(0.0))
+        return np.where(inside[..., None], t, np.float32(0.0) if off is None else off)
 
     with np.errstate(invalid="ignore"):
         v0 = _lerp(tap(y0, x0), tap(y0, x0 + 1), a)

@@ -428,3 +428,123 @@ def test_native_route_loads_only_the_ports_library():
             if name.endswith(".py"):
                 with open(os.path.join(root, name), encoding="utf-8") as f:
                     assert not imports.search(f.read()), os.path.join(root, name)
+
+
+LEFTOVERS_SCRIPT = r"""
+import contextlib, io, json, os, sys, tempfile
+for name in %(blocked)r:
+    sys.modules[name] = None
+
+import numpy as np
+import scipy.sparse
+import torch
+
+from pero_ocr_tpu_torch.core.crop_engine import EngineLineCropper
+from pero_ocr_tpu_torch.core.layout import PageLayout, RegionLayout, TextLine
+from pero_ocr_tpu_torch.decoding.bag_of_hypotheses import BagOfHypotheses
+from pero_ocr_tpu_torch.decoding.confusion_networks import best_cn_path, produce_cn_from_boh
+from pero_ocr_tpu_torch.models import transformer as tf
+from pero_ocr_tpu_torch.ocr.postprocess import narrow_label
+from pero_ocr_tpu_torch.ops.ctc import align_text_batch
+from pero_ocr_tpu_torch.scripts import convert_torch_lm, convert_torchscript
+
+chars = list("ab ") + ["​"]
+dense = np.full((13, 4), -1.0)
+for i, ch in enumerate("ab ab"):
+    dense[1 + 2 * i, chars.index(ch)] = 15.0
+dense[dense.max(axis=1) < 10, -1] = 12.0
+layout = PageLayout(id="p0", page_size=(100, 200))
+region = RegionLayout("r1", np.array([[5, 5], [190, 5], [190, 90], [5, 90]]))
+region.lines.append(TextLine(id="r1-l1", baseline=np.array([[10, 50], [180, 52]]),
+                             polygon=np.array([[10, 30], [180, 32], [180, 58], [10, 56]]),
+                             heights=[20.0, 6.0], transcription="ab ab",
+                             logits=scipy.sparse.csc_matrix(np.where(dense > 0, dense, 0)),
+                             characters=chars, logit_coords=[0, 13]))
+layout.regions.append(region)
+back = PageLayout()
+back.from_altoxml_string(layout.to_altoxml_string(native=False))
+quality = layout.get_quality(native=False)
+
+lp = np.log(np.full((2, 6, 3), 1 / 3, np.float32))
+positions, valid = align_text_batch(lp, np.array([[0, 1], [1, 1]]), np.array([2, 2]),
+                                    np.array([6, 5]), device="cpu")
+bag = BagOfHypotheses()
+bag.add("ab", -0.1)
+bag.add("ax", -2.0)
+page = np.random.default_rng(0).integers(0, 256, (100, 200, 3), dtype=np.uint8)
+cropper = EngineLineCropper(16, 2, 1.0)
+crop, mapping, offset = cropper.crop(page, np.array([[10.0, 50], [180, 52]]), [14.0, 5.0],
+                                     return_mapping=True)
+blended = cropper.blend_in(page.copy(), 255 - crop, mapping, offset)
+spec = tf.TransformerSpec(num_classes=5, line_height=16, conv_features=(4, 8), d_model=16,
+                          num_heads=2, encoder_layers=1, decoder_layers=1, mlp_dim=16,
+                          max_decode_len=8, dtype=torch.float32)
+model = tf.TransformerOCR(spec, generator=torch.Generator().manual_seed(0)).eval()
+with torch.no_grad():
+    memory = model.encode(torch.rand(2, 16, 32, 3), torch.tensor([[True] * 8, [True] * 3 + [False] * 5]))
+
+class Frames(torch.nn.Module):  # a CTC-shaped archive: (N, 3, 32, W) -> (N, W / 4, 5)
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(3, 5, (32, 4), stride=(32, 4))
+
+    def forward(self, x):
+        return self.conv(x)[:, :, 0].permute(0, 2, 1)
+
+
+torch.set_num_threads(2)
+tmp = tempfile.mkdtemp()
+lm = torch.nn.Module()
+lm.embed = torch.nn.Embedding(5, 4)
+lm.lstm = torch.nn.LSTM(4, 6, batch_first=True)
+lm.head = torch.nn.Linear(6, 5)
+torch.save(lm.state_dict(), os.path.join(tmp, "lm.pt"))
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    convert_torch_lm.main([os.path.join(tmp, "lm.pt"), os.path.join(tmp, "out.lm")])
+    torch.jit.trace(Frames().eval(), torch.rand(1, 3, 32, 64)).save(os.path.join(tmp, "net.pt"))
+    convert_torchscript.main(["inspect", os.path.join(tmp, "net.pt")])
+    args = convert_torchscript.parse_arguments(
+        ["distill", os.path.join(tmp, "net.pt"), "--family", "ctc", "--out",
+         os.path.join(tmp, "net.ckpt"), "--steps", "1", "--batch", "1", "--num-samples", "1"])
+    run = convert_torchscript.distill(args, device="cpu", dtype=torch.float32)
+print(json.dumps({
+    "texts": [line.transcription for line in back.lines_iterator()],
+    "quality": quality,
+    "positions": positions.tolist(), "valid": valid.tolist(),
+    "cn": best_cn_path(produce_cn_from_boh(bag)),
+    "narrow": narrow_label([0, 0, 2], np.eye(3), 2),
+    "blend": [list(mapping.shape), list(offset), bool((blended != page).any())],
+    "memory": list(memory.shape),
+    "printed": printed.getvalue().splitlines(),
+    "loss": run["losses"],
+    "files": sorted(os.listdir(tmp)),
+    "loaded": sorted(k for k in sys.modules
+                     if k == "pero_ocr_tpu" or k.startswith("pero_ocr_tpu.")),
+}))
+"""
+
+
+def test_leftover_modules_run_without_jax():
+    """The ALTO reader and page quality, the batched alignment, confusion
+    networks, label narrowing, crop re-compositing, the transformer's
+    source masks and both conversion scripts (convert_torch_lm;
+    convert_torchscript inspect and a one-step CTC distillation on the
+    CPU) run with jax, flax, optax, cv2, lxml and msgpack blocked."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", LEFTOVERS_SCRIPT % {"blocked": BLOCKED}],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["texts"] == ["ab ab"]
+    assert 0.9 <= got["quality"] <= 1.0
+    assert got["valid"] == [True, True] and got["positions"][1][0] < got["positions"][1][1]
+    assert got["cn"] == "ab" and got["narrow"] == [0, 2, 2]
+    assert got["blend"][2] and got["memory"] == [2, 8, 16]
+    assert got["printed"][0].startswith("converted: vocab=5 embed=4 hidden=6 layers=1 -> ")
+    assert "== op histogram ==" in got["printed"]
+    assert len(got["loss"]) == 1 and got["loss"][0] > 0
+    assert {"out.lm", "out.lm.json", "net.ckpt"} <= set(got["files"])
+    assert got["loaded"] == []

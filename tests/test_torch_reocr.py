@@ -38,7 +38,7 @@ from pero_ocr_tpu_torch.utils import native
 from tests.test_torch_cli import _jax_cli, _run_port, assert_xml_equal, bundle  # noqa: F401
 from tests.test_torch_native import jax_native_library
 from tests.test_torch_pipeline import LINES
-from tests.test_torch_staged import config3_ini
+from tests.test_torch_staged_config3 import config3_ini
 
 pytestmark = pytest.mark.skipif(
     shutil.which(os.environ.get("CXX") or "c++") is None or jax_native_library() is None,
