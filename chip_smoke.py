@@ -11,9 +11,14 @@ Phases (each raises on failure, so the run exits non-zero):
    ``csrc/*.cpp`` with the host compiler, in parallel.  Then the JPEG
    codec (``csrc/jpeg.cpp``, ``check_jpeg_fixtures``): this machine's
    build reproduces every digest of ``tests/data/jpeg/fixtures.json``
-   (cv2's decodes and encodes of the committed fixtures), and its host
-   times: the decode of a 2560x1792 colour 4:2:0 page, the encode of a
-   32x1024 line crop (``{"jpeg": ...}``).  Then the TIFF reader
+   (cv2's decodes and encodes of the committed fixtures: baseline,
+   progressive, progressive cut short (block smoothing), CMYK and YCCK,
+   and the full-size progressive page of ``tests/data/page``), the BMP
+   and PAM readers every digest of ``tests/data/bmp/fixtures.json``
+   (refusing cv2's None cases), and its host times: the decode of a
+   2560x1792 colour 4:2:0 page, of the progressive page and of its
+   pixels as a baseline file, the encode of a 32x1024 line crop
+   (``{"jpeg": ...}``).  Then the TIFF reader
    (``csrc/tiff.cpp``'s LZW, PackBits and CCITT decoders with
    ``utils/tiff.py``, ``check_tiff_fixtures``): this machine's build
    reproduces every digest of ``tests/data/tiff/fixtures.json`` (cv2's
@@ -62,8 +67,10 @@ Phases (each raises on failure, so the run exits non-zero):
 8. Stage by stage (``run_staged``): 8 pages as gray JPEG files through
    ``PageParser(config, device="cuda").process_page`` and its command
    line with ``--output-line-path`` and ``--output-render-path`` on 4 of
-   them (2 rewritten as gray Deflate TIFF) and the committed A4 Group 4
-   page (also run in process); the line files held to the in-process
+   them (2 rewritten as gray Deflate TIFF), the committed A4 Group 4
+   page and the committed progressive colour JPEG page (both also run
+   in process; the progressive page makes 1 ``warp_fields`` launch);
+   the line files held to the in-process
    crops (``staged_line_files``), each render to ``render_layout`` of
    the command line's own Page XML on the same decoded page; the field
    warp checked and timed on the last page.
@@ -241,6 +248,7 @@ import dataclasses
 import datetime
 import difflib
 import hashlib
+import importlib.util
 import io
 import json
 import os
@@ -294,7 +302,9 @@ from pero_ocr_tpu_torch.scripts import compare_page_xml_texts, produce_2layer_pd
 from pero_ocr_tpu_torch.scripts import convert_torchscript
 from pero_ocr_tpu_torch.scripts.parse_folder import LINE_QUALITY, RENDER_QUALITY
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
-from pero_ocr_tpu_torch.utils import checkpoint, convert, denoise, image_io, kernels, native, timing
+from pero_ocr_tpu_torch.utils import (
+    bmp, checkpoint, convert, denoise, image_io, kernels, native, timing,
+)
 from pero_ocr_tpu_torch.utils import tiff as tiff_io
 from pero_ocr_tpu_torch.utils import ts_adapters
 from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg
@@ -937,52 +947,125 @@ def run_config2(pipe, rng, smi: str):
 # (cv2's digests, written where cv2 runs) reproduced by this machine's
 # build, and the codec's host times.
 JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
+BMP_FIXTURES = os.path.join(REPO, "tests", "data", "bmp")
+PROGRESSIVE_PAGE = os.path.join(REPO, "tests", "data",
+                                "page", "two_columns_progressive_2560x1792_q85.jpg")
 JPEG_CROP = (32, 1024)  # the encode timing's crop: one line at the recognizer's height
+
+
+def tests_module(name: str):
+    """A module of the repo's tests/ folder, loaded from its file: an
+    installed package named ``tests`` may stand first on the path."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tests", name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def digests_differ(folder: str, decoded: dict, none=()) -> list:
+    """The names of ``decoded`` (name -> {"sha256", "shape"}, paths from
+    ``folder``) whose ``image_io.imread`` differs from the digest, and of
+    ``none`` that do not raise "Unable to read image"."""
+    differ = []
+    for name, digest in decoded.items():
+        img = image_io.imread(os.path.join(folder, name))
+        if (hashlib.sha256(img.tobytes()).hexdigest() != digest["sha256"]
+                or list(img.shape) != digest["shape"]):
+            differ.append(name)
+    for name in none:
+        try:
+            image_io.imread(os.path.join(folder, name))
+            differ.append(name)
+        except ValueError as e:
+            if "Unable to read image" not in str(e):
+                differ.append(name)
+    return differ
 
 
 def check_jpeg_fixtures(smi: str) -> dict:
     """Every decode and encode of ``tests/data/jpeg/fixtures.json``
+    (baseline, progressive, cut-short progressive and four-component
+    files, and the full-size progressive page of ``tests/data/page``)
     reproduced digest for digest by this machine's build of
-    ``csrc/jpeg.cpp`` (built by kernels.build with the host compiler);
-    then host times, median of HOST_REPEATS after a warm-up: the decode
-    of a 2560x1792 colour 4:2:0 page at JPEG_PAGE_QUALITY (a synthetic
-    page tinted apart in its three channels, encoded by the port) and the
-    encode of a 32x1024 crop at LINE_QUALITY (three equal channels, as
-    the fast path's crops)."""
+    ``csrc/jpeg.cpp`` (built by kernels.build with the host compiler),
+    and every BMP and PAM file of ``tests/data/bmp/fixtures.json`` read
+    to its digest by ``utils/bmp.py`` and ``image_io.decode_pam`` (cv2's
+    None cases refused); then host times, median of HOST_REPEATS after a
+    warm-up: the decode of a 2560x1792 colour 4:2:0 page at
+    JPEG_PAGE_QUALITY (a synthetic page tinted apart in its three
+    channels, encoded by the port), of the committed progressive page
+    (the same kind of page, cv2's 10 scans at quality 85) and of that
+    page's pixels encoded baseline by the port at 85, and the encode of
+    a 32x1024 crop at LINE_QUALITY (three equal channels, as the fast
+    path's crops)."""
     with open(os.path.join(JPEG_FIXTURES, "fixtures.json"), encoding="utf-8") as f:
         spec = json.load(f)
-    differ, n_encodes = [], 0
-    for name, digest in spec["decode"].items():
-        img = image_io.imread(os.path.join(JPEG_FIXTURES, name))
-        if (hashlib.sha256(img.tobytes()).hexdigest() != digest["sha256"]
-                or list(img.shape) != digest["shape"]):
-            differ.append(name)
+    with open(os.path.join(BMP_FIXTURES, "fixtures.json"), encoding="utf-8") as f:
+        bmp_spec = json.load(f)
+    n_encodes = 0
+    differ = digests_differ(JPEG_FIXTURES, spec["decode"])
+    differ += digests_differ(os.path.dirname(JPEG_FIXTURES), spec["pages"])
     for name, cases in spec["encode"].items():
         crop = np.load(os.path.join(JPEG_FIXTURES, name))
         for quality, digest in cases.items():
             n_encodes += 1
             if hashlib.sha256(image_io.encode_jpeg(crop, int(quality))).hexdigest() != digest:
                 differ.append(f"{name} at quality {quality}")
-    log(f"JPEG fixtures ({spec['made_with']}): {len(spec['decode'])} decodes and {n_encodes} "
-        f"encodes, {len(spec['decode']) + n_encodes - len(differ)} reproduced; differ: {differ}")
-    if differ:
-        raise AssertionError(f"the JPEG codec's build differs from the fixtures on {differ}")
+    n_decodes = len(spec["decode"]) + len(spec["pages"])
+    log(f"JPEG fixtures ({spec['made_with']}): {n_decodes} decodes (the progressive page "
+        f"among them) and {n_encodes} encodes, {n_decodes + n_encodes - len(differ)} "
+        f"reproduced; differ: {differ}")
+    bmp_differ = digests_differ(BMP_FIXTURES, bmp_spec["decode"], bmp_spec["none"])
+    n_bmp = len(bmp_spec["decode"]) + len(bmp_spec["none"])
+    log(f"BMP and PAM fixtures ({bmp_spec['made_with']}): {len(bmp_spec['decode'])} decodes, "
+        f"{len(bmp_spec['none'])} refused as cv2's None; {n_bmp - len(bmp_differ)} reproduced; "
+        f"differ: {bmp_differ}")
+    if differ or bmp_differ:
+        raise AssertionError(f"the image readers' build differs from the fixtures on "
+                             f"{differ + bmp_differ}")
     rng = np.random.default_rng(16)
     gray = synthetic_pages(rng, 1, TWO_COLUMNS)[0][0][:, :, 0].astype(np.int16)
     page = np.dstack([gray, gray - 12, gray + 9]).clip(0, 255).astype(np.uint8)
     data = image_io.encode_jpeg(page, JPEG_PAGE_QUALITY)
     decode_ms = host_ms(lambda: decode_jpeg(data))
+    with open(PROGRESSIVE_PAGE, "rb") as f:
+        progressive = f.read()
+    progressive_ms = host_ms(lambda: decode_jpeg(progressive))
+    same_baseline = image_io.encode_jpeg(decode_jpeg(progressive), 85)
+    same_baseline_ms = host_ms(lambda: decode_jpeg(same_baseline))
+    # The same page as a 24-bit BMP and a 16-bit RGB PAM (numpy readers).
+    bmp_pam_files = tests_module("bmp_pam_files")  # their writers (struct, numpy)
+    bmp_page = bmp_pam_files.bmp_file(page.shape[1], page.shape[0], 24,
+                                      bmp_pam_files.bmp_rows(page[::-1], 24))
+    pam_page = bmp_pam_files.pam_file(page.shape[1], page.shape[0], 3, 65535,
+                                      bmp_pam_files.pam_body(page.astype(np.int64) << 8, 65535),
+                                      "RGB")
+    if not (np.array_equal(bmp.decode_bmp(bmp_page), page)
+            and np.array_equal(image_io.decode_pam(pam_page), page)):
+        raise AssertionError("the BMP or PAM page does not read back")
+    bmp_ms = host_ms(lambda: bmp.decode_bmp(bmp_page))
+    pam_ms = host_ms(lambda: image_io.decode_pam(pam_page))
     crop = np.ascontiguousarray(np.repeat(page[:JPEG_CROP[0], :JPEG_CROP[1], :1], 3, axis=2))
     encode_ms = host_ms(lambda: image_io.encode_jpeg(crop, LINE_QUALITY), repeats=25)
-    numbers = {"fixtures_decoded": len(spec["decode"]), "fixtures_encoded": n_encodes,
+    numbers = {"fixtures_decoded": n_decodes, "fixtures_encoded": n_encodes,
                "fixtures_made_with": spec["made_with"],
+               "bmp_pam_fixtures_decoded": len(bmp_spec["decode"]),
+               "bmp_pam_fixtures_none": len(bmp_spec["none"]),
                "decode_ms_page_2560x1792_420_q90": decode_ms, "page_bytes": len(data),
+               "decode_ms_progressive_page_2560x1792_420_q85": progressive_ms,
+               "progressive_page_bytes": len(progressive),
+               "decode_ms_same_page_baseline_q85": same_baseline_ms,
+               "same_page_baseline_bytes": len(same_baseline),
+               "decode_ms_page_bmp_24bit": bmp_ms, "decode_ms_page_pam_rgb_16bit": pam_ms,
                "encode_ms_crop_32x1024_q98": encode_ms,
                "crop_bytes": len(image_io.encode_jpeg(crop, LINE_QUALITY)),
                "host": "the card machine's CPU, one thread", "card": smi}
     log(f"JPEG codec, host times on the card's machine (one thread): decode "
         f"{decode_ms:.2f} ms a 2560x1792 colour 4:2:0 page at quality {JPEG_PAGE_QUALITY} "
-        f"({len(data)} B), encode {encode_ms:.3f} ms a 32x1024 crop at quality "
+        f"({len(data)} B); the committed progressive page {progressive_ms:.2f} ms "
+        f"({len(progressive)} B), its pixels as a baseline file at 85 {same_baseline_ms:.2f} ms "
+        f"({len(same_baseline)} B); the page as a 24-bit BMP {bmp_ms:.2f} ms, as a 16-bit RGB "
+        f"PAM {pam_ms:.2f} ms; encode {encode_ms:.3f} ms a 32x1024 crop at quality "
         f"{LINE_QUALITY}; beside {smi}")
     return numbers
 
@@ -1042,19 +1125,7 @@ def check_tiff_fixtures(smi: str) -> dict:
     with open(os.path.join(TIFF_FIXTURES, "fixtures.json"), encoding="utf-8") as f:
         spec = json.load(f)
     tiff_io.calls.clear()
-    differ = []
-    for name, digest in spec["decode"].items():
-        img = image_io.imread(os.path.join(TIFF_FIXTURES, name))
-        if (hashlib.sha256(img.tobytes()).hexdigest() != digest["sha256"]
-                or list(img.shape) != digest["shape"]):
-            differ.append(name)
-    for name in spec["none"]:
-        try:
-            image_io.imread(os.path.join(TIFF_FIXTURES, name))
-            differ.append(name)
-        except ValueError as e:
-            if "Unable to read image" not in str(e):
-                differ.append(name)
+    differ = digests_differ(TIFF_FIXTURES, spec["decode"], spec["none"])
     native_calls = dict(tiff_io.calls)
     log(f"TIFF fixtures ({spec['made_with']}): {len(spec['decode'])} decodes, "
         f"{len(spec['none'])} refused as cv2's None; "
@@ -1760,6 +1831,7 @@ def staged_line_files(line_dir: str, xml_dir: str, out, smi: str) -> dict:
 
 
 G4_ID = "s_g4"  # the committed Group 4 page in the staged command line's folder
+PROGRESSIVE_ID = "s_progressive"  # and the committed progressive JPEG page
 # The staged host-route A/B's runs after the first take the first 4 of
 # its 8 pages (8 before the TIFF pages and renders needed the time).
 STAGED_AB_PAGES = 4
@@ -1772,8 +1844,9 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
     ``PageParser(config, device="cuda").process_page`` and into Page XML,
     with the bench modules loaded from flax msgpack checkpoints; then the
     command line without --fast-pipeline on the first 4 of the files (2
-    rewritten as gray Deflate TIFF) and the committed A4 Group 4 page
-    (TIFF_G4_PAGE, run in process too, after the A/B), with
+    rewritten as gray Deflate TIFF), the committed A4 Group 4 page
+    (TIFF_G4_PAGE) and the committed progressive colour JPEG page
+    (PROGRESSIVE_PAGE; both run in process too, after the A/B), with
     --output-line-path and --output-render-path, whose Page XML must
     equal the in-process run's, whose line files the in-process crops
     (staged_line_files) and whose renders ``render_layout`` of its own
@@ -1796,10 +1869,11 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
         os.makedirs(cli_images)
         for pid in ids[:n_cli]:
             shutil.copy(os.path.join(images, pid + ".jpg"), cli_images)
-        # Two of them as gray TIFF (the decoded JPEG's pixels), and the
-        # committed A4 Group 4 page as a fifth.
+        # Two of them as gray TIFF (the decoded JPEG's pixels), the
+        # committed A4 Group 4 page as a fifth, the progressive page a sixth.
         tiff_ids = write_tiff_pages(cli_images, ids[:n_cli], [p[:, :, 0] for p in pages[:n_cli]])
         shutil.copy(TIFF_G4_PAGE, os.path.join(cli_images, G4_ID + ".tif"))
+        shutil.copy(PROGRESSIVE_PAGE, os.path.join(cli_images, PROGRESSIVE_ID + ".jpg"))
         parser = staged_parser(ini, "cuda")
         engine = parser.layout_parsers[0].engine
         detected, detect = [], engine.detect
@@ -1871,16 +1945,25 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             raise AssertionError("staged: warp_fields launches != pages of "
                                  f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
 
-        # The Group 4 page in process, after the runs above.
-        g4_page = image_io.imread(TIFF_G4_PAGE)
-        before = warp_ops.warp_fields.launches
-        random.seed(0)
-        g4_layout = parser.process_page(g4_page, PageLayout(id=G4_ID,
-                                                            page_size=g4_page.shape[:2]))
-        g4_out = (g4_layout, g4_layout.to_pagexml_string())
-        g4_launches = warp_ops.warp_fields.launches - before
-        cli_out = out[:n_cli] + [g4_out]
-        cli_pages = pages[:n_cli] + [g4_page]
+        # The Group 4 and progressive pages in process, after the runs above.
+        extra_out, extra_pages, extra_launches = [], [], []
+        for page_id, path in ((G4_ID, TIFF_G4_PAGE), (PROGRESSIVE_ID, PROGRESSIVE_PAGE)):
+            extra = image_io.imread(path)
+            before = warp_ops.warp_fields.launches
+            random.seed(0)
+            layout = parser.process_page(extra, PageLayout(id=page_id, page_size=extra.shape[:2]))
+            extra_out.append((layout, layout.to_pagexml_string()))
+            extra_pages.append(extra)
+            extra_launches.append(warp_ops.warp_fields.launches - before)
+        g4_launches, progressive_launches = extra_launches
+        log(f"in process: the A4 Group 4 page {g4_launches} warp_fields launch(es), the "
+            f"progressive page {progressive_launches} ({len(list(extra_out[1][0].lines_iterator()))}"
+            f" lines)")
+        if progressive_launches != 1:
+            raise AssertionError(f"the progressive page: {progressive_launches} warp_fields "
+                                 "launches, want 1")
+        cli_out = out[:n_cli] + extra_out
+        cli_pages = pages[:n_cli] + extra_pages
 
         # The command line without --fast-pipeline on the first pages,
         # with the line crops and the renders.
@@ -1927,19 +2010,20 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                 timed[0] - written[0]), wall=cli_seconds,
             launches=int(counted.group(1)), decode_ms=1e3 * decode[0] / decode[1],
             write_lines_ms=1e3 * written[0] / n_files, write_render_ms=1e3 * drawn[0] / n_files,
-            renders=len(renders), tiff_pages=len(tiff_ids) + 1)
+            renders=len(renders), tiff_pages=len(tiff_ids) + 1, progressive_pages=1)
         log(f"stage-by-stage command line vs in-process: {n_files} of {n_files} files equal "
-            f"(lines of a row as a set; conf within 0.0015), the A4 Group 4 page and "
-            f"{len(tiff_ids)} gray Deflate TIFF pages among them; {len(renders)} renders equal "
+            f"(lines of a row as a set; conf within 0.0015), the A4 Group 4 page, the "
+            f"progressive colour JPEG page and {len(tiff_ids)} gray Deflate TIFF pages among "
+            f"them; {len(renders)} renders equal "
             f"byte for byte to render_layout on the command line's own Page XML; its "
             f"warp_fields launches {cli_numbers['launches']}; {cli_numbers['pages_per_s']:.3f} "
             f"pages/s by its timer with line export and renders, "
             f"{cli_numbers['pages_per_s_without_write_lines']:.3f} without cli/write_lines; "
-            f"cli/decode {cli_numbers['decode_ms']:.2f} ms a page (gray JPEG "
-            f"and TIFF, on the decoding thread), cli/write_lines "
+            f"cli/decode {cli_numbers['decode_ms']:.2f} ms a page (gray JPEG, TIFF "
+            f"and the progressive page, on the decoding thread), cli/write_lines "
             f"{cli_numbers['write_lines_ms']:.2f} ms, cli/write_render "
             f"{cli_numbers['write_render_ms']:.2f} ms a page (host times), on {smi}")
-        if cli_numbers["launches"] != sum(batched[:n_cli]) + g4_launches:
+        if cli_numbers["launches"] != sum(batched[:n_cli]) + g4_launches + progressive_launches:
             raise AssertionError("the stage-by-stage command line: warp_fields launches != "
                                  f"pages of {parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
         last_page = page_buckets(parser, out[-1][0], pages[-1])
@@ -1967,7 +2051,9 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                "cli_warp_fields_launches": cli_numbers["launches"],
                "cli_renders": cli_numbers["renders"], "cli_tiff_pages": cli_numbers["tiff_pages"],
                "cli_write_render_ms_a_page": cli_numbers["write_render_ms"],
-               "g4_page_warp_fields_launches": g4_launches, "card": smi}
+               "g4_page_warp_fields_launches": g4_launches,
+               "cli_progressive_pages": cli_numbers["progressive_pages"],
+               "progressive_page_warp_fields_launches": progressive_launches, "card": smi}
     return (launches, numbers, last_page, {"inputs": host_inputs.pages[-1], "ab": ab},
             script_pages)
 

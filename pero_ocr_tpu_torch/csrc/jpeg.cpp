@@ -1,18 +1,28 @@
-// Baseline JPEG in and out, equal to OpenCV 5's libjpeg-turbo (3.1) to
-// the bit: the port's cv2.imread(path, IMREAD_COLOR) for JPEG pages and
-// cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, q]) for line crops.
+// Baseline and progressive JPEG in, baseline JPEG out, equal to OpenCV
+// 5's libjpeg-turbo (3.1) to the bit: the port's cv2.imread(path,
+// IMREAD_COLOR) for JPEG pages and cv2.imencode(".jpg", img,
+// [IMWRITE_JPEG_QUALITY, q]) for line crops.
 //
 // Decoder (jpeg_header, jpeg_decode_bgr): libjpeg's default
-// decompression of baseline sequential Huffman files (SOF0, and SOF1 at
-// 8 bits), one or three components, interleaved or not, restart
-// intervals; the integer IDCT (jidctint.c) with its range limit, fancy
-// upsampling (jdsample.c: h2v1, h2v2, h1v2, else the integral box),
-// YCbCr to BGR with jdcolor.c's fixed-point tables, gray as three equal
-// channels, and default_decompress_parms's colour-space guess.  What it
-// does not copy it refuses with a message: progressive, lossless,
-// hierarchical and arithmetic coding, other than 8-bit samples, four
-// components, and truncated or corrupt entropy data (where libjpeg
-// warns and fills the page with grey).
+// decompression of sequential (SOF0, and SOF1 at 8 bits) and
+// progressive (SOF2) Huffman files of one, three or four components,
+// interleaved or not, with restart intervals.  Progressive scans
+// (jdphuff.c: DC and AC first and refining scans, spectral selection,
+// successive approximation, EOB runs) fill a whole-image coefficient
+// buffer; where the file leaves the DC or the first nine AC
+// coefficients short of full precision, the output pass smooths them
+// from the neighbouring blocks' DC values as jdcoefct.c's
+// decompress_smooth_data does.  Then the integer IDCT (jidctint.c) with
+// its range limit, fancy upsampling (jdsample.c: h2v1, h2v2, h1v2, else
+// the integral box), YCbCr to BGR with jdcolor.c's fixed-point tables,
+// gray as three equal channels, and default_decompress_parms's
+// colour-space guess.  Four components are CMYK (Adobe transform 0 or
+// no Adobe marker) or YCCK (any other transform), turned into CMYK as
+// jdcolor.c does and into BGR as OpenCV's icvCvt_CMYK2BGR_8u_C4C3R does.
+// What it does not copy it refuses with a message: lossless,
+// hierarchical and arithmetic coding, other than 8-bit samples, and
+// truncated or corrupt entropy data (where libjpeg warns and fills the
+// page with grey).
 //
 // Encoder (jpeg_encode): jpeg_set_defaults + jpeg_set_quality(q, TRUE)
 // as cv2 calls them: JFIF APP0, the standard quantization tables scaled
@@ -395,6 +405,10 @@ struct Component {
     std::vector<uint8_t> plane;  // samples, (bh * 8, bw * 8)
     uint16_t quant[64];  // latched at the component's first scan (jdinput.c)
     bool scanned = false;
+    // jdphuff.c's coef_bits: the Al each zigzag coefficient was last
+    // coded at by a progressive scan, -1 before any
+    int coef_bits[64];
+    Component() { std::fill(coef_bits, coef_bits + 64, -1); }
 };
 
 struct Decoder {
@@ -402,7 +416,7 @@ struct Decoder {
     size_t size;
     size_t pos = 0;
     int width = 0, height = 0, ncomp = 0, maxh = 1, maxv = 1, mcux = 0, mcuy = 0;
-    bool frame = false, jfif = false, adobe = false;
+    bool frame = false, progressive = false, jfif = false, adobe = false;
     int adobe_transform = -1;
     int restart_interval = 0;
     int64_t app1_offset = -1, app1_length = 0;
@@ -480,8 +494,9 @@ struct Decoder {
         if (pos != end) fail("a DHT segment of the wrong length");
     }
 
-    void read_sof(int length) {
+    void read_sof(int length, bool is_progressive) {
         if (frame) fail("two frames in one file");
+        progressive = is_progressive;
         int precision = byte();
         height = u16();
         width = u16();
@@ -490,8 +505,7 @@ struct Decoder {
             fail(std::to_string(precision) + "-bit samples (only 8-bit JPEG is read)");
         if (height == 0) fail("a height given by a DNL marker");
         if (width == 0) fail("an empty image");
-        if (ncomp == 4) fail("four components (CMYK or YCCK)");
-        if (ncomp != 1 && ncomp != 3) fail(std::to_string(ncomp) + " components");
+        if (ncomp != 1 && ncomp != 3 && ncomp != 4) fail(std::to_string(ncomp) + " components");
         if (length != 8 + 3 * ncomp) fail("an SOF segment of the wrong length");
         comps.resize(ncomp);
         for (auto& c : comps) {
@@ -549,15 +563,16 @@ struct Decoder {
         switch (m) {
             case 0xC0:
             case 0xC1:
-                read_sof(length);
+                read_sof(length, false);
                 break;
             case 0xC2:
-            case 0xC6:
-                fail("progressive coding (SOF2)");
+                read_sof(length, true);
+                break;
             case 0xC3:
             case 0xC7:
                 fail("lossless coding (SOF3)");
             case 0xC5:
+            case 0xC6:
             case 0xDE:
             case 0xDF:
                 fail("hierarchical coding");
@@ -595,6 +610,10 @@ struct Decoder {
         pos = start + length - 2;
     }
 
+    // A scan's kind: sequential, or one of jdphuff.c's four progressive
+    // decoders.
+    enum ScanKind { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+
     void decode_scan() {
         int length = u16();
         size_t start = pos;
@@ -615,18 +634,32 @@ struct Decoder {
             scan.push_back(found);
         }
         int ss = byte(), se = byte(), a = byte();
-        if (ss != 0 || se != 63 || a != 0) fail("a scan that is not sequential (Ss, Se, Ah/Al)");
+        int ah = a >> 4, al = a & 15;
+        ScanKind kind = kSequential;
+        if (!progressive) {
+            if (ss != 0 || se != 63 || a != 0) fail("a scan that is not sequential (Ss, Se, Ah/Al)");
+        } else {
+            // jdphuff.c start_pass_phuff_decoder's checks
+            bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+            if ((ah != 0 && al != ah - 1) || al > 13)
+                bad = true;
+            if (bad) fail("a progressive scan with bad Ss, Se, Ah or Al");
+            kind = ss == 0 ? (ah ? kDcRefine : kDcFirst) : (ah ? kAcRefine : kAcFirst);
+        }
         pos = start + length - 2;
         // jdinput.c: a first scan of every component makes a one-scan
-        // file (any later SOS is an error), decoded straight into
-        // samples; otherwise the coefficients wait for the last scan.
+        // sequential file (any later SOS is an error), decoded straight
+        // into samples; otherwise the coefficients wait for the last scan.
         if (!frame_scanned)
-            single_scan = ns == ncomp;
+            single_scan = !progressive && ns == ncomp;
         else if (single_scan)
             fail("a second scan after a scan of every component");
         frame_scanned = true;
         for (auto* c : scan) {
-            if (!dc[c->td].defined || !ac[c->ta].defined) fail("a scan with an undefined Huffman table");
+            bool need_dc = kind == kSequential || kind == kDcFirst;
+            bool need_ac = kind == kSequential || kind == kAcFirst || kind == kAcRefine;
+            if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined))
+                fail("a scan with an undefined Huffman table");
             if (!quant_defined[c->tq]) fail("a component with an undefined quantization table");
             if (!c->scanned) {
                 std::memcpy(c->quant, quant[c->tq], sizeof(c->quant));
@@ -636,6 +669,8 @@ struct Decoder {
                     c->coef.assign(size_t(c->bw) * c->bh * 64, 0);
             }
             c->scanned = true;
+            if (progressive)
+                for (int k = ss; k <= se; k++) c->coef_bits[k] = al;
         }
         int blocks_per_mcu = 0;
         for (auto* c : scan) blocks_per_mcu += ns == 1 ? 1 : c->h * c->v;
@@ -643,6 +678,7 @@ struct Decoder {
 
         BitReader br{data, size, pos};
         int pred[4] = {0, 0, 0, 0};
+        int eobrun = 0;
         int64_t n_mcu, mx;
         if (ns == 1) {
             mx = scan[0]->wib;
@@ -664,6 +700,7 @@ struct Decoder {
                     br.pos = pos;
                     br.reset();
                     for (int i = 0; i < 4; i++) pred[i] = 0;
+                    eobrun = 0;
                     restarts_to_go = restart_interval;
                 }
                 restarts_to_go--;
@@ -684,8 +721,28 @@ struct Decoder {
                                 idct_islow(blk, c.quant, c.plane.data() + row * 8 * stride + col * 8,
                                            static_cast<int>(stride));
                             }
-                        } else {
-                            decode_block(br, c, c.coef.data() + (row * c.bw + col) * 64, pred[si]);
+                            continue;
+                        }
+                        int16_t* blk = c.coef.data() + (row * c.bw + col) * 64;
+                        switch (kind) {
+                            case kSequential:
+                                decode_block(br, c, blk, pred[si]);
+                                break;
+                            case kDcFirst: {  // decode_mcu_DC_first
+                                int s = br.decode(dc[c.td]);
+                                pred[si] += s ? extend(br.get(s), s) : 0;
+                                blk[0] = static_cast<int16_t>(static_cast<unsigned>(pred[si]) << al);
+                                break;
+                            }
+                            case kDcRefine:  // decode_mcu_DC_refine
+                                if (br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+                                break;
+                            case kAcFirst:
+                                ac_first(br, ac[c.ta], blk, ss, se, al, eobrun);
+                                break;
+                            case kAcRefine:
+                                ac_refine(br, ac[c.ta], blk, ss, se, al, eobrun);
+                                break;
                         }
                     }
             }
@@ -721,6 +778,84 @@ struct Decoder {
         }
     }
 
+    // jdphuff.c decode_mcu_AC_first: the band Ss..Se of one block, or one
+    // block of an EOB run.
+    static void ac_first(BitReader& br, const HuffTable& act, int16_t* blk, int ss, int se, int al,
+                         int& eobrun) {
+        if (eobrun > 0) {
+            eobrun--;
+            return;
+        }
+        for (int k = ss; k <= se; k++) {
+            const HuffTable::FastAC& f = act.fast[br.peek16() >> 7];
+            if (f.bits) {
+                br.skip(f.bits);
+                k += f.run;
+                blk[kZigzag[k]] = static_cast<int16_t>(static_cast<unsigned>(f.value) << al);
+                continue;
+            }
+            int rs = br.decode(act);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                k += r;
+                blk[kZigzag[k]] =
+                    static_cast<int16_t>(static_cast<unsigned>(extend(br.get(s), s)) << al);
+            } else if (r == 15) {
+                k += 15;
+            } else {
+                eobrun = 1 << r;
+                if (r) eobrun += br.get(r);
+                eobrun--;
+                break;
+            }
+        }
+    }
+
+    // jdphuff.c decode_mcu_AC_refine: one more bit of the band's
+    // nonzero coefficients, and the coefficients that become nonzero.
+    static void ac_refine(BitReader& br, const HuffTable& act, int16_t* blk, int ss, int se, int al,
+                          int& eobrun) {
+        const int p1 = 1 << al, m1 = -1 * (1 << al);
+        auto refine = [&](int16_t& coef) {
+            if (br.get(1) && (coef & p1) == 0)
+                coef = static_cast<int16_t>(coef + (coef >= 0 ? p1 : m1));
+        };
+        int k = ss;
+        if (eobrun == 0) {
+            for (; k <= se; k++) {
+                int rs = br.decode(act);
+                int r = rs >> 4, s = rs & 15;
+                if (s) {
+                    if (s != 1) fail("corrupt entropy-coded data (a refinement value of more than 1 bit)");
+                    s = br.get(1) ? p1 : m1;
+                } else if (r != 15) {
+                    eobrun = 1 << r;
+                    if (r) eobrun += br.get(r);
+                    break;
+                }
+                // Past the coefficients that are nonzero already (each
+                // takes a correction bit), r zeros, to the new one.
+                do {
+                    int16_t& coef = blk[kZigzag[k]];
+                    if (coef != 0) {
+                        refine(coef);
+                    } else {
+                        if (--r < 0) break;
+                    }
+                    k++;
+                } while (k <= se);
+                if (s) blk[kZigzag[k]] = static_cast<int16_t>(s);
+            }
+        }
+        if (eobrun > 0) {
+            for (; k <= se; k++) {
+                int16_t& coef = blk[kZigzag[k]];
+                if (coef != 0) refine(coef);
+            }
+            eobrun--;
+        }
+    }
+
     void decode() {
         read_header();
         while (!done) {
@@ -737,27 +872,169 @@ struct Decoder {
     }
 
     // The colour space libjpeg's default_decompress_parms guesses: 0
-    // gray, 1 YCbCr, 2 RGB.
+    // gray, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK.
     int color_space() const {
         if (ncomp == 1) return 0;
+        if (ncomp == 4) return adobe && adobe_transform != 0 ? 4 : 3;
         if (jfif) return 1;
         if (adobe) return adobe_transform == 0 ? 2 : 1;
         if (comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B') return 2;
         return 1;
     }
 
+    // jdcoefct.c smoothing_ok: block smoothing runs after a progressive
+    // file whose every component had a DC scan, whose DC and first nine
+    // AC quantizers are nonzero, and where one of those nine AC
+    // coefficients of some component is not known to full precision.
+    bool smoothing_ok() const {
+        if (!progressive) return false;
+        bool useful = false;
+        for (const auto& c : comps) {
+            for (int k = 0; k < 10; k++)
+                if (c.quant[kZigzag[k]] == 0) return false;
+            if (c.coef_bits[0] < 0) return false;
+            for (int k = 1; k < 10; k++)
+                if (c.coef_bits[k] != 0) useful = true;
+        }
+        return useful;
+    }
+
     // The samples of a multi-scan file's components: the IDCT of every
-    // block that holds samples of the image.
+    // block that holds samples of the image, smoothed where
+    // smoothing_ok says so.
     void inverse_dct() {
+        bool smooth = smoothing_ok();
         for (auto& c : comps) {
             if (c.coef.empty()) continue;
             int stride = c.bw * 8;
             c.plane.assign(size_t(stride) * c.bh * 8, 0);
-            for (int by = 0; by < c.hib; by++)
-                for (int bx = 0; bx < c.wib; bx++)
-                    idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, c.quant,
-                               c.plane.data() + size_t(by) * 8 * stride + bx * 8, stride);
+            if (smooth) {
+                smooth_component(c);
+            } else {
+                for (int by = 0; by < c.hib; by++)
+                    for (int bx = 0; bx < c.wib; bx++)
+                        idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, c.quant,
+                                   c.plane.data() + size_t(by) * 8 * stride + bx * 8, stride);
+            }
             std::vector<int16_t>().swap(c.coef);
+        }
+    }
+
+    // jdcoefct.c decompress_smooth_data for one component: each block's
+    // coefficients copied, the first nine AC coefficients that are zero
+    // and not known to full precision estimated from the 5x5 blocks'
+    // DC values around it (with no AC data at all, the DC as well, by a
+    // Gaussian-like kernel), then the IDCT.  The rows above and below a
+    // block are taken as libjpeg reaches them an iMCU row (v block
+    // rows) at a time; the columns stop at the image's last block.
+    void smooth_component(Component& c) {
+        const int* bits = c.coef_bits;
+        const bool change_dc = std::all_of(bits + 1, bits + 10, [](int b) { return b == -1; });
+        const int64_t q00 = c.quant[0], q01 = c.quant[1], q10 = c.quant[8], q20 = c.quant[16],
+                      q11 = c.quant[9], q02 = c.quant[2], q03 = c.quant[3], q12 = c.quant[10],
+                      q21 = c.quant[17], q30 = c.quant[24];
+        const int stride = c.bw * 8;
+        const int v = c.v, last_imcu = mcuy - 1;
+        auto dc_at = [&](int row, int col) {
+            return static_cast<int>(c.coef[(size_t(row) * c.bw + col) * 64]);
+        };
+        // An estimate: (num / Q + 1/2) in units of Q00 / 256, held under
+        // 2^Al where Al is known.
+        auto estimate = [](int64_t num, int64_t q, int al, bool clamp) {
+            int64_t pred = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+            if (clamp && al > 0 && pred >= (int64_t(1) << al)) pred = (int64_t(1) << al) - 1;
+            return static_cast<int16_t>(num >= 0 ? pred : -pred);
+        };
+        int16_t ws[64];
+        for (int row = 0; row < c.hib; row++) {
+            // libjpeg numbers the rows of the last iMCU row, and counts
+            // the image's, by that row's real block rows: short of v,
+            // the numbers are off, and the bounds move with them.  Above
+            // the last iMCU row a dummy row may serve as next2.
+            int imcu = row / v, b = row % v;
+            int block_rows = imcu < last_imcu ? v : (c.hib % v ? c.hib % v : v);
+            int image_row = imcu * block_rows + b, image_rows = block_rows * mcuy;
+            int prev = image_row > 0 ? row - 1 : row;
+            int prev2 = image_row > 1 ? row - 2 : prev;
+            int next = image_row < image_rows - 1 ? row + 1 : row;
+            int next2 = image_row < image_rows - 2 ? row + 2 : next;
+            const int rows[5] = {prev2, prev, row, next, next2};
+            const int last_col = c.wib - 1;
+            int d[5][5];  // d[r][x]: DC01..DC25, x = 2 the current column
+            for (int col = 0; col < c.wib; col++) {
+                std::memcpy(ws, c.coef.data() + (size_t(row) * c.bw + col) * 64, sizeof(ws));
+                for (int r = 0; r < 5; r++)
+                    for (int x = 0; x < 5; x++)
+                        d[r][x] = dc_at(rows[r], std::min(std::max(col + x - 2, 0), last_col));
+                const int DC01 = d[0][0], DC02 = d[0][1], DC03 = d[0][2], DC04 = d[0][3],
+                          DC05 = d[0][4], DC06 = d[1][0], DC07 = d[1][1], DC08 = d[1][2],
+                          DC09 = d[1][3], DC10 = d[1][4], DC11 = d[2][0], DC12 = d[2][1],
+                          DC13 = d[2][2], DC14 = d[2][3], DC15 = d[2][4], DC16 = d[3][0],
+                          DC17 = d[3][1], DC18 = d[3][2], DC19 = d[3][3], DC20 = d[3][4],
+                          DC21 = d[4][0], DC22 = d[4][1], DC23 = d[4][2], DC24 = d[4][3],
+                          DC25 = d[4][4];
+                int al;
+                if ((al = bits[1]) != 0 && ws[1] == 0) {  // AC01
+                    int64_t num = q00 * (change_dc
+                        ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 +
+                           3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 +
+                           13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25)
+                        : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+                    ws[1] = estimate(num, q01, al, true);
+                }
+                if ((al = bits[2]) != 0 && ws[8] == 0) {  // AC10
+                    int64_t num = q00 * (change_dc
+                        ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 +
+                           38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 -
+                           13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                        : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+                    ws[8] = estimate(num, q10, al, true);
+                }
+                if ((al = bits[3]) != 0 && ws[16] == 0) {  // AC20
+                    int64_t num = q00 * (change_dc
+                        ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 -
+                           5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                        : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+                    ws[16] = estimate(num, q20, al, true);
+                }
+                if ((al = bits[4]) != 0 && ws[9] == 0) {  // AC11
+                    int64_t num = q00 * (change_dc
+                        ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 -
+                           DC25)
+                        : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 +
+                           DC04 - DC06 + 10 * DC07 - 10 * DC09));
+                    ws[9] = estimate(num, q11, al, true);
+                }
+                if ((al = bits[5]) != 0 && ws[2] == 0) {  // AC02
+                    int64_t num = q00 * (change_dc
+                        ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 +
+                           7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                        : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+                    ws[2] = estimate(num, q02, al, true);
+                }
+                if (change_dc) {
+                    if ((al = bits[6]) != 0 && ws[3] == 0)  // AC03
+                        ws[3] = estimate(q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19),
+                                         q03, al, true);
+                    if ((al = bits[7]) != 0 && ws[10] == 0)  // AC12
+                        ws[10] = estimate(q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19),
+                                          q12, al, true);
+                    if ((al = bits[8]) != 0 && ws[17] == 0)  // AC21
+                        ws[17] = estimate(q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19),
+                                          q21, al, true);
+                    if ((al = bits[9]) != 0 && ws[24] == 0)  // AC30
+                        ws[24] = estimate(q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19),
+                                          q30, al, true);
+                    ws[0] = estimate(
+                        q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 +
+                               6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 +
+                               42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 +
+                               6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 - 2 * DC21 -
+                               6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25),
+                        q00, 0, false);
+                }
+                idct_islow(ws, c.quant, c.plane.data() + size_t(row) * 8 * stride + col * 8, stride);
+            }
         }
     }
 
@@ -843,11 +1120,28 @@ struct Decoder {
                 continue;
             }
             const uint8_t* limit = kYcc.limit + 384;
+            if (space == 1) {
+                for (int x = 0; x < width; x++) {
+                    int yy = c0[x], cb = c1[x], cr = c2[x];
+                    o[3 * x + 2] = limit[yy + kYcc.cr_r[cr]];
+                    o[3 * x + 1] = limit[yy + ((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)];
+                    o[3 * x] = limit[yy + kYcc.cb_b[cb]];
+                }
+                continue;
+            }
+            const uint8_t* c3 = c2 + width;
             for (int x = 0; x < width; x++) {
-                int yy = c0[x], cb = c1[x], cr = c2[x];
-                o[3 * x + 2] = limit[yy + kYcc.cr_r[cr]];
-                o[3 * x + 1] = limit[yy + ((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)];
-                o[3 * x] = limit[yy + kYcc.cb_b[cb]];
+                int cyan = c0[x], magenta = c1[x], yellow = c2[x], k = c3[x];
+                if (space == 4) {  // jdcolor.c ycck_cmyk_convert
+                    int yy = c0[x], cb = c1[x], cr = c2[x];
+                    cyan = limit[255 - (yy + kYcc.cr_r[cr])];
+                    magenta = limit[255 - (yy + ((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16))];
+                    yellow = limit[255 - (yy + kYcc.cb_b[cb])];
+                }
+                // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R
+                o[3 * x + 2] = static_cast<uint8_t>(k - ((255 - cyan) * k >> 8));
+                o[3 * x + 1] = static_cast<uint8_t>(k - ((255 - magenta) * k >> 8));
+                o[3 * x] = static_cast<uint8_t>(k - ((255 - yellow) * k >> 8));
             }
         }
     }

@@ -10,7 +10,7 @@
 
 It reads the config and its OCR JSON, loads the flax msgpack checkpoints
 (or a reference transformer's torch ``.pt``) they name into the port's
-models, decodes the pages (baseline JPEG, PNG, PNM or TIFF, turned by
+models, decodes the pages (JPEG, PNG, PNM, PAM, TIFF or BMP, turned by
 their EXIF or TIFF orientation, :mod:`pero_ocr_tpu_torch.utils.image_io`)
 and writes, per page, a Page XML file, a ``.logits`` pickle of the
 lines' sparse logits, an ALTO file with word boxes from the forced
@@ -382,6 +382,7 @@ def main(argv=None) -> None:
             results = run_workers(args.process_count, (
                 config_path, args.device, not args.allow_random_weights, outputs,
                 input_image_path, input_xml_path, input_logit_path, args.process_count,
+                torch.get_num_threads(),
             ), images_to_process, ids_to_process)
         else:
             results = run_staged(page_parser, input_image_path, images_to_process,
@@ -597,15 +598,17 @@ _worker: dict = {}
 
 def _start_worker(config_path: str, device: str, strict: bool, outputs: PageOutputs,
                   input_image_path, input_xml_path, input_logit_path,
-                  process_count: int) -> None:
+                  process_count: int, threads: Optional[int] = None) -> None:
     """A ``--process-count`` worker's initializer: its own PageParser
     from the ini on the command line's device, and its share of the
-    host's cores for torch's CPU threads (N processes whose threads spin
-    on all of them slow the CPU path many times over).  A failure is kept and raised by
+    command's torch CPU threads (``threads``, torch's own count in the
+    command's process; the host's cores where not given), since N
+    processes whose threads spin on all of them slow the CPU path many
+    times over.  A failure is kept and raised by
     the worker's first page, so that the command fails (``Pool`` would
     start a worker whose initializer raised again and again)."""
     try:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // process_count))
+        torch.set_num_threads(max(1, (threads or os.cpu_count() or 1) // process_count))
         config = configparser.ConfigParser()
         config.read(config_path)
         if "PARSE_FOLDER" in config:

@@ -6,9 +6,11 @@
 OpenCV 5 returns for the formats it reads here:
 
 - **JPEG** (the C++ codec of ``csrc/jpeg.cpp``, bound in
-  :mod:`pero_ocr_tpu_torch.utils.jpeg`): baseline sequential Huffman,
-  8-bit, gray or three components at any sampling, restart intervals;
-  libjpeg-turbo's integer IDCT, fancy upsampling and YCbCr tables.
+  :mod:`pero_ocr_tpu_torch.utils.jpeg`): sequential and progressive
+  Huffman, 8-bit, gray, three components at any sampling or four (CMYK
+  or YCCK, turned into BGR as OpenCV turns them), restart intervals;
+  libjpeg-turbo's integer IDCT, block smoothing of progressive files
+  cut short, fancy upsampling and YCbCr tables.
 - **PNG** (numpy and ``zlib``): every colour type and bit depth (1, 2,
   4, 8 and 16), interlaced (Adam7) or not, all five row filters.  As
   libpng expands them for OpenCV, 16-bit samples keep their high byte,
@@ -20,6 +22,11 @@ OpenCV 5 returns for the formats it reads here:
   map 1 to black; binary samples are not rescaled to maxval, ASCII ones
   are (``v * 255 // maxval``, clamped to maxval first); 2-byte samples
   (maxval over 255) keep their high byte.
+- **PAM** (P7, OpenCV's PAM decoder, :func:`decode_pam`): the five
+  tuple types at 8 and 16 bits, and MAXVAL 1 as packed bits.
+- **BMP** (:mod:`pero_ocr_tpu_torch.utils.bmp`, OpenCV's BMP decoder):
+  OS/2 and Windows headers to V5, 1-, 4- and 8-bit palettes, 16, 24
+  and 32 bits, RLE4 and RLE8, rows either way up.
 - **TIFF** (:mod:`pero_ocr_tpu_torch.utils.tiff`, the host C++ of
   ``csrc/tiff.cpp``): strips and tiles, classic and BigTIFF, both byte
   orders, planar or not; none, LZW, Deflate, PackBits, CCITT (Modified
@@ -34,14 +41,15 @@ unreadable tag turns nothing, as in OpenCV.  TIFF pages are turned by
 their Orientation tag as OpenCV 5 turns them (see
 :mod:`~pero_ocr_tpu_torch.utils.tiff`).
 
-What OpenCV reads and this module does not (progressive, lossless,
-arithmetic, 12-bit or CMYK JPEG; truncated or corrupt JPEG or TIFF
-data; TIFF of the compressions and photometrics that
-:mod:`~pero_ocr_tpu_torch.utils.tiff` lists; JPEG 2000, WebP, BMP, PAM
-and the rest) raises ``ValueError`` naming the file and the ROADMAP
-item; what OpenCV returns None for (2-bit TIFF, a non-square TIFF page
-turned by Orientation 5-8, ...) raises ``ValueError`` saying "Unable to
-read image", as the JAX command line does.  Nothing is skipped.
+What OpenCV reads and this module does not (lossless, hierarchical,
+arithmetic or 12-bit JPEG; truncated or corrupt JPEG or TIFF data; TIFF
+of the compressions and photometrics that
+:mod:`~pero_ocr_tpu_torch.utils.tiff` lists; JPEG 2000, WebP, GIF,
+AVIF, HDR, PFM and the rest) raises ``ValueError`` naming the file and
+the ROADMAP item; what OpenCV returns None for (2-bit TIFF, a
+non-square TIFF page turned by Orientation 5-8, a BMP or PAM header
+OpenCV rejects, ...) raises ``ValueError`` saying "Unable to read
+image", as the JAX command line does.  Nothing is skipped.
 
 :func:`encode_jpeg` and :func:`imwrite_jpeg` write what
 ``cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, q])`` and
@@ -60,7 +68,7 @@ import numpy as np
 
 from pero_ocr_tpu_torch import not_read
 from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg, jpeg_header
-from pero_ocr_tpu_torch.utils import tiff
+from pero_ocr_tpu_torch.utils import bmp, tiff
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # Channels per PNG colour type: gray, RGB, palette, gray+alpha, RGBA.
@@ -69,8 +77,9 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 
 
 def imread(path: str) -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_COLOR)`` for JPEG, PNG, PNM and
-    TIFF: a BGR uint8 (H, W, 3) array, turned by its EXIF or TIFF
+    """``cv2.imread(path, cv2.IMREAD_COLOR)`` for JPEG, PNG, PNM, PAM,
+    TIFF and BMP, told apart by their first bytes as OpenCV tells them:
+    a BGR uint8 (H, W, 3) array, turned by its EXIF or TIFF
     orientation.  Raises ``ValueError`` for other or broken files (where
     cv2 returns None, or for data it would fill with grey)."""
     with open(path, "rb") as f:
@@ -82,9 +91,13 @@ def imread(path: str) -> np.ndarray:
         return apply_orientation(decode_jpeg(data, path), exif_orientation(exif))
     if data[:1] == b"P" and data[1:2] in b"123456" and len(data) > 2:
         return decode_pnm(data, path)
+    if data[:2] == b"P7" and data[2:3] in b" \t\n\v\f\r" and len(data) > 2:
+        return decode_pam(data, path)
     if tiff.is_tiff(data):
         return decode_tiff(data, path)
-    raise not_read(path, "a file that is neither JPEG, PNG, PNM nor TIFF")
+    if bmp.is_bmp(data):
+        return bmp.decode_bmp(data, path)
+    raise not_read(path, "a file that is neither JPEG, PNG, PNM, PAM, TIFF nor BMP")
 
 
 def decode_tiff(data: bytes, path: str = "<tiff>") -> np.ndarray:
@@ -476,3 +489,80 @@ def decode_pnm(data: bytes, path: str = "<pnm>") -> np.ndarray:
     if channels == 1:
         return np.repeat(samples, 3, axis=2)
     return np.ascontiguousarray(samples[:, :, ::-1])
+
+
+# ----------------------------------------------------------------------
+# PAM (P7, OpenCV's PAMDecoder)
+# TUPLTYPE -> DEPTH it must come with
+_PAM_TUPLES = {b"BLACKANDWHITE": 1, b"GRAYSCALE": 1, b"GRAYSCALE_ALPHA": 2, b"RGB": 3,
+               b"RGB_ALPHA": 4}
+_PAM_FIELDS = (b"WIDTH", b"HEIGHT", b"DEPTH", b"MAXVAL", b"TUPLTYPE")
+
+
+def decode_pam(data: bytes, path: str = "<pam>") -> np.ndarray:
+    """P7 as OpenCV 5's PAM decoder reads it under ``IMREAD_COLOR``.
+
+    The header: ``P7`` and a line end (LF or CR, one byte), then lines of
+    an identifier and a value, blank lines and ``#`` comment lines, to
+    ``ENDHDR``; the data starts after that line's one end byte.
+    Identifiers and tuple types are matched case for case; numbers are
+    digits only; WIDTH, HEIGHT, DEPTH and MAXVAL (up to 65535) are
+    needed, each once.  A TUPLTYPE (BLACKANDWHITE, GRAYSCALE,
+    GRAYSCALE_ALPHA, RGB, RGB_ALPHA) needs its own DEPTH; without one,
+    DEPTH 1 or 3 with MAXVAL under 256 is gray or RGB.  Samples are not
+    scaled to MAXVAL; 2-byte samples (MAXVAL over 255) keep their high
+    byte.  MAXVAL 1 reads each row's first bytes as packed bits, the
+    most significant first, 1 white (whatever the tuple type and depth;
+    a row still takes WIDTH * DEPTH bytes).  RGB samples land in the
+    blue, green, red order unswapped, as OpenCV stores them; gray ones
+    in all three channels; RGB_ALPHA's are swapped, and the alphas are
+    dropped.  OpenCV 5.0.0 converts only the first ceil(WIDTH / DEPTH)
+    pixels of a GRAYSCALE_ALPHA or RGB_ALPHA row and leaves the rest of
+    its output row unwritten (whatever memory held); here every pixel of
+    the row is converted alike.  Where OpenCV returns None (or raises)
+    this raises ``ValueError`` saying "Unable to read image"."""
+    if len(data) < 3 or data[:2] != b"P7" or data[2] not in b"\n\r":
+        raise tiff.unreadable(path, "this PAM header")
+    fields, pos = {}, 3
+    while True:
+        end = min((i for i in (data.find(b"\n", pos), data.find(b"\r", pos)) if i >= 0),
+                  default=-1)
+        if end < 0:
+            raise tiff.unreadable(path, "a PAM header without ENDHDR")
+        line, pos = data[pos:end].strip(b" \t\v\f"), end + 1
+        if not line or line.startswith(b"#"):
+            continue
+        ident, value = (line.split(None, 1) + [b""])[:2]
+        if ident == b"ENDHDR":
+            break
+        if ident not in _PAM_FIELDS or ident in fields or (
+                ident != b"TUPLTYPE" and not re.fullmatch(rb"[0-9]+", value)):
+            raise tiff.unreadable(path, f"the PAM header line {line!r}")
+        fields[ident] = value if ident == b"TUPLTYPE" else int(value)
+    if not all(k in fields for k in _PAM_FIELDS[:4]):
+        raise tiff.unreadable(path, "a PAM header without WIDTH, HEIGHT, DEPTH or MAXVAL")
+    width, height, depth, maxval = (fields[k] for k in _PAM_FIELDS[:4])
+    tuple_type = fields.get(b"TUPLTYPE")
+    if tuple_type is None:
+        if maxval < 256 and depth in (1, 3):
+            tuple_type = b"GRAYSCALE" if depth == 1 else b"RGB"
+    elif _PAM_TUPLES.get(tuple_type) != depth:
+        tuple_type = None
+    if (tuple_type is None or maxval > 65535 or not 0 < width < 2**31
+            or not 0 < height < 2**31 or width * height * 3 >= 1 << 30):
+        raise tiff.unreadable(path, "this PAM header's sizes or tuple type")
+    size = 2 if maxval > 255 else 1
+    row_bytes = width * depth * size
+    body = data[pos:pos + row_bytes * height]
+    if len(body) != row_bytes * height:
+        raise tiff.unreadable(path, "a PAM file that ends early")
+    rows = np.frombuffer(body, np.uint8).reshape(height, row_bytes)
+    if maxval == 1:  # packed bits at the start of each row
+        bits = np.unpackbits(rows[:, :-(-width // 8)], axis=1, count=width)
+        return np.repeat((bits * 255).astype(np.uint8)[:, :, None], 3, axis=2)
+    samples = rows[:, ::size].reshape(height, width, depth)  # 2-byte: the high byte
+    if depth == 3:
+        return np.ascontiguousarray(samples)
+    if depth == 4:
+        return np.ascontiguousarray(samples[:, :, 2::-1])
+    return np.ascontiguousarray(np.repeat(samples[:, :, :1], 3, axis=2))

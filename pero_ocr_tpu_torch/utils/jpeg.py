@@ -6,12 +6,16 @@ failed build raises.  Nothing falls back to Python or to another
 library.
 
 :func:`decode_jpeg` is ``cv2.imread(path, cv2.IMREAD_COLOR)`` of a
-baseline JPEG before the EXIF orientation (which
-:mod:`pero_ocr_tpu_torch.utils.image_io` applies for JPEG and PNG
-alike); :func:`encode_jpeg` is ``cv2.imencode(".jpg", img,
-[cv2.IMWRITE_JPEG_QUALITY, quality])``.  Both are bit for bit what
-OpenCV 5's libjpeg-turbo gives.  :data:`calls` counts each C function's
-calls.
+sequential or progressive Huffman JPEG of one, three or four components
+(CMYK or YCCK, turned into BGR as OpenCV turns them) before the EXIF
+orientation (which :mod:`pero_ocr_tpu_torch.utils.image_io` applies for
+JPEG and PNG alike); progressive files that stop short of full
+precision are smoothed as libjpeg smooths them.  :func:`encode_jpeg` is
+``cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, quality])``.
+Both are bit for bit what OpenCV 5's libjpeg-turbo gives.  Lossless,
+hierarchical (SOF6 among them) and arithmetic coding, samples other
+than 8-bit, and truncated or corrupt data raise :func:`refused`'s
+``ValueError``.  :data:`calls` counts each C function's calls.
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ def jpeg_header(data: bytes, path: str = "<jpeg>") -> Tuple[int, int, int, Optio
 
 
 def decode_jpeg(data: bytes, path: str = "<jpeg>") -> np.ndarray:
-    """A baseline JPEG file's bytes -> BGR uint8 (H, W, 3), EXIF
+    """A JPEG file's bytes -> BGR uint8 (H, W, 3), EXIF
     orientation not applied.  Raises ``ValueError`` naming ``path`` and
     the ROADMAP item for what the codec does not read."""
     height, width, _, _ = jpeg_header(data, path)

@@ -5,12 +5,18 @@
 Needs cv2 (OpenCV 5, libjpeg-turbo 3.1) and runs where the tests run,
 never on the card's machine.  It writes small JPEG (and two PNG) files
 made with cv2: every sampling cv2 writes, gray, restart intervals, odd
-sizes, the 8 EXIF orientations, a file of one scan a component and an
-Adobe RGB file (rebuilt from cv2's coefficients by
-tests/test_torch_jpeg.py's entropy codec); raw crops (``.npy``) for the
-encoder; and ``fixtures.json``: the sha256 of ``cv2.imread(path, 1)``'s
-array for each file and of ``cv2.imencode(".jpg", crop,
-[IMWRITE_JPEG_QUALITY, q])``'s bytes for each crop and quality.
+sizes, the 8 EXIF orientations, in baseline and progressive form;
+progressive files cut short of some scans (libjpeg's block smoothing
+fills them in); a file of one scan a component, an Adobe RGB file and
+four-component files (CMYK and YCCK, with and without an Adobe marker,
+baseline and progressive), rebuilt from cv2's coefficients by
+tests/test_torch_jpeg.py's entropy codec; raw crops (``.npy``) for the
+encoder; one full-size 2560x1792 two-column page, progressive, in
+``tests/data/page`` (chip_smoke.py's synthetic page, tinted apart in its
+three channels); and ``fixtures.json``: the sha256 of
+``cv2.imread(path, 1)``'s array for each file (the page's under
+"pages", its path from ``tests/data``) and of ``cv2.imencode(".jpg",
+crop, [IMWRITE_JPEG_QUALITY, q])``'s bytes for each crop and quality.
 tests/test_torch_jpeg.py holds the port's codec to the JSON on the CPU,
 ``chip_smoke.check_jpeg_fixtures`` on the card's machine.
 """
@@ -28,7 +34,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
 import cv2  # noqa: E402
 import numpy as np  # noqa: E402
 
-from tests.test_torch_jpeg import JFIF, adobe, cv2_jpeg, rebuilt, sample_image  # noqa: E402
+from tests.test_torch_jpeg import (  # noqa: E402
+    JFIF, adobe, cut_scans, cv2_jpeg, four_component_file, rebuilt, sample_image,
+)
+
+PAGE = "page/two_columns_progressive_2560x1792_q85.jpg"  # from tests/data
+PAGE_QUALITY = 85  # under 1 MB; quality 90 takes 1.24 MB
 
 QUALITIES = (70, 95, 98, 100)
 
@@ -75,7 +86,49 @@ def files():
     rng = np.random.default_rng(9)
     page = cv2.GaussianBlur(rng.integers(0, 256, (192, 256, 3), dtype=np.uint8), (0, 0), 2)
     out["s420_192x256_q90.jpg"] = cv2_jpeg(page, 90, "420")
+    # progressive (cv2's scan script), every sampling, gray, restarts,
+    # qualities, odd sizes
+    for sampling in ("444", "422", "420", "440", "411"):
+        out[f"prog_s{sampling}_37x29_q90.jpg"] = cv2_jpeg(sample_image(37, 29, seed=11), 90,
+                                                          sampling, progressive=True)
+    out["prog_gray_29x37_q95.jpg"] = cv2_jpeg(sample_image(29, 37, 1, seed=12)[:, :, 0], 95,
+                                              progressive=True)
+    out["prog_s420_rst2_33x45_q90.jpg"] = cv2_jpeg(sample_image(33, 45, seed=13), 90, "420",
+                                                   restart=2, progressive=True)
+    out["prog_gray_rst1_20x30_q70.jpg"] = cv2_jpeg(sample_image(20, 30, 1, seed=14)[:, :, 0], 70,
+                                                   restart=1, progressive=True)
+    for h, w, q in ((1, 1, 1), (1, 40, 100), (40, 1, 50), (17, 3, 10), (3, 18, 75)):
+        out[f"prog_s420_{h}x{w}_q{q}.jpg"] = cv2_jpeg(sample_image(h, w, seed=h * w + 1), q, "420",
+                                                      progressive=True)
+    # cut short: block smoothing (the DC alone; the first AC band; all
+    # but luma's last refinement; gray without its last scan)
+    full = cv2_jpeg(sample_image(41, 49, seed=15), 80, "420", progressive=True)
+    for keep, tag in ((range(1), "dc_only"), (range(2), "dc_and_y_ac_1_5"),
+                      (range(9), "without_last_scan")):
+        out[f"prog_cut_{tag}_41x49_q80.jpg"] = cut_scans(full, keep)
+    gray = cv2_jpeg(sample_image(25, 38, 1, seed=16)[:, :, 0], 60, progressive=True)
+    out["prog_cut_gray_without_last_scan_25x38_q60.jpg"] = cut_scans(gray, range(5))
+    # four components, rebuilt from cv2's coefficients
+    for progressive in (False, True):
+        form = "prog" if progressive else "base"
+        for tag, apps in (("cmyk_adobe0", [adobe(0)]), ("ycck_adobe2", [adobe(2)]),
+                          ("cmyk_no_marker", [])):
+            out[f"{form}_{tag}_444_18x26.jpg"] = four_component_file(18, 26, "444", apps,
+                                                                     progressive, seed=17)
+        out[f"{form}_ycck_adobe2_420_21x35.jpg"] = four_component_file(21, 35, "420", [adobe(2)],
+                                                                       progressive, seed=18)
     return out
+
+
+def full_page() -> bytes:
+    """chip_smoke.py's two-column 2560x1792 synthetic page (seed 22),
+    tinted apart in its three channels, progressive 4:2:0."""
+    import chip_smoke
+
+    gray = chip_smoke.synthetic_pages(np.random.default_rng(22), 1, chip_smoke.TWO_COLUMNS)[0][0]
+    gray = gray[:, :, 0].astype(np.int16)
+    page = np.dstack([gray, gray - 12, gray + 9]).clip(0, 255).astype(np.uint8)
+    return cv2_jpeg(page, PAGE_QUALITY, "420", progressive=True)
 
 
 def crops():
@@ -90,7 +143,7 @@ def crops():
 
 
 def main():
-    spec = {"made_with": f"OpenCV {cv2.__version__}", "decode": {}, "encode": {}}
+    spec = {"made_with": f"OpenCV {cv2.__version__}", "decode": {}, "encode": {}, "pages": {}}
     for name in os.listdir(HERE):
         if name.endswith((".jpg", ".png", ".npy")):
             os.remove(os.path.join(HERE, name))
@@ -101,6 +154,13 @@ def main():
         img = cv2.imread(path, cv2.IMREAD_COLOR)
         spec["decode"][name] = {"shape": list(img.shape),
                                 "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+    path = os.path.join(os.path.dirname(HERE), PAGE)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(full_page())
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    spec["pages"][PAGE] = {"shape": list(img.shape),
+                           "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
     for name, crop in crops().items():
         np.save(os.path.join(HERE, name), crop)
         spec["encode"][name] = {

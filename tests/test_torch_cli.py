@@ -142,6 +142,24 @@ def bundle(tmp_path_factory):
     return root
 
 
+def cores_share() -> int:
+    """This test process's share of the host's cores: all of them, or
+    under xdist the cores over the workers (1 for 6 workers on 8)."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    return max(1, (os.cpu_count() or 1) // workers)
+
+
+@pytest.fixture
+def torch_threads_share():
+    """torch's intra-op threads held to :func:`cores_share` for the test:
+    the port's CPU loops run thousands of tiny ops, and idle threads
+    spin on the cores that the other test workers need."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, cores_share()))
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def float32_parsenets(monkeypatch):
     monkeypatch.setattr(parsenet_wrapper, "ParseNet",

@@ -7,9 +7,9 @@ type and bit depth (1, 2, 4, 8 and 16), interlaced (Adam7) or not; PNM
 (P1-P6) from cv2.imwrite and by hand.  PNG (an eXIf chunk) and JPEG (an
 APP1 Exif segment) pages carry each of the 8 EXIF orientations and
 malformed tags, turned as cv2 turns them.  Formats the reader does not
-take (progressive JPEG, an LZMA TIFF among them) raise ValueError naming
-the file and the ROADMAP item.  (The JPEG codec itself:
-tests/test_torch_jpeg.py; TIFF: tests/test_torch_tiff.py.)
+take (WebP, an LZMA TIFF among them) raise ValueError naming the file
+and the ROADMAP item.  (The JPEG codec itself: tests/test_torch_jpeg.py;
+TIFF: tests/test_torch_tiff.py; BMP and PAM: tests/test_torch_bmp_pam.py.)
 """
 
 import struct
@@ -233,16 +233,16 @@ def test_pnm(tmp_path):
 
 
 def test_unread_formats_raise(tmp_path):
-    """What cv2 reads and the port does not: a progressive JPEG and an
-    LZMA TIFF raise naming the file and the ROADMAP item; broken PNG
-    data raises."""
+    """What cv2 reads and the port does not: a WebP page (a progressive
+    JPEG until the port read those) and an LZMA TIFF raise naming the
+    file and the ROADMAP item; broken PNG data raises."""
     img = _image(16, 16, 3)
-    path = str(tmp_path / "page.jpg")
-    assert cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    path = str(tmp_path / "page.webp")
+    assert cv2.imwrite(path, img)
     assert cv2.imread(path, cv2.IMREAD_COLOR) is not None
     with pytest.raises(ValueError, match=NOT_READ_ITEM) as e:
         imread(path)
-    assert "page.jpg" in str(e.value)
+    assert "page.webp" in str(e.value)
     lzma = tmp_path / "page.tif"
     lzma.write_bytes(write_tiff(base_tags(16, 16, 8, 3, 2, 34925), [b"\0" * 64]))
     with pytest.raises(ValueError, match=f"LZMA compression.*{NOT_READ_ITEM}") as e:

@@ -39,7 +39,7 @@ BLOCKED = ("jax", "flax", "optax", "cv2", "lxml", "msgpack", "PIL", "sklearn", "
            "lmdb")
 
 SCRIPT = r"""
-import importlib, json, pkgutil, re, sys
+import importlib, json, os, pkgutil, re, sys
 import xml.etree.ElementTree as ET
 for name in %(blocked)r:
     sys.modules[name] = None  # any import of it raises ImportError
@@ -48,6 +48,10 @@ import numpy as np
 import torch
 import pero_ocr_tpu_torch
 
+# The test worker's share of the cores: idle threads of tiny models spin
+# on the cores that the other workers need.
+workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+torch.set_num_threads(max(1, min(torch.get_num_threads(), (os.cpu_count() or 1) // workers)))
 modules = sorted(
     m.name for m in pkgutil.walk_packages(pero_ocr_tpu_torch.__path__, "pero_ocr_tpu_torch.")
 )
@@ -508,7 +512,18 @@ with contextlib.redirect_stdout(printed):
         ["distill", os.path.join(tmp, "net.pt"), "--family", "ctc", "--out",
          os.path.join(tmp, "net.ckpt"), "--steps", "1", "--batch", "1", "--num-samples", "1"])
     run = convert_torchscript.distill(args, device="cpu", dtype=torch.float32)
+import hashlib
+from pero_ocr_tpu_torch.utils.image_io import imread
+read = {}
+for folder in ("jpeg", "bmp"):
+    with open(os.path.join("tests", "data", folder, "fixtures.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    for name, digest in spec["decode"].items():
+        if name.startswith(("prog_", "base_c", "base_y")) or folder == "bmp":
+            img = imread(os.path.join("tests", "data", folder, name))
+            read[name] = hashlib.sha256(img.tobytes()).hexdigest() == digest["sha256"]
 print(json.dumps({
+    "images": read,
     "texts": [line.transcription for line in back.lines_iterator()],
     "quality": quality,
     "positions": positions.tolist(), "valid": valid.tolist(),
@@ -530,7 +545,9 @@ def test_leftover_modules_run_without_jax():
     networks, label narrowing, crop re-compositing, the transformer's
     source masks and both conversion scripts (convert_torch_lm;
     convert_torchscript inspect and a one-step CTC distillation on the
-    CPU) run with jax, flax, optax, cv2, lxml and msgpack blocked."""
+    CPU), and the image readers of progressive and four-component JPEG,
+    BMP and PAM (each committed fixture to its digest) run with jax,
+    flax, optax, cv2, lxml, msgpack and PIL blocked."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
         [sys.executable, "-c", LEFTOVERS_SCRIPT % {"blocked": BLOCKED}],
@@ -548,3 +565,7 @@ def test_leftover_modules_run_without_jax():
     assert len(got["loss"]) == 1 and got["loss"][0] > 0
     assert {"out.lm", "out.lm.json", "net.ckpt"} <= set(got["files"])
     assert got["loaded"] == []
+    names = " ".join(got["images"])
+    for kind in ("prog_cut", "cmyk", "ycck", ".bmp", ".pam"):
+        assert kind in names, kind
+    assert all(got["images"].values()), [k for k, ok in got["images"].items() if not ok]

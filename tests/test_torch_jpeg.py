@@ -4,21 +4,26 @@ bit for bit, on the CPU.
 
 Decoder: ``imread`` (and ``decode_jpeg``) of files that cv2 wrote at
 every sampling it writes (gray, 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1),
-sizes 1-40 and a 2560x1792 page, qualities 1-100, restart intervals;
-and of files rebuilt here from cv2's coefficients (a pure-Python
-baseline entropy codec, :func:`read_coefficients` and :func:`assemble`):
-one scan a component, other component ids, JFIF and Adobe markers for
-the colour-space guess.  Each equals ``cv2.imread(path, 1)``.
+sizes 1-40 and a 2560x1792 page, qualities 1-100, restart intervals,
+baseline and progressive (cv2's scan script: spectral selection,
+successive approximation, EOB runs); progressive files cut short of
+some scans, which libjpeg's block smoothing fills in; and files rebuilt
+here from cv2's coefficients (a pure-Python entropy codec,
+:func:`read_coefficients`, :func:`assemble` for baseline files and
+:func:`assemble_progressive` for progressive ones): one scan a
+component, other component ids, JFIF and Adobe markers for the
+colour-space guess, and four components (CMYK, YCCK, with and without
+an Adobe marker).  Each equals ``cv2.imread(path, 1)``.
 
 Encoder: ``encode_jpeg`` equals ``cv2.imencode(".jpg", img,
 [IMWRITE_JPEG_QUALITY, q])`` byte for byte on random, flat and
 gray-repeated (h, w, 3) images and on 2-D gray, sizes 1-40.
 
-What the codec does not read (progressive, four components, 12-bit
-samples, truncated or corrupt entropy data) raises ``ValueError`` naming
-the file, the feature and the ROADMAP item.  The committed fixtures of
-``tests/data/jpeg`` (the card's check, ``chip_smoke.check_jpeg_fixtures``)
-reproduce their digests.
+What the codec does not read (lossless, hierarchical and arithmetic
+coding, 12-bit samples, truncated or corrupt entropy data) raises
+``ValueError`` naming the file, the feature and the ROADMAP item.  The
+committed fixtures of ``tests/data/jpeg`` (the card's check,
+``chip_smoke.check_jpeg_fixtures``) reproduce their digests.
 
 Skipped only where there is no host C++ compiler.
 """
@@ -263,6 +268,148 @@ def rebuilt(img, sampling="420", quality=90, **kwargs) -> bytes:
     return assemble(frame, h, w, coefs, tables, quant, **kwargs)
 
 
+def split_scans(data: bytes):
+    """A cv2 progressive file -> (the bytes to the end of its frame
+    header, [each scan: the table segments before its SOS, the SOS and
+    its entropy-coded data], the rest to EOI)."""
+    pos, segs = 2, []
+    while data[pos + 1] != 0xD9:
+        marker = data[pos + 1]
+        end = pos + 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if marker == 0xDA:  # the data runs to the next marker that is no RSTn
+            while data[end] != 0xFF or data[end + 1] == 0 or 0xD0 <= data[end + 1] <= 0xD7:
+                end += 1 if data[end] != 0xFF else 2
+        segs.append((pos, end, marker))
+        pos = end
+    sof = next(i for i, (_, _, m) in enumerate(segs) if m == 0xC2)
+    scans, pending = [], b""
+    for start, end, marker in segs[sof + 1:]:
+        pending += data[start:end]
+        if marker == 0xDA:
+            scans.append(pending)
+            pending = b""
+    return data[:segs[sof][1]], scans, pending + data[pos:]
+
+
+def cut_scans(data: bytes, keep) -> bytes:
+    """A progressive file with only the scans numbered in ``keep``."""
+    head, scans, tail = split_scans(data)
+    return head + b"".join(scans[i] for i in keep) + tail
+
+
+# Huffman tables for assemble_progressive: every DC category (0-11) in 4
+# bits, and every AC symbol a scan may need (run/size, ZRL, EOB0-EOB14)
+# in 8 bits.
+_PROG_DC = bytes([0x00]) + bytes([0, 0, 0, 12] + [0] * 12) + bytes(range(12))
+_AC_SYMBOLS = bytes([0x00, 0xF0] + [r << 4 for r in range(1, 15)]
+                    + [(r << 4) | s for r in range(16) for s in range(1, 11)])
+_PROG_AC = bytes([0x10]) + bytes([0] * 7 + [len(_AC_SYMBOLS)] + [0] * 8) + _AC_SYMBOLS
+
+
+def _bits(v):
+    """JPEG's magnitude category and value bits of a coefficient."""
+    s = int(abs(v)).bit_length()
+    return s, (v if v >= 0 else v + (1 << s) - 1)
+
+
+def assemble_progressive(frame, height, width, coefs, quant_bodies, *, apps=(), ids=None):
+    """A progressive file (SOF2) of ``coefs``: the DC in an interleaved
+    first scan at Al 1 and an interleaved refining scan, then for each
+    component its AC in two spectral bands (1-5, 6-63) at Al 0 with EOB
+    runs.  Frame, tables and ``apps`` as :func:`assemble`."""
+    ids = ids or [c[0] for c in frame]
+    out = b"\xff\xd8" + b"".join(_segment(m, b) for m, b in apps)
+    out += b"".join(_segment(0xDB, b) for b in quant_bodies)
+    out += _segment(0xC2, struct.pack(">BHHB", 8, height, width, len(frame)) + b"".join(
+        bytes([ids[i], (h << 4) | v, tq]) for i, (_, h, v, tq) in enumerate(frame)))
+    tables = _huffman(_PROG_DC + _PROG_AC)
+    dc, ac = tables[(0, 0)][1], tables[(1, 0)][1]
+    out += _segment(0xC4, _PROG_DC + _PROG_AC)
+    maxh, maxv = max(c[1] for c in frame), max(c[2] for c in frame)
+    mcux, mcuy = -(-width // (8 * maxh)), -(-height // (8 * maxv))
+    n = len(frame)
+
+    def sos(comps, ss, se, ah, al):
+        return _segment(0xDA, bytes([len(comps)]) + b"".join(bytes([ids[i], 0]) for i in comps)
+                        + bytes([ss, se, (ah << 4) | al]))
+
+    def pack(bits: str) -> bytes:
+        bits += "1" * (-len(bits) % 8)
+        return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8)).replace(
+            b"\xff", b"\xff\x00")
+
+    interleaved = [(i, my * v + by, mx * h + bx) for my in range(mcuy) for mx in range(mcux)
+                   for i, (_, h, v, _) in enumerate(frame) for by in range(v) for bx in range(h)]
+    first, pred = [], [0] * n
+    for i, r, c in interleaved:  # DC first, Al 1: the arithmetic shift
+        s, bits = _bits((int(coefs[i][r, c, 0]) >> 1) - pred[i])
+        pred[i] = int(coefs[i][r, c, 0]) >> 1
+        first.append(format(dc[s][1], f"0{dc[s][0]}b") + (format(bits, f"0{s}b") if s else ""))
+    out += sos(range(n), 0, 0, 0, 1) + pack("".join(first))
+    out += sos(range(n), 0, 0, 1, 0) + pack("".join(
+        str(int(coefs[i][r, c, 0]) & 1) for i, r, c in interleaved))
+    for i, (_, h, v, _) in enumerate(frame):
+        bw = -(-(-(-width * h // maxh)) // 8)
+        bh = -(-(-(-height * v // maxv)) // 8)
+        for ss, se in ((1, 5), (6, 63)):
+            stream, eobrun = [], 0
+
+            def flush():
+                nonlocal eobrun
+                if eobrun:
+                    r = eobrun.bit_length() - 1
+                    stream.append(format(ac[r << 4][1], f"0{ac[r << 4][0]}b")
+                                  + (format(eobrun, "b")[-r:] if r else ""))
+                    eobrun = 0
+
+            for blk in coefs[i][:bh, :bw].reshape(-1, 64):
+                band = [int(x) for x in blk[ss:se + 1]]
+                if not any(band):
+                    eobrun += 1
+                    if eobrun == 0x7FFF:
+                        flush()
+                    continue
+                flush()
+                run = 0
+                for x in band:
+                    if x == 0:
+                        run += 1
+                        continue
+                    while run > 15:
+                        stream.append(format(ac[0xF0][1], f"0{ac[0xF0][0]}b"))
+                        run -= 16
+                    s, bits = _bits(x)
+                    sym = (run << 4) | s
+                    stream.append(format(ac[sym][1], f"0{ac[sym][0]}b") + format(bits, f"0{s}b"))
+                    run = 0
+                if run:
+                    eobrun = 1
+            flush()
+            out += sos([i], ss, se, 0, 0) + pack("".join(stream))
+    return out + b"\xff\xd9"
+
+
+def four_components(h, w, sampling="444", seed=1):
+    """(frame, height, width, coefficients, quantization bodies) of a
+    four-component image: the three of cv2's file of one picture and the
+    luma of another as the fourth, sampled like the first."""
+    frame, height, width, coefs, segs, _ = read_coefficients(
+        cv2_jpeg(sample_image(h, w, seed=seed), 90, sampling))
+    _, _, _, other, _, _ = read_coefficients(
+        cv2_jpeg(sample_image(h, w, seed=seed + 1), 80, sampling))
+    frame = frame + [(4, frame[0][1], frame[0][2], 0)]
+    quant = [body for marker, body in segs if marker == 0xDB]
+    return frame, height, width, {**coefs, 3: other[0]}, quant
+
+
+def four_component_file(h, w, sampling, apps, progressive=False, seed=1) -> bytes:
+    frame, height, width, coefs, quant = four_components(h, w, sampling, seed)
+    if progressive:
+        return assemble_progressive(frame, height, width, coefs, quant, apps=apps)
+    tables = read_coefficients(cv2_jpeg(sample_image(h, w, seed=seed), 90, sampling))[5]
+    return assemble(frame, height, width, coefs, tables, quant, apps=apps)
+
+
 JFIF = (0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
 
 
@@ -357,6 +504,90 @@ def test_decode_skips_other_segments_and_fill_bytes(tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("quality", [1, 50, 90, 100])
+@pytest.mark.parametrize("sampling", ["gray", *SAMPLING])
+def test_decode_progressive_equals_cv2(tmp_path, sampling, quality):
+    """cv2's progressive files (10 scans for colour, 6 for gray) at
+    every size 1-40, with and without a restart interval."""
+    for h, w in sizes()[quality % 3::3]:
+        img = sample_image(h, w, seed=h * 37 + w)
+        for restart in (None, 3):
+            data = cv2_jpeg(img[:, :, 0] if sampling == "gray" else img, quality,
+                            None if sampling == "gray" else sampling, restart=restart,
+                            progressive=True)
+            want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+            got = jpeg.decode_jpeg(data)
+            assert got.shape == want.shape == (h, w, 3), (h, w)
+            np.testing.assert_array_equal(got, want, err_msg=f"{h}x{w} restart {restart}")
+    assert b"\xff\xc2" in data and b"\xff\xdd" in data
+    assert_reads_like_cv2(tmp_path, data)
+
+
+@pytest.mark.parametrize("sampling", ["gray", *SAMPLING])
+def test_decode_progressive_cut_short(tmp_path, sampling):
+    """Progressive files with only the first scans, or without one of
+    the scans that nothing after it refines: where the DC or the first
+    nine AC coefficients are left short of full precision, libjpeg
+    smooths each block from the 5x5 blocks' DC values around it (from
+    the DC alone when no AC scan came).  Sizes where the last iMCU row
+    has fewer block rows than a component's v, and blocks past the
+    image, are among them."""
+    for h, w in [(8, 8), (16, 16), (17, 3), (3, 29), (33, 45), (49, 23), (70, 90)]:
+        img = sample_image(h, w, seed=h * 7 + w)
+        for quality, restart in ((30, None), (90, 2)):
+            data = cv2_jpeg(img[:, :, 0] if sampling == "gray" else img, quality,
+                            None if sampling == "gray" else sampling, restart=restart,
+                            progressive=True)
+            n = len(split_scans(data)[1])
+            # each prefix, and the last scan of each component left out
+            keeps = [range(k) for k in range(1, n)]
+            keeps += [[i for i in range(n) if i != j] for j in range(n - (1 if n == 6 else 3), n)]
+            for keep in keeps:
+                cut = cut_scans(data, keep)
+                want = cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_COLOR)
+                np.testing.assert_array_equal(jpeg.decode_jpeg(cut), want,
+                                              err_msg=f"{h}x{w} q{quality} scans {list(keep)}")
+    # The full file differs from its smoothed cuts (the rule is at work).
+    assert not np.array_equal(jpeg.decode_jpeg(cut_scans(data, range(n - 1))),
+                              jpeg.decode_jpeg(data))
+    assert_reads_like_cv2(tmp_path, cut_scans(data, [0]))
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["baseline", "progressive"])
+@pytest.mark.parametrize("case", ["cmyk_adobe0", "ycck_adobe2", "ycck_adobe1", "cmyk_no_marker",
+                                  "cmyk_jfif"])
+def test_decode_four_components(tmp_path, case, progressive):
+    """Four components: CMYK where an Adobe marker says transform 0 or
+    there is no Adobe marker (JFIF or not), YCCK for any other
+    transform; libjpeg's CMYK, then OpenCV's own CMYK to BGR.  At 4:4:4
+    and with the first and fourth components at 2x2 (as Adobe writes
+    YCCK), baseline (a scan a component) and progressive."""
+    apps = {"cmyk_adobe0": [adobe(0)], "ycck_adobe2": [adobe(2)], "ycck_adobe1": [adobe(1)],
+            "cmyk_no_marker": [], "cmyk_jfif": [JFIF]}[case]
+    for sampling, (h, w) in (("444", (16, 24)), ("444", (5, 7)), ("420", (17, 33)),
+                             ("420", (40, 9))):
+        data = four_component_file(h, w, sampling, apps, progressive)
+        assert data[data.index(b"\xff\xc2" if progressive else b"\xff\xc0") + 9] == 4
+        got = assert_reads_like_cv2(tmp_path, data)
+    ycck = four_component_file(h, w, sampling, [adobe(2)], progressive)
+    cmyk = four_component_file(h, w, sampling, [adobe(0)], progressive)
+    assert not np.array_equal(jpeg.decode_jpeg(ycck), jpeg.decode_jpeg(cmyk))
+    assert got.shape == (h, w, 3)
+
+
+def test_progressive_assembler_equals_baseline():
+    """assemble_progressive's file of cv2's coefficients reads as cv2's
+    own baseline file does (the port and cv2 alike)."""
+    for sampling, (h, w) in (("420", (23, 41)), ("444", (9, 9)), ("411", (16, 40))):
+        data = cv2_jpeg(sample_image(h, w, seed=4), 90, sampling)
+        frame, height, width, coefs, segs, _ = read_coefficients(data)
+        quant = [body for marker, body in segs if marker == 0xDB]
+        prog = assemble_progressive(frame, height, width, coefs, quant, apps=[JFIF])
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), 1)
+        np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(prog, np.uint8), 1), want)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(prog), want)
+
+
 # ----------------------------------------------------------------------
 # Encoder
 @pytest.mark.parametrize("quality", [70, 95, 98, 100])
@@ -420,22 +651,29 @@ def _refused(tmp_path, data, what):
 
 
 def test_refuses_progressive(tmp_path):
+    """Progressive Huffman files (SOF2) read as cv2 reads them; the
+    progressive codings that stay refused are differential (SOF6,
+    hierarchical) and arithmetic (SOF10)."""
     data = cv2_jpeg(sample_image(24, 24), 90, progressive=True)
-    assert b"\xff\xc2" in data and cv2.imdecode(np.frombuffer(data, np.uint8), 1) is not None
-    _refused(tmp_path, data, "progressive")
+    assert b"\xff\xc2" in data
+    assert_reads_like_cv2(tmp_path, data)
+    sof = data.index(b"\xff\xc2")
+    for marker, what in ((0xC6, "hierarchical"), (0xCA, "arithmetic")):
+        _refused(tmp_path, data[:sof + 1] + bytes([marker]) + data[sof + 2:], what)
 
 
 def test_refuses_four_components(tmp_path):
-    """A CMYK file (Adobe transform 0, four 1x1 components) that cv2
-    reads."""
+    """A CMYK file (Adobe transform 0, four 1x1 components) reads as cv2
+    reads it; two components, which cv2 does not read, are refused."""
     data = cv2_jpeg(sample_image(16, 24), 90, "444")
     frame, h, w, coefs, segs, tables = read_coefficients(data)
-    frame = frame + [(4, 1, 1, 1)]
-    coefs = {**coefs, 3: coefs[0]}
     quant = [body for marker, body in segs if marker == 0xDB]
-    cmyk = assemble(frame, h, w, coefs, tables, quant, apps=[adobe(0)])
-    assert cv2.imdecode(np.frombuffer(cmyk, np.uint8), 1) is not None
-    _refused(tmp_path, cmyk, "four components")
+    cmyk = assemble(frame + [(4, 1, 1, 1)], h, w, {**coefs, 3: coefs[0]}, tables, quant,
+                    apps=[adobe(0)])
+    assert_reads_like_cv2(tmp_path, cmyk)
+    two = assemble(frame[:2], h, w, coefs, tables, quant)
+    assert cv2.imdecode(np.frombuffer(two, np.uint8), 1) is None
+    _refused(tmp_path, two, "2 components")
 
 
 def test_refuses_12_bit_and_other_codings(tmp_path):
@@ -443,7 +681,8 @@ def test_refuses_12_bit_and_other_codings(tmp_path):
     sof = data.index(b"\xff\xc0")
     data[sof + 4] = 12
     _refused(tmp_path, bytes(data), "12-bit")
-    for marker, what in ((0xC3, "lossless"), (0xC9, "arithmetic"), (0xC5, "hierarchical")):
+    for marker, what in ((0xC3, "lossless"), (0xC7, "lossless"), (0xC9, "arithmetic"),
+                         (0xCB, "arithmetic"), (0xC5, "hierarchical"), (0xC6, "hierarchical")):
         data[sof + 1], data[sof + 4] = marker, 8
         _refused(tmp_path, bytes(data), what)
 
@@ -472,26 +711,42 @@ def _fixtures():
         return json.load(f)
 
 
+def _decoded_files(spec):
+    """(path, digest) of every decoded fixture: tests/data/jpeg's files
+    and the full-size pages (their paths from tests/data)."""
+    return ([(os.path.join(FIXTURES, name), d) for name, d in spec["decode"].items()]
+            + [(os.path.join(os.path.dirname(FIXTURES), name), d)
+               for name, d in spec["pages"].items()])
+
+
 def test_fixture_digests_reproduce():
     spec = _fixtures()
-    for name, digest in spec["decode"].items():
-        got = imread(os.path.join(FIXTURES, name))
-        assert hashlib.sha256(got.tobytes()).hexdigest() == digest["sha256"], name
-        assert list(got.shape) == digest["shape"], name
+    for path, digest in _decoded_files(spec):
+        got = imread(path)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == digest["sha256"], path
+        assert list(got.shape) == digest["shape"], path
     for name, cases in spec["encode"].items():
         crop = np.load(os.path.join(FIXTURES, name))
         for quality, digest in cases.items():
             assert hashlib.sha256(encode_jpeg(crop, int(quality))).hexdigest() == digest, name
     assert len(spec["decode"]) >= 20 and len(spec["encode"]) >= 3
+    names = " ".join(spec["decode"])
+    for kind in ("prog_s444", "prog_s411", "prog_gray", "prog_cut", "cmyk", "ycck"):
+        assert kind in names, kind
+    assert [d["shape"] for d in spec["pages"].values()] == [[2560, 1792, 3]]
 
 
 def test_fixtures_equal_cv2_here():
     """The JSON's digests are cv2's (the generator's) and the files are
-    small."""
+    small; the full-size page is progressive and under 1 MB."""
     spec = _fixtures()
-    for name, digest in spec["decode"].items():
-        want = cv2.imread(os.path.join(FIXTURES, name), cv2.IMREAD_COLOR)
-        assert hashlib.sha256(want.tobytes()).hexdigest() == digest["sha256"], name
+    for path, digest in _decoded_files(spec):
+        want = cv2.imread(path, cv2.IMREAD_COLOR)
+        assert hashlib.sha256(want.tobytes()).hexdigest() == digest["sha256"], path
+    for name in spec["pages"]:
+        with open(os.path.join(os.path.dirname(FIXTURES), name), "rb") as f:
+            page = f.read()
+        assert len(page) < 1_000_000 and b"\xff\xc2" in page
     for name, cases in spec["encode"].items():
         crop = np.load(os.path.join(FIXTURES, name))
         for quality, digest in cases.items():

@@ -26,6 +26,7 @@ scale sticks from the first batch on, equal to the run without a mesh
 (the median is taken over the whole batch, not a shard).
 """
 
+import fcntl
 import hashlib
 import os
 import re
@@ -78,39 +79,51 @@ def _page(shift=0, seed=0):
 
 def _train_detector(model):
     """JAX-trained detector whose maps live at ds 4 (the SR head reads
-    the ds-8 canvas)."""
+    the ds-8 canvas), cached under ~/.cache/pero_test_ckpt.  One test
+    process trains it (a file lock); the others wait and load it."""
     from pero_ocr_tpu.parallel import train as train_lib
     from pero_ocr_tpu.utils.checkpoint import load_variables, save_variables
 
-    template = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32))
+    args = (jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32))
     key = hashlib.sha1(b"torch-port-slice1-detector-v1").hexdigest()[:16]
     cache = os.path.expanduser(f"~/.cache/pero_test_ckpt/torchslice_{key}.ckpt")
-    if os.path.exists(cache):
-        try:
-            return load_variables(cache, template)
+
+    def cached():
+        try:  # the variables' structure is all the load needs: no init run
+            return jax.tree_util.tree_map(np.asarray, load_variables(
+                cache, jax.eval_shape(model.init, *args)))
         except (OSError, ValueError):
-            pass
-    gray = _page()[:, :, 0].astype(np.float32)
-    canvas = np.zeros((64, 64), np.float32)
-    canvas[:32, :40] = gray.reshape(32, 8, 40, 8).mean(axis=(1, 3))
-    tgt = np.zeros((128, 128, 5), np.float32)
-    for y, x0, x1 in LINES:
-        ym, xa, xb = y // 4, x0 // 4, x1 // 4
-        tgt[ym, xa:xb, 2] = 1.0
-        tgt[max(ym - 3, 0): ym + 1, xa:xb, 0] = 3.0
-        tgt[max(ym - 3, 0): ym + 1, xa:xb, 1] = 1.0
-        tgt[ym, xa, 3] = 1.0
-        tgt[ym, xb - 1, 3] = 1.0
-    x = jnp.asarray(np.repeat(canvas[:, :, None], 3, 2)[None] / 255.0)
-    t = jnp.asarray(tgt[None])
-    optimizer = train_lib.make_optimizer(5e-3)
-    state = train_lib.TrainState(template, optimizer.init(template), jnp.zeros((), jnp.int32))
-    step = jax.jit(train_lib.make_parsenet_train_step(model, optimizer, height_weight=0.05))
-    for _ in range(400):
-        state, loss = step(state, x, t)
-    assert float(loss) < 0.1, f"detector failed to train: {loss}"
+            return None
+
+    if os.path.exists(cache) and (variables := cached()) is not None:
+        return variables
     os.makedirs(os.path.dirname(cache), exist_ok=True)
-    save_variables(state.params, cache)
+    with open(cache + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(cache) and (variables := cached()) is not None:
+            return variables
+        template = model.init(*args)
+        gray = _page()[:, :, 0].astype(np.float32)
+        canvas = np.zeros((64, 64), np.float32)
+        canvas[:32, :40] = gray.reshape(32, 8, 40, 8).mean(axis=(1, 3))
+        tgt = np.zeros((128, 128, 5), np.float32)
+        for y, x0, x1 in LINES:
+            ym, xa, xb = y // 4, x0 // 4, x1 // 4
+            tgt[ym, xa:xb, 2] = 1.0
+            tgt[max(ym - 3, 0): ym + 1, xa:xb, 0] = 3.0
+            tgt[max(ym - 3, 0): ym + 1, xa:xb, 1] = 1.0
+            tgt[ym, xa, 3] = 1.0
+            tgt[ym, xb - 1, 3] = 1.0
+        x = jnp.asarray(np.repeat(canvas[:, :, None], 3, 2)[None] / 255.0)
+        t = jnp.asarray(tgt[None])
+        optimizer = train_lib.make_optimizer(5e-3)
+        state = train_lib.TrainState(template, optimizer.init(template), jnp.zeros((), jnp.int32))
+        step = jax.jit(train_lib.make_parsenet_train_step(model, optimizer, height_weight=0.05))
+        for _ in range(400):
+            state, loss = step(state, x, t)
+        assert float(loss) < 0.1, f"detector failed to train: {loss}"
+        save_variables(state.params, cache + ".tmp")
+        os.replace(cache + ".tmp", cache)  # whole, for readers that take no lock
     return state.params
 
 

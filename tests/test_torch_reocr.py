@@ -35,7 +35,9 @@ from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.fast_pipeline import FastPagePipeline
 from pero_ocr_tpu_torch.document.page_parser import PageParser
 from pero_ocr_tpu_torch.utils import native
-from tests.test_torch_cli import _jax_cli, _run_port, assert_xml_equal, bundle  # noqa: F401
+from tests.test_torch_cli import (  # noqa: F401  (bundle, torch_threads_share: fixtures)
+    _jax_cli, _run_port, assert_xml_equal, bundle, torch_threads_share,
+)
 from tests.test_torch_native import jax_native_library
 from tests.test_torch_pipeline import LINES
 from tests.test_torch_staged_config3 import config3_ini
@@ -158,6 +160,7 @@ def test_cli_reocr_equals_jax_cli(reocr, tmp_path, monkeypatch, capsys, fast):
     assert lines.count("page-") >= 6
 
 
+@pytest.mark.usefixtures("torch_threads_share")  # the beam loop's tiny ops
 def test_cli_decodes_stored_logits_as_jax(reocr, tmp_path, capsys):
     """Config 3's decoder alone on stored logits: -x and
     --input-logit-path without -i (the pages are the XML files, one of

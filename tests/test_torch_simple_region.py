@@ -46,7 +46,9 @@ from pero_ocr_tpu_torch.layout_engines.simple_region_engine import SimpleThresho
 from pero_ocr_tpu_torch.scripts import parse_folder
 from pero_ocr_tpu_torch.utils import denoise, imgproc, threshold
 from pero_ocr_tpu_torch.utils.resize import resize_linear_u8
-from tests.test_torch_cli import _jax_cli, _masked, _run_port, assert_xml_equal
+from tests.test_torch_cli import (  # noqa: F401  (torch_threads_share: a fixture)
+    _jax_cli, _masked, _run_port, assert_xml_equal, torch_threads_share,
+)
 from tests.test_torch_config1 import config1_bundle  # noqa: F401  (a fixture)
 
 BORDER = cv2.BORDER_REPLICATE | cv2.BORDER_ISOLATED
@@ -357,6 +359,7 @@ def test_page_parser_with_simple_threshold_equals_jax(config1_bundle):
 # ----------------------------------------------------------------------
 # --process-count
 
+@pytest.mark.usefixtures("torch_threads_share")  # which its spawned workers split
 def test_cli_process_count_equals_one_process_and_jax(config1_bundle, tmp_path, capsys):
     """Four PNG pages (text to within 12 px of the sides, so that lines
     are found) through the port's command line with two spawned workers,

@@ -23,14 +23,17 @@ from pero_ocr_tpu.models.charlm import CharLM as FlaxCharLM
 from pero_ocr_tpu.models.charlm import CharLMSpec as FlaxCharLMSpec
 from pero_ocr_tpu.utils.checkpoint import save_variables
 from pero_ocr_tpu_torch.core.layout import PageLayout
-from pero_ocr_tpu_torch.document.page_parser import PageParser
-from tests.test_torch_cli import (  # noqa: F401  (bundle, float32_parsenets: fixtures)
-    _config, _jax_cli, _run_port, assert_xml_equal, bundle, float32_parsenets, staged_config,
+from tests.test_torch_cli import (  # noqa: F401  (bundle, float32_parsenets, torch_threads_share)
+    _config, _jax_cli, _run_port, assert_xml_equal, bundle, float32_parsenets, torch_threads_share,
+    staged_config,
 )
 from tests.test_torch_pipeline import CHARS
 from tests.test_torch_staged import (
     _engines, _layouts_equal, _pages, _run_pages, _xml_equal, needs_native,
 )
+
+
+pytestmark = pytest.mark.usefixtures("torch_threads_share")  # the beam loop's tiny ops
 
 
 # ----------------------------------------------------------------------
@@ -77,10 +80,10 @@ def test_config3_page_parser_matches_jax(bundle, tmp_path, float32_parsenets, ce
     assert ours.decoder.lines_decoded == theirs.decoder.lines_decoded == decoded >= 9
     if cell_type != "lstm" or carry != "yes":
         return
-    # The LM moves the text: not every line keeps its greedy transcription.
-    greedy = PageParser(_config(staged_config(bundle, tmp_path)), device="cpu",
-                        config_path=str(tmp_path))
-    plain = _run_pages(greedy, PageLayout, pages)
+    # The LM moves the text: not every line keeps its greedy transcription
+    # (the same parser without its decoder).
+    ours.run_decoder = False
+    plain = _run_pages(ours, PageLayout, pages)
     assert any(a.transcription != b.transcription for p, q in zip(got, plain)
                for a, b in zip(p.lines_iterator(), q.lines_iterator()))
 

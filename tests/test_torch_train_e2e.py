@@ -24,6 +24,7 @@ from pero_ocr_tpu_torch.ocr.ctc_engine import CTCEngineLineOCR
 from pero_ocr_tpu_torch.parallel import train
 from pero_ocr_tpu_torch.utils import checkpoint, convert
 from tests.test_end_to_end_training import CHARS, LINE_H, make_dataset
+from tests.test_torch_cli import cores_share, torch_threads_share  # noqa: F401  (fixture)
 
 STEPS, STOP_LOSS = 500, 0.05  # the JAX test's recipe: lr 3e-3, batch of 96 lines
 
@@ -68,7 +69,7 @@ def port_trained(tmp_path_factory):
     state = train.init_train_state(model, optimizer, device="cpu")
     step = train.make_train_step(model, optimizer)
     threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 4))
+    torch.set_num_threads(min(threads, cores_share()))
     try:
         for i in range(STEPS):
             state, loss = step(state, batch, labels, lengths)
@@ -92,6 +93,7 @@ def _cer(texts, transcriptions) -> float:
     return errors / sum(len(t) for t in texts)
 
 
+@pytest.mark.usefixtures("torch_threads_share")  # the engines' small batches
 def test_both_engines_read_the_ports_training_lines_alike(port_trained):
     ocr_json, texts, images, model = port_trained
     theirs, _, _ = JaxCTCEngine(ocr_json, batch_size=16).process_lines(images)
