@@ -18,7 +18,13 @@ Phases (each raises on failure, so the run exits non-zero):
    (refusing cv2's None cases), and its host times: the decode of a
    2560x1792 colour 4:2:0 page, of the progressive page and of its
    pixels as a baseline file, the encode of a 32x1024 line crop
-   (``{"jpeg": ...}``).  Then the TIFF reader
+   (``{"jpeg": ...}``).  Then the JPEG 2000 reader
+   (``csrc/jpeg2000.cpp`` with ``utils/jpeg2000.py``,
+   ``check_jpeg2000_fixtures``): this machine's build reproduces every
+   digest of ``tests/data/jpeg2000/fixtures.json`` (cv2's reads of the
+   committed fixtures and of the 2560x1792 JP2 page of
+   ``tests/data/page``) and refuses cv2's None cases; the page's host
+   decode time (``{"jpeg2000": ...}``).  Then the TIFF reader
    (``csrc/tiff.cpp``'s LZW, PackBits and CCITT decoders with
    ``utils/tiff.py``, ``check_tiff_fixtures``): this machine's build
    reproduces every digest of ``tests/data/tiff/fixtures.json`` (cv2's
@@ -68,8 +74,9 @@ Phases (each raises on failure, so the run exits non-zero):
    ``PageParser(config, device="cuda").process_page`` and its command
    line with ``--output-line-path`` and ``--output-render-path`` on 4 of
    them (2 rewritten as gray Deflate TIFF), the committed A4 Group 4
-   page and the committed progressive colour JPEG page (both also run
-   in process; the progressive page makes 1 ``warp_fields`` launch);
+   page, the committed progressive colour JPEG page and the committed
+   JPEG 2000 page (the three also run in process; the progressive and
+   the JPEG 2000 page make 1 ``warp_fields`` launch each);
    the line files held to the in-process
    crops (``staged_line_files``), each render to ``render_layout`` of
    the command line's own Page XML on the same decoded page; the field
@@ -303,7 +310,7 @@ from pero_ocr_tpu_torch.scripts import convert_torchscript
 from pero_ocr_tpu_torch.scripts.parse_folder import LINE_QUALITY, RENDER_QUALITY
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
 from pero_ocr_tpu_torch.utils import (
-    bmp, checkpoint, convert, denoise, image_io, kernels, native, timing,
+    bmp, checkpoint, convert, denoise, image_io, jpeg2000, kernels, native, timing,
 )
 from pero_ocr_tpu_torch.utils import tiff as tiff_io
 from pero_ocr_tpu_torch.utils import ts_adapters
@@ -1070,6 +1077,44 @@ def check_jpeg_fixtures(smi: str) -> dict:
     return numbers
 
 
+JPEG2000_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg2000")
+JP2_PAGE = os.path.join(REPO, "tests", "data", "page", "two_columns_2560x1792.jp2")
+JPEG2000_REPEATS = 5  # the page's decode takes about a second a run
+
+
+def check_jpeg2000_fixtures(smi: str) -> dict:
+    """Every file of ``tests/data/jpeg2000/fixtures.json`` read by this
+    machine's build of ``csrc/jpeg2000.cpp`` (built by kernels.build
+    with the host compiler) with ``utils/jpeg2000.py`` to cv2's digest,
+    the committed 2560x1792 JP2 page among them, and the files cv2
+    returns None for refused as "Unable to read image"; then the page's
+    host decode time, median of JPEG2000_REPEATS after a warm-up, one
+    thread."""
+    with open(os.path.join(JPEG2000_FIXTURES, "fixtures.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    jpeg2000.calls.clear()
+    differ = digests_differ(JPEG2000_FIXTURES, spec["decode"], spec["none"])
+    differ += digests_differ(os.path.dirname(JPEG2000_FIXTURES), spec["pages"])
+    n_decodes = len(spec["decode"]) + len(spec["pages"])
+    decode_calls = jpeg2000.calls["j2k_decode"]
+    log(f"JPEG 2000 fixtures ({spec['made_with']}): {n_decodes} decodes (the 2560x1792 page "
+        f"among them), {len(spec['none'])} refused as cv2's None; "
+        f"{n_decodes + len(spec['none']) - len(differ)} reproduced; j2k_decode calls "
+        f"{decode_calls}; differ: {differ}")
+    if differ:
+        raise AssertionError(f"the JPEG 2000 reader's build differs from the fixtures on {differ}")
+    with open(JP2_PAGE, "rb") as f:
+        page = f.read()
+    page_ms = host_ms(lambda: jpeg2000.decode_jpeg2000(page), repeats=JPEG2000_REPEATS)
+    numbers = {"fixtures_decoded": n_decodes, "fixtures_none": len(spec["none"]),
+               "fixtures_made_with": spec["made_with"], "j2k_decode_calls": decode_calls,
+               "decode_ms_page_2560x1792_97_rpcl": page_ms, "page_bytes": len(page),
+               "host": "the card machine's CPU, one thread", "card": smi}
+    log(f"JPEG 2000 reader, host time on the card's machine (one thread): {page_ms:.2f} ms the "
+        f"committed 2560x1792 9/7 RPCL page ({len(page)} B); beside {smi}")
+    return numbers
+
+
 TIFF_FIXTURES = os.path.join(REPO, "tests", "data", "tiff")
 TIFF_G4_PAGE = os.path.join(TIFF_FIXTURES, "a4_g4_text.tif")  # A4, 300 dpi, Group 4
 
@@ -1832,6 +1877,7 @@ def staged_line_files(line_dir: str, xml_dir: str, out, smi: str) -> dict:
 
 G4_ID = "s_g4"  # the committed Group 4 page in the staged command line's folder
 PROGRESSIVE_ID = "s_progressive"  # and the committed progressive JPEG page
+JP2_ID = "s_jp2"  # and the committed JPEG 2000 page
 # The staged host-route A/B's runs after the first take the first 4 of
 # its 8 pages (8 before the TIFF pages and renders needed the time).
 STAGED_AB_PAGES = 4
@@ -1845,8 +1891,9 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
     with the bench modules loaded from flax msgpack checkpoints; then the
     command line without --fast-pipeline on the first 4 of the files (2
     rewritten as gray Deflate TIFF), the committed A4 Group 4 page
-    (TIFF_G4_PAGE) and the committed progressive colour JPEG page
-    (PROGRESSIVE_PAGE; both run in process too, after the A/B), with
+    (TIFF_G4_PAGE), the committed progressive colour JPEG page
+    (PROGRESSIVE_PAGE) and the committed JPEG 2000 page (JP2_PAGE; the
+    three run in process too, after the A/B), with
     --output-line-path and --output-render-path, whose Page XML must
     equal the in-process run's, whose line files the in-process crops
     (staged_line_files) and whose renders ``render_layout`` of its own
@@ -1870,10 +1917,12 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
         for pid in ids[:n_cli]:
             shutil.copy(os.path.join(images, pid + ".jpg"), cli_images)
         # Two of them as gray TIFF (the decoded JPEG's pixels), the
-        # committed A4 Group 4 page as a fifth, the progressive page a sixth.
+        # committed A4 Group 4 page as a fifth, the progressive page a
+        # sixth, the JPEG 2000 page a seventh.
         tiff_ids = write_tiff_pages(cli_images, ids[:n_cli], [p[:, :, 0] for p in pages[:n_cli]])
         shutil.copy(TIFF_G4_PAGE, os.path.join(cli_images, G4_ID + ".tif"))
         shutil.copy(PROGRESSIVE_PAGE, os.path.join(cli_images, PROGRESSIVE_ID + ".jpg"))
+        shutil.copy(JP2_PAGE, os.path.join(cli_images, JP2_ID + ".jp2"))
         parser = staged_parser(ini, "cuda")
         engine = parser.layout_parsers[0].engine
         detected, detect = [], engine.detect
@@ -1945,9 +1994,11 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             raise AssertionError("staged: warp_fields launches != pages of "
                                  f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
 
-        # The Group 4 and progressive pages in process, after the runs above.
+        # The Group 4, progressive and JPEG 2000 pages in process, after
+        # the runs above.
         extra_out, extra_pages, extra_launches = [], [], []
-        for page_id, path in ((G4_ID, TIFF_G4_PAGE), (PROGRESSIVE_ID, PROGRESSIVE_PAGE)):
+        for page_id, path in ((G4_ID, TIFF_G4_PAGE), (PROGRESSIVE_ID, PROGRESSIVE_PAGE),
+                              (JP2_ID, JP2_PAGE)):
             extra = image_io.imread(path)
             before = warp_ops.warp_fields.launches
             random.seed(0)
@@ -1955,13 +2006,14 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             extra_out.append((layout, layout.to_pagexml_string()))
             extra_pages.append(extra)
             extra_launches.append(warp_ops.warp_fields.launches - before)
-        g4_launches, progressive_launches = extra_launches
+        g4_launches, progressive_launches, jp2_launches = extra_launches
         log(f"in process: the A4 Group 4 page {g4_launches} warp_fields launch(es), the "
             f"progressive page {progressive_launches} ({len(list(extra_out[1][0].lines_iterator()))}"
-            f" lines)")
-        if progressive_launches != 1:
-            raise AssertionError(f"the progressive page: {progressive_launches} warp_fields "
-                                 "launches, want 1")
+            f" lines), the JPEG 2000 page {jp2_launches} "
+            f"({len(list(extra_out[2][0].lines_iterator()))} lines)")
+        if progressive_launches != 1 or jp2_launches != 1:
+            raise AssertionError(f"the progressive and JPEG 2000 pages: {progressive_launches} "
+                                 f"and {jp2_launches} warp_fields launches, want 1 each")
         cli_out = out[:n_cli] + extra_out
         cli_pages = pages[:n_cli] + extra_pages
 
@@ -2010,20 +2062,23 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                 timed[0] - written[0]), wall=cli_seconds,
             launches=int(counted.group(1)), decode_ms=1e3 * decode[0] / decode[1],
             write_lines_ms=1e3 * written[0] / n_files, write_render_ms=1e3 * drawn[0] / n_files,
-            renders=len(renders), tiff_pages=len(tiff_ids) + 1, progressive_pages=1)
+            renders=len(renders), tiff_pages=len(tiff_ids) + 1, progressive_pages=1,
+            jpeg2000_pages=1)
         log(f"stage-by-stage command line vs in-process: {n_files} of {n_files} files equal "
             f"(lines of a row as a set; conf within 0.0015), the A4 Group 4 page, the "
-            f"progressive colour JPEG page and {len(tiff_ids)} gray Deflate TIFF pages among "
+            f"progressive colour JPEG page, the JPEG 2000 page and {len(tiff_ids)} gray "
+            f"Deflate TIFF pages among "
             f"them; {len(renders)} renders equal "
             f"byte for byte to render_layout on the command line's own Page XML; its "
             f"warp_fields launches {cli_numbers['launches']}; {cli_numbers['pages_per_s']:.3f} "
             f"pages/s by its timer with line export and renders, "
             f"{cli_numbers['pages_per_s_without_write_lines']:.3f} without cli/write_lines; "
-            f"cli/decode {cli_numbers['decode_ms']:.2f} ms a page (gray JPEG, TIFF "
-            f"and the progressive page, on the decoding thread), cli/write_lines "
+            f"cli/decode {cli_numbers['decode_ms']:.2f} ms a page (gray JPEG, TIFF, "
+            f"the progressive and the JPEG 2000 page, on the decoding thread), cli/write_lines "
             f"{cli_numbers['write_lines_ms']:.2f} ms, cli/write_render "
             f"{cli_numbers['write_render_ms']:.2f} ms a page (host times), on {smi}")
-        if cli_numbers["launches"] != sum(batched[:n_cli]) + g4_launches + progressive_launches:
+        if cli_numbers["launches"] != (sum(batched[:n_cli]) + g4_launches + progressive_launches
+                                       + jp2_launches):
             raise AssertionError("the stage-by-stage command line: warp_fields launches != "
                                  f"pages of {parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
         last_page = page_buckets(parser, out[-1][0], pages[-1])
@@ -2053,7 +2108,9 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                "cli_write_render_ms_a_page": cli_numbers["write_render_ms"],
                "g4_page_warp_fields_launches": g4_launches,
                "cli_progressive_pages": cli_numbers["progressive_pages"],
-               "progressive_page_warp_fields_launches": progressive_launches, "card": smi}
+               "progressive_page_warp_fields_launches": progressive_launches,
+               "cli_jpeg2000_pages": cli_numbers["jpeg2000_pages"],
+               "jpeg2000_page_warp_fields_launches": jp2_launches, "card": smi}
     return (launches, numbers, last_page, {"inputs": host_inputs.pages[-1], "ab": ab},
             script_pages)
 
@@ -6473,6 +6530,7 @@ def run_phases(smi: str) -> list:
 
     with phase("jpeg"):
         jpeg_numbers = check_jpeg_fixtures(smi)
+        jpeg2000_numbers = check_jpeg2000_fixtures(smi)
     with phase("tiff"):
         tiff_numbers = check_tiff_fixtures(smi)
     rng = np.random.default_rng(0)
@@ -6582,7 +6640,7 @@ def run_phases(smi: str) -> list:
     }
 
     return [json.dumps({key: value}) for key, value in (
-        ("jpeg", jpeg_numbers), ("tiff", tiff_numbers), ("cli", cli), ("staged", staged),
+        ("jpeg", jpeg_numbers), ("jpeg2000", jpeg2000_numbers), ("tiff", tiff_numbers), ("cli", cli), ("staged", staged),
         ("config1", config1),
         ("simple_regions", simple), ("process_count", process_count), ("mesh", mesh),
         ("config5", config5),

@@ -32,6 +32,12 @@ OpenCV 5 returns for the formats it reads here:
   orders, planar or not; none, LZW, Deflate, PackBits, CCITT (Modified
   Huffman, T.4, T.6) and JPEG compression, Predictor 2, FillOrder 2;
   gray, palette, RGB, alpha and 16 bits by libtiff's TIFFRGBAImage rules.
+- **JPEG 2000** (:mod:`pero_ocr_tpu_torch.utils.jpeg2000`, the host C++
+  of ``csrc/jpeg2000.cpp``): JP2 files and raw codestreams, 5/3 and 9/7
+  wavelets, every progression order, tiles, tile-parts, precincts,
+  layers, the code-block styles, SOP/EPH, POC and RGN; gray, RGB, RGBA,
+  sYCC, palettes and ``cdef`` channel orders, 8 to 16 bits, turned into
+  BGR as OpenCV turns OpenJPEG's components.
 
 JPEG (an APP1 ``Exif\\0\\0`` segment) and PNG (an ``eXIf`` chunk) pages are
 turned by their EXIF orientation tag, all 8 values, as OpenCV's
@@ -44,12 +50,15 @@ their Orientation tag as OpenCV 5 turns them (see
 What OpenCV reads and this module does not (lossless, hierarchical,
 arithmetic or 12-bit JPEG; truncated or corrupt JPEG or TIFF data; TIFF
 of the compressions and photometrics that
-:mod:`~pero_ocr_tpu_torch.utils.tiff` lists; JPEG 2000, WebP, GIF,
+:mod:`~pero_ocr_tpu_torch.utils.tiff` lists; JPEG 2000 with packed
+packet headers (PPM/PPT), HTJ2K or Part 2 extensions; WebP, GIF,
 AVIF, HDR, PFM and the rest) raises ``ValueError`` naming the file and
 the ROADMAP item; what OpenCV returns None for (2-bit TIFF, a
 non-square TIFF page turned by Orientation 5-8, a BMP or PAM header
-OpenCV rejects, ...) raises ``ValueError`` saying "Unable to read
-image", as the JAX command line does.  Nothing is skipped.
+OpenCV rejects, a gray JPEG 2000 codestream without a JP2 colour box,
+a CMYK, offset, subsampled or truncated JPEG 2000 file, ...) raises
+``ValueError`` saying "Unable to read image", as the JAX command line
+does.  Nothing is skipped.
 
 :func:`encode_jpeg` and :func:`imwrite_jpeg` write what
 ``cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, q])`` and
@@ -68,7 +77,7 @@ import numpy as np
 
 from pero_ocr_tpu_torch import not_read
 from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg, jpeg_header
-from pero_ocr_tpu_torch.utils import bmp, tiff
+from pero_ocr_tpu_torch.utils import bmp, jpeg2000, tiff
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # Channels per PNG colour type: gray, RGB, palette, gray+alpha, RGBA.
@@ -77,8 +86,8 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 
 
 def imread(path: str) -> np.ndarray:
-    """``cv2.imread(path, cv2.IMREAD_COLOR)`` for JPEG, PNG, PNM, PAM,
-    TIFF and BMP, told apart by their first bytes as OpenCV tells them:
+    """``cv2.imread(path, cv2.IMREAD_COLOR)`` for JPEG, JPEG 2000, PNG,
+    PNM, PAM, TIFF and BMP, told apart by their first bytes as OpenCV tells them:
     a BGR uint8 (H, W, 3) array, turned by its EXIF or TIFF
     orientation.  Raises ``ValueError`` for other or broken files (where
     cv2 returns None, or for data it would fill with grey)."""
@@ -97,7 +106,9 @@ def imread(path: str) -> np.ndarray:
         return decode_tiff(data, path)
     if bmp.is_bmp(data):
         return bmp.decode_bmp(data, path)
-    raise not_read(path, "a file that is neither JPEG, PNG, PNM, PAM, TIFF nor BMP")
+    if jpeg2000.is_jpeg2000(data):
+        return jpeg2000.decode_jpeg2000(data, path)
+    raise not_read(path, "a file that is neither JPEG, JPEG 2000, PNG, PNM, PAM, TIFF nor BMP")
 
 
 def decode_tiff(data: bytes, path: str = "<tiff>") -> np.ndarray:

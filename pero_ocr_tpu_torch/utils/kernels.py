@@ -30,8 +30,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 # No -march=native: a build directory copied to another machine must
-# not hold a library that its CPU cannot run.
-CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall"]
+# not hold a library that its CPU cannot run.  -ffp-contract=off: each
+# host source copies a library's float order to the bit (the JPEG 2000
+# decoder's 9/7 path among them), so every float multiply and add is
+# rounded on its own, never fused.
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall", "-ffp-contract=off"]
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}

@@ -817,6 +817,38 @@ def test_cli_fast_path_stops_at_an_unreadable_page(bundle, tmp_path):
     assert not os.listdir(tmp_path / "fast")
 
 
+@pytest.mark.parametrize("fast", [False, True], ids=["staged", "fast_pipeline"])
+def test_cli_reads_jpeg2000_pages_as_png(bundle, tmp_path, float32_parsenets, torch_threads_share,
+                                         fast):
+    """The port's command line on a folder of a JP2 page and a raw
+    JPEG 2000 codestream page (5/3 lossless, Pillow's) writes the Page
+    XML it writes for the same pixels as PNG files, stage by stage and
+    on the fast path."""
+    from PIL import Image
+
+    folders = {"jpeg2000": tmp_path / "jpeg2000", "png": tmp_path / "png"}
+    for folder in folders.values():
+        folder.mkdir()
+    for name, suffix in (("page-0", ".jp2"), ("page-1", ".j2k")):
+        page = cv2.imread(str(bundle / "images" / f"{name}.png"), 1)
+        Image.fromarray(np.ascontiguousarray(page[:, :, ::-1])).save(
+            folders["jpeg2000"] / f"{name}{suffix}", "JPEG2000", no_jp2=suffix == ".j2k")
+        assert np.array_equal(cv2.imread(str(folders["jpeg2000"] / f"{name}{suffix}"), 1), page)
+        cv2.imwrite(str(folders["png"] / f"{name}.png"), page)
+    ini = staged_config(bundle, tmp_path) if not fast else bundle / "config.ini"
+    for kind, folder in folders.items():
+        random.seed(0)
+        _run_port(["-c", str(ini), "-i", str(folder), "--device", "cpu",
+                   "--output-xml-path", str(tmp_path / f"{kind}_xml")]
+                  + (["--fast-pipeline"] if fast else []))
+    lines = 0
+    for name in ("page-0", "page-1"):
+        got = (tmp_path / "jpeg2000_xml" / f"{name}.xml").read_text(encoding="utf-8")
+        assert_xml_equal(got, (tmp_path / "png_xml" / f"{name}.xml").read_text(encoding="utf-8"))
+        lines += got.count("<TextLine")
+    assert lines >= 4
+
+
 # The command lines' logits and ALTO files.  Held to: equal Page XML
 # (timestamps masked, conf within 0.001); per logits file the same line
 # ids, charsets and logit_coords, the same sparsity pattern and values

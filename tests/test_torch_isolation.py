@@ -515,11 +515,11 @@ with contextlib.redirect_stdout(printed):
 import hashlib
 from pero_ocr_tpu_torch.utils.image_io import imread
 read = {}
-for folder in ("jpeg", "bmp"):
+for folder in ("jpeg", "bmp", "jpeg2000"):
     with open(os.path.join("tests", "data", folder, "fixtures.json"), encoding="utf-8") as f:
         spec = json.load(f)
     for name, digest in spec["decode"].items():
-        if name.startswith(("prog_", "base_c", "base_y")) or folder == "bmp":
+        if name.startswith(("prog_", "base_c", "base_y", "o_", "b_")) or folder == "bmp":
             img = imread(os.path.join("tests", "data", folder, name))
             read[name] = hashlib.sha256(img.tobytes()).hexdigest() == digest["sha256"]
 print(json.dumps({
@@ -536,6 +536,7 @@ print(json.dumps({
     "files": sorted(os.listdir(tmp)),
     "loaded": sorted(k for k in sys.modules
                      if k == "pero_ocr_tpu" or k.startswith("pero_ocr_tpu.")),
+    "jpeg2000": "pero_ocr_tpu_torch.utils.jpeg2000" in sys.modules,
 }))
 """
 
@@ -546,7 +547,8 @@ def test_leftover_modules_run_without_jax():
     source masks and both conversion scripts (convert_torch_lm;
     convert_torchscript inspect and a one-step CTC distillation on the
     CPU), and the image readers of progressive and four-component JPEG,
-    BMP and PAM (each committed fixture to its digest) run with jax,
+    BMP, PAM and JPEG 2000 (each committed fixture, or for JPEG 2000
+    those of libopenjp2 and of hand-built boxes, to its digest) run with jax,
     flax, optax, cv2, lxml, msgpack and PIL blocked."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
@@ -566,6 +568,7 @@ def test_leftover_modules_run_without_jax():
     assert {"out.lm", "out.lm.json", "net.ckpt"} <= set(got["files"])
     assert got["loaded"] == []
     names = " ".join(got["images"])
-    for kind in ("prog_cut", "cmyk", "ycck", ".bmp", ".pam"):
+    assert got["jpeg2000"]
+    for kind in ("prog_cut", "cmyk", "ycck", ".bmp", ".pam", ".jp2", ".j2k"):
         assert kind in names, kind
     assert all(got["images"].values()), [k for k, ok in got["images"].items() if not ok]
