@@ -957,6 +957,8 @@ JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
 BMP_FIXTURES = os.path.join(REPO, "tests", "data", "bmp")
 PROGRESSIVE_PAGE = os.path.join(REPO, "tests", "data",
                                 "page", "two_columns_progressive_2560x1792_q85.jpg")
+# The same page's coefficients re-coded arithmetic progressive (SOF10).
+ARITH_PAGE = os.path.join(REPO, "tests", "data", "page", "two_columns_arith_2560x1792_q85.jpg")
 JPEG_CROP = (32, 1024)  # the encode timing's crop: one line at the recognizer's height
 
 
@@ -991,26 +993,30 @@ def digests_differ(folder: str, decoded: dict, none=()) -> list:
 
 def check_jpeg_fixtures(smi: str) -> dict:
     """Every decode and encode of ``tests/data/jpeg/fixtures.json``
-    (baseline, progressive, cut-short progressive and four-component
-    files, and the full-size progressive page of ``tests/data/page``)
-    reproduced digest for digest by this machine's build of
-    ``csrc/jpeg.cpp`` (built by kernels.build with the host compiler),
-    and every BMP and PAM file of ``tests/data/bmp/fixtures.json`` read
-    to its digest by ``utils/bmp.py`` and ``image_io.decode_pam`` (cv2's
-    None cases refused); then host times, median of HOST_REPEATS after a
-    warm-up: the decode of a 2560x1792 colour 4:2:0 page at
-    JPEG_PAGE_QUALITY (a synthetic page tinted apart in its three
-    channels, encoded by the port), of the committed progressive page
-    (the same kind of page, cv2's 10 scans at quality 85) and of that
-    page's pixels encoded baseline by the port at 85, and the encode of
-    a 32x1024 crop at LINE_QUALITY (three equal channels, as the fast
-    path's crops)."""
+    (baseline, progressive, arithmetic, lossless, cut-short, corrupt and
+    four-component files, and the two full-size pages of
+    ``tests/data/page``, progressive Huffman and arithmetic) reproduced
+    digest for digest by this machine's build of ``csrc/jpeg.cpp``
+    (built by kernels.build with the host compiler), its files cv2
+    returns None for giving "Unable to read image", and every BMP and
+    PAM file of ``tests/data/bmp/fixtures.json`` read to its digest by
+    ``utils/bmp.py`` and ``image_io.decode_pam`` (cv2's None cases
+    refused); then host times, median of HOST_REPEATS after a warm-up:
+    the decode of a 2560x1792 colour 4:2:0 page at JPEG_PAGE_QUALITY (a
+    synthetic page tinted apart in its three channels, encoded by the
+    port), of the committed progressive page (the same kind of page,
+    cv2's 10 scans at quality 85), of that page's pixels encoded
+    baseline by the port at 85, of the arithmetic page (the progressive
+    page's coefficients in the same 10 scans, arithmetic coded), of the
+    arithmetic page cut at half its length and of the largest lossless
+    fixture, and the encode of a 32x1024 crop at LINE_QUALITY (three
+    equal channels, as the fast path's crops)."""
     with open(os.path.join(JPEG_FIXTURES, "fixtures.json"), encoding="utf-8") as f:
         spec = json.load(f)
     with open(os.path.join(BMP_FIXTURES, "fixtures.json"), encoding="utf-8") as f:
         bmp_spec = json.load(f)
     n_encodes = 0
-    differ = digests_differ(JPEG_FIXTURES, spec["decode"])
+    differ = digests_differ(JPEG_FIXTURES, spec["decode"], spec["none"])
     differ += digests_differ(os.path.dirname(JPEG_FIXTURES), spec["pages"])
     for name, cases in spec["encode"].items():
         crop = np.load(os.path.join(JPEG_FIXTURES, name))
@@ -1019,9 +1025,10 @@ def check_jpeg_fixtures(smi: str) -> dict:
             if hashlib.sha256(image_io.encode_jpeg(crop, int(quality))).hexdigest() != digest:
                 differ.append(f"{name} at quality {quality}")
     n_decodes = len(spec["decode"]) + len(spec["pages"])
-    log(f"JPEG fixtures ({spec['made_with']}): {n_decodes} decodes (the progressive page "
-        f"among them) and {n_encodes} encodes, {n_decodes + n_encodes - len(differ)} "
-        f"reproduced; differ: {differ}")
+    n_none = len(spec["none"])
+    log(f"JPEG fixtures ({spec['made_with']}): {n_decodes} decodes (the progressive and the "
+        f"arithmetic page among them), {n_none} refused as cv2's None and {n_encodes} encodes, "
+        f"{n_decodes + n_none + n_encodes - len(differ)} reproduced; differ: {differ}")
     bmp_differ = digests_differ(BMP_FIXTURES, bmp_spec["decode"], bmp_spec["none"])
     n_bmp = len(bmp_spec["decode"]) + len(bmp_spec["none"])
     log(f"BMP and PAM fixtures ({bmp_spec['made_with']}): {len(bmp_spec['decode'])} decodes, "
@@ -1040,6 +1047,16 @@ def check_jpeg_fixtures(smi: str) -> dict:
     progressive_ms = host_ms(lambda: decode_jpeg(progressive))
     same_baseline = image_io.encode_jpeg(decode_jpeg(progressive), 85)
     same_baseline_ms = host_ms(lambda: decode_jpeg(same_baseline))
+    with open(ARITH_PAGE, "rb") as f:
+        arith = f.read()
+    arith_ms = host_ms(lambda: decode_jpeg(arith))
+    arith_cut = arith[:len(arith) // 2]
+    arith_cut_ms = host_ms(lambda: decode_jpeg(arith_cut))
+    lossless_name = max((n for n in spec["decode"] if n.startswith("lossless")),
+                        key=lambda n: os.path.getsize(os.path.join(JPEG_FIXTURES, n)))
+    with open(os.path.join(JPEG_FIXTURES, lossless_name), "rb") as f:
+        lossless = f.read()
+    lossless_ms = host_ms(lambda: decode_jpeg(lossless), repeats=25)
     # The same page as a 24-bit BMP and a 16-bit RGB PAM (numpy readers).
     bmp_pam_files = tests_module("bmp_pam_files")  # their writers (struct, numpy)
     bmp_page = bmp_pam_files.bmp_file(page.shape[1], page.shape[0], 24,
@@ -1054,8 +1071,8 @@ def check_jpeg_fixtures(smi: str) -> dict:
     pam_ms = host_ms(lambda: image_io.decode_pam(pam_page))
     crop = np.ascontiguousarray(np.repeat(page[:JPEG_CROP[0], :JPEG_CROP[1], :1], 3, axis=2))
     encode_ms = host_ms(lambda: image_io.encode_jpeg(crop, LINE_QUALITY), repeats=25)
-    numbers = {"fixtures_decoded": n_decodes, "fixtures_encoded": n_encodes,
-               "fixtures_made_with": spec["made_with"],
+    numbers = {"fixtures_decoded": n_decodes, "fixtures_none": n_none,
+               "fixtures_encoded": n_encodes, "fixtures_made_with": spec["made_with"],
                "bmp_pam_fixtures_decoded": len(bmp_spec["decode"]),
                "bmp_pam_fixtures_none": len(bmp_spec["none"]),
                "decode_ms_page_2560x1792_420_q90": decode_ms, "page_bytes": len(data),
@@ -1063,6 +1080,13 @@ def check_jpeg_fixtures(smi: str) -> dict:
                "progressive_page_bytes": len(progressive),
                "decode_ms_same_page_baseline_q85": same_baseline_ms,
                "same_page_baseline_bytes": len(same_baseline),
+               "decode_ms_arith_page_2560x1792_420_q85": arith_ms, "arith_page_bytes": len(arith),
+               "decode_ms_arith_page_cut_at_half": arith_cut_ms,
+               "arith_page_cut_bytes": len(arith_cut),
+               "decode_ms_largest_lossless_fixture": lossless_ms,
+               "largest_lossless_fixture": lossless_name,
+               "largest_lossless_fixture_shape": spec["decode"][lossless_name]["shape"],
+               "largest_lossless_fixture_bytes": len(lossless),
                "decode_ms_page_bmp_24bit": bmp_ms, "decode_ms_page_pam_rgb_16bit": pam_ms,
                "encode_ms_crop_32x1024_q98": encode_ms,
                "crop_bytes": len(image_io.encode_jpeg(crop, LINE_QUALITY)),
@@ -1071,8 +1095,11 @@ def check_jpeg_fixtures(smi: str) -> dict:
         f"{decode_ms:.2f} ms a 2560x1792 colour 4:2:0 page at quality {JPEG_PAGE_QUALITY} "
         f"({len(data)} B); the committed progressive page {progressive_ms:.2f} ms "
         f"({len(progressive)} B), its pixels as a baseline file at 85 {same_baseline_ms:.2f} ms "
-        f"({len(same_baseline)} B); the page as a 24-bit BMP {bmp_ms:.2f} ms, as a 16-bit RGB "
-        f"PAM {pam_ms:.2f} ms; encode {encode_ms:.3f} ms a 32x1024 crop at quality "
+        f"({len(same_baseline)} B), its coefficients arithmetic coded {arith_ms:.2f} ms "
+        f"({len(arith)} B), cut at half its length {arith_cut_ms:.2f} ms; the largest lossless "
+        f"fixture {lossless_name} {lossless_ms:.3f} ms ({len(lossless)} B, "
+        f"{spec['decode'][lossless_name]['shape']}); the page as a 24-bit BMP {bmp_ms:.2f} ms, "
+        f"as a 16-bit RGB PAM {pam_ms:.2f} ms; encode {encode_ms:.3f} ms a 32x1024 crop at quality "
         f"{LINE_QUALITY}; beside {smi}")
     return numbers
 
@@ -1878,9 +1905,11 @@ def staged_line_files(line_dir: str, xml_dir: str, out, smi: str) -> dict:
 G4_ID = "s_g4"  # the committed Group 4 page in the staged command line's folder
 PROGRESSIVE_ID = "s_progressive"  # and the committed progressive JPEG page
 JP2_ID = "s_jp2"  # and the committed JPEG 2000 page
-# The staged host-route A/B's runs after the first take the first 4 of
-# its 8 pages (8 before the TIFF pages and renders needed the time).
-STAGED_AB_PAGES = 4
+ARITH_ID = "s_arith"  # and the committed arithmetic-coded JPEG page
+# The staged host-route A/B's runs after the first take the first 2 of
+# its 8 pages (8 before the TIFF pages and renders, 4 before the JPEG
+# checks needed the time).
+STAGED_AB_PAGES = 2
 
 
 def run_staged(pipe: TorchPagePipeline, rng, smi: str):
@@ -1892,8 +1921,10 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
     command line without --fast-pipeline on the first 4 of the files (2
     rewritten as gray Deflate TIFF), the committed A4 Group 4 page
     (TIFF_G4_PAGE), the committed progressive colour JPEG page
-    (PROGRESSIVE_PAGE) and the committed JPEG 2000 page (JP2_PAGE; the
-    three run in process too, after the A/B), with
+    (PROGRESSIVE_PAGE), the committed JPEG 2000 page (JP2_PAGE) and the
+    committed arithmetic-coded JPEG page (ARITH_PAGE, the progressive
+    page's coefficients; the four run in process too, after the A/B, the
+    arithmetic page decoded to the progressive page's pixels), with
     --output-line-path and --output-render-path, whose Page XML must
     equal the in-process run's, whose line files the in-process crops
     (staged_line_files) and whose renders ``render_layout`` of its own
@@ -1918,11 +1949,13 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             shutil.copy(os.path.join(images, pid + ".jpg"), cli_images)
         # Two of them as gray TIFF (the decoded JPEG's pixels), the
         # committed A4 Group 4 page as a fifth, the progressive page a
-        # sixth, the JPEG 2000 page a seventh.
+        # sixth, the JPEG 2000 page a seventh, the arithmetic page an
+        # eighth.
         tiff_ids = write_tiff_pages(cli_images, ids[:n_cli], [p[:, :, 0] for p in pages[:n_cli]])
         shutil.copy(TIFF_G4_PAGE, os.path.join(cli_images, G4_ID + ".tif"))
         shutil.copy(PROGRESSIVE_PAGE, os.path.join(cli_images, PROGRESSIVE_ID + ".jpg"))
         shutil.copy(JP2_PAGE, os.path.join(cli_images, JP2_ID + ".jp2"))
+        shutil.copy(ARITH_PAGE, os.path.join(cli_images, ARITH_ID + ".jpg"))
         parser = staged_parser(ini, "cuda")
         engine = parser.layout_parsers[0].engine
         detected, detect = [], engine.detect
@@ -1994,11 +2027,11 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             raise AssertionError("staged: warp_fields launches != pages of "
                                  f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
 
-        # The Group 4, progressive and JPEG 2000 pages in process, after
-        # the runs above.
+        # The Group 4, progressive, JPEG 2000 and arithmetic pages in
+        # process, after the runs above.
         extra_out, extra_pages, extra_launches = [], [], []
         for page_id, path in ((G4_ID, TIFF_G4_PAGE), (PROGRESSIVE_ID, PROGRESSIVE_PAGE),
-                              (JP2_ID, JP2_PAGE)):
+                              (JP2_ID, JP2_PAGE), (ARITH_ID, ARITH_PAGE)):
             extra = image_io.imread(path)
             before = warp_ops.warp_fields.launches
             random.seed(0)
@@ -2006,14 +2039,18 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             extra_out.append((layout, layout.to_pagexml_string()))
             extra_pages.append(extra)
             extra_launches.append(warp_ops.warp_fields.launches - before)
-        g4_launches, progressive_launches, jp2_launches = extra_launches
+        g4_launches, progressive_launches, jp2_launches, arith_launches = extra_launches
         log(f"in process: the A4 Group 4 page {g4_launches} warp_fields launch(es), the "
             f"progressive page {progressive_launches} ({len(list(extra_out[1][0].lines_iterator()))}"
             f" lines), the JPEG 2000 page {jp2_launches} "
-            f"({len(list(extra_out[2][0].lines_iterator()))} lines)")
-        if progressive_launches != 1 or jp2_launches != 1:
-            raise AssertionError(f"the progressive and JPEG 2000 pages: {progressive_launches} "
-                                 f"and {jp2_launches} warp_fields launches, want 1 each")
+            f"({len(list(extra_out[2][0].lines_iterator()))} lines), the arithmetic page "
+            f"{arith_launches} ({len(list(extra_out[3][0].lines_iterator()))} lines)")
+        if progressive_launches != 1 or jp2_launches != 1 or arith_launches != 1:
+            raise AssertionError(f"the progressive, JPEG 2000 and arithmetic pages: "
+                                 f"{progressive_launches}, {jp2_launches} and {arith_launches} "
+                                 f"warp_fields launches, want 1 each")
+        if not np.array_equal(extra_pages[3], extra_pages[1]):
+            raise AssertionError("the arithmetic page does not decode to the progressive page")
         cli_out = out[:n_cli] + extra_out
         cli_pages = pages[:n_cli] + extra_pages
 
@@ -2063,22 +2100,23 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             launches=int(counted.group(1)), decode_ms=1e3 * decode[0] / decode[1],
             write_lines_ms=1e3 * written[0] / n_files, write_render_ms=1e3 * drawn[0] / n_files,
             renders=len(renders), tiff_pages=len(tiff_ids) + 1, progressive_pages=1,
-            jpeg2000_pages=1)
+            jpeg2000_pages=1, arithmetic_pages=1)
         log(f"stage-by-stage command line vs in-process: {n_files} of {n_files} files equal "
             f"(lines of a row as a set; conf within 0.0015), the A4 Group 4 page, the "
-            f"progressive colour JPEG page, the JPEG 2000 page and {len(tiff_ids)} gray "
-            f"Deflate TIFF pages among "
+            f"progressive colour JPEG page, the JPEG 2000 page, the arithmetic-coded JPEG page "
+            f"and {len(tiff_ids)} gray Deflate TIFF pages among "
             f"them; {len(renders)} renders equal "
             f"byte for byte to render_layout on the command line's own Page XML; its "
             f"warp_fields launches {cli_numbers['launches']}; {cli_numbers['pages_per_s']:.3f} "
             f"pages/s by its timer with line export and renders, "
             f"{cli_numbers['pages_per_s_without_write_lines']:.3f} without cli/write_lines; "
             f"cli/decode {cli_numbers['decode_ms']:.2f} ms a page (gray JPEG, TIFF, "
-            f"the progressive and the JPEG 2000 page, on the decoding thread), cli/write_lines "
+            f"the progressive, JPEG 2000 and arithmetic pages, on the decoding thread), "
+            f"cli/write_lines "
             f"{cli_numbers['write_lines_ms']:.2f} ms, cli/write_render "
             f"{cli_numbers['write_render_ms']:.2f} ms a page (host times), on {smi}")
         if cli_numbers["launches"] != (sum(batched[:n_cli]) + g4_launches + progressive_launches
-                                       + jp2_launches):
+                                       + jp2_launches + arith_launches):
             raise AssertionError("the stage-by-stage command line: warp_fields launches != "
                                  f"pages of {parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
         last_page = page_buckets(parser, out[-1][0], pages[-1])
@@ -2110,7 +2148,9 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                "cli_progressive_pages": cli_numbers["progressive_pages"],
                "progressive_page_warp_fields_launches": progressive_launches,
                "cli_jpeg2000_pages": cli_numbers["jpeg2000_pages"],
-               "jpeg2000_page_warp_fields_launches": jp2_launches, "card": smi}
+               "jpeg2000_page_warp_fields_launches": jp2_launches,
+               "cli_arithmetic_pages": cli_numbers["arithmetic_pages"],
+               "arithmetic_page_warp_fields_launches": arith_launches, "card": smi}
     return (launches, numbers, last_page, {"inputs": host_inputs.pages[-1], "ab": ab},
             script_pages)
 
@@ -2119,7 +2159,7 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
 # Config 1: one whole-page region, the classical line detector, greedy
 # CTC, stage by stage (configs/config1_printed_greedy.ini)
 A4_H, A4_W, A4_ROWS = 3508, 2480, 40  # an A4 page at 300 dpi, 40 text rows
-CONFIG1_PAGES, CONFIG1_CLI_PAGES = 6, 3
+CONFIG1_PAGES, CONFIG1_CLI_PAGES = 6, 2
 CONFIG1_STAGES = ("layout", "line_crop", "ocr", "document/pagexml")
 TEXT_EQUIV = re.compile(r"\s*<TextEquiv[^>]*>.*?</TextEquiv>", re.S)
 
@@ -2265,7 +2305,8 @@ SIMPLE_STAGES = ("layout", "simple_regions/prepare", "simple_regions/denoise",
                  "simple_regions/polygons", "line_crop", "ocr", "document/pagexml")
 NL_CROP = (160, 160)  # the numpy twin's timed crop of the denoiser's input
 PROCESS_COUNT = 2
-PROCESS_COUNT_PAGES = 4  # 8 before the user scripts' phase needed the time
+# 8, then 4, before the user scripts' phase and the JPEG checks needed the time
+PROCESS_COUNT_PAGES = 2
 
 
 def write_simple_bundle(tmp: str, rec: CTCRecognizer) -> str:
@@ -2423,9 +2464,9 @@ def run_simple_regions(rng, smi: str):
 
 
 def run_process_count(pipe: TorchPagePipeline, rng, smi: str) -> dict:
-    """``--process-count``: 4 two-column pages as gray JPEG files through
-    the staged command line (config 2, the bench modules from flax
-    msgpack) in one process, then with PROCESS_COUNT spawned workers on
+    """``--process-count``: PROCESS_COUNT_PAGES two-column pages as gray
+    JPEG files through the staged command line (config 2, the bench
+    modules from flax msgpack) in one process, then with PROCESS_COUNT spawned workers on
     the same card.  Each page's Page XML of the workers' run must equal
     the one-process run's (same_staged_page: two processes draw their
     own row jitter), no page may fail, and the workers' warp_fields
@@ -3532,7 +3573,9 @@ def run_user_scripts(script_pages: dict, config5_files: dict, staged_xml: dict, 
 # stepped inside its frame loop (configs/config3_beam_lm.ini)
 # One page through the command line (it took 2 until the phases of
 # REGION_SIMPLE_THRESHOLD and --process-count needed the time).
-CONFIG3_PAGES, CONFIG3_CLI_PAGES, CONFIG3_CHECK_LINES = 4, 1, 16
+# Config 3 draws CONFIG3_DRAWN pages (the later phases' generator state
+# stays put) and runs the first CONFIG3_PAGES.
+CONFIG3_DRAWN, CONFIG3_PAGES, CONFIG3_CLI_PAGES, CONFIG3_CHECK_LINES = 4, 2, 1, 8
 CONFIG3_STAGES = ("layout", "line_crop", "ocr", "decoder", "document/pagexml")
 # The LM at the spec defaults over the bench charset without the blank,
 # plus </s>.
@@ -3947,7 +3990,7 @@ def run_config3(pipe: TorchPagePipeline, rng, smi: str):
     to the in-process run.  Returns the field warp's launches, the
     phase's numbers, the field warp's inputs on the last page and a
     recorded call (for the profile)."""
-    pages, lines = synthetic_pages(rng, CONFIG3_PAGES, TWO_COLUMNS)
+    pages = synthetic_pages(rng, CONFIG3_DRAWN, TWO_COLUMNS)[0][:CONFIG3_PAGES]
     ids = [f"b{i:04d}" for i in range(len(pages))]
     with tempfile.TemporaryDirectory(prefix="config3_") as tmp:
         inis, images = write_config3_bundle(tmp, pipe.parsenet, bench_recognizer(40),
@@ -4113,7 +4156,7 @@ def run_config3(pipe: TorchPagePipeline, rng, smi: str):
 
 # ----------------------------------------------------------------------
 # Config 4: ADJUST_HEIGHTS, the smart sorter, the transformer recognizer
-CONFIG4_PAGES, CONFIG4_CLI_PAGES, CONFIG4_CHECK_LINES = 3, 2, 16
+CONFIG4_PAGES, CONFIG4_CLI_PAGES, CONFIG4_CHECK_LINES = 3, 1, 8
 CONFIG4_TILT_DEG = 1.5
 CONFIG4_STAGES = ("layout", "parsenet_maps", "adjust_heights", "line_crop", "ocr",
                   "ocr/encode", "ocr/decode", "document/pagexml")
@@ -4459,7 +4502,9 @@ def run_config4(pipe: TorchPagePipeline, rng, smi: str):
 # The crop transport and the re-OCR of existing layouts
 CROP_RUNS = 3  # timed runs a transport and depth (median)
 CROP_DEPTHS = (8, 4, 2)
-REOCR_PAGES = 2
+# Re-OCR draws REOCR_DRAWN pages (the later phases' generator state stays
+# put) and reads the first REOCR_PAGES.
+REOCR_DRAWN, REOCR_PAGES = 2, 1
 REOCR_TF_LINES = 16
 OCR_ONLY_INI = """[PAGE_PARSER]
 RUN_LAYOUT_PARSER = no
@@ -4903,7 +4948,7 @@ def run_reocr(pipe: TorchPagePipeline, rng, smi: str):
     the CPU (its host C++ route, as on the card): equal Page XML (conf
     within 0.0015) and line files equal byte for byte.  Then a reference
     transformer through the fast re-OCR (``transformer_reocr``)."""
-    pages, _ = synthetic_pages(rng, REOCR_PAGES, TWO_COLUMNS)
+    pages = synthetic_pages(rng, REOCR_DRAWN, TWO_COLUMNS)[0][:REOCR_PAGES]
     ids = [f"x{i:04d}" for i in range(REOCR_PAGES)]
     layouts = list(FastPagePipeline(pipe, BENCH_CHARS, page_batch=CLI_PAGE_BATCH)
                    .process_pages(pages, ids))
@@ -5013,7 +5058,7 @@ TS_RECOGNIZER = dict(num_classes=80, line_height=CROP_H, conv_features=(48, 96, 
 # Stage by stage on 2 pages (4 before the user scripts' phase needed the
 # time); 4 are still drawn, so that later phases see the generator as
 # before.
-TS_PAGES, TS_STAGED_PAGES, TS_CPU_PAGES, TS_CLI_PAGES = 2 * PAGE_BATCH, 2, 1, 1
+TS_PAGES, TS_STAGED_PAGES, TS_CPU_PAGES, TS_CLI_PAGES = 2 * PAGE_BATCH, 1, 1, 1
 TS_STAGED_DRAWN = 4
 TS_STAGED_ROWS = 1280
 TS_INI = """[PAGE_PARSER]
@@ -5384,8 +5429,8 @@ def run_torchscript(rng, smi: str, device: str = "cuda"):
     """The reference's model format on the card: both archives traced on
     the CPU (write_archives) and loaded for ``device`` by the config's
     MODEL_PATH and the OCR JSON's checkpoint.  The fast path on 16
-    two-column pages (ts_fast_path); stage by stage on 4 others under
-    ini (a) (MULTI_ORIENTATION, MERGE_LINES, ADJUST_BASELINES, then
+    two-column pages (ts_fast_path); stage by stage on TS_STAGED_PAGES
+    others under ini (a) (MULTI_ORIENTATION, MERGE_LINES, ADJUST_BASELINES, then
     LINE_FILTER, LINE_POSTPROCESSING, LAYOUT_POSTPROCESSING and
     REGION_SORTER_NAIVE) and ini (b) (DETECT_STRAIGHT_LINES_IN_REGIONS)
     against the CPU (ts_staged); the command line on TS_CLI_PAGES pages

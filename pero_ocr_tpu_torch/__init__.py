@@ -64,6 +64,12 @@ def not_ported(what: str, item: str) -> ValueError:
     )
 
 
+def unreadable(path: str, what: str) -> ValueError:
+    """The error for a file that ``cv2.imread`` returns None for: the
+    JAX command line's "Unable to read image"."""
+    return ValueError(f'Unable to read image "{path}": OpenCV 5 returns None for {what}')
+
+
 def not_read(path: str, what: str) -> ValueError:
     """The error for an image file the port does not read (``what``
     says which kind); it names item 15's title."""

@@ -1,28 +1,44 @@
-// Baseline and progressive JPEG in, baseline JPEG out, equal to OpenCV
-// 5's libjpeg-turbo (3.1) to the bit: the port's cv2.imread(path,
-// IMREAD_COLOR) for JPEG pages and cv2.imencode(".jpg", img,
-// [IMWRITE_JPEG_QUALITY, q]) for line crops.
+// JPEG in, baseline JPEG out, equal to OpenCV 5's libjpeg-turbo (3.1) to
+// the bit: the port's cv2.imread(path, IMREAD_COLOR) for JPEG pages and
+// cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, q]) for line crops.
 //
 // Decoder (jpeg_header, jpeg_decode_bgr): libjpeg's default
-// decompression of sequential (SOF0, and SOF1 at 8 bits) and
-// progressive (SOF2) Huffman files of one, three or four components,
-// interleaved or not, with restart intervals.  Progressive scans
-// (jdphuff.c: DC and AC first and refining scans, spectral selection,
-// successive approximation, EOB runs) fill a whole-image coefficient
-// buffer; where the file leaves the DC or the first nine AC
-// coefficients short of full precision, the output pass smooths them
-// from the neighbouring blocks' DC values as jdcoefct.c's
-// decompress_smooth_data does.  Then the integer IDCT (jidctint.c) with
-// its range limit, fancy upsampling (jdsample.c: h2v1, h2v2, h1v2, else
-// the integral box), YCbCr to BGR with jdcolor.c's fixed-point tables,
-// gray as three equal channels, and default_decompress_parms's
-// colour-space guess.  Four components are CMYK (Adobe transform 0 or
-// no Adobe marker) or YCCK (any other transform), turned into CMYK as
-// jdcolor.c does and into BGR as OpenCV's icvCvt_CMYK2BGR_8u_C4C3R does.
-// What it does not copy it refuses with a message: lossless,
-// hierarchical and arithmetic coding, other than 8-bit samples, and
-// truncated or corrupt entropy data (where libjpeg warns and fills the
-// page with grey).
+// decompression as OpenCV drives it, of every JPEG file OpenCV reads.
+//  - Codings: sequential (SOF0, SOF1) and progressive (SOF2) Huffman,
+//    sequential (SOF9) and progressive (SOF10) arithmetic (jdarith.c:
+//    the QM decoder, DAC conditioning, statistics reset at restarts),
+//    and lossless Huffman (SOF3: jdlhuff.c, jddiffct.c and jdlossls.c's
+//    predictors 1-7, point transform and restarts by MCU rows).
+//  - One, three or four components, interleaved or not, restart
+//    intervals.  Progressive scans (DC and AC first and refining scans,
+//    spectral selection, successive approximation, EOB runs) fill a
+//    whole-image coefficient buffer; where the file leaves the DC or the
+//    first nine AC coefficients short of full precision, the output pass
+//    smooths them from the neighbouring blocks' DC values as jdcoefct.c's
+//    decompress_smooth_data does, with the previous scan's precision past
+//    the last iMCU row a cut-short scan reached.
+//  - Then the integer IDCT (jidctint.c) with its range limit, fancy
+//    upsampling (jdsample.c: h2v1, h2v2, h1v2, else the integral box;
+//    lossless files take the box), YCbCr to BGR with jdcolor.c's
+//    fixed-point tables, gray as three equal channels, and
+//    default_decompress_parms's colour-space guess.  Four components are
+//    CMYK (Adobe transform 0 or no Adobe marker) or YCCK (any other
+//    transform), turned into CMYK as jdcolor.c does and into BGR as
+//    OpenCV's icvCvt_CMYK2BGR_8u_C4C3R does.
+//  - Data cut short or corrupt is read as libjpeg reads it: past the end
+//    of the file, the stdio source's fake EOI markers; bits past a marker
+//    read as zeros and, once one is taken, the rest of the Huffman scan
+//    (or restart interval) is left as it was (grey in a one-scan file); a
+//    Huffman code not in its table takes 17 bits and gives symbol 0;
+//    bytes before a marker are skipped; a missing or wrong RSTn goes
+//    through jpeg_resync_to_restart; the markers after the scan of a
+//    one-scan file are never read.
+// Where libjpeg or OpenCV gives up (cv2.imread returns None) the decoder
+// fails: hierarchical and arithmetic lossless coding, samples of other
+// than 8 bits (2 to 8 for lossless), lossless files that are not RGB or
+// CMYK (libjpeg converts no other lossless colour space), two components,
+// fractional sampling, a bad or missing table or segment in the headers
+// or, in a file of several scans, anywhere before its EOI.
 //
 // Encoder (jpeg_encode): jpeg_set_defaults + jpeg_set_quality(q, TRUE)
 // as cv2 calls them: JFIF APP0, the standard quantization tables scaled
@@ -37,6 +53,7 @@
 // pero_ocr_tpu_torch/utils/kernels.py; bound in utils/jpeg.py.
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -64,6 +81,8 @@ struct Failure {
 // jpeg_make_c_derived_tbl)
 struct HuffTable {
     bool defined = false;
+    bool bad = false;     // counts that make no code (libjpeg fails when a scan uses it)
+    int max_symbol = 0;   // the largest symbol (DC tables hold at most 15, 16 lossless)
     uint8_t bits[17] = {0};
     uint8_t vals[256] = {0};
     // decoding
@@ -84,7 +103,9 @@ struct HuffTable {
 void build_table(HuffTable& t, bool is_dc) {
     int count = 0;
     for (int l = 1; l <= 16; l++) count += t.bits[l];
-    if (count > 256) fail("a Huffman table with more than 256 codes");
+    t.defined = true;
+    t.bad = count > 256;
+    if (t.bad) return;
     std::vector<int> huffsize, huffcode;
     for (int l = 1; l <= 16; l++)
         for (int i = 0; i < t.bits[l]; i++) huffsize.push_back(l);
@@ -95,7 +116,10 @@ void build_table(HuffTable& t, bool is_dc) {
             huffcode.push_back(code++);
             p++;
         }
-        if (code >= (1 << si)) fail("a Huffman table with an impossible code");
+        if (code >= (1 << si)) {  // no code may be all ones
+            t.bad = true;
+            return;
+        }
         code <<= 1;
         si++;
     }
@@ -118,9 +142,8 @@ void build_table(HuffTable& t, bool is_dc) {
                 t.lookup[lookbits + c] = static_cast<uint16_t>((l << 8) | t.vals[p]);
         }
     }
-    if (is_dc)
-        for (int i = 0; i < count; i++)
-            if (t.vals[i] > 15) fail("a DC Huffman table with a symbol over 15");
+    t.max_symbol = 0;
+    for (int i = 0; i < count; i++) t.max_symbol = std::max<int>(t.max_symbol, t.vals[i]);
     for (int look = 0; look < (1 << 9); look++) {
         HuffTable::FastAC f{0, 0, 0};
         uint16_t e = t.lookup[look];
@@ -138,14 +161,64 @@ void build_table(HuffTable& t, bool is_dc) {
         t.code[t.vals[i]] = static_cast<uint16_t>(huffcode[i]);
         t.size[t.vals[i]] = static_cast<uint8_t>(huffsize[i]);
     }
-    t.defined = true;
+}
+
+// jstdhuff.c: bits[1..16], then the values
+const uint8_t kDcLumaBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+    0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+    0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+    0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+    0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+    0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+    0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+    0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+HuffTable std_table(const uint8_t* bits, const uint8_t* vals, bool is_dc) {
+    HuffTable t;
+    std::memcpy(t.bits, bits, 17);
+    int n = 0;
+    for (int l = 1; l <= 16; l++) n += bits[l];
+    std::memcpy(t.vals, vals, size_t(n));
+    build_table(t, is_dc);
+    return t;
 }
 
 // ---------------------------------------------------------------------
+// The file as libjpeg's stdio source manager hands it out: its bytes,
+// then a fake EOI marker (FF D9) for every read past its end
+// (jdatasrc.c fill_input_buffer's "Premature end of JPEG file").
+inline uint8_t stream_at(const uint8_t* data, size_t size, size_t p) {
+    return p < size ? data[p] : ((p - size) & 1 ? 0xD9 : 0xFF);
+}
+
 // Entropy-coded data, read as jdhuff.c's jpeg_fill_bit_buffer reads it:
 // FF 00 is a data byte FF, fill bytes FF FF ... before a marker are
 // skipped, and a marker ends the segment; bits past it read as zeros,
-// and taking one of them is libjpeg's "premature end of data segment".
+// and taking one of them sets libjpeg's insufficient_data ("premature
+// end of data segment").
 struct BitReader {
     const uint8_t* data;
     size_t size;
@@ -153,7 +226,9 @@ struct BitReader {
     uint64_t buf = 0;
     int bits = 0;       // bits in buf, zero fill included
     int real = 0;       // of which came from the data
-    bool at_marker = false;
+    bool at_marker = false;  // pos stays on the marker's first FF
+    bool insufficient = false;
+    bool bad_code = false;   // a Huffman code not in its table was read
 
     void reset() {
         buf = 0;
@@ -181,20 +256,20 @@ struct BitReader {
         while (bits <= 56) {
             uint64_t c = 0;
             if (!at_marker) {
-                if (pos >= size) {
-                    at_marker = true;
-                } else if (data[pos] != 0xFF) {
-                    c = data[pos++];
+                uint8_t b = stream_at(data, size, pos);
+                if (b != 0xFF) {
+                    c = b;
+                    pos++;
                     real += 8;
                 } else {
                     size_t q = pos + 1;
-                    while (q < size && data[q] == 0xFF) q++;
-                    if (q < size && data[q] == 0x00) {
+                    while (stream_at(data, size, q) == 0xFF) q++;
+                    if (stream_at(data, size, q) == 0x00) {
                         c = 0xFF;
                         pos = q + 1;
                         real += 8;
                     } else {
-                        at_marker = true;  // pos stays on the marker's first FF
+                        at_marker = true;
                     }
                 }
             }
@@ -209,10 +284,14 @@ struct BitReader {
     }
 
     inline void skip(int n) {
-        if (n > real) fail("truncated or corrupt entropy-coded data");
+        if (n > real) {
+            insufficient = true;
+            real = 0;
+        } else {
+            real -= n;
+        }
         buf <<= n;
         bits -= n;
-        real -= n;
     }
 
     inline int32_t get(int n) {
@@ -223,6 +302,8 @@ struct BitReader {
         return v;
     }
 
+    // A symbol; a code not in the table takes 17 bits and reads as
+    // symbol 0 (jpeg_huff_decode's "bad Huffman code").
     inline int decode(const HuffTable& t) {
         uint32_t look = peek16();
         uint16_t e = t.lookup[look >> 7];
@@ -237,7 +318,10 @@ struct BitReader {
                 return t.vals[t.valoffset[l] + code];
             }
         }
-        fail("corrupt entropy-coded data (a Huffman code not in its table)");
+        if (bits < 17) fill();
+        skip(17);
+        bad_code = true;
+        return 0;
     }
 };
 
@@ -246,8 +330,134 @@ inline int32_t extend(int32_t v, int s) {
 }
 
 // ---------------------------------------------------------------------
-// The integer IDCT of jidctint.c (jpeg_idct_islow), with the range
-// limit table of jdmaster.c's prepare_range_limit_table.
+// The arithmetic decoder of jdarith.c (T.81 D.2): Table D.2 packed as
+// libjpeg's jaricom.c packs it, Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 bin.
+#define QE(qe, lps, mps, sw) ((int64_t(qe) << 16) | (int64_t(mps) << 8) | ((sw) << 7) | (lps))
+const int64_t kQe[114] = {
+    QE(0x5a1d, 1, 1, 1),     QE(0x2586, 14, 2, 0),    QE(0x1114, 16, 3, 0),
+    QE(0x080b, 18, 4, 0),    QE(0x03d8, 20, 5, 0),    QE(0x01da, 23, 6, 0),
+    QE(0x00e5, 25, 7, 0),    QE(0x006f, 28, 8, 0),    QE(0x0036, 30, 9, 0),
+    QE(0x001a, 33, 10, 0),   QE(0x000d, 35, 11, 0),   QE(0x0006, 9, 12, 0),
+    QE(0x0003, 10, 13, 0),   QE(0x0001, 12, 13, 0),   QE(0x5a7f, 15, 15, 1),
+    QE(0x3f25, 36, 16, 0),   QE(0x2cf2, 38, 17, 0),   QE(0x207c, 39, 18, 0),
+    QE(0x17b9, 40, 19, 0),   QE(0x1182, 42, 20, 0),   QE(0x0cef, 43, 21, 0),
+    QE(0x09a1, 45, 22, 0),   QE(0x072f, 46, 23, 0),   QE(0x055c, 48, 24, 0),
+    QE(0x0406, 49, 25, 0),   QE(0x0303, 51, 26, 0),   QE(0x0240, 52, 27, 0),
+    QE(0x01b1, 54, 28, 0),   QE(0x0144, 56, 29, 0),   QE(0x00f5, 57, 30, 0),
+    QE(0x00b7, 59, 31, 0),   QE(0x008a, 60, 32, 0),   QE(0x0068, 62, 33, 0),
+    QE(0x004e, 63, 34, 0),   QE(0x003b, 32, 35, 0),   QE(0x002c, 33, 9, 0),
+    QE(0x5ae1, 37, 37, 1),   QE(0x484c, 64, 38, 0),   QE(0x3a0d, 65, 39, 0),
+    QE(0x2ef1, 67, 40, 0),   QE(0x261f, 68, 41, 0),   QE(0x1f33, 69, 42, 0),
+    QE(0x19a8, 70, 43, 0),   QE(0x1518, 72, 44, 0),   QE(0x1177, 73, 45, 0),
+    QE(0x0e74, 74, 46, 0),   QE(0x0bfb, 75, 47, 0),   QE(0x09f8, 77, 48, 0),
+    QE(0x0861, 78, 49, 0),   QE(0x0706, 79, 50, 0),   QE(0x05cd, 48, 51, 0),
+    QE(0x04de, 50, 52, 0),   QE(0x040f, 50, 53, 0),   QE(0x0363, 51, 54, 0),
+    QE(0x02d4, 52, 55, 0),   QE(0x025c, 53, 56, 0),   QE(0x01f8, 54, 57, 0),
+    QE(0x01a4, 55, 58, 0),   QE(0x0160, 56, 59, 0),   QE(0x0125, 57, 60, 0),
+    QE(0x00f6, 58, 61, 0),   QE(0x00cb, 59, 62, 0),   QE(0x00ab, 61, 63, 0),
+    QE(0x008f, 61, 32, 0),   QE(0x5b12, 65, 65, 1),   QE(0x4d04, 80, 66, 0),
+    QE(0x412c, 81, 67, 0),   QE(0x37d8, 82, 68, 0),   QE(0x2fe8, 83, 69, 0),
+    QE(0x293c, 84, 70, 0),   QE(0x2379, 86, 71, 0),   QE(0x1edf, 87, 72, 0),
+    QE(0x1aa9, 87, 73, 0),   QE(0x174e, 72, 74, 0),   QE(0x1424, 72, 75, 0),
+    QE(0x119c, 74, 76, 0),   QE(0x0f6b, 74, 77, 0),   QE(0x0d51, 75, 78, 0),
+    QE(0x0bb6, 77, 79, 0),   QE(0x0a40, 77, 48, 0),   QE(0x5832, 80, 81, 1),
+    QE(0x4d1c, 88, 82, 0),   QE(0x438e, 89, 83, 0),   QE(0x3bdd, 90, 84, 0),
+    QE(0x34ee, 91, 85, 0),   QE(0x2eae, 92, 86, 0),   QE(0x299a, 93, 87, 0),
+    QE(0x2516, 86, 71, 0),   QE(0x5570, 88, 89, 1),   QE(0x4ca9, 95, 90, 0),
+    QE(0x44d9, 96, 91, 0),   QE(0x3e22, 97, 92, 0),   QE(0x3824, 99, 93, 0),
+    QE(0x32b4, 99, 94, 0),   QE(0x2e17, 93, 86, 0),   QE(0x56a8, 95, 96, 1),
+    QE(0x4f46, 101, 97, 0),  QE(0x47e5, 102, 98, 0),  QE(0x41cf, 103, 99, 0),
+    QE(0x3c3d, 104, 100, 0), QE(0x375e, 99, 93, 0),   QE(0x5231, 105, 102, 0),
+    QE(0x4c0f, 106, 103, 0), QE(0x4639, 107, 104, 0), QE(0x415e, 103, 99, 0),
+    QE(0x5627, 105, 106, 1), QE(0x50e7, 108, 107, 0), QE(0x4b85, 109, 103, 0),
+    QE(0x5597, 110, 109, 0), QE(0x504f, 111, 107, 0), QE(0x5a10, 110, 111, 1),
+    QE(0x5522, 112, 109, 0), QE(0x59eb, 112, 111, 1), QE(0x5a1d, 113, 113, 0)};
+#undef QE
+
+struct ArithReader {
+    const uint8_t* data;
+    size_t size;
+    size_t pos;
+    bool at_marker = false;  // as BitReader: pos stays on the marker's first FF
+    int64_t c = 0, a = 0;
+    int ct = -16;            // -16: two bytes to read before the first decision
+    bool error = false;      // jdarith.c's ct == -1: skip to the next restart
+
+    void restart() {
+        c = a = 0;
+        ct = -16;
+        error = false;
+    }
+
+    // jdarith.c get_byte with its marker handling: past a marker, zeros.
+    int byte_in() {
+        if (at_marker) return 0;
+        int v = stream_at(data, size, pos);
+        if (v != 0xFF) {
+            pos++;
+            return v;
+        }
+        size_t q = pos + 1;
+        while (stream_at(data, size, q) == 0xFF) q++;
+        if (stream_at(data, size, q) == 0) {
+            pos = q + 1;
+            return 0xFF;
+        }
+        at_marker = true;
+        return 0;
+    }
+
+    inline int decode(uint8_t* st) {
+        while (a < 0x8000) {
+            if (--ct < 0) {
+                c = (c << 8) | byte_in();
+                if ((ct += 8) < 0)
+                    if (++ct == 0) a = 0x8000;
+            }
+            a <<= 1;
+        }
+        int sv = *st;
+        int64_t qe = kQe[sv & 0x7F];
+        int nl = static_cast<int>(qe & 0xFF);
+        qe >>= 8;
+        int nm = static_cast<int>(qe & 0xFF);
+        qe >>= 8;
+        int64_t temp = a - qe;
+        a = temp;
+        temp <<= ct;
+        if (c >= temp) {
+            c -= temp;
+            if (a < qe) {  // conditional exchange: the MPS after all
+                a = qe;
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+            } else {
+                a = qe;
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            }
+        } else if (a < 0x8000) {
+            if (a < qe) {
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            } else {
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+            }
+        }
+        return sv >> 7;
+    }
+};
+
+// ---------------------------------------------------------------------
+// The integer IDCT, as libjpeg-turbo's AVX2 jsimd_idct_islow computes it
+// (jidctint.c's arithmetic in 16-bit lanes): coefficients times
+// quantizers and the sums in0 + in4, in0 - in4, in7 + in3 and in5 + in1
+// wrap at 16 bits, the products accumulate in 32 bits, each pass's
+// outputs saturate to 16 bits and the last to -128..127 before the
+// centre is added.  A block whose rows 1-7 are all zero takes the first
+// pass's shortcut, the DC shifted left in 16 bits.  On valid data this
+// equals jidctint.c with its range-limit table; on extreme values (data
+// cut short or corrupt) it is what OpenCV's build gives.
 const int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_541196100 = 4433,
               FIX_0_765366865 = 6270, FIX_0_899976223 = 7373, FIX_1_175875602 = 9633,
               FIX_1_501321110 = 12299, FIX_1_847759065 = 15137, FIX_1_961570560 = 16069,
@@ -256,119 +466,85 @@ const int CONST_BITS = 13, PASS1_BITS = 2;
 
 inline int64_t descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
 
-struct RangeLimit {
-    uint8_t idct[1024];  // indexed by (x & 1023), x the IDCT's centred output
-    RangeLimit() {
-        for (int i = 0; i < 1024; i++) {
-            int x = i < 512 ? i : i - 1024;
-            // [-128, 127] -> [0, 255], clamped out to +-512 as in the table
-            idct[i] = static_cast<uint8_t>(std::min(255, std::max(0, x + 128)));
-        }
+inline int16_t saturate16(int32_t x) {
+    return static_cast<int16_t>(std::min(32767, std::max(-32768, x)));
+}
+
+// One 1-D pass on eight 16-bit inputs (in[k * step]), descaled by n,
+// saturated to 16 bits.  Without AC inputs every output is the same
+// value, taken at once.
+inline void idct_pass(const int16_t* in, int step, int16_t* out, int n) {
+    const int32_t in0 = in[0], in1 = in[step], in2 = in[2 * step], in3 = in[3 * step],
+                  in4 = in[4 * step], in5 = in[5 * step], in6 = in[6 * step], in7 = in[7 * step];
+    const int32_t round = 1 << (n - 1);
+    if (!(in1 | in2 | in3 | in4 | in5 | in6 | in7)) {
+        std::fill(out, out + 8, saturate16((in0 * (1 << CONST_BITS) + round) >> n));
+        return;
     }
-};
-const RangeLimit kRange;
+    const int32_t f130 = FIX_0_541196100 + FIX_0_765366865, f054 = FIX_0_541196100,
+                  mf130 = FIX_0_541196100 - FIX_1_847759065;
+    int32_t tmp3 = in2 * f130 + in6 * f054;
+    int32_t tmp2 = in2 * f054 + in6 * mf130;
+    int32_t tmp0 = int32_t(static_cast<int16_t>(in0 + in4)) * (1 << CONST_BITS);
+    int32_t tmp1 = int32_t(static_cast<int16_t>(in0 - in4)) * (1 << CONST_BITS);
+    const int32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2,
+                  tmp12 = tmp1 - tmp2;
+    const int32_t z3 = static_cast<int16_t>(in7 + in3), z4 = static_cast<int16_t>(in5 + in1);
+    const int32_t z3r =
+        z3 * int32_t(FIX_1_175875602 - FIX_1_961570560) + z4 * int32_t(FIX_1_175875602);
+    const int32_t z4r =
+        z3 * int32_t(FIX_1_175875602) + z4 * int32_t(FIX_1_175875602 - FIX_0_390180644);
+    tmp0 = in7 * int32_t(FIX_0_298631336 - FIX_0_899976223) + in1 * int32_t(-FIX_0_899976223) +
+           z3r;
+    tmp3 = in7 * int32_t(-FIX_0_899976223) + in1 * int32_t(FIX_1_501321110 - FIX_0_899976223) +
+           z4r;
+    tmp1 = in5 * int32_t(FIX_2_053119869 - FIX_2_562915447) + in3 * int32_t(-FIX_2_562915447) +
+           z4r;
+    tmp2 = in5 * int32_t(-FIX_2_562915447) + in3 * int32_t(FIX_3_072711026 - FIX_2_562915447) +
+           z3r;
+    out[0] = saturate16((tmp10 + tmp3 + round) >> n);
+    out[7] = saturate16((tmp10 - tmp3 + round) >> n);
+    out[1] = saturate16((tmp11 + tmp2 + round) >> n);
+    out[6] = saturate16((tmp11 - tmp2 + round) >> n);
+    out[2] = saturate16((tmp12 + tmp1 + round) >> n);
+    out[5] = saturate16((tmp12 - tmp1 + round) >> n);
+    out[3] = saturate16((tmp13 + tmp0 + round) >> n);
+    out[4] = saturate16((tmp13 - tmp0 + round) >> n);
+}
 
 void idct_islow(const int16_t* coef, const uint16_t* quant, uint8_t* out, int stride) {
-    int64_t ws[64];
+    int16_t ws[64];  // the first pass's output, column by column
+    uint64_t words[14];
+    std::memcpy(words, coef + 8, sizeof(words));
+    uint64_t ac_rows = 0;
+    for (uint64_t w : words) ac_rows |= w;
     for (int c = 0; c < 8; c++) {
-        const int16_t* in = coef + c;
-        const uint16_t* q = quant + c;
-        if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
-            int64_t dc = (int64_t(in[0]) * q[0]) * (1 << PASS1_BITS);
-            for (int r = 0; r < 8; r++) ws[r * 8 + c] = dc;
+        const int16_t dc = static_cast<int16_t>(coef[c] * quant[c]);
+        int16_t v;
+        if (!ac_rows) {  // the whole-block shortcut: the DC shifted in 16 bits
+            v = static_cast<int16_t>(static_cast<uint16_t>(dc) << PASS1_BITS);
+        } else if (!(coef[8 + c] | coef[16 + c] | coef[24 + c] | coef[32 + c] | coef[40 + c] |
+                     coef[48 + c] | coef[56 + c])) {
+            v = saturate16(dc * (1 << PASS1_BITS));  // idct_pass without AC inputs
+        } else {
+            int16_t col[8];
+            for (int r = 0; r < 8; r++)
+                col[r] = static_cast<int16_t>(coef[r * 8 + c] * quant[r * 8 + c]);
+            idct_pass(col, 1, ws + c * 8, CONST_BITS - PASS1_BITS);
             continue;
         }
-        int64_t z2 = int64_t(in[16]) * q[16], z3 = int64_t(in[48]) * q[48];
-        int64_t z1 = (z2 + z3) * FIX_0_541196100;
-        int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-        int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-        z2 = int64_t(in[0]) * q[0];
-        z3 = int64_t(in[32]) * q[32];
-        int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
-        int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
-        int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-        int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-        tmp0 = int64_t(in[56]) * q[56];
-        tmp1 = int64_t(in[40]) * q[40];
-        tmp2 = int64_t(in[24]) * q[24];
-        tmp3 = int64_t(in[8]) * q[8];
-        z1 = tmp0 + tmp3;
-        z2 = tmp1 + tmp2;
-        z3 = tmp0 + tmp2;
-        int64_t z4 = tmp1 + tmp3;
-        int64_t z5 = (z3 + z4) * FIX_1_175875602;
-        tmp0 *= FIX_0_298631336;
-        tmp1 *= FIX_2_053119869;
-        tmp2 *= FIX_3_072711026;
-        tmp3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        tmp0 += z1 + z3;
-        tmp1 += z2 + z4;
-        tmp2 += z2 + z3;
-        tmp3 += z1 + z4;
-        const int n = CONST_BITS - PASS1_BITS;
-        ws[0 * 8 + c] = descale(tmp10 + tmp3, n);
-        ws[7 * 8 + c] = descale(tmp10 - tmp3, n);
-        ws[1 * 8 + c] = descale(tmp11 + tmp2, n);
-        ws[6 * 8 + c] = descale(tmp11 - tmp2, n);
-        ws[2 * 8 + c] = descale(tmp12 + tmp1, n);
-        ws[5 * 8 + c] = descale(tmp12 - tmp1, n);
-        ws[3 * 8 + c] = descale(tmp13 + tmp0, n);
-        ws[4 * 8 + c] = descale(tmp13 - tmp0, n);
+        std::fill(ws + c * 8, ws + c * 8 + 8, v);
     }
     for (int r = 0; r < 8; r++) {
-        const int64_t* w = ws + r * 8;
         uint8_t* o = out + r * stride;
-        const int n = CONST_BITS + PASS1_BITS + 3;
-        if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-            uint8_t v = kRange.idct[descale(w[0], PASS1_BITS + 3) & 1023];
-            std::memset(o, v, 8);
+        if (r && !ac_rows) {  // the first pass gave every row the same inputs
+            std::memcpy(o, out, 8);
             continue;
         }
-        int64_t z2 = w[2], z3 = w[6];
-        int64_t z1 = (z2 + z3) * FIX_0_541196100;
-        int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-        int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-        int64_t tmp0 = (w[0] + w[4]) * (1 << CONST_BITS);
-        int64_t tmp1 = (w[0] - w[4]) * (1 << CONST_BITS);
-        int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-        int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-        tmp0 = w[7];
-        tmp1 = w[5];
-        tmp2 = w[3];
-        tmp3 = w[1];
-        z1 = tmp0 + tmp3;
-        z2 = tmp1 + tmp2;
-        z3 = tmp0 + tmp2;
-        int64_t z4 = tmp1 + tmp3;
-        int64_t z5 = (z3 + z4) * FIX_1_175875602;
-        tmp0 *= FIX_0_298631336;
-        tmp1 *= FIX_2_053119869;
-        tmp2 *= FIX_3_072711026;
-        tmp3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        tmp0 += z1 + z3;
-        tmp1 += z2 + z4;
-        tmp2 += z2 + z3;
-        tmp3 += z1 + z4;
-        o[0] = kRange.idct[descale(tmp10 + tmp3, n) & 1023];
-        o[7] = kRange.idct[descale(tmp10 - tmp3, n) & 1023];
-        o[1] = kRange.idct[descale(tmp11 + tmp2, n) & 1023];
-        o[6] = kRange.idct[descale(tmp11 - tmp2, n) & 1023];
-        o[2] = kRange.idct[descale(tmp12 + tmp1, n) & 1023];
-        o[5] = kRange.idct[descale(tmp12 - tmp1, n) & 1023];
-        o[3] = kRange.idct[descale(tmp13 + tmp0, n) & 1023];
-        o[4] = kRange.idct[descale(tmp13 - tmp0, n) & 1023];
+        int16_t res[8];
+        idct_pass(ws + r, 8, res, CONST_BITS + PASS1_BITS + 3);
+        for (int c = 0; c < 8; c++)
+            o[c] = static_cast<uint8_t>(std::min(127, std::max(-128, int(res[c]))) + 128);
     }
 }
 
@@ -399,114 +575,177 @@ struct Component {
     int id, h, v, tq;
     int td = 0, ta = 0;
     int dw, dh;      // downsampled size
-    int wib, hib;    // blocks holding samples of the image
-    int bw, bh;      // blocks in the MCU-padded buffer
+    int wib, hib;    // blocks holding samples of the image (lossless: samples)
+    int bw, bh;      // blocks in the MCU-padded buffer (lossless: samples)
+    int stride = 0;  // of plane
     std::vector<int16_t> coef;
-    std::vector<uint8_t> plane;  // samples, (bh * 8, bw * 8)
+    std::vector<uint8_t> plane;  // samples, (bh * 8, bw * 8); lossless (bh, bw)
     uint16_t quant[64];  // latched at the component's first scan (jdinput.c)
     bool scanned = false;
     // jdphuff.c's coef_bits: the Al each zigzag coefficient was last
-    // coded at by a progressive scan, -1 before any
+    // coded at by a progressive scan, -1 before any; and the first ten
+    // as they were before the component's latest scan (the bits
+    // jdcoefct.c smooths with past the last good iMCU row).
     int coef_bits[64];
-    Component() { std::fill(coef_bits, coef_bits + 64, -1); }
+    int prev_bits[10];
+    // lossless: the differences of one iMCU row (v rows of bw), the
+    // previous row's samples, and whether the next row is undifferenced
+    // as a first row (jdlossls.c's predict_undifference)
+    std::vector<int32_t> diff, last;
+    bool first_row = true;
+    int last_row_height = 1;
+    Component() {
+        std::fill(coef_bits, coef_bits + 64, -1);
+        std::fill(prev_bits, prev_bits + 10, -1);
+        std::memset(quant, 0, sizeof(quant));
+    }
 };
 
 struct Decoder {
     const uint8_t* data;
     size_t size;
     size_t pos = 0;
-    int width = 0, height = 0, ncomp = 0, maxh = 1, maxv = 1, mcux = 0, mcuy = 0;
-    bool frame = false, progressive = false, jfif = false, adobe = false;
+    int width = 0, height = 0, ncomp = 0, maxh = 1, maxv = 1, mcux = 0, mcuy = 0, precision = 8;
+    bool frame = false, progressive = false, arithmetic = false, lossless = false;
+    bool jfif = false, adobe = false;
     int adobe_transform = -1;
     int restart_interval = 0;
+    int next_rst = 0;  // jdmarker.c's next_restart_num
     int64_t app1_offset = -1, app1_length = 0;
     uint16_t quant[4][64];
     bool quant_defined[4] = {false, false, false, false};
     HuffTable dc[4], ac[4];
+    uint8_t dac_l[16], dac_u[16], dac_k[16];  // DAC conditioning (T.81 F.1.4.4)
+    uint8_t dc_stats[16][64], ac_stats[16][256];
     std::vector<Component> comps;
-    bool done = false;
+    bool frame_scanned = false;  // an SOS was seen: later APP1s are not read by cv2
+    bool single_scan = false;    // jdinput.c: not has_multiple_scans
+    int scans = 0;               // input_scan_number
+    int64_t last_good_imcu = 0;  // jdcoefct.c's master->last_good_iMCU_row
+    int space = 0;               // the colour space, fixed at the first scan
+    bool warned = false;         // libjpeg warned of data cut short or corrupt
 
-    uint8_t byte() {
-        if (pos >= size) fail("truncated (the file ends inside a marker segment)");
-        return data[pos++];
+    Decoder(const uint8_t* d, size_t n) : data(d), size(n) {
+        std::fill(dac_l, dac_l + 16, 0);
+        std::fill(dac_u, dac_u + 16, 1);
+        std::fill(dac_k, dac_k + 16, 5);
     }
+
+    uint8_t byte() { return stream_at(data, size, pos++); }
     int u16() {
         int hi = byte();
         return (hi << 8) | byte();
     }
 
-    // The next marker, skipping what libjpeg's next_marker skips (any
-    // bytes before FF, then fill bytes).  -1 at the end of the file.
+    // jdmarker.c next_marker: any bytes before FF skipped, then fill
+    // bytes and FF 00; pos ends past the marker, whose FF is at pos - 2.
     int next_marker() {
         while (true) {
-            while (pos < size && data[pos] != 0xFF) pos++;
-            if (pos >= size) return -1;
-            while (pos < size && data[pos] == 0xFF) pos++;
-            if (pos >= size) return -1;
-            int m = data[pos++];
-            if (m != 0) return m;
+            int c = byte();
+            while (c != 0xFF) c = byte();
+            do c = byte();
+            while (c == 0xFF);
+            if (c != 0) return c;
         }
     }
 
-    void read_app(int m, int length, size_t start) {
-        const uint8_t* p = data + start;
-        int n = length - 2;
-        if (m == 0xE0 && n >= 14 && std::memcmp(p, "JFIF\0", 5) == 0) jfif = true;
-        if (m == 0xEE && n >= 12 && std::memcmp(p, "Adobe", 5) == 0) {
-            adobe = true;
-            adobe_transform = p[11];
-        }
-        if (m == 0xE1 && app1_offset < 0 && !frame_scanned && n >= 6 &&
-            std::memcmp(p, "Exif\0\0", 6) == 0) {  // the EXIF block cv2 reads
-            app1_offset = static_cast<int64_t>(start) + 6;
-            app1_length = n - 6;
-        }
+    void skip_variable() {
+        int length = u16() - 2;
+        if (length > 0) pos += size_t(length);
     }
-    bool frame_scanned = false;  // an SOS was seen: later APP1s are not read by cv2
-    bool single_scan = false;
 
-    void read_dqt(int length) {
-        size_t end = pos + length - 2;
-        while (pos < end) {
-            int pq = byte();
-            int tq = pq & 15, prec = pq >> 4;
-            if (tq > 3 || prec > 1) fail("a DQT segment with a bad table");
+    // APP0 (JFIF) and APP14 (Adobe) as get_interesting_appn reads them;
+    // the first "Exif\0\0" APP1 before the first scan, which cv2 saves.
+    void read_app(int m) {
+        int length = u16() - 2;
+        size_t start = pos;
+        if (length <= 0) return;
+        if (start + size_t(length) <= size) {
+            const uint8_t* p = data + start;
+            int n = length;
+            if (m == 0xE0 && n >= 14 && std::memcmp(p, "JFIF\0", 5) == 0) jfif = true;
+            if (m == 0xEE && n >= 12 && std::memcmp(p, "Adobe", 5) == 0) {
+                adobe = true;
+                adobe_transform = p[11];
+            }
+            if (m == 0xE1 && app1_offset < 0 && !frame_scanned && n >= 6 &&
+                std::memcmp(p, "Exif\0\0", 6) == 0) {
+                app1_offset = static_cast<int64_t>(start) + 6;
+                app1_length = n - 6;
+            }
+        }
+        pos = start + size_t(length);
+    }
+
+    void read_dqt() {
+        int length = u16() - 2;
+        while (length > 0) {
+            length--;
+            int n = byte();
+            int prec = n >> 4;
+            n &= 15;
+            if (n > 3) fail("a DQT segment with a bad table number");
             for (int i = 0; i < 64; i++)
-                quant[tq][kZigzag[i]] = static_cast<uint16_t>(prec ? u16() : byte());
-            quant_defined[tq] = true;
+                quant[n][kZigzag[i]] = static_cast<uint16_t>(prec ? u16() : byte());
+            quant_defined[n] = true;
+            length -= prec ? 128 : 64;
         }
-        if (pos != end) fail("a DQT segment of the wrong length");
+        if (length != 0) fail("a DQT segment of the wrong length");
     }
 
-    void read_dht(int length) {
-        size_t end = pos + length - 2;
-        while (pos < end) {
-            int tc = byte();
-            int cls = tc >> 4, th = tc & 15;
-            if (cls > 1 || th > 3) fail("a DHT segment with a bad table");
-            HuffTable& t = cls ? ac[th] : dc[th];
+    void read_dht() {
+        int length = u16() - 2;
+        while (length > 16) {
+            int index = byte();
+            uint8_t bits[17] = {0};
             int count = 0;
-            for (int l = 1; l <= 16; l++) count += (t.bits[l] = byte());
-            if (count > 256 || pos + count > end) fail("a DHT segment of the wrong length");
-            for (int i = 0; i < count; i++) t.vals[i] = byte();
-            build_table(t, cls == 0);
+            for (int l = 1; l <= 16; l++) count += (bits[l] = byte());
+            length -= 17;
+            if (count > 256 || count > length) fail("a bad DHT segment");
+            uint8_t vals[256] = {0};
+            for (int i = 0; i < count; i++) vals[i] = byte();
+            length -= count;
+            bool is_ac = index & 0x10;
+            if (is_ac) index -= 0x10;
+            if (index < 0 || index > 3) fail("a DHT segment with a bad table number");
+            HuffTable& t = is_ac ? ac[index] : dc[index];
+            std::memcpy(t.bits, bits, sizeof(bits));
+            std::memcpy(t.vals, vals, sizeof(vals));
+            build_table(t, !is_ac);
         }
-        if (pos != end) fail("a DHT segment of the wrong length");
+        if (length != 0) fail("a DHT segment of the wrong length");
     }
 
-    void read_sof(int length, bool is_progressive) {
+    void read_dac() {
+        int length = u16() - 2;
+        while (length > 0) {
+            int index = byte(), val = byte();
+            length -= 2;
+            if (index >= 32) fail("a DAC segment with a bad table number");
+            if (index >= 16) {
+                dac_k[index - 16] = static_cast<uint8_t>(val);
+            } else {
+                dac_l[index] = static_cast<uint8_t>(val & 15);
+                dac_u[index] = static_cast<uint8_t>(val >> 4);
+                if (dac_l[index] > dac_u[index]) fail("a DAC segment with L over U");
+            }
+        }
+        if (length != 0) fail("a DAC segment of the wrong length");
+    }
+
+    void read_sof(bool is_progressive, bool is_lossless, bool is_arithmetic) {
         if (frame) fail("two frames in one file");
         progressive = is_progressive;
-        int precision = byte();
+        lossless = is_lossless;
+        arithmetic = is_arithmetic;
+        int length = u16();
+        precision = byte();
         height = u16();
         width = u16();
         ncomp = byte();
-        if (precision != 8)
-            fail(std::to_string(precision) + "-bit samples (only 8-bit JPEG is read)");
-        if (height == 0) fail("a height given by a DNL marker");
-        if (width == 0) fail("an empty image");
-        if (ncomp != 1 && ncomp != 3 && ncomp != 4) fail(std::to_string(ncomp) + " components");
-        if (length != 8 + 3 * ncomp) fail("an SOF segment of the wrong length");
+        if (height == 0 || width == 0 || ncomp == 0)
+            fail("an empty image (a height of 0, as a DNL marker would give it, among them)");
+        if (length - 8 != ncomp * 3) fail("an SOF segment of the wrong length");
         comps.resize(ncomp);
         for (auto& c : comps) {
             c.id = byte();
@@ -514,109 +753,153 @@ struct Decoder {
             c.h = hv >> 4;
             c.v = hv & 15;
             c.tq = byte();
-            if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
-                fail("bad sampling factors or quantization table in the frame header");
-            maxh = std::max(maxh, c.h);
-            maxv = std::max(maxv, c.v);
-        }
-        mcux = (width + 8 * maxh - 1) / (8 * maxh);
-        mcuy = (height + 8 * maxv - 1) / (8 * maxv);
-        for (auto& c : comps) {
-            c.dw = static_cast<int>((int64_t(width) * c.h + maxh - 1) / maxh);
-            c.dh = static_cast<int>((int64_t(height) * c.v + maxv - 1) / maxv);
-            c.wib = (c.dw + 7) / 8;
-            c.hib = (c.dh + 7) / 8;
-            c.bw = mcux * c.h;
-            c.bh = mcuy * c.v;
         }
         frame = true;
     }
 
-    // Markers up to the first SOS: the frame header and the APPn that
-    // the colour-space guess and the EXIF orientation read.
+    // What libjpeg's initial_setup and jpeg_start_decompress, and
+    // OpenCV's colour request (BGR, or CMYK for four components), refuse.
+    void setup() {
+        if (height > 65500 || width > 65500) fail("an image over 65500 pixels a side");
+        if (arithmetic && lossless) fail("arithmetic lossless coding (SOF11)");
+        if (lossless ? (precision < 2 || precision > 8) : precision != 8)
+            fail(std::to_string(precision) + "-bit samples");
+        if (ncomp != 1 && ncomp != 3 && ncomp != 4) fail(std::to_string(ncomp) + " components");
+        for (auto& c : comps) {
+            if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) fail("bad sampling factors");
+            maxh = std::max(maxh, c.h);
+            maxv = std::max(maxv, c.v);
+        }
+        for (auto& c : comps)
+            if (maxh % c.h || maxv % c.v)
+                fail("fractional sampling factors (libjpeg cannot upsample them)");
+        space = color_space();  // default_decompress_parms: APPn after this change nothing
+        if (lossless && space != 2 && space != 3)
+            fail("a lossless file that is not RGB or CMYK (libjpeg converts no other)");
+        const int block = lossless ? 1 : 8;
+        mcux = (width + block * maxh - 1) / (block * maxh);
+        mcuy = (height + block * maxv - 1) / (block * maxv);
+        for (auto& c : comps) {
+            c.dw = static_cast<int>((int64_t(width) * c.h + maxh - 1) / maxh);
+            c.dh = static_cast<int>((int64_t(height) * c.v + maxv - 1) / maxv);
+            c.wib = (c.dw + block - 1) / block;
+            c.hib = (c.dh + block - 1) / block;
+            c.bw = mcux * c.h;
+            c.bh = mcuy * c.v;
+            c.stride = c.bw * block;
+            c.last_row_height = c.hib % c.v ? c.hib % c.v : c.v;
+        }
+        // jinit_huff_decoder's std_huff_tables (sequential Huffman only):
+        // Motion JPEG leaves out the standard tables, which fill the first
+        // two slots of each class not defined by now.
+        if (progressive || lossless || arithmetic) return;
+        if (!dc[0].defined) dc[0] = std_table(kDcLumaBits, kDcVals, true);
+        if (!ac[0].defined) ac[0] = std_table(kAcLumaBits, kAcLumaVals, false);
+        if (!dc[1].defined) dc[1] = std_table(kDcChromaBits, kDcVals, true);
+        if (!ac[1].defined) ac[1] = std_table(kAcChromaBits, kAcChromaVals, false);
+    }
+
+    // Markers up to the first SOS (jpeg_read_header): the frame header,
+    // tables and the APPn that the colour-space guess and the EXIF
+    // orientation read.  Returns past the SOS marker.
     void read_header() {
         if (size < 2 || data[0] != 0xFF || data[1] != 0xD8) fail("not a JPEG file (no SOI)");
         pos = 2;
         while (true) {
             int m = next_marker();
-            if (m < 0) fail("truncated (no SOS before the end of the file)");
             if (m == 0xDA) {
-                pos -= 2;  // the scan is read by decode()
                 if (!frame) fail("an SOS before the frame header");
                 return;
             }
+            if (m == 0xD9) fail("no image before EOI (or the end of the file)");
             handle_marker(m);
         }
     }
 
+    // One marker and its segment, as jdmarker.c's read_markers takes it.
     void handle_marker(int m) {
-        if (m == 0xD8) fail("a second SOI");
-        if (m == 0xD9) {
-            done = true;
-            return;
-        }
-        if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) return;  // RSTn outside a scan, TEM
-        int length = u16();
-        if (length < 2 || pos + length - 2 > size)
-            fail("truncated (a marker segment runs past the end of the file)");
-        size_t start = pos;
         switch (m) {
+            case 0xD8:
+                fail("a second SOI");
             case 0xC0:
             case 0xC1:
-                read_sof(length, false);
-                break;
+                return read_sof(false, false, false);
             case 0xC2:
-                read_sof(length, true);
-                break;
+                return read_sof(true, false, false);
             case 0xC3:
-            case 0xC7:
-                fail("lossless coding (SOF3)");
+                return read_sof(false, true, false);
+            case 0xC9:
+                return read_sof(false, false, true);
+            case 0xCA:
+                return read_sof(true, false, true);
+            case 0xCB:
+                return read_sof(false, true, true);
             case 0xC5:
             case 0xC6:
-            case 0xDE:
-            case 0xDF:
-                fail("hierarchical coding");
-            case 0xC9:
-            case 0xCA:
-            case 0xCB:
+            case 0xC7:
+            case 0xC8:
             case 0xCD:
             case 0xCE:
             case 0xCF:
-            case 0xCC:
-                fail("arithmetic coding");
+                fail("hierarchical coding or a reserved SOF");
             case 0xC4:
-                read_dht(length);
-                break;
+                return read_dht();
+            case 0xCC:
+                return read_dac();
             case 0xDB:
-                read_dqt(length);
-                break;
+                return read_dqt();
             case 0xDD:
-                if (length != 4) fail("a DRI segment of the wrong length");
+                if (u16() != 4) fail("a DRI segment of the wrong length");
                 restart_interval = u16();
-                break;
-            case 0xDC:
-                fail("a DNL marker");
+                return;
+            case 0xDC:  // DNL: ignored
             case 0xFE:
-                break;
+                return skip_variable();
+            case 0x01:
+                return;
             default:
-                if (m >= 0xE0 && m <= 0xEF) {
-                    read_app(m, length, start);
-                    break;
-                }
+                if (m >= 0xD0 && m <= 0xD7) return;  // RSTn outside a scan
+                if (m >= 0xE0 && m <= 0xEF) return read_app(m);
                 char name[8];
                 std::snprintf(name, sizeof(name), "FF%02X", m);
                 fail(std::string("an unknown marker ") + name);
         }
-        pos = start + length - 2;
     }
 
-    // A scan's kind: sequential, or one of jdphuff.c's four progressive
-    // decoders.
+    // jdmarker.c read_restart_marker at pos, with jpeg_resync_to_restart
+    // when the marker is not the next RSTn.  Returns false where the
+    // marker is left unread (pos back on it): the entropy decoder then
+    // reads an empty segment.
+    bool read_restart_marker() {
+        int marker = next_marker();
+        int desired = next_rst;
+        next_rst = (next_rst + 1) & 7;
+        if (marker == 0xD0 + desired) return true;
+        warned = true;
+        while (true) {
+            int action = 1;
+            if (marker < 0xC0)
+                action = 2;  // not a valid marker: scan on
+            else if (marker < 0xD0 || marker > 0xD7)
+                action = 3;  // a marker that is no RSTn
+            else if (marker == 0xD0 + ((desired + 1) & 7) || marker == 0xD0 + ((desired + 2) & 7))
+                action = 3;  // one of the next two
+            else if (marker == 0xD0 + ((desired - 1) & 7) || marker == 0xD0 + ((desired - 2) & 7))
+                action = 2;  // a prior one: scan on
+            if (action == 1) return true;
+            if (action == 3) {
+                pos -= 2;
+                return false;
+            }
+            marker = next_marker();
+        }
+    }
+
+    // A scan's kind: sequential, or one of the four progressive decoders.
     enum ScanKind { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
 
     void decode_scan() {
         int length = u16();
-        size_t start = pos;
         int ns = byte();
         if (ns < 1 || ns > 4 || length != 6 + 2 * ns) fail("an SOS segment of the wrong length");
         std::vector<Component*> scan;
@@ -624,61 +907,76 @@ struct Decoder {
             int id = byte(), t = byte();
             Component* found = nullptr;
             for (auto& c : comps)
-                if (c.id == id) found = &c;
+                if (c.id == id && std::find(scan.begin(), scan.end(), &c) == scan.end()) {
+                    found = &c;
+                    break;
+                }
             if (!found) fail("a scan of a component the frame lacks");
-            for (auto* s : scan)
-                if (s == found) fail("a scan that names a component twice");
             found->td = t >> 4;
             found->ta = t & 15;
-            if (found->td > 3 || found->ta > 3) fail("a scan with a bad Huffman table number");
             scan.push_back(found);
         }
         int ss = byte(), se = byte(), a = byte();
         int ah = a >> 4, al = a & 15;
-        ScanKind kind = kSequential;
-        if (!progressive) {
-            if (ss != 0 || se != 63 || a != 0) fail("a scan that is not sequential (Ss, Se, Ah/Al)");
-        } else {
-            // jdphuff.c start_pass_phuff_decoder's checks
-            bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
-            if ((ah != 0 && al != ah - 1) || al > 13)
-                bad = true;
-            if (bad) fail("a progressive scan with bad Ss, Se, Ah or Al");
-            kind = ss == 0 ? (ah ? kDcRefine : kDcFirst) : (ah ? kAcRefine : kAcFirst);
-        }
-        pos = start + length - 2;
-        // jdinput.c: a first scan of every component makes a one-scan
-        // sequential file (any later SOS is an error), decoded straight
-        // into samples; otherwise the coefficients wait for the last scan.
-        if (!frame_scanned)
+        scans++;
+        next_rst = 0;
+        if (!frame_scanned) {
+            setup();
             single_scan = !progressive && ns == ncomp;
-        else if (single_scan)
-            fail("a second scan after a scan of every component");
-        frame_scanned = true;
-        for (auto* c : scan) {
-            bool need_dc = kind == kSequential || kind == kDcFirst;
-            bool need_ac = kind == kSequential || kind == kAcFirst || kind == kAcRefine;
-            if ((need_dc && !dc[c->td].defined) || (need_ac && !ac[c->ta].defined))
-                fail("a scan with an undefined Huffman table");
-            if (!quant_defined[c->tq]) fail("a component with an undefined quantization table");
-            if (!c->scanned) {
-                std::memcpy(c->quant, quant[c->tq], sizeof(c->quant));
-                if (single_scan)
-                    c->plane.assign(size_t(c->bw) * 8 * c->bh * 8, 0);
-                else
-                    c->coef.assign(size_t(c->bw) * c->bh * 64, 0);
-            }
-            c->scanned = true;
-            if (progressive)
-                for (int k = ss; k <= se; k++) c->coef_bits[k] = al;
         }
+        frame_scanned = true;
         int blocks_per_mcu = 0;
         for (auto* c : scan) blocks_per_mcu += ns == 1 ? 1 : c->h * c->v;
         if (blocks_per_mcu > 10) fail("an MCU of more than 10 blocks");
+        if (lossless) return decode_lossless_scan(scan, ss, se, ah, al);
 
-        BitReader br{data, size, pos};
-        int pred[4] = {0, 0, 0, 0};
-        int eobrun = 0;
+        ScanKind kind = kSequential;
+        if (progressive) {
+            // start_pass_phuff_decoder's and jdarith.c start_pass's checks
+            bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+            if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+            if (bad) fail("a progressive scan with bad Ss, Se, Ah or Al");
+            kind = ss == 0 ? (ah ? kDcRefine : kDcFirst) : (ah ? kAcRefine : kAcFirst);
+        }  // a sequential scan's Ss, Se, Ah and Al only draw a warning
+        bool need_dc = kind == kSequential || kind == kDcFirst;
+        bool need_ac = kind == kSequential || kind == kAcFirst || kind == kAcRefine;
+        for (auto* c : scan) {
+            if (arithmetic) {
+                if (c->td > 15 || c->ta > 15) fail("a scan with a bad conditioning table number");
+            } else {
+                if ((need_dc && !usable(c->td, true)) || (need_ac && !usable(c->ta, false)))
+                    fail("a scan with an undefined or bad Huffman table");
+            }
+        }
+        // jdinput.c latch_quant_tables, and the coefficient buffer of a
+        // file of several scans (every component, zero until scanned)
+        for (auto* c : scan) {
+            if (c->scanned) continue;
+            if (c->tq > 3 || !quant_defined[c->tq])
+                fail("a component with an undefined quantization table");
+            std::memcpy(c->quant, quant[c->tq], sizeof(c->quant));
+            c->scanned = true;
+        }
+        for (auto& c : comps) {
+            if (single_scan && c.plane.empty())
+                c.plane.assign(size_t(c.stride) * c.bh * 8, 0);
+            else if (!single_scan && c.coef.empty())
+                c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+        }
+        if (progressive) {
+            for (auto* c : scan) {
+                for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
+                    if (k < 10) c->prev_bits[k] = scans > 1 ? c->coef_bits[k] : 0;
+                for (int k = ss; k <= se; k++) c->coef_bits[k] = al;
+            }
+        }
+        if (arithmetic) {
+            for (auto* c : scan) {
+                if (need_dc) std::memset(dc_stats[c->td], 0, 64);
+                if (kind == kSequential || ss) std::memset(ac_stats[c->ta], 0, 256);
+            }
+        }
+
         int64_t n_mcu, mx;
         if (ns == 1) {
             mx = scan[0]->wib;
@@ -687,25 +985,45 @@ struct Decoder {
             mx = mcux;
             n_mcu = mx * mcuy;
         }
-        int restarts_to_go = restart_interval, next_rst = 0;
+        const int rows_per_imcu = ns == 1 ? scan[0]->v : 1;  // MCU rows an iMCU row
+        BitReader br{data, size, pos};
+        ArithReader ar{data, size, pos};
+        int pred[4] = {0, 0, 0, 0}, context[4] = {0, 0, 0, 0};
+        int eobrun = 0;
+        uint8_t fixed = 113;
+        int restarts_to_go = restart_interval;
         for (int64_t m = 0; m < n_mcu; m++) {
             if (restart_interval) {
                 if (restarts_to_go == 0) {
-                    // process_restart: drop the bits left, read RSTn
-                    pos = br.pos;
-                    int marker = next_marker();
-                    if (marker != 0xD0 + next_rst)
-                        fail("corrupt entropy-coded data (a missing or wrong restart marker)");
-                    next_rst = (next_rst + 1) & 7;
-                    br.pos = pos;
-                    br.reset();
-                    for (int i = 0; i < 4; i++) pred[i] = 0;
+                    // process_restart: the bits left dropped, RSTn read,
+                    // predictions (and statistics) reset
+                    pos = arithmetic ? ar.pos : br.pos;
+                    bool resumed = read_restart_marker();
+                    if (arithmetic) {
+                        ar.pos = pos;
+                        ar.at_marker = !resumed;
+                        ar.restart();
+                        for (auto* c : scan) {
+                            if (need_dc) std::memset(dc_stats[c->td], 0, 64);
+                            if (kind == kSequential || ss) std::memset(ac_stats[c->ta], 0, 256);
+                        }
+                    } else {
+                        br.reset();
+                        br.pos = pos;
+                        if (resumed) br.insufficient = false;
+                    }
+                    for (int i = 0; i < 4; i++) pred[i] = context[i] = 0;
                     eobrun = 0;
                     restarts_to_go = restart_interval;
                 }
                 restarts_to_go--;
             }
             int64_t my = m / mx, mxx = m % mx;
+            // Once the data has run out, the rest of the segment is left
+            // as it is (zeros in a one-scan file); the MCU where it ran
+            // out is read to its end from zero bits.
+            const bool dead = br.insufficient;
+            if (!dead) last_good_imcu = my / rows_per_imcu;
             for (int si = 0; si < ns; si++) {
                 Component& c = *scan[si];
                 int nh = ns == 1 ? 1 : c.h, nv = ns == 1 ? 1 : c.v;
@@ -715,22 +1033,50 @@ struct Decoder {
                         if (single_scan) {
                             int16_t blk[64];
                             std::memset(blk, 0, sizeof(blk));
-                            decode_block(br, c, blk, pred[si]);
-                            if (row < c.hib && col < c.wib) {
-                                size_t stride = size_t(c.bw) * 8;
-                                idct_islow(blk, c.quant, c.plane.data() + row * 8 * stride + col * 8,
-                                           static_cast<int>(stride));
-                            }
+                            if (arithmetic)
+                                arith_sequential(ar, c, blk, pred[si], context[si], fixed);
+                            else if (!dead)
+                                decode_block(br, c, blk, pred[si]);
+                            if (row < c.hib && col < c.wib)
+                                idct_islow(blk, c.quant, c.plane.data() + row * 8 * c.stride + col * 8,
+                                           c.stride);
                             continue;
                         }
                         int16_t* blk = c.coef.data() + (row * c.bw + col) * 64;
+                        if (arithmetic) {
+                            switch (kind) {
+                                case kSequential:
+                                    arith_sequential(ar, c, blk, pred[si], context[si], fixed);
+                                    break;
+                                case kDcFirst:
+                                    if (!ar.error && arith_dc(ar, c, pred[si], context[si]))
+                                        blk[0] = static_cast<int16_t>(static_cast<unsigned>(pred[si]) << al);
+                                    break;
+                                case kDcRefine:
+                                    if (!ar.error && ar.decode(&fixed))
+                                        blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+                                    break;
+                                case kAcFirst:
+                                    if (!ar.error) arith_ac(ar, c, blk, ss, se, al, fixed);
+                                    break;
+                                case kAcRefine:
+                                    if (!ar.error) arith_ac_refine(ar, c, blk, ss, se, al, fixed);
+                                    break;
+                            }
+                            continue;
+                        }
+                        if (dead) continue;
                         switch (kind) {
                             case kSequential:
                                 decode_block(br, c, blk, pred[si]);
                                 break;
                             case kDcFirst: {  // decode_mcu_DC_first
                                 int s = br.decode(dc[c.td]);
-                                pred[si] += s ? extend(br.get(s), s) : 0;
+                                int diff = s ? extend(br.get(s), s) : 0;
+                                if ((pred[si] >= 0 && diff > INT_MAX - pred[si]) ||
+                                    (pred[si] < 0 && diff < INT_MIN - pred[si]))
+                                    fail("a DC coefficient out of range");
+                                pred[si] += diff;
                                 blk[0] = static_cast<int16_t>(static_cast<unsigned>(pred[si]) << al);
                                 break;
                             }
@@ -747,7 +1093,16 @@ struct Decoder {
                     }
             }
         }
-        pos = br.pos;
+        pos = arithmetic ? ar.pos : br.pos;
+        if (br.insufficient || br.bad_code || ar.error || (arithmetic && ar.pos >= size))
+            warned = true;
+    }
+
+    // A Huffman table that jpeg_make_d_derived_tbl takes for a scan.
+    bool usable(int t, bool is_dc) const {
+        if (t > 3) return false;
+        const HuffTable& h = is_dc ? dc[t] : ac[t];
+        return h.defined && !h.bad && (!is_dc || h.max_symbol <= (lossless ? 16 : 15));
     }
 
     void decode_block(BitReader& br, const Component& c, int16_t* blk, int& pred) {
@@ -755,7 +1110,7 @@ struct Decoder {
         const HuffTable& act = ac[c.ta];
         int s = br.decode(dct);
         int diff = s ? extend(br.get(s), s) : 0;
-        pred += diff;
+        pred = static_cast<int>(static_cast<unsigned>(pred) + static_cast<unsigned>(diff));
         blk[0] = static_cast<int16_t>(pred);
         for (int k = 1; k < 64; k++) {
             const HuffTable::FastAC& f = act.fast[br.peek16() >> 7];
@@ -812,7 +1167,8 @@ struct Decoder {
     }
 
     // jdphuff.c decode_mcu_AC_refine: one more bit of the band's
-    // nonzero coefficients, and the coefficients that become nonzero.
+    // nonzero coefficients, and the coefficients that become nonzero (a
+    // size other than 1 draws a warning and is read as 1).
     static void ac_refine(BitReader& br, const HuffTable& act, int16_t* blk, int ss, int se, int al,
                           int& eobrun) {
         const int p1 = 1 << al, m1 = -1 * (1 << al);
@@ -826,7 +1182,7 @@ struct Decoder {
                 int rs = br.decode(act);
                 int r = rs >> 4, s = rs & 15;
                 if (s) {
-                    if (s != 1) fail("corrupt entropy-coded data (a refinement value of more than 1 bit)");
+                    if (s != 1) br.bad_code = true;
                     s = br.get(1) ? p1 : m1;
                 } else if (r != 15) {
                     eobrun = 1 << r;
@@ -856,28 +1212,265 @@ struct Decoder {
         }
     }
 
-    void decode() {
-        read_header();
-        while (!done) {
-            int m = next_marker();
-            if (m < 0) break;  // no EOI: libjpeg's source inserts one
-            if (m == 0xDA) {
-                decode_scan();
-            } else {
-                handle_marker(m);
+    // jdarith.c's DC difference (F.2.4.1), conditioned by the last one's
+    // category and DAC's L and U; false on a magnitude overflow (the
+    // decoder then rests until the next restart).
+    bool arith_dc(ArithReader& ar, const Component& c, int& last_dc, int& context) {
+        uint8_t* stats = dc_stats[c.td];
+        uint8_t* st = stats + context;
+        if (ar.decode(st) == 0) {
+            context = 0;
+            return true;
+        }
+        int sign = ar.decode(st + 1);
+        st += 2 + sign;
+        int m = ar.decode(st);
+        if (m) {
+            st = stats + 20;
+            while (ar.decode(st)) {
+                if ((m <<= 1) == 0x8000) {
+                    ar.error = true;
+                    return false;
+                }
+                st++;
             }
         }
-        for (auto& c : comps)
-            if (!c.scanned) fail("truncated (a component without a scan)");
+        if (m < ((1 << dac_l[c.td]) >> 1))
+            context = 0;
+        else if (m > ((1 << dac_u[c.td]) >> 1))
+            context = 12 + sign * 4;
+        else
+            context = 4 + sign * 4;
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+            if (ar.decode(st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        last_dc = (last_dc + v) & 0xFFFF;
+        return true;
+    }
+
+    // jdarith.c's AC coefficients Ss..Se of one block (F.2.4.2, G.1.3.2),
+    // scaled by 2^al; false on a spectral or magnitude overflow.
+    bool arith_ac(ArithReader& ar, const Component& c, int16_t* blk, int ss, int se, int al,
+                  uint8_t& fixed) {
+        uint8_t* stats = ac_stats[c.ta];
+        const int kx = dac_k[c.ta];
+        for (int k = ss; k <= se; k++) {
+            uint8_t* st = stats + 3 * (k - 1);
+            if (ar.decode(st)) break;  // EOB
+            while (ar.decode(st + 1) == 0) {
+                st += 3;
+                if (++k > se) {
+                    ar.error = true;
+                    return false;
+                }
+            }
+            int sign = ar.decode(&fixed);
+            st += 2;
+            int m = ar.decode(st);
+            if (m && ar.decode(st)) {
+                m <<= 1;
+                st = stats + (k <= kx ? 189 : 217);
+                while (ar.decode(st)) {
+                    if ((m <<= 1) == 0x8000) {
+                        ar.error = true;
+                        return false;
+                    }
+                    st++;
+                }
+            }
+            int v = m;
+            st += 14;
+            while (m >>= 1)
+                if (ar.decode(st)) v |= m;
+            v += 1;
+            if (sign) v = -v;
+            blk[kZigzag[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+        }
+        return true;
+    }
+
+    // jdarith.c decode_mcu_AC_refine: past the previous stage's end of
+    // block an EOB decision, then a correction bit for each nonzero
+    // coefficient and a new one of +-2^al.
+    void arith_ac_refine(ArithReader& ar, const Component& c, int16_t* blk, int ss, int se, int al,
+                         uint8_t& fixed) {
+        uint8_t* stats = ac_stats[c.ta];
+        const int p1 = 1 << al, m1 = -1 * (1 << al);
+        int kex = se;
+        for (; kex > 0; kex--)
+            if (blk[kZigzag[kex]]) break;
+        for (int k = ss; k <= se; k++) {
+            uint8_t* st = stats + 3 * (k - 1);
+            if (k > kex && ar.decode(st)) break;
+            while (true) {
+                int16_t& coef = blk[kZigzag[k]];
+                if (coef) {
+                    if (ar.decode(st + 2)) coef = static_cast<int16_t>(coef + (coef < 0 ? m1 : p1));
+                    break;
+                }
+                if (ar.decode(st + 1)) {
+                    coef = static_cast<int16_t>(ar.decode(&fixed) ? m1 : p1);
+                    break;
+                }
+                st += 3;
+                if (++k > se) {
+                    ar.error = true;
+                    return;
+                }
+            }
+        }
+    }
+
+    // jdarith.c decode_mcu for one block of a sequential scan.
+    void arith_sequential(ArithReader& ar, const Component& c, int16_t* blk, int& last_dc,
+                          int& context, uint8_t& fixed) {
+        if (ar.error || !arith_dc(ar, c, last_dc, context)) return;
+        blk[0] = static_cast<int16_t>(last_dc);
+        arith_ac(ar, c, blk, 1, 63, 0, fixed);
+    }
+
+    // A lossless scan (jddiffct.c decompress_data, jdlhuff.c decode_mcus,
+    // jdlossls.c): each iMCU row's MCU rows decoded into differences
+    // (restarts at MCU rows; once the data has run out, a row of zeros
+    // and every predictor back to its first-row form), then each row
+    // undifferenced and shifted up by Pt.
+    void decode_lossless_scan(const std::vector<Component*>& scan, int psv, int se, int ah,
+                              int pt) {
+        if (psv < 1 || psv > 7 || se != 0 || ah != 0 || pt >= precision)
+            fail("a lossless scan with bad Ss, Se, Ah or Al");
+        for (auto* c : scan)
+            if (!usable(c->td, true)) fail("a scan with an undefined or bad Huffman table");
+        const int ns = static_cast<int>(scan.size());
+        const int64_t per_row = ns == 1 ? scan[0]->wib : mcux;
+        if (restart_interval % per_row) fail("a lossless restart interval of part of an MCU row");
+        const int64_t restart_rows = restart_interval / per_row;
+        for (auto& c : comps) {
+            if (c.plane.empty()) c.plane.assign(size_t(c.stride) * c.bh, 0);
+            c.first_row = true;  // start_pass_lossless, for every component
+        }
+        for (auto* c : scan) {
+            c->diff.assign(size_t(c->v) * c->stride, 0);
+            c->last.assign(size_t(c->stride), 0);
+        }
+        BitReader br{data, size, pos};
+        int64_t rows_to_go = restart_rows;
+        for (int64_t imcu = 0; imcu < mcuy; imcu++) {
+            const bool last_imcu = imcu == mcuy - 1;
+            const int mcu_rows = ns > 1 ? 1 : (last_imcu ? scan[0]->last_row_height : scan[0]->v);
+            for (int y = 0; y < mcu_rows; y++) {
+                if (restart_interval && rows_to_go == 0) {
+                    pos = br.pos;
+                    br.reset();
+                    bool resumed = read_restart_marker();
+                    br.pos = pos;
+                    if (resumed) br.insufficient = false;
+                    for (auto& c : comps) c.first_row = true;
+                    rows_to_go = restart_rows;
+                }
+                if (br.insufficient) {
+                    for (auto* c : scan)
+                        for (int r = 0; r < (ns > 1 ? c->v : 1); r++)
+                            std::fill_n(c->diff.begin() + size_t(ns > 1 ? r : y) * c->stride,
+                                        c->stride, 0);
+                    for (auto& c : comps) c.first_row = true;
+                } else {
+                    for (int64_t mx = 0; mx < per_row; mx++)
+                        for (auto* c : scan) {
+                            int nh = ns > 1 ? c->h : 1, nv = ns > 1 ? c->v : 1;
+                            for (int by = 0; by < nv; by++)
+                                for (int bx = 0; bx < nh; bx++) {
+                                    int s = br.decode(dc[c->td]);
+                                    int d = s == 16 ? 32768 : s ? extend(br.get(s), s) : 0;
+                                    c->diff[size_t(ns > 1 ? by : y) * c->stride + mx * nh + bx] = d;
+                                }
+                        }
+                }
+                if (restart_interval) rows_to_go--;
+            }
+            for (auto* c : scan) {
+                int rows = last_imcu ? c->last_row_height : c->v;
+                for (int r = 0; r < rows; r++)
+                    undifference(*c, c->diff.data() + size_t(r) * c->stride,
+                                 c->plane.data() + size_t(imcu * c->v + r) * c->stride, psv, pt);
+            }
+        }
+        pos = br.pos;
+        if (br.insufficient || br.bad_code) warned = true;
+        for (auto* c : scan) c->scanned = true;
+    }
+
+    // jdlossls.c: one row of a component from its differences.
+    void undifference(Component& c, const int32_t* d, uint8_t* out, int psv, int pt) {
+        int32_t* prev = c.last.data();
+        const int w = c.wib;
+        int ra;
+        if (c.first_row) {  // jpeg_undifference_first_row
+            ra = (d[0] + (1 << (precision - pt - 1))) & 0xFFFF;
+            prev[0] = ra;
+            for (int x = 1; x < w; x++) prev[x] = ra = (d[x] + ra) & 0xFFFF;
+            c.first_row = false;
+        } else if (psv == 1) {
+            ra = (d[0] + prev[0]) & 0xFFFF;
+            prev[0] = ra;
+            for (int x = 1; x < w; x++) prev[x] = ra = (d[x] + ra) & 0xFFFF;
+        } else {
+            int rb = prev[0], rc;
+            ra = (d[0] + rb) & 0xFFFF;
+            prev[0] = ra;
+            for (int x = 1; x < w; x++) {
+                rc = rb;
+                rb = prev[x];
+                int p;
+                switch (psv) {
+                    case 2: p = rb; break;
+                    case 3: p = rc; break;
+                    case 4: p = ra + rb - rc; break;
+                    case 5: p = ra + ((rb - rc) >> 1); break;
+                    case 6: p = rb + ((ra - rc) >> 1); break;
+                    default: p = (ra + rb) >> 1; break;
+                }
+                prev[x] = ra = (d[x] + p) & 0xFFFF;
+            }
+        }
+        for (int x = 0; x < w; x++) out[x] = static_cast<uint8_t>(prev[x] << pt);
+    }
+
+    // The whole file: the headers, then the scans, of a file of several
+    // scans up to EOI (the fake EOI past its end included); the markers
+    // after the scan of a one-scan file are never read (cv2 has its page
+    // before jpeg_finish_decompress reads them).
+    void decode() {
+        read_header();
+        while (true) {
+            decode_scan();
+            if (single_scan) return;
+            int m = next_marker();
+            while (m != 0xDA) {
+                if (m == 0xD9) {
+                    // libjpeg-turbo's lossless decoder gives up on a
+                    // component that no scan reached
+                    for (const auto& c : comps)
+                        if (lossless && !c.scanned) fail("a lossless component without a scan");
+                    return;
+                }
+                handle_marker(m);
+                m = next_marker();
+            }
+        }
     }
 
     // The colour space libjpeg's default_decompress_parms guesses: 0
-    // gray, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK.
+    // gray, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK; without a JFIF or Adobe
+    // marker a lossless file of three components is RGB.
     int color_space() const {
         if (ncomp == 1) return 0;
         if (ncomp == 4) return adobe && adobe_transform != 0 ? 4 : 3;
         if (jfif) return 1;
         if (adobe) return adobe_transform == 0 ? 2 : 1;
+        if (lossless) return 2;
         if (comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B') return 2;
         return 1;
     }
@@ -890,6 +1483,7 @@ struct Decoder {
         if (!progressive) return false;
         bool useful = false;
         for (const auto& c : comps) {
+            if (!c.scanned) return false;
             for (int k = 0; k < 10; k++)
                 if (c.quant[kZigzag[k]] == 0) return false;
             if (c.coef_bits[0] < 0) return false;
@@ -906,7 +1500,7 @@ struct Decoder {
         bool smooth = smoothing_ok();
         for (auto& c : comps) {
             if (c.coef.empty()) continue;
-            int stride = c.bw * 8;
+            int stride = c.stride;
             c.plane.assign(size_t(stride) * c.bh * 8, 0);
             if (smooth) {
                 smooth_component(c);
@@ -928,12 +1522,12 @@ struct Decoder {
     // block are taken as libjpeg reaches them an iMCU row (v block
     // rows) at a time; the columns stop at the image's last block.
     void smooth_component(Component& c) {
-        const int* bits = c.coef_bits;
-        const bool change_dc = std::all_of(bits + 1, bits + 10, [](int b) { return b == -1; });
+        int prev[10];  // smoothing_ok's prev_coef_bits_latch
+        for (int k = 0; k < 10; k++) prev[k] = scans > 1 ? c.prev_bits[k] : -1;
         const int64_t q00 = c.quant[0], q01 = c.quant[1], q10 = c.quant[8], q20 = c.quant[16],
                       q11 = c.quant[9], q02 = c.quant[2], q03 = c.quant[3], q12 = c.quant[10],
                       q21 = c.quant[17], q30 = c.quant[24];
-        const int stride = c.bw * 8;
+        const int stride = c.stride;
         const int v = c.v, last_imcu = mcuy - 1;
         auto dc_at = [&](int row, int col) {
             return static_cast<int>(c.coef[(size_t(row) * c.bw + col) * 64]);
@@ -954,6 +1548,11 @@ struct Decoder {
             int imcu = row / v, b = row % v;
             int block_rows = imcu < last_imcu ? v : (c.hib % v ? c.hib % v : v);
             int image_row = imcu * block_rows + b, image_rows = block_rows * mcuy;
+            // Past the last iMCU row a cut-short scan reached, the
+            // precision the scans before it left.
+            const int* bits = imcu > last_good_imcu ? prev : c.coef_bits;
+            const bool change_dc =
+                std::all_of(bits + 1, bits + 10, [](int b) { return b == -1; });
             int prev = image_row > 0 ? row - 1 : row;
             int prev2 = image_row > 1 ? row - 2 : prev;
             int next = image_row < image_rows - 1 ? row + 1 : row;
@@ -1043,14 +1642,16 @@ struct Decoder {
     // Output row y of component c upsampled to the image's width (jdsample.c).
     void upsample_row(const Component& c, int y, uint8_t* out) const {
         const std::vector<uint8_t>& plane = c.plane;
-        int stride = c.bw * 8;
+        int stride = c.stride;
         int hx = maxh / c.h, vy = maxv / c.v;
         const uint8_t* row = plane.data() + size_t(y / vy) * stride;
         if (hx == 1 && vy == 1) {
             std::memcpy(out, row, width);
             return;
         }
-        bool fancy_h = hx == 2 && c.dw > 2;
+        // jdsample.c: fancy upsampling needs DCT blocks (lossless files
+        // take the box), and h2 rows of more than two samples
+        bool fancy = !lossless, fancy_h = fancy && hx == 2 && c.dw > 2;
         if (hx == 2 && vy == 1 && fancy_h) {  // h2v1_fancy_upsample
             int n = c.dw;
             for (int i = 0; i < n; i++) {
@@ -1062,7 +1663,7 @@ struct Decoder {
             }
             return;
         }
-        if (hx == 1 && vy == 2) {  // h1v2_fancy_upsample
+        if (hx == 1 && vy == 2 && fancy) {  // h1v2_fancy_upsample
             int r = y / 2;
             int near = (y & 1) ? std::min(r + 1, c.dh - 1) : std::max(r - 1, 0);
             int bias = (y & 1) ? 2 : 1;
@@ -1094,10 +1695,6 @@ struct Decoder {
     }
 
     void output_bgr(uint8_t* out) {
-        int space = color_space();
-        for (const auto& c : comps)
-            if (maxh % c.h || maxv % c.v)
-                fail("fractional sampling factors (libjpeg cannot upsample them)");
         inverse_dct();
         std::vector<uint8_t> rows(size_t(width) * ncomp);
         for (int y = 0; y < height; y++) {
@@ -1163,49 +1760,6 @@ const uint8_t kStdChroma[64] = {
     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
-// jstdhuff.c: bits[1..16], then the values
-const uint8_t kDcLumaBits[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
-const uint8_t kDcChromaBits[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
-const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-const uint8_t kAcLumaBits[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
-const uint8_t kAcLumaVals[162] = {
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
-    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
-    0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
-    0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
-    0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
-    0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
-    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
-    0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
-    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
-    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
-    0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
-    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
-const uint8_t kAcChromaBits[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
-const uint8_t kAcChromaVals[162] = {
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
-    0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
-    0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
-    0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
-    0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
-    0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
-    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
-    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
-    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
-    0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
-    0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
-    0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
-
-HuffTable std_table(const uint8_t* bits, const uint8_t* vals, bool is_dc) {
-    HuffTable t;
-    std::memcpy(t.bits, bits, 17);
-    int n = 0;
-    for (int l = 1; l <= 16; l++) n += bits[l];
-    std::memcpy(t.vals, vals, size_t(n));
-    build_table(t, is_dc);
-    return t;
-}
-
 // jcparam.c jpeg_quality_scaling + jpeg_add_quant_table(force_baseline)
 void scaled_table(const uint8_t* base, int quality, uint16_t* out) {
     quality = std::min(100, std::max(1, quality));
@@ -1481,7 +2035,7 @@ extern "C" {
 // components, out[3]/out[4] the offset and length of the TIFF block of
 // the first APP1 "Exif\0\0" segment before the first scan (-1, 0 when
 // there is none).
-// Returns 0, or -1 with the reason in err.
+// Returns 0, or -1 (cv2.imread returns None) with the reason in err.
 int32_t jpeg_header(const uint8_t* data, int64_t size, int64_t* out, char* err, int32_t errlen) {
     try {
         Decoder d{data, static_cast<size_t>(size)};
@@ -1499,7 +2053,9 @@ int32_t jpeg_header(const uint8_t* data, int64_t size, int64_t* out, char* err, 
 }
 
 // The file decoded into out, a (height, width, 3) BGR uint8 buffer of
-// the size jpeg_header gives.  Returns 0, or -1 with the reason in err.
+// the size jpeg_header gives.  Returns 0; 1 where libjpeg would have
+// warned of data cut short or corrupt (the page is written all the
+// same); or -1, where cv2.imread returns None, with the reason in err.
 int32_t jpeg_decode_bgr(const uint8_t* data, int64_t size, uint8_t* out, int32_t height,
                         int32_t width, char* err, int32_t errlen) {
     try {
@@ -1507,7 +2063,7 @@ int32_t jpeg_decode_bgr(const uint8_t* data, int64_t size, uint8_t* out, int32_t
         d.decode();
         if (d.height != height || d.width != width) fail("the output buffer has another size");
         d.output_bgr(out);
-        return 0;
+        return d.warned ? 1 : 0;
     } catch (const Failure& f) {
         set_error(f, err, errlen);
         return -1;

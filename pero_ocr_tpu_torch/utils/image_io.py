@@ -6,11 +6,14 @@
 OpenCV 5 returns for the formats it reads here:
 
 - **JPEG** (the C++ codec of ``csrc/jpeg.cpp``, bound in
-  :mod:`pero_ocr_tpu_torch.utils.jpeg`): sequential and progressive
-  Huffman, 8-bit, gray, three components at any sampling or four (CMYK
-  or YCCK, turned into BGR as OpenCV turns them), restart intervals;
-  libjpeg-turbo's integer IDCT, block smoothing of progressive files
-  cut short, fancy upsampling and YCbCr tables.
+  :mod:`pero_ocr_tpu_torch.utils.jpeg`): every JPEG file OpenCV reads.
+  Sequential and progressive, Huffman or arithmetic coded, 8-bit, gray,
+  three components at any sampling or four (CMYK or YCCK, turned into
+  BGR as OpenCV turns them), restart intervals; lossless (Huffman,
+  predictors 1-7, 2 to 8 bits, RGB or CMYK); libjpeg-turbo's integer
+  IDCT, block smoothing of progressive files cut short, fancy upsampling
+  and YCbCr tables; files cut short or corrupt read as libjpeg reads
+  them (grey past the cut of a one-scan file).
 - **PNG** (numpy and ``zlib``): every colour type and bit depth (1, 2,
   4, 8 and 16), interlaced (Adam7) or not, all five row filters.  As
   libpng expands them for OpenCV, 16-bit samples keep their high byte,
@@ -47,18 +50,18 @@ unreadable tag turns nothing, as in OpenCV.  TIFF pages are turned by
 their Orientation tag as OpenCV 5 turns them (see
 :mod:`~pero_ocr_tpu_torch.utils.tiff`).
 
-What OpenCV reads and this module does not (lossless, hierarchical,
-arithmetic or 12-bit JPEG; truncated or corrupt JPEG or TIFF data; TIFF
-of the compressions and photometrics that
-:mod:`~pero_ocr_tpu_torch.utils.tiff` lists; JPEG 2000 with packed
-packet headers (PPM/PPT), HTJ2K or Part 2 extensions; WebP, GIF,
-AVIF, HDR, PFM and the rest) raises ``ValueError`` naming the file and
-the ROADMAP item; what OpenCV returns None for (2-bit TIFF, a
-non-square TIFF page turned by Orientation 5-8, a BMP or PAM header
-OpenCV rejects, a gray JPEG 2000 codestream without a JP2 colour box,
-a CMYK, offset, subsampled or truncated JPEG 2000 file, ...) raises
-``ValueError`` saying "Unable to read image", as the JAX command line
-does.  Nothing is skipped.
+What OpenCV reads and this module does not (truncated or corrupt TIFF
+data, JPEG strips and tiles of TIFF among them; TIFF of the compressions
+and photometrics that :mod:`~pero_ocr_tpu_torch.utils.tiff` lists; JPEG
+2000 with packed packet headers (PPM/PPT), HTJ2K or Part 2 extensions;
+WebP, GIF, AVIF, HDR, PFM and the rest) raises ``ValueError`` naming the
+file and the ROADMAP item; what OpenCV returns None for (hierarchical,
+12-bit, arithmetic lossless, gray or YCbCr lossless JPEG and JPEG with
+broken headers; 2-bit TIFF, a non-square TIFF page turned by
+Orientation 5-8, a BMP or PAM header OpenCV rejects, a gray JPEG 2000
+codestream without a JP2 colour box, a CMYK, offset, subsampled or
+truncated JPEG 2000 file, ...) raises ``ValueError`` saying "Unable to
+read image", as the JAX command line does.  Nothing is skipped.
 
 :func:`encode_jpeg` and :func:`imwrite_jpeg` write what
 ``cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, q])`` and
@@ -75,7 +78,7 @@ from typing import Optional
 
 import numpy as np
 
-from pero_ocr_tpu_torch import not_read
+from pero_ocr_tpu_torch import not_read, unreadable
 from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg, jpeg_header
 from pero_ocr_tpu_torch.utils import bmp, jpeg2000, tiff
 
@@ -89,13 +92,16 @@ def imread(path: str) -> np.ndarray:
     """``cv2.imread(path, cv2.IMREAD_COLOR)`` for JPEG, JPEG 2000, PNG,
     PNM, PAM, TIFF and BMP, told apart by their first bytes as OpenCV tells them:
     a BGR uint8 (H, W, 3) array, turned by its EXIF or TIFF
-    orientation.  Raises ``ValueError`` for other or broken files (where
-    cv2 returns None, or for data it would fill with grey)."""
+    orientation.  Raises ``ValueError`` for other or broken files: "Unable
+    to read image" where cv2 returns None, item 15's title for what is
+    not ported."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
         return apply_orientation(decode_png(data, path), exif_orientation(png_exif(data, path)))
     if data[:2] == b"\xff\xd8":
+        if data[2:3] != b"\xff":  # OpenCV's JPEG signature is FF D8 FF
+            raise unreadable(path, "a file that starts FF D8 without an FF after it")
         exif = jpeg_header(data, path)[3]
         return apply_orientation(decode_jpeg(data, path), exif_orientation(exif))
     if data[:1] == b"P" and data[1:2] in b"123456" and len(data) > 2:

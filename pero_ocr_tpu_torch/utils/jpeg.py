@@ -5,17 +5,24 @@ with the host compiler on first use
 failed build raises.  Nothing falls back to Python or to another
 library.
 
-:func:`decode_jpeg` is ``cv2.imread(path, cv2.IMREAD_COLOR)`` of a
-sequential or progressive Huffman JPEG of one, three or four components
-(CMYK or YCCK, turned into BGR as OpenCV turns them) before the EXIF
-orientation (which :mod:`pero_ocr_tpu_torch.utils.image_io` applies for
-JPEG and PNG alike); progressive files that stop short of full
-precision are smoothed as libjpeg smooths them.  :func:`encode_jpeg` is
-``cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, quality])``.
-Both are bit for bit what OpenCV 5's libjpeg-turbo gives.  Lossless,
-hierarchical (SOF6 among them) and arithmetic coding, samples other
-than 8-bit, and truncated or corrupt data raise :func:`refused`'s
-``ValueError``.  :data:`calls` counts each C function's calls.
+:func:`decode_jpeg` is ``cv2.imread(path, cv2.IMREAD_COLOR)`` of a JPEG
+file before the EXIF orientation (which
+:mod:`pero_ocr_tpu_torch.utils.image_io` applies for JPEG and PNG
+alike), bit for bit what OpenCV 5's libjpeg-turbo gives, for every JPEG
+file OpenCV reads: sequential and progressive, Huffman or arithmetic
+coded, and lossless (Huffman, 2 to 8 bits, RGB or CMYK); one, three or
+four components (CMYK or YCCK, turned into BGR as OpenCV turns them);
+progressive files that stop short of full precision smoothed as libjpeg
+smooths them; files cut short or corrupt read as libjpeg reads them
+(grey past the cut of a one-scan file, bytes before a marker skipped,
+lost restart markers resynchronized).  Where cv2 returns None
+(hierarchical or arithmetic lossless coding, other sample precisions,
+gray or YCbCr lossless files, two components, broken headers, a file of
+several scans broken before its EOI) it raises
+:func:`pero_ocr_tpu_torch.unreadable`'s "Unable to read image"
+``ValueError``.  :func:`encode_jpeg` is ``cv2.imencode(".jpg", img,
+[cv2.IMWRITE_JPEG_QUALITY, quality])``.  :data:`calls` counts each C
+function's calls.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from pero_ocr_tpu_torch import IMAGES
+from pero_ocr_tpu_torch import unreadable
 from pero_ocr_tpu_torch.utils import kernels
 
 calls = collections.Counter()  # C function name -> calls through these bindings
@@ -51,14 +58,6 @@ def get_library() -> ctypes.CDLL:
     return lib
 
 
-def refused(path: str, what: str) -> ValueError:
-    """The error for a JPEG file the codec does not read."""
-    return ValueError(
-        f"{path}: a JPEG file with {what} cannot be read by pero_ocr_tpu_torch "
-        f"(ROADMAP.md, queue 1: '{IMAGES}')"
-    )
-
-
 def _buffer(data: bytes):
     return ctypes.cast(ctypes.c_char_p(data), _U8P)
 
@@ -72,23 +71,28 @@ def jpeg_header(data: bytes, path: str = "<jpeg>") -> Tuple[int, int, int, Optio
     out = (_I64 * 5)()
     err = ctypes.create_string_buffer(_ERR)
     if lib.jpeg_header(_buffer(data), len(data), out, err, _ERR) != 0:
-        raise refused(path, err.value.decode())
+        raise unreadable(path, f"this JPEG file ({err.value.decode()})")
     exif = data[out[3]:out[3] + out[4]] if out[3] >= 0 else None
     return int(out[0]), int(out[1]), int(out[2]), exif
 
 
-def decode_jpeg(data: bytes, path: str = "<jpeg>") -> np.ndarray:
-    """A JPEG file's bytes -> BGR uint8 (H, W, 3), EXIF
-    orientation not applied.  Raises ``ValueError`` naming ``path`` and
-    the ROADMAP item for what the codec does not read."""
+def decode_jpeg(data: bytes, path: str = "<jpeg>", strict: bool = False) -> np.ndarray:
+    """A JPEG file's bytes -> BGR uint8 (H, W, 3), EXIF orientation not
+    applied.  Raises "Unable to read image" where cv2 returns None;
+    with ``strict``, also where libjpeg warns of data cut short or
+    corrupt (a TIFF file's JPEG strips and tiles, whose cut-short
+    reading is libtiff's)."""
     height, width, _, _ = jpeg_header(data, path)
     lib = get_library()
     calls["jpeg_decode_bgr"] += 1
     out = np.empty((height, width, 3), np.uint8)
     err = ctypes.create_string_buffer(_ERR)
-    if lib.jpeg_decode_bgr(_buffer(data), len(data), out.ctypes.data_as(_U8P), height, width,
-                           err, _ERR) != 0:
-        raise refused(path, err.value.decode())
+    rc = lib.jpeg_decode_bgr(_buffer(data), len(data), out.ctypes.data_as(_U8P), height, width,
+                             err, _ERR)
+    if rc < 0:
+        raise unreadable(path, f"this JPEG file ({err.value.decode()})")
+    if rc and strict:
+        raise ValueError(f"{path}: JPEG data cut short or corrupt")
     return out
 
 

@@ -67,7 +67,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from pero_ocr_tpu_torch import not_read as refused
+from pero_ocr_tpu_torch import not_read as refused, unreadable
 from pero_ocr_tpu_torch.utils import kernels
 from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg
 
@@ -113,12 +113,6 @@ _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 # mirrors each strip or tile for, and the EXIF turn OpenCV applies then.
 _MIRRORED = (2, 3, 6, 7)
 _THEN = {1: 1, 2: 1, 3: 4, 4: 4, 5: 5, 6: 7, 7: 6, 8: 8}
-
-
-def unreadable(path: str, what: str) -> ValueError:
-    """The error for a file that ``cv2.imread`` returns None for: the
-    JAX command line's "Unable to read image"."""
-    return ValueError(f'Unable to read image "{path}": OpenCV 5 returns None for {what}')
 
 
 def is_tiff(data: bytes) -> bool:
@@ -341,7 +335,7 @@ def _decode_chunk(raw: bytes, compression: int, cw: int, rows: int, bps: int, ns
                 raise refused(path, "a JPEG TIFF file of subsampled RGB components")
             raw = raw[:2] + _ADOBE_RGB + raw[2:]
         try:
-            bgr = decode_jpeg(raw, path)
+            bgr = decode_jpeg(raw, path, strict=True)
         except ValueError as e:
             raise refused(path, f"a JPEG TIFF file whose strip or tile does not decode "
                                 f"({e})") from None

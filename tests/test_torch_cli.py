@@ -849,6 +849,47 @@ def test_cli_reads_jpeg2000_pages_as_png(bundle, tmp_path, float32_parsenets, to
     assert lines >= 4
 
 
+@pytest.mark.parametrize("fast", [False, True], ids=["staged", "fast_pipeline"])
+def test_cli_reads_arithmetic_and_cut_short_jpeg_pages_as_png(bundle, tmp_path, float32_parsenets,
+                                                              torch_threads_share, fast):
+    """The port's command line on a folder of an arithmetic-coded JPEG
+    page (cv2's coefficients of the page re-coded by tests/jpeg_files.py)
+    and a baseline JPEG page cut short past its first text lines writes
+    the Page XML it writes for cv2's own decodes of the two files as PNG
+    pages, stage by stage and on the fast path."""
+    from tests.jpeg_files import arithmetic_file, quant_bodies, read_coefficients
+
+    folders = {"jpeg": tmp_path / "jpeg", "png": tmp_path / "png"}
+    for folder in folders.values():
+        folder.mkdir()
+    for name in ("page-0", "page-1"):
+        page = cv2.imread(str(bundle / "images" / f"{name}.png"), 1)
+        data = cv2.imencode(".jpg", page, [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
+        if name == "page-0":
+            frame, height, width, coefs, segs, _ = read_coefficients(data)
+            data = arithmetic_file(frame, height, width, coefs, quant_bodies(segs))
+            assert data[data.index(b"\xff\xc9") + 1] == 0xC9
+        else:
+            data = data[:len(data) * 3 // 4]
+        (folders["jpeg"] / f"{name}.jpg").write_bytes(data)
+        decoded = cv2.imread(str(folders["jpeg"] / f"{name}.jpg"), 1)
+        if name == "page-1":
+            assert (decoded[-8:] == 128).all() and not (decoded[:8] == 128).all()
+        cv2.imwrite(str(folders["png"] / f"{name}.png"), decoded)
+    ini = staged_config(bundle, tmp_path) if not fast else bundle / "config.ini"
+    for kind, folder in folders.items():
+        random.seed(0)
+        _run_port(["-c", str(ini), "-i", str(folder), "--device", "cpu",
+                   "--output-xml-path", str(tmp_path / f"{kind}_xml")]
+                  + (["--fast-pipeline"] if fast else []))
+    lines = {}
+    for name in ("page-0", "page-1"):
+        got = (tmp_path / "jpeg_xml" / f"{name}.xml").read_text(encoding="utf-8")
+        assert_xml_equal(got, (tmp_path / "png_xml" / f"{name}.xml").read_text(encoding="utf-8"))
+        lines[name] = got.count("<TextLine")
+    assert lines["page-0"] >= 3 and lines["page-1"] >= 1
+
+
 # The command lines' logits and ALTO files.  Held to: equal Page XML
 # (timestamps masked, conf within 0.001); per logits file the same line
 # ids, charsets and logit_coords, the same sparsity pattern and values

@@ -41,6 +41,10 @@ import pytest
 from pero_ocr_tpu_torch import IMAGES
 from pero_ocr_tpu_torch.utils import jpeg
 from pero_ocr_tpu_torch.utils.image_io import encode_jpeg, imread, imwrite_jpeg
+from tests.jpeg_files import (
+    JFIF, adobe, arithmetic_file, huffman_file, lossless_file, progressive_script,
+    quant_bodies, read_coefficients, huffman_tables as _huffman, segment as _segment,
+)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jpeg")
 SAMPLING = {  # cv2's IMWRITE_JPEG_SAMPLING_FACTOR values
@@ -98,103 +102,8 @@ def assert_reads_like_cv2(tmp_path, data: bytes, name="page.jpg"):
 
 
 # ----------------------------------------------------------------------
-# A baseline entropy codec in Python, for files cv2 does not write.
-def segments(data: bytes):
-    """The marker segments of a JPEG file up to its first SOS: [(marker,
-    body)], and the entropy-coded data after that SOS up to EOI."""
-    out, pos = [], 2
-    while True:
-        marker = data[pos + 1]
-        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
-        out.append((marker, data[pos + 4:pos + 2 + length]))
-        pos += 2 + length
-        if marker == 0xDA:
-            return out, data[pos:data.rindex(b"\xff\xd9")]
-
-
-def _huffman(body: bytes):
-    """A DHT body -> {(class, id): (codes {(length, code): symbol},
-    sizes {symbol: (length, code)})}."""
-    tables, pos = {}, 0
-    while pos < len(body):
-        tc, counts = body[pos], body[pos + 1:pos + 17]
-        vals = body[pos + 17:pos + 17 + sum(counts)]
-        pos += 17 + sum(counts)
-        codes, code, k = {}, 0, 0
-        for length in range(1, 17):
-            for _ in range(counts[length - 1]):
-                codes[(length, code)] = vals[k]
-                code, k = code + 1, k + 1
-            code <<= 1
-        tables[(tc >> 4, tc & 15)] = (codes, {s: lc for lc, s in codes.items()},
-                                     bytes([tc]) + counts + vals)
-    return tables
-
-
-def read_coefficients(data: bytes):
-    """A one-scan baseline file without restarts (cv2's output) ->
-    (frame: [(id, h, v, tq)], height, width, {component index: (bh, bw,
-    64) int zigzag coefficients}, the segments)."""
-    segs, entropy = segments(data)
-    tables = {}
-    for marker, body in segs:
-        if marker == 0xC4:
-            tables.update(_huffman(body))
-        if marker == 0xC0:
-            height, width, n = struct.unpack(">HHB", body[1:6])
-            frame = [tuple(body[6 + 3 * i:9 + 3 * i]) for i in range(n)]
-            frame = [(i, hv >> 4, hv & 15, tq) for i, hv, tq in frame]
-        if marker == 0xDA:
-            scan = [(body[1 + 2 * i], body[2 + 2 * i]) for i in range(body[0])]
-    bits = "".join(f"{b:08b}" for b in entropy.replace(b"\xff\x00", b"\xff"))
-    pos = 0
-
-    def symbol(codes):
-        nonlocal pos
-        for length in range(1, 17):
-            key = (length, int(bits[pos:pos + length], 2))
-            if key in codes:
-                pos += length
-                return codes[key]
-        raise ValueError("bad code")
-
-    def value(s):
-        nonlocal pos
-        if s == 0:
-            return 0
-        v = int(bits[pos:pos + s], 2)
-        pos += s
-        return v if v >= 1 << (s - 1) else v - (1 << s) + 1
-
-    maxh, maxv = max(c[1] for c in frame), max(c[2] for c in frame)
-    mcux, mcuy = -(-width // (8 * maxh)), -(-height // (8 * maxv))
-    coefs = {i: np.zeros((mcuy * c[2], mcux * c[1], 64), int) for i, c in enumerate(frame)}
-    pred = [0] * len(frame)
-    index = {c[0]: i for i, c in enumerate(frame)}
-    for my in range(mcuy):
-        for mx in range(mcux):
-            for cid, t in scan:
-                i = index[cid]
-                _, h, v, _ = frame[i]
-                for by in range(v):
-                    for bx in range(h):
-                        blk = coefs[i][my * v + by, mx * h + bx]
-                        pred[i] += value(symbol(tables[(0, t >> 4)][0]))
-                        blk[0] = pred[i]
-                        k = 1
-                        while k < 64:
-                            rs = symbol(tables[(1, t & 15)][0])
-                            if rs & 15:
-                                k += rs >> 4
-                                blk[k] = value(rs & 15)
-                            elif rs != 0xF0:
-                                break
-                            else:
-                                k += 15
-                            k += 1
-    return frame, height, width, coefs, segs, tables
-
-
+# A baseline entropy codec in Python, for files cv2 does not write (the
+# reader of cv2's coefficients is tests/jpeg_files.py's).
 def _encode_scan(blocks, dc, ac) -> bytes:
     """Blocks in order -> entropy-coded bytes, stuffed and padded."""
     out, pred = [], 0
@@ -229,10 +138,6 @@ def _encode_scan(blocks, dc, ac) -> bytes:
     stream += "1" * (-len(stream) % 8)
     raw = bytes(int(stream[i:i + 8], 2) for i in range(0, len(stream), 8))
     return raw.replace(b"\xff", b"\xff\x00")
-
-
-def _segment(marker, body):
-    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
 
 def assemble(frame, height, width, coefs, tables, quant_bodies, *, apps=(), ids=None):
@@ -408,13 +313,6 @@ def four_component_file(h, w, sampling, apps, progressive=False, seed=1) -> byte
         return assemble_progressive(frame, height, width, coefs, quant, apps=apps)
     tables = read_coefficients(cv2_jpeg(sample_image(h, w, seed=seed), 90, sampling))[5]
     return assemble(frame, height, width, coefs, tables, quant, apps=apps)
-
-
-JFIF = (0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-
-
-def adobe(transform):
-    return (0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([transform]))
 
 
 # ----------------------------------------------------------------------
@@ -641,30 +539,44 @@ def test_round_trip_through_the_port():
 
 
 # ----------------------------------------------------------------------
-# Refusals
-def _refused(tmp_path, data, what):
-    path = tmp_path / "scan.jpg"
+# What cv2 returns None for, and files cut short or corrupt: each file
+# gives ``cv2.imread(path, 1)``'s bytes, or "Unable to read image"
+# where that is None; no JPEG error names item 15.
+def assert_like_cv2(tmp_path, data: bytes, name="scan.jpg"):
+    """imread of ``data`` equals cv2.imread, page or None; returns the
+    page or None."""
+    path = tmp_path / name
     path.write_bytes(data)
-    with pytest.raises(ValueError, match=what) as e:
-        imread(str(path))
-    assert str(path) in str(e.value) and IMAGES in str(e.value)
+    want = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    if want is None:
+        with pytest.raises(ValueError, match="Unable to read image") as e:
+            imread(str(path))
+        assert str(path) in str(e.value) and IMAGES not in str(e.value)
+        return None
+    got = imread(str(path))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    return got
 
 
-def test_refuses_progressive(tmp_path):
-    """Progressive Huffman files (SOF2) read as cv2 reads them; the
-    progressive codings that stay refused are differential (SOF6,
-    hierarchical) and arithmetic (SOF10)."""
+def test_progressive_relabelled_codings_equal_cv2(tmp_path):
+    """A progressive Huffman file (SOF2) reads as cv2 reads it; marked
+    differential (SOF6, hierarchical) it is cv2's None, marked
+    arithmetic (SOF10) its Huffman bytes decode as arithmetic data to
+    cv2's very page."""
     data = cv2_jpeg(sample_image(24, 24), 90, progressive=True)
     assert b"\xff\xc2" in data
     assert_reads_like_cv2(tmp_path, data)
     sof = data.index(b"\xff\xc2")
-    for marker, what in ((0xC6, "hierarchical"), (0xCA, "arithmetic")):
-        _refused(tmp_path, data[:sof + 1] + bytes([marker]) + data[sof + 2:], what)
+    results = [assert_like_cv2(tmp_path, data[:sof + 1] + bytes([marker]) + data[sof + 2:])
+               for marker in (0xC6, 0xCA)]
+    assert results[0] is None and results[1] is not None
 
 
 def test_refuses_four_components(tmp_path):
     """A CMYK file (Adobe transform 0, four 1x1 components) reads as cv2
-    reads it; two components, which cv2 does not read, are refused."""
+    reads it; two components, which cv2 does not read, give "Unable to
+    read image"."""
     data = cv2_jpeg(sample_image(16, 24), 90, "444")
     frame, h, w, coefs, segs, tables = read_coefficients(data)
     quant = [body for marker, body in segs if marker == 0xDB]
@@ -673,33 +585,388 @@ def test_refuses_four_components(tmp_path):
     assert_reads_like_cv2(tmp_path, cmyk)
     two = assemble(frame[:2], h, w, coefs, tables, quant)
     assert cv2.imdecode(np.frombuffer(two, np.uint8), 1) is None
-    _refused(tmp_path, two, "2 components")
+    assert assert_like_cv2(tmp_path, two) is None
 
 
-def test_refuses_12_bit_and_other_codings(tmp_path):
+def test_12_bit_and_other_codings_equal_cv2(tmp_path):
+    """A baseline file marked 12-bit, lossless (SOF3, SOF7, SOF11),
+    arithmetic (SOF9) or hierarchical (SOF5, SOF6): each is what cv2
+    gives (None but for SOF9, whose Huffman bytes cv2 decodes as
+    arithmetic data)."""
     data = bytearray(cv2_jpeg(sample_image(16, 16), 90))
     sof = data.index(b"\xff\xc0")
     data[sof + 4] = 12
-    _refused(tmp_path, bytes(data), "12-bit")
-    for marker, what in ((0xC3, "lossless"), (0xC7, "lossless"), (0xC9, "arithmetic"),
-                         (0xCB, "arithmetic"), (0xC5, "hierarchical"), (0xC6, "hierarchical")):
+    assert assert_like_cv2(tmp_path, bytes(data)) is None
+    read = []
+    for marker in (0xC3, 0xC7, 0xC9, 0xCB, 0xC5, 0xC6):
         data[sof + 1], data[sof + 4] = marker, 8
-        _refused(tmp_path, bytes(data), what)
+        if assert_like_cv2(tmp_path, bytes(data)) is not None:
+            read.append(marker)
+    assert read == [0xC9]
 
 
-def test_refuses_truncated_and_corrupt_data(tmp_path):
+def test_truncated_and_corrupt_data_equal_cv2(tmp_path):
+    """Cut at half its length the page reads as cv2 reads it, grey (128)
+    from the cut on; cut after the scan header, all grey; cut inside
+    the headers, None; a wrong restart marker, a run of ones (a code not
+    in the tables) and an empty file of SOI and EOI as cv2 gives them."""
     data = cv2_jpeg(sample_image(64, 64), 95, "420")
     sos = data.index(b"\xff\xda")
-    _refused(tmp_path, data[:sos + (len(data) - sos) // 2], "truncated")
-    _refused(tmp_path, data[:sos + 8], "truncated")
-    _refused(tmp_path, data[:100], "truncated")
+    half = assert_like_cv2(tmp_path, data[:sos + (len(data) - sos) // 2])
+    full = cv2.imdecode(np.frombuffer(data, np.uint8), 1)
+    assert (half[56:] == 128).all() and np.array_equal(half[:24], full[:24])
+    empty = assert_like_cv2(tmp_path, data[:sos + 14])  # the first MCU from zero bits
+    assert (empty[16:] == 128).all() and (empty[:, 16:] == 128).all()
+    assert assert_like_cv2(tmp_path, data[:sos + 8]) is None
+    assert assert_like_cv2(tmp_path, data[:100]) is None
     restarts = cv2_jpeg(sample_image(64, 64), 95, "420", restart=1)
-    _refused(tmp_path, restarts.replace(b"\xff\xd1", b"\xff\xd5", 1), "restart marker")
-    # A run of ones in the data: a 16-bit code the tables do not hold.
+    assert_like_cv2(tmp_path, restarts.replace(b"\xff\xd1", b"\xff\xd5", 1))
     broken = data[:sos + 40] + b"\xff\x00" * 12 + data[sos + 64:]
-    _refused(tmp_path, broken, "corrupt|truncated")
-    with pytest.raises(ValueError):
+    assert assert_like_cv2(tmp_path, broken) is not None
+    assert assert_like_cv2(tmp_path, b"\xff\xd8\xff\xd9") is None
+    with pytest.raises(ValueError, match="Unable to read image"):
         jpeg.decode_jpeg(b"\xff\xd8\xff\xd9")
+
+
+CUT_SOURCES = ["baseline", "baseline_rst2", "progressive", "arithmetic", "arithmetic_prog",
+               "lossless"]
+
+
+def cut_source(kind: str) -> bytes:
+    img = sample_image(27, 35, seed=31)
+    if kind.startswith("baseline"):
+        return cv2_jpeg(img, 90, "420", restart=2 if kind.endswith("rst2") else None)
+    if kind == "progressive":
+        return cv2_jpeg(img, 90, "420", restart=1, progressive=True)
+    if kind == "lossless":
+        return lossless_file([img[:, :, 2], img[:, :, 1], img[:, :, 0]], psv=4, pt=1,
+                             restart_rows=3)
+    frame, h, w, coefs, segs, _ = read_coefficients(cv2_jpeg(img, 90, "420"))
+    return arithmetic_file(frame, h, w, coefs, quant_bodies(segs), restart=2,
+                           script=progressive_script(3) if kind == "arithmetic_prog" else None)
+
+
+@pytest.mark.parametrize("kind", CUT_SOURCES)
+def test_cut_short_equals_cv2(tmp_path, kind):
+    """A file cut at seeded offsets: inside the headers, inside the scan
+    header, every few bytes of the scans, just before EOI.  libjpeg
+    reads the fake EOI of its stdio source past the end: a one-scan
+    Huffman file grey from the MCU after the cut, a progressive one
+    smoothed with the previous scan's precision past the last iMCU row
+    the cut scan reached, arithmetic data decoded from zeros."""
+    data = cut_source(kind)
+    rng = np.random.default_rng(len(data))
+    sos = data.index(b"\xff\xda")
+    cuts = sorted({2, 3, sos - 5, sos + 3, sos + 9, len(data) - 1, len(data) - 2}
+                  | set(rng.integers(sos, len(data), 40).tolist()))
+    read = 0
+    for cut in cuts:
+        read += assert_like_cv2(tmp_path, data[:cut]) is not None
+    assert read >= 30
+
+
+CORRUPTIONS = ["flipped_bits", "extraneous_bytes", "rst_ahead", "rst_behind", "rst_missing",
+               "bytes_lost"]
+
+
+@pytest.mark.parametrize("how", CORRUPTIONS)
+@pytest.mark.parametrize("kind", ["baseline_rst2", "progressive", "arithmetic_prog", "lossless"])
+def test_corrupt_data_equals_cv2(tmp_path, kind, how):
+    """Seeded corruptions of the entropy-coded data: a bit flipped
+    (codes not in the tables among them), bytes inserted before a
+    marker (skipped by next_marker), an RSTn replaced by one ahead or
+    behind, or dropped (jpeg_resync_to_restart), bytes lost."""
+    data = cut_source(kind)
+    rng = np.random.default_rng(sum(map(ord, how)))
+    sos = data.index(b"\xff\xda") + 14
+    markers = [i for i in range(sos, len(data) - 1)
+               if data[i] == 0xFF and data[i + 1] not in (0x00, 0xFF)]
+    rsts = [i for i in markers if 0xD0 <= data[i + 1] <= 0xD7]
+    for _ in range(6):
+        b = bytearray(data)
+        if how == "flipped_bits":
+            at = int(rng.integers(sos, len(b) - 2))
+            b[at] ^= 1 << int(rng.integers(8))
+        elif how == "extraneous_bytes":
+            at = markers[int(rng.integers(len(markers)))]
+            b[at:at] = rng.integers(0, 255, int(rng.integers(1, 6)), dtype=np.uint8).tobytes()
+        elif how == "bytes_lost":
+            at = int(rng.integers(sos, len(b) - 2))
+            del b[at:at + int(rng.integers(1, 20))]
+        else:
+            at = rsts[int(rng.integers(len(rsts)))]
+            n = b[at + 1] - 0xD0
+            if how == "rst_missing":
+                del b[at:at + 2]
+            else:
+                b[at + 1] = 0xD0 + (n + (1 if how == "rst_ahead" else -2)) % 8
+        assert_like_cv2(tmp_path, bytes(b))
+
+
+def test_strict_decode_refuses_what_libjpeg_warns_of(tmp_path):
+    """``decode_jpeg(strict=True)`` (TIFF's JPEG strips and tiles) raises
+    where the data is cut short or corrupt; without it the page is
+    cv2.imread's (cv2.imdecode, reading from memory, gives None)."""
+    data = cv2_jpeg(sample_image(32, 32), 90, "420")
+    cut = data[:len(data) * 2 // 3]
+    np.testing.assert_array_equal(jpeg.decode_jpeg(cut), assert_like_cv2(tmp_path, cut))
+    with pytest.raises(ValueError, match="cut short or corrupt"):
+        jpeg.decode_jpeg(cut, strict=True)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(data, strict=True),
+                                  cv2.imdecode(np.frombuffer(data, np.uint8), 1))
+
+
+# ----------------------------------------------------------------------
+# Arithmetic coding (SOF9, SOF10)
+ARITH_SIZES = [(1, 1), (1, 40), (40, 1), (17, 3), (23, 41)]
+
+
+@pytest.mark.parametrize("restart", [0, 1, 2])
+@pytest.mark.parametrize("progressive", [False, True], ids=["sequential", "progressive"])
+@pytest.mark.parametrize("sampling", ["gray", *SAMPLING])
+def test_decode_arithmetic_equals_cv2(tmp_path, sampling, progressive, restart):
+    """cv2's coefficients re-coded arithmetic (one interleaved scan, or
+    libjpeg's 10- or 6-scan progression) at sizes 1x1 to 23x41: cv2
+    reads each to the pixels of the Huffman file they came from (the
+    writer is right), and the port reads each as cv2 does."""
+    for h, w in ARITH_SIZES:
+        img = sample_image(h, w, seed=h * 13 + w)
+        data = cv2_jpeg(img[:, :, 0] if sampling == "gray" else img, 90,
+                        None if sampling == "gray" else sampling)
+        frame, height, width, coefs, segs, _ = read_coefficients(data)
+        arith = arithmetic_file(frame, height, width, coefs, quant_bodies(segs), restart=restart,
+                                script=progressive_script(len(frame)) if progressive else None)
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), 1)
+        np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(arith, np.uint8), 1), want)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(arith), want, err_msg=f"{h}x{w}")
+    assert (b"\xff\xca" if progressive else b"\xff\xc9") in arith
+    assert_reads_like_cv2(tmp_path, arith)
+
+
+@pytest.mark.parametrize("case", ["dc_bounds", "ac_kx", "tables", "redefined"])
+def test_decode_arithmetic_conditioning(tmp_path, case):
+    """DAC segments (DC L and U, AC Kx) other than the defaults,
+    conditioning table numbers up to 15, and a DAC between scans."""
+    img = sample_image(33, 45, seed=32)
+    data = cv2_jpeg(img, 95, "420")
+    frame, height, width, coefs, segs, _ = read_coefficients(data)
+    kwargs = {"dc_bounds": {"dac": {("dc", 0): (3, 7), ("dc", 1): (0, 0)}},
+              "ac_kx": {"dac": {("ac", 0): 1, ("ac", 1): 63}},
+              "tables": {"tables": [(2, 3), (7, 9), (15, 15)],
+                         "dac": {("dc", 15): (1, 2), ("ac", 9): 20}},
+              "redefined": {"dac": {("ac", 0): 30}, "scan_dac": {4: {("ac", 0): 2}}}}[case]
+    want = cv2.imdecode(np.frombuffer(data, np.uint8), 1)
+    for script in (None, progressive_script(3)):
+        arith = arithmetic_file(frame, height, width, coefs, quant_bodies(segs), script=script,
+                                restart=3, **kwargs)
+        assert b"\xff\xcc" in arith
+        np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(arith, np.uint8), 1), want)
+        np.testing.assert_array_equal(assert_reads_like_cv2(tmp_path, arith), want)
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["sequential", "progressive"])
+@pytest.mark.parametrize("case", ["cmyk_adobe0", "ycck_adobe2", "cmyk_no_marker"])
+def test_decode_arithmetic_four_components(tmp_path, case, progressive):
+    apps = {"cmyk_adobe0": [adobe(0)], "ycck_adobe2": [adobe(2)], "cmyk_no_marker": []}[case]
+    for sampling, (h, w) in (("444", (16, 24)), ("420", (17, 33))):
+        frame, height, width, coefs, quant = four_components(h, w, sampling, seed=3)
+        arith = arithmetic_file(frame, height, width, coefs, quant, apps=apps,
+                                script=progressive_script(4) if progressive else None)
+        huff = four_component_file(h, w, sampling, apps, False, seed=3)
+        np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(arith, np.uint8), 1),
+                                      cv2.imdecode(np.frombuffer(huff, np.uint8), 1))
+        assert_reads_like_cv2(tmp_path, arith)
+
+
+@pytest.mark.parametrize("sampling", ["gray", "420", "444"])
+def test_decode_arithmetic_progressive_cut_short(tmp_path, sampling):
+    """Arithmetic progressive files of the first scans only (block
+    smoothing), and cut inside a scan at seeded offsets."""
+    img = sample_image(41, 49, seed=33)
+    data = cv2_jpeg(img[:, :, 0] if sampling == "gray" else img, 80,
+                    None if sampling == "gray" else sampling)
+    frame, height, width, coefs, segs, _ = read_coefficients(data)
+    script = progressive_script(len(frame))
+    full = cv2.imdecode(np.frombuffer(arithmetic_file(
+        frame, height, width, coefs, quant_bodies(segs), script=script), np.uint8), 1)
+    smoothed = 0
+    for n in range(1, len(script)):
+        part = arithmetic_file(frame, height, width, coefs, quant_bodies(segs),
+                               script=script[:n], restart=2)
+        got = assert_reads_like_cv2(tmp_path, part)
+        smoothed += not np.array_equal(got, full)
+        rng = np.random.default_rng(n)
+        for cut in rng.integers(part.rindex(b"\xff\xda"), len(part), 3):
+            assert_like_cv2(tmp_path, part[:cut])
+    assert smoothed == len(script) - 1
+
+
+# ----------------------------------------------------------------------
+# Lossless (SOF3)
+@pytest.mark.parametrize("one_scan", [True, False], ids=["one_scan", "scan_a_component"])
+@pytest.mark.parametrize("pt", [0, 2])
+@pytest.mark.parametrize("psv", range(1, 8))
+def test_decode_lossless_equals_cv2(tmp_path, psv, pt, one_scan):
+    """Lossless RGB files (no JFIF marker: libjpeg takes them as RGB) of
+    every predictor, point transforms 0 and 2, one interleaved scan or
+    a scan a component, with and without restarts: cv2 reads each to
+    its samples shifted back up by Pt, and so does the port."""
+    img = sample_image(19, 26, seed=psv)
+    planes = [img[:, :, 2], img[:, :, 1], img[:, :, 0]]
+    for restart_rows in (0, 1, 4):
+        data = lossless_file(planes, psv=psv, pt=pt, restart_rows=restart_rows,
+                             one_scan=one_scan)
+        got = assert_reads_like_cv2(tmp_path, data)
+        np.testing.assert_array_equal(got, (img >> pt) << pt)
+
+
+@pytest.mark.parametrize("case", ["precision_2", "precision_5", "precision_8_adobe0",
+                                  "rgb_ids", "cmyk", "cmyk_adobe0", "other_ids"])
+def test_decode_lossless_kinds_equal_cv2(tmp_path, case):
+    img = sample_image(15, 21, seed=7)
+    planes = [img[:, :, 2], img[:, :, 1], img[:, :, 0]]
+    kwargs = {}
+    if case.startswith("precision"):
+        bits = int(case.split("_")[1])
+        planes = [p >> (8 - bits) for p in planes]
+        kwargs = {"precision": bits, "pt": 1 if bits > 2 else 0,
+                  "apps": [adobe(0)] if "adobe0" in case else ()}
+    elif case == "rgb_ids":
+        kwargs = {"ids": [82, 71, 66]}
+    elif case == "other_ids":
+        kwargs = {"ids": [7, 8, 9]}
+    elif case.startswith("cmyk"):
+        planes = planes + [img[:, :, 0] // 3]
+        kwargs = {"apps": [adobe(0)] if case.endswith("adobe0") else ()}
+    data = lossless_file(planes, psv=6, restart_rows=2, **kwargs)
+    assert assert_like_cv2(tmp_path, data) is not None
+
+
+@pytest.mark.parametrize("case", [
+    "sof5", "sof6", "sof7", "sof13", "sof14", "sof15", "sof11_arithmetic_lossless",
+    "12bit_huffman", "12bit_arithmetic", "12bit_arithmetic_progressive", "lossless_gray",
+    "lossless_ycc_jfif", "lossless_ycc_adobe1", "lossless_ycck", "lossless_9bit",
+    "lossless_16bit", "lossless_restart_part_row", "lossless_component_without_scan",
+    "height_0", "two_components", "second_soi", "unknown_marker", "no_sos",
+    "progressive_without_ac_table", "signature_ff_d8_00"])
+def test_cv2_none_cases(tmp_path, case):
+    """What libjpeg-turbo or OpenCV gives up on, written properly where a
+    writer exists (tests/jpeg_files.py: 12-bit Huffman and arithmetic
+    files, lossless files): "Unable to read image", never item 15.
+    Hierarchical files (SOF5-7, SOF13-15) fail at their frame marker and
+    arithmetic lossless (SOF11) as soon as decoding starts, before any
+    data is read, so a relabelled frame header stands for them."""
+    img = sample_image(16, 16, seed=8)
+    base = cv2_jpeg(img, 90, "420")
+    frame, height, width, coefs, segs, _ = read_coefficients(base)
+    quant = quant_bodies(segs)
+    planes = [img[:, :, 2], img[:, :, 1], img[:, :, 0]]
+    sof = base.index(b"\xff\xc0")
+
+    def relabel(data, marker):
+        at = next(i for i in range(len(data) - 1)
+                  if data[i] == 0xFF and data[i + 1] in (0xC0, 0xC3))
+        return data[:at + 1] + bytes([marker]) + data[at + 2:]
+
+    if case.startswith("sof") and case[3:5].isdigit() and "_" not in case:
+        data = relabel(base, 0xC0 + int(case[3:]))
+    elif case == "sof11_arithmetic_lossless":
+        data = relabel(lossless_file(planes, psv=1), 0xCB)
+    elif case == "12bit_huffman":
+        data = huffman_file(frame, height, width, coefs, quant, precision=12)
+    elif case.startswith("12bit_arithmetic"):
+        data = arithmetic_file(frame, height, width, coefs, quant, precision=12,
+                               script=progressive_script(3) if "progressive" in case else None)
+    elif case == "lossless_gray":
+        data = lossless_file(planes[:1], psv=2)
+    elif case == "lossless_ycc_jfif":
+        data = lossless_file(planes, psv=2, apps=[JFIF])
+    elif case == "lossless_ycc_adobe1":
+        data = lossless_file(planes, psv=2, apps=[adobe(1)])
+    elif case == "lossless_ycck":
+        data = lossless_file(planes + planes[:1], psv=2, apps=[adobe(2)])
+    elif case in ("lossless_9bit", "lossless_16bit"):
+        shift = int(case[9:-3]) - 8
+        data = lossless_file([p.astype(np.int64) << shift for p in planes], psv=2,
+                             precision=8 + shift)
+    elif case == "lossless_restart_part_row":
+        data = lossless_file(planes, psv=2, restart_rows=1).replace(
+            b"\xff\xdd\x00\x04\x00\x10", b"\xff\xdd\x00\x04\x00\x11")
+    elif case == "lossless_component_without_scan":
+        data = lossless_file(planes, psv=2, one_scan=False)
+        data = data[:data.rindex(b"\xff\xc4")] + b"\xff\xd9"
+    elif case == "height_0":
+        data = base[:sof + 5] + b"\x00\x00" + base[sof + 7:]
+    elif case == "two_components":
+        data = huffman_file(frame[:2], height, width, coefs, quant)
+    elif case == "second_soi":
+        data = base[:2] + b"\xff\xd8" + base[2:]
+    elif case == "unknown_marker":
+        data = base[:2] + b"\xff\x02\x00\x04ab" + base[2:]
+    elif case == "no_sos":
+        data = base[:base.index(b"\xff\xda")] + b"\xff\xd9"
+    elif case == "progressive_without_ac_table":
+        prog = cv2_jpeg(img, 90, "420", progressive=True)
+        second = prog.index(b"\xff\xc4", prog.index(b"\xff\xda"))
+        length = struct.unpack(">H", prog[second + 2:second + 4])[0]
+        data = prog[:second] + prog[second + 2 + length:]
+    else:
+        data = b"\xff\xd8\x00" + base[3:]
+    path = tmp_path / "none.jpg"
+    path.write_bytes(data)
+    assert cv2.imread(str(path), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match="Unable to read image") as e:
+        imread(str(path))
+    assert IMAGES not in str(e.value)
+
+
+def test_after_a_one_scan_file_nothing_is_read(tmp_path):
+    """Past the scan of a one-scan file cv2 has its page: a second SOS,
+    SOF or SOI, an unknown marker, garbage or a DNL segment change
+    nothing."""
+    base = cv2_jpeg(sample_image(24, 32, seed=9), 90, "420")
+    want = cv2.imdecode(np.frombuffer(base, np.uint8), 1)
+    body, sof = base[:-2], base.index(b"\xff\xc0")
+    for tail in (base[base.index(b"\xff\xda"):], b"\xff\x02\x00\x04ab\xff\xd9",
+                 b"\xff\xd8\xff\xd9", base[sof:sof + 19] + b"\xff\xd9", b"abc\xff\xd9",
+                 b"\xff\xdc\x00\x04\x00\x18\xff\xd9"):
+        np.testing.assert_array_equal(assert_like_cv2(tmp_path, body + tail), want)
+
+
+def test_colour_space_is_fixed_at_the_first_scan(tmp_path):
+    """An Adobe RGB marker between the scans of a progressive YCbCr file
+    changes nothing: libjpeg guesses the colour space before the first
+    scan."""
+    data = cv2_jpeg(sample_image(24, 32, seed=11), 90, "444", progressive=True)
+    assert data[2:4] == b"\xff\xe0"
+    data = data[:2] + data[4 + struct.unpack(">H", data[4:6])[0]:]  # no JFIF marker
+    want = cv2.imdecode(np.frombuffer(data, np.uint8), 1)
+    head, scans, tail = split_scans(data)
+    for i in (1, len(scans) - 1):
+        moved = head + b"".join(scans[:i]) + _segment(*adobe(0)) + b"".join(scans[i:]) + tail
+        np.testing.assert_array_equal(assert_like_cv2(tmp_path, moved), want)
+
+
+def test_standard_tables_stand_in_for_missing_ones(tmp_path):
+    """A sequential Huffman file without DHT segments (Motion JPEG) is
+    read with the standard tables, as libjpeg's jinit_huff_decoder
+    fills them in; a Se other than 63 only draws a warning."""
+    base = cv2_jpeg(sample_image(24, 32, seed=10), 90, "420")
+    want = cv2.imdecode(np.frombuffer(base, np.uint8), 1)
+    out, pos = base[:2], 2
+    while True:
+        marker = base[pos + 1]
+        length = struct.unpack(">H", base[pos + 2:pos + 4])[0]
+        if marker == 0xDA:
+            out += base[pos:]
+            break
+        if marker != 0xC4:
+            out += base[pos:pos + 2 + length]
+        pos += 2 + length
+    np.testing.assert_array_equal(assert_like_cv2(tmp_path, out), want)
+    sos = out.index(b"\xff\xda")
+    odd = out[:sos + 12] + b"\x05\x12" + out[sos + 14:]
+    np.testing.assert_array_equal(assert_like_cv2(tmp_path, odd), want)
 
 
 # ----------------------------------------------------------------------
@@ -725,28 +992,57 @@ def test_fixture_digests_reproduce():
         got = imread(path)
         assert hashlib.sha256(got.tobytes()).hexdigest() == digest["sha256"], path
         assert list(got.shape) == digest["shape"], path
+    for name in spec["none"]:
+        with pytest.raises(ValueError, match="Unable to read image") as e:
+            imread(os.path.join(FIXTURES, name))
+        assert IMAGES not in str(e.value), name
     for name, cases in spec["encode"].items():
         crop = np.load(os.path.join(FIXTURES, name))
         for quality, digest in cases.items():
             assert hashlib.sha256(encode_jpeg(crop, int(quality))).hexdigest() == digest, name
     assert len(spec["decode"]) >= 20 and len(spec["encode"]) >= 3
     names = " ".join(spec["decode"])
-    for kind in ("prog_s444", "prog_s411", "prog_gray", "prog_cut", "cmyk", "ycck"):
+    for kind in ("prog_s444", "prog_s411", "prog_gray", "prog_cut", "cmyk", "ycck", "arith_s",
+                 "arith_prog", "arith_dac", "lossless_rgb", "lossless_cmyk", "cut_", "corrupt_"):
         assert kind in names, kind
-    assert [d["shape"] for d in spec["pages"].values()] == [[2560, 1792, 3]]
+    assert len(spec["none"]) >= 10
+    assert [d["shape"] for d in spec["pages"].values()] == [[2560, 1792, 3]] * 2
+
+
+def test_no_jpeg_error_names_item_15():
+    """Every JPEG fixture, and each cut at three points, is read or gives
+    "Unable to read image": no JPEG file draws item 15's refusal."""
+    spec = _fixtures()
+    names = [n for n in list(spec["decode"]) + spec["none"] if n.endswith(".jpg")]
+    for name in names:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        for end in (len(data), len(data) // 3, len(data) // 2, len(data) - 2):
+            try:
+                jpeg.decode_jpeg(data[:end], name)
+            except ValueError as e:
+                assert "Unable to read image" in str(e) and IMAGES not in str(e), (name, end)
 
 
 def test_fixtures_equal_cv2_here():
-    """The JSON's digests are cv2's (the generator's) and the files are
-    small; the full-size page is progressive and under 1 MB."""
+    """The JSON's digests are cv2's (the generator's), its None cases are
+    cv2's None, and the files are small; the full-size pages are under
+    1 MB each, one progressive Huffman (SOF2), one its coefficients
+    re-coded arithmetic progressive (SOF10), both cv2's same pixels."""
     spec = _fixtures()
     for path, digest in _decoded_files(spec):
         want = cv2.imread(path, cv2.IMREAD_COLOR)
         assert hashlib.sha256(want.tobytes()).hexdigest() == digest["sha256"], path
+    for name in spec["none"]:
+        assert cv2.imread(os.path.join(FIXTURES, name), cv2.IMREAD_COLOR) is None, name
+    markers = {"progressive": b"\xff\xc2", "arith": b"\xff\xca"}
     for name in spec["pages"]:
         with open(os.path.join(os.path.dirname(FIXTURES), name), "rb") as f:
             page = f.read()
-        assert len(page) < 1_000_000 and b"\xff\xc2" in page
+        kind = next(k for k in markers if f"_{k}_" in name)
+        assert len(page) < 1_000_000 and markers[kind] in page, name
+        assert all(m not in page for k, m in markers.items() if k != kind), name
+    assert len({d["sha256"] for d in spec["pages"].values()}) == 1
     for name, cases in spec["encode"].items():
         crop = np.load(os.path.join(FIXTURES, name))
         for quality, digest in cases.items():
