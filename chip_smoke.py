@@ -24,7 +24,14 @@ Phases (each raises on failure, so the run exits non-zero):
    digest of ``tests/data/jpeg2000/fixtures.json`` (cv2's reads of the
    committed fixtures and of the 2560x1792 JP2 page of
    ``tests/data/page``) and refuses cv2's None cases; the page's host
-   decode time (``{"jpeg2000": ...}``).  Then the TIFF reader
+   decode time (``{"jpeg2000": ...}``).  Then the WebP reader
+   (``csrc/webp.cpp`` with ``utils/webp.py``, ``check_webp_fixtures``):
+   this machine's build reproduces every digest of
+   ``tests/data/webp/fixtures.json`` (cv2's reads of the committed
+   fixtures, of their seeded byte mutations and of the two committed
+   WebP pages), refuses cv2's None cases and raises where cv2 raises;
+   the two pages' host decode times (``{"webp": ...}``).  Then the TIFF
+   reader
    (``csrc/tiff.cpp``'s LZW, PackBits and CCITT decoders with
    ``utils/tiff.py``, ``check_tiff_fixtures``): this machine's build
    reproduces every digest of ``tests/data/tiff/fixtures.json`` (cv2's
@@ -74,29 +81,31 @@ Phases (each raises on failure, so the run exits non-zero):
    ``PageParser(config, device="cuda").process_page`` and its command
    line with ``--output-line-path`` and ``--output-render-path`` on 4 of
    them (2 rewritten as gray Deflate TIFF), the committed A4 Group 4
-   page, the committed progressive colour JPEG page and the committed
-   JPEG 2000 page (the three also run in process; the progressive and
-   the JPEG 2000 page make 1 ``warp_fields`` launch each);
+   page, the committed progressive colour JPEG page, the committed
+   JPEG 2000 page, the committed arithmetic-coded JPEG page and the
+   committed lossy WebP page (the five also run in process; all but the
+   Group 4 page make 1 ``warp_fields`` launch each);
    the line files held to the in-process
    crops (``staged_line_files``), each render to ``render_layout`` of
    the command line's own Page XML on the same decoded page; the field
    warp checked and timed on the last page.
-9. Config 1 (``run_config1``): 6 synthetic printed A4 pages at 300 dpi
-   (40 rows) through ``PageParser(config 1, device="cuda")`` (whole-page
+9. Config 1 (``run_config1``): 4 synthetic printed A4 pages at 300 dpi
+   (40 rows; 6 drawn) through ``PageParser(config 1, device="cuda")`` (whole-page
    region, the classical line detector, the field warp, the recognizer
    at bench widths) to Page XML, its layout equal to a CPU run's layout
    stages, the field warp bit-equal on every page's own fields, and the
-   command line on 3 pages; the field warp timed on the last page
+   command line on 2 pages; the field warp timed on the last page
    (``config1_*``).  Then REGION_SIMPLE_THRESHOLD (``run_simple_regions``):
    config 1's ini with classical regions (``csrc/nlmeans.cpp``'s
    NL-means among their steps) in place of the whole page, float32 with
-   TF32 off, on 4 A4 pages whose text runs to 24 px of the sides and 4
-   two-column 2560x1792 pages (two regions or more a page, ids in
+   TF32 off, on 2 A4 pages whose text runs to 24 px of the sides and 2
+   two-column 2560x1792 pages (of 4 and 4 drawn; two regions or more a
+   page, ids in
    order): layouts and crops equal to a CPU run's byte for byte, texts
    equal or near-ties, the field warp bit-equal on every page, the C++
    NL-means equal to its numpy twin on a crop and timed against it;
    and ``--process-count`` (``run_process_count``): config 2's staged
-   command line on 4 gray JPEG pages in one process and with 2 spawned
+   command line on 2 gray JPEG pages in one process and with 2 spawned
    workers on the card, each page's Page XML equal, pages/s of both
    (``{"simple_regions": ...}``, ``{"process_count": ...}``,
    ``simple_regions_*`` keys).  These two phases draw from their own
@@ -114,7 +123,7 @@ Phases (each raises on failure, so the run exits non-zero):
    JAX message and writes nothing (``{"mesh": ...}``, the kernels
    line's ``launches_mesh*``).
 10. Config 5's outputs (``run_config5``): the page transport with
-    ``want_logits`` on 16 pages and stage by stage on 4, each with and without the logits
+    ``want_logits`` on 16 pages and stage by stage on 2, each with and without the logits
     pickle and ALTO (A B B A), the card's top-k against ``torch.topk``
     on the CPU, and the command line with --output-logit-path and
     --output-alto-path on both paths, every file loaded back against
@@ -133,16 +142,16 @@ Phases (each raises on failure, so the run exits non-zero):
     staged CPU check's Page XML (the differing characters it counts are
     that check's, 0); levenshtein_batch_i32 against a call a line and
     its numpy twin (``{"user_scripts": ...}``).
-11. Config 3 (``run_config3``): 4 two-column pages through
+11. Config 3 (``run_config3``): 2 two-column pages (4 drawn) through
     ``PageParser(config 3, device="cuda")``: the staged layout, the field
     warp, CTC OCR at line height 40, then the batched beam search (K = 8,
     float16 transport) with a CharLM at the spec defaults stepped inside
     its frame loop, one decode a line carrying the LM state
-    (CARRY_H_OVER), each decode shape a CUDA graph; 16 of the last page's
+    (CARRY_H_OVER), each decode shape a CUDA graph; 4 of the last page's
     decodes held against the CPU port's and the eager loop's (equal
     backpointers, near-ties counted apart), a GRU LM and the batched
     route (lines padded to a power of two a 128-frame bucket) on one
-    page each, held against both the same way (the GRU's first 8 lines,
+    page each, held against both the same way (the GRU's first 2 lines,
     every decode of the batched page), the command line on 1 page;
     warp_fields held against its plain version on the last page's
     buckets (``config3_*``).  Then torch.profiler splits one config-2
@@ -310,7 +319,7 @@ from pero_ocr_tpu_torch.scripts import convert_torchscript
 from pero_ocr_tpu_torch.scripts.parse_folder import LINE_QUALITY, RENDER_QUALITY
 from pero_ocr_tpu_torch.scripts.parse_folder import PAGE_BATCH as CLI_PAGE_BATCH
 from pero_ocr_tpu_torch.utils import (
-    bmp, checkpoint, convert, denoise, image_io, jpeg2000, kernels, native, timing,
+    bmp, checkpoint, convert, denoise, image_io, jpeg2000, kernels, native, timing, webp,
 )
 from pero_ocr_tpu_torch.utils import tiff as tiff_io
 from pero_ocr_tpu_torch.utils import ts_adapters
@@ -1142,6 +1151,85 @@ def check_jpeg2000_fixtures(smi: str) -> dict:
     return numbers
 
 
+WEBP_FIXTURES = os.path.join(REPO, "tests", "data", "webp")
+# The committed WebP pages: the progressive page's pixels lossy at
+# quality 85, and shrunk to half, lossless.
+WEBP_PAGE = os.path.join(REPO, "tests", "data", "page", "two_columns_2560x1792_q85.webp")
+WEBP_LOSSLESS_PAGE = os.path.join(REPO, "tests", "data", "page", "two_columns_1280x896_lossless.webp")
+
+
+def check_webp_fixtures(smi: str) -> dict:
+    """Every file of ``tests/data/webp/fixtures.json`` read by this
+    machine's build of ``csrc/webp.cpp`` (built by kernels.build with the
+    host compiler) with ``utils/webp.py`` to cv2's digest, the two
+    committed WebP pages among them; the files cv2 returns None for
+    refused as "Unable to read image", the one it raises for raising;
+    every seeded byte mutation (tests/webp_files.py's ``mutate``) and
+    every file cut short (its ``cut``) read as cv2 read it.  Then the two pages' host decode times, median of
+    HOST_REPEATS after a warm-up, one thread."""
+    with open(os.path.join(WEBP_FIXTURES, "fixtures.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    webp.calls.clear()
+    differ = digests_differ(WEBP_FIXTURES, spec["decode"], spec["none"])
+    differ += digests_differ(os.path.dirname(WEBP_FIXTURES), spec["pages"])
+
+    def read(blob: bytes, name: str):
+        try:
+            img = image_io.decode_webp(blob, name)
+        except ValueError as e:
+            return None if "Unable to read image" in str(e) else (
+                "raises" if "OpenCV 5 raises" in str(e) else str(e))
+        return {"sha256": hashlib.sha256(img.tobytes()).hexdigest(), "shape": list(img.shape)}
+
+    for name in spec["raises"]:
+        with open(os.path.join(WEBP_FIXTURES, name), "rb") as f:
+            if read(f.read(), name) != "raises":
+                differ.append(name)
+    webp_files = tests_module("webp_files")  # the seeded mutations (numpy)
+    n_mutations = 0
+    for name, results in spec["mutations"].items():
+        with open(os.path.join(WEBP_FIXTURES, name), "rb") as f:
+            base = f.read()
+        rng = webp_files.mutation_rng(spec["mutation_seed"], name)
+        for k, want in enumerate(results):
+            n_mutations += 1
+            if read(webp_files.mutate(base, rng), name) != want:
+                differ.append(f"{name} mutation {k}")
+    n_cuts = 0
+    for name, results in spec["cuts"].items():
+        with open(os.path.join(WEBP_FIXTURES, name), "rb") as f:
+            base = f.read()
+        for length, want in zip(range(12, len(base), spec["cut_step"]), results):
+            n_cuts += 1
+            if read(webp_files.cut(base, length), name) != want:
+                differ.append(f"{name} cut at {length}")
+    n_decodes = len(spec["decode"]) + len(spec["pages"])
+    calls = dict(webp.calls)
+    log(f"WebP fixtures ({spec['made_with']}): {n_decodes} decodes (the two pages among them), "
+        f"{len(spec['none'])} refused as cv2's None, {len(spec['raises'])} raising as cv2 raises, "
+        f"{n_mutations} seeded mutations, {n_cuts} files cut short; "
+        f"{n_decodes + len(spec['none']) + len(spec['raises']) + n_mutations + n_cuts - len(differ)} "
+        f"reproduced; calls {calls}; differ: {differ}")
+    if differ:
+        raise AssertionError(f"the WebP reader's build differs from the fixtures on {differ}")
+    numbers = {"fixtures_decoded": n_decodes, "fixtures_none": len(spec["none"]),
+               "fixtures_raise": len(spec["raises"]), "mutations": n_mutations, "cuts": n_cuts,
+               "fixtures_made_with": spec["made_with"], "calls": calls,
+               "host": "the card machine's CPU, one thread", "card": smi}
+    for key, path in (("lossy_page_2560x1792_q85", WEBP_PAGE),
+                      ("lossless_page_1280x896", WEBP_LOSSLESS_PAGE)):
+        with open(path, "rb") as f:
+            blob = f.read()
+        numbers[f"decode_ms_{key}"] = host_ms(lambda: image_io.decode_webp(blob))
+        numbers[f"{key}_bytes"] = len(blob)
+    log(f"WebP reader, host times on the card's machine (one thread): "
+        f"{numbers['decode_ms_lossy_page_2560x1792_q85']:.2f} ms the committed 2560x1792 lossy page "
+        f"({numbers['lossy_page_2560x1792_q85_bytes']} B), "
+        f"{numbers['decode_ms_lossless_page_1280x896']:.2f} ms the committed 1280x896 lossless page "
+        f"({numbers['lossless_page_1280x896_bytes']} B); beside {smi}")
+    return numbers
+
+
 TIFF_FIXTURES = os.path.join(REPO, "tests", "data", "tiff")
 TIFF_G4_PAGE = os.path.join(TIFF_FIXTURES, "a4_g4_text.tif")  # A4, 300 dpi, Group 4
 
@@ -1906,6 +1994,7 @@ G4_ID = "s_g4"  # the committed Group 4 page in the staged command line's folder
 PROGRESSIVE_ID = "s_progressive"  # and the committed progressive JPEG page
 JP2_ID = "s_jp2"  # and the committed JPEG 2000 page
 ARITH_ID = "s_arith"  # and the committed arithmetic-coded JPEG page
+WEBP_ID = "s_webp"  # and the committed lossy WebP page
 # The staged host-route A/B's runs after the first take the first 2 of
 # its 8 pages (8 before the TIFF pages and renders, 4 before the JPEG
 # checks needed the time).
@@ -1921,10 +2010,11 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
     command line without --fast-pipeline on the first 4 of the files (2
     rewritten as gray Deflate TIFF), the committed A4 Group 4 page
     (TIFF_G4_PAGE), the committed progressive colour JPEG page
-    (PROGRESSIVE_PAGE), the committed JPEG 2000 page (JP2_PAGE) and the
+    (PROGRESSIVE_PAGE), the committed JPEG 2000 page (JP2_PAGE), the
     committed arithmetic-coded JPEG page (ARITH_PAGE, the progressive
-    page's coefficients; the four run in process too, after the A/B, the
-    arithmetic page decoded to the progressive page's pixels), with
+    page's coefficients) and the committed lossy WebP page (WEBP_PAGE;
+    the five run in process too, after the A/B, the arithmetic page
+    decoded to the progressive page's pixels), with
     --output-line-path and --output-render-path, whose Page XML must
     equal the in-process run's, whose line files the in-process crops
     (staged_line_files) and whose renders ``render_layout`` of its own
@@ -1950,12 +2040,13 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
         # Two of them as gray TIFF (the decoded JPEG's pixels), the
         # committed A4 Group 4 page as a fifth, the progressive page a
         # sixth, the JPEG 2000 page a seventh, the arithmetic page an
-        # eighth.
+        # eighth, the lossy WebP page a ninth.
         tiff_ids = write_tiff_pages(cli_images, ids[:n_cli], [p[:, :, 0] for p in pages[:n_cli]])
         shutil.copy(TIFF_G4_PAGE, os.path.join(cli_images, G4_ID + ".tif"))
         shutil.copy(PROGRESSIVE_PAGE, os.path.join(cli_images, PROGRESSIVE_ID + ".jpg"))
         shutil.copy(JP2_PAGE, os.path.join(cli_images, JP2_ID + ".jp2"))
         shutil.copy(ARITH_PAGE, os.path.join(cli_images, ARITH_ID + ".jpg"))
+        shutil.copy(WEBP_PAGE, os.path.join(cli_images, WEBP_ID + ".webp"))
         parser = staged_parser(ini, "cuda")
         engine = parser.layout_parsers[0].engine
         detected, detect = [], engine.detect
@@ -2027,11 +2118,11 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             raise AssertionError("staged: warp_fields launches != pages of "
                                  f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
 
-        # The Group 4, progressive, JPEG 2000 and arithmetic pages in
-        # process, after the runs above.
+        # The Group 4, progressive, JPEG 2000, arithmetic and WebP pages
+        # in process, after the runs above.
         extra_out, extra_pages, extra_launches = [], [], []
         for page_id, path in ((G4_ID, TIFF_G4_PAGE), (PROGRESSIVE_ID, PROGRESSIVE_PAGE),
-                              (JP2_ID, JP2_PAGE), (ARITH_ID, ARITH_PAGE)):
+                              (JP2_ID, JP2_PAGE), (ARITH_ID, ARITH_PAGE), (WEBP_ID, WEBP_PAGE)):
             extra = image_io.imread(path)
             before = warp_ops.warp_fields.launches
             random.seed(0)
@@ -2039,16 +2130,18 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             extra_out.append((layout, layout.to_pagexml_string()))
             extra_pages.append(extra)
             extra_launches.append(warp_ops.warp_fields.launches - before)
-        g4_launches, progressive_launches, jp2_launches, arith_launches = extra_launches
+        g4_launches, progressive_launches, jp2_launches, arith_launches, webp_launches = extra_launches
         log(f"in process: the A4 Group 4 page {g4_launches} warp_fields launch(es), the "
             f"progressive page {progressive_launches} ({len(list(extra_out[1][0].lines_iterator()))}"
             f" lines), the JPEG 2000 page {jp2_launches} "
             f"({len(list(extra_out[2][0].lines_iterator()))} lines), the arithmetic page "
-            f"{arith_launches} ({len(list(extra_out[3][0].lines_iterator()))} lines)")
-        if progressive_launches != 1 or jp2_launches != 1 or arith_launches != 1:
-            raise AssertionError(f"the progressive, JPEG 2000 and arithmetic pages: "
-                                 f"{progressive_launches}, {jp2_launches} and {arith_launches} "
-                                 f"warp_fields launches, want 1 each")
+            f"{arith_launches} ({len(list(extra_out[3][0].lines_iterator()))} lines), the WebP "
+            f"page {webp_launches} ({len(list(extra_out[4][0].lines_iterator()))} lines)")
+        if (progressive_launches != 1 or jp2_launches != 1 or arith_launches != 1
+                or webp_launches != 1):
+            raise AssertionError(f"the progressive, JPEG 2000, arithmetic and WebP pages: "
+                                 f"{progressive_launches}, {jp2_launches}, {arith_launches} and "
+                                 f"{webp_launches} warp_fields launches, want 1 each")
         if not np.array_equal(extra_pages[3], extra_pages[1]):
             raise AssertionError("the arithmetic page does not decode to the progressive page")
         cli_out = out[:n_cli] + extra_out
@@ -2100,23 +2193,23 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             launches=int(counted.group(1)), decode_ms=1e3 * decode[0] / decode[1],
             write_lines_ms=1e3 * written[0] / n_files, write_render_ms=1e3 * drawn[0] / n_files,
             renders=len(renders), tiff_pages=len(tiff_ids) + 1, progressive_pages=1,
-            jpeg2000_pages=1, arithmetic_pages=1)
+            jpeg2000_pages=1, arithmetic_pages=1, webp_pages=1, webp_launches_in_process=webp_launches)
         log(f"stage-by-stage command line vs in-process: {n_files} of {n_files} files equal "
             f"(lines of a row as a set; conf within 0.0015), the A4 Group 4 page, the "
-            f"progressive colour JPEG page, the JPEG 2000 page, the arithmetic-coded JPEG page "
-            f"and {len(tiff_ids)} gray Deflate TIFF pages among "
+            f"progressive colour JPEG page, the JPEG 2000 page, the arithmetic-coded JPEG page, "
+            f"the lossy WebP page and {len(tiff_ids)} gray Deflate TIFF pages among "
             f"them; {len(renders)} renders equal "
             f"byte for byte to render_layout on the command line's own Page XML; its "
             f"warp_fields launches {cli_numbers['launches']}; {cli_numbers['pages_per_s']:.3f} "
             f"pages/s by its timer with line export and renders, "
             f"{cli_numbers['pages_per_s_without_write_lines']:.3f} without cli/write_lines; "
             f"cli/decode {cli_numbers['decode_ms']:.2f} ms a page (gray JPEG, TIFF, "
-            f"the progressive, JPEG 2000 and arithmetic pages, on the decoding thread), "
+            f"the progressive, JPEG 2000, arithmetic and WebP pages, on the decoding thread), "
             f"cli/write_lines "
             f"{cli_numbers['write_lines_ms']:.2f} ms, cli/write_render "
             f"{cli_numbers['write_render_ms']:.2f} ms a page (host times), on {smi}")
         if cli_numbers["launches"] != (sum(batched[:n_cli]) + g4_launches + progressive_launches
-                                       + jp2_launches + arith_launches):
+                                       + jp2_launches + arith_launches + webp_launches):
             raise AssertionError("the stage-by-stage command line: warp_fields launches != "
                                  f"pages of {parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
         last_page = page_buckets(parser, out[-1][0], pages[-1])
@@ -2159,7 +2252,10 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
 # Config 1: one whole-page region, the classical line detector, greedy
 # CTC, stage by stage (configs/config1_printed_greedy.ini)
 A4_H, A4_W, A4_ROWS = 3508, 2480, 40  # an A4 page at 300 dpi, 40 text rows
-CONFIG1_PAGES, CONFIG1_CLI_PAGES = 6, 2
+# CONFIG1_DRAWN pages are drawn (the later phases' generator state stays
+# put) and the first CONFIG1_PAGES read (6 before the WebP checks needed
+# the time).
+CONFIG1_DRAWN, CONFIG1_PAGES, CONFIG1_CLI_PAGES = 6, 4, 2
 CONFIG1_STAGES = ("layout", "line_crop", "ocr", "document/pagexml")
 TEXT_EQUIV = re.compile(r"\s*<TextEquiv[^>]*>.*?</TextEquiv>", re.S)
 
@@ -2221,7 +2317,8 @@ def run_config1(rng, smi: str):
     whose files must equal the in-process run's.  Returns the field
     warp's launches, the phase's numbers and the last page's warp
     inputs."""
-    pages, rows = printed_pages(rng, CONFIG1_PAGES, A4_H, A4_W, A4_ROWS)
+    pages, rows = printed_pages(rng, CONFIG1_DRAWN, A4_H, A4_W, A4_ROWS)
+    pages, rows = pages[:CONFIG1_PAGES], rows[:CONFIG1_PAGES]
     ids = [f"c{i:04d}" for i in range(len(pages))]
     with tempfile.TemporaryDirectory(prefix="config1_") as tmp:
         ini, images = write_config1_bundle(
@@ -2294,7 +2391,8 @@ def run_config1(rng, smi: str):
 # ----------------------------------------------------------------------
 # REGION_SIMPLE_THRESHOLD: config 1 with classical regions in place of
 # the whole page; and the staged command line's --process-count
-SIMPLE_A4_PAGES, SIMPLE_COLUMN_PAGES = 4, 4
+SIMPLE_A4_PAGES, SIMPLE_COLUMN_PAGES = 4, 4  # drawn (the generator state stays put)
+SIMPLE_A4_USED, SIMPLE_COLUMN_USED = 2, 2    # read (4 and 4 before the WebP checks)
 # Side margin of the A4 pages: the classical line detector keeps a line
 # only where the region reaches past both sides of the page (it clips a
 # baseline across the region's bounding box to its outline, as the JAX
@@ -2326,9 +2424,10 @@ def write_simple_bundle(tmp: str, rec: CTCRecognizer) -> str:
 
 
 def run_simple_regions(rng, smi: str):
-    """REGION_SIMPLE_THRESHOLD on the card: SIMPLE_A4_PAGES printed A4
+    """REGION_SIMPLE_THRESHOLD on the card: SIMPLE_A4_USED printed A4
     pages at 300 dpi (A4_ROWS rows, SIMPLE_SIDE px side margins) and
-    SIMPLE_COLUMN_PAGES two-column 2560x1792 pages through
+    SIMPLE_COLUMN_USED two-column 2560x1792 pages (of SIMPLE_A4_PAGES and
+    SIMPLE_COLUMN_PAGES drawn) through
     ``PageParser(config 1 with the method, device="cuda")``: the regions
     (the NL-means in csrc/nlmeans.cpp), the classical line detector, the
     field warp and the bench recognizer in float32 (TF32 off) to Page
@@ -2344,6 +2443,7 @@ def run_simple_regions(rng, smi: str):
     A4 page's warp inputs."""
     a4, _ = printed_pages(rng, SIMPLE_A4_PAGES, A4_H, A4_W, A4_ROWS, side=SIMPLE_SIDE)
     columns, _ = synthetic_pages(rng, SIMPLE_COLUMN_PAGES, TWO_COLUMNS)
+    a4, columns = a4[:SIMPLE_A4_USED], columns[:SIMPLE_COLUMN_USED]
     pages = a4 + columns
     ids = [f"r{i:04d}" for i in range(len(pages))]
     inputs = []
@@ -2763,7 +2863,8 @@ def read_text(folder: str, name: str) -> str:
 # through its command line (one page batch; 8 before the user scripts'
 # phase needed the time).
 CONFIG5_PAGES = 2 * PAGE_BATCH
-CONFIG5_CLI_FAST, CONFIG5_STAGED_PAGES = 4, 4  # the staged command line runs as many
+CONFIG5_CLI_FAST, CONFIG5_STAGED_PAGES = 4, 2  # the staged command line runs as many
+                                                # (4 before the WebP checks)
 ALTO_DATETIME = re.compile(r"<processingDateTime>[^<]*</processingDateTime>")
 ALTO_NS = "{http://www.loc.gov/standards/alto/ns-v2#}"
 # A logits file of the command line against the in-process run's: the
@@ -3575,7 +3676,8 @@ def run_user_scripts(script_pages: dict, config5_files: dict, staged_xml: dict, 
 # REGION_SIMPLE_THRESHOLD and --process-count needed the time).
 # Config 3 draws CONFIG3_DRAWN pages (the later phases' generator state
 # stays put) and runs the first CONFIG3_PAGES.
-CONFIG3_DRAWN, CONFIG3_PAGES, CONFIG3_CLI_PAGES, CONFIG3_CHECK_LINES = 4, 2, 1, 8
+# 8 checked decodes before the WebP checks needed the time
+CONFIG3_DRAWN, CONFIG3_PAGES, CONFIG3_CLI_PAGES, CONFIG3_CHECK_LINES = 4, 2, 1, 4
 CONFIG3_STAGES = ("layout", "line_crop", "ocr", "decoder", "document/pagexml")
 # The LM at the spec defaults over the bench charset without the blank,
 # plus </s>.
@@ -6576,6 +6678,7 @@ def run_phases(smi: str) -> list:
     with phase("jpeg"):
         jpeg_numbers = check_jpeg_fixtures(smi)
         jpeg2000_numbers = check_jpeg2000_fixtures(smi)
+        webp_numbers = check_webp_fixtures(smi)
     with phase("tiff"):
         tiff_numbers = check_tiff_fixtures(smi)
     rng = np.random.default_rng(0)
@@ -6685,7 +6788,8 @@ def run_phases(smi: str) -> list:
     }
 
     return [json.dumps({key: value}) for key, value in (
-        ("jpeg", jpeg_numbers), ("jpeg2000", jpeg2000_numbers), ("tiff", tiff_numbers), ("cli", cli), ("staged", staged),
+        ("jpeg", jpeg_numbers), ("jpeg2000", jpeg2000_numbers), ("webp", webp_numbers),
+        ("tiff", tiff_numbers), ("cli", cli), ("staged", staged),
         ("config1", config1),
         ("simple_regions", simple), ("process_count", process_count), ("mesh", mesh),
         ("config5", config5),

@@ -41,8 +41,14 @@ OpenCV 5 returns for the formats it reads here:
   layers, the code-block styles, SOP/EPH, POC and RGN; gray, RGB, RGBA,
   sYCC, palettes and ``cdef`` channel orders, 8 to 16 bits, turned into
   BGR as OpenCV turns OpenJPEG's components.
+- **WebP** (:mod:`pero_ocr_tpu_torch.utils.webp`, the host C++ of
+  ``csrc/webp.cpp``): lossless (VP8L) and lossy (VP8) still images,
+  with or without alpha (dropped without compositing), and the first
+  frame of an animation on its canvas, as libwebp decodes them for
+  OpenCV (the "fancy" upsampler, 14-bit YUV to BGR).
 
-JPEG (an APP1 ``Exif\\0\\0`` segment) and PNG (an ``eXIf`` chunk) pages are
+JPEG (an APP1 ``Exif\\0\\0`` segment), PNG (an ``eXIf`` chunk) and WebP (an
+``EXIF`` chunk of a file with the ``VP8X`` EXIF flag) pages are
 turned by their EXIF orientation tag, all 8 values, as OpenCV's
 ``ApplyExifOrientation`` turns them under ``IMREAD_COLOR``
 (:func:`exif_orientation`, :func:`apply_orientation`); a missing or
@@ -54,13 +60,14 @@ What OpenCV reads and this module does not (truncated or corrupt TIFF
 data, JPEG strips and tiles of TIFF among them; TIFF of the compressions
 and photometrics that :mod:`~pero_ocr_tpu_torch.utils.tiff` lists; JPEG
 2000 with packed packet headers (PPM/PPT), HTJ2K or Part 2 extensions;
-WebP, GIF, AVIF, HDR, PFM and the rest) raises ``ValueError`` naming the
+GIF, AVIF, HDR, PFM and the rest) raises ``ValueError`` naming the
 file and the ROADMAP item; what OpenCV returns None for (hierarchical,
 12-bit, arithmetic lossless, gray or YCbCr lossless JPEG and JPEG with
 broken headers; 2-bit TIFF, a non-square TIFF page turned by
 Orientation 5-8, a BMP or PAM header OpenCV rejects, a gray JPEG 2000
 codestream without a JP2 colour box, a CMYK, offset, subsampled or
-truncated JPEG 2000 file, ...) raises ``ValueError`` saying "Unable to
+truncated JPEG 2000 file, a WebP file cut short or corrupt, ...) raises
+``ValueError`` saying "Unable to
 read image", as the JAX command line does.  Nothing is skipped.
 
 :func:`encode_jpeg` and :func:`imwrite_jpeg` write what
@@ -80,7 +87,7 @@ import numpy as np
 
 from pero_ocr_tpu_torch import not_read, unreadable
 from pero_ocr_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg, jpeg_header
-from pero_ocr_tpu_torch.utils import bmp, jpeg2000, tiff
+from pero_ocr_tpu_torch.utils import bmp, jpeg2000, tiff, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # Channels per PNG colour type: gray, RGB, palette, gray+alpha, RGBA.
@@ -90,8 +97,8 @@ _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 
 
 def imread(path: str) -> np.ndarray:
     """``cv2.imread(path, cv2.IMREAD_COLOR)`` for JPEG, JPEG 2000, PNG,
-    PNM, PAM, TIFF and BMP, told apart by their first bytes as OpenCV tells them:
-    a BGR uint8 (H, W, 3) array, turned by its EXIF or TIFF
+    PNM, PAM, TIFF, BMP and WebP, told apart by their first bytes as OpenCV
+    tells them: a BGR uint8 (H, W, 3) array, turned by its EXIF or TIFF
     orientation.  Raises ``ValueError`` for other or broken files: "Unable
     to read image" where cv2 returns None, item 15's title for what is
     not ported."""
@@ -114,7 +121,17 @@ def imread(path: str) -> np.ndarray:
         return bmp.decode_bmp(data, path)
     if jpeg2000.is_jpeg2000(data):
         return jpeg2000.decode_jpeg2000(data, path)
-    raise not_read(path, "a file that is neither JPEG, JPEG 2000, PNG, PNM, PAM, TIFF nor BMP")
+    if webp.is_webp(data):
+        return decode_webp(data, path)
+    raise not_read(path, "a file in a format this reader does not know (GIF, AVIF, HDR, PFM, ...)")
+
+
+def decode_webp(data: bytes, path: str = "<webp>") -> np.ndarray:
+    """A WebP file's bytes -> what ``cv2.imread`` returns for it: the
+    image of :func:`pero_ocr_tpu_torch.utils.webp.decode_webp`, turned by
+    its EXIF orientation."""
+    img, exif = webp.decode_webp(data, path)
+    return apply_orientation(img, exif_orientation(exif))
 
 
 def decode_tiff(data: bytes, path: str = "<tiff>") -> np.ndarray:

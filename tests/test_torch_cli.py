@@ -850,6 +850,37 @@ def test_cli_reads_jpeg2000_pages_as_png(bundle, tmp_path, float32_parsenets, to
 
 
 @pytest.mark.parametrize("fast", [False, True], ids=["staged", "fast_pipeline"])
+def test_cli_reads_webp_pages_as_png(bundle, tmp_path, float32_parsenets, torch_threads_share, fast):
+    """The port's command line on a folder of a lossy WebP page (cv2's,
+    quality 90) and a lossless one writes the Page XML it writes for cv2's
+    decodes of the two files as PNG pages, stage by stage and on the
+    fast path."""
+    folders = {"webp": tmp_path / "webp", "png": tmp_path / "png"}
+    for folder in folders.values():
+        folder.mkdir()
+    for name, quality in (("page-0", 90), ("page-1", 101)):
+        page = cv2.imread(str(bundle / "images" / f"{name}.png"), 1)
+        path = folders["webp"] / f"{name}.webp"
+        assert cv2.imwrite(str(path), page, [cv2.IMWRITE_WEBP_QUALITY, quality])
+        assert path.read_bytes()[12:16] == (b"VP8 " if quality <= 100 else b"VP8L")
+        decoded = cv2.imread(str(path), 1)
+        assert np.array_equal(decoded, page) == (quality > 100)
+        cv2.imwrite(str(folders["png"] / f"{name}.png"), decoded)
+    ini = staged_config(bundle, tmp_path) if not fast else bundle / "config.ini"
+    for kind, folder in folders.items():
+        random.seed(0)
+        _run_port(["-c", str(ini), "-i", str(folder), "--device", "cpu",
+                   "--output-xml-path", str(tmp_path / f"{kind}_xml")]
+                  + (["--fast-pipeline"] if fast else []))
+    lines = 0
+    for name in ("page-0", "page-1"):
+        got = (tmp_path / "webp_xml" / f"{name}.xml").read_text(encoding="utf-8")
+        assert_xml_equal(got, (tmp_path / "png_xml" / f"{name}.xml").read_text(encoding="utf-8"))
+        lines += got.count("<TextLine")
+    assert lines >= 4
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["staged", "fast_pipeline"])
 def test_cli_reads_arithmetic_and_cut_short_jpeg_pages_as_png(bundle, tmp_path, float32_parsenets,
                                                               torch_threads_share, fast):
     """The port's command line on a folder of an arithmetic-coded JPEG

@@ -7,9 +7,10 @@ type and bit depth (1, 2, 4, 8 and 16), interlaced (Adam7) or not; PNM
 (P1-P6) from cv2.imwrite and by hand.  PNG (an eXIf chunk) and JPEG (an
 APP1 Exif segment) pages carry each of the 8 EXIF orientations and
 malformed tags, turned as cv2 turns them.  Formats the reader does not
-take (WebP, an LZMA TIFF among them) raise ValueError naming the file
+take (GIF, an LZMA TIFF among them) raise ValueError naming the file
 and the ROADMAP item.  (The JPEG codec itself: tests/test_torch_jpeg.py;
-TIFF: tests/test_torch_tiff.py; BMP and PAM: tests/test_torch_bmp_pam.py.)
+TIFF: tests/test_torch_tiff.py; BMP and PAM: tests/test_torch_bmp_pam.py;
+WebP: tests/test_torch_webp.py.)
 """
 
 import struct
@@ -233,16 +234,16 @@ def test_pnm(tmp_path):
 
 
 def test_unread_formats_raise(tmp_path):
-    """What cv2 reads and the port does not: a WebP page (a progressive
-    JPEG until the port read those) and an LZMA TIFF raise naming the
-    file and the ROADMAP item; broken PNG data raises."""
+    """What cv2 reads and the port does not: a GIF page (a progressive
+    JPEG, then a WebP page, until the port read those) and an LZMA TIFF
+    raise naming the file and the ROADMAP item; broken PNG data raises."""
     img = _image(16, 16, 3)
-    path = str(tmp_path / "page.webp")
+    path = str(tmp_path / "page.gif")
     assert cv2.imwrite(path, img)
     assert cv2.imread(path, cv2.IMREAD_COLOR) is not None
     with pytest.raises(ValueError, match=NOT_READ_ITEM) as e:
         imread(path)
-    assert "page.webp" in str(e.value)
+    assert "page.gif" in str(e.value)
     lzma = tmp_path / "page.tif"
     lzma.write_bytes(write_tiff(base_tags(16, 16, 8, 3, 2, 34925), [b"\0" * 64]))
     with pytest.raises(ValueError, match=f"LZMA compression.*{NOT_READ_ITEM}") as e:

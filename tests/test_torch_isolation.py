@@ -515,11 +515,13 @@ with contextlib.redirect_stdout(printed):
 import hashlib
 from pero_ocr_tpu_torch.utils.image_io import imread
 read = {}
-for folder in ("jpeg", "bmp", "jpeg2000"):
+for folder in ("jpeg", "bmp", "jpeg2000", "webp"):
     with open(os.path.join("tests", "data", folder, "fixtures.json"), encoding="utf-8") as f:
         spec = json.load(f)
     for name, digest in spec["decode"].items():
-        if name.startswith(("prog_", "base_c", "base_y", "o_", "b_")) or folder == "bmp":
+        if name.startswith(("prog_", "base_c", "base_y", "o_", "b_", "c_lossy_q75", "c_lossless_37",
+                            "v_partitions8", "r_anim_lossy", "r_alph_lossless_f3", "p_exif_o6")) \
+                or folder == "bmp":
             img = imread(os.path.join("tests", "data", folder, name))
             read[name] = hashlib.sha256(img.tobytes()).hexdigest() == digest["sha256"]
 print(json.dumps({
@@ -537,6 +539,7 @@ print(json.dumps({
     "loaded": sorted(k for k in sys.modules
                      if k == "pero_ocr_tpu" or k.startswith("pero_ocr_tpu.")),
     "jpeg2000": "pero_ocr_tpu_torch.utils.jpeg2000" in sys.modules,
+    "webp": "pero_ocr_tpu_torch.utils.webp" in sys.modules,
 }))
 """
 
@@ -547,8 +550,10 @@ def test_leftover_modules_run_without_jax():
     source masks and both conversion scripts (convert_torch_lm;
     convert_torchscript inspect and a one-step CTC distillation on the
     CPU), and the image readers of progressive and four-component JPEG,
-    BMP, PAM and JPEG 2000 (each committed fixture, or for JPEG 2000
-    those of libopenjp2 and of hand-built boxes, to its digest) run with jax,
+    BMP, PAM, JPEG 2000 and WebP (each committed fixture, or for JPEG
+    2000 those of libopenjp2 and of hand-built boxes and for WebP a
+    lossy, a lossless, an 8-partition, an animated, an alpha and an
+    EXIF-turned one, to its digest) run with jax,
     flax, optax, cv2, lxml, msgpack and PIL blocked."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
@@ -568,7 +573,7 @@ def test_leftover_modules_run_without_jax():
     assert {"out.lm", "out.lm.json", "net.ckpt"} <= set(got["files"])
     assert got["loaded"] == []
     names = " ".join(got["images"])
-    assert got["jpeg2000"]
-    for kind in ("prog_cut", "cmyk", "ycck", ".bmp", ".pam", ".jp2", ".j2k"):
+    assert got["jpeg2000"] and got["webp"]
+    for kind in ("prog_cut", "cmyk", "ycck", ".bmp", ".pam", ".jp2", ".j2k", ".webp"):
         assert kind in names, kind
     assert all(got["images"].values()), [k for k, ok in got["images"].items() if not ok]
