@@ -287,6 +287,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from pero_ocr_tpu_torch import UnreadableImage
 from pero_ocr_tpu_torch.core import altoxml, geometry, render
 from pero_ocr_tpu_torch.core.force_alignment import align_text, force_align, viterbi_ctc
 from pero_ocr_tpu_torch.core.layout import PageLayout
@@ -1232,6 +1233,9 @@ def check_webp_fixtures(smi: str) -> dict:
 
 TIFF_FIXTURES = os.path.join(REPO, "tests", "data", "tiff")
 TIFF_G4_PAGE = os.path.join(TIFF_FIXTURES, "a4_g4_text.tif")  # A4, 300 dpi, Group 4
+# The progressive page's pixels as YCbCr subsampled 2x2 in Deflate strips.
+YCC_PAGE_REL = os.path.join("page", "two_columns_2560x1792_ycbcr22.tif")
+YCC_PAGE = os.path.join(REPO, "tests", "data", YCC_PAGE_REL)
 
 
 def tiff_bytes(page: np.ndarray, tile=None, rows: int = 64) -> bytes:
@@ -1278,23 +1282,66 @@ def check_tiff_fixtures(smi: str) -> dict:
     """Every file of ``tests/data/tiff/fixtures.json`` decoded by this
     machine's build of ``csrc/tiff.cpp`` (built by kernels.build with the
     host compiler) to its digest, and the files cv2 returns None for
-    refused as "Unable to read image"; then host decode times, median of
-    HOST_REPEATS after a warm-up: the committed A4 300-dpi Group 4 page,
-    and a 2560x1792 gray page written here with Deflate and Predictor 2
-    in strips of 64 rows and in 256x256 tiles."""
+    refused as "Unable to read image"; every seeded byte mutation (of the
+    data and of the directory's entries) and cut byte count of the
+    ``mut_*`` bases (tests/tiff_files.py) to cv2's digest, None or its
+    raise; the committed 2560x1792 YCbCr 2x2 Deflate page
+    (YCC_PAGE) to its digest.  Then host decode times, median of
+    HOST_REPEATS after a warm-up: the YCbCr page, the committed A4
+    300-dpi Group 4 page, and a 2560x1792 gray page written here with
+    Deflate and Predictor 2 in strips of 64 rows and in 256x256 tiles."""
     with open(os.path.join(TIFF_FIXTURES, "fixtures.json"), encoding="utf-8") as f:
         spec = json.load(f)
     tiff_io.calls.clear()
     differ = digests_differ(TIFF_FIXTURES, spec["decode"], spec["none"])
+    tiff_files = tests_module("tiff_files")  # the seeded damage (numpy)
+
+    def read(data: bytes):
+        try:
+            img = image_io.decode_tiff(data)
+        except UnreadableImage:
+            return None
+        except ValueError as e:  # OpenCV raises past its image size limits
+            if "OpenCV 5 raises" not in str(e):
+                raise
+            return "raises"
+        return {"sha256": hashlib.sha256(img.tobytes()).hexdigest(), "shape": list(img.shape)}
+
+    n_damaged = 0
+    for name, results in spec["mutations"].items():
+        with open(os.path.join(TIFF_FIXTURES, name), "rb") as f:
+            base = f.read()
+        rng = tiff_files.mutation_rng(spec["mutation_seed"], name)
+        for k, want in enumerate(results):
+            n_damaged += 1
+            if read(tiff_files.mutate(base, rng)) != want:
+                differ.append(f"{name} mutation {k}")
+        cases = tiff_files.cuts(base, spec["cut_step"])
+        for (index, length), want in zip(cases, spec["cuts"][name]):
+            n_damaged += 1
+            if read(tiff_files.cut(base, index, length)) != want:
+                differ.append(f"{name} cut {index} to {length}")
+        rng = tiff_files.mutation_rng(spec["mutation_seed"], "entries " + name)
+        for k, want in enumerate(spec["entries"][name]):
+            n_damaged += 1
+            if read(tiff_files.mutate_entry(base, rng)) != want:
+                differ.append(f"{name} directory entry mutation {k}")
+    with open(YCC_PAGE, "rb") as f:
+        ycc = f.read()
+    if read(ycc) != spec["pages"][YCC_PAGE_REL]:
+        differ.append(YCC_PAGE_REL)
     native_calls = dict(tiff_io.calls)
+    n_cases = len(spec["decode"]) + len(spec["none"]) + n_damaged + 1
     log(f"TIFF fixtures ({spec['made_with']}): {len(spec['decode'])} decodes, "
-        f"{len(spec['none'])} refused as cv2's None; "
-        f"{len(spec['decode']) + len(spec['none']) - len(differ)} reproduced; calls into "
-        f"csrc/tiff.cpp {native_calls}; differ: {differ}")
+        f"{len(spec['none'])} refused as cv2's None, {n_damaged} seeded mutations, cut byte "
+        f"counts and directory-entry mutations, the YCbCr page; {n_cases - len(differ)} of {n_cases} reproduced; calls into "
+        f"csrc/tiff.cpp (and Python's zlib) {native_calls}; differ: {differ}")
     if differ:
         raise AssertionError(f"the TIFF reader's build differs from the fixtures on {differ}")
-    if not all(native_calls.get(k) for k in ("tiff_lzw", "tiff_packbits", "tiff_fax")):
+    if not all(native_calls.get(k) for k in ("tiff_lzw", "tiff_packbits", "tiff_fax",
+                                             "tiff_deflate", "tiff_thunder", "tiff_sgilog")):
         raise AssertionError("a decompressor of csrc/tiff.cpp was not called")
+    ycc_ms = host_ms(lambda: image_io.decode_tiff(ycc))
     with open(TIFF_G4_PAGE, "rb") as f:
         g4 = f.read()
     g4_ms = host_ms(lambda: image_io.decode_tiff(g4))
@@ -1307,13 +1354,16 @@ def check_tiff_fixtures(smi: str) -> dict:
     strips_ms = host_ms(lambda: image_io.decode_tiff(strips))
     tiles_ms = host_ms(lambda: image_io.decode_tiff(tiles))
     numbers = {"fixtures_decoded": len(spec["decode"]), "fixtures_none": len(spec["none"]),
+               "fixtures_damaged": n_damaged,
                "fixtures_made_with": spec["made_with"], "native_calls": native_calls,
+               "decode_ms_ycbcr22_deflate_page_2560x1792": ycc_ms, "ycbcr22_page_bytes": len(ycc),
                "decode_ms_a4_g4_page": g4_ms, "a4_g4_bytes": len(g4),
                "decode_ms_2560x1792_gray_deflate_predictor_strips": strips_ms,
                "decode_ms_2560x1792_gray_deflate_predictor_tiles": tiles_ms,
                "deflate_strips_bytes": len(strips), "deflate_tiles_bytes": len(tiles),
                "host": "the card machine's CPU, one thread", "card": smi}
-    log(f"TIFF reader, host times on the card's machine (one thread): {g4_ms:.2f} ms the A4 "
+    log(f"TIFF reader, host times on the card's machine (one thread): {ycc_ms:.2f} ms the "
+        f"2560x1792 YCbCr 2x2 Deflate page ({len(ycc)} B), {g4_ms:.2f} ms the A4 "
         f"300-dpi Group 4 page ({len(g4)} B), {strips_ms:.2f} / {tiles_ms:.2f} ms a 2560x1792 "
         f"gray Deflate + Predictor 2 page in 64-row strips / 256x256 tiles ({len(strips)} / "
         f"{len(tiles)} B); beside {smi}")
@@ -1995,6 +2045,7 @@ PROGRESSIVE_ID = "s_progressive"  # and the committed progressive JPEG page
 JP2_ID = "s_jp2"  # and the committed JPEG 2000 page
 ARITH_ID = "s_arith"  # and the committed arithmetic-coded JPEG page
 WEBP_ID = "s_webp"  # and the committed lossy WebP page
+YCC_ID = "s_ycc"  # and the committed YCbCr 2x2 Deflate TIFF page
 # The staged host-route A/B's runs after the first take the first 2 of
 # its 8 pages (8 before the TIFF pages and renders, 4 before the JPEG
 # checks needed the time).
@@ -2012,9 +2063,10 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
     (TIFF_G4_PAGE), the committed progressive colour JPEG page
     (PROGRESSIVE_PAGE), the committed JPEG 2000 page (JP2_PAGE), the
     committed arithmetic-coded JPEG page (ARITH_PAGE, the progressive
-    page's coefficients) and the committed lossy WebP page (WEBP_PAGE;
-    the five run in process too, after the A/B, the arithmetic page
-    decoded to the progressive page's pixels), with
+    page's coefficients), the committed lossy WebP page (WEBP_PAGE) and
+    the committed YCbCr 2x2 Deflate TIFF page (YCC_PAGE, the progressive
+    page's pixels; the six run in process too, after the A/B, the
+    arithmetic page decoded to the progressive page's pixels), with
     --output-line-path and --output-render-path, whose Page XML must
     equal the in-process run's, whose line files the in-process crops
     (staged_line_files) and whose renders ``render_layout`` of its own
@@ -2040,13 +2092,14 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
         # Two of them as gray TIFF (the decoded JPEG's pixels), the
         # committed A4 Group 4 page as a fifth, the progressive page a
         # sixth, the JPEG 2000 page a seventh, the arithmetic page an
-        # eighth, the lossy WebP page a ninth.
+        # eighth, the lossy WebP page a ninth, the YCbCr TIFF page a tenth.
         tiff_ids = write_tiff_pages(cli_images, ids[:n_cli], [p[:, :, 0] for p in pages[:n_cli]])
         shutil.copy(TIFF_G4_PAGE, os.path.join(cli_images, G4_ID + ".tif"))
         shutil.copy(PROGRESSIVE_PAGE, os.path.join(cli_images, PROGRESSIVE_ID + ".jpg"))
         shutil.copy(JP2_PAGE, os.path.join(cli_images, JP2_ID + ".jp2"))
         shutil.copy(ARITH_PAGE, os.path.join(cli_images, ARITH_ID + ".jpg"))
         shutil.copy(WEBP_PAGE, os.path.join(cli_images, WEBP_ID + ".webp"))
+        shutil.copy(YCC_PAGE, os.path.join(cli_images, YCC_ID + ".tif"))
         parser = staged_parser(ini, "cuda")
         engine = parser.layout_parsers[0].engine
         detected, detect = [], engine.detect
@@ -2118,11 +2171,12 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             raise AssertionError("staged: warp_fields launches != pages of "
                                  f"{parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
 
-        # The Group 4, progressive, JPEG 2000, arithmetic and WebP pages
-        # in process, after the runs above.
+        # The Group 4, progressive, JPEG 2000, arithmetic, WebP and YCbCr
+        # TIFF pages in process, after the runs above.
         extra_out, extra_pages, extra_launches = [], [], []
         for page_id, path in ((G4_ID, TIFF_G4_PAGE), (PROGRESSIVE_ID, PROGRESSIVE_PAGE),
-                              (JP2_ID, JP2_PAGE), (ARITH_ID, ARITH_PAGE), (WEBP_ID, WEBP_PAGE)):
+                              (JP2_ID, JP2_PAGE), (ARITH_ID, ARITH_PAGE), (WEBP_ID, WEBP_PAGE),
+                              (YCC_ID, YCC_PAGE)):
             extra = image_io.imread(path)
             before = warp_ops.warp_fields.launches
             random.seed(0)
@@ -2130,18 +2184,22 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
             extra_out.append((layout, layout.to_pagexml_string()))
             extra_pages.append(extra)
             extra_launches.append(warp_ops.warp_fields.launches - before)
-        g4_launches, progressive_launches, jp2_launches, arith_launches, webp_launches = extra_launches
+        (g4_launches, progressive_launches, jp2_launches, arith_launches, webp_launches,
+         ycc_launches) = extra_launches
         log(f"in process: the A4 Group 4 page {g4_launches} warp_fields launch(es), the "
             f"progressive page {progressive_launches} ({len(list(extra_out[1][0].lines_iterator()))}"
             f" lines), the JPEG 2000 page {jp2_launches} "
             f"({len(list(extra_out[2][0].lines_iterator()))} lines), the arithmetic page "
             f"{arith_launches} ({len(list(extra_out[3][0].lines_iterator()))} lines), the WebP "
-            f"page {webp_launches} ({len(list(extra_out[4][0].lines_iterator()))} lines)")
+            f"page {webp_launches} ({len(list(extra_out[4][0].lines_iterator()))} lines), the "
+            f"YCbCr TIFF page {ycc_launches} ({len(list(extra_out[5][0].lines_iterator()))} "
+            f"lines)")
         if (progressive_launches != 1 or jp2_launches != 1 or arith_launches != 1
-                or webp_launches != 1):
-            raise AssertionError(f"the progressive, JPEG 2000, arithmetic and WebP pages: "
-                                 f"{progressive_launches}, {jp2_launches}, {arith_launches} and "
-                                 f"{webp_launches} warp_fields launches, want 1 each")
+                or webp_launches != 1 or ycc_launches != 1):
+            raise AssertionError(f"the progressive, JPEG 2000, arithmetic, WebP and YCbCr TIFF "
+                                 f"pages: {progressive_launches}, {jp2_launches}, "
+                                 f"{arith_launches}, {webp_launches} and {ycc_launches} "
+                                 f"warp_fields launches, want 1 each")
         if not np.array_equal(extra_pages[3], extra_pages[1]):
             raise AssertionError("the arithmetic page does not decode to the progressive page")
         cli_out = out[:n_cli] + extra_out
@@ -2192,24 +2250,28 @@ def run_staged(pipe: TorchPagePipeline, rng, smi: str):
                 timed[0] - written[0]), wall=cli_seconds,
             launches=int(counted.group(1)), decode_ms=1e3 * decode[0] / decode[1],
             write_lines_ms=1e3 * written[0] / n_files, write_render_ms=1e3 * drawn[0] / n_files,
-            renders=len(renders), tiff_pages=len(tiff_ids) + 1, progressive_pages=1,
-            jpeg2000_pages=1, arithmetic_pages=1, webp_pages=1, webp_launches_in_process=webp_launches)
+            renders=len(renders), tiff_pages=len(tiff_ids) + 2, progressive_pages=1,
+            jpeg2000_pages=1, arithmetic_pages=1, webp_pages=1, webp_launches_in_process=webp_launches,
+            ycbcr_tiff_pages=1, ycbcr_launches_in_process=ycc_launches)
         log(f"stage-by-stage command line vs in-process: {n_files} of {n_files} files equal "
             f"(lines of a row as a set; conf within 0.0015), the A4 Group 4 page, the "
             f"progressive colour JPEG page, the JPEG 2000 page, the arithmetic-coded JPEG page, "
-            f"the lossy WebP page and {len(tiff_ids)} gray Deflate TIFF pages among "
+            f"the lossy WebP page, the YCbCr 2x2 Deflate TIFF page and {len(tiff_ids)} gray "
+            f"Deflate TIFF pages among "
             f"them; {len(renders)} renders equal "
             f"byte for byte to render_layout on the command line's own Page XML; its "
             f"warp_fields launches {cli_numbers['launches']}; {cli_numbers['pages_per_s']:.3f} "
             f"pages/s by its timer with line export and renders, "
             f"{cli_numbers['pages_per_s_without_write_lines']:.3f} without cli/write_lines; "
             f"cli/decode {cli_numbers['decode_ms']:.2f} ms a page (gray JPEG, TIFF, "
-            f"the progressive, JPEG 2000, arithmetic and WebP pages, on the decoding thread), "
+            f"the progressive, JPEG 2000, arithmetic, WebP and YCbCr TIFF pages, on the "
+            f"decoding thread), "
             f"cli/write_lines "
             f"{cli_numbers['write_lines_ms']:.2f} ms, cli/write_render "
             f"{cli_numbers['write_render_ms']:.2f} ms a page (host times), on {smi}")
         if cli_numbers["launches"] != (sum(batched[:n_cli]) + g4_launches + progressive_launches
-                                       + jp2_launches + arith_launches + webp_launches):
+                                       + jp2_launches + arith_launches + webp_launches
+                                       + ycc_launches):
             raise AssertionError("the stage-by-stage command line: warp_fields launches != "
                                  f"pages of {parser.line_cropper.DEVICE_BATCH_MIN} lines or more")
         last_page = page_buckets(parser, out[-1][0], pages[-1])

@@ -14,11 +14,13 @@ device mesh (``parallel/mesh.py``: ``--dp``'s page batches split over
 dp, the recognizer's trainer sharded over a ``torch.distributed``
 group) and ``--profile``'s ``torch.profiler`` trace, and it trains
 every model it serves (``parallel/train.py``).  Pages come in
-as baseline JPEG, PNG, PNM or TIFF (turned by their EXIF or TIFF
-orientation) and line crops and layout renders go out as JPEG, equal to
-OpenCV 5's reader, drawing and libjpeg-turbo to the bit
-(``utils/image_io.py``, ``core/render.py``, the host C++ of
-``csrc/jpeg.cpp`` and ``csrc/tiff.cpp``).  Plain
+as JPEG (every kind cv2 reads), JPEG 2000, PNG, PNM, PAM, TIFF, BMP or
+WebP (turned by their EXIF or TIFF orientation) and line crops and
+layout renders go out as JPEG, equal to OpenCV 5's reader, drawing and
+libjpeg-turbo to the bit (``utils/image_io.py``, ``core/render.py``,
+the host C++ of ``csrc/jpeg.cpp``, ``csrc/jpeg2000.cpp``,
+``csrc/tiff.cpp`` and ``csrc/webp.cpp``); a file cv2 returns None for
+raises :class:`UnreadableImage`.  Plain
 tensor code is PyTorch; the line-crop warp, the one Pallas kernel of
 the JAX package, is two hand-written CUDA kernels built with ``nvcc``
 on first use: the fast path's fused version (``csrc/warp_lines.cu``)
@@ -64,15 +66,22 @@ def not_ported(what: str, item: str) -> ValueError:
     )
 
 
-def unreadable(path: str, what: str) -> ValueError:
-    """The error for a file that ``cv2.imread`` returns None for: the
-    JAX command line's "Unable to read image"."""
-    return ValueError(f'Unable to read image "{path}": OpenCV 5 returns None for {what}')
+class UnreadableImage(ValueError):
+    """A file that ``cv2.imread`` returns None for: the JAX command
+    line's "Unable to read image".  Callers that skip what cv2 cannot
+    read catch this class, never a plain ``ValueError``, so that
+    :func:`not_read`'s refusal reaches the user."""
+
+
+def unreadable(path: str, what: str) -> UnreadableImage:
+    """The error for a file that ``cv2.imread`` returns None for."""
+    return UnreadableImage(f'Unable to read image "{path}": OpenCV 5 returns None for {what}')
 
 
 def not_read(path: str, what: str) -> ValueError:
-    """The error for an image file the port does not read (``what``
-    says which kind); it names item 15's title."""
+    """The error for an image file that cv2 reads and the port does not
+    (``what`` says which kind): a plain ``ValueError`` naming item 15's
+    title."""
     return ValueError(
         f"{path}: {what} cannot be read by pero_ocr_tpu_torch yet "
         f"(ROADMAP.md, queue 1: '{IMAGES}'); convert it to PNG"

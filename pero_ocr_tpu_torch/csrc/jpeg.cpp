@@ -2,7 +2,8 @@
 // the bit: the port's cv2.imread(path, IMREAD_COLOR) for JPEG pages and
 // cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, q]) for line crops.
 //
-// Decoder (jpeg_header, jpeg_decode_bgr): libjpeg's default
+// Decoder (jpeg_header, jpeg_decode_bgr, jpeg_decode_components for a
+// TIFF strip's unconverted components): libjpeg's default
 // decompression as OpenCV drives it, of every JPEG file OpenCV reads.
 //  - Codings: sequential (SOF0, SOF1) and progressive (SOF2) Huffman,
 //    sequential (SOF9) and progressive (SOF10) arithmetic (jdarith.c:
@@ -624,6 +625,7 @@ struct Decoder {
     int64_t last_good_imcu = 0;  // jdcoefct.c's master->last_good_iMCU_row
     int space = 0;               // the colour space, fixed at the first scan
     bool warned = false;         // libjpeg warned of data cut short or corrupt
+    bool raw = false;            // no colour conversion (JCS_UNKNOWN)
 
     Decoder(const uint8_t* d, size_t n) : data(d), size(n) {
         std::fill(dac_l, dac_l + 16, 0);
@@ -774,7 +776,7 @@ struct Decoder {
             if (maxh % c.h || maxv % c.v)
                 fail("fractional sampling factors (libjpeg cannot upsample them)");
         space = color_space();  // default_decompress_parms: APPn after this change nothing
-        if (lossless && space != 2 && space != 3)
+        if (lossless && space != 2 && space != 3 && !raw)
             fail("a lossless file that is not RGB or CMYK (libjpeg converts no other)");
         const int block = lossless ? 1 : 8;
         mcux = (width + block * maxh - 1) / (block * maxh);
@@ -1694,6 +1696,20 @@ struct Decoder {
         for (int x = 0; x < width; x++) out[x] = row[x / hx];  // int_upsample
     }
 
+    // The components as libjpeg outputs them for JCS_UNKNOWN (no colour
+    // conversion, as libtiff asks for its strips): upsampled, interleaved.
+    void output_components(uint8_t* out) {
+        inverse_dct();
+        std::vector<uint8_t> rows(size_t(width) * ncomp);
+        for (int y = 0; y < height; y++) {
+            for (int ci = 0; ci < ncomp; ci++)
+                upsample_row(comps[ci], y, rows.data() + size_t(ci) * width);
+            uint8_t* o = out + size_t(y) * width * ncomp;
+            for (int ci = 0; ci < ncomp; ci++)
+                for (int x = 0; x < width; x++) o[size_t(x) * ncomp + ci] = rows[size_t(ci) * width + x];
+        }
+    }
+
     void output_bgr(uint8_t* out) {
         inverse_dct();
         std::vector<uint8_t> rows(size_t(width) * ncomp);
@@ -2063,6 +2079,28 @@ int32_t jpeg_decode_bgr(const uint8_t* data, int64_t size, uint8_t* out, int32_t
         d.decode();
         if (d.height != height || d.width != width) fail("the output buffer has another size");
         d.output_bgr(out);
+        return d.warned ? 1 : 0;
+    } catch (const Failure& f) {
+        set_error(f, err, errlen);
+        return -1;
+    } catch (const std::bad_alloc&) {
+        set_error(Failure{"out of memory"}, err, errlen);
+        return -1;
+    }
+}
+
+// The file's components without colour conversion into out, a (height,
+// width, components) uint8 buffer (libtiff's JCS_UNKNOWN strips).
+// Returns as jpeg_decode_bgr does.
+int32_t jpeg_decode_components(const uint8_t* data, int64_t size, uint8_t* out, int32_t height,
+                               int32_t width, int32_t ncomp, char* err, int32_t errlen) {
+    try {
+        Decoder d{data, static_cast<size_t>(size)};
+        d.raw = true;
+        d.decode();
+        if (d.height != height || d.width != width || d.ncomp != ncomp)
+            fail("the output buffer has another size");
+        d.output_components(out);
         return d.warned ? 1 : 0;
     } catch (const Failure& f) {
         set_error(f, err, errlen);

@@ -25,6 +25,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from pero_ocr_tpu_torch import UnreadableImage
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.core.pagexml import element_schema
 from pero_ocr_tpu_torch.utils.image_io import imread
@@ -376,7 +377,7 @@ class Merger:
 
         try:
             image = imread(img_path)
-        except (ValueError, OSError):  # where cv2.imread returns None
+        except (UnreadableImage, OSError):  # where cv2.imread returns None
             raise ValueError(f"Unable to read image {img_path}") from None
 
         writer = SearchablePDFWriter(self.font_path)

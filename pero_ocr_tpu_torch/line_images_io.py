@@ -9,6 +9,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from pero_ocr_tpu_torch import UnreadableImage
 from pero_ocr_tpu_torch.utils.image_io import imread, imwrite_jpeg
 
 _IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff")
@@ -18,14 +19,15 @@ JPEG_QUALITY = 95
 
 def read_images(path: str) -> Tuple[List[np.ndarray], List[str]]:
     """(images, names without extension), sorted by name.  A file that
-    the port cannot decode is left out of the images, as one that
-    ``cv2.imread`` returns None for (its name stays)."""
+    ``cv2.imread`` returns None for is left out of the images (its name
+    stays); one that cv2 reads and the port does not raises item 15's
+    refusal."""
     names = sorted(f for f in os.listdir(path) if f.lower().endswith(_IMAGE_EXTENSIONS))
     images = []
     for name in names:
         try:
             images.append(imread(os.path.join(path, name)))
-        except (ValueError, OSError):
+        except (UnreadableImage, OSError):
             continue
     return images, [os.path.splitext(n)[0] for n in names]
 

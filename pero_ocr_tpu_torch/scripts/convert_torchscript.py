@@ -50,7 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pero_ocr_tpu_torch import resolve_device
+from pero_ocr_tpu_torch import UnreadableImage, resolve_device
 from pero_ocr_tpu_torch.models.parsenet import ParseNet
 from pero_ocr_tpu_torch.models.recognizer import CTCRecognizer, RecognizerSpec
 from pero_ocr_tpu_torch.parallel import train
@@ -105,14 +105,14 @@ def cmd_verify(args) -> int:
 
 def load_images(pattern: Optional[str], count: int, shape):
     """The first ``count`` images of the sorted glob ``pattern`` (BGR),
-    each resized to ``shape`` (h, w); a file that cannot be read is
-    skipped with a warning, as the JAX script skips what cv2 cannot
-    read."""
+    each resized to ``shape`` (h, w); a file that cv2 cannot read is
+    skipped with a warning, as the JAX script skips it, and one that
+    only the port cannot read raises."""
     images = []
     for path in (sorted(glob.glob(pattern)) if pattern else [])[:count]:
         try:
             img = imread(path)
-        except ValueError as e:
+        except UnreadableImage as e:
             logger.warning("skipping %s: %s", path, e)
             continue
         images.append(resize_linear_u8_to(img, (shape[1], shape[0])))

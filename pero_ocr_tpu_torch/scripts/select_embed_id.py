@@ -35,7 +35,7 @@ import time
 
 import numpy as np
 
-from pero_ocr_tpu_torch import IMAGES, not_ported, resolve_device
+from pero_ocr_tpu_torch import IMAGES, UnreadableImage, not_ported, resolve_device
 from pero_ocr_tpu_torch.core.layout import PageLayout
 from pero_ocr_tpu_torch.document.page_parser import PageParser
 from pero_ocr_tpu_torch.sequence_alignment import levenshtein_batch
@@ -101,7 +101,7 @@ def crops_from_images_and_xmls(page_parser, image_path, xml_path, n_lines):
             continue
         try:
             image = imread(os.path.join(image_path, image_file))
-        except (ValueError, OSError):  # cv2.imread's None
+        except (UnreadableImage, OSError):  # cv2.imread's None
             continue
         layout = PageLayout(file=xml_file)
         page_parser.line_cropper.process_page(image, layout)

@@ -31,10 +31,14 @@ OpenCV 5 returns for the formats it reads here:
   OS/2 and Windows headers to V5, 1-, 4- and 8-bit palettes, 16, 24
   and 32 bits, RLE4 and RLE8, rows either way up.
 - **TIFF** (:mod:`pero_ocr_tpu_torch.utils.tiff`, the host C++ of
-  ``csrc/tiff.cpp``): strips and tiles, classic and BigTIFF, both byte
-  orders, planar or not; none, LZW, Deflate, PackBits, CCITT (Modified
-  Huffman, T.4, T.6) and JPEG compression, Predictor 2, FillOrder 2;
-  gray, palette, RGB, alpha and 16 bits by libtiff's TIFFRGBAImage rules.
+  ``csrc/tiff.cpp``, :mod:`~pero_ocr_tpu_torch.utils.tiff_color`):
+  strips and tiles, classic and BigTIFF, both byte orders, planar or
+  not; none, LZW, Deflate, PackBits, CCITT (Modified Huffman, RLE/W,
+  T.4, T.6), ThunderScan and JPEG compression, Predictor 2, FillOrder 2;
+  gray, palette, RGB, CMYK, YCbCr and CIELab, alpha, signed samples and
+  16 bits by libtiff's TIFFRGBAImage rules; strips cut short or corrupt
+  as libtiff's decoders leave them, and the all-zero page of a
+  compression libtiff does not know.
 - **JPEG 2000** (:mod:`pero_ocr_tpu_torch.utils.jpeg2000`, the host C++
   of ``csrc/jpeg2000.cpp``): JP2 files and raw codestreams, 5/3 and 9/7
   wavelets, every progression order, tiles, tile-parts, precincts,
@@ -56,19 +60,20 @@ unreadable tag turns nothing, as in OpenCV.  TIFF pages are turned by
 their Orientation tag as OpenCV 5 turns them (see
 :mod:`~pero_ocr_tpu_torch.utils.tiff`).
 
-What OpenCV reads and this module does not (truncated or corrupt TIFF
-data, JPEG strips and tiles of TIFF among them; TIFF of the compressions
-and photometrics that :mod:`~pero_ocr_tpu_torch.utils.tiff` lists; JPEG
-2000 with packed packet headers (PPM/PPT), HTJ2K or Part 2 extensions;
-GIF, AVIF, HDR, PFM and the rest) raises ``ValueError`` naming the
-file and the ROADMAP item; what OpenCV returns None for (hierarchical,
-12-bit, arithmetic lossless, gray or YCbCr lossless JPEG and JPEG with
-broken headers; 2-bit TIFF, a non-square TIFF page turned by
-Orientation 5-8, a BMP or PAM header OpenCV rejects, a gray JPEG 2000
-codestream without a JP2 colour box, a CMYK, offset, subsampled or
-truncated JPEG 2000 file, a WebP file cut short or corrupt, ...) raises
-``ValueError`` saying "Unable to
-read image", as the JAX command line does.  Nothing is skipped.
+What OpenCV reads and this module does not (SGILog TIFF; JPEG 2000 with
+packed packet headers (PPM/PPT), HTJ2K or Part 2 extensions; GIF, AVIF,
+Radiance HDR, PFM and Sun raster, told by the signatures OpenCV's
+decoders check) raises a plain ``ValueError`` naming the file and the
+ROADMAP item; what OpenCV returns None for (hierarchical, 12-bit,
+arithmetic lossless, gray or YCbCr lossless JPEG and JPEG with broken
+headers; TIFF that OpenCV's header check or libtiff refuses, or whose
+strip libtiff cannot load; a non-square TIFF page turned by Orientation
+5-8, a BMP or PAM header OpenCV rejects, a gray JPEG 2000 codestream
+without a JP2 colour box, a CMYK, offset, subsampled or truncated JPEG
+2000 file, a WebP file cut short or corrupt, a file whose first bytes no
+decoder knows, ...) raises :class:`pero_ocr_tpu_torch.UnreadableImage`
+saying "Unable to read image", as the JAX command line does.  Nothing is
+skipped.
 
 :func:`encode_jpeg` and :func:`imwrite_jpeg` write what
 ``cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, q])`` and
@@ -99,9 +104,9 @@ def imread(path: str) -> np.ndarray:
     """``cv2.imread(path, cv2.IMREAD_COLOR)`` for JPEG, JPEG 2000, PNG,
     PNM, PAM, TIFF, BMP and WebP, told apart by their first bytes as OpenCV
     tells them: a BGR uint8 (H, W, 3) array, turned by its EXIF or TIFF
-    orientation.  Raises ``ValueError`` for other or broken files: "Unable
-    to read image" where cv2 returns None, item 15's title for what is
-    not ported."""
+    orientation.  Raises ``UnreadableImage`` ("Unable to read image")
+    where cv2 returns None, a plain ``ValueError`` naming item 15's title
+    for what cv2 reads and the port does not."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
@@ -123,7 +128,30 @@ def imread(path: str) -> np.ndarray:
         return jpeg2000.decode_jpeg2000(data, path)
     if webp.is_webp(data):
         return decode_webp(data, path)
-    raise not_read(path, "a file in a format this reader does not know (GIF, AVIF, HDR, PFM, ...)")
+    unported = _unported_format(data)
+    if unported:
+        raise not_read(path, f"a {unported} file")
+    raise unreadable(path, "a file whose first bytes no decoder of its build knows")
+
+
+def _unported_format(data: bytes) -> Optional[str]:
+    """The name of a format that OpenCV 5's build reads and this reader
+    does not, told by the signature its decoder checks, or None (cv2
+    returns None for a file no decoder claims)."""
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    if data.startswith((b"#?RGBE", b"#?RADIANCE")):
+        return "Radiance HDR"
+    if len(data) >= 3 and data[:1] == b"P" and data[1:2] in b"fF" and data[2:3].isspace():
+        return "PFM"
+    if data[:4] == b"\x59\xa6\x6a\x95":
+        return "Sun raster"
+    if data[4:8] == b"ftyp" and len(data) >= 12:
+        size = int.from_bytes(data[:4], "big")
+        brands = [data[k:k + 4] for k in range(8, min(size, len(data)), 4) if k != 12]
+        if b"avif" in brands or b"avis" in brands:
+            return "AVIF"
+    return None
 
 
 def decode_webp(data: bytes, path: str = "<webp>") -> np.ndarray:

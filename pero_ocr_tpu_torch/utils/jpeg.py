@@ -44,6 +44,7 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 _SIGNATURES = {  # name: (restype, argtypes), as in csrc/jpeg.cpp
     "jpeg_header": (_I32, [_U8P, _I64, ctypes.POINTER(_I64), ctypes.c_char_p, _I32]),
     "jpeg_decode_bgr": (_I32, [_U8P, _I64, _U8P, _I32, _I32, ctypes.c_char_p, _I32]),
+    "jpeg_decode_components": (_I32, [_U8P, _I64, _U8P, _I32, _I32, _I32, ctypes.c_char_p, _I32]),
     "jpeg_encode": (_I64, [_U8P, _I32, _I32, _I32, _I32, _U8P, _I64, ctypes.c_char_p, _I32]),
 }
 
@@ -76,12 +77,9 @@ def jpeg_header(data: bytes, path: str = "<jpeg>") -> Tuple[int, int, int, Optio
     return int(out[0]), int(out[1]), int(out[2]), exif
 
 
-def decode_jpeg(data: bytes, path: str = "<jpeg>", strict: bool = False) -> np.ndarray:
+def decode_jpeg(data: bytes, path: str = "<jpeg>") -> np.ndarray:
     """A JPEG file's bytes -> BGR uint8 (H, W, 3), EXIF orientation not
-    applied.  Raises "Unable to read image" where cv2 returns None;
-    with ``strict``, also where libjpeg warns of data cut short or
-    corrupt (a TIFF file's JPEG strips and tiles, whose cut-short
-    reading is libtiff's)."""
+    applied.  Raises "Unable to read image" where cv2 returns None."""
     height, width, _, _ = jpeg_header(data, path)
     lib = get_library()
     calls["jpeg_decode_bgr"] += 1
@@ -91,8 +89,22 @@ def decode_jpeg(data: bytes, path: str = "<jpeg>", strict: bool = False) -> np.n
                              err, _ERR)
     if rc < 0:
         raise unreadable(path, f"this JPEG file ({err.value.decode()})")
-    if rc and strict:
-        raise ValueError(f"{path}: JPEG data cut short or corrupt")
+    return out
+
+
+def decode_jpeg_components(data: bytes, path: str = "<jpeg>") -> np.ndarray:
+    """A JPEG stream's components as libjpeg outputs them without colour
+    conversion (libtiff's JCS_UNKNOWN): uint8 (H, W, components).  Data
+    cut short or corrupt reads as libjpeg reads it; raises "Unable to
+    read image" where libjpeg fails."""
+    height, width, comps, _ = jpeg_header(data, path)
+    lib = get_library()
+    calls["jpeg_decode_components"] += 1
+    out = np.empty((height, width, comps), np.uint8)
+    err = ctypes.create_string_buffer(_ERR)
+    if lib.jpeg_decode_components(_buffer(data), len(data), out.ctypes.data_as(_U8P), height,
+                                  width, comps, err, _ERR) < 0:
+        raise unreadable(path, f"this JPEG stream ({err.value.decode()})")
     return out
 
 

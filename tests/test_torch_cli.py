@@ -881,6 +881,48 @@ def test_cli_reads_webp_pages_as_png(bundle, tmp_path, float32_parsenets, torch_
 
 
 @pytest.mark.parametrize("fast", [False, True], ids=["staged", "fast_pipeline"])
+def test_cli_reads_ycbcr_and_cut_short_tiff_pages_as_png(bundle, tmp_path, float32_parsenets,
+                                                         torch_threads_share, fast):
+    """The port's command line on a folder of a YCbCr TIFF page
+    subsampled 2x2 in Deflate strips and an LZW TIFF page with a strip
+    cut short (both of which it refused before it read every TIFF cv2
+    reads) writes the Page XML it writes for cv2's decodes of the two
+    files as PNG pages, stage by stage and on the fast path."""
+    from tests.data.tiff.make_fixtures import base_tags, chunks_of, lzw, write_tiff, ycbcr_chunks
+
+    folders = {"tiff": tmp_path / "tiff", "png": tmp_path / "png"}
+    for folder in folders.values():
+        folder.mkdir()
+    for name in ("page-0", "page-1"):
+        page = cv2.imread(str(bundle / "images" / f"{name}.png"), 1)
+        h, w = page.shape[:2]
+        if name == "page-0":
+            ycc = cv2.cvtColor(page, cv2.COLOR_BGR2YCrCb)[:, :, [0, 2, 1]]
+            data = write_tiff(base_tags(h, w, 8, 3, 6, 8, 16, t530=(3, [2, 2])),
+                              ycbcr_chunks(ycc, 2, 2, lambda raw, _: zlib.compress(raw), rows=16))
+        else:
+            chunks = chunks_of(np.ascontiguousarray(page[:, :, ::-1]), 8, lzw, rows=16)
+            chunks[len(chunks) // 2] = chunks[len(chunks) // 2][:100]
+            data = write_tiff(base_tags(h, w, 8, 3, 2, 5, 16), chunks)
+        (folders["tiff"] / f"{name}.tif").write_bytes(data)
+        decoded = cv2.imread(str(folders["tiff"] / f"{name}.tif"), 1)
+        assert decoded is not None and decoded.shape == page.shape
+        cv2.imwrite(str(folders["png"] / f"{name}.png"), decoded)
+    ini = staged_config(bundle, tmp_path) if not fast else bundle / "config.ini"
+    for kind, folder in folders.items():
+        random.seed(0)
+        _run_port(["-c", str(ini), "-i", str(folder), "--device", "cpu",
+                   "--output-xml-path", str(tmp_path / f"{kind}_xml")]
+                  + (["--fast-pipeline"] if fast else []))
+    lines = 0
+    for name in ("page-0", "page-1"):
+        got = (tmp_path / "tiff_xml" / f"{name}.xml").read_text(encoding="utf-8")
+        assert_xml_equal(got, (tmp_path / "png_xml" / f"{name}.xml").read_text(encoding="utf-8"))
+        lines += got.count("<TextLine")
+    assert lines >= 4
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["staged", "fast_pipeline"])
 def test_cli_reads_arithmetic_and_cut_short_jpeg_pages_as_png(bundle, tmp_path, float32_parsenets,
                                                               torch_threads_share, fast):
     """The port's command line on a folder of an arithmetic-coded JPEG

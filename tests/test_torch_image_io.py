@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 from pero_ocr_tpu_torch import IMAGES as NOT_READ_ITEM
+from pero_ocr_tpu_torch import UnreadableImage
 from pero_ocr_tpu_torch.utils.image_io import imread
 from tests.data.tiff.make_fixtures import base_tags, write_tiff
 
@@ -235,18 +236,21 @@ def test_pnm(tmp_path):
 
 def test_unread_formats_raise(tmp_path):
     """What cv2 reads and the port does not: a GIF page (a progressive
-    JPEG, then a WebP page, until the port read those) and an LZMA TIFF
-    raise naming the file and the ROADMAP item; broken PNG data raises."""
+    JPEG, then a WebP page, until the port read those) raises naming the
+    file and the ROADMAP item; an LZMA TIFF, which cv2 returns None for
+    (its libtiff does not configure LZMA), raises "Unable to read image";
+    broken PNG data raises."""
     img = _image(16, 16, 3)
     path = str(tmp_path / "page.gif")
     assert cv2.imwrite(path, img)
     assert cv2.imread(path, cv2.IMREAD_COLOR) is not None
     with pytest.raises(ValueError, match=NOT_READ_ITEM) as e:
         imread(path)
-    assert "page.gif" in str(e.value)
+    assert "page.gif" in str(e.value) and not isinstance(e.value, UnreadableImage)
     lzma = tmp_path / "page.tif"
     lzma.write_bytes(write_tiff(base_tags(16, 16, 8, 3, 2, 34925), [b"\0" * 64]))
-    with pytest.raises(ValueError, match=f"LZMA compression.*{NOT_READ_ITEM}") as e:
+    assert cv2.imread(str(lzma), cv2.IMREAD_COLOR) is None
+    with pytest.raises(UnreadableImage, match="Unable to read image.*LZMA compression") as e:
         imread(str(lzma))
     assert "page.tif" in str(e.value)
     broken = bytearray(_encode(img, 2, 8, [0] * 16))

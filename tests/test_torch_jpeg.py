@@ -703,17 +703,27 @@ def test_corrupt_data_equals_cv2(tmp_path, kind, how):
         assert_like_cv2(tmp_path, bytes(b))
 
 
-def test_strict_decode_refuses_what_libjpeg_warns_of(tmp_path):
-    """``decode_jpeg(strict=True)`` (TIFF's JPEG strips and tiles) raises
-    where the data is cut short or corrupt; without it the page is
-    cv2.imread's (cv2.imdecode, reading from memory, gives None)."""
-    data = cv2_jpeg(sample_image(32, 32), 90, "420")
-    cut = data[:len(data) * 2 // 3]
-    np.testing.assert_array_equal(jpeg.decode_jpeg(cut), assert_like_cv2(tmp_path, cut))
-    with pytest.raises(ValueError, match="cut short or corrupt"):
-        jpeg.decode_jpeg(cut, strict=True)
-    np.testing.assert_array_equal(jpeg.decode_jpeg(data, strict=True),
-                                  cv2.imdecode(np.frombuffer(data, np.uint8), 1))
+def test_components_decode_reads_what_libjpeg_warns_of(tmp_path):
+    """``decode_jpeg_components`` (a TIFF strip's unconverted components,
+    libtiff's JCS_UNKNOWN) reads data cut short as the BGR decode reads
+    it: a gray file's one component is cv2.imread's channel, whole or cut;
+    an RGB file's (an Adobe marker with transform 0, no JFIF marker) are
+    the BGR decode's channels reversed; a YCbCr file's are its Y, Cb and
+    Cr planes, which the BGR decode converts."""
+    gray = cv2.imencode(".jpg", sample_image(32, 48)[:, :, 0], [cv2.IMWRITE_JPEG_QUALITY, 90])[1]
+    gray = gray.tobytes()
+    for data in (gray, gray[:len(gray) * 2 // 3]):
+        got = jpeg.decode_jpeg_components(data)
+        assert got.shape == (32, 48, 1)
+        np.testing.assert_array_equal(got[:, :, 0], assert_like_cv2(tmp_path, data)[:, :, 0])
+    ycc = cv2_jpeg(sample_image(32, 32), 90, "444")
+    assert ycc[2:4] == b"\xff\xe0"  # JFIF, which would make the components YCbCr
+    adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
+    rgb = ycc[:2] + adobe + ycc[4 + int.from_bytes(ycc[4:6], "big"):]
+    np.testing.assert_array_equal(jpeg.decode_jpeg_components(rgb),
+                                  jpeg.decode_jpeg(rgb)[:, :, ::-1])
+    planes = jpeg.decode_jpeg_components(ycc)
+    assert planes.shape == (32, 32, 3) and not np.array_equal(planes, jpeg.decode_jpeg(ycc)[:, :, ::-1])
 
 
 # ----------------------------------------------------------------------

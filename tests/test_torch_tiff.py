@@ -3,10 +3,13 @@ image_io.imread) against cv2.imread(path, cv2.IMREAD_COLOR): bit for bit
 on every committed fixture (tests/data/tiff, written by
 make_fixtures.py: each compression, photometric and bit depth cv2
 reads, strips and tiles, planar 1 and 2, both byte orders, BigTIFF,
-Predictor 2, FillOrder 2, the Orientation tag), and on the digests in
-fixtures.json; the files cv2 returns None for raise "Unable to read
-image"; what the port does not read raises ValueError naming the file
-and the ROADMAP item.
+Predictor 2, FillOrder 2, the Orientation tag, signed samples, CMYK,
+YCbCr without JPEG at each subsampling, CIELab, ThunderScan, CCITT
+RLE/W; the compressions cv2 gives an all-zero page for; strips cut short
+or corrupt), on the digests in fixtures.json (the seeded mutations and
+cut byte counts of one base a compression, the 2560x1792 YCbCr page),
+and on every 8-bit YCbCr and CIELab triple; the files cv2 returns None
+for raise "Unable to read image" (``UnreadableImage``).
 """
 
 import hashlib
@@ -19,9 +22,11 @@ import numpy as np
 import pytest
 from PIL import Image, TiffImagePlugin
 
-from pero_ocr_tpu_torch import IMAGES as NOT_READ_ITEM
+from pero_ocr_tpu_torch import UnreadableImage
 from pero_ocr_tpu_torch.utils import tiff
-from pero_ocr_tpu_torch.utils.image_io import imread
+from pero_ocr_tpu_torch.utils.image_io import decode_tiff, imread
+from tests import tiff_files
+from tests.data.tiff.uv_table import sgilog24_page
 from tests.data.tiff.make_fixtures import (
     base_tags, blobs, ccitt, chunks_of, lzw, packbits, smooth, write_tiff,
 )
@@ -45,12 +50,16 @@ def test_fixture_equals_cv2_and_digest(name):
 
 @pytest.mark.parametrize("name", sorted(SPEC["none"]))
 def test_fixture_cv2_none_is_unable_to_read(name):
-    """2-bit and 4-bit gray (cv2's TIFF header check), and a non-square
-    page with Orientation 5-8 (imread's buffer check): cv2 returns None,
-    the port raises the JAX command line's error."""
+    """OpenCV's header check (2-bit, 12-bit and non-palette 4-bit
+    samples, SampleFormat 3 and 4, no PhotometricInterpretation),
+    libtiff's (compressions OpenCV's libtiff does not configure,
+    photometrics without a conversion, CMYK at 16 bits), strips libtiff
+    cannot load, and a non-square page with Orientation 5-8 (imread's
+    buffer check): cv2 returns None, the port raises the JAX command
+    line's error."""
     path = os.path.join(FIXTURES, name)
     assert cv2.imread(path, cv2.IMREAD_COLOR) is None
-    with pytest.raises(ValueError, match="Unable to read image") as e:
+    with pytest.raises(UnreadableImage, match="Unable to read image") as e:
         imread(path)
     assert name in str(e.value)
 
@@ -67,8 +76,11 @@ def test_fixtures_cover_the_item():
                  ("tiled", tiff.TILE_WIDTH in d.tags), ("order", d.order), ("big", d.big),
                  ("predictor", d.get(tiff.PREDICTOR, 1)), ("fill", d.get(tiff.FILL_ORDER, 1)),
                  ("orientation", d.get(tiff.ORIENTATION, 1))}
-    for kind, values in (("compression", (1, 2, 3, 4, 5, 7, 8, 32946, 32773)),
-                         ("photometric", (0, 1, 2, 3, 6)), ("bits", (1, 4, 8, 16)),
+    for kind, values in (("compression", (1, 2, 3, 4, 5, 7, 8, 32946, 32773, 32771, 32809,
+                                          34676, 34677, 34712, 33003, 33005, 9, 10, 32908,
+                                          12345)),
+                         ("photometric", (0, 1, 2, 3, 5, 6, 8, 32844, 32845)),
+                         ("bits", (1, 4, 8, 16)),
                          ("planar", (1, 2)), ("tiled", (False, True)), ("order", "<>"),
                          ("big", (False, True)), ("predictor", (1, 2)), ("fill", (1, 2)),
                          ("orientation", range(1, 9))):
@@ -126,7 +138,9 @@ RAW = RGB.tobytes()
 
 
 def _refusals():
-    """(id, file bytes, the refusal's words)."""
+    """(id, file bytes, the words the port's refusal used before it read
+    these files): the cases it refused by item 15's title until it
+    followed cv2 on each."""
     out = []
     for code, name in ((6, "old-style JPEG"), (34925, "LZMA"), (50000, "ZSTD"),
                        (50001, "WebP"), (34661, "JBIG"), (34712, "JPEG 2000"),
@@ -176,13 +190,30 @@ def _refusals():
     return out
 
 
+def _cv2_outcome(path):
+    """cv2.imread(path, 1), or None."""
+    return cv2.imread(str(path), cv2.IMREAD_COLOR)
+
+
 @pytest.mark.parametrize("name,data,words", _refusals(), ids=[r[0] for r in _refusals()])
-def test_refusals_name_the_file_and_item(tmp_path, name, data, words):
+def test_former_refusals_read_as_cv2_reads_them(tmp_path, name, data, words):
+    """Each file the port once refused as not ported gives cv2's outcome:
+    the same array (signed samples read unsigned, CMYK, CIELab, YCbCr
+    without JPEG, what a strip cut short or corrupt decoded before the
+    damage, an all-zero page for JPEG 2000 and T.85 compression), or
+    "Unable to read image" where cv2 returns None (unconfigured
+    compressions, float samples, 12- and 32-bit samples, a 16-bit
+    palette, five samples, Predictor 3, a strip past the end of the
+    file, a JPEG strip without an image)."""
     path = tmp_path / f"{name}.tif"
     path.write_bytes(data)
-    with pytest.raises(ValueError, match=NOT_READ_ITEM) as e:
-        imread(str(path))
-    assert f"{name}.tif" in str(e.value) and words in str(e.value), str(e.value)
+    want = _cv2_outcome(path)
+    if want is None:
+        with pytest.raises(UnreadableImage, match="Unable to read image") as e:
+            imread(str(path))
+        assert f"{name}.tif" in str(e.value)
+    else:
+        np.testing.assert_array_equal(imread(str(path)), want)
 
 
 def test_multi_page_and_bigtiff_read_the_first_page(tmp_path):
@@ -213,3 +244,113 @@ def test_rows_per_strip_past_the_page(tmp_path):
         path = tmp_path / f"rows{rows}.tif"
         path.write_bytes(write_tiff(tags, [lzw(RAW)]))
         _equal(path)
+
+
+def _read(data: bytes):
+    """The port's digest of a TIFF file's bytes, None for "Unable to
+    read image", or "raises" where it raises as OpenCV raises."""
+    try:
+        img = decode_tiff(data)
+    except UnreadableImage:
+        return None
+    except ValueError as e:
+        if "OpenCV 5 raises" not in str(e):
+            raise
+        return "raises"
+    return {"sha256": hashlib.sha256(img.tobytes()).hexdigest(), "shape": list(img.shape)}
+
+
+def test_fixture_counts():
+    """The JSON holds every kind of case: decodes, None, the seeded
+    mutations and cut byte counts of one base a compression (both
+    outcomes among them), and the page."""
+    assert len(SPEC["decode"]) >= 160 and len(SPEC["none"]) >= 45
+    assert len(SPEC["mutations"]) >= 10 and sum(map(len, SPEC["mutations"].values())) >= 300
+    assert sum(map(len, SPEC["cuts"].values())) >= 400
+    assert "raises" in [r for rs in SPEC["entries"].values() for r in rs]
+    for kind in ("mutations", "cuts", "entries"):
+        results = [r for rs in SPEC[kind].values() for r in rs]
+        assert any(r is None for r in results) and any(r is not None for r in results)
+    assert list(SPEC["pages"]) == [os.path.join("page", "two_columns_2560x1792_ycbcr22.tif")]
+
+
+@pytest.mark.parametrize("name", sorted(SPEC["mutations"]))
+def test_mutations_read_as_cv2_reads_them(name):
+    """Each seeded byte mutation of the base's strip and tile data (and
+    of the tag values stored among them) reads to cv2's digest or raises
+    "Unable to read image" where cv2 returns None."""
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        base = f.read()
+    rng = tiff_files.mutation_rng(SPEC["mutation_seed"], name)
+    got = [_read(tiff_files.mutate(base, rng)) for _ in SPEC["mutations"][name]]
+    assert [k for k, (g, w) in enumerate(zip(got, SPEC["mutations"][name])) if g != w] == []
+
+
+@pytest.mark.parametrize("name", sorted(SPEC["entries"]))
+def test_directory_entry_mutations_read_as_cv2_reads_them(name):
+    """Each seeded change of one byte of one directory entry (a tag's
+    number, type, count or value): libtiff's reading of the directory
+    (a core tag it cannot read fails it, another is dropped, byte counts
+    repaired), OpenCV's header check and size limits (it raises past
+    them), then the page."""
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        base = f.read()
+    rng = tiff_files.mutation_rng(SPEC["mutation_seed"], "entries " + name)
+    got = [_read(tiff_files.mutate_entry(base, rng)) for _ in SPEC["entries"][name]]
+    assert [k for k, (g, w) in enumerate(zip(got, SPEC["entries"][name])) if g != w] == []
+
+
+@pytest.mark.parametrize("name", sorted(SPEC["cuts"]))
+def test_cut_byte_counts_read_as_cv2_reads_them(name):
+    """Each strip or tile of the base with its byte count cut to 1, 1 +
+    step, ... bytes: libtiff's partial decode, or None."""
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        base = f.read()
+    cases = tiff_files.cuts(base, SPEC["cut_step"])
+    assert len(cases) == len(SPEC["cuts"][name])
+    got = [_read(tiff_files.cut(base, index, length)) for index, length in cases]
+    assert [c for c, g, w in zip(cases, got, SPEC["cuts"][name]) if g != w] == []
+
+
+def test_ycbcr_page_equals_cv2_and_digest():
+    """The committed 2560x1792 YCbCr 2x2 Deflate page: cv2's array and
+    the digest the card's run holds it to; its whole strips inflate in
+    Python's zlib, one call a strip."""
+    rel = os.path.join("page", "two_columns_2560x1792_ycbcr22.tif")
+    path = os.path.join(os.path.dirname(FIXTURES), rel)
+    with open(path, "rb") as f:
+        data = f.read()
+    strips = len(tiff.Directory(data).values(tiff.STRIP_OFFSETS))
+    before = tiff.calls["zlib"]
+    assert _read(data) == SPEC["pages"][rel]
+    assert tiff.calls["zlib"] - before == strips
+    np.testing.assert_array_equal(imread(path), cv2.imread(path, cv2.IMREAD_COLOR))
+
+
+def test_every_8bit_ycbcr_and_cielab_triple(tmp_path):
+    """All 2**24 8-bit (Y, Cb, Cr) and (L, a, b) triples in one 4096x4096
+    uncompressed page each: the port's libtiff tables give cv2's page."""
+    n = np.arange(1 << 24, dtype=np.uint32)
+    triples = np.stack([n >> 16, (n >> 8) & 255, n & 255], axis=1).astype(np.uint8)
+    raw = triples.tobytes()
+    strips = [raw[k:k + 256 * 4096 * 3] for k in range(0, len(raw), 256 * 4096 * 3)]
+    for name, photometric, more in (("ycbcr11", 6, {"t530": (3, [1, 1])}), ("cielab8", 8, {})):
+        path = tmp_path / f"{name}.tif"
+        path.write_bytes(write_tiff(base_tags(4096, 4096, 8, 3, photometric, 1, 256, **more),
+                                    strips))
+        want = cv2.imread(str(path), cv2.IMREAD_COLOR)
+        got = imread(str(path))
+        assert want is not None and got.shape == want.shape
+        assert np.array_equal(got, want), name
+        path.unlink()
+
+
+def test_every_sgilog24_chroma_code(tmp_path):
+    """Each of the 2**14 chroma codes of an SGILog24 pixel (inside and
+    past libtiff's uv table) at luminances from none to full: the port's
+    table (tests/data/tiff/uv_table.py) and XYZtoRGB24 give cv2's page."""
+    path = tmp_path / "uv.tif"
+    codes = np.arange(1 << 14)
+    for l10 in (0, 1, 500, 700, 768, 820, 1023):
+        path.write_bytes(sgilog24_page(codes, l10))
+        np.testing.assert_array_equal(imread(str(path)), cv2.imread(str(path), cv2.IMREAD_COLOR))
